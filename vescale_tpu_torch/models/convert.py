@@ -1,0 +1,111 @@
+"""Llama parameter trees for the port: from the JAX package, or random.
+
+The serve engine consumes the JAX package's flax ``params`` layout as a
+nested dict of torch tensors::
+
+    embed_tokens.embedding              (vocab, hidden)
+    layers_<i>.input_layernorm.weight   (hidden,)
+    layers_<i>.self_attn.{q,k,v,o}_proj.kernel   (in, out)
+    layers_<i>.post_attention_layernorm.weight
+    layers_<i>.mlp.{gate,up,down}_proj.kernel    (in, out)
+    norm.weight                         (hidden,)
+    lm_head.kernel                      (hidden, vocab), absent when tied
+
+Kernels keep flax's (in, out) layout, so ``x @ kernel`` is the same product
+as the JAX engine's ``dense``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .llama import LlamaConfig
+
+__all__ = ["params_from_jax", "init_params", "param_shapes", "tree_to"]
+
+
+def params_from_jax(tree: Mapping[str, Any], device=None,
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The JAX package's flax ``params`` tree (numpy or JAX array leaves,
+    read through ``np.asarray``) as the same nested dict of torch tensors
+    on ``device`` (default: the card), in ``dtype`` (default: each leaf's
+    own).  Values are copied exactly."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {str(k): conv(v) for k, v in node.items()}
+        t = torch.from_numpy(np.array(node, copy=True))
+        return t.to(device=dev, dtype=dtype if dtype is not None else t.dtype)
+
+    return conv(tree)
+
+
+def param_shapes(config: LlamaConfig) -> Dict[str, Any]:
+    """The nested dict of leaf shapes of a Llama parameter tree."""
+    c = config
+    E, F = c.hidden_size, c.intermediate_size
+    H, KV, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+    layer = {
+        "input_layernorm": {"weight": (E,)},
+        "self_attn": {
+            "q_proj": {"kernel": (E, H * hd)},
+            "k_proj": {"kernel": (E, KV * hd)},
+            "v_proj": {"kernel": (E, KV * hd)},
+            "o_proj": {"kernel": (H * hd, E)},
+        },
+        "post_attention_layernorm": {"weight": (E,)},
+        "mlp": {
+            "gate_proj": {"kernel": (E, F)},
+            "up_proj": {"kernel": (E, F)},
+            "down_proj": {"kernel": (F, E)},
+        },
+    }
+    tree: Dict[str, Any] = {"embed_tokens": {"embedding": (c.vocab_size, E)}}
+    for i in range(c.num_hidden_layers):
+        tree[f"layers_{i}"] = layer
+    tree["norm"] = {"weight": (E,)}
+    if not c.tie_word_embeddings:
+        tree["lm_head"] = {"kernel": (E, c.vocab_size)}
+    return tree
+
+
+def init_params(config: LlamaConfig, seed: int = 0, device=None,
+                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Random weights drawn on ``device`` (default: the card) from a
+    ``torch.Generator`` seeded with ``seed``, in ``dtype`` (default
+    ``config.dtype``).  Norm weights are ones; every kernel is normal with
+    std 1/sqrt(fan_in) (flax's lecun-normal scale, untruncated); the
+    embedding is normal with std 1/sqrt(hidden).  The same seed on the same
+    device type gives the same tree; CPU and CUDA generators differ, so
+    make the tree on one device and copy it to compare two."""
+    dev = resolve_device(device)
+    dt = dtype if dtype is not None else config.dtype
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(path: str, shape):
+        if path.endswith("weight"):
+            return torch.ones(shape, dtype=dt, device=dev)
+        std = 1.0 / math.sqrt(shape[1] if path.endswith("embedding") else shape[0])
+        return torch.empty(shape, dtype=dt, device=dev).normal_(0.0, std, generator=gen)
+
+    def build(node, path: str):
+        if isinstance(node, dict):
+            return {k: build(v, f"{path}.{k}" if path else k) for k, v in node.items()}
+        return draw(path, node)
+
+    return build(param_shapes(config), "")
+
+
+def tree_to(tree: Union[Mapping[str, Any], torch.Tensor], device=None,
+            dtype: Optional[torch.dtype] = None):
+    """A copy of a parameter tree on another device and/or dtype."""
+    if isinstance(tree, Mapping):
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype if dtype is not None else tree.dtype)
