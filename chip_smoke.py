@@ -10,9 +10,12 @@ Phases, each printing one JSON line with its seconds:
   device   the card (``nvidia-smi`` name and power limit), torch and CUDA
   build    compile every CUDA kernel from ``vescale_tpu_torch/kernels/csrc``
   parity   each kernel against its plain PyTorch version on the card, at the
-           shapes the Llama-3-8B serve path gives it and at ragged ones,
-           with the bound stated beside each case; times of the kernel, the
-           plain version and (flash) one PyTorch library call
+           shapes the Llama-3-8B serve path (flash forward, paged decode)
+           and the 1.3B train path (flash backward, fused AdamW) give it
+           and at ragged ones, with the bound stated beside each case; the
+           autograd op's grads against autograd through the dense
+           reference; times of each kernel, its plain version and, where
+           one exists, one PyTorch library call
   engine   a 2-layer fp32 engine on the card (kernels) and on the CPU (plain
            versions) from the same weights: first prefill logits within a
            stated bound, greedy streams of 16 tokens equal
@@ -23,6 +26,13 @@ Phases, each printing one JSON line with its seconds:
            replay of one request reproduces its tokens
   profile  device time by kernel kind and the device's idle share over a
            second run of the serve requests (``torch.profiler``)
+  train_small  a 2-layer fp32 Llama trained 3 steps on the card and on the
+           CPU from the same weights: losses within a stated bound
+  train    the 1.3B Llama of the bench (``vescale_tpu_torch.bench``) at full
+           width, B=1, T=4096: 2 warm-up and 5 timed steps; finite, falling
+           loss, 24 flash forward, 24 dq, 24 dkv and 1 AdamW launch per
+           step; step time, tokens/s, MFU, peak memory, and one profiled
+           step's device time by kernel kind
 
 Then the card line, the kernels line and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero before that line.  Imports
@@ -77,6 +87,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def free_memory() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ parity
@@ -181,6 +198,256 @@ def run_paged_parity(dev, ulps):
     return out, main
 
 
+# --------------------------------------------------------- flash backward
+def flash_bwd_cases():
+    """(label, B, T, H, KV, D, causal, dtype, bound on dq, dk and dv).
+
+    fp32: against the plain version run in float64 on the same inputs
+    (upcast exactly), the kernel is within 8 ulps at scale
+    (``ulps_at_scale``, the JAX package's kernel bound) or no further from
+    it than the plain version in fp32 is (``plain_fp32_ulps``, reported
+    beside).  The fp32 plain version is no arbiter itself: s rounds in
+    fp32 before exp and dp - delta cancels, which costs ~10 ulps at scale
+    even at T=96, and at T=4096 cuBLAS sums dk and dv over the group's
+    rep * T queries in one fp32 accumulator, which drifts tens of ulps.
+    bf16: 2 bf16 steps at scale against the plain version in fp32, as both
+    compute in fp32 from the same bf16 inputs and round one fp32 result to
+    bf16 (a last-place fp32 difference can move that rounding by one
+    step).  The main cases are the 1.3B train shapes."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    return [
+        ("main bf16", 1, 4096, 16, 8, 128, True, bf16, 2 * BF16_ULP),
+        ("main fp32", 1, 4096, 16, 8, 128, True, fp32, 8.0),
+        ("ragged T=1000 fp32", 1, 1000, 16, 8, 128, True, fp32, 8.0),
+        ("ragged T=1000 bf16", 1, 1000, 16, 8, 128, True, bf16, 2 * BF16_ULP),
+        ("no GQA (rep 1) T=512 fp32", 2, 512, 8, 8, 128, True, fp32, 8.0),
+        ("hd64 rep 4 T=333 fp32", 1, 333, 8, 2, 64, True, fp32, 8.0),
+        ("full (non-causal) T=256 fp32", 2, 256, 8, 4, 128, False, fp32, 8.0),
+    ]
+
+
+def flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype):
+    from vescale_tpu_torch.kernels.flash_attention import flash_fwd
+
+    g = torch.Generator(device=dev).manual_seed(T * 7 + H + D)
+    q = torch.randn(B * H, T, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(B * KV, T, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B * KV, T, D, generator=g, device=dev).to(dtype)
+    do = torch.randn(B * H, T, D, generator=g, device=dev).to(dtype)
+    args = dict(scale=1.0 / D ** 0.5, causal=causal, H=H, KV=KV)
+    o, lse = flash_fwd(q, k, v, **args)
+    return q, k, v, o, do, lse, args
+
+
+def run_flash_bwd_parity(dev, ulps):
+    """Kernel against plain version per case, then the autograd op against
+    autograd through the dense reference, then the times of the main case."""
+    from vescale_tpu_torch.kernels.flash_attention import flash_bwd, flash_bwd_reference
+
+    out = []
+    for label, B, T, H, KV, D, causal, dtype, bound in flash_bwd_cases():
+        q, k, v, o, do, lse, args = flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype)
+        got = flash_bwd(q, k, v, o, do, lse, **args)
+        ref = flash_bwd_reference(q, k, v, o, do, lse, **args)
+        row = dict(kernel="flash_bwd", case=label, bound=bound)
+        if dtype == torch.float32:
+            exact = flash_bwd_reference(*(t.double() for t in (q, k, v, o, do, lse)), **args)
+            for name, a, b in zip(("dq", "dk", "dv"), ref, exact):
+                row[f"{name}_plain_fp32_ulps"] = ulps(a.cpu().numpy(), b.cpu().numpy())
+            ref = exact
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            row[f"{name}_ulps"] = ulps(a.double().cpu().numpy(), b.double().cpu().numpy())
+            row[f"{name}_max_abs_err"] = float((a.double() - b.double()).abs().max())
+        row["ok"] = all(row[f"{n}_ulps"] <= max(bound, row.get(f"{n}_plain_fp32_ulps", 0.0))
+                        for n in ("dq", "dk", "dv"))
+        out.append(row)
+        del q, k, v, o, do, lse, got, ref
+        free_memory()
+    out.append(run_flash_autograd(dev, ulps))
+    return out, flash_bwd_timing(dev)
+
+
+def run_flash_autograd(dev, ulps):
+    """fp32 grads of ``ops.flash_attention`` (autograd Function over the
+    kernels) against ``torch.autograd`` through the dense ``_dense_ref``,
+    same inputs, B=1, T=512, H=16, KV=8, D=128, causal.  Bound: 64 ulps at
+    scale.  The two are different algorithms in fp32: autograd's softmax
+    backward takes the row term as rowsum(P * dP) from a normalised P, the
+    kernels as rowsum(dO * O) with P recomputed from the logsumexp, and
+    every sum runs in another order."""
+    import importlib
+
+    ops = importlib.import_module("vescale_tpu_torch.ops.flash_attention")
+    B, T, H, KV, D = 1, 512, 16, 8, 128
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(B, T, n, D, generator=g, device=dev) for n in (H, KV, KV))
+    w = torch.randn(B, T, H, D, generator=g, device=dev)
+    grads = []
+    for fn in (lambda a, b, c: ops.flash_attention(a, b, c, causal=True),
+               lambda a, b, c: ops._dense_ref(a, b, c, 1.0 / D ** 0.5, True)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        (fn(*leaves) * w).sum().backward()
+        grads.append([x.grad for x in leaves])
+    torch.cuda.synchronize()
+    bound = 64.0
+    row = dict(kernel="flash_bwd", case="autograd op vs dense autograd fp32 T=512", bound=bound)
+    for name, a, b in zip(("dq", "dk", "dv"), *grads):
+        row[f"{name}_ulps"] = ulps(a.cpu().numpy(), b.cpu().numpy())
+    row["ok"] = all(row[f"{n}_ulps"] <= bound for n in ("dq", "dk", "dv"))
+    return row
+
+
+def flash_bwd_timing(dev):
+    """The dq and dkv kernels apart, at the 1.3B train shapes in bf16; the
+    plain version computes dq, dk and dv together, and so does the
+    library yardstick (the backward of ``scaled_dot_product_attention``
+    with the GQA heads expanded), so both rows carry the same plain and
+    library times."""
+    import torch.nn.functional as F
+
+    from vescale_tpu_torch.kernels.flash_attention import (
+        _delta, flash_bwd, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
+    )
+
+    label, B, T, H, KV, D, causal, dtype, _ = flash_bwd_cases()[0]
+    q, k, v, o, do, lse, args = flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype)
+    lse2, delta = lse.reshape(B * H, T), _delta(o, do)
+    got = flash_bwd(q, k, v, o, do, lse, **args)
+    ref = flash_bwd_reference(q, k, v, o, do, lse, **args)
+    err = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref)]
+    dq_ms = cuda_ms(lambda: flash_bwd_dq(q, k, v, do, lse2, delta, **args), iters=10)
+    dkv_ms = cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse2, delta, **args), iters=10)
+    plain_ms = cuda_ms(lambda: flash_bwd_reference(q, k, v, o, do, lse, **args), iters=3, warmup=1)
+    rep = H // KV
+    q4 = q.reshape(B, H, T, D).detach().requires_grad_()
+    k4 = k.reshape(B, KV, T, D).repeat_interleave(rep, dim=1).detach().requires_grad_()
+    v4 = v.reshape(B, KV, T, D).repeat_interleave(rep, dim=1).detach().requires_grad_()
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+    do4 = do.reshape(B, H, T, D)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True))
+    elt = q.element_size()
+    n_q, n_kv, n_rows = q.numel(), k.numel(), B * H * T
+    frac = 0.5 if causal else 1.0
+    shape = dict(B=B, T=T, H=H, KV=KV, D=D, dtype=str(dtype), causal=causal)
+    dq_bytes = (n_q + 2 * n_kv + n_q + n_q) * elt + 2 * n_rows * 4   # q k v do in, dq out
+    dkv_bytes = (n_q + 2 * n_kv + n_q + 2 * n_kv) * elt + 2 * n_rows * 4  # ..., dk dv out
+    rows = {
+        "flash_bwd_dq": dict(ms=dq_ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=err[0],
+                             **bound(dq_bytes, 6 * frac * T * T * H * D * B, dtype), shape=shape),
+        "flash_bwd_dkv": dict(ms=dkv_ms, plain_ms=plain_ms, library_ms=library_ms,
+                              max_abs_err=max(err[1], err[2]),
+                              **bound(dkv_bytes, 8 * frac * T * T * H * D * B, dtype), shape=shape),
+    }
+    del q, k, v, o, do, lse, got, ref, q4, k4, v4, out4
+    free_memory()
+    return rows
+
+
+# ------------------------------------------------------------- fused adamw
+def ulps_elementwise(a, b) -> float:
+    """Max per-element fp32 ulp distance, each element at its own spacing;
+    NaN patterns must agree (else inf)."""
+    a32, b32 = a.float(), b.float()
+    if not torch.equal(torch.isnan(a32), torch.isnan(b32)):
+        return float("inf")
+    fin = torch.isfinite(a32) & torch.isfinite(b32)
+    if not bool(fin.any()):
+        return 0.0
+    a32, b32 = a32[fin], b32[fin]
+    mag = b32.abs()
+    step = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    return float(((a32.double() - b32.double()).abs() / step.double()).max())
+
+
+def bits_equal(a, b) -> bool:
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def train_leaf_shapes():
+    """The 219 leaf shapes of the 1.3B Llama (24 layers x 9 + 3)."""
+    from vescale_tpu_torch.bench import RUNGS
+    from vescale_tpu_torch.models import LlamaConfig, param_shapes
+
+    def flat(node):
+        if isinstance(node, dict):
+            return [s for key in node for s in flat(node[key])]
+        return [node]
+
+    return flat(param_shapes(LlamaConfig(**RUNGS["1.3b"][0])))
+
+
+def adamw_leaves(dev, shapes, state_dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gs = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    ms = [torch.randn(s, generator=g, device=dev).mul_(0.1).to(state_dtype) for s in shapes]
+    vs = [torch.randn(s, generator=g, device=dev).square_().mul_(0.01).to(state_dtype)
+          for s in shapes]
+    return gs, ms, vs
+
+
+def run_adamw_parity(dev):
+    """Over the 1.3B leaf set, bf16 and fp32 state: moments bit for bit
+    against the plain chain, u within 4 ulps per element (the JAX
+    package's bound, docs/kernels.md: c1/c2 are the same fp32 scalars
+    here, so the two should agree exactly); then tiny, odd and zero-size
+    leaves; then a NaN in one g, which must poison u, m' and v' at that
+    element only.  Times of the bf16-state case."""
+    from vescale_tpu_torch.kernels.fused_adamw import fused_adamw_reference, fused_adamw_update
+    from vescale_tpu_torch.parallel.optimizer import bias_corrections
+
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8)
+    c1, c2 = bias_corrections(0.9, 0.999, 5)
+    shapes = train_leaf_shapes()
+    out, timing = [], None
+    cases = [("1.3b leaves, bf16 state", shapes, torch.bfloat16),
+             ("1.3b leaves, fp32 state", shapes, torch.float32),
+             ("odd and empty leaves, bf16 state", [(0,), (1,), (37,), (1023,), (4097,), (3, 0)],
+              torch.bfloat16)]
+    for label, leaf_shapes, state_dtype in cases:
+        gs, ms, vs = adamw_leaves(dev, leaf_shapes, state_dtype, seed=len(leaf_shapes))
+        us, mos, vos = fused_adamw_update(gs, ms, vs, c1, c2, **hp)
+        worst_u, moments_equal, err = 0.0, True, 0.0
+        for i in range(len(gs)):
+            ru, rm, rv = fused_adamw_reference([gs[i]], [ms[i]], [vs[i]], c1, c2, **hp)
+            moments_equal &= bits_equal(mos[i], rm[0]) and bits_equal(vos[i], rv[0])
+            if gs[i].numel():
+                worst_u = max(worst_u, ulps_elementwise(us[i], ru[0]))
+                err = max(err, float((us[i] - ru[0]).abs().max()))
+        out.append(dict(kernel="fused_adamw", case=label, leaves=len(gs),
+                        elements=sum(g.numel() for g in gs), moments_bitwise=moments_equal,
+                        u_ulps=worst_u, u_bound=4.0, max_abs_err=err,
+                        ok=moments_equal and worst_u <= 4.0))
+        if state_dtype == torch.bfloat16 and timing is None:
+            timing = adamw_timing(gs, ms, vs, c1, c2, hp, err)
+        del gs, ms, vs, us, mos, vos
+        free_memory()
+    # NaN poison
+    gs, ms, vs = adamw_leaves(dev, [(37,), (100,)], torch.bfloat16, seed=3)
+    gs[0][5] = float("nan")
+    us, mos, vos = fused_adamw_update(gs, ms, vs, 0.5, 0.1, **hp)
+    nan_at = [[torch.nonzero(torch.isnan(t.float())).flatten().tolist() for t in outs]
+              for outs in (us, mos, vos)]
+    ok = all(at == [[5], []] for at in nan_at)
+    out.append(dict(kernel="fused_adamw", case="NaN in g[0][5]", nan_at=nan_at, ok=ok))
+    return out, timing
+
+
+def adamw_timing(gs, ms, vs, c1, c2, hp, err):
+    from vescale_tpu_torch.kernels.fused_adamw import fused_adamw_reference, fused_adamw_update
+
+    ms_k = cuda_ms(lambda: fused_adamw_update(gs, ms, vs, c1, c2, **hp), iters=10)
+    plain_ms = cuda_ms(lambda: fused_adamw_reference(gs, ms, vs, c1, c2, **hp), iters=3, warmup=1)
+    n = sum(g.numel() for g in gs)
+    nbytes = n * (2 * gs[0].element_size() + 4 * ms[0].element_size())  # g, u; m, v, m', v'
+    # fp32 arithmetic on the CUDA cores: 3 for m', 4 for v', 5 for u
+    return dict(ms=ms_k, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
+                **bound(nbytes, 12 * n, torch.float32),
+                shape=dict(leaves=len(gs), elements=n, grad=str(gs[0].dtype), state=str(ms[0].dtype)),
+                library_note="none: no single PyTorch call computes AdamW with bf16 moments")
+
+
 def flash_timing(main):
     import torch.nn.functional as F
 
@@ -269,6 +536,128 @@ def run_small_engine(dev, ulps):
                 streams_equal=True, streams=streams["card"])
 
 
+# ------------------------------------------------------------------- train
+def run_train_small(dev):
+    """The bench's CPU config, widened so head_dim is 64 (a width the
+    kernels take): a 2-layer fp32 Llama, hidden 256, FFN 512, 4 heads, 2 KV
+    heads, B=2, T=128, trained 3 steps with ``AdamWLowmem(3e-4)`` (bf16
+    moments) on the card (kernels, cuBLAS) and on the CPU (plain versions)
+    from the same ``init_params(device="cpu")`` weights and batch.
+
+    Bounds: step 1 is the forward on equal weights, fp32 on both sides with
+    sums in other orders: 1e-5 relative.  Later steps: 1e-3 absolute (on a
+    loss of ~6.2), as where a grad is near zero the last-bit differences
+    can flip the sign of Adam's normalised update and move that element by
+    up to 2 * lr = 6e-4 a step."""
+    from vescale_tpu_torch.models import Llama, LlamaConfig, cross_entropy_loss, init_params
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.train import make_train_step
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "fp32 matmuls must not run in TF32")
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128,
+                      dtype=torch.float32)
+    params = init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 129)))
+    losses = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = Llama(cfg, params, device=device)
+        opt = AdamWLowmem(model.parameters(), 3e-4)
+        step = make_train_step(model, opt, lambda lg, b: cross_entropy_loss(lg, b["target"]))
+        t = toks.to(device)
+        batch = {"input": t[:, :-1], "target": t[:, 1:]}
+        losses[where] = [float(step(batch)) for _ in range(3)]
+    diffs = [abs(a - b) for a, b in zip(losses["card"], losses["cpu"])]
+    bounds = [1e-5 * abs(losses["cpu"][0]), 1e-3, 1e-3]
+    out = dict(losses=losses, abs_diffs=diffs, bounds=bounds,
+               ok=all(d <= b for d, b in zip(diffs, bounds)) and all(np.isfinite(losses["card"])))
+    check(out["ok"], f"card vs CPU training: {out}")
+    return out
+
+
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "flash_fwd"
+    if "dq::kernel" in name or "dkv::kernel" in name:
+        return "flash_bwd"
+    if "adamw_kernel" in name:
+        return "fused_adamw"
+    if "paged_decode_kernel" in name:
+        return "paged_decode"
+    if any(x in low for x in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "matmul"
+    return "other"
+
+
+def device_time_by_kind(fn):
+    """Run ``fn`` once under ``torch.profiler`` (CUDA activity only):
+    device ms by kernel kind, device launches and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kind = {k: 0.0 for k in ("matmul", "flash_fwd", "flash_bwd", "fused_adamw", "paged_decode",
+                                "other")}
+    top, launches = [], 0
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if not dev_us:
+            continue
+        by_kind[kernel_kind(evt.key)] += dev_us / 1e3
+        launches += evt.count
+        top.append((dev_us / 1e3, evt.count, evt.key[:80]))
+    busy = sum(by_kind.values())
+    check(busy > 0, "the profiler saw no device time")
+    top.sort(reverse=True)
+    return dict(device_busy_ms=busy, traced_wall_ms=wall_ms, device_launches=launches,
+                device_ms_by_kind=by_kind, top_kernels=[[n, c, t] for t, c, n in top[:10]])
+
+
+def run_train_13b(dev, kernels_mod):
+    """The 1.3B train rung of ``vescale_tpu_torch.bench`` at full width."""
+    from vescale_tpu_torch.bench import measure, prepare
+
+    t0 = time.perf_counter()
+    run = prepare("1.3b", device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    L = run.config.num_hidden_layers
+    kernels_mod.reset_launches()
+    res = measure(run)
+    launches = dict(kernels_mod.LAUNCHES)
+    timed = res["losses"][res["warmup_steps"]:]
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "fused_adamw": 1, "paged_decode": 0}
+    checks = {
+        "losses_finite": bool(np.isfinite(res["losses"]).all()),
+        "loss_falls": timed[-1] < timed[0],
+        "launches_per_step": all(step == want for step in res["launches_per_step"]),
+        "leaves": len(list(run.model.parameters())) == 9 * L + 3,
+    }
+    prof = device_time_by_kind(lambda: run.step(run.batch))
+    busy = prof["device_busy_ms"]
+    prof["device_idle_share"] = max(0.0, 1.0 - busy / res["step_ms_median"])
+    prof["traced_idle_share"] = max(0.0, 1.0 - busy / prof["traced_wall_ms"])
+    out = dict(model="llama 1.3B (bench rung 1.3b)", weights="random fp32 masters, seed 0",
+               setup_s=setup_s, launches=launches, checks=checks, profile=prof,
+               mfu_formula="(6 * params + 12 * layers * T * hidden) * tokens/s / peak",
+               **{k: v for k, v in res.items() if k != "launches_per_step"},
+               launches_first_step=res["launches_per_step"][0])
+    check(all(checks.values()), f"train checks failed: {out}")
+    del run
+    free_memory()
+    return out
+
+
 # ------------------------------------------------------------------- serve
 def serve_requests(vocab: int, n: int = 16, seed: int = 0):
     from vescale_tpu_torch.serve import Request
@@ -346,46 +735,19 @@ def run_profile(eng, cfg, serve_wall_s: float):
     UNTRACED serve phase's wall time (same requests, same tokens): 1 -
     device busy / that wall.  The traced run's own share is reported
     beside it and overstates idleness."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from vescale_tpu_torch.serve import ContinuousBatchingScheduler, run_serve
 
     eng.cache.reset()
     sched = ContinuousBatchingScheduler(eng.cache)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        res = run_serve(eng, sched, serve_requests(cfg.vocab_size))
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kind = {"flash_fwd": 0.0, "paged_decode": 0.0, "matmul": 0.0, "other": 0.0}
-    top, launches = [], 0
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        if not dev_us:
-            continue
-        name = evt.key
-        kind = ("flash_fwd" if "flash_fwd_kernel" in name else
-                "paged_decode" if "paged_decode_kernel" in name else
-                "matmul" if any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "xmma")) else
-                "other")
-        by_kind[kind] += dev_us / 1e3
-        launches += evt.count
-        top.append((dev_us / 1e3, evt.count, name[:80]))
-    busy = sum(by_kind.values())
-    check(busy > 0, "the profiler saw no device time")
-    top.sort(reverse=True)
-    return dict(requests=len(res.outcomes), decode_steps=int(sched.telemetry.counter("serve_decode_steps_total")),
-                device_busy_ms=busy, untraced_wall_ms=serve_wall_s * 1e3,
+    done = {}
+    prof = device_time_by_kind(
+        lambda: done.update(res=run_serve(eng, sched, serve_requests(cfg.vocab_size))))
+    busy, wall_ms = prof["device_busy_ms"], prof["traced_wall_ms"]
+    return dict(requests=len(done["res"].outcomes),
+                decode_steps=int(sched.telemetry.counter("serve_decode_steps_total")),
+                untraced_wall_ms=serve_wall_s * 1e3,
                 device_idle_share=max(0.0, 1.0 - busy / (serve_wall_s * 1e3)),
-                traced_wall_ms=wall_ms, traced_idle_share=max(0.0, 1.0 - busy / wall_ms),
-                device_launches=launches, device_ms_by_kind=by_kind,
-                top_kernels=[[n, c, t] for t, c, n in top[:8]])
+                traced_idle_share=max(0.0, 1.0 - busy / wall_ms), **prof)
 
 
 # -------------------------------------------------------------------- main
@@ -418,36 +780,58 @@ def main() -> int:
     t = time.perf_counter()
     flash_rows, flash_main = run_flash_parity(dev, ulps_at_scale)
     paged_rows, paged_main = run_paged_parity(dev, ulps_at_scale)
-    rows = flash_rows + paged_rows
     timings = {"flash_fwd": flash_timing(flash_main), "paged_decode": paged_timing(paged_main)}
+    del flash_main, paged_main
+    bwd_rows, bwd_timings = run_flash_bwd_parity(dev, ulps_at_scale)
+    adamw_rows, timings["fused_adamw"] = run_adamw_parity(dev)
+    timings.update(bwd_timings)
+    rows = flash_rows + paged_rows + bwd_rows + adamw_rows
     log("parity", seconds=time.perf_counter() - t, checks=rows, timings=timings)
-    check(all(r["ok"] for r in rows), "kernel parity failed: " + json.dumps([r for r in rows if not r["ok"]]))
+    # a parity failure fails the run at its end, after the later phases
+    # have reported too
+    bad_parity = [r for r in rows if not r["ok"]]
     if opts.quick:
+        check(not bad_parity, "kernel parity failed: " + json.dumps(bad_parity))
         print(card, flush=True)
         return 0
 
     t = time.perf_counter()
     engine = run_small_engine(dev, ulps_at_scale)
     log("engine", seconds=time.perf_counter() - t, **engine)
+    # serve before train: the host-bound serve run is timed before any
+    # profiler session of this process has run
     t = time.perf_counter()
     serve, eng, cfg = run_serve_8b(dev, kernels_mod)
     log("serve", seconds=time.perf_counter() - t, **serve)
     t = time.perf_counter()
     prof = run_profile(eng, cfg, serve["serve_s"])
     log("profile", seconds=time.perf_counter() - t, **prof)
+    del eng
+    free_memory()
+    t = time.perf_counter()
+    train_small = run_train_small(dev)
+    log("train_small", seconds=time.perf_counter() - t, **train_small)
+    t = time.perf_counter()
+    train = run_train_13b(dev, kernels_mod)
+    log("train", seconds=time.perf_counter() - t, **train)
     log("done", seconds=time.perf_counter() - t_all)
+    check(not bad_parity, "kernel parity failed: " + json.dumps(bad_parity))
 
-    sources = {"flash_fwd": ("vescale_tpu_torch/kernels/csrc/flash_fwd.cu",
-                             "vescale_tpu/kernels/flash_attention.py:43"),
-               "paged_decode": ("vescale_tpu_torch/kernels/csrc/paged_decode.cu",
-                                "vescale_tpu/kernels/paged_attention.py:53")}
+    csrc = "vescale_tpu_torch/kernels/csrc/"
+    sources = {"flash_fwd": (csrc + "flash_fwd.cu", "vescale_tpu/kernels/flash_attention.py:43"),
+               "paged_decode": (csrc + "paged_decode.cu", "vescale_tpu/kernels/paged_attention.py:53"),
+               "flash_bwd_dq": (csrc + "flash_bwd.cu", "vescale_tpu/kernels/flash_attention.py:202"),
+               "flash_bwd_dkv": (csrc + "flash_bwd.cu", "vescale_tpu/kernels/flash_attention.py:233"),
+               "fused_adamw": (csrc + "fused_adamw.cu", "vescale_tpu/kernels/fused_adamw.py:54")}
     rows = []
     for name, (source, replaces) in sources.items():
         tm = timings[name]
+        by_path = {"train": train["launches"][name], "serve": serve["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=serve["launches"][name], max_abs_err=tm["max_abs_err"],
-                         ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
-                         bound_by=tm["bound_by"], library_ms=tm["library_ms"], shape=tm["shape"]))
+                         launches=sum(by_path.values()), launches_by_path=by_path,
+                         max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],
+                         bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+                         library_ms=tm["library_ms"], shape=tm["shape"]))
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

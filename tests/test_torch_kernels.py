@@ -188,7 +188,8 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
     rng = np.random.default_rng(1)
     _, targs = _paged_case(rng, 2, 2, 4, 2, 8, 4, jnp.float32)
     assert torch.equal(paged_decode(*targs, scale=0.5), paged_decode_reference(*targs, scale=0.5))
-    assert kernels.LAUNCHES == {"flash_fwd": 0, "paged_decode": 0}
+    assert {"flash_fwd", "paged_decode"} <= set(kernels.LAUNCHES)
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 
 def test_non_cpu_non_cuda_tensors_raise_instead_of_falling_back():
@@ -200,7 +201,8 @@ def test_non_cpu_non_cuda_tensors_raise_instead_of_falling_back():
     idx = torch.empty((2, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         paged_decode(qd, pool, pool, idx, idx[:, 0], scale=0.125)
-    assert kernels.LAUNCHES == {"flash_fwd": 0, "paged_decode": 0}
+    assert {"flash_fwd", "paged_decode"} <= set(kernels.LAUNCHES)
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 
 def test_ulps_at_scale_is_the_jax_packages_metric():

@@ -1,14 +1,17 @@
 """vescale_tpu_torch — the PyTorch/CUDA port of vescale_tpu, for NVIDIA Hopper.
 
 A package beside ``vescale_tpu`` (the JAX reference, which it never
-imports).  This slice serves Llama models on one card: the paged KV cache,
-the serve engine (flash-attention prefill and paged-attention decode, both
-hand-written CUDA kernels for ``sm_90a``), the continuous-batching
-scheduler and the serve loop.  Entry points run on the card unless the
+imports).  It serves Llama models on one card (the paged KV cache, the
+serve engine with flash-attention prefill and paged-attention decode, the
+continuous-batching scheduler and the serve loop) and trains them on one
+card (the ``Llama`` module, ``AdamWLowmem`` and ``make_train_step``, with
+the flash-attention backward and a fused AdamW update).  Every kernel is
+hand-written CUDA for ``sm_90a``.  Entry points run on the card unless the
 caller passes ``device="cpu"``; kernels dispatch by the tensor's device.
 """
 
-from .models import LLAMA3_8B, LlamaConfig, init_params, params_from_jax
+from .models import LLAMA3_8B, Llama, LlamaConfig, init_params, params_from_jax
+from .parallel import AdamWLowmem
 from .serve import (
     ContinuousBatchingScheduler,
     KVCacheConfig,
@@ -20,12 +23,15 @@ from .serve import (
     ShedError,
     run_serve,
 )
+from .train import make_train_step
 
 __all__ = [
+    "AdamWLowmem",
     "ContinuousBatchingScheduler",
     "KVCacheConfig",
     "KVCacheOutOfPages",
     "LLAMA3_8B",
+    "Llama",
     "LlamaConfig",
     "PagedKVCache",
     "Request",
@@ -33,6 +39,7 @@ __all__ = [
     "ServeResult",
     "ShedError",
     "init_params",
+    "make_train_step",
     "params_from_jax",
     "run_serve",
 ]

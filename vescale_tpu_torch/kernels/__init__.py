@@ -14,6 +14,11 @@ Kernels:
     attention forward; the prefill attention of the serve engine.
   * ``paged_decode`` (``paged_attention.py``) — one decode step's
     attention read straight from the paged KV pool.
+  * ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``flash_attention.py``) — the
+    flash-attention backward, dQ and dK/dV, recomputing the probabilities
+    from the forward's logsumexp; the training step's attention backward.
+  * ``fused_adamw`` (``fused_adamw.py``) — the ``adamw_lowmem`` moment
+    update of every leaf of a model in one multi-tensor launch.
 
 Each wrapper adds one to ``LAUNCHES[name]`` when its kernel launched, and
 nowhere else, so a run can show that its main path went through the
@@ -28,7 +33,13 @@ import numpy as np
 
 __all__ = ["LAUNCHES", "reset_launches", "on_hopper", "require_hopper", "ulps_at_scale"]
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "paged_decode": 0}
+LAUNCHES: Dict[str, int] = {
+    "flash_fwd": 0,
+    "paged_decode": 0,
+    "flash_bwd_dq": 0,
+    "flash_bwd_dkv": 0,
+    "fused_adamw": 0,
+}
 
 
 def reset_launches() -> None:

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds).  Libraries land in ``kernels/build/`` under a name that
-carries the hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused.  Nothing here runs at import: the first
+takes seconds), with the common flags plus its own (``EXTRA_FLAGS``:
+``fused_adamw`` turns off FMA contraction).  Libraries land in
+``kernels/build/`` under a name that carries the hash of the source and
+its flags, so an edited source or flag rebuilds and an unchanged one is
+reused.  Nothing here runs at import: the first
 kernel call builds what it needs, or :func:`build` builds everything up
 front, one ``nvcc`` per source, all started together.
 """
@@ -20,16 +22,23 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "nvcc_path"]
+__all__ = ["SOURCES", "EXTRA_FLAGS", "BUILD_DIR", "build", "load", "nvcc_path"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu"}
+SOURCES = {
+    "flash_fwd": "flash_fwd.cu",
+    "paged_decode": "paged_decode.cu",
+    "flash_bwd": "flash_bwd.cu",
+    "fused_adamw": "fused_adamw.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# the moments must match the reference chain bit for bit: no mul+add -> FMA
+EXTRA_FLAGS = {"fused_adamw": ("--fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -46,9 +55,13 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
     src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -68,7 +81,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         log_path = BUILD_DIR / f"{name}.log"
         log = open(log_path, "w")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
         running[name] = (proc, log, log_path, tmp, out, time.perf_counter())
     seconds: Dict[str, float] = {}

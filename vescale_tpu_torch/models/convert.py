@@ -26,7 +26,8 @@ import torch
 from ..device import resolve_device
 from .llama import LlamaConfig
 
-__all__ = ["params_from_jax", "init_params", "param_shapes", "tree_to"]
+__all__ = ["params_from_jax", "init_params", "param_shapes", "tree_to", "module_tree",
+           "load_params"]
 
 
 def params_from_jax(tree: Mapping[str, Any], device=None,
@@ -109,3 +110,49 @@ def tree_to(tree: Union[Mapping[str, Any], torch.Tensor], device=None,
     if isinstance(tree, Mapping):
         return {k: tree_to(v, device, dtype) for k, v in tree.items()}
     return tree.to(device=device, dtype=dtype if dtype is not None else tree.dtype)
+
+
+def module_tree(module: torch.nn.Module) -> Dict[str, Any]:
+    """The nested dict of ``module``'s parameters by their dotted names
+    (``models.llama.Llama`` names them as the flax tree): the leaves are
+    the parameters themselves, detached, not copies."""
+    tree: Dict[str, Any] = {}
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach()
+    return tree
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+@torch.no_grad()
+def load_params(module: torch.nn.Module, tree: Mapping[str, Any]) -> None:
+    """Copy a flax-layout tree (torch tensors, or arrays read through
+    ``np.asarray``) into ``module``'s parameters, each into its own dtype
+    and device.  The tree must hold exactly the module's parameters, with
+    the same shapes."""
+    flat = _flatten(tree)
+    params = dict(module.named_parameters())
+    missing, extra = sorted(set(params) - set(flat)), sorted(set(flat) - set(params))
+    if missing or extra:
+        raise ValueError(f"load_params: missing {missing[:5]}, unexpected {extra[:5]}")
+    for name, p in params.items():
+        src = flat[name]
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(np.array(src, copy=True))
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"load_params: {name} has shape {tuple(src.shape)}, "
+                             f"the module {tuple(p.shape)}")
+        p.copy_(src)
