@@ -10,12 +10,13 @@ Phases, each printing one JSON line with its seconds:
   device   the card (``nvidia-smi`` name and power limit), torch and CUDA
   build    compile every CUDA kernel from ``vescale_tpu_torch/kernels/csrc``
   parity   each kernel against its plain PyTorch version on the card, at the
-           shapes the Llama-3-8B serve path (flash forward, paged decode)
-           and the 1.3B train path (flash backward, fused AdamW) give it
-           and at ragged ones, with the bound stated beside each case; the
-           autograd op's grads against autograd through the dense
-           reference; times of each kernel, its plain version and, where
-           one exists, one PyTorch library call
+           shapes the Llama-3-8B serve path (flash forward, paged decode),
+           the 1.3B train path (flash backward, fused AdamW) and the GPT-2
+           train path (flash forward and backward at head_dim 64 without
+           GQA, fused cross entropy) give it and at ragged ones, with the
+           bound stated beside each case; the autograd op's grads against
+           autograd through the dense reference; times of each kernel, its
+           plain version and, where one exists, one PyTorch library call
   engine   a 2-layer fp32 engine on the card (kernels) and on the CPU (plain
            versions) from the same weights: first prefill logits within a
            stated bound, greedy streams of 16 tokens equal
@@ -33,6 +34,16 @@ Phases, each printing one JSON line with its seconds:
            loss, 24 flash forward, 24 dq, 24 dkv and 1 AdamW launch per
            step; step time, tokens/s, MFU, peak memory, and one profiled
            step's device time by kernel kind
+  gpt_small  a 2-layer fp32 GPT trained 3 steps on the card and on the CPU
+           from the same weights, through ``vocab_parallel_cross_entropy``:
+           losses within a stated bound
+  gpt2     GPT-2 124M (bench rung gpt2) at its published width, B=12,
+           T=1024, fed by ``TokenDataLoader`` from a numpy-seeded token file
+           in a temporary directory: 2 warm-up and 5 timed steps; finite,
+           falling loss, 12 flash forward, 12 dq, 12 dkv, 1 fused xent
+           forward, 1 fused xent backward and 1 AdamW launch per step; step
+           time, tokens/s, MFU, peak memory, and one profiled step's device
+           time by kernel kind
 
 Then the card line, the kernels line and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero before that line.  Imports
@@ -117,6 +128,9 @@ def flash_cases():
         ("full (non-causal) no GQA T=256 fp32", 2, 256, 8, 8, 128, False, torch.float32, 8.0, 8.0),
         ("hd64 T=77 fp32", 1, 77, 8, 4, 64, True, torch.float32, 8.0, 8.0),
         ("hd64 T=333 bf16 full", 1, 333, 8, 2, 64, False, torch.bfloat16, 2 * BF16_ULP, 8.0),
+        # the GPT-2 124M train shape: head_dim 64, no GQA, B=12, T=1024
+        ("gpt2 bf16", 12, 1024, 12, 12, 64, True, torch.bfloat16, 2 * BF16_ULP, 16.0),
+        ("gpt2 fp32", 12, 1024, 12, 12, 64, True, torch.float32, 16.0, 16.0),
     ]
 
 
@@ -213,7 +227,8 @@ def flash_bwd_cases():
     bf16: 2 bf16 steps at scale against the plain version in fp32, as both
     compute in fp32 from the same bf16 inputs and round one fp32 result to
     bf16 (a last-place fp32 difference can move that rounding by one
-    step).  The main cases are the 1.3B train shapes."""
+    step).  The main cases are the 1.3B train shapes; the gpt2 cases the
+    GPT-2 124M train shape (head_dim 64, no GQA)."""
     bf16, fp32 = torch.bfloat16, torch.float32
     return [
         ("main bf16", 1, 4096, 16, 8, 128, True, bf16, 2 * BF16_ULP),
@@ -223,6 +238,8 @@ def flash_bwd_cases():
         ("no GQA (rep 1) T=512 fp32", 2, 512, 8, 8, 128, True, fp32, 8.0),
         ("hd64 rep 4 T=333 fp32", 1, 333, 8, 2, 64, True, fp32, 8.0),
         ("full (non-causal) T=256 fp32", 2, 256, 8, 4, 128, False, fp32, 8.0),
+        ("gpt2 bf16", 12, 1024, 12, 12, 64, True, bf16, 2 * BF16_ULP),
+        ("gpt2 fp32", 12, 1024, 12, 12, 64, True, fp32, 8.0),
     ]
 
 
@@ -495,6 +512,136 @@ def bound(nbytes: float, flops: float, dtype) -> dict:
                 bytes=nbytes, flops=flops)
 
 
+# ---------------------------------------------------------- cross entropy
+XENT_PATH = (12 * 1024, 50304)  # the GPT-2 train path's logits: B*T rows, vocab 50304
+
+
+def xent_cases():
+    """(label, N, Vs): the GPT-2 path's shape, the 1.3B Llama's, the
+    Llama-3 vocab (2.1 GB of fp32 logits) and odd shapes, each in fp32 and
+    in bf16 (the path's dtype: the kernels read bf16 logits directly).
+
+    Bounds.  picked: exact.  sumexp and sumlg: against the plain version
+    run in float64 on the same inputs (upcast exactly), within 8 ulps at
+    scale (the JAX package's bound) or no further than the fp32 plain
+    version is (``plain_fp32_ulps``): a row of 50k-128k terms is a long
+    fp32 sum, and the fp32 plain version is no arbiter for it.  dlg, fp32:
+    8 ulps at scale against the fp32 plain version, which runs the same
+    operations in the same order (only ``expf`` may differ in its last
+    bit).  dlg, bf16: bitwise equal to the fp32 kernel's dlg on the
+    upcast logits, rounded to bf16 (the kernel rounds that same fp32 value
+    once).  Two launches of each kernel on the same inputs: bitwise
+    equal."""
+    shapes = [("gpt2 path", *XENT_PATH), ("llama 1.3b", 4096, 32000),
+              ("llama-3 vocab", 4096, 128256), ("odd 1000x7", 1000, 7), ("odd 3x1", 3, 1)]
+    return [(f"{label} {str(dt)[6:]}", N, Vs, dt) for label, N, Vs in shapes
+            for dt in (torch.float32, torch.bfloat16)]
+
+
+def xent_inputs(dev, N, Vs, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lg = (3.0 * torch.randn(N, Vs, generator=g, device=dev)).to(dtype)
+    idx = torch.randint(0, Vs, (N,), generator=g, device=dev)
+    gmax = torch.amax(lg, dim=-1).float()
+    cts = [torch.randn(N, generator=g, device=dev) for _ in range(3)]
+    return lg, idx, gmax, cts
+
+
+def run_xent_parity(dev, ulps):
+    from vescale_tpu_torch.kernels.cross_entropy import (
+        xent_bwd, xent_bwd_reference, xent_fwd, xent_parts_reference,
+    )
+
+    out = []
+    for label, N, Vs, dtype in xent_cases():
+        lg, idx, gmax, cts = xent_inputs(dev, N, Vs, dtype, seed=N + Vs)
+        got, again = xent_fwd(lg, idx, gmax), xent_fwd(lg, idx, gmax)
+        plain = xent_parts_reference(lg, idx, gmax)
+        exact = xent_parts_reference(lg.double(), idx, gmax.double())
+        torch.cuda.synchronize()
+        row = dict(kernel="fused_xent", case=label, N=N, Vs=Vs, dtype=str(dtype), bound=8.0,
+                   fwd_bitwise_repeat=all(bits_equal(a, b) for a, b in zip(got, again)),
+                   picked_exact=bits_equal(got[1], plain[1]))
+        for i, name in ((0, "sumexp"), (2, "sumlg")):
+            row[f"{name}_ulps"] = ulps(got[i].cpu().numpy(), exact[i].cpu().numpy())
+            row[f"{name}_plain_fp32_ulps"] = ulps(plain[i].cpu().numpy(), exact[i].cpu().numpy())
+        del plain, exact, again
+        dlg, dlg2 = xent_bwd(lg, idx, gmax, *cts), xent_bwd(lg, idx, gmax, *cts)
+        row["bwd_bitwise_repeat"] = bits_equal(dlg, dlg2)
+        del dlg2
+        if dtype == torch.float32:
+            ref = xent_bwd_reference(lg, idx, gmax, *cts)
+            row["dlg_ulps"] = ulps(dlg.cpu().numpy(), ref.cpu().numpy())
+            row["max_abs_err"] = float((dlg - ref).abs().max())
+        else:
+            ref = xent_bwd(lg.float(), idx, gmax, *cts).to(torch.bfloat16)
+            row["dlg_bitwise_fp32_kernel_rounded"] = bits_equal(dlg, ref)
+            row["max_abs_err"] = float((dlg.float() - xent_bwd_reference(lg, idx, gmax, *cts).float())
+                                       .abs().max())
+        row["ok"] = (row["fwd_bitwise_repeat"] and row["picked_exact"] and row["bwd_bitwise_repeat"]
+                     and all(row[f"{n}_ulps"] <= max(8.0, row[f"{n}_plain_fp32_ulps"])
+                             for n in ("sumexp", "sumlg"))
+                     and row.get("dlg_ulps", 0.0) <= 8.0
+                     and row.get("dlg_bitwise_fp32_kernel_rounded", True))
+        out.append(row)
+        del lg, idx, gmax, cts, got, dlg, ref
+        free_memory()
+    return out, xent_timing(dev)
+
+
+def xent_timing(dev):
+    """K9 and K10 at the GPT-2 path's shape, in bf16 (the path's dtype: the
+    model's logits) and in fp32.  Library yardsticks on the same logits:
+    ``F.cross_entropy`` forward (K9) and its backward alone, from a
+    retained graph (K10), plus forward and backward together and
+    ``torch.logsumexp`` (the forward's sumexp part)."""
+    import torch.nn.functional as F
+
+    from vescale_tpu_torch.kernels.cross_entropy import (
+        xent_bwd, xent_bwd_reference, xent_fwd, xent_parts_reference,
+    )
+
+    N, Vs = XENT_PATH
+    rows = {"fused_xent_fwd": {}, "fused_xent_bwd": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        lg, idx, gmax, cts = xent_inputs(dev, N, Vs, dtype, seed=1)
+        sfx = "" if dtype == torch.bfloat16 else "_fp32"
+        elt = lg.element_size()
+        fwd_ms = cuda_ms(lambda: xent_fwd(lg, idx, gmax), iters=10)
+        bwd_ms = cuda_ms(lambda: xent_bwd(lg, idx, gmax, *cts), iters=10)
+        fwd_plain = cuda_ms(lambda: xent_parts_reference(lg, idx, gmax), iters=3, warmup=1)
+        bwd_plain = cuda_ms(lambda: xent_bwd_reference(lg, idx, gmax, *cts), iters=3, warmup=1)
+        lib_fwd = cuda_ms(lambda: F.cross_entropy(lg, idx), iters=10)
+        x = lg.detach().requires_grad_()
+        loss = F.cross_entropy(x, idx)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(loss, x, retain_graph=True), iters=10)
+        lib_both = cuda_ms(lambda: torch.autograd.grad(F.cross_entropy(x, idx), x), iters=10)
+        lse_ms = cuda_ms(lambda: torch.logsumexp(lg, dim=-1), iters=10)
+        err_f = max(float((a - b).abs().max()) for a, b in zip(xent_fwd(lg, idx, gmax),
+                                                              xent_parts_reference(lg, idx, gmax)))
+        err_b = float((xent_bwd(lg, idx, gmax, *cts).float()
+                       - xent_bwd_reference(lg, idx, gmax, *cts).float()).abs().max())
+        rows_n = N * (8 + 4)  # idx int64 and gmax fp32, read once per row
+        # a few fp32 operations per element on the CUDA cores: exp, 2 subtract/add, compare
+        fwd_b = bound(N * Vs * elt + rows_n + 3 * N * 4, 4 * N * Vs, torch.float32)
+        bwd_b = bound(2 * N * Vs * elt + rows_n + 3 * N * 4, 5 * N * Vs, torch.float32)
+        shape = dict(N=N, Vs=Vs, dtype=str(dtype))
+        rows["fused_xent_fwd"].update({
+            f"ms{sfx}": fwd_ms, f"plain_ms{sfx}": fwd_plain, f"library_ms{sfx}": lib_fwd,
+            f"logsumexp_ms{sfx}": lse_ms, f"max_abs_err{sfx}": err_f,
+            **{f"{k}{sfx}": v for k, v in fwd_b.items()}, f"shape{sfx}": shape})
+        rows["fused_xent_bwd"].update({
+            f"ms{sfx}": bwd_ms, f"plain_ms{sfx}": bwd_plain, f"library_ms{sfx}": lib_bwd,
+            f"library_fwd_bwd_ms{sfx}": lib_both, f"max_abs_err{sfx}": err_b,
+            **{f"{k}{sfx}": v for k, v in bwd_b.items()}, f"shape{sfx}": shape})
+        del lg, idx, gmax, cts, x, loss
+        free_memory()
+    for r in rows.values():
+        r["library_note"] = ("F.cross_entropy on the same logits (K9: forward; K10: its "
+                             "backward from a retained graph)")
+    return rows
+
+
 # ------------------------------------------------------------------ engine
 def run_small_engine(dev, ulps):
     """2-layer fp32 engine on the card and on the CPU, same weights."""
@@ -583,6 +730,8 @@ def kernel_kind(name: str) -> str:
         return "flash_bwd"
     if "adamw_kernel" in name:
         return "fused_adamw"
+    if "xent_fwd_kernel" in name or "xent_bwd_kernel" in name:
+        return "fused_xent"
     if "paged_decode_kernel" in name:
         return "paged_decode"
     if any(x in low for x in ("gemm", "nvjet", "cutlass", "xmma")):
@@ -602,8 +751,8 @@ def device_time_by_kind(fn):
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kind = {k: 0.0 for k in ("matmul", "flash_fwd", "flash_bwd", "fused_adamw", "paged_decode",
-                                "other")}
+    by_kind = {k: 0.0 for k in ("matmul", "flash_fwd", "flash_bwd", "fused_adamw", "fused_xent",
+                                "paged_decode", "other")}
     top, launches = [], 0
     for evt in prof.key_averages():
         if getattr(evt, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
@@ -636,14 +785,15 @@ def run_train_13b(dev, kernels_mod):
     res = measure(run)
     launches = dict(kernels_mod.LAUNCHES)
     timed = res["losses"][res["warmup_steps"]:]
-    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "fused_adamw": 1, "paged_decode": 0}
+    want = {**{k: 0 for k in kernels_mod.LAUNCHES}, "flash_fwd": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "fused_adamw": 1}
     checks = {
         "losses_finite": bool(np.isfinite(res["losses"]).all()),
         "loss_falls": timed[-1] < timed[0],
         "launches_per_step": all(step == want for step in res["launches_per_step"]),
         "leaves": len(list(run.model.parameters())) == 9 * L + 3,
     }
-    prof = device_time_by_kind(lambda: run.step(run.batch))
+    prof = device_time_by_kind(lambda: run.step(run.next_batch()))
     busy = prof["device_busy_ms"]
     prof["device_idle_share"] = max(0.0, 1.0 - busy / res["step_ms_median"])
     prof["traced_idle_share"] = max(0.0, 1.0 - busy / prof["traced_wall_ms"])
@@ -653,6 +803,83 @@ def run_train_13b(dev, kernels_mod):
                **{k: v for k, v in res.items() if k != "launches_per_step"},
                launches_first_step=res["launches_per_step"][0])
     check(all(checks.values()), f"train checks failed: {out}")
+    del run
+    free_memory()
+    return out
+
+
+def run_gpt_small(dev):
+    """A 2-layer fp32 GPT (vocab 512, block 128, 4 heads, width 256, so
+    head_dim 64) trained 3 steps with ``AdamWLowmem(3e-4)`` (bf16 moments)
+    through ``vocab_parallel_cross_entropy`` on the card (kernels, cuBLAS)
+    and on the CPU (plain versions) from the same
+    ``init_params(device="cpu")`` weights and numpy batch.  Bounds as
+    ``run_train_small``'s: 1e-5 relative at step 1, 1e-3 absolute after."""
+    from vescale_tpu_torch.loss import vocab_parallel_cross_entropy
+    from vescale_tpu_torch.models import GPT, GPTConfig, init_params
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.train import make_train_step
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "fp32 matmuls must not run in TF32")
+    cfg = GPTConfig(block_size=128, vocab_size=512, n_layer=2, n_head=4, n_embd=256,
+                    use_flash_attention=True, dtype=torch.float32)
+    params = init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 129)))
+    losses = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = GPT(cfg, params, device=device)
+        opt = AdamWLowmem(model.parameters(), 3e-4)
+        step = make_train_step(model, opt,
+                               lambda lg, b: vocab_parallel_cross_entropy(lg, b["target"]))
+        t = toks.to(device)
+        batch = {"input": t[:, :-1], "target": t[:, 1:]}
+        losses[where] = [float(step(batch)) for _ in range(3)]
+    diffs = [abs(a - b) for a, b in zip(losses["card"], losses["cpu"])]
+    bounds = [1e-5 * abs(losses["cpu"][0]), 1e-3, 1e-3]
+    out = dict(losses=losses, abs_diffs=diffs, bounds=bounds,
+               ok=all(d <= b for d, b in zip(diffs, bounds)) and all(np.isfinite(losses["card"])))
+    check(out["ok"], f"card vs CPU GPT training: {out}")
+    return out
+
+
+def run_train_gpt2(dev, kernels_mod):
+    """The gpt2 rung of ``vescale_tpu_torch.bench``: GPT-2 124M at its
+    published width, B=12, T=1024, batches from ``TokenDataLoader`` over a
+    numpy-seeded token file the bench writes into a temporary directory."""
+    from vescale_tpu_torch.bench import measure, prepare
+
+    t0 = time.perf_counter()
+    run = prepare("gpt2", device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    try:
+        L = run.config.n_layer
+        kernels_mod.reset_launches()
+        res = measure(run)
+        launches = dict(kernels_mod.LAUNCHES)
+        timed = res["losses"][res["warmup_steps"]:]
+        want = {**{k: 0 for k in kernels_mod.LAUNCHES}, "flash_fwd": L, "flash_bwd_dq": L,
+                "flash_bwd_dkv": L, "fused_xent_fwd": 1, "fused_xent_bwd": 1, "fused_adamw": 1}
+        checks = {
+            "losses_finite": bool(np.isfinite(res["losses"]).all()),
+            "loss_falls": timed[-1] < timed[0],
+            "launches_per_step": all(step == want for step in res["launches_per_step"]),
+            "leaves": len(list(run.model.parameters())) == 12 * L + 4,
+            "params": run.n_params == 124_475_904,
+        }
+        prof = device_time_by_kind(lambda: run.step(run.next_batch()))
+        busy = prof["device_busy_ms"]
+        prof["device_idle_share"] = max(0.0, 1.0 - busy / res["step_ms_median"])
+        prof["traced_idle_share"] = max(0.0, 1.0 - busy / prof["traced_wall_ms"])
+        out = dict(model="GPT-2 124M (bench rung gpt2)", weights="random fp32 masters, seed 0",
+                   data="TokenDataLoader over 2^22 Zipf(1.2) uint16 tokens, numpy seed 0",
+                   setup_s=setup_s, launches=launches, checks=checks, profile=prof,
+                   mfu_formula="(6 * params + 12 * layers * T * hidden) * tokens/s / peak",
+                   **{k: v for k, v in res.items() if k != "launches_per_step"},
+                   launches_first_step=res["launches_per_step"][0])
+        check(all(checks.values()), f"gpt2 train checks failed: {out}")
+    finally:
+        run.close()
     del run
     free_memory()
     return out
@@ -784,8 +1011,10 @@ def main() -> int:
     del flash_main, paged_main
     bwd_rows, bwd_timings = run_flash_bwd_parity(dev, ulps_at_scale)
     adamw_rows, timings["fused_adamw"] = run_adamw_parity(dev)
+    xent_rows, xent_timings = run_xent_parity(dev, ulps_at_scale)
     timings.update(bwd_timings)
-    rows = flash_rows + paged_rows + bwd_rows + adamw_rows
+    timings.update(xent_timings)
+    rows = flash_rows + paged_rows + bwd_rows + adamw_rows + xent_rows
     log("parity", seconds=time.perf_counter() - t, checks=rows, timings=timings)
     # a parity failure fails the run at its end, after the later phases
     # have reported too
@@ -814,6 +1043,12 @@ def main() -> int:
     t = time.perf_counter()
     train = run_train_13b(dev, kernels_mod)
     log("train", seconds=time.perf_counter() - t, **train)
+    t = time.perf_counter()
+    gpt_small = run_gpt_small(dev)
+    log("gpt_small", seconds=time.perf_counter() - t, **gpt_small)
+    t = time.perf_counter()
+    gpt2 = run_train_gpt2(dev, kernels_mod)
+    log("gpt2", seconds=time.perf_counter() - t, **gpt2)
     log("done", seconds=time.perf_counter() - t_all)
     check(not bad_parity, "kernel parity failed: " + json.dumps(bad_parity))
 
@@ -822,11 +1057,16 @@ def main() -> int:
                "paged_decode": (csrc + "paged_decode.cu", "vescale_tpu/kernels/paged_attention.py:53"),
                "flash_bwd_dq": (csrc + "flash_bwd.cu", "vescale_tpu/kernels/flash_attention.py:202"),
                "flash_bwd_dkv": (csrc + "flash_bwd.cu", "vescale_tpu/kernels/flash_attention.py:233"),
-               "fused_adamw": (csrc + "fused_adamw.cu", "vescale_tpu/kernels/fused_adamw.py:54")}
+               "fused_adamw": (csrc + "fused_adamw.cu", "vescale_tpu/kernels/fused_adamw.py:54"),
+               "fused_xent_fwd": (csrc + "cross_entropy.cu",
+                                  "vescale_tpu/kernels/cross_entropy.py:62"),
+               "fused_xent_bwd": (csrc + "cross_entropy.cu",
+                                  "vescale_tpu/kernels/cross_entropy.py:88")}
     rows = []
     for name, (source, replaces) in sources.items():
         tm = timings[name]
-        by_path = {"train": train["launches"][name], "serve": serve["launches"][name]}
+        by_path = {"train": train["launches"][name], "serve": serve["launches"][name],
+                   "gpt2": gpt2["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

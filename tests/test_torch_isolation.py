@@ -8,6 +8,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -92,6 +93,24 @@ def test_default_device_is_the_card_and_raises_without_one(no_cuda):
         ServeEngine(TINY, params, cache)
     eng = ServeEngine(TINY, params, cache, device="cpu")
     assert eng.device.type == "cpu" and cache.k.device.type == "cpu"
+
+
+def test_the_gpt_path_runs_on_the_card_by_default(no_cuda, tmp_path):
+    from vescale_tpu_torch import bench
+    from vescale_tpu_torch.data import TokenDataLoader
+    from vescale_tpu_torch.models import GPT, GPTConfig
+
+    tiny = GPTConfig(block_size=8, vocab_size=32, n_layer=1, n_head=1, n_embd=16)
+    path = str(tmp_path / "tokens.bin")
+    np.arange(100, dtype=np.uint16).tofile(path)
+    for make in (lambda: GPT(tiny), lambda: init_params(tiny), lambda: TokenDataLoader(path, 1, 4),
+                 lambda: bench.prepare("gpt2")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert GPT(tiny, init_params(tiny, device="cpu"), device="cpu").wte.embedding.device.type == "cpu"
+    loader = TokenDataLoader(path, 1, 4, device="cpu")
+    assert loader.next()["input"].device.type == "cpu"
+    loader.close()
 
 
 def test_engine_and_cache_must_share_a_device():

@@ -19,6 +19,10 @@ Kernels:
     from the forward's logsumexp; the training step's attention backward.
   * ``fused_adamw`` (``fused_adamw.py``) — the ``adamw_lowmem`` moment
     update of every leaf of a model in one multi-tensor launch.
+  * ``fused_xent_fwd`` and ``fused_xent_bwd`` (``cross_entropy.py``) — the
+    cross entropy's three row sums over the vocab dim in one read of the
+    logits, and its gradient in one elementwise pass; the loss of
+    ``loss.py::vocab_parallel_cross_entropy``.
 
 Each wrapper adds one to ``LAUNCHES[name]`` when its kernel launched, and
 nowhere else, so a run can show that its main path went through the
@@ -39,6 +43,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_bwd_dq": 0,
     "flash_bwd_dkv": 0,
     "fused_adamw": 0,
+    "fused_xent_fwd": 0,
+    "fused_xent_bwd": 0,
 }
 
 

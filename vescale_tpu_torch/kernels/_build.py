@@ -32,6 +32,7 @@ SOURCES = {
     "paged_decode": "paged_decode.cu",
     "flash_bwd": "flash_bwd.cu",
     "fused_adamw": "fused_adamw.cu",
+    "cross_entropy": "cross_entropy.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

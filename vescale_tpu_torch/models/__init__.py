@@ -19,9 +19,11 @@ from .llama import (
     rmsnorm,
     rotary,
 )
-from .nanogpt import cross_entropy_loss
+from .nanogpt import GPT, GPTConfig, cross_entropy_loss
 
 __all__ = [
+    "GPT",
+    "GPTConfig",
     "Llama",
     "LlamaConfig",
     "cross_entropy_loss",

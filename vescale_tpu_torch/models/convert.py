@@ -1,4 +1,5 @@
-"""Llama parameter trees for the port: from the JAX package, or random.
+"""Llama and GPT parameter trees for the port: from the JAX package, or
+random.
 
 The serve engine consumes the JAX package's flax ``params`` layout as a
 nested dict of torch tensors::
@@ -12,7 +13,18 @@ nested dict of torch tensors::
     lm_head.kernel                      (hidden, vocab), absent when tied
 
 Kernels keep flax's (in, out) layout, so ``x @ kernel`` is the same product
-as the JAX engine's ``dense``.
+as the JAX engine's ``dense``.  A ``GPTConfig`` tree (``models/nanogpt.py``)
+is flax's nanoGPT tree::
+
+    wte.embedding, wpe.embedding        (vocab, n_embd), (block, n_embd)
+    h_<i>.ln_{1,2}.{scale,bias}         (n_embd,)
+    h_<i>.attn.c_attn.{kernel,bias}     (n_embd, 3 n_embd), (3 n_embd,)
+    h_<i>.attn.c_proj.{kernel,bias}     (n_embd, n_embd), (n_embd,)
+    h_<i>.mlp.c_fc.{kernel,bias}        (n_embd, 4 n_embd), (4 n_embd,)
+    h_<i>.mlp.c_proj.{kernel,bias}      (4 n_embd, n_embd), (n_embd,)
+    ln_f.{scale,bias}                   (n_embd,)
+
+with no ``bias`` leaves when ``config.bias`` is False.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ import torch
 
 from ..device import resolve_device
 from .llama import LlamaConfig
+from .nanogpt import GPTConfig
 
 __all__ = ["params_from_jax", "init_params", "param_shapes", "tree_to", "module_tree",
            "load_params"]
@@ -47,8 +60,31 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
     return conv(tree)
 
 
-def param_shapes(config: LlamaConfig) -> Dict[str, Any]:
-    """The nested dict of leaf shapes of a Llama parameter tree."""
+def _gpt_param_shapes(c: GPTConfig) -> Dict[str, Any]:
+    E = c.n_embd
+
+    def dense(n_in, n_out):
+        return {"kernel": (n_in, n_out), **({"bias": (n_out,)} if c.bias else {})}
+
+    norm = {"scale": (E,), **({"bias": (E,)} if c.bias else {})}
+    layer = {
+        "ln_1": norm,
+        "attn": {"c_attn": dense(E, 3 * E), "c_proj": dense(E, E)},
+        "ln_2": norm,
+        "mlp": {"c_fc": dense(E, 4 * E), "c_proj": dense(4 * E, E)},
+    }
+    tree: Dict[str, Any] = {"wte": {"embedding": (c.vocab_size, E)},
+                            "wpe": {"embedding": (c.block_size, E)}}
+    for i in range(c.n_layer):
+        tree[f"h_{i}"] = layer
+    tree["ln_f"] = norm
+    return tree
+
+
+def param_shapes(config: Union[LlamaConfig, GPTConfig]) -> Dict[str, Any]:
+    """The nested dict of leaf shapes of a Llama or GPT parameter tree."""
+    if isinstance(config, GPTConfig):
+        return _gpt_param_shapes(config)
     c = config
     E, F = c.hidden_size, c.intermediate_size
     H, KV, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
@@ -76,23 +112,26 @@ def param_shapes(config: LlamaConfig) -> Dict[str, Any]:
     return tree
 
 
-def init_params(config: LlamaConfig, seed: int = 0, device=None,
+def init_params(config: Union[LlamaConfig, GPTConfig], seed: int = 0, device=None,
                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Random weights drawn on ``device`` (default: the card) from a
     ``torch.Generator`` seeded with ``seed``, in ``dtype`` (default
-    ``config.dtype``).  Norm weights are ones; every kernel is normal with
-    std 1/sqrt(fan_in) (flax's lecun-normal scale, untruncated); the
-    embedding is normal with std 1/sqrt(hidden).  The same seed on the same
-    device type gives the same tree; CPU and CUDA generators differ, so
-    make the tree on one device and copy it to compare two."""
+    ``config.dtype``).  Norm weights and scales are ones and biases zeros
+    (flax's defaults); every kernel is normal with std 1/sqrt(fan_in)
+    (flax's lecun-normal scale, untruncated); an embedding is normal with
+    std 1/sqrt(width).  The same seed on the same device type gives the
+    same tree; CPU and CUDA generators differ, so make the tree on one
+    device and copy it to compare two."""
     dev = resolve_device(device)
     dt = dtype if dtype is not None else config.dtype
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
     def draw(path: str, shape):
-        if path.endswith("weight"):
+        if path.endswith(("weight", "scale")):
             return torch.ones(shape, dtype=dt, device=dev)
+        if path.endswith("bias"):
+            return torch.zeros(shape, dtype=dt, device=dev)
         std = 1.0 / math.sqrt(shape[1] if path.endswith("embedding") else shape[0])
         return torch.empty(shape, dtype=dt, device=dev).normal_(0.0, std, generator=gen)
 

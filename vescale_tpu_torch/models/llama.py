@@ -170,16 +170,20 @@ class RMSNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense(use_bias=False)``: ``kernel`` (in, out); input and
-    kernel cast to ``dtype``, then the product."""
+    """flax ``nn.Dense``: ``kernel`` (in, out) and, with ``use_bias``,
+    ``bias`` (out,); input, kernel and bias cast to ``dtype``, then the
+    product, then the bias added (two roundings, as in flax)."""
 
-    def __init__(self, features_in: int, features_out: int, dtype, device=None):
+    def __init__(self, features_in: int, features_out: int, dtype, device=None,
+                 use_bias: bool = False):
         super().__init__()
         self.dtype = dtype
         self.kernel = _param((features_in, features_out), device)
+        self.bias = _param((features_out,), device) if use_bias else None
 
     def forward(self, x):
-        return x.to(self.dtype) @ self.kernel.to(self.dtype)
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class Embed(nn.Module):
