@@ -14,9 +14,12 @@ Phases, each printing one JSON line with its seconds:
            the 1.3B train path (flash backward, fused AdamW) and the GPT-2
            train path (flash forward and backward at head_dim 64 without
            GQA, fused cross entropy) give it and at ragged ones, with the
-           bound stated beside each case; the autograd op's grads against
-           autograd through the dense reference; times of each kernel, its
-           plain version and, where one exists, one PyTorch library call
+           bound stated beside each case (the bf16 flash backward against
+           float64 and against its bf16-P/dS model, and two launches
+           bitwise); the autograd op's grads against autograd through the
+           dense reference; times of each kernel, its plain version and,
+           where one exists, one PyTorch library call (the flash backward
+           at the 1.3B and the GPT-2 shapes)
   engine   a 2-layer fp32 engine on the card (kernels) and on the CPU (plain
            versions) from the same weights: first prefill logits within a
            stated bound, greedy streams of 16 tokens equal
@@ -82,17 +85,47 @@ def card_line() -> str:
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device milliseconds of ``fn()`` over ``iters`` back-to-back
-    calls, timed with CUDA events after ``warmup`` calls."""
+    calls, timed with CUDA events after ``warmup`` calls.  A device-side
+    wait of 2^26 cycles (~35 ms) is queued ahead of the start event, so the
+    host has queued the calls before the card reaches them: the events
+    bracket the card's time, not the host's launch rate, which would
+    otherwise show in kernels shorter than a wrapper call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1 << 26)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sass_wgmma(build) -> dict:
+    """HGMMA (``wgmma``) instructions in the machine code of each kernel of
+    the flash backward's library, from ``cuobjdump -sass``: the bf16
+    tensor-core kernels must contain them, the fp32 ones none.  Empty when
+    the toolkit has no ``cuobjdump``."""
+    import os
+    import re
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    lib = build._target("flash_bwd")
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            m = re.search(r"(tc|simt)\d(dq|dkv)6kernelI(?:f)?Li(\d+)", ln)
+            name = f"{m.group(1)}::{m.group(2)}<{m.group(3)}>" if m else ln.split()[-1][:60]
+            counts[name] = 0
+        elif name is not None and "HGMMA" in ln:
+            counts[name] += 1
+    return counts
 
 
 def check(ok: bool, what: str) -> None:
@@ -216,19 +249,25 @@ def run_paged_parity(dev, ulps):
 def flash_bwd_cases():
     """(label, B, T, H, KV, D, causal, dtype, bound on dq, dk and dv).
 
-    fp32: against the plain version run in float64 on the same inputs
-    (upcast exactly), the kernel is within 8 ulps at scale
-    (``ulps_at_scale``, the JAX package's kernel bound) or no further from
-    it than the plain version in fp32 is (``plain_fp32_ulps``, reported
-    beside).  The fp32 plain version is no arbiter itself: s rounds in
-    fp32 before exp and dp - delta cancels, which costs ~10 ulps at scale
-    even at T=96, and at T=4096 cuBLAS sums dk and dv over the group's
-    rep * T queries in one fp32 accumulator, which drifts tens of ulps.
-    bf16: 2 bf16 steps at scale against the plain version in fp32, as both
-    compute in fp32 from the same bf16 inputs and round one fp32 result to
-    bf16 (a last-place fp32 difference can move that rounding by one
-    step).  The main cases are the 1.3B train shapes; the gpt2 cases the
-    GPT-2 124M train shape (head_dim 64, no GQA)."""
+    fp32 (the CUDA-core kernels): against the plain version run in float64
+    on the same inputs (upcast exactly), the kernel is within 8 ulps at
+    scale (``ulps_at_scale``, the JAX package's kernel bound) or no further
+    from it than the plain version in fp32 is (``plain_fp32_ulps``,
+    reported beside).  The fp32 plain version is no arbiter itself: s
+    rounds in fp32 before exp and dp - delta cancels, which costs ~10 ulps
+    at scale even at T=96, and at T=4096 cuBLAS sums dk and dv over the
+    group's rep * T queries in one fp32 accumulator, which drifts tens of
+    ulps.
+    bf16 (the tensor-core kernels): within 2 bf16 steps at scale of the
+    plain version run in float64, and within 1 step (``BF16_ULP``) of the
+    plain version with ``pd_dtype=torch.bfloat16``, which rounds P and dS
+    to bf16 where the kernels do: the kernels and that model then differ
+    only in the order of fp32 sums, and both round one fp32 result to bf16
+    (adjacent bf16 values are one step apart); the fp32 plain version's
+    distance to float64 is reported beside.  Two launches of each bf16
+    kernel are bitwise equal.  The main cases are the 1.3B train shapes;
+    the gpt2 cases the GPT-2 124M train shape (head_dim 64, no GQA); rep 4
+    at T=333 runs the GQA loop and a ragged edge on the tensor cores."""
     bf16, fp32 = torch.bfloat16, torch.float32
     return [
         ("main bf16", 1, 4096, 16, 8, 128, True, bf16, 2 * BF16_ULP),
@@ -237,6 +276,7 @@ def flash_bwd_cases():
         ("ragged T=1000 bf16", 1, 1000, 16, 8, 128, True, bf16, 2 * BF16_ULP),
         ("no GQA (rep 1) T=512 fp32", 2, 512, 8, 8, 128, True, fp32, 8.0),
         ("hd64 rep 4 T=333 fp32", 1, 333, 8, 2, 64, True, fp32, 8.0),
+        ("hd64 rep 4 T=333 bf16", 1, 333, 8, 2, 64, True, bf16, 2 * BF16_ULP),
         ("full (non-causal) T=256 fp32", 2, 256, 8, 4, 128, False, fp32, 8.0),
         ("gpt2 bf16", 12, 1024, 12, 12, 64, True, bf16, 2 * BF16_ULP),
         ("gpt2 fp32", 12, 1024, 12, 12, 64, True, fp32, 8.0),
@@ -257,30 +297,48 @@ def flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype):
 
 
 def run_flash_bwd_parity(dev, ulps):
-    """Kernel against plain version per case, then the autograd op against
-    autograd through the dense reference, then the times of the main case."""
+    """Kernel against plain version per case, then two launches of the bf16
+    kernels bitwise at the main and gpt2 shapes, then the autograd op
+    against autograd through the dense reference, then the times of the
+    main and gpt2 bf16 cases."""
     from vescale_tpu_torch.kernels.flash_attention import flash_bwd, flash_bwd_reference
 
-    out = []
+    names = ("dq", "dk", "dv")
+    out, repeats = [], {}
     for label, B, T, H, KV, D, causal, dtype, bound in flash_bwd_cases():
         q, k, v, o, do, lse, args = flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype)
         got = flash_bwd(q, k, v, o, do, lse, **args)
-        ref = flash_bwd_reference(q, k, v, o, do, lse, **args)
+        plain = flash_bwd_reference(q, k, v, o, do, lse, **args)
+        exact = flash_bwd_reference(*(t.double() for t in (q, k, v, o, do, lse)), **args)
         row = dict(kernel="flash_bwd", case=label, bound=bound)
-        if dtype == torch.float32:
-            exact = flash_bwd_reference(*(t.double() for t in (q, k, v, o, do, lse)), **args)
-            for name, a, b in zip(("dq", "dk", "dv"), ref, exact):
-                row[f"{name}_plain_fp32_ulps"] = ulps(a.cpu().numpy(), b.cpu().numpy())
-            ref = exact
+        for name, a, b in zip(names, plain, exact):
+            row[f"{name}_plain_fp32_ulps"] = ulps(a.double().cpu().numpy(), b.cpu().numpy())
+        if dtype == torch.bfloat16:
+            again = flash_bwd(q, k, v, o, do, lse, **args)
+            model = flash_bwd_reference(q, k, v, o, do, lse, pd_dtype=torch.bfloat16, **args)
+            row["model_bound"] = BF16_ULP
+            for name, a, m in zip(names, got, model):
+                row[f"{name}_model_ulps"] = ulps(a.double().cpu().numpy(), m.double().cpu().numpy())
+            row["bitwise_repeat"] = all(bits_equal(a, b) for a, b in zip(got, again))
+            repeats[label] = row["bitwise_repeat"]
+            del again, model
         torch.cuda.synchronize()
-        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-            row[f"{name}_ulps"] = ulps(a.double().cpu().numpy(), b.double().cpu().numpy())
-            row[f"{name}_max_abs_err"] = float((a.double() - b.double()).abs().max())
-        row["ok"] = all(row[f"{n}_ulps"] <= max(bound, row.get(f"{n}_plain_fp32_ulps", 0.0))
-                        for n in ("dq", "dk", "dv"))
+        for name, a, b in zip(names, got, exact):
+            row[f"{name}_ulps"] = ulps(a.double().cpu().numpy(), b.cpu().numpy())
+            row[f"{name}_max_abs_err"] = float((a.double() - b).abs().max())
+        if dtype == torch.bfloat16:
+            row["ok"] = row["bitwise_repeat"] and all(
+                row[f"{n}_ulps"] <= bound and row[f"{n}_model_ulps"] <= BF16_ULP for n in names)
+        else:
+            row["ok"] = all(row[f"{n}_ulps"] <= max(bound, row[f"{n}_plain_fp32_ulps"])
+                            for n in names)
         out.append(row)
-        del q, k, v, o, do, lse, got, ref
+        del q, k, v, o, do, lse, got, plain, exact
         free_memory()
+    shapes = ("main bf16", "gpt2 bf16")
+    out.append(dict(kernel="flash_bwd", case="dq and dkv, two launches bitwise equal",
+                    **{label: repeats[label] for label in shapes},
+                    ok=all(repeats[label] for label in shapes)))
     out.append(run_flash_autograd(dev, ulps))
     return out, flash_bwd_timing(dev)
 
@@ -316,48 +374,60 @@ def run_flash_autograd(dev, ulps):
 
 
 def flash_bwd_timing(dev):
-    """The dq and dkv kernels apart, at the 1.3B train shapes in bf16; the
-    plain version computes dq, dk and dv together, and so does the
-    library yardstick (the backward of ``scaled_dot_product_attention``
-    with the GQA heads expanded), so both rows carry the same plain and
-    library times."""
+    """The dq and dkv kernels apart, in bf16, at the 1.3B train shape (the
+    rows' own fields) and at the GPT-2 shape (under ``gpt2``).  The plain
+    version computes dq, dk and dv together, and so does the library
+    yardstick (the backward of ``scaled_dot_product_attention`` with the
+    GQA heads expanded), so both rows carry the same plain and library
+    times, and ``pair_over_library`` = (dq + dkv) / library."""
     import torch.nn.functional as F
 
     from vescale_tpu_torch.kernels.flash_attention import (
         _delta, flash_bwd, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
     )
 
-    label, B, T, H, KV, D, causal, dtype, _ = flash_bwd_cases()[0]
-    q, k, v, o, do, lse, args = flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype)
-    lse2, delta = lse.reshape(B * H, T), _delta(o, do)
-    got = flash_bwd(q, k, v, o, do, lse, **args)
-    ref = flash_bwd_reference(q, k, v, o, do, lse, **args)
-    err = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref)]
-    dq_ms = cuda_ms(lambda: flash_bwd_dq(q, k, v, do, lse2, delta, **args), iters=10)
-    dkv_ms = cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse2, delta, **args), iters=10)
-    plain_ms = cuda_ms(lambda: flash_bwd_reference(q, k, v, o, do, lse, **args), iters=3, warmup=1)
-    rep = H // KV
-    q4 = q.reshape(B, H, T, D).detach().requires_grad_()
-    k4 = k.reshape(B, KV, T, D).repeat_interleave(rep, dim=1).detach().requires_grad_()
-    v4 = v.reshape(B, KV, T, D).repeat_interleave(rep, dim=1).detach().requires_grad_()
-    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-    do4 = do.reshape(B, H, T, D)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True))
-    elt = q.element_size()
-    n_q, n_kv, n_rows = q.numel(), k.numel(), B * H * T
-    frac = 0.5 if causal else 1.0
-    shape = dict(B=B, T=T, H=H, KV=KV, D=D, dtype=str(dtype), causal=causal)
-    dq_bytes = (n_q + 2 * n_kv + n_q + n_q) * elt + 2 * n_rows * 4   # q k v do in, dq out
-    dkv_bytes = (n_q + 2 * n_kv + n_q + 2 * n_kv) * elt + 2 * n_rows * 4  # ..., dk dv out
-    rows = {
-        "flash_bwd_dq": dict(ms=dq_ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=err[0],
-                             **bound(dq_bytes, 6 * frac * T * T * H * D * B, dtype), shape=shape),
-        "flash_bwd_dkv": dict(ms=dkv_ms, plain_ms=plain_ms, library_ms=library_ms,
-                              max_abs_err=max(err[1], err[2]),
-                              **bound(dkv_bytes, 8 * frac * T * T * H * D * B, dtype), shape=shape),
-    }
-    del q, k, v, o, do, lse, got, ref, q4, k4, v4, out4
-    free_memory()
+    by_label = {case[0]: case for case in flash_bwd_cases()}
+    rows = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for label in ("main bf16", "gpt2 bf16"):
+        _, B, T, H, KV, D, causal, dtype, _ = by_label[label]
+        q, k, v, o, do, lse, args = flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype)
+        lse2, delta = lse.reshape(B * H, T), _delta(o, do)
+        got = flash_bwd(q, k, v, o, do, lse, **args)
+        ref = flash_bwd_reference(q, k, v, o, do, lse, **args)
+        err = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref)]
+        dq_ms = cuda_ms(lambda: flash_bwd_dq(q, k, v, do, lse2, delta, **args), iters=10)
+        dkv_ms = cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse2, delta, **args), iters=10)
+        plain_ms = cuda_ms(lambda: flash_bwd_reference(q, k, v, o, do, lse, **args), iters=3,
+                           warmup=1)
+        rep = H // KV
+        q4 = q.reshape(B, H, T, D).detach().requires_grad_()
+        k4 = k.reshape(B, KV, T, D).repeat_interleave(rep, dim=1).detach().requires_grad_()
+        v4 = v.reshape(B, KV, T, D).repeat_interleave(rep, dim=1).detach().requires_grad_()
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+        do4 = do.reshape(B, H, T, D)
+        library_ms = cuda_ms(
+            lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True))
+        elt = q.element_size()
+        n_q, n_kv, n_rows = q.numel(), k.numel(), B * H * T
+        frac = 0.5 if causal else 1.0
+        shape = dict(B=B, T=T, H=H, KV=KV, D=D, dtype=str(dtype), causal=causal)
+        dq_bytes = (n_q + 2 * n_kv + n_q + n_q) * elt + 2 * n_rows * 4   # q k v do in, dq out
+        dkv_bytes = (n_q + 2 * n_kv + n_q + 2 * n_kv) * elt + 2 * n_rows * 4  # ..., dk dv out
+        common = dict(plain_ms=plain_ms, library_ms=library_ms,
+                      pair_over_library=(dq_ms + dkv_ms) / library_ms, shape=shape)
+        timed = {
+            "flash_bwd_dq": dict(ms=dq_ms, max_abs_err=err[0], **common,
+                                 **bound(dq_bytes, 6 * frac * T * T * H * D * B, dtype)),
+            "flash_bwd_dkv": dict(ms=dkv_ms, max_abs_err=max(err[1], err[2]), **common,
+                                  **bound(dkv_bytes, 8 * frac * T * T * H * D * B, dtype)),
+        }
+        for name, fields in timed.items():
+            if label == "main bf16":
+                rows[name].update(fields)
+            else:
+                rows[name]["gpt2"] = fields
+        del q, k, v, o, do, lse, got, ref, q4, k4, v4, out4
+        free_memory()
     return rows
 
 
@@ -1002,7 +1072,8 @@ def main() -> int:
     ptxas = {name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
                     if "registers" in ln or "spill" in ln]
              for name in nvcc_s}
-    log("build", seconds=time.perf_counter() - t, nvcc_seconds=nvcc_s, ptxas=ptxas)
+    log("build", seconds=time.perf_counter() - t, nvcc_seconds=nvcc_s, ptxas=ptxas,
+        flash_bwd_sass_wgmma=sass_wgmma(_build))
 
     t = time.perf_counter()
     flash_rows, flash_main = run_flash_parity(dev, ulps_at_scale)

@@ -1,14 +1,14 @@
 // Flash-attention backward for Hopper (sm_90a): two kernels, dQ and dK/dV.
 //
 // Replaces the Pallas TPU kernels of vescale_tpu/kernels/flash_attention.py:
-// ::_dq_kernel and ::_dq_kernel_stream (by the dq kernel below), ::_dkv_kernel
-// and ::_dkv_kernel_stream (by the dkv kernel), launched by
+// ::_dq_kernel and ::_dq_kernel_stream (by the dq kernels below), ::_dkv_kernel
+// and ::_dkv_kernel_stream (by the dkv kernels), launched by
 // ::_flash_bwd_pallas and ::_flash_bwd_pallas_stream.  The TPU needed
 // streaming variants for its VMEM budget; on Hopper each kernel streams its
 // inner operand through shared memory at any T.
 //
 // Computes the flash decomposition with probabilities recomputed from the
-// forward's logsumexp, all in fp32 as the reference upcasts every operand:
+// forward's logsumexp:
 //   s  = scale * (q . k)         masked to p = 0 where the reference writes -1e30
 //   p  = exp(s - lse)
 //   dp = do . v
@@ -17,48 +17,74 @@
 // Layout: q, do, dq (B*H, T, D); k, v, dk, dv (B*KV, T, D); lse, delta
 // (B*H, T) fp32.  q row b reads kv row (b / H) * KV + (b % H) / (H / KV); kv
 // row b gathers q rows (b / KV) * H + (b % KV) * rep + r, r < rep, so GQA
-// never repeats K/V and dk/dv sum the group's heads in fp32 before one cast
-// (the reference's fp32 group sum).  Any T: rows and keys past T are masked.
-// D is 64 or 128; fp32 or bf16 inputs, outputs in the input dtype.
+// never repeats K/V and dk/dv sum the group's heads in fp32 before one cast.
+// Any T: rows and keys past T are masked.  D is 64 or 128; outputs in the
+// input dtype.  No atomics and no split of a sum across CTAs, so the result
+// is bitwise the same from run to run (the port's determinism rule).
 //
-// Design.  No atomics and no split of a sum across CTAs, so the result is
-// the same from run to run (the port's determinism rule).
-//   dq:  one CTA of 128 threads per (64-query block, b*h); it loops over
-//        32-key tiles up to the causal diagonal.  Q and dO stay in shared
-//        memory, transposed; each K/V tile is loaded once.  Thread (ty, tx)
-//        owns query rows ty*4 .. ty*4+3 and, for the score tiles, key columns
-//        tx*4 .. tx*4+3, so every dot step reads 4 values with one 16-byte
-//        shared load.  dS goes through shared memory for dQ += dS.K.  Query
-//        blocks are issued last-first, so the long causal rows start early.
-//   dkv: one CTA of 128 threads per (64-key block, b*kv); it loops over the
-//        rep q heads of the group and over 32-query tiles from the diagonal
-//        on, with K and V resident (transposed).  Thread (ty, tx) owns key
-//        rows ty*4 .. ty*4+3 and the same dK, dV elements at every level of
-//        a three-level fp32 sum: each tile's 32 queries in registers, 8
-//        tiles in shared memory, and the running total over the group's
-//        rep * T queries in a global fp32 scratch, cast once at the end.  A
-//        single sequential fp32 sum over the 8192 queries of the 1.3B
-//        group drifted ~40 ulps at scale from the reference's products
-//        (41 against an fp64 sum in a numpy model of it); blocked, ~3.
+// bf16 inputs: tensor-core kernels (namespace tc).  One warpgroup (128
+// threads) a CTA; every product is a wgmma with fp32 accumulators.
+//   dq:  one CTA per (64-query block, b*h), blocks launched last-first so the
+//        long causal rows start early.  Q and dO stay in shared memory; K/V
+//        tiles of 64 keys stream through a two-stage cp.async ring up to
+//        the diagonal.  S = Q K^T and dP = dO V^T read both operands from
+//        shared memory (K-major); P and dS are formed in fp32 registers and
+//        dS, rounded to bf16 in registers, is the A operand of dQ += dS K,
+//        with K read MN-major (transposed) from the same tile.
+//   dkv: one CTA per (64-key block, b*kv), the blocks with the most causal
+//        queries first.  K and V stay in shared memory; Q, dO, lse and delta
+//        tiles of 64 queries stream through the ring, over the group's rep
+//        q heads and, in each, from the causal diagonal on.  The CTA works
+//        transposed: S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T,
+//        rounded to bf16 in registers, are the A operands of dV += P^T dO
+//        and dK += dS^T Q (FlashAttention-3's layout trick: no score tile
+//        goes through shared memory).  dK and dV stay in fp32 registers
+//        over all rep * T queries and are cast once; no scratch.
+// Tiles sit in shared memory 128-byte swizzled (TMA's SWIZZLE_128B), so
+// one tile serves as a K-major and as an MN-major operand.
+//
+// Numerics, bf16.  q, k, v and do are exact bf16 values, so S and dP from
+// bf16 tensor cores with fp32 accumulation are the reference's fp32 products
+// up to the order of the sum.  The departure: P and dS are rounded to bf16
+// before the dV, dK and dQ products, where the Pallas kernels keep them in
+// fp32 (the JAX package's XLA backward on a TPU rounds them so too, as XLA
+// runs an fp32 dot at DEFAULT precision as one bf16 pass).
+// kernels/flash_attention.py::flash_bwd_reference(pd_dtype=torch.bfloat16)
+// models it; the kernels are held within 2 bf16 steps at scale of the
+// float64 reference and 1 of that model.  A single fp32 accumulator over the
+// 1.3B group's 8192 queries drifts ~40 fp32 ulps, far under one bf16 step
+// (2^16 ulps), so dK/dV need no blocked sum here.
+//
+// fp32 inputs: CUDA-core kernels (namespace simt), all in fp32 as the
+// reference upcasts every operand.
+//   dq:  one CTA of 128 threads per (64-query block, b*h) over 32-key tiles;
+//        Q and dO in shared memory, transposed; dS goes through shared
+//        memory for dQ += dS.K.
+//   dkv: one CTA of 128 threads per (64-key block, b*kv) over the group's
+//        32-query tiles, summing dK and dV in three fp32 levels (registers,
+//        8 tiles in shared memory, the total over the group's rep * T
+//        queries in the caller's global fp32 scratch), cast once at the end:
+//        a single sequential fp32 sum drifted ~40 ulps at scale, blocked ~3.
 //
 // Bound: dq does 3 products of T x T x D per head (6 T^2 H D FLOPs full,
-// half that causal), dkv 4 (8 T^2 H D full, half causal), against the dense
-// bf16 tensor-core peak; the bytes of q, k, v, do, lse, delta and the grads
-// are far below that.  These kernels do their dots in fp32 on the CUDA
-// cores, as the reference upcasts P, dS and every operand to fp32, so they
-// sit far above their tensor-core bound.  A wgmma design with bf16 P and dS
-// is the later work, and would have to state that departure in its bound.
+// half that causal), dkv 4 (8 T^2 H D); the bytes of q, k, v, do, lse,
+// delta and the grads are far below that.  The bf16 kernels are held to
+// those FLOPs over the dense bf16 tensor-core peak (989 TFLOP/s on an H100
+// SXM); they recompute S and dP in both kernels to need no atomics (7 T x T
+// x D products where a kernel with an atomic dQ does 5).  The fp32 kernels
+// run on the CUDA cores (67 TFLOP/s fp32) and sit far above that bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
 
+namespace simt {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // 16 bytes of global memory: 4 floats or 8 bf16 values, loaded raw and
 // converted to fp32 later.  The wrapper checks that every tensor starts on a
@@ -72,19 +98,6 @@ struct Vec<float> {
     const float* f = reinterpret_cast<const float*>(&raw);
 #pragma unroll
     for (int e = 0; e < N; ++e) out[e] = f[e];
-  }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void to_float(const uint4& raw, float (&out)[N]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int e = 0; e < N / 2; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      out[2 * e] = f.x;
-      out[2 * e + 1] = f.y;
-    }
   }
 };
 
@@ -545,35 +558,505 @@ __global__ void __launch_bounds__(kThreads) kernel(
   }
 }
 }  // namespace dkv
+}  // namespace simt
 
-template <typename T, int D>
+// ------------------------------------------------- tensor-core kernels
+// bf16 inputs only.  One warpgroup (128 threads) a CTA runs every
+// product as a wgmma; see the design note at the top of the file.
+namespace tc {
+
+constexpr int kRows = 64;  // rows of every wgmma (m64): keys in dkv, queries in dq
+constexpr float kLog2e = 1.4426950408889634f;
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- cp.async: global -> shared, zero-filled where src_bytes is 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every copy of this thread has landed, and is visible to wgmma (the async proxy)
+__device__ __forceinline__ void cp_async_drain() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- wgmma
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin registers that an in-flight wgmma reads or writes: the compiler may
+// not move their uses across this point, nor reuse them before it.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int K>
+__device__ __forceinline__ void pin(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// byte offset (K-major: the next 16 bytes of a row; MN-major: the next
+// 64-column block), stride byte offset 1024 (the next group of 8 rows).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+#define VTT_F8(b)                                                                            \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]),            \
+      "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+#define VTT_F32 VTT_F8(0), VTT_F8(8), VTT_F8(16), VTT_F8(24)
+#define VTT_F64 VTT_F32, VTT_F8(32), VTT_F8(40), VTT_F8(48), VTT_F8(56)
+
+// acc (64 x 64) (+)= A . B^T, A and B K-major descriptors
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : VTT_F32
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+// acc (64 x 64) += A . B, A bf16 fragments in registers, B an MN-major descriptor
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : VTT_F32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+// acc (64 x 128) += A . B, A bf16 fragments in registers, B an MN-major descriptor
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : VTT_F64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef VTT_F8
+#undef VTT_F32
+#undef VTT_F64
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 64 || N == 128, "head_dim 64 or 128");
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
+}
+
+// A ROWS x D bf16 tile, 128-byte swizzled as TMA's SWIZZLE_128B lays it:
+// [D / 64 column blocks][ROWS][128 bytes], the 16-byte chunk c of row r at
+// slot (c ^ r) % 8 of its row.  The same bytes serve wgmma K-major (D the
+// depth) and MN-major (the rows the depth), which is what lets a score
+// tile's accumulator feed the next product from registers.
+template <int ROWS>
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (c >> 3) * (ROWS * 128) + r * 128 + (((c ^ r) & 7) << 4);
+}
+
+// rows r0 .. r0+ROWS-1 of a (seq, D) matrix into a swizzled tile at dst;
+// rows past seq are zero-filled
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int r0, int seq, int tid) {
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  static_assert(ROWS * CH % kThreads == 0, "tile split");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / kThreads; ++it) {
+    const int idx = tid + it * kThreads;
+    const int r = idx / CH, c = idx % CH;
+    const bool in = r0 + r < seq;
+    cp_async16(dst + swizzled<ROWS>(r, c), src + (in ? (size_t)(r0 + r) * D + c * 8 : 0),
+               in ? 16 : 0);
+  }
+}
+
+// acc (64 x N) = A (64 x D) . B (N x D)^T over depth D: A and B swizzled
+// tiles of 64 and N rows, read K-major; each k16 step is 32 bytes along a
+// row, each 64-column block a new tile region
+template <int N, int D>
+__device__ __forceinline__ void gemm_ss(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+  static_assert(N == 64, "score tiles are 64 wide");
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss_n64(acc, desc(a + (kk >> 2) * (kRows * 128) + (kk & 3) * 32, 16),
+                 desc(b + (kk >> 2) * (N * 128) + (kk & 3) * 32, 16), kk > 0);
+  }
+}
+
+// acc (64 x D) += A (64 x K) . B (K x D): A bf16 fragments in registers, B
+// a swizzled tile of K rows read MN-major (transposed); each k16 step is
+// 16 rows, the second 64-column block one tile region on
+template <int K, int D>
+__device__ __forceinline__ void gemm_rs(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
+                                        uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) wgmma_rs<D>(acc, a[kk], desc(b + kk * 16 * 128, K * 128));
+}
+
+// The m64nNk16 accumulator: element i of thread (warp w, lane l) is row
+// w*16 + l/4 + 8*((i/2)%2), column (i/4)*8 + 2*(l%4) + i%2.  Those are the
+// rows and columns of the register A fragment of the next product, so a
+// score tile becomes its A operand by rounding pairs to bf16 in place.
+template <int N>
+__device__ __forceinline__ void to_fragments(const float (&acc)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      __nv_bfloat162 h = __floats2bfloat162_rn(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
+      a[kk][e] = *reinterpret_cast<uint32_t*>(&h);
+    }
+}
+
+// rows row0 + w*16 + l/4 (+8) of a 64 x D accumulator, cast to bf16, into
+// a (seq, D) matrix; rows past seq are not written
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], bf16* dst, int row0, int seq,
+                                           int tid) {
+  const int r = row0 + (tid / 32) * 16 + (tid % 32) / 4;
+  const int c = 2 * (tid % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= seq) continue;
+    bf16* row = dst + (size_t)(r + 8 * h) * D + c;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// ------------------------------------------------------------------ dq
+namespace dq {
+constexpr int BQ = kRows;  // queries a CTA
+constexpr int BK = 64;     // keys a tile
+
+template <int D>
+struct Smem {  // byte offsets from a 1024-aligned base
+  static constexpr int kTile = 64 * D * 2;
+  static constexpr int q = 0, dout = kTile;
+  __host__ __device__ static constexpr int k(int s) { return (2 + 2 * s) * kTile; }
+  __host__ __device__ static constexpr int v(int s) { return (3 + 2 * s) * kTile; }
+  static constexpr int bytes = 6 * kTile + 1024;  // + the alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int seq, int H, int KV, float scale, int causal) {
+  using S = Smem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
+  const int rep = H / KV;
+  const int kvrow = (bh / H) * KV + (bh % H) / rep;
+  const bf16* kp = k + (size_t)kvrow * seq * D;
+  const bf16* vp = v + (size_t)kvrow * seq * D;
+  const int tid = threadIdx.x;
+
+  int nkb = (seq + BK - 1) / BK;
+  if (causal) nkb = min(nkb, (q0 + BQ - 1) / BK + 1);
+
+  load_tile<BQ, D>(base + S::q, q + (size_t)bh * seq * D, q0, seq, tid);
+  load_tile<BQ, D>(base + S::dout, dout + (size_t)bh * seq * D, q0, seq, tid);
+  load_tile<BK, D>(base + S::k(0), kp, 0, seq, tid);
+  load_tile<BK, D>(base + S::v(0), vp, 0, seq, tid);
+  cp_async_commit();
+
+  // this thread's two query rows; lse pre-scaled for exp2, rows past seq 0
+  const int row = (tid / 32) * 16 + (tid % 32) / 4;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qr = q0 + row + 8 * h;
+    row_lse[h] = qr < seq ? lse[(size_t)bh * seq + qr] * kLog2e : 0.f;
+    row_delta[h] = qr < seq ? delta[(size_t)bh * seq + qr] : 0.f;
+  }
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[D / 2], s[BK / 2], dp[BK / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * BK;
+    const int st = kb & 1;
+    cp_async_drain();
+    __syncthreads();  // tile kb is in; every thread is done with tile kb-1's stage
+    if (kb + 1 < nkb) {
+      load_tile<BK, D>(base + S::k(st ^ 1), kp, k0 + BK, seq, tid);
+      load_tile<BK, D>(base + S::v(st ^ 1), vp, k0 + BK, seq, tid);
+      cp_async_commit();
+    }
+
+    // S = Q K^T and dP = dO V^T, two groups so P starts while dP runs
+    wg_fence();
+    pin(s);
+    pin(dp);
+    gemm_ss<BK, D>(s, base + S::q, base + S::k(st));
+    wg_commit();
+    gemm_ss<BK, D>(dp, base + S::dout, base + S::v(st));
+    wg_commit();
+    wg_wait<1>();
+    pin(s);
+
+    const bool edge = (causal && k0 + BK - 1 > q0) || k0 + BK > seq || q0 + BQ > seq;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      float p = exp2f(s[i] * scale_log2 - row_lse[h]);
+      if (edge) {
+        const int qr = q0 + row + 8 * h;
+        const int kc = k0 + (i >> 2) * 8 + 2 * (tid % 4) + (i & 1);
+        if (qr >= seq || kc >= seq || (causal && kc > qr)) p = 0.f;
+      }
+      s[i] = p;
+    }
+    wg_wait<0>();
+    pin(dp);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) dp[i] = s[i] * (dp[i] - row_delta[(i >> 1) & 1]) * scale;
+
+    // dQ += dS K, dS rounded to bf16 in registers; K read MN-major
+    uint32_t ds[BK / 16][4];
+    to_fragments<BK>(dp, ds);
+    wg_fence();
+    pin(acc);
+    gemm_rs<BK, D>(acc, ds, base + S::k(st));
+    wg_commit();
+    wg_wait<0>();
+    pin(acc);
+    pin(ds);
+  }
+  store_rows<D>(acc, dq + (size_t)bh * seq * D, q0, seq, tid);
+}
+}  // namespace dq
+
+// ----------------------------------------------------------------- dkv
+namespace dkv {
+constexpr int BKV = kRows;  // keys a CTA
+constexpr int BQ = 64;      // queries a tile
+
+template <int D>
+struct Smem {  // byte offsets from a 1024-aligned base
+  static constexpr int kTile = BKV * D * 2, qTile = BQ * D * 2;
+  static constexpr int k = 0, v = kTile;
+  __host__ __device__ static constexpr int q(int s) { return 2 * kTile + 2 * s * qTile; }
+  __host__ __device__ static constexpr int dout(int s) { return 2 * kTile + (2 * s + 1) * qTile; }
+  // lse then delta, BQ floats each
+  __host__ __device__ static constexpr int vec(int s) { return 2 * kTile + 4 * qTile + s * 8 * BQ; }
+  static constexpr int bytes = 2 * kTile + 4 * qTile + 4 * BQ * 4 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int seq, int H, int KV, float scale,
+    int causal) {
+  using S = Smem<D>;
+  static_assert(2 * BQ <= kThreads, "one lse or delta value a thread");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const float* smem = reinterpret_cast<const float*>(smem_raw + (base - raw));  // at base
+
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * BKV;  // the key blocks with the most causal queries first
+  const int rep = H / KV;
+  const int tid = threadIdx.x;
+
+  // the tiles: the group's rep q heads, each from the causal diagonal on
+  const int first = causal ? k0 / BQ : 0;
+  const int per_head = (seq + BQ - 1) / BQ - first;
+  const int ntiles = rep * per_head;
+
+  // tile i: Q, dO, lse and delta of q head (bkv / KV) * H + (bkv % KV) * rep + i / per_head
+  auto load_q_tile = [&](int i) {
+    const int qrow = (bkv / KV) * H + (bkv % KV) * rep + i / per_head;
+    const int q0 = (first + i % per_head) * BQ;
+    const int st = i & 1;
+    load_tile<BQ, D>(base + S::q(st), q + (size_t)qrow * seq * D, q0, seq, tid);
+    load_tile<BQ, D>(base + S::dout(st), dout + (size_t)qrow * seq * D, q0, seq, tid);
+    if (tid < 2 * BQ) {
+      const int qr = q0 + tid % BQ;
+      const float* src = (tid < BQ ? lse : delta) + (size_t)qrow * seq;
+      cp_async4(base + S::vec(st) + tid * 4, src + min(qr, seq - 1), qr < seq ? 4 : 0);
+    }
+  };
+  load_tile<BKV, D>(base + S::k, k + (size_t)bkv * seq * D, k0, seq, tid);
+  load_tile<BKV, D>(base + S::v, v + (size_t)bkv * seq * D, k0, seq, tid);
+  if (ntiles > 0) load_q_tile(0);
+  cp_async_commit();
+
+  const float scale_log2 = scale * kLog2e;
+  const int key = k0 + (tid / 32) * 16 + (tid % 32) / 4;  // this thread's key rows: key, key + 8
+  float acc_k[D / 2], acc_v[D / 2], s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int q0 = (first + i % per_head) * BQ;
+    const int st = i & 1;
+    cp_async_drain();
+    __syncthreads();  // tile i is in; every thread is done with tile i-1's stage
+    if (i + 1 < ntiles) {
+      load_q_tile(i + 1);
+      cp_async_commit();
+    }
+    const float* lse_s = smem + S::vec(st) / 4;
+    const float* delta_s = lse_s + BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+    wg_fence();
+    pin(s);
+    pin(dp);
+    gemm_ss<BQ, D>(s, base + S::k, base + S::q(st));
+    wg_commit();
+    gemm_ss<BQ, D>(dp, base + S::v, base + S::dout(st));
+    wg_commit();
+    wg_wait<1>();
+    pin(s);
+
+    const bool edge = (causal && q0 < k0 + BKV - 1) || q0 + BQ > seq || k0 + BKV > seq;
+#pragma unroll
+    for (int i2 = 0; i2 < BQ / 2; ++i2) {
+      const int col = (i2 >> 2) * 8 + 2 * (tid % 4) + (i2 & 1);
+      float p = exp2f(s[i2] * scale_log2 - lse_s[col] * kLog2e);
+      if (edge) {
+        const int kr = key + 8 * ((i2 >> 1) & 1);
+        const int qc = q0 + col;
+        if (kr >= seq || qc >= seq || (causal && kr > qc)) p = 0.f;
+      }
+      s[i2] = p;
+    }
+    wg_wait<0>();
+    pin(dp);
+#pragma unroll
+    for (int i2 = 0; i2 < BQ / 2; ++i2) {
+      const int col = (i2 >> 2) * 8 + 2 * (tid % 4) + (i2 & 1);
+      dp[i2] = s[i2] * (dp[i2] - delta_s[col]) * scale;
+    }
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 in
+    // registers; dO and Q read MN-major from the tiles S^T and dP^T used
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+    to_fragments<BQ>(s, pa);
+    to_fragments<BQ>(dp, da);
+    wg_fence();
+    pin(acc_v);
+    pin(acc_k);
+    gemm_rs<BQ, D>(acc_v, pa, base + S::dout(st));
+    gemm_rs<BQ, D>(acc_k, da, base + S::q(st));
+    wg_commit();
+    wg_wait<0>();
+    pin(acc_v);
+    pin(acc_k);
+    pin(pa);
+    pin(da);
+  }
+  store_rows<D>(acc_k, dk + (size_t)bkv * seq * D, k0, seq, tid);
+  store_rows<D>(acc_v, dv + (size_t)bkv * seq * D, k0, seq, tid);
+}
+}  // namespace dkv
+}  // namespace tc
+
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, void* dq_out, int BH, int seq, int H, int KV, float scale,
-              int causal, cudaStream_t stream) {
-  constexpr int bytes = dq::smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(dq::kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + dq::BQ - 1) / dq::BQ, BH);
-  dq::kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq_out), seq, H, KV, scale, causal);
+              int causal, int is_bf16, cudaStream_t stream) {
+  const dim3 grid(BH, (seq + 63) / 64);
+  cudaError_t err;
+  if (is_bf16) {
+    using tc::bf16;
+    constexpr int bytes = tc::dq::Smem<D>::bytes;
+    err = cudaFuncSetAttribute(tc::dq::kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tc::dq::kernel<D><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq_out), seq, H, KV, scale,
+        causal);
+  } else {
+    constexpr int bytes = simt::dq::smem_bytes<D>();
+    err = cudaFuncSetAttribute(simt::dq::kernel<float, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    simt::dq::kernel<float, D><<<dim3(grid.y, grid.x), kThreads, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq_out), seq, H, KV, scale,
+        causal);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, void* dk_out, void* dv_out, float* total, int BKVrows,
-               int seq, int H, int KV, float scale, int causal, cudaStream_t stream) {
-  constexpr int bytes = dkv::smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(dkv::kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + dkv::BKV - 1) / dkv::BKV, BKVrows);
-  dkv::kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk_out), static_cast<T*>(dv_out),
-      total, seq, H, KV, scale, causal);
+               const float* delta, void* dk_out, void* dv_out, float* total, int BKVrows, int seq,
+               int H, int KV, float scale, int causal, int is_bf16, cudaStream_t stream) {
+  const dim3 grid(BKVrows, (seq + 63) / 64);
+  cudaError_t err;
+  if (is_bf16) {
+    using tc::bf16;
+    constexpr int bytes = tc::dkv::Smem<D>::bytes;
+    err = cudaFuncSetAttribute(tc::dkv::kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tc::dkv::kernel<D><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk_out),
+        static_cast<bf16*>(dv_out), seq, H, KV, scale, causal);
+  } else {
+    if (total == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    constexpr int bytes = simt::dkv::smem_bytes<D>();
+    err = cudaFuncSetAttribute(simt::dkv::kernel<float, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    simt::dkv::kernel<float, D><<<dim3(grid.y, grid.x), kThreads, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk_out),
+        static_cast<float*>(dv_out), total, seq, H, KV, scale, causal);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,23 +1067,22 @@ bool bad_shape(int BH, int seq, int H, int KV) {
 }  // namespace
 
 // Each returns the launch's cudaError_t (0 on success).  is_bf16 selects
-// bf16 (1) or fp32 (0) for q, k, v, do and the grads; lse and delta are
-// fp32 (B*H, T).  The dkv kernel also takes `total`, an fp32 scratch of
-// 2 * B*KV * T * D values that it writes before it reads.
+// bf16 (1: the tensor-core kernels) or fp32 (0: the CUDA-core kernels) for
+// q, k, v, do and the grads; lse and delta are fp32 (B*H, T).  The fp32 dkv
+// kernel also takes `total`, an fp32 scratch of 2 * B*KV * T * D values
+// that it writes before it reads; the bf16 one takes none (null).
 extern "C" int vtt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* delta, void* dq_out, int BH,
                                 int seq, int D, int H, int KV, float scale, int causal,
                                 int is_bf16, void* stream) {
   if (bad_shape(BH, seq, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) {
-    return is_bf16 ? launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq_out, BH, seq, H, KV, scale, causal, st)
-                   : launch_dq<float, 64>(q, k, v, dout, lse, delta, dq_out, BH, seq, H, KV, scale, causal, st);
-  }
-  if (D == 128) {
-    return is_bf16 ? launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq_out, BH, seq, H, KV, scale, causal, st)
-                   : launch_dq<float, 128>(q, k, v, dout, lse, delta, dq_out, BH, seq, H, KV, scale, causal, st);
-  }
+  if (D == 64)
+    return launch_dq<64>(q, k, v, dout, lse, delta, dq_out, BH, seq, H, KV, scale, causal, is_bf16,
+                         st);
+  if (D == 128)
+    return launch_dq<128>(q, k, v, dout, lse, delta, dq_out, BH, seq, H, KV, scale, causal, is_bf16,
+                          st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -611,13 +1093,11 @@ extern "C" int vtt_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   if (bad_shape(BH, seq, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
   const int bkv_rows = BH / H * KV;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) {
-    return is_bf16 ? launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk_out, dv_out, total, bkv_rows, seq, H, KV, scale, causal, st)
-                   : launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk_out, dv_out, total, bkv_rows, seq, H, KV, scale, causal, st);
-  }
-  if (D == 128) {
-    return is_bf16 ? launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk_out, dv_out, total, bkv_rows, seq, H, KV, scale, causal, st)
-                   : launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk_out, dv_out, total, bkv_rows, seq, H, KV, scale, causal, st);
-  }
+  if (D == 64)
+    return launch_dkv<64>(q, k, v, dout, lse, delta, dk_out, dv_out, total, bkv_rows, seq, H, KV,
+                          scale, causal, is_bf16, st);
+  if (D == 128)
+    return launch_dkv<128>(q, k, v, dout, lse, delta, dk_out, dv_out, total, bkv_rows, seq, H, KV,
+                           scale, causal, is_bf16, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,10 +15,13 @@ tensor it launches ``csrc/flash_fwd.cu`` (the port of
 and lse, and do, with the probabilities recomputed from lse.  On a CUDA
 tensor it launches the two kernels of ``csrc/flash_bwd.cu`` (the port of
 ``::_dq_kernel``/``::_dq_kernel_stream`` and
-``::_dkv_kernel``/``::_dkv_kernel_stream``); on a CPU tensor it runs
-:func:`flash_bwd_reference`, the math of ``ops/flash_attention.py::
-_xla_bwd_4d``.  delta = rowsum(do * o) is a plain fp32 op on both, as the
-reference computes it outside its kernels.
+``::_dkv_kernel``/``::_dkv_kernel_stream``): for bf16 inputs the
+tensor-core (``wgmma``) kernels, which round P and dS to bf16 before the
+dV, dK and dQ products; for fp32 inputs the CUDA-core kernels, all in
+fp32.  On a CPU tensor it runs :func:`flash_bwd_reference`, the math of
+``ops/flash_attention.py::_xla_bwd_4d``; its ``pd_dtype`` argument models
+the bf16 kernels' rounding.  delta = rowsum(do * o) is a plain fp32 op on
+both, as the reference computes it outside its kernels.
 """
 
 from __future__ import annotations
@@ -121,13 +124,17 @@ def flash_fwd(q3, k3, v3, *, scale, causal, H, KV):
 
 
 # ----------------------------------------------------------------- backward
-def flash_bwd_reference(q3, k3, v3, o3, do3, lse, *, scale, causal, H, KV):
+def flash_bwd_reference(q3, k3, v3, o3, do3, lse, *, scale, causal, H, KV, pd_dtype=None):
     """Plain PyTorch, dense: ``_xla_bwd_4d`` in the (B*H, T, D) layout, the
     full (T, T) probabilities per head in fp32, recomputed from ``lse``
     ((B, H, T) or (B*H, T)).  dk and dv sum the group's heads in fp32 before
     the cast.  Returns (dq, dk, dv) in q's, k's and v's dtypes.  Float64
     inputs are computed in float64 throughout: the same function without
-    fp32 rounding, the arbiter a kernel's fp32 sums are held to at long T."""
+    fp32 rounding, the arbiter a kernel's sums are held to at long T.
+
+    ``pd_dtype`` (default None: no rounding) rounds P and dS to that dtype
+    before the dV, dK and dQ products, where the bf16 tensor-core kernels
+    round them: ``torch.bfloat16`` is the model those kernels are held to."""
     BH, T, D = q3.shape
     B, rep = BH // H, H // KV
     acc = torch.float64 if q3.dtype == torch.float64 else torch.float32
@@ -143,6 +150,8 @@ def flash_bwd_reference(q3, k3, v3, o3, do3, lse, *, scale, causal, H, KV):
     delta = (do * o3.to(acc).reshape(B, KV, rep, T, D)).sum(dim=-1)
     dp = torch.einsum("bgrqd,bgkd->bgrqk", do, v)
     ds = p * (dp - delta[..., None]) * scale
+    if pd_dtype is not None:
+        p, ds = p.to(pd_dtype).to(acc), ds.to(pd_dtype).to(acc)
     dq = torch.einsum("bgrqk,bgkd->bgrqd", ds, k).reshape(BH, T, D).to(q3.dtype)
     dk = torch.einsum("bgrqk,bgrqd->bgkd", ds, q).reshape(B * KV, T, D).to(k3.dtype)
     dv = torch.einsum("bgrqk,bgrqd->bgkd", p, do).reshape(B * KV, T, D).to(v3.dtype)
@@ -167,7 +176,8 @@ def _bwd_launch(symbol, q3, k3, v3, do3, lse, delta, outs, scale, causal, H, KV)
     fn = _build.load("flash_bwd", symbol, _BWD_ARGTYPES[symbol])
     rc = fn(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), *(t.data_ptr() for t in outs), BH, T, D, H, KV, float(scale),
+        delta.data_ptr(), *(0 if t is None else t.data_ptr() for t in outs), BH, T, D, H, KV,
+        float(scale),
         int(bool(causal)), int(q3.dtype == torch.bfloat16),
         torch.cuda.current_stream(q3.device).cuda_stream,
     )
@@ -190,8 +200,11 @@ def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, *, scale, causal, H, KV):
     tensors only."""
     _check("flash_bwd_dkv", q3, k3, v3, H, KV, do=do3)
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
-    # the kernel's fp32 running sums of dk and dv over the group's queries
-    total = torch.empty((2, *k3.shape), dtype=torch.float32, device=k3.device)
+    # the fp32 kernel's running sums of dk and dv over the group's queries;
+    # the bf16 kernel keeps its sums in registers and takes none
+    total = None
+    if q3.dtype == torch.float32:
+        total = torch.empty((2, *k3.shape), dtype=torch.float32, device=k3.device)
     _bwd_launch("vtt_flash_bwd_dkv", q3, k3, v3, do3, lse, delta, (dk, dv, total), scale, causal,
                 H, KV)
     LAUNCHES["flash_bwd_dkv"] += 1
