@@ -8,18 +8,21 @@ Hopper card.
 Phases, each printing one JSON line with its seconds:
 
   device   the card (``nvidia-smi`` name and power limit), torch and CUDA
-  build    compile every CUDA kernel from ``vescale_tpu_torch/kernels/csrc``
+  build    compile every CUDA kernel from ``vescale_tpu_torch/kernels/csrc``;
+           ptxas's registers and spills; HGMMA in every tensor-core flash
+           kernel and in no fp32 one (``cuobjdump -sass``)
   parity   each kernel against its plain PyTorch version on the card, at the
            shapes the Llama-3-8B serve path (flash forward, paged decode),
-           the 1.3B train path (flash backward, fused AdamW) and the GPT-2
-           train path (flash forward and backward at head_dim 64 without
-           GQA, fused cross entropy) give it and at ragged ones, with the
-           bound stated beside each case (the bf16 flash backward against
-           float64 and against its bf16-P/dS model, and two launches
-           bitwise); the autograd op's grads against autograd through the
-           dense reference; times of each kernel, its plain version and,
-           where one exists, one PyTorch library call (the flash backward
-           at the 1.3B and the GPT-2 shapes)
+           the 1.3B train path (flash forward and backward, fused AdamW)
+           and the GPT-2 train path (flash forward and backward at head_dim
+           64 without GQA, fused cross entropy) give it and at ragged ones,
+           with the bound stated beside each case (the bf16 flash forward
+           and backward against float64 and against their bf16-P (and dS)
+           models, and two launches bitwise); the autograd op's grads
+           against autograd through the dense reference; times of each
+           kernel, its plain version and, where one exists, one PyTorch
+           library call (the flash forward at the 8B prefill, 1.3B and
+           GPT-2 shapes, the backward at the 1.3B and GPT-2 shapes)
   engine   a 2-layer fp32 engine on the card (kernels) and on the CPU (plain
            versions) from the same weights: first prefill logits within a
            stated bound, greedy streams of 16 tokens equal
@@ -105,26 +108,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def sass_wgmma(build) -> dict:
     """HGMMA (``wgmma``) instructions in the machine code of each kernel of
-    the flash backward's library, from ``cuobjdump -sass``: the bf16
-    tensor-core kernels must contain them, the fp32 ones none.  Empty when
-    the toolkit has no ``cuobjdump``."""
+    the flash forward's and backward's libraries, from ``cuobjdump -sass``:
+    the bf16 tensor-core kernels (``tc::``) must contain them, the fp32 ones
+    (``simt::``) none.  Empty when the toolkit has no ``cuobjdump``."""
     import os
     import re
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
         return {}
-    lib = build._target("flash_bwd")
-    sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True, text=True,
-                          timeout=300).stdout
-    counts, name = {}, None
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            m = re.search(r"(tc|simt)\d(dq|dkv)6kernelI(?:f)?Li(\d+)", ln)
-            name = f"{m.group(1)}::{m.group(2)}<{m.group(3)}>" if m else ln.split()[-1][:60]
-            counts[name] = 0
-        elif name is not None and "HGMMA" in ln:
-            counts[name] += 1
+    counts = {}
+    for lib in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run([tool, "-sass", str(build._target(lib))], check=True,
+                              capture_output=True, text=True, timeout=300).stdout
+        name = None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                m = re.search(r"(tc|simt)(?:\d+(dq|dkv))?\d+(kernel|flash_fwd_kernel)If?Li(\d+)", ln)
+                name = ("::".join(x for x in m.group(1, 2, 3) if x) + f"<{m.group(4)}>" if m
+                        else ln.split()[-1][:60])
+                counts[name] = 0
+            elif name is not None and "HGMMA" in ln:
+                counts[name] += 1
     return counts
 
 
@@ -144,57 +149,92 @@ def free_memory() -> None:
 def flash_cases():
     """(label, B, T, H, KV, D, causal, dtype, o bound, lse bound).
 
-    fp32 o: 8 fp32 ulps (the JAX package's kernel bound), 16 where a row
-    sums 1000 or more keys, in another order in the kernel's 32-key tiles
-    than in cuBLAS.  The ulps are counted at the scale of max|v|: each
-    output row is a convex combination of V rows, so its sums round at V's
-    magnitude, while a full (non-causal) row averages all T keys and comes
-    out smaller than that; at o's own scale (``o_ulps``, reported beside)
-    the same rounding counts more ulps the longer the row.  bf16 o: 2 bf16
-    steps at o's scale, as both versions round one fp32 result to bf16 and
-    a last-place fp32 difference can move that rounding.  lse is fp32 in
-    both: 8 ulps at its scale, 16 where a row sums 1000 or more keys."""
+    fp32 (the CUDA-core kernel) o: 8 fp32 ulps (the JAX package's kernel
+    bound), 16 where a row sums 1000 or more keys, in another order in the
+    kernel's 32-key tiles than in cuBLAS.  The ulps are counted at the scale
+    of max|v|: each output row is a convex combination of V rows, so its
+    sums round at V's magnitude, while a full (non-causal) row averages all
+    T keys and comes out smaller than that; at o's own scale (``o_ulps``,
+    reported beside) the same rounding counts more ulps the longer the row.
+    lse is fp32: 8 ulps at its scale, 16 where a row sums 1000 or more keys.
+
+    bf16 (the tensor-core kernel, which rounds P to bf16 before the value
+    product): o within 2 bf16 steps at scale (the o bound) of the plain
+    version run in float64, and within 1 step (``BF16_ULP``) of the plain
+    version with ``pd_dtype=torch.bfloat16``, which rounds P where the
+    kernel does.  The kernel rounds exp(s - m) at the running row max and
+    rescales later, the model at the final max, and they sum in other
+    orders: each a difference within a bf16 step, and both round one fp32
+    result to bf16.  lse within 16 fp32 ulps of the model's (8 at T=333;
+    the model's lse is the unrounded fp32 one, as l sums P before the
+    rounding in both, so the fp32 bounds above hold).  Two launches are
+    bitwise equal.  The main cases are the Llama-3-8B prefill shape; the
+    train 1.3b case is the 1.3B train shape; the gpt2 cases the GPT-2 124M
+    train shape (head_dim 64, no GQA); rep 4 at T=333 runs the GQA map and
+    a ragged edge on the tensor cores."""
+    bf16, fp32 = torch.bfloat16, torch.float32
     return [
-        ("main bf16", 1, 1024, 32, 8, 128, True, torch.bfloat16, 2 * BF16_ULP, 16.0),
-        ("main fp32", 1, 1024, 32, 8, 128, True, torch.float32, 16.0, 16.0),
-        ("ragged T=1000 bf16", 1, 1000, 32, 8, 128, True, torch.bfloat16, 2 * BF16_ULP, 16.0),
-        ("full (non-causal) no GQA T=256 fp32", 2, 256, 8, 8, 128, False, torch.float32, 8.0, 8.0),
-        ("hd64 T=77 fp32", 1, 77, 8, 4, 64, True, torch.float32, 8.0, 8.0),
-        ("hd64 T=333 bf16 full", 1, 333, 8, 2, 64, False, torch.bfloat16, 2 * BF16_ULP, 8.0),
-        # the GPT-2 124M train shape: head_dim 64, no GQA, B=12, T=1024
-        ("gpt2 bf16", 12, 1024, 12, 12, 64, True, torch.bfloat16, 2 * BF16_ULP, 16.0),
-        ("gpt2 fp32", 12, 1024, 12, 12, 64, True, torch.float32, 16.0, 16.0),
+        ("main bf16", 1, 1024, 32, 8, 128, True, bf16, 2 * BF16_ULP, 16.0),
+        ("main fp32", 1, 1024, 32, 8, 128, True, fp32, 16.0, 16.0),
+        ("ragged T=1000 bf16", 1, 1000, 32, 8, 128, True, bf16, 2 * BF16_ULP, 16.0),
+        ("full (non-causal) no GQA T=256 fp32", 2, 256, 8, 8, 128, False, fp32, 8.0, 8.0),
+        ("hd64 T=77 fp32", 1, 77, 8, 4, 64, True, fp32, 8.0, 8.0),
+        ("hd64 T=333 bf16 full", 1, 333, 8, 2, 64, False, bf16, 2 * BF16_ULP, 8.0),
+        ("train 1.3b bf16", 1, 4096, 16, 8, 128, True, bf16, 2 * BF16_ULP, 16.0),
+        ("gpt2 bf16", 12, 1024, 12, 12, 64, True, bf16, 2 * BF16_ULP, 16.0),
+        ("gpt2 fp32", 12, 1024, 12, 12, 64, True, fp32, 16.0, 16.0),
     ]
 
 
+def flash_fwd_inputs(dev, B, T, H, KV, D, causal, dtype):
+    g = torch.Generator(device=dev).manual_seed(T * 31 + H)
+    q = torch.randn(B * H, T, D, generator=g, device=dev).to(dtype)
+    k = torch.randn(B * KV, T, D, generator=g, device=dev).to(dtype)
+    v = torch.randn(B * KV, T, D, generator=g, device=dev).to(dtype)
+    return q, k, v, dict(scale=1.0 / D ** 0.5, causal=causal, H=H, KV=KV)
+
+
 def run_flash_parity(dev, ulps):
+    """Kernel against plain version per case (see ``flash_cases``); the
+    rows' ``max_abs_err`` is against the plain version the kernel is held
+    to: the fp32 one for fp32, the bf16-P model for bf16."""
     from vescale_tpu_torch.kernels.flash_attention import flash_fwd, flash_fwd_reference
 
     out = []
-    main = None
     for label, B, T, H, KV, D, causal, dtype, o_bound, lse_bound in flash_cases():
-        g = torch.Generator(device=dev).manual_seed(T * 31 + H)
-        q = torch.randn(B * H, T, D, generator=g, device=dev).to(dtype)
-        k = torch.randn(B * KV, T, D, generator=g, device=dev).to(dtype)
-        v = torch.randn(B * KV, T, D, generator=g, device=dev).to(dtype)
-        scale = 1.0 / D ** 0.5
-        args = dict(scale=scale, causal=causal, H=H, KV=KV)
+        q, k, v, args = flash_fwd_inputs(dev, B, T, H, KV, D, causal, dtype)
         o, lse = flash_fwd(q, k, v, **args)
         o_ref, lse_ref = flash_fwd_reference(q, k, v, **args)
-        torch.cuda.synchronize()
-        o_np, ref_np = o.float().cpu().numpy(), o_ref.float().cpu().numpy()
-        err = float(np.abs(o_np - ref_np).max())
-        v_step = float(np.spacing(np.float32(v.float().abs().max().item())))
-        row = dict(kernel="flash_fwd", case=label, o_ulps=ulps(o_np, ref_np),
-                   o_ulps_at_v=err / v_step, o_bound=o_bound,
-                   lse_ulps=ulps(lse.cpu().numpy(), lse_ref.cpu().numpy()), lse_bound=lse_bound,
-                   max_abs_err=err)
-        o_metric = row["o_ulps"] if dtype == torch.bfloat16 else row["o_ulps_at_v"]
-        row["ok"] = o_metric <= o_bound and row["lse_ulps"] <= lse_bound
+        row = dict(kernel="flash_fwd", case=label, o_bound=o_bound, lse_bound=lse_bound)
+        if dtype == torch.bfloat16:
+            again = flash_fwd(q, k, v, **args)
+            o_model, lse_model = flash_fwd_reference(q, k, v, pd_dtype=torch.bfloat16, **args)
+            o64, lse64 = flash_fwd_reference(q.double(), k.double(), v.double(), **args)
+            torch.cuda.synchronize()
+            o_np, o64_np = o.double().cpu().numpy(), o64.cpu().numpy()
+            row.update(
+                o_ulps=ulps(o_np, o64_np),
+                o_model_ulps=ulps(o_np, o_model.double().cpu().numpy()), o_model_bound=BF16_ULP,
+                o_plain_fp32_ulps=ulps(o_ref.double().cpu().numpy(), o64_np),
+                lse_ulps=ulps(lse.cpu().numpy(), lse_model.cpu().numpy()),
+                lse_f64_ulps=ulps(lse.double().cpu().numpy(), lse64.cpu().numpy()),
+                bitwise_repeat=bits_equal(o, again[0]) and bits_equal(lse, again[1]),
+                max_abs_err=float((o.float() - o_model.float()).abs().max()))
+            row["ok"] = (row["bitwise_repeat"] and row["o_ulps"] <= o_bound
+                         and row["o_model_ulps"] <= BF16_ULP and row["lse_ulps"] <= lse_bound)
+            del again, o_model, lse_model, o64, lse64
+        else:
+            torch.cuda.synchronize()
+            o_np, ref_np = o.cpu().numpy(), o_ref.cpu().numpy()
+            err = float(np.abs(o_np - ref_np).max())
+            v_step = float(np.spacing(np.float32(v.abs().max().item())))
+            row.update(o_ulps=ulps(o_np, ref_np), o_ulps_at_v=err / v_step,
+                       lse_ulps=ulps(lse.cpu().numpy(), lse_ref.cpu().numpy()), max_abs_err=err)
+            row["ok"] = row["o_ulps_at_v"] <= o_bound and row["lse_ulps"] <= lse_bound
         out.append(row)
-        if label == "main bf16":
-            main = (row, q, k, v, args, B, T, H, KV, D, dtype)
-    return out, main
+        del q, k, v, o, lse, o_ref, lse_ref
+        free_memory()
+    return out
 
 
 def paged_cases():
@@ -535,25 +575,46 @@ def adamw_timing(gs, ms, vs, c1, c2, hp, err):
                 library_note="none: no single PyTorch call computes AdamW with bf16 moments")
 
 
-def flash_timing(main):
+def flash_timing(dev, parity_rows):
+    """The bf16 forward at the Llama-3-8B prefill shape (the row's own
+    fields), the 1.3B train shape (under ``train_1.3b``) and the GPT-2 train
+    shape (under ``gpt2``): the kernel, its plain version (the bf16-P
+    model), and the library yardstick, ``scaled_dot_product_attention``'s
+    forward with the GQA heads expanded; ``over_library`` = ms / library
+    ms.  ``max_abs_err`` is the parity case's at that shape."""
     import torch.nn.functional as F
 
     from vescale_tpu_torch.kernels.flash_attention import flash_fwd, flash_fwd_reference
 
-    row, q, k, v, args, B, T, H, KV, D, dtype = main
-    ms = cuda_ms(lambda: flash_fwd(q, k, v, **args))
-    plain_ms = cuda_ms(lambda: flash_fwd_reference(q, k, v, **args), iters=5)
-    rep = H // KV
-    q4 = q.reshape(B, H, T, D)
-    k4 = k.reshape(B, KV, T, D).repeat_interleave(rep, dim=1)
-    v4 = v.reshape(B, KV, T, D).repeat_interleave(rep, dim=1)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=args["causal"]))
-    elt = q.element_size()
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * elt + B * H * T * 4
-    flops = (2 if args["causal"] else 4) * T * T * H * D * B
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=row["max_abs_err"],
-                **bound(nbytes, flops, dtype),
-                shape=dict(B=B, T=T, H=H, KV=KV, D=D, dtype=str(dtype), causal=args["causal"]))
+    by_label = {case[0]: case for case in flash_cases()}
+    errs = {row["case"]: row["max_abs_err"] for row in parity_rows if row["kernel"] == "flash_fwd"}
+    out = {}
+    for label, key in (("main bf16", None), ("train 1.3b bf16", "train_1.3b"), ("gpt2 bf16", "gpt2")):
+        _, B, T, H, KV, D, causal, dtype, _, _ = by_label[label]
+        q, k, v, args = flash_fwd_inputs(dev, B, T, H, KV, D, causal, dtype)
+        ms = cuda_ms(lambda: flash_fwd(q, k, v, **args))
+        plain_ms = cuda_ms(
+            lambda: flash_fwd_reference(q, k, v, pd_dtype=torch.bfloat16, **args), iters=3, warmup=1)
+        rep = H // KV
+        q4 = q.reshape(B, H, T, D)
+        k4 = k.reshape(B, KV, T, D).repeat_interleave(rep, dim=1)
+        v4 = v.reshape(B, KV, T, D).repeat_interleave(rep, dim=1)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
+        elt = q.element_size()
+        nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * elt + B * H * T * 4
+        flops = (2 if causal else 4) * T * T * H * D * B
+        fields = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      over_library=ms / library_ms, max_abs_err=errs[label],
+                      **bound(nbytes, flops, dtype),
+                      shape=dict(B=B, T=T, H=H, KV=KV, D=D, dtype=str(dtype), causal=causal))
+        fields["share_of_bound"] = fields["bound_ms"] / ms
+        if key is None:
+            out.update(fields)
+        else:
+            out[key] = fields
+        del q, k, v, q4, k4, v4
+        free_memory()
+    return out
 
 
 def paged_timing(main):
@@ -794,7 +855,7 @@ def run_train_small(dev):
 
 def kernel_kind(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_kernel" in name:  # tc:: (bf16, wgmma) and simt:: (fp32)
         return "flash_fwd"
     if "dq::kernel" in name or "dkv::kernel" in name:
         return "flash_bwd"
@@ -1070,16 +1131,19 @@ def main() -> int:
     t = time.perf_counter()
     nvcc_s = _build.build()
     ptxas = {name: [ln.strip() for ln in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or "Function properties" in ln]
              for name in nvcc_s}
+    hgmma = sass_wgmma(_build)
     log("build", seconds=time.perf_counter() - t, nvcc_seconds=nvcc_s, ptxas=ptxas,
-        flash_bwd_sass_wgmma=sass_wgmma(_build))
+        flash_sass_wgmma=hgmma)
+    check(all((n > 0) == name.startswith("tc::") for name, n in hgmma.items()),
+          f"HGMMA in every tensor-core flash kernel and in no other: {hgmma}")
 
     t = time.perf_counter()
-    flash_rows, flash_main = run_flash_parity(dev, ulps_at_scale)
+    flash_rows = run_flash_parity(dev, ulps_at_scale)
     paged_rows, paged_main = run_paged_parity(dev, ulps_at_scale)
-    timings = {"flash_fwd": flash_timing(flash_main), "paged_decode": paged_timing(paged_main)}
-    del flash_main, paged_main
+    timings = {"flash_fwd": flash_timing(dev, flash_rows), "paged_decode": paged_timing(paged_main)}
+    del paged_main
     bwd_rows, bwd_timings = run_flash_bwd_parity(dev, ulps_at_scale)
     adamw_rows, timings["fused_adamw"] = run_adamw_parity(dev)
     xent_rows, xent_timings = run_xent_parity(dev, ulps_at_scale)

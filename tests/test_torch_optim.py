@@ -210,6 +210,40 @@ def test_adamw_lowmem_three_steps_match_optax(state):
     assert opt.param_groups[0]["step"] == 3 and int(jstate[0].count) == 3
 
 
+
+def test_adamw_lowmem_steps_a_leaf_without_grad_as_the_reference_does():
+    """Two 8-element leaves from numpy seed 0; the loss reads only ``w``, so
+    torch leaves ``u.grad`` None where ``jax.grad`` gives ``u`` zeros.  The
+    reference still decays u's moments and applies weight decay to it; the
+    port must step it the same.  Three steps at lr 1e-2, weight decay 0.1,
+    bf16 moments.  Bounds as in the three-step test above: params within 2
+    ulps at scale, moments bitwise, step counts equal."""
+    from vescale_tpu_torch.kernels import ulps_at_scale
+
+    rng = np.random.default_rng(0)
+    params = {"w": rng.normal(size=(8,)).astype(np.float32),
+              "u": rng.normal(size=(8,)).astype(np.float32)}
+    tx = jopt.adamw_lowmem(1e-2, weight_decay=0.1)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    jstate = tx.init(jp)
+    grad = jax.grad(lambda t: jnp.sum(jnp.square(t["w"])))
+    tw, tu = (torch.nn.Parameter(torch.from_numpy(params[n].copy())) for n in ("w", "u"))
+    opt = AdamWLowmem([tw, tu], lr=1e-2, weight_decay=0.1)
+    for _ in range(3):
+        upd, jstate = tx.update(grad(jp), jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+        opt.zero_grad(set_to_none=True)
+        torch.sum(torch.square(tw)).backward()
+        assert tu.grad is None
+        opt.step()
+    assert not np.array_equal(np.asarray(jp["u"]), params["u"])  # the reference moves u
+    for p, n in ((tw, "w"), (tu, "u")):
+        assert ulps_at_scale(p.detach().numpy(), np.asarray(jp[n])) <= 2.0, n
+        st = opt.state[p]
+        assert _bits_equal(st["exp_avg"], jstate[0].mu[n]), n
+        assert _bits_equal(st["exp_avg_sq"], jstate[0].nu[n]), n
+    assert opt.param_groups[0]["step"] == 3 and int(jstate[0].count) == 3
+
 def test_clip_grad_norm_matches_reference():
     grads = _tree(3)
     grads["a"] = grads["a"] * 1e3

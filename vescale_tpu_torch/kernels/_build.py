@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), with the common flags plus its own (``EXTRA_FLAGS``:
 ``fused_adamw`` turns off FMA contraction).  Libraries land in
-``kernels/build/`` under a name that carries the hash of the source and
-its flags, so an edited source or flag rebuilds and an unchanged one is
-reused.  Nothing here runs at import: the first
+``kernels/build/`` under a name that carries the hash of the source, of
+every shared header ``csrc/*.cuh`` and of its flags, so an edited source,
+header or flag rebuilds and an unchanged one is reused.  Nothing here runs at import: the first
 kernel call builds what it needs, or :func:`build` builds everything up
 front, one ``nvcc`` per source, all started together.
 """
@@ -62,6 +62,7 @@ def _flags(name: str) -> tuple:
 
 def _target(name: str) -> Path:
     src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

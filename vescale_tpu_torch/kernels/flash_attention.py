@@ -7,9 +7,12 @@ fp32 softmax and saves the per-row logsumexp, over (B*H, T, D) q and
 (H // KV), so the repeated K/V heads never exist in memory.  On a CUDA
 tensor it launches ``csrc/flash_fwd.cu`` (the port of
 ``vescale_tpu/kernels/flash_attention.py::_fwd_kernel`` and
-``::_fwd_kernel_stream``); on a CPU tensor it runs
+``::_fwd_kernel_stream``): for bf16 inputs the tensor-core (``wgmma``)
+kernel, which rounds P to bf16 before the value product; for fp32 inputs
+the CUDA-core kernel, all in fp32.  On a CPU tensor it runs
 :func:`flash_fwd_reference`, the math of the JAX package's
-``ops/flash_attention.py::_xla_fwd_4d``.
+``ops/flash_attention.py::_xla_fwd_4d``; its ``pd_dtype`` argument models
+the bf16 kernel's rounding.
 
 ``flash_bwd`` is its gradient: (dq, dk, dv) from q, k, v, the forward's o
 and lse, and do, with the probabilities recomputed from lse.  On a CUDA
@@ -58,14 +61,23 @@ _BWD_ARGTYPES = {
 }
 
 
-def flash_fwd_reference(q3, k3, v3, *, scale, causal, H, KV):
+def flash_fwd_reference(q3, k3, v3, *, scale, causal, H, KV, pd_dtype=None):
     """Plain PyTorch, dense: the full (T, T) score matrix per head in fp32.
-    Returns (o (B*H, T, D) in q's dtype, lse (B, H, T) fp32)."""
+    Returns (o (B*H, T, D) in q's dtype, lse (B, H, T) fp32).  Float64
+    inputs are computed in float64 throughout (lse too): the same function
+    without fp32 rounding, the arbiter the bf16 kernel is held to.
+
+    ``pd_dtype`` (default None: no rounding) rounds P = exp(s - m) to that
+    dtype before the value product, where the bf16 tensor-core kernel
+    rounds it; l sums the unrounded P, as the kernel's does, so lse is the
+    same either way.  ``torch.bfloat16`` is the model that kernel is held
+    to."""
     BH, T, D = q3.shape
     B, rep = BH // H, H // KV
-    q = q3.float().reshape(B, KV, rep, T, D)
-    k = k3.float().reshape(B, KV, T, D)
-    v = v3.float().reshape(B, KV, T, D)
+    acc = torch.float64 if q3.dtype == torch.float64 else torch.float32
+    q = q3.to(acc).reshape(B, KV, rep, T, D)
+    k = k3.to(acc).reshape(B, KV, T, D)
+    v = v3.to(acc).reshape(B, KV, T, D)
     s = scale * torch.einsum("bgrqd,bgkd->bgrqk", q, k)
     if causal:
         mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device=q3.device))
@@ -74,6 +86,8 @@ def flash_fwd_reference(q3, k3, v3, *, scale, causal, H, KV):
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    if pd_dtype is not None:
+        p = p.to(pd_dtype).to(acc)
     o = torch.einsum("bgrqk,bgkd->bgrqd", p, v) / l_safe[..., None]
     lse = (m + torch.log(l_safe)).reshape(B, H, T)
     return o.reshape(BH, T, D).to(q3.dtype), lse

@@ -10,7 +10,9 @@ from scratch on ``torch.optim`` (the reference is an optax chain):
     leaf on the card), then ``add_decayed_weights(weight_decay)``, then
     ``scale_by_learning_rate(lr)``, then ``apply_updates``, in optax's op
     order: ``u + wd * p``, ``(-lr) * u``, ``(p + u)`` in p's dtype.  The
-    parameters are updated in place.
+    parameters are updated in place.  Every parameter of a group takes the
+    step, as every leaf of the reference's tree does: one whose ``.grad``
+    is None is stepped with zero grads.
   * ``BasicOptimizer`` — an optimizer plus an optional global-norm clip.
   * ``clip_grad_norm_fp32`` and ``found_inf`` over lists of grads.
 
@@ -89,10 +91,15 @@ class AdamWLowmem(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
+            params = group["params"]
             if not params:
                 continue
             b1, b2 = group["betas"]
+            # a parameter the loss did not read has no grad; the reference
+            # gives every leaf one, zeros for an unused leaf, so its moments
+            # decay and weight decay applies
+            # (vescale_tpu/parallel/optimizer.py:535, :557)
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
             for p in params:
                 st = self.state[p]
                 if not st:
@@ -101,7 +108,7 @@ class AdamWLowmem(torch.optim.Optimizer):
             group["step"] += 1
             c1, c2 = bias_corrections(b1, b2, group["step"])
             us, ms, vs = fused_adamw_update(
-                [p.grad for p in params], [self.state[p]["exp_avg"] for p in params],
+                grads, [self.state[p]["exp_avg"] for p in params],
                 [self.state[p]["exp_avg_sq"] for p in params], c1, c2,
                 b1=b1, b2=b2, eps=group["eps"],
             )
