@@ -10,7 +10,8 @@ Phases, each printing one JSON line with its seconds:
   device   the card (``nvidia-smi`` name and power limit), torch and CUDA
   build    compile every CUDA kernel from ``vescale_tpu_torch/kernels/csrc``;
            ptxas's registers and spills; HGMMA in every tensor-core flash
-           kernel and in no fp32 one (``cuobjdump -sass``)
+           kernel and in no fp32 one (``cuobjdump -sass``); no spill in any
+           paged decode kernel, and their shared memory and ring stages
   parity   each kernel against its plain PyTorch version on the card, at the
            shapes the Llama-3-8B serve path (flash forward, paged decode),
            the 1.3B train path (flash forward and backward, fused AdamW)
@@ -18,11 +19,15 @@ Phases, each printing one JSON line with its seconds:
            64 without GQA, fused cross entropy) give it and at ragged ones,
            with the bound stated beside each case (the bf16 flash forward
            and backward against float64 and against their bf16-P (and dS)
-           models, and two launches bitwise); the autograd op's grads
-           against autograd through the dense reference; times of each
-           kernel, its plain version and, where one exists, one PyTorch
-           library call (the flash forward at the 8B prefill, 1.3B and
-           GPT-2 shapes, the backward at the 1.3B and GPT-2 shapes)
+           models, and two launches bitwise; the paged decode at 8 slots
+           of the 8B, at its 8k context and at 64 slots, at the lengths
+           where its partition changes shape, with a NaN in a late chunk,
+           two launches and each slot alone bitwise); the autograd op's
+           grads against autograd through the dense reference; times of
+           each kernel, its plain version and, where one exists, one
+           PyTorch library call (the flash forward at the 8B prefill, 1.3B
+           and GPT-2 shapes, the backward at the 1.3B and GPT-2 shapes, the
+           paged decode at its three shapes, L2-warm and over 8 pools)
   engine   a 2-layer fp32 engine on the card (kernels) and on the CPU (plain
            versions) from the same weights: first prefill logits within a
            stated bound, greedy streams of 16 tokens equal
@@ -133,6 +138,38 @@ def sass_wgmma(build) -> dict:
     return counts
 
 
+def paged_build_report(build) -> dict:
+    """ptxas's registers and spills for each ``paged_decode`` kernel
+    (``build/paged_decode.log``), and the dynamic shared memory and ring
+    stages of each (pool dtype, head_dim, group bucket); ``spills`` lists
+    every kernel with a non-zero spill store or load."""
+    import re
+
+    from vescale_tpu_torch.kernels.paged_attention import kernel_layout
+
+    kernels, spills, name = {}, [], None
+    for ln in (build.BUILD_DIR / "paged_decode.log").read_text().splitlines():
+        m = re.search(r"Function properties for \S*paged_decode_kernelI(f|13__nv_bfloat16)"
+                      r"(f|13__nv_bfloat16|S\d*_)Li(\d+)ELi(\d+)E", ln)
+        if m:
+            tq, tkv, hd, g = m.groups()
+            tkv = tq if tkv.startswith("S") else tkv  # a repeated type is mangled as S_
+            dt = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+            name = f"q {dt[tq]}, pools {dt[tkv]}, hd{hd}, G<={g}"
+            kernels[name] = {}
+        elif name is not None and "spill" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes spill", ln)]
+            kernels[name]["spill_bytes"] = sum(nums)
+            if any(nums):
+                spills.append(name)
+        elif name is not None and "registers" in ln:
+            kernels[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            name = None
+    layouts = {f"{str(dt)[6:]} hd{hd} G<={g}": kernel_layout(dt, hd, g)
+               for dt in (torch.bfloat16, torch.float32) for hd in (64, 128) for g in (4, 16)}
+    return dict(kernels=kernels, spills=spills, layouts=layouts)
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -237,19 +274,49 @@ def run_flash_parity(dev, ulps):
     return out
 
 
+def paged_geometries():
+    """The K7 timing shapes.  A: the Llama-3-8B serve shape (S=8, page 16,
+    Pmax 64, KV=8, H=32, hd 128) with ragged lengths from only the fresh
+    token to a full slot; B: 8 slots at the 8B's own 8k context (Pmax 512);
+    C: 64 slots of 64-1024 positions."""
+    base = dict(page=16, KV=8, H=32, hd=128)
+    rng = np.random.default_rng
+    return {
+        "A": dict(S=8, Pmax=64, lengths=[1, 1024, 17, 300, 511, 64, 700, 2], **base),
+        "B": dict(S=8, Pmax=512, lengths=[int(x) for x in rng(0).integers(4096, 8193, 8)], **base),
+        "C": dict(S=64, Pmax=64, lengths=[int(x) for x in rng(0).integers(64, 1025, 64)], **base),
+    }
+
+
 def paged_cases():
-    """(label, q dtype, pool dtype, geometry, bound).  The 8B serve shapes
-    (S=8, page 16, Pmax 64, KV=8, H=32, hd 128) with ragged lengths from
-    only the fresh token to a full slot, and a non-power-of-two page of 6
-    as the JAX package's tests use.  fp32 pools: 8 ulps at tensor scale;
+    """(label, q dtype, pool dtype, geometry, bound).  Shapes A, B and C
+    (``paged_geometries``); the lengths where the kernel's partition
+    changes shape (chunks of ``CHUNK`` positions dealt to ``CLUSTER`` CTAs:
+    a chunk less one, a chunk, a chunk and one, the ranks wrapping, a full
+    slot, and past the table's reach, which the kernel clamps); a
+    non-power-of-two page of 6 as the JAX package's tests use; and 16 q
+    heads a kv head at both head dims.  fp32 pools: 8 ulps at tensor scale;
     bf16 pools: 64, the JAX package's bound for them."""
-    main = dict(S=8, page=16, Pmax=64, KV=8, H=32, hd=128, lengths=[1, 1024, 17, 300, 511, 64, 700, 2])
+    from vescale_tpu_torch.kernels.paged_attention import CHUNK, CLUSTER
+
+    geo = paged_geometries()
+    span = CHUNK * CLUSTER
+    edge_lengths = [1, CHUNK - 1, CHUNK, CHUNK + 1, span - 1, span + 1, 16 * 64, 16 * 64 + 476]
+    edges = dict(S=8, page=16, Pmax=64, KV=8, H=32, hd=128, lengths=edge_lengths)
     page6 = dict(S=3, page=6, Pmax=5, KV=2, H=8, hd=64, lengths=[1, 30, 13])
-    return [
-        ("main bf16", torch.bfloat16, torch.bfloat16, main, 64.0),
-        ("fp32", torch.float32, torch.float32, main, 8.0),
-        ("page 6 hd64 fp32 pools, bf16 q", torch.bfloat16, torch.float32, page6, 8.0),
-        ("page 6 hd64 bf16", torch.bfloat16, torch.bfloat16, page6, 64.0),
+    edges6 = dict(S=8, page=6, Pmax=50, KV=2, H=8, hd=64,
+                  lengths=[1, CHUNK - 1, CHUNK, CHUNK + 1, span - 1, span + 1, 300, 350])
+    g16 = dict(S=4, page=16, Pmax=20, KV=2, H=32, hd=64, lengths=[1, 65, 257, 320])
+    g16_128 = dict(S=4, page=16, Pmax=20, KV=1, H=16, hd=128, lengths=[2, 64, 300, 320])
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = []
+    for label, g in (("A", geo["A"]), ("B", geo["B"]), ("C", geo["C"]),
+                     ("chunk edges", edges), ("page 6 chunk edges hd64", edges6),
+                     ("G16 hd64", g16), ("G16 hd128", g16_128)):
+        cases += [(f"{label} bf16", bf16, bf16, g, 64.0), (f"{label} fp32", fp32, fp32, g, 8.0)]
+    return cases + [
+        ("page 6 hd64 fp32 pools, bf16 q", bf16, fp32, page6, 8.0),
+        ("page 6 hd64 bf16", bf16, bf16, page6, 64.0),
     ]
 
 
@@ -265,24 +332,99 @@ def paged_inputs(dev, q_dtype, pool_dtype, S, page, Pmax, KV, H, hd, lengths, se
     return q, kp, vp, table, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
+def paged_decode_float64(q, kp, vp, table, lengths, *, scale):
+    """The plain version's gather chain run in float64 (the arbiter the
+    kernel is held to): dense (S, page * Pmax) view, length mask,
+    softmax, value product.  Returns float64 (S, H, hd)."""
+    S, H, hd = q.shape
+    _, page, KV, _ = kp.shape
+    T = page * table.shape[1]
+    idx = table.long()
+    ks = kp[idx].reshape(S, T, KV, hd).double()
+    vs = vp[idx].reshape(S, T, KV, hd).double()
+    qg = (q.double() * scale).reshape(S, KV, H // KV, hd)
+    s = torch.einsum("skgd,stkd->skgt", qg, ks)
+    mask = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, -1e300))
+    return torch.einsum("skgt,stkd->skgd", torch.softmax(s, dim=-1), vs).reshape(S, H, hd)
+
+
+def nan_heads(out) -> list:
+    """The (slot, head) pairs of ``out`` (S, H, hd) that hold a NaN."""
+    return sorted({(int(s), int(h)) for s, h, _ in torch.nonzero(torch.isnan(out)).tolist()})
+
+
 def run_paged_parity(dev, ulps):
+    """Each case against the plain version run in float64
+    (``paged_decode_float64``) at its bound, two launches bitwise; the
+    distances to the fp32 plain version and of that version to float64 are
+    reported beside: at 64 slots of up to 1,024 positions the fp32 plain
+    version sits 6-8 fp32 ulps from float64 and the kernel 2-3 (on an
+    H100), so the fp32 plain version is no arbiter at the 8-ulp bound
+    there.  Then at
+    shape A a NaN in K (and, apart, in V) at a valid position in the last
+    chunk of the longest slot, which must poison exactly the heads the
+    plain version poisons (that slot's kv group); then slot independence,
+    bitwise: each slot's row equals its row of the full call when the other
+    slots' lengths change and when it runs alone (S=1)."""
     from vescale_tpu_torch.kernels.paged_attention import paged_decode, paged_decode_reference
 
     out = []
-    main = None
     for label, q_dtype, pool_dtype, geometry, bound in paged_cases():
         q, kp, vp, table, lengths = paged_inputs(dev, q_dtype, pool_dtype, **geometry)
         scale = 1.0 / q.shape[-1] ** 0.5
         o = paged_decode(q, kp, vp, table, lengths, scale=scale)
+        again = paged_decode(q, kp, vp, table, lengths, scale=scale)
         o_ref = paged_decode_reference(q, kp, vp, table, lengths, scale=scale)
+        o64 = paged_decode_float64(q, kp, vp, table, lengths, scale=scale)
         torch.cuda.synchronize()
+        o_np, o64_np = o.double().cpu().numpy(), o64.cpu().numpy()
+        u = ulps(o_np, o64_np)
+        rep = bits_equal(o, again)
+        out.append(dict(kernel="paged_decode", case=label, ulps=u, bound=bound,
+                        plain_fp32_ulps=ulps(o_np, o_ref.double().cpu().numpy()),
+                        plain_fp32_vs_f64_ulps=ulps(o_ref.double().cpu().numpy(), o64_np),
+                        max_abs_err=float((o - o_ref).abs().max()), bitwise_repeat=rep,
+                        ok=u <= bound and rep))
+        del q, kp, vp, o, again, o_ref, o64
+        free_memory()
+
+    geo = paged_geometries()["A"]
+    q, kp, vp, table, lengths = paged_inputs(dev, torch.bfloat16, torch.bfloat16, **geo)
+    scale = 1.0 / geo["hd"] ** 0.5
+    s, pos, kvh = 1, geo["lengths"][1] - 3, 2  # the 1024-slot, in its last chunk
+    G = geo["H"] // geo["KV"]
+    for pool_name in ("k", "v"):
+        kp1, vp1 = kp.clone(), vp.clone()
+        (kp1 if pool_name == "k" else vp1)[table[s, pos // geo["page"]], pos % geo["page"], kvh, 5] = \
+            float("nan")
+        o = paged_decode(q, kp1, vp1, table, lengths, scale=scale)
+        o_ref = paged_decode_reference(q, kp1, vp1, table, lengths, scale=scale)
+        torch.cuda.synchronize()
+        want = [(s, h) for h in range(kvh * G, (kvh + 1) * G)]
+        got, ref = nan_heads(o), nan_heads(o_ref)
         u = ulps(o.cpu().numpy(), o_ref.cpu().numpy())
-        row = dict(kernel="paged_decode", case=label, ulps=u, bound=bound,
-                   max_abs_err=float((o - o_ref).abs().max()), ok=u <= bound)
-        out.append(row)
-        if label == "main bf16":
-            main = (row, q, kp, vp, table, lengths, scale)
-    return out, main
+        out.append(dict(kernel="paged_decode", case=f"A bf16, NaN in {pool_name.upper()} at slot {s} "
+                        f"position {pos}, kv head {kvh}", nan_heads=got, plain_nan_heads=ref,
+                        ulps=u, bound=64.0, ok=got == ref == want and u <= 64.0))
+        del kp1, vp1
+
+    full = paged_decode(q, kp, vp, table, lengths, scale=scale)
+    alone_equal, changed_equal = [], []
+    for s in range(geo["S"]):
+        other = (lengths * 7 + 3) % (geo["page"] * geo["Pmax"]) + 1
+        other[s] = lengths[s]
+        changed = paged_decode(q, kp, vp, table, other, scale=scale)
+        alone = paged_decode(q[s:s + 1].contiguous(), kp, vp, table[s:s + 1].contiguous(),
+                             lengths[s:s + 1].contiguous(), scale=scale)
+        changed_equal.append(bits_equal(changed[s], full[s]))
+        alone_equal.append(bits_equal(alone[0], full[s]))
+    out.append(dict(kernel="paged_decode", case="A bf16, slot independence (bitwise)",
+                    other_lengths_changed=changed_equal, alone=alone_equal,
+                    ok=all(changed_equal) and all(alone_equal)))
+    del q, kp, vp, full
+    free_memory()
+    return out
 
 
 # --------------------------------------------------------- flash backward
@@ -617,23 +759,50 @@ def flash_timing(dev, parity_rows):
     return out
 
 
-def paged_timing(main):
+def paged_timing(dev, parity_rows):
+    """K7 in bf16 at shapes A, B and C (``paged_geometries``): ms, the plain
+    version's ms, the bytes bound and its share.  B and C reference more K/V
+    than the 50 MB L2 holds, so back-to-back calls read device memory.  A
+    references 10.7 MB, which stays in L2 over back-to-back calls on one
+    pool (``ms_l2_warm``, the number earlier runs reported); in serve each
+    layer reads its own pool, so A's ``ms`` cycles over 8 distinct pool
+    pairs (86 MB referenced) between calls.  The row's own fields are A's
+    (rotated); B and C go under their names."""
     from vescale_tpu_torch.kernels.paged_attention import paged_decode, paged_decode_reference
 
-    row, q, kp, vp, table, lengths, scale = main
-    ms = cuda_ms(lambda: paged_decode(q, kp, vp, table, lengths, scale=scale), iters=50)
-    plain_ms = cuda_ms(lambda: paged_decode_reference(q, kp, vp, table, lengths, scale=scale))
-    S, H, hd = q.shape
-    KV = kp.shape[2]
-    tokens = int(lengths.sum())
-    # the K/V rows the slots hold, read once; q, table, lengths; fp32 out
-    nbytes = (2 * tokens * KV * hd * kp.element_size() + q.numel() * q.element_size()
-              + table.numel() * 4 + lengths.numel() * 4 + S * H * hd * 4)
-    flops = 4 * tokens * H * hd
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=row["max_abs_err"],
-                **bound(nbytes, flops, kp.dtype),
-                shape=dict(S=S, H=H, KV=KV, hd=hd, page=kp.shape[1], Pmax=table.shape[1],
-                           tokens=tokens, dtype=str(kp.dtype)))
+    errs = {row["case"]: row["max_abs_err"] for row in parity_rows if "max_abs_err" in row}
+    out = {}
+    for name, geo in paged_geometries().items():
+        sets = [paged_inputs(dev, torch.bfloat16, torch.bfloat16, **geo, seed=i)
+                for i in range(8 if name == "A" else 1)]
+        q, kp, vp, table, lengths = sets[0]
+        scale = 1.0 / geo["hd"] ** 0.5
+        warm = cuda_ms(lambda: paged_decode(q, kp, vp, table, lengths, scale=scale), iters=48)
+        turn = iter(range(1 << 30))
+        ms = cuda_ms(lambda: paged_decode(*sets[next(turn) % len(sets)], scale=scale), iters=48)
+        plain_ms = cuda_ms(lambda: paged_decode_reference(q, kp, vp, table, lengths, scale=scale),
+                           iters=5, warmup=1)
+        S, H, hd = q.shape
+        KV = kp.shape[2]
+        tokens = int(lengths.sum())
+        # the K/V rows the slots hold, read once; q, table, lengths; fp32 out
+        nbytes = (2 * tokens * KV * hd * kp.element_size() + q.numel() * q.element_size()
+                  + table.numel() * 4 + lengths.numel() * 4 + S * H * hd * 4)
+        fields = dict(ms=ms, ms_l2_warm=warm, plain_ms=plain_ms, library_ms=None,
+                      max_abs_err=errs[f"{name} bf16"], **bound(nbytes, 4 * tokens * H * hd, kp.dtype),
+                      pools_cycled=len(sets), referenced_bytes_cycled=len(sets) * 2 * tokens * KV * hd * 2,
+                      shape=dict(S=S, H=H, KV=KV, hd=hd, page=kp.shape[1], Pmax=table.shape[1],
+                                 tokens=tokens, dtype=str(kp.dtype)))
+        fields["share_of_bound"] = fields["bound_ms"] / ms
+        fields["share_of_bound_l2_warm"] = fields["bound_ms"] / warm
+        if name == "A":
+            out.update(fields)
+        else:
+            out[name] = fields
+        del sets, q, kp, vp, table, lengths
+        free_memory()
+    out["library_note"] = "none: no one PyTorch call reads a paged pool"
+    return out
 
 
 def bound(nbytes: float, flops: float, dtype) -> dict:
@@ -1134,16 +1303,19 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln or "Function properties" in ln]
              for name in nvcc_s}
     hgmma = sass_wgmma(_build)
+    paged = paged_build_report(_build)
     log("build", seconds=time.perf_counter() - t, nvcc_seconds=nvcc_s, ptxas=ptxas,
-        flash_sass_wgmma=hgmma)
+        flash_sass_wgmma=hgmma, paged_decode=paged)
     check(all((n > 0) == name.startswith("tc::") for name, n in hgmma.items()),
           f"HGMMA in every tensor-core flash kernel and in no other: {hgmma}")
+    check(paged["kernels"] and not paged["spills"],
+          f"paged_decode kernels built without spills: {paged}")
 
     t = time.perf_counter()
     flash_rows = run_flash_parity(dev, ulps_at_scale)
-    paged_rows, paged_main = run_paged_parity(dev, ulps_at_scale)
-    timings = {"flash_fwd": flash_timing(dev, flash_rows), "paged_decode": paged_timing(paged_main)}
-    del paged_main
+    paged_rows = run_paged_parity(dev, ulps_at_scale)
+    timings = {"flash_fwd": flash_timing(dev, flash_rows),
+               "paged_decode": paged_timing(dev, paged_rows)}
     bwd_rows, bwd_timings = run_flash_bwd_parity(dev, ulps_at_scale)
     adamw_rows, timings["fused_adamw"] = run_adamw_parity(dev)
     xent_rows, xent_timings = run_xent_parity(dev, ulps_at_scale)
