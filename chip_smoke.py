@@ -31,13 +31,36 @@ Phases, each printing one JSON line with its seconds:
   engine   a 2-layer fp32 engine on the card (kernels) and on the CPU (plain
            versions) from the same weights: first prefill logits within a
            stated bound, greedy streams of 16 tokens equal
+  engine_spec  the same 2-layer fp32 engine on the card and on the CPU over
+           8 requests that share a 48-token prefix: greedy streams of plain
+           decode, the prefix cache, and the prefix cache with speculative
+           decoding (1-layer drafter, k = 1 and 4) all exactly equal, on
+           both devices
   serve    Llama-3-8B at full width (32 layers, random bf16 weights from a
-           seed): 16 requests through ``run_serve``; every request
-           completes, the ledger balances, every prefill layer launched the
-           flash kernel and every decode layer the paged kernel, and a
-           replay of one request reproduces its tokens
+           seed): 16 requests through ``run_serve`` twice, once with the
+           decode step replayed as a CUDA graph (the engine) and once run
+           op by op (a smoke-local subclass whose decode is the eager
+           step); in each, every request completes, the ledger balances,
+           every prefill layer launched the flash kernel and every decode
+           layer the paged kernel, and a replay of one request reproduces
+           its tokens; the two runs' streams are equal; on a mixed batch
+           the graphed step's logits and pools are bitwise the eager
+           step's, before and after ``swap_params`` to other weights and
+           back
+  spec_prefix  the 8B engine over 16 requests that share a 256-token system
+           prompt: plain decode (the golden run), the prefix cache, and the
+           prefix cache with speculative decoding (k = 4) under a 2-layer
+           and a 32-layer drafter; every request completes, each request
+           admitted after the first insert hits at 256 tokens, the flash
+           and paged launches match the prefills and decode steps that ran,
+           every emitted token is the verify step's argmax; the suffix
+           prefill against a full prefill and the multi-token step against
+           plain decode, teacher-forced, within a stated bound in bf16
+           steps; tokens/s, TTFT, prefill tokens saved, acceptance and how
+           many streams equal the golden run's
   profile  device time by kernel kind and the device's idle share over a
-           second run of the serve requests (``torch.profiler``)
+           second run of the serve requests (``torch.profiler``), for the
+           graphed and the eager engine
   train_small  a 2-layer fp32 Llama trained 3 steps on the card and on the
            CPU from the same weights: losses within a stated bound
   train    the 1.3B Llama of the bench (``vescale_tpu_torch.bench``) at full
@@ -983,6 +1006,60 @@ def run_small_engine(dev, ulps):
                 streams_equal=True, streams=streams["card"])
 
 
+def run_engine_spec(dev):
+    """The ``engine`` phase's 2-layer fp32 model over requests that share a
+    48-token prefix (3 pages), on the card and on the CPU: plain decode, the
+    prefix cache, and the prefix cache with a 1-layer drafter at k = 1 and
+    4.  Greedy acceptance emits the target's own argmaxes and the suffix
+    prefill writes the same K/V a full prefill would, to fp32 rounding, so
+    every stream must equal the CPU plain run's exactly."""
+    from vescale_tpu_torch.models import LlamaConfig, init_params, tree_to
+    from vescale_tpu_torch.serve import (
+        ContinuousBatchingScheduler, KVCacheConfig, PagedKVCache, PrefixCache, Request,
+        ServeEngine, SpeculativeDecoder, run_serve, slice_drafter_params,
+    )
+
+    cfg = LlamaConfig(vocab_size=1024, hidden_size=512, intermediate_size=1024, num_hidden_layers=2,
+                      num_attention_heads=8, num_key_value_heads=4, max_position_embeddings=256,
+                      dtype=torch.float32)
+    params = init_params(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(9)
+    system = tuple(int(t) for t in rng.integers(1, cfg.vocab_size, 48))
+    arrivals = [(i // 2, Request(rid=i, max_new_tokens=12, prompt=system + tuple(
+        int(t) for t in rng.integers(1, cfg.vocab_size, int(rng.integers(1, 41))))))
+        for i in range(8)]
+    variants = {"plain": (False, None), "prefix": (True, None),
+                "prefix_spec_k1": (True, 1), "prefix_spec_k4": (True, 4)}
+    streams, stats = {}, {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        tree = tree_to(params, device)
+        for name, (prefix, k) in variants.items():
+            kc = KVCacheConfig(layers=2, kv_heads=4, head_dim=cfg.head_dim, num_slots=4,
+                               page_size=16, pages_per_slot=8)
+            cache = PagedKVCache(kc, device=device)
+            eng = ServeEngine(cfg, tree, cache, device=device)
+            pc = PrefixCache(cache) if prefix else None
+            sched = ContinuousBatchingScheduler(cache, prefix_cache=pc)
+            spec = (SpeculativeDecoder(eng, slice_drafter_params(eng.params, 1), drafter_layers=1,
+                                       k=k) if k else None)
+            res = run_serve(eng, sched, arrivals, speculative=spec)
+            sched.ledger_check()
+            check(all(o["status"] == "completed" for o in res.outcomes.values()),
+                  f"engine_spec {where} {name}: not every request completed")
+            streams[where, name] = {rid: o["tokens"] for rid, o in res.outcomes.items()}
+            stats[f"{where} {name}"] = dict(
+                prefix_hit_tokens=pc.stats.hit_tokens if pc else None,
+                drafted=spec.drafted if spec else None, accepted=spec.accepted if spec else None,
+                verify_steps=spec.verify_steps if spec else None)
+    golden = streams["cpu", "plain"]
+    equal = {f"{w} {n}": s == golden for (w, n), s in streams.items()}
+    check(all(equal.values()), f"engine_spec streams differ: {equal}")
+    check(all(stats[f"{w} prefix"]["prefix_hit_tokens"] > 0 for w in ("card", "cpu"))
+          and all(stats[f"{w} prefix_spec_k{k}"]["drafted"] > 0 for w in ("card", "cpu") for k in (1, 4)),
+          f"engine_spec: the prefix cache never hit or nothing was drafted: {stats}")
+    return dict(requests=len(arrivals), streams_equal=equal, stats=stats)
+
+
 # ------------------------------------------------------------------- train
 def run_train_small(dev):
     """The bench's CPU config, widened so head_dim is 64 (a width the
@@ -1197,26 +1274,27 @@ def serve_requests(vocab: int, n: int = 16, seed: int = 0):
     return out
 
 
-def run_serve_8b(dev, kernels_mod):
-    from vescale_tpu_torch.models import LLAMA3_8B, init_params
-    from vescale_tpu_torch.serve import (
-        ContinuousBatchingScheduler, KVCacheConfig, PagedKVCache, ServeEngine, run_serve,
-    )
+def eager_engine(eng):
+    """A smoke-local engine over ``eng``'s weights and cache whose decode is
+    the eager step, op by op: the baseline the graphed step is held to."""
+    from vescale_tpu_torch.serve import ServeEngine
 
-    cfg = LLAMA3_8B
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
-    kc = KVCacheConfig(layers=cfg.num_hidden_layers, kv_heads=cfg.num_key_value_heads,
-                       head_dim=cfg.head_dim, num_slots=8, page_size=16, pages_per_slot=64,
-                       dtype=torch.bfloat16)
-    cache = PagedKVCache(kc, device=dev)
-    eng = ServeEngine(cfg, params, cache, device=dev)
-    eng.replay_greedy([1, 2, 3], 2)  # warm up cuBLAS and load the kernels
+    class EagerServeEngine(ServeEngine):
+        def decode(self, tokens):
+            return self.decode_eager(tokens)
+
+    return EagerServeEngine(eng.config, eng.params, eng.cache, device=eng.device)
+
+
+def serve_run(dev, eng, arrivals, kernels_mod):
+    """One run of ``arrivals`` through ``eng`` from an empty cache, with the
+    launch counts set to 0 just before it and read just after."""
+    from vescale_tpu_torch.serve import ContinuousBatchingScheduler, run_serve
+
+    cfg = eng.config
+    eng.cache.reset()
+    sched = ContinuousBatchingScheduler(eng.cache)
     torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-
-    arrivals = serve_requests(cfg.vocab_size)
-    sched = ContinuousBatchingScheduler(cache)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels_mod.reset_launches()
     t1 = time.perf_counter()
@@ -1242,8 +1320,7 @@ def run_serve_8b(dev, kernels_mod):
     }
     rid, req = arrivals[3][1].rid, arrivals[3][1]
     checks["replay_equal"] = eng.replay_greedy(req.prompt, req.max_new_tokens) == res.outcomes[rid]["tokens"]
-    out = dict(model="LLAMA3_8B", layers=L, weights="random bf16, seed 0", setup_s=setup_s,
-               serve_s=wall, steps=res.steps, requests=len(arrivals), prefills=prefills,
+    out = dict(serve_s=wall, steps=res.steps, requests=len(arrivals), prefills=prefills,
                decode_steps=steps, generated_tokens=tokens, tokens_per_s=tokens / wall,
                ttft_p50_s=sched.percentile("ttft", 0.5), ttft_p99_s=sched.percentile("ttft", 0.99),
                decode_step_p50_ms=1e3 * sched.percentile("step_time", 0.5),
@@ -1251,8 +1328,95 @@ def run_serve_8b(dev, kernels_mod):
                prefill_p50_ms=1e3 * hist["serve_ttft_prefill_seconds"].percentile(0.5),
                queue_wait_p50_s=hist["serve_ttft_queue_wait_seconds"].percentile(0.5),
                peak_memory_bytes=peak, launches=launches, checks=checks)
-    check(all(checks.values()), f"serve checks failed: {out}")
-    return out, eng, cfg
+    return out, {r: o["tokens"] for r, o in res.outcomes.items()}
+
+
+def graph_vs_eager(eng, kernels_mod, prompts):
+    """The decode step on a mixed batch (slots at several lengths, the rest
+    free), graphed and eager, each from the same pools: logits and every
+    page but the null page (which takes the free slots' racing writes)
+    bitwise equal.  The graphed step is a replay: the graph exists before
+    the call, and the call adds one captured launch per layer."""
+    cache = eng.cache
+    L = eng.config.num_hidden_layers
+    cache.reset()
+    toks = np.zeros((cache.num_slots,), np.int64)
+    for p in prompts:
+        slot = cache.alloc(len(p), 8)
+        toks[slot] = eng.greedy(eng.prefill(p, slot))
+        cache.commit_prefill(slot, len(p))
+    k0, v0 = cache.k.clone(), cache.v.clone()
+
+    def step(fn):
+        cache.k.copy_(k0)
+        cache.v.copy_(v0)
+        logits = fn(toks)
+        return logits, cache.k[:, 1:].clone(), cache.v[:, 1:].clone()
+
+    if eng._graph is None or not eng._graph.current(cache):
+        step(eng.decode)  # runs the step eagerly and captures it
+    ready = eng._graph is not None and eng._graph.current(cache)
+    before = kernels_mod.LAUNCHES["paged_decode"]
+    graphed = step(eng.decode)
+    replayed = ready and kernels_mod.LAUNCHES["paged_decode"] - before == L
+    eager = step(eng.decode_eager)
+    equal = (np.array_equal(graphed[0], eager[0]) and torch.equal(graphed[1], eager[1])
+             and torch.equal(graphed[2], eager[2]))
+    cache.k.copy_(k0)
+    cache.v.copy_(v0)
+    cache.reset()
+    return dict(replayed=replayed, bitwise_equal=equal), graphed[0]
+
+
+def run_serve_8b(dev, kernels_mod):
+    from vescale_tpu_torch.models import LLAMA3_8B, init_params
+    from vescale_tpu_torch.serve import KVCacheConfig, PagedKVCache, ServeEngine
+
+    cfg = LLAMA3_8B
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    kc = KVCacheConfig(layers=cfg.num_hidden_layers, kv_heads=cfg.num_key_value_heads,
+                       head_dim=cfg.head_dim, num_slots=8, page_size=16, pages_per_slot=64,
+                       dtype=torch.bfloat16)
+    cache = PagedKVCache(kc, device=dev)
+    eng = ServeEngine(cfg, params, cache, device=dev)
+    eager = eager_engine(eng)
+    # warm up cuBLAS, load the kernels and capture the decode graph
+    eng.replay_greedy([1, 2, 3], 2)
+    eager.replay_greedy([1, 2, 3], 2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    arrivals = serve_requests(cfg.vocab_size)
+    graph_run, graph_streams = serve_run(dev, eng, arrivals, kernels_mod)
+    eager_run, eager_streams = serve_run(dev, eager, arrivals, kernels_mod)
+
+    # the graphed step against the eager one on a mixed batch, then after
+    # swap_params to seed-1 weights (the graph is captured again) and back
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)] for n in (40, 333, 17, 700, 128)]
+    mixed = {}
+    mixed["seed0"], first = graph_vs_eager(eng, kernels_mod, prompts)
+    other = init_params(cfg, seed=1, device=dev, dtype=torch.bfloat16)
+    old = eng.swap_params(other)
+    mixed["seed1"], swapped = graph_vs_eager(eng, kernels_mod, prompts)
+    eng.swap_params(old)
+    mixed["seed0_again"], back = graph_vs_eager(eng, kernels_mod, prompts)
+    del other
+    free_memory()
+    mixed["new_weights_took_effect"] = not np.array_equal(first, swapped)
+    mixed["same_as_first"] = np.array_equal(first, back)
+
+    checks = {"graph": graph_run["checks"], "eager": eager_run["checks"],
+              "streams_equal": graph_streams == eager_streams,
+              "mixed_batch": all(v if isinstance(v, bool) else all(v.values()) for v in mixed.values())}
+    out = dict(model="LLAMA3_8B", layers=cfg.num_hidden_layers, weights="random bf16, seed 0",
+               setup_s=setup_s, graph=graph_run, eager=eager_run, mixed_batch=mixed,
+               launches=graph_run["launches"], checks=checks)
+    ok = (all(graph_run["checks"].values()) and all(eager_run["checks"].values())
+          and checks["streams_equal"] and checks["mixed_batch"])
+    check(ok, f"serve checks failed: {out}")
+    return out, eng, eager, cfg
 
 
 def run_profile(eng, cfg, serve_wall_s: float):
@@ -1275,6 +1439,228 @@ def run_profile(eng, cfg, serve_wall_s: float):
                 untraced_wall_ms=serve_wall_s * 1e3,
                 device_idle_share=max(0.0, 1.0 - busy / (serve_wall_s * 1e3)),
                 traced_idle_share=max(0.0, 1.0 - busy / wall_ms), **prof)
+
+
+# ------------------------------------------------------------- spec_prefix
+# The bound on the two teacher-forced comparisons of the spec_prefix phase, in
+# bf16 steps at the logits' scale.  On the CPU (tests/test_torch_spec_prefix.py,
+# bf16 weights and pool, the prefill's attention through the model of the
+# card's flash kernel) the suffix prefill sat 3.1-3.8 steps from a full
+# prefill and a 16-token multi-token window 4.2-5.0 from plain decode at 32
+# layers; the card adds cuBLAS's order of summation, which changes with the
+# number of rows.  Three times the CPU's worst, rounded up.
+SPEC_BF16_BOUND = 16.0
+SYSTEM_TOKENS = 256
+
+
+def spec_prefix_requests(vocab: int, n: int = 16, seed: int = 1):
+    """A chat service's traffic: every request is one 256-token system
+    prompt (16 pages) plus 16-240 private tokens, 32 new tokens, two
+    arrivals a step."""
+    from vescale_tpu_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    system = tuple(int(t) for t in rng.integers(1, vocab, SYSTEM_TOKENS))
+    out = []
+    for i in range(n):
+        private = tuple(int(t) for t in rng.integers(1, vocab, int(rng.integers(16, 241))))
+        out.append((i // 2, Request(rid=i, prompt=system + private, max_new_tokens=32)))
+    return out
+
+
+def spec_prefix_classes():
+    """Smoke-local subclasses that record what the exact checks read: each
+    admission's prefix hit and step, the request of every sampled token,
+    the drafter's prefills, and whether every emitted token is the verify
+    logits' argmax at its position."""
+    from vescale_tpu_torch.serve import ContinuousBatchingScheduler, SpeculativeDecoder
+
+    class RecordingScheduler(ContinuousBatchingScheduler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.hits, self.admit_steps, self.token_rids = {}, {}, []
+
+        def admit(self, step):
+            out = super().admit(step)
+            for inf in out:
+                self.hits[inf.req.rid] = inf.prefix_hit
+                self.admit_steps[inf.req.rid] = step
+            return out
+
+        def record_token(self, slot, token):
+            self.token_rids.append(self.active[slot].req.rid)
+            super().record_token(slot, token)
+
+    class CheckingDecoder(SpeculativeDecoder):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.prefills = self.emitted = self.not_argmax = 0
+
+        def on_admit(self, slot, prompt, max_new_tokens):
+            super().on_admit(slot, prompt, max_new_tokens)
+            self.prefills += 1
+
+        def accept(self, drafts_row, verify_logits_row, budget, eos_id):
+            out, accepted = super().accept(drafts_row, verify_logits_row, budget, eos_id)
+            for i, tok in enumerate(out):
+                self.emitted += 1
+                self.not_argmax += int(tok != int(np.argmax(verify_logits_row[i])))
+            return out, accepted
+
+    return RecordingScheduler, CheckingDecoder
+
+
+def spec_prefix_run(dev, eng, arrivals, kernels_mod, *, prefix, drafter_layers=None, k=4):
+    """One run from an empty cache; the launch counts set to 0 just before
+    it and read just after.  Returns the row to print, the exact checks,
+    the streams and (for the golden run) each sampled token's top-2 gap."""
+    from vescale_tpu_torch.serve import PrefixCache, run_serve, slice_drafter_params
+
+    Sched, Decoder = spec_prefix_classes()
+    cache = eng.cache
+    L = eng.config.num_hidden_layers
+    cache.reset()
+    pc = PrefixCache(cache) if prefix else None
+    sched = Sched(cache, prefix_cache=pc)
+    spec = None
+    if drafter_layers:
+        spec = Decoder(eng, slice_drafter_params(eng.params, drafter_layers),
+                       drafter_layers=drafter_layers, k=k)
+    gaps = []
+    if not prefix:
+        def greedy(row):  # the golden run records each sample's top-2 gap
+            top = np.partition(row, -2)[-2:]
+            gaps.append(float(top[1] - top[0]))
+            return int(np.argmax(row))
+        eng.greedy = greedy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = run_serve(eng, sched, arrivals, speculative=spec)
+        torch.cuda.synchronize()
+    finally:
+        eng.__dict__.pop("greedy", None)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels_mod.LAUNCHES)
+    sched.ledger_check()
+    tel = sched.telemetry
+    steps = int(tel.counter("serve_decode_steps_total"))
+    verify = int(tel.counter("serve_spec_verify_steps_total"))
+    first = min(sched.admit_steps.values())
+    misses = sum(1 for h in sched.hits.values() if h == 0)
+    dl = drafter_layers or 0
+    drafter_prefills = spec.prefills if spec else 0
+    tokens = sum(len(o["tokens"]) for o in res.outcomes.values())
+    checks = {
+        "all_completed": len(res.outcomes) == len(arrivals) and all(
+            o["status"] == "completed" and len(o["tokens"]) == 32 for o in res.outcomes.values()),
+        "flash_launches": launches["flash_fwd"] == L * misses + dl * drafter_prefills,
+        "paged_launches": launches["paged_decode"] == L * (steps - verify) + dl * (k + 1) * verify,
+    }
+    if prefix:
+        checks["hits_at_256"] = all(
+            h == (0 if sched.admit_steps[r] == first else SYSTEM_TOKENS) for r, h in sched.hits.items())
+    if spec:
+        checks["drafter_prefills"] = drafter_prefills == len(arrivals) and not spec.undrafted
+        checks["emitted_are_verify_argmax"] = spec.not_argmax == 0 and spec.emitted == tokens - len(arrivals)
+    row = dict(wall_s=wall, tokens_per_s=tokens / wall, decode_steps=steps, verify_steps=verify,
+               ttft_p50_s=sched.percentile("ttft", 0.5), ttft_p99_s=sched.percentile("ttft", 0.99),
+               decode_step_p50_ms=1e3 * sched.percentile("step_time", 0.5),
+               prefill_p50_ms=1e3 * tel.histograms["serve_ttft_prefill_seconds"].percentile(0.5),
+               prefix_hits=sum(1 for h in sched.hits.values() if h),
+               prefill_tokens_saved=pc.stats.hit_tokens if pc else 0,
+               accept_rate=spec.accept_rate() if spec else None,
+               drafted=spec.drafted if spec else None, accepted=spec.accepted if spec else None,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev), launches=launches)
+    per_rid = {}
+    for rid, gap in zip(sched.token_rids, gaps):
+        per_rid.setdefault(rid, []).append(gap)
+    del spec
+    free_memory()
+    return row, checks, {r: o["tokens"] for r, o in res.outcomes.items()}, per_rid
+
+
+def spec_prefix_bounds(eng, arrivals, golden):
+    """Teacher-forced on one request: its suffix prefill (over the system
+    prompt's pages, written by another request's full prefill) against a
+    full prefill of it, and one 16-token ``decode_multi`` window of its
+    golden tokens against 16 plain decode steps, in bf16 steps at scale."""
+    from vescale_tpu_torch.kernels import ulps_at_scale
+
+    cache = eng.cache
+    S = cache.num_slots
+    cache.reset()
+    req, other = arrivals[5][1], arrivals[4][1]
+    a = cache.alloc(len(other.prompt), 0)
+    eng.prefill(other.prompt, a)
+    cache.commit_prefill(a, len(other.prompt))
+    pages = [int(p) for p in cache.page_table[a][: SYSTEM_TOKENS // cache.config.page_size]]
+    for p in pages:
+        cache.retain_page(p)
+    cache.free(a)
+    b = cache.alloc_shared(pages, len(req.prompt), 16)
+    cache.commit_prefill(b, SYSTEM_TOKENS)
+    suffix = eng.prefill_suffix(req.prompt, b, SYSTEM_TOKENS)
+    c = cache.alloc(len(req.prompt), 16)
+    full = eng.prefill(req.prompt, c)
+    cache.commit_prefill(c, len(req.prompt))
+    toks = golden[req.rid][:16]
+    rows = []
+    for t in toks:
+        x = np.zeros((S,), np.int64)
+        x[c] = t
+        rows.append(eng.decode(x)[c])
+        cache.advance(c)
+    d = cache.alloc(len(req.prompt), 16)
+    eng.prefill(req.prompt, d)
+    cache.commit_prefill(d, len(req.prompt))
+    w = np.zeros((S, 16), np.int64)
+    w[d] = toks
+    multi = eng.decode_multi(w)[d]
+    rows = np.stack(rows)
+    cache.reset()
+    out = dict(rid=req.rid, bound_bf16_steps=SPEC_BF16_BOUND,
+               suffix_vs_prefill_bf16_steps=ulps_at_scale(suffix, full) / BF16_ULP,
+               multi_vs_decode_bf16_steps=ulps_at_scale(multi, rows) / BF16_ULP,
+               suffix_argmax_equal=int(np.argmax(suffix)) == int(np.argmax(full)),
+               multi_argmax_equal=int((multi.argmax(-1) == rows.argmax(-1)).sum()))
+    out["ok"] = (out["suffix_vs_prefill_bf16_steps"] <= SPEC_BF16_BOUND
+                 and out["multi_vs_decode_bf16_steps"] <= SPEC_BF16_BOUND)
+    return out
+
+
+def run_spec_prefix(dev, eng, kernels_mod):
+    """Llama-3-8B with the serve phase's weights and cache over the chat
+    traffic of ``spec_prefix_requests``: plain (golden), prefix cache,
+    prefix cache + speculation (k = 4) with a 2-layer and a 32-layer
+    drafter (the target itself, which should accept nearly every draft)."""
+    arrivals = spec_prefix_requests(eng.config.vocab_size)
+    L = eng.config.num_hidden_layers
+    runs, checks = {}, {}
+    golden_row, checks["plain"], golden, gaps = spec_prefix_run(
+        dev, eng, arrivals, kernels_mod, prefix=False)
+    runs["plain"] = golden_row
+    for name, kw in (("prefix", dict(prefix=True)),
+                     ("prefix_spec_2_layers", dict(prefix=True, drafter_layers=2)),
+                     ("prefix_spec_all_layers", dict(prefix=True, drafter_layers=L))):
+        row, checks[name], streams, _ = spec_prefix_run(dev, eng, arrivals, kernels_mod, **kw)
+        equal = [r for r in streams if streams[r] == golden[r]]
+        first_div = {}
+        for r in streams:
+            if r not in equal:
+                pos = next(i for i, (x, y) in enumerate(zip(streams[r], golden[r])) if x != y)
+                first_div[r] = dict(position=pos, golden_top2_gap=gaps[r][pos])
+        row.update(requests_equal_golden=len(equal), first_divergence=first_div)
+        runs[name] = row
+    bounds = spec_prefix_bounds(eng, arrivals, golden)
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["plain"]["launches"]}
+    out = dict(model="LLAMA3_8B", requests=len(arrivals), system_tokens=SYSTEM_TOKENS, runs=runs,
+               checks=checks, bounded=bounds, launches=launches)
+    check(all(all(c.values()) for c in checks.values()) and bounds["ok"],
+          f"spec_prefix checks failed: {out}")
+    return out
 
 
 # -------------------------------------------------------------------- main
@@ -1334,15 +1720,22 @@ def main() -> int:
     t = time.perf_counter()
     engine = run_small_engine(dev, ulps_at_scale)
     log("engine", seconds=time.perf_counter() - t, **engine)
-    # serve before train: the host-bound serve run is timed before any
+    t = time.perf_counter()
+    engine_spec = run_engine_spec(dev)
+    log("engine_spec", seconds=time.perf_counter() - t, **engine_spec)
+    # serve before train: the host-bound serve runs are timed before any
     # profiler session of this process has run
     t = time.perf_counter()
-    serve, eng, cfg = run_serve_8b(dev, kernels_mod)
+    serve, eng, eager, cfg = run_serve_8b(dev, kernels_mod)
     log("serve", seconds=time.perf_counter() - t, **serve)
     t = time.perf_counter()
-    prof = run_profile(eng, cfg, serve["serve_s"])
+    spec_prefix = run_spec_prefix(dev, eng, kernels_mod)
+    log("spec_prefix", seconds=time.perf_counter() - t, **spec_prefix)
+    t = time.perf_counter()
+    prof = {"graph": run_profile(eng, cfg, serve["graph"]["serve_s"]),
+            "eager": run_profile(eager, cfg, serve["eager"]["serve_s"])}
     log("profile", seconds=time.perf_counter() - t, **prof)
-    del eng
+    del eng, eager
     free_memory()
     t = time.perf_counter()
     train_small = run_train_small(dev)
@@ -1373,7 +1766,8 @@ def main() -> int:
     for name, (source, replaces) in sources.items():
         tm = timings[name]
         by_path = {"train": train["launches"][name], "serve": serve["launches"][name],
-                   "gpt2": gpt2["launches"][name]}
+                   "serve_eager": serve["eager"]["launches"][name],
+                   "spec_prefix": spec_prefix["launches"][name], "gpt2": gpt2["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

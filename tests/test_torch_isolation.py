@@ -32,6 +32,7 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert "vescale_tpu_torch.serve.engine" in mods and "vescale_tpu_torch.kernels._build" in mods
+    assert {"vescale_tpu_torch.serve.prefix_cache", "vescale_tpu_torch.serve.speculative"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {['vescale_tpu_torch'] + mods!r}:\n"
@@ -44,6 +45,7 @@ def test_every_port_module_imports_without_jax():
                          text=True, timeout=120, check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "vescale_tpu_torch.serve.loop" in loaded
+    assert "vescale_tpu_torch.serve.speculative" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -95,6 +97,16 @@ def test_default_device_is_the_card_and_raises_without_one(no_cuda):
     assert eng.device.type == "cpu" and cache.k.device.type == "cpu"
 
 
+def test_the_drafter_runs_where_its_engine_runs(no_cuda):
+    from vescale_tpu_torch.serve import PrefixCache, SpeculativeDecoder, slice_drafter_params
+
+    cache = PagedKVCache(_kc(), device="cpu")
+    eng = ServeEngine(TINY, init_params(TINY, device="cpu"), cache, device="cpu")
+    spec = SpeculativeDecoder(eng, slice_drafter_params(eng.params, 1), drafter_layers=1, k=2)
+    assert spec.engine.device.type == "cpu" and spec.cache.k.device.type == "cpu"
+    assert PrefixCache(cache).cache is cache
+
+
 def test_the_gpt_path_runs_on_the_card_by_default(no_cuda, tmp_path):
     from vescale_tpu_torch import bench
     from vescale_tpu_torch.data import TokenDataLoader
@@ -123,3 +135,5 @@ def test_package_exports_the_serve_api():
     for name in ("ServeEngine", "PagedKVCache", "KVCacheConfig", "ContinuousBatchingScheduler",
                  "Request", "run_serve", "LLAMA3_8B", "init_params", "params_from_jax"):
         assert hasattr(vescale_tpu_torch, name), name
+    for name in ("PrefixCache", "PrefixCacheStats", "SpeculativeDecoder", "slice_drafter_params"):
+        assert hasattr(vescale_tpu_torch.serve, name), name

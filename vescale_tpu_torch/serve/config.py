@@ -10,7 +10,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["DEFAULTS", "get_int", "get_float", "get_str"]
+__all__ = ["DEFAULTS", "get_bool", "get_int", "get_float", "get_str"]
 
 DEFAULTS = {
     "VESCALE_SERVE_SLOTS": 8,
@@ -19,7 +19,14 @@ DEFAULTS = {
     "VESCALE_SERVE_MAX_QUEUE": 64,
     "VESCALE_SERVE_SLO_TTFT_S": 0.0,
     "VESCALE_SERVE_TENANT_WEIGHTS": None,
+    "VESCALE_SERVE_PREFIX_CACHE": False,
+    "VESCALE_SERVE_PREFIX_CACHE_PAGES": 0,
+    "VESCALE_SPEC_K": 4,
+    "VESCALE_SPEC_DRAFTER_LAYERS": 1,
 }
+# envreg's booleans: unset takes the default; these (case-insensitive) are
+# false, anything else is true
+_FALSE = ("", "0", "false", "off", "no")
 
 
 def _raw(name: str) -> Optional[str]:
@@ -27,6 +34,13 @@ def _raw(name: str) -> Optional[str]:
         raise KeyError(f"{name} is not a serve knob of the port")
     v = os.environ.get(name)
     return v if v not in (None, "") else None
+
+
+def get_bool(name: str) -> bool:
+    if name not in DEFAULTS:
+        raise KeyError(f"{name} is not a serve knob of the port")
+    v = os.environ.get(name)
+    return bool(DEFAULTS[name]) if v is None else v.strip().lower() not in _FALSE
 
 
 def get_int(name: str) -> int:

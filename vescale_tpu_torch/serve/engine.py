@@ -16,20 +16,36 @@ PyTorch on one device.
   then paged attention (``kernels.paged_decode``: the CUDA kernel on the
   card) straight from the pool.  Slots that are not decoding compute too
   (the batch keeps its shape) but write only the reserved null page, and
-  their logits are ignored.
+  their logits are ignored.  On the card the step is a CUDA graph, the
+  port's counterpart of the JAX engine's compiled decode program: the
+  first decode runs the step eagerly (loading the kernels and cuBLAS) and
+  then captures it; every later decode copies the page table, lengths and
+  tokens into the graph's input buffers, replays it and reads back its
+  logits buffer.  ``swap_params`` and ``PagedKVCache.update`` replace
+  tensors the graph reads by address, so either one drops the graph and
+  the next decode captures it again.  A capture or replay that fails
+  raises; nothing falls back to the eager step.  On the CPU the step stays
+  eager (:meth:`ServeEngine.decode_eager`).
+
+  **decode_multi** — ``W`` tokens per slot in one step (the speculative
+  verify and the prefix cache's suffix prefill): the window's K/V is
+  written into the pool first, then each slot's pages are gathered and
+  token ``i`` attends positions ``<= lengths + i`` with an fp32 softmax.
+  The JAX package computes this step outside any Pallas kernel, so it is
+  plain PyTorch here too, eager.
 
 Decode is a deterministic function of (params, prompt, cache geometry): a
 slot's result depends on its own tokens only, so a request replayed in any
 slot and any pages regenerates the same tokens.
 
-Not in this slice: ``decode_multi`` and ``prefill_suffix`` (prefix cache
-and speculative decoding), ``decode_flops_per_step``, and the rollout
-canary's faultsim hook in ``replay_greedy``.
+Not in this slice: the rollout canary's faultsim hook in
+``replay_greedy`` (it comes with faultsim).
 """
 
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..kernels import LAUNCHES
 from ..kernels.paged_attention import paged_decode
 from ..models.llama import rmsnorm, rotary
 from ..ops.flash_attention import flash_attention
@@ -79,6 +96,59 @@ def _leaves(tree) -> List[Tuple[str, torch.Tensor]]:
     return [("", tree)]
 
 
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device) -> "torch.cuda.Stream":
+    """One side stream per device for every capture: cuBLAS keeps a
+    workspace for each stream it has run on, for the life of the process."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+class _DecodeGraph:
+    """One captured decode step: its static input buffers (page table,
+    lengths, tokens), its logits buffer, pinned host staging for each, the
+    kernel launches it holds, and weak references to the pools it was
+    captured over."""
+
+    def __init__(self, engine: "ServeEngine"):
+        cache = engine.cache
+        dev = engine.device
+        S, Pmax = cache.num_slots, cache.config.pages_per_slot
+        self.table = torch.zeros((S, Pmax), dtype=torch.int32, device=dev)
+        self.lengths = torch.zeros((S,), dtype=torch.int32, device=dev)
+        self.tokens = torch.zeros((S,), dtype=torch.int64, device=dev)
+        self.h_table = torch.zeros((S, Pmax), dtype=torch.int32).pin_memory()
+        self.h_lengths = torch.zeros((S,), dtype=torch.int32).pin_memory()
+        self.h_tokens = torch.zeros((S,), dtype=torch.int64).pin_memory()
+        self.h_logits = None
+        self.logits = None
+        self.graph = torch.cuda.CUDAGraph()
+        self.stream = _capture_stream(dev)
+        self.launches: Dict[str, int] = {}
+        self.pools = (weakref.ref(cache.k), weakref.ref(cache.v))
+
+    def current(self, cache: PagedKVCache) -> bool:
+        return self.pools[0]() is cache.k and self.pools[1]() is cache.v
+
+    def load(self, cache: PagedKVCache, tokens: np.ndarray) -> None:
+        """Stage the host state in pinned memory and copy it into the input
+        buffers on the current stream (outside any capture)."""
+        self.h_table.numpy()[:] = cache.page_table
+        self.h_lengths.numpy()[:] = cache.lengths
+        self.h_tokens.numpy()[:] = np.asarray(tokens, np.int64).reshape(-1)
+        for dst, src in ((self.table, self.h_table), (self.lengths, self.h_lengths),
+                         (self.tokens, self.h_tokens)):
+            dst.copy_(src, non_blocking=True)
+
+    def read(self) -> np.ndarray:
+        self.h_logits.copy_(self.logits, non_blocking=True)
+        torch.cuda.current_stream(self.logits.device).synchronize()
+        return self.h_logits.numpy().copy()
+
+
 class ServeEngine:
     """Prefill/decode over ``cache``.  ``config`` is the model's
     ``LlamaConfig``; ``params`` the nested dict of tensors in the flax
@@ -119,6 +189,7 @@ class ServeEngine:
         self.stage_bounds = self._stage_bounds(num_stages)
         self._positions = torch.arange(cache.max_seq_len, device=self.device)[None, :]
         self._scale = 1.0 / math.sqrt(c.head_dim)
+        self._graph: Optional[_DecodeGraph] = None
 
     # ------------------------------------------------------------- params
     def _place(self, tree):
@@ -146,6 +217,7 @@ class ServeEngine:
                     f"{tuple(o.shape)}/{o.dtype}"
                 )
         old, self.params = self.params, new
+        self._graph = None  # it reads the old weights by address
         return old
 
     def _stage_bounds(self, num_stages: int) -> List[Tuple[int, int]]:
@@ -238,15 +310,63 @@ class ServeEngine:
         null page): appends each token's K/V at its slot's current length
         and returns (num_slots, vocab) fp32 logits for the NEXT position.
         Callers advance lengths via ``cache.advance`` for slots whose token
-        was real."""
+        was real.  On the card this replays the captured graph (capturing
+        it first when there is none, or when the pools were replaced); on
+        the CPU it is :meth:`decode_eager`."""
+        if self.device.type != "cuda":
+            return self.decode_eager(tokens)
+        g = self._graph
+        if g is None or not g.current(self.cache):
+            return self._capture(tokens)
+        g.load(self.cache, tokens)
+        g.graph.replay()
+        for name, n in g.launches.items():
+            LAUNCHES[name] += n
+        return g.read()
+
+    @torch.no_grad()
+    def decode_eager(self, tokens: np.ndarray) -> np.ndarray:
+        """:meth:`decode` run op by op, without the graph."""
+        cache = self.cache
+        dev = self.device
+        table = torch.from_numpy(cache.table_array()).to(dev)
+        lengths = torch.from_numpy(cache.lengths_array()).to(dev)
+        toks = torch.from_numpy(np.asarray(tokens, np.int64).reshape(cache.num_slots)).to(dev)
+        return self._decode_step(table, lengths, toks).cpu().numpy()
+
+    def _capture(self, tokens: np.ndarray) -> np.ndarray:
+        """Run this step eagerly through fresh input buffers on a side
+        stream (it loads the kernels and cuBLAS and returns this call's
+        logits), then capture the same step into a graph on that stream.
+        Capture runs nothing on the card, so the launches it counted are
+        taken back and added again at each replay."""
+        self._graph = None
+        g = _DecodeGraph(self)
+        g.load(self.cache, tokens)
+        cur = torch.cuda.current_stream(self.device)
+        g.stream.wait_stream(cur)
+        with torch.cuda.stream(g.stream):
+            logits = self._decode_step(g.table, g.lengths, g.tokens)
+        cur.wait_stream(g.stream)
+        out = logits.cpu().numpy()
+        before = dict(LAUNCHES)
+        with torch.cuda.graph(g.graph, stream=g.stream):
+            g.logits = self._decode_step(g.table, g.lengths, g.tokens)
+        g.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        LAUNCHES.update(before)
+        g.h_logits = torch.empty(g.logits.shape, dtype=g.logits.dtype).pin_memory()
+        self._graph = g
+        return out
+
+    def _decode_step(self, table, lengths, toks):
+        """The decode step on device tensors: ``table`` (S, Pmax) int32,
+        ``lengths`` (S,) int32, ``toks`` (S,) int64; returns the (S, vocab)
+        fp32 logits on the device.  No host transfer, so it can be
+        captured."""
         c = self.config
         cache = self.cache
         S = cache.num_slots
         page, Pmax = cache.config.page_size, cache.config.pages_per_slot
-        dev = self.device
-        table = torch.from_numpy(cache.table_array()).to(dev)
-        lengths = torch.from_numpy(cache.lengths_array()).to(dev)
-        toks = torch.from_numpy(np.asarray(tokens, np.int64).reshape(S)).to(dev)
         x = self._embed(toks)  # (S, E)
         pos = lengths  # write position of the new token
         # capacity guard: a position past the slot's reserved pages writes
@@ -269,7 +389,119 @@ class ServeEngine:
             y = y.reshape(S, -1).to(c.dtype)
             x = x + self._dense(y, lp["self_attn"]["o_proj"]["kernel"])
             x = self._mlp(lp, x)
-        return self._head(x).cpu().numpy()
+        return self._head(x)
+
+    @torch.no_grad()
+    def decode_multi(self, tokens: np.ndarray) -> np.ndarray:
+        """One batched MULTI-token paged step (the speculative verify and the
+        suffix prefill): for every slot, ``tokens[s, i]``'s K/V lands at
+        position ``lengths[s] + i`` and ``logits[s, i]`` predicts the token
+        AFTER it.  Lengths do NOT advance (callers commit the accepted
+        positions via ``cache.advance``); positions past a slot's reserved
+        pages write the null page and their logits are garbage the host
+        must ignore.  Returns (num_slots, W, vocab) fp32."""
+        return self._multi_step(tokens).cpu().numpy()
+
+    def _multi_step(self, tokens: np.ndarray) -> torch.Tensor:
+        """:meth:`decode_multi`'s step; its logits stay on the device."""
+        c = self.config
+        cache = self.cache
+        S, Tmax = cache.num_slots, cache.max_seq_len
+        page, Pmax = cache.config.page_size, cache.config.pages_per_slot
+        H, KV, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        dev = self.device
+        tokens = np.asarray(tokens, np.int64)
+        W = int(tokens.shape[-1])
+        toks = torch.from_numpy(tokens.reshape(S, W)).to(dev)
+        table = torch.from_numpy(cache.table_array().astype(np.int64)).to(dev)
+        lengths = torch.from_numpy(cache.lengths_array().astype(np.int64)).to(dev)
+        x = self._embed(toks)  # (S, W, E)
+        pos = lengths[:, None] + torch.arange(W, device=dev)[None, :]
+        # the same null-page guard as decode: positions past the slot's
+        # reserved pages and slots awaiting their prefill (length 0, whose
+        # tables may already map pages SHARED with live slots) write the
+        # null page, never a live one
+        valid = (pos < Pmax * page) & (lengths[:, None] > 0)
+        safe = torch.where(valid, pos, torch.zeros_like(pos))
+        pg = torch.gather(table, 1, safe // page)
+        pg = torch.where(valid, pg, torch.zeros_like(pg))
+        off = safe % page
+        # token i of a slot's window sees positions <= lengths + i, its own
+        # window's earlier tokens included: every window K/V is written
+        # before the gather
+        hidden = torch.arange(Tmax, device=dev)[None, None, :] > pos[:, :, None]
+        hidden = hidden[:, :, None, None, :]  # (S, W, 1, 1, Tmax)
+        g = H // KV
+        for l in range(c.num_hidden_layers):
+            lp = self.params[f"layers_{l}"]
+            q, k, v = self._qkv(lp, x, S, W)
+            q, k = rotary(q, k, pos, c.rope_theta)
+            kl, vl = cache.k[l], cache.v[l]
+            kl[pg, off] = k.to(cache.dtype)
+            vl[pg, off] = v.to(cache.dtype)
+            ks = kl[table].reshape(S, Tmax, KV, hd).float()
+            vs = vl[table].reshape(S, Tmax, KV, hd).float()
+            qg = (q.float() * self._scale).reshape(S, W, KV, g, hd)
+            s = torch.einsum("swkgd,stkd->swkgt", qg, ks).masked_fill(hidden, -1e30)
+            p = torch.softmax(s, dim=-1)
+            o = torch.einsum("swkgt,stkd->swkgd", p, vs)
+            y = o.reshape(S, W, H * hd).to(c.dtype)
+            x = x + self._dense(y, lp["self_attn"]["o_proj"]["kernel"])
+            x = self._mlp(lp, x)
+        return self._head(x)  # (S, W, vocab) fp32
+
+    @torch.no_grad()
+    def prefill_suffix(self, prompt: Sequence[int], slot: int, matched: int) -> np.ndarray:
+        """Prefix-cache hit path: the slot's page table already maps cached
+        pages covering ``prompt[:matched]`` (page-aligned, via
+        ``alloc_shared``) and the cache length sits at ``matched``
+        (``commit_prefill(slot, matched)``); run ONLY the suffix through
+        multi-token paged steps of one page each, appending its K/V after
+        the shared prefix, and return the next-token logits row (vocab,)
+        fp32 for the last prompt position."""
+        cache = self.cache
+        n = len(prompt)
+        page = cache.config.page_size
+        if not (0 < matched < n):
+            raise ValueError(f"matched={matched} must be in (0, {n})")
+        if matched % page:
+            raise ValueError(f"matched={matched} is not page-aligned (page={page})")
+        if int(cache.lengths[slot]) != matched:
+            raise ValueError(
+                f"slot {slot} length {int(cache.lengths[slot])} != matched {matched} "
+                "(commit_prefill the shared prefix first)"
+            )
+        W = page  # chunk width: one page per multi-token step
+        out = None
+        i = matched
+        while i < n:
+            chunk = [int(t) for t in prompt[i:i + W]]
+            toks = np.zeros((cache.num_slots, W), np.int64)
+            toks[slot, : len(chunk)] = chunk
+            logits = self._multi_step(toks)
+            for _ in chunk:
+                cache.advance(slot)
+            out = logits[slot, len(chunk) - 1]
+            i += len(chunk)
+        return out.cpu().numpy()
+
+    def decode_flops_per_step(self) -> float:
+        """FLOPs of ONE decode step (all slots): the numerator of a serve MFU.
+        The JAX engine reads XLA's cost analysis of its compiled step; the
+        port has no compiler to ask, so this is an analytic count of the
+        step as the port computes it: every projection and the head, 2·M·K·N
+        each over the ``num_slots`` rows, plus attention's two products over
+        each slot's gathered pages (``page_size · pages_per_slot`` positions
+        a slot, whatever its length).  Norms, rotary, the softmax and the
+        activation are not counted."""
+        c = self.config
+        cache = self.cache
+        S, Tmax = cache.num_slots, cache.max_seq_len
+        E, F_, V = c.hidden_size, c.intermediate_size, c.vocab_size
+        H, KV, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        proj = E * (H + 2 * KV) * hd + H * hd * E + 3 * E * F_
+        attn = 2 * H * hd * Tmax
+        return float(2 * S * (c.num_hidden_layers * (proj + attn) + E * V))
 
     def replay_greedy(self, prompt: Sequence[int], max_new_tokens: int,
                       *, eos_id: Optional[int] = None) -> List[int]:

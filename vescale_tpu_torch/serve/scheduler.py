@@ -9,14 +9,17 @@ submitted request ends in exactly one terminal outcome (``completed`` /
 ``shed`` / ``timed_out`` / ``preempted_requeue``).  ``fingerprint()``
 digests every decision, as in the JAX package.
 
+Admission goes through the radix-tree prefix cache when the scheduler has
+one (``prefix_cache=``, or ``VESCALE_SERVE_PREFIX_CACHE=1``): matched
+prompt pages map into the new slot for free and the hit is folded into the
+digest, as in the JAX package.
+
 Differences from the JAX package in this slice: metrics go to the
 scheduler's own :class:`~vescale_tpu_torch.telemetry.Registry` instead of
 the global telemetry gate; the request-trace spans (``reqtrace``) are not
-emitted; ``prefix_cache`` must be None (the radix-tree prefix cache comes
-with a later slice); and the calls that only the loop's resilience and
-fleet legs make (``requeue_newest``, ``reject_queued``,
-``wall_expired_slots``, forced expiry, ``tenant_stats``,
-``step_time_estimate``) come with those legs.
+emitted; and the calls that only the loop's resilience and fleet legs make
+(``requeue_newest``, ``reject_queued``, ``wall_expired_slots``, forced
+expiry, ``tenant_stats``, ``step_time_estimate``) come with those legs.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 from ..telemetry.registry import Histogram, Registry
 from . import config as _config
 from .kv_cache import PagedKVCache
+from .prefix_cache import PrefixCache
 
 __all__ = ["Request", "ShedError", "ContinuousBatchingScheduler"]
 
@@ -106,6 +110,9 @@ class _InFlight:
     admit_wall: float = 0.0  # perf_counter at admission
     tokens: List[int] = dataclasses.field(default_factory=list)
     replays: int = 0  # always 0 here: eviction and replay are not ported
+    # prompt tokens served from cached prefix pages: the loop prefills only
+    # prompt[prefix_hit:]
+    prefix_hit: int = 0
 
 
 class ContinuousBatchingScheduler:
@@ -120,13 +127,16 @@ class ContinuousBatchingScheduler:
         max_queue: Optional[int] = None,
         slo_ttft_s: Optional[float] = None,
         ttft_window: int = 256,
-        prefix_cache: Optional[Any] = None,
+        prefix_cache: Optional[PrefixCache] = None,
         tenant_weights: Optional[Dict[str, float]] = None,
         telemetry: Optional[Registry] = None,
     ):
-        if prefix_cache is not None:
-            raise NotImplementedError("the prefix cache is not ported yet: pass prefix_cache=None")
         self.cache = cache
+        # an explicit tree wins; otherwise VESCALE_SERVE_PREFIX_CACHE=1
+        # builds one from the environment
+        if prefix_cache is None and _config.get_bool("VESCALE_SERVE_PREFIX_CACHE"):
+            prefix_cache = PrefixCache.from_env(cache)
+        self.prefix = prefix_cache
         self.telemetry = telemetry if telemetry is not None else Registry()
         self.max_queue = (
             max_queue if max_queue is not None else _config.get_int("VESCALE_SERVE_MAX_QUEUE")
@@ -347,17 +357,34 @@ class ContinuousBatchingScheduler:
         admitted: List[_InFlight] = []
         while self.queue:
             req, submit_step, submit_wall = self.queue[0]
-            if not self.cache.can_admit(len(req.prompt), req.max_new_tokens):
-                break
-            slot = self.cache.alloc(len(req.prompt), req.max_new_tokens)
+            matched = 0
+            if self.prefix is not None:
+                # the radix tree decides: matched pages map for free, and
+                # unreferenced cached leaves may be evicted to cover the
+                # rest (try_admit mutates nothing else when it fails)
+                got = self.prefix.try_admit(req.prompt, req.max_new_tokens)
+                if got is None:
+                    break
+                slot, matched = got
+            else:
+                if not self.cache.can_admit(len(req.prompt), req.max_new_tokens):
+                    break
+                slot = self.cache.alloc(len(req.prompt), req.max_new_tokens)
             self.queue.popleft()
             self._tq(req.tenant, -1)
             inf = _InFlight(req=req, slot=slot, submit_step=submit_step,
-                            admit_step=step, submit_wall=submit_wall)
+                            admit_step=step, submit_wall=submit_wall,
+                            prefix_hit=matched)
             self.active[slot] = inf
             self.counts["admitted"] += 1
             admitted.append(inf)
             self._fold(12, req.rid, slot, step)
+            if matched:
+                # the hit is a scheduling decision: fold it so a rank whose
+                # tree diverged desyncs before the batch decodes
+                self._fold(19, req.rid, matched)
+                tel.count("serve_prefix_hits_total")
+                tel.count("serve_prefix_hit_tokens_total", matched)
             tel.count("serve_requests_admitted_total")
         tel.set_gauge("serve_queue_depth", len(self.queue))
         tel.set_gauge("serve_inflight", len(self.active))
