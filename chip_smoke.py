@@ -58,6 +58,26 @@ Phases, each printing one JSON line with its seconds:
            plain decode, teacher-forced, within a stated bound in bf16
            steps; tokens/s, TTFT, prefill tokens saved, acceptance and how
            many streams equal the golden run's
+  serve_resilient  the 8B engine and the serve phase's 16 requests through
+           ``run_serve_resilient``: nothing armed (the golden run: the
+           serve phase's streams and counts); the fault battery
+           (``request_timeout``, ``slow_decode`` twice, ``oom``, ``preempt``
+           through the preemption handler): each fault fired as scheduled,
+           the ledger balances, one terminal outcome a request, the status
+           ``preempted``, every completed stream (the OOM victim's replay
+           included) bitwise the golden one; a ``hang`` past a 2 s watchdog
+           (abort off): one dump with the main thread's stack, one
+           ``resilience_hang_detected_total``, golden streams; the envelope's
+           cost: ``run_serve`` against ``run_serve_resilient`` with the
+           watchdog on and faultsim armed but quiet, decode p50/p99,
+           tokens/s and each run's wall split into prefills, decode steps
+           and the rest, in the order plain, envelope, envelope, plain
+           twice, then the watchdog alone and faultsim alone; and a
+           replica: a child process serving a 2-layer engine at the 8B widths
+           (serve seed) through ``serve_replica`` on a free port, fed 8
+           requests over HTTP; ``/router`` carries the frozen v5 fields,
+           ``/outcomes`` the in-process ``run_serve`` tokens at that depth,
+           and SIGTERM drains it to ``preempted`` with exit code 0
   profile  device time by kernel kind and the device's idle share over a
            second run of the serve requests (``torch.profiler``), for the
            graphed and the eager engine
@@ -87,10 +107,16 @@ nothing of JAX or of ``vescale_tpu``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
+import signal
+import socket
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -1327,7 +1353,7 @@ def serve_run(dev, eng, arrivals, kernels_mod):
                decode_step_p99_ms=1e3 * sched.percentile("step_time", 0.99),
                prefill_p50_ms=1e3 * hist["serve_ttft_prefill_seconds"].percentile(0.5),
                queue_wait_p50_s=hist["serve_ttft_queue_wait_seconds"].percentile(0.5),
-               peak_memory_bytes=peak, launches=launches, checks=checks)
+               peak_memory_bytes=peak, counts=res.counts, launches=launches, checks=checks)
     return out, {r: o["tokens"] for r, o in res.outcomes.items()}
 
 
@@ -1416,7 +1442,7 @@ def run_serve_8b(dev, kernels_mod):
     ok = (all(graph_run["checks"].values()) and all(eager_run["checks"].values())
           and checks["streams_equal"] and checks["mixed_batch"])
     check(ok, f"serve checks failed: {out}")
-    return out, eng, eager, cfg
+    return out, eng, eager, cfg, graph_streams
 
 
 def run_profile(eng, cfg, serve_wall_s: float):
@@ -1663,15 +1689,307 @@ def run_spec_prefix(dev, eng, kernels_mod):
     return out
 
 
+# --------------------------------------------------------- serve_resilient
+# the JAX package's single-process fault battery (scripts/serve_smoke.py)
+RESILIENT_BATTERY = "request_timeout:step=6;slow_decode:step=3,count=2;oom:step=4;preempt:step=9"
+RESILIENT_FIRED = {"request_timeout": 1, "slow_decode": 2, "oom": 1, "preempt": 1}
+REPLICA_LAYERS = 2
+REPLICA_REQUESTS = 8
+
+
+def resilient_run(eng, arrivals, kernels_mod, schedule=None, plain=False, **kw):
+    """One run of ``arrivals`` from an empty cache through
+    ``run_serve_resilient`` (``run_serve`` with ``plain``), ``schedule``
+    armed in faultsim, launch counts set to 0 just before and read after."""
+    from vescale_tpu_torch.resilience import faultsim
+    from vescale_tpu_torch.serve import ContinuousBatchingScheduler, run_serve, run_serve_resilient
+
+    eng.cache.reset()
+    sched = ContinuousBatchingScheduler(eng.cache)
+    inj = faultsim.arm(faultsim.parse_schedule(schedule)) if schedule else None
+    torch.cuda.synchronize()
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        if plain:
+            res = run_serve(eng, sched, arrivals)
+        else:
+            res = run_serve_resilient(engine=eng, scheduler=sched, arrivals=arrivals,
+                                      install_signal_handlers=False, coordinate=False, **kw)
+        torch.cuda.synchronize()
+    finally:
+        fired = {k: v for k, v in inj.fired_total.items() if v} if inj is not None else {}
+        faultsim.disarm()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels_mod.LAUNCHES)
+    sched.ledger_check()
+    L = eng.config.num_hidden_layers
+    prefills = int(sched.telemetry.counter("serve_prefills_total"))
+    steps = int(sched.telemetry.counter("serve_decode_steps_total"))
+    tokens = sum(len(o["tokens"]) for o in res.outcomes.values())
+    hist = sched.telemetry.histograms
+    # the wall split: prefills (admission to first token), decode steps,
+    # and the rest (boundaries, sampling, the envelope's own work)
+    prefill_s = hist["serve_ttft_prefill_seconds"].sum
+    decode_s = hist["serve_decode_step_seconds"].sum
+    row = dict(status=res.status, steps=res.steps, prefills=prefills, decode_steps=steps,
+               counts=res.counts, fired=fired, serve_s=wall, generated_tokens=tokens,
+               tokens_per_s=tokens / wall, prefill_s=prefill_s, decode_s=decode_s,
+               other_s=wall - prefill_s - decode_s,
+               prefill_p50_ms=1e3 * hist["serve_ttft_prefill_seconds"].percentile(0.5),
+               decode_step_p50_ms=1e3 * sched.percentile("step_time", 0.5),
+               decode_step_p99_ms=1e3 * sched.percentile("step_time", 0.99),
+               launches=launches,
+               launches_match=(launches["flash_fwd"] == L * prefills and prefills > 0
+                               and launches["paged_decode"] == L * steps and steps > 0))
+    return row, res, sched
+
+
+def completed_streams(res):
+    return {r: o["tokens"] for r, o in res.outcomes.items() if o["status"] == "completed"}
+
+
+def replica_engine(dev):
+    """The replica leg's engine: the 8B widths at ``REPLICA_LAYERS`` layers,
+    the serve phase's seed and cache geometry."""
+    from vescale_tpu_torch.models import LLAMA3_8B, init_params
+    from vescale_tpu_torch.serve import KVCacheConfig, PagedKVCache, ServeEngine
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_hidden_layers=REPLICA_LAYERS)
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    kc = KVCacheConfig(layers=cfg.num_hidden_layers, kv_heads=cfg.num_key_value_heads,
+                       head_dim=cfg.head_dim, num_slots=8, page_size=16, pages_per_slot=64,
+                       dtype=torch.bfloat16)
+    return ServeEngine(cfg, params, PagedKVCache(kc, device=dev), device=dev)
+
+
+def replica_child() -> int:
+    """``--replica-child``: one fleet replica on the card, fed over HTTP on
+    ``VESCALE_SERVE_OPS_PORT`` until SIGTERM drains it."""
+    from vescale_tpu_torch.serve import ContinuousBatchingScheduler, serve_replica
+
+    eng = replica_engine(torch.device("cuda", 0))
+    res = serve_replica(engine=eng, scheduler=ContinuousBatchingScheduler(eng.cache), linger_s=1.0,
+                        coordinate=False)
+    print(json.dumps({"replica_status": res.status, "counts": res.counts}), flush=True)
+    return 0
+
+
+def http_json(url, payload=None, timeout=10.0):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read().decode())
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_replica_leg(dev, arrivals):
+    """A child process serves ``REPLICA_REQUESTS`` of the serve requests
+    over HTTP; this process is its client, then runs the same requests
+    through ``run_serve`` on the same weights."""
+    from vescale_tpu_torch.serve import ROUTER_FIELDS, ContinuousBatchingScheduler, run_serve
+
+    reqs = [r for _, r in arrivals[:REPLICA_REQUESTS]]
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("VESCALE_")}
+    env.update(VESCALE_SERVE_OPS_PORT=str(port), VESCALE_SERVE_REPLICA_ID="smoke-replica")
+    log_file = tempfile.TemporaryFile(mode="w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--replica-child"],
+                            env=env, stdout=log_file, stderr=subprocess.STDOUT)
+
+    def child_log() -> str:
+        log_file.seek(0)
+        return log_file.read()
+
+    out = {}
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            if proc.poll() is not None:
+                check(False, f"the replica child exited {proc.returncode} before serving: "
+                      + child_log()[-4000:])
+            try:
+                health = http_json(f"{url}/healthz", timeout=2.0)
+                break
+            except OSError:
+                check(time.monotonic() < deadline, "the replica child never answered /healthz")
+                time.sleep(0.5)
+        out["startup_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        accepted = [http_json(f"{url}/submit", {"rid": r.rid, "prompt": list(r.prompt),
+                                                "max_new_tokens": r.max_new_tokens})["accepted"]
+                    for r in reqs]
+        deadline = time.monotonic() + 300
+        while True:
+            feed = http_json(f"{url}/router")
+            rows = http_json(f"{url}/outcomes")["outcomes"]
+            if len(rows) == len(reqs):
+                break
+            check(proc.poll() is None and time.monotonic() < deadline,
+                  f"the replica never finished its requests: {sorted(rows)}: " + child_log()[-4000:])
+            time.sleep(0.1)
+        out["serve_s"] = time.perf_counter() - t1
+        health = http_json(f"{url}/healthz")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = child_log()
+    log_file.close()
+    done = [json.loads(ln) for ln in text.splitlines() if ln.startswith('{"replica_status"')]
+
+    eng = replica_engine(dev)
+    sched = ContinuousBatchingScheduler(eng.cache)
+    res = run_serve(eng, sched, [(0, r) for r in reqs])
+    local = {str(r): o["tokens"] for r, o in res.outcomes.items()}
+    del eng
+    free_memory()
+    remote = {r: o["tokens"] for r, o in rows.items()}
+    checks = {
+        "accepted": all(accepted),
+        "router_keys_v5": set(feed) == ROUTER_FIELDS and feed["schema_version"] == 5
+        and feed["replica_id"] == "smoke-replica",
+        "healthz": health.get("ok") is True and health.get("replica_id") == "smoke-replica",
+        "all_completed": all(o["status"] == "completed" for o in rows.values()),
+        "tokens_equal_in_process": remote == local,
+        "drained_preempted": bool(done) and done[-1]["replica_status"] == "preempted",
+        "exit_code_0": rc == 0,
+    }
+    out.update(layers=REPLICA_LAYERS, requests=len(reqs), exit_code=rc,
+               replica_counts=done[-1]["counts"] if done else None,
+               router_decode_steps=feed["decode_steps"], checks=checks)
+    if not all(checks.values()):
+        out["child_log_tail"] = text[-4000:]
+    return out
+
+
+def run_serve_resilient_phase(dev, eng, kernels_mod, serve, serve_streams):
+    """The serve cell through the fault envelope (module docstring)."""
+    from vescale_tpu_torch.resilience import Watchdog
+
+    arrivals = serve_requests(eng.config.vocab_size)
+    rids = sorted(r.rid for _, r in arrivals)
+    runs, checks = {}, {}
+
+    runs["golden"], golden, _ = resilient_run(eng, arrivals, kernels_mod)
+    checks["golden"] = dict(
+        streams_equal_serve=completed_streams(golden) == serve_streams,
+        counts_equal_serve=golden.counts == serve["graph"]["counts"],
+        status=golden.status == "completed", launches=runs["golden"]["launches_match"])
+    gold = completed_streams(golden)
+
+    runs["battery"], bat, _ = resilient_run(eng, arrivals, kernels_mod, schedule=RESILIENT_BATTERY)
+    done = completed_streams(bat)
+    replayed = [r for r, o in bat.outcomes.items() if o.get("replays")]
+    checks["battery"] = dict(
+        fired=runs["battery"]["fired"] == RESILIENT_FIRED,
+        one_terminal_outcome_each=sorted(bat.outcomes) == rids and all(
+            o["status"] in ("completed", "shed", "timed_out", "preempted_requeue")
+            for o in bat.outcomes.values()),
+        status=bat.status == "preempted",
+        evicted_and_timed_out=bat.counts["evicted"] == 1 and bat.counts["timed_out"] == 1,
+        completed_equal_golden=bool(done) and all(done[r] == gold[r] for r in done),
+        oom_victim_replayed_equal_golden=len(replayed) == 1 and replayed[0] in done,
+        launches=runs["battery"]["launches_match"])
+    runs["battery"].update(completed=len(done), drained=bat.drained,
+                           rejected_on_drain=bat.rejected_on_drain, oom_victim=replayed)
+
+    with tempfile.TemporaryDirectory() as dump_dir:
+        old = os.environ.get("VESCALE_FAULTSIM_HANG_S")
+        os.environ["VESCALE_FAULTSIM_HANG_S"] = "3"
+        wd = None
+        try:
+            from vescale_tpu_torch.telemetry import Registry
+
+            tel = Registry()
+            wd = Watchdog(timeout_s=2.0, poll_s=0.25, abort=False, dump_dir=dump_dir,
+                          telemetry=tel).start()
+            runs["hang"], hung, _ = resilient_run(eng, arrivals, kernels_mod, schedule="hang:step=5",
+                                                  watchdog=wd)
+        finally:
+            if wd is not None:
+                wd.stop()
+            if old is None:
+                os.environ.pop("VESCALE_FAULTSIM_HANG_S", None)
+            else:
+                os.environ["VESCALE_FAULTSIM_HANG_S"] = old
+        dumps = sorted(os.listdir(dump_dir))
+        main_stack = ""
+        if dumps:
+            with open(os.path.join(dump_dir, dumps[0])) as f:
+                threads = json.load(f)["threads"]
+            main_stack = "".join(next((v for k, v in threads.items() if k.startswith("MainThread")), []))
+    checks["hang"] = dict(
+        fired_once=wd.fired == 1 and tel.counter("resilience_hang_detected_total") == 1,
+        dumped=dumps == ["watchdog_hang_rank0_step5_1.json"],
+        main_thread_stack="run_serve_resilient" in main_stack,
+        streams_equal_golden=completed_streams(hung) == gold and hung.status == "completed",
+        launches=runs["hang"]["launches_match"])
+    runs["hang"].update(dumps=dumps, stalled_s=wd.last_bundle["stalled_s"] if wd.last_bundle else None)
+
+    # the envelope's cost in one process: plain and envelope twice over in
+    # the order P E E P P E E P, then the watchdog alone and faultsim alone
+    # (W F F W) to tell their shares apart
+    overhead = {"plain": [], "envelope": [], "watchdog_only": [], "faultsim_only": []}
+    order = ("plain", "envelope", "envelope", "plain") * 2 + (
+        "watchdog_only", "faultsim_only", "faultsim_only", "watchdog_only")
+    for which in order:
+        schedule = "oom:step=1000000" if which in ("envelope", "faultsim_only") else None
+        wd = Watchdog(timeout_s=60.0, abort=False).start() if which in (
+            "envelope", "watchdog_only") else None
+        try:
+            row, res, _ = resilient_run(eng, arrivals, kernels_mod, plain=which == "plain",
+                                        schedule=schedule, watchdog=wd)
+        finally:
+            if wd is not None:
+                wd.stop()
+        row["watchdog_fired"] = wd.fired if wd is not None else 0
+        row["streams_equal_golden"] = completed_streams(res) == gold
+        overhead[which].append(row)
+    checks["overhead"] = dict(
+        streams=all(r["streams_equal_golden"] for rs in overhead.values() for r in rs),
+        quiet=all(not r["fired"] and r["watchdog_fired"] == 0 for rs in overhead.values() for r in rs),
+        launches=all(r["launches_match"] for rs in overhead.values() for r in rs))
+    summary = {which: {k: float(np.mean([r[k] for r in rs]))
+                       for k in ("decode_step_p50_ms", "decode_step_p99_ms", "tokens_per_s",
+                                 "serve_s", "prefill_s", "decode_s", "other_s")}
+               for which, rs in overhead.items()}
+    summary["p50_delta_ms"] = summary["envelope"]["decode_step_p50_ms"] - summary["plain"]["decode_step_p50_ms"]
+
+    replica = run_replica_leg(dev, arrivals)
+    checks["replica"] = replica["checks"]
+
+    legs = [runs["golden"], runs["battery"], runs["hang"]] + [r for rs in overhead.values() for r in rs]
+    launches = {k: sum(r["launches"][k] for r in legs) for k in runs["golden"]["launches"]}
+    out = dict(model="LLAMA3_8B", requests=len(arrivals), battery=RESILIENT_BATTERY, runs=runs,
+               overhead=overhead, overhead_summary=summary, replica=replica, checks=checks,
+               launches=launches)
+    check(all(all(c.values()) for c in checks.values()), f"serve_resilient checks failed: {out}")
+    return out
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true", help="device, build and kernel parity only")
+    ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if opts.replica_child:
+        return replica_child()
     from vescale_tpu_torch import kernels as kernels_mod
     from vescale_tpu_torch.kernels import _build, ulps_at_scale
 
@@ -1726,11 +2044,14 @@ def main() -> int:
     # serve before train: the host-bound serve runs are timed before any
     # profiler session of this process has run
     t = time.perf_counter()
-    serve, eng, eager, cfg = run_serve_8b(dev, kernels_mod)
+    serve, eng, eager, cfg, serve_streams = run_serve_8b(dev, kernels_mod)
     log("serve", seconds=time.perf_counter() - t, **serve)
     t = time.perf_counter()
     spec_prefix = run_spec_prefix(dev, eng, kernels_mod)
     log("spec_prefix", seconds=time.perf_counter() - t, **spec_prefix)
+    t = time.perf_counter()
+    resilient = run_serve_resilient_phase(dev, eng, kernels_mod, serve, serve_streams)
+    log("serve_resilient", seconds=time.perf_counter() - t, card=card, **resilient)
     t = time.perf_counter()
     prof = {"graph": run_profile(eng, cfg, serve["graph"]["serve_s"]),
             "eager": run_profile(eager, cfg, serve["eager"]["serve_s"])}
@@ -1767,7 +2088,8 @@ def main() -> int:
         tm = timings[name]
         by_path = {"train": train["launches"][name], "serve": serve["launches"][name],
                    "serve_eager": serve["eager"]["launches"][name],
-                   "spec_prefix": spec_prefix["launches"][name], "gpt2": gpt2["launches"][name]}
+                   "spec_prefix": spec_prefix["launches"][name],
+                   "serve_resilient": resilient["launches"][name], "gpt2": gpt2["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

@@ -33,6 +33,10 @@ def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert "vescale_tpu_torch.serve.engine" in mods and "vescale_tpu_torch.kernels._build" in mods
     assert {"vescale_tpu_torch.serve.prefix_cache", "vescale_tpu_torch.serve.speculative"} <= set(mods)
+    assert {"vescale_tpu_torch.distributed", "vescale_tpu_torch.resilience.faultsim",
+            "vescale_tpu_torch.resilience.watchdog", "vescale_tpu_torch.resilience.preempt",
+            "vescale_tpu_torch.resilience.consistency", "vescale_tpu_torch.serve.fleet",
+            "vescale_tpu_torch.serve.obs", "vescale_tpu_torch.telemetry.ops_server"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {['vescale_tpu_torch'] + mods!r}:\n"
@@ -133,7 +137,8 @@ def test_engine_and_cache_must_share_a_device():
 
 def test_package_exports_the_serve_api():
     for name in ("ServeEngine", "PagedKVCache", "KVCacheConfig", "ContinuousBatchingScheduler",
-                 "Request", "run_serve", "LLAMA3_8B", "init_params", "params_from_jax"):
+                 "Request", "run_serve", "run_serve_resilient", "serve_replica", "LLAMA3_8B",
+                 "init_params", "params_from_jax"):
         assert hasattr(vescale_tpu_torch, name), name
     for name in ("PrefixCache", "PrefixCacheStats", "SpeculativeDecoder", "slice_drafter_params"):
         assert hasattr(vescale_tpu_torch.serve, name), name

@@ -3,7 +3,8 @@
 A package beside ``vescale_tpu`` (the JAX reference, which it never
 imports).  It serves Llama models on one card (the paged KV cache, the
 serve engine with flash-attention prefill and paged-attention decode, the
-continuous-batching scheduler and the serve loop) and trains them on one
+continuous-batching scheduler and the resilient serve loop, alone or as a
+fleet replica over HTTP) and trains them on one
 card (the ``Llama`` module, ``AdamWLowmem`` and ``make_train_step``, with
 the flash-attention backward and a fused AdamW update), and trains nanoGPT
 (``GPT``) through ``vocab_parallel_cross_entropy`` and its fused
@@ -26,6 +27,8 @@ from .serve import (
     ServeResult,
     ShedError,
     run_serve,
+    run_serve_resilient,
+    serve_replica,
 )
 from .train import make_train_step
 
@@ -49,5 +52,7 @@ __all__ = [
     "make_train_step",
     "params_from_jax",
     "run_serve",
+    "run_serve_resilient",
+    "serve_replica",
     "vocab_parallel_cross_entropy",
 ]

@@ -46,6 +46,7 @@ import torch
 
 from . import kernels
 from .data import TokenDataLoader
+from . import device as _device
 from .device import resolve_device
 from .loss import vocab_parallel_cross_entropy
 from .models import GPT, GPTConfig, Llama, LlamaConfig, cross_entropy_loss, init_params
@@ -85,11 +86,11 @@ DATA_TOKENS = 1 << 22  # tokens in a generated token file (8 MiB of uint16)
 
 def peak_bf16_flops(device) -> float:
     """Dense bf16 tensor-core peak of an H100: 989 TFLOP/s (SXM) or 756
-    (PCIe), by the device's name."""
-    name = torch.cuda.get_device_name(device)
-    if "H100" not in name:
-        raise RuntimeError(f"no bf16 peak known for {name!r}")
-    return 756e12 if "PCIe" in name else 989e12
+    (PCIe), by the device's name (``device.peak_bf16_flops``)."""
+    peak = _device.peak_bf16_flops(device)
+    if peak is None:
+        raise RuntimeError(f"no bf16 peak known for {torch.cuda.get_device_name(device)!r}")
+    return peak
 
 
 def write_token_file(path: str, n_tokens: int, vocab: int, seed: int = DATA_SEED) -> str:

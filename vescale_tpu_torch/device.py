@@ -6,7 +6,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["peak_bf16_flops", "resolve_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -23,3 +23,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def peak_bf16_flops(device) -> Optional[float]:
+    """The card's dense bf16 tensor-core peak, from its name: 989 TFLOP/s
+    for an H100 SXM, 756 for an H100 PCIe; None for the CPU and for a card
+    not in this table."""
+    if not isinstance(device, int) and torch.device(device).type != "cuda":
+        return None  # an int is a CUDA index
+    name = torch.cuda.get_device_name(device)
+    if "H100" not in name:
+        return None
+    return 756e12 if "PCIe" in name else 989e12

@@ -1,8 +1,9 @@
 """Serve knobs read from the environment, with the JAX package's defaults.
 
-The same names and defaults as the serving block of
-``vescale_tpu/analysis/envreg.py``; read live at each call, without that
-module's registry machinery.
+The same names and defaults as the serving, resilience and faultsim blocks
+of ``vescale_tpu/analysis/envreg.py``; read live at each call, without that
+module's registry machinery.  A knob whose default is ``None`` reads as
+``None`` while unset.
 """
 
 from __future__ import annotations
@@ -23,6 +24,20 @@ DEFAULTS = {
     "VESCALE_SERVE_PREFIX_CACHE_PAGES": 0,
     "VESCALE_SPEC_K": 4,
     "VESCALE_SPEC_DRAFTER_LAYERS": 1,
+    # the resilient loop's envelope
+    "VESCALE_SERVE_DEADLINE_S": 0.0,
+    "VESCALE_SERVE_OPS_PORT": None,
+    "VESCALE_SERVE_IDLE_S": 0.002,
+    "VESCALE_SERVE_REPLICA_ID": None,
+    "VESCALE_BARRIER_TIMEOUT": None,
+    "VESCALE_WATCHDOG_TIMEOUT": 0.0,
+    "VESCALE_WATCHDOG_ABORT": True,
+    "VESCALE_WATCHDOG_EXIT_CODE": 17,
+    "VESCALE_WATCHDOG_DIR": None,
+    "VESCALE_FAULTSIM": None,
+    "VESCALE_FAULTSIM_HANG_S": 3600.0,
+    "VESCALE_FAULTSIM_SLOW_DECODE_S": 0.05,
+    "VESCALE_FAULTSIM_KILL_EXIT_CODE": 29,
 }
 # envreg's booleans: unset takes the default; these (case-insensitive) are
 # false, anything else is true
@@ -43,14 +58,18 @@ def get_bool(name: str) -> bool:
     return bool(DEFAULTS[name]) if v is None else v.strip().lower() not in _FALSE
 
 
-def get_int(name: str) -> int:
+def get_int(name: str) -> Optional[int]:
     v = _raw(name)
-    return int(DEFAULTS[name]) if v is None else int(v)
+    if v is None:
+        return None if DEFAULTS[name] is None else int(DEFAULTS[name])
+    return int(v)
 
 
-def get_float(name: str) -> float:
+def get_float(name: str) -> Optional[float]:
     v = _raw(name)
-    return float(DEFAULTS[name]) if v is None else float(v)
+    if v is None:
+        return None if DEFAULTS[name] is None else float(DEFAULTS[name])
+    return float(v)
 
 
 def get_str(name: str) -> Optional[str]:

@@ -14,12 +14,16 @@ one (``prefix_cache=``, or ``VESCALE_SERVE_PREFIX_CACHE=1``): matched
 prompt pages map into the new slot for free and the hit is folded into the
 digest, as in the JAX package.
 
-Differences from the JAX package in this slice: metrics go to the
-scheduler's own :class:`~vescale_tpu_torch.telemetry.Registry` instead of
-the global telemetry gate; the request-trace spans (``reqtrace``) are not
-emitted; and the calls that only the loop's resilience and fleet legs make
-(``requeue_newest``, ``reject_queued``, ``wall_expired_slots``, forced
-expiry, ``tenant_stats``, ``step_time_estimate``) come with those legs.
+The fault envelope's calls are here too: ``requeue_newest`` (the
+mid-batch OOM evicts the NEWEST request and replays it from its prompt),
+``reject_queued`` (the preemption drain), ``wall_expired_slots`` and
+``expire_active(force_slots=, wall_slots=)`` (wall-clock and injected
+deadlines), ``step_time_estimate`` and ``tenant_stats`` (the ``/router``
+feed).  Every decision folds into the digest with the JAX package's codes.
+
+Differences from the JAX package: metrics go to the scheduler's own
+:class:`~vescale_tpu_torch.telemetry.Registry` instead of the global
+telemetry gate, and the request-trace spans (``reqtrace``) are not emitted.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import dataclasses
 import time
 import zlib
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 from ..telemetry.registry import Histogram, Registry
 from . import config as _config
@@ -109,7 +113,7 @@ class _InFlight:
     submit_wall: float = 0.0  # perf_counter at SUBMISSION (TTFT anchor)
     admit_wall: float = 0.0  # perf_counter at admission
     tokens: List[int] = dataclasses.field(default_factory=list)
-    replays: int = 0  # always 0 here: eviction and replay are not ported
+    replays: int = 0  # times this request was evicted and replayed
     # prompt tokens served from cached prefix pages: the loop prefills only
     # prompt[prefix_hit:]
     prefix_hit: int = 0
@@ -203,6 +207,25 @@ class ContinuousBatchingScheduler:
         hist.observe(seconds)
         self.telemetry.observe(f"serve_ttft_seconds_tenant_{_safe(tenant)}", seconds)
 
+    def tenant_stats(self) -> Dict[str, Dict[str, Any]]:
+        """The per-tenant rollup of the ``/router`` v5 feed: counters, live
+        queue depth, weighted cap and the class's own p99 TTFT."""
+        tenants = set(self.tenant_counts) | set(self._tenant_qdepth)
+        out: Dict[str, Dict[str, Any]] = {}
+        for t in sorted(tenants):
+            counts = self._tenant_counts(t)
+            hist = self._tenant_ttft.get(t)
+            out[t] = {
+                "submitted": counts["submitted"],
+                "shed": counts["shed"],
+                "completed": counts["completed"],
+                "queue_depth": self.tenant_queue_depth(t),
+                "weight": float(self.tenant_weights.get(t, 1.0)),
+                "cap": self.tenant_cap(t),
+                "ttft_p99_s": hist.percentile(0.99) if hist is not None else None,
+            }
+        return out
+
     def tenant_queue_depth(self, tenant: str) -> int:
         return self._tenant_qdepth.get(tenant, 0)
 
@@ -262,6 +285,12 @@ class ContinuousBatchingScheduler:
         once real samples landed."""
         if self._step_time_seed is None and self._step_time.count == 0:
             self._step_time_seed = max(float(seconds), 1e-4)
+
+    def step_time_estimate(self) -> Optional[float]:
+        """The best guess at the next decode step's wall time (seconds):
+        the observed p50, else the cold-start seed, else None."""
+        p50 = self._step_time.percentile(0.5)
+        return p50 if p50 is not None else self._step_time_seed
 
     def retry_after_s(self) -> float:
         """Backpressure hint: queue depth x observed decode-step p50 (the
@@ -375,6 +404,11 @@ class ContinuousBatchingScheduler:
             inf = _InFlight(req=req, slot=slot, submit_step=submit_step,
                             admit_step=step, submit_wall=submit_wall,
                             prefix_hit=matched)
+            prev = self.outcomes.pop(req.rid, None)  # a replayed eviction
+            if prev is not None and prev.get("status") != "evicted_replay":
+                raise RuntimeError(f"request {req.rid} readmitted after terminal {prev}")
+            if prev is not None:
+                inf.replays = int(prev.get("replays", 0)) + 1
             self.active[slot] = inf
             self.counts["admitted"] += 1
             admitted.append(inf)
@@ -448,7 +482,7 @@ class ContinuousBatchingScheduler:
                 self.outcomes[req.rid] = {
                     "status": "timed_out",
                     "tokens": [],
-                    "replays": 0,
+                    "replays": self._queued_replays(req.rid),
                     "reason": "queued past deadline",
                     "tag": req.tag,
                 }
@@ -463,16 +497,99 @@ class ContinuousBatchingScheduler:
             tel.set_gauge("serve_queue_depth", len(self.queue))
         return expired
 
+    def _queued_replays(self, rid: int) -> int:
+        """How many times a still-QUEUED rid was already evicted and
+        requeued: its ``evicted_replay`` marker holds the count before the
+        eviction."""
+        prev = self.outcomes.get(rid)
+        if prev is not None and prev.get("status") == "evicted_replay":
+            return int(prev.get("replays", 0)) + 1
+        return 0
+
+    def requeue_newest(self, reason: str = "oom") -> Optional[int]:
+        """Evict the NEWEST admitted request and put it back at the queue
+        head: the mid-batch OOM protocol.  The batch survives; the victim
+        prefills again later and, decode being deterministic, regenerates
+        the same tokens.  Returns the victim's rid, or None with nothing in
+        flight."""
+        tel = self.telemetry
+        if not self.active:
+            return None
+        slot = max(self.active, key=lambda s: (self.active[s].admit_step, s))
+        inf = self.active.pop(slot)
+        self.cache.free(slot)
+        self.counts["evicted"] += 1
+        self.counts["requeued"] += 1
+        self._fold(15, inf.req.rid, slot)
+        # a transient marker, not terminal: admit() consumes it to count the
+        # replay; generation restarts from the prompt
+        self.outcomes[inf.req.rid] = {
+            "status": "evicted_replay",
+            "tokens": [],
+            "replays": inf.replays,
+            "reason": reason,
+        }
+        # the original submit stamps ride along: the replay's TTFT counts
+        # everything since the client submitted
+        self.queue.appendleft((inf.req, inf.submit_step, inf.submit_wall))
+        self._tq(inf.req.tenant, +1)
+        tel.count("serve_requests_evicted_total")
+        tel.record_event("serve_evict", rid=inf.req.rid, slot=slot, reason=reason)
+        tel.set_gauge("serve_inflight", len(self.active))
+        return inf.req.rid
+
+    def reject_queued(self, reason: str = "preempted") -> List[int]:
+        """The drain: every still-queued request is rejected explicitly as
+        re-queueable (the client may resubmit it verbatim)."""
+        tel = self.telemetry
+        rejected = []
+        while self.queue:
+            req, _, _ = self.queue.popleft()
+            self._tq(req.tenant, -1)
+            self._fold(16, req.rid)
+            self.outcomes[req.rid] = {
+                "status": "preempted_requeue",
+                "tokens": [],
+                "replays": self._queued_replays(req.rid),
+                "reason": reason,
+                "retry_after_s": self.retry_after_s(),
+                "tag": req.tag,
+            }
+            self.counts["shed"] += 1
+            tel.count("serve_requests_shed_total")
+            tel.count("resilience_shed_total")
+            rejected.append(req.rid)
+        tel.set_gauge("serve_queue_depth", 0)
+        return rejected
+
     # ------------------------------------------------------------ expiry
-    def expire_active(self, step: int) -> List[int]:
-        """Timeout cancellation of in-flight requests past their step
-        deadline, at a step boundary.  Returns the cancelled rids."""
+    def wall_expired_slots(self, now_s: float, wall_deadline_s: float) -> List[int]:
+        """Slots whose request has been in flight longer than the wall
+        budget: computed, not applied, so the loop can OR the rank-local
+        verdicts across ranks before any rank acts."""
+        if not wall_deadline_s:
+            return []
+        return [
+            slot for slot in sorted(self.active)
+            if (now_s - self.active[slot].admit_wall) > wall_deadline_s
+        ]
+
+    def expire_active(self, step: int, force_slots: Sequence[int] = (),
+                      wall_slots: Sequence[int] = ()) -> List[int]:
+        """Timeout cancellation at a step boundary: step-deadline expiry,
+        ``wall_slots`` (agreed wall-budget expiries) and ``force_slots``
+        (faultsim's ``request_timeout``).  Returns the cancelled rids."""
         out: List[int] = []
         for slot in sorted(self.active):
             inf = self.active[slot]
             d = inf.req.deadline_steps
-            if d is not None and step - inf.submit_step > d:
-                self.timeout(slot, reason="step deadline")
+            forced = slot in force_slots
+            step_over = d is not None and step - inf.submit_step > d
+            if forced or step_over or slot in wall_slots:
+                reason = "injected request_timeout" if forced else (
+                    "step deadline" if step_over else "wall deadline"
+                )
+                self.timeout(slot, reason=reason)
                 out.append(inf.req.rid)
         return out
 

@@ -1,20 +1,21 @@
 """An in-process metric registry: counters, gauges, rolling histograms, events.
 
-Just enough of ``vescale_tpu/telemetry`` (``registry.Histogram`` and the
-``api`` calls ``count`` / ``observe`` / ``set_gauge`` / ``record_event``)
-for the serve scheduler and loop.  No exporters, no global gate: each
-scheduler owns a :class:`Registry`, so two schedulers in one process never
-share numbers.
+Just enough of ``vescale_tpu/telemetry`` (``registry.Histogram``, the
+``api`` calls ``count`` / ``observe`` / ``set_gauge`` / ``record_event``
+and ``exporters.prometheus_text``) for the serve scheduler, loop and ops
+endpoints.  No global gate: each scheduler owns a :class:`Registry`, so two
+schedulers in one process never share numbers.
 """
 
 from __future__ import annotations
 
 import math
+import re
 import threading
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Union
 
-__all__ = ["Histogram", "Registry"]
+__all__ = ["Histogram", "Registry", "prometheus_text"]
 
 Number = Union[int, float]
 
@@ -103,3 +104,50 @@ class Registry:
 
     def counter(self, name: str) -> float:
         return self.counters.get(name, 0)
+
+
+_NAME_OK = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_NAME_FIX = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _metric_name(name: str) -> str:
+    """An internal metric name mapped onto the Prometheus charset."""
+    if _NAME_OK.match(name):
+        return name
+    fixed = _NAME_FIX.sub("_", name)
+    return fixed if re.match(r"[a-zA-Z_:]", fixed[:1] or "_") else "_" + fixed
+
+
+def _fmt(v: float) -> str:
+    f = float(v)
+    if math.isnan(f):
+        return "NaN"
+    if math.isinf(f):
+        return "+Inf" if f > 0 else "-Inf"
+    return str(int(f)) if f.is_integer() else repr(f)
+
+
+def prometheus_text(registry: Registry) -> str:
+    """The registry in the Prometheus text exposition format (0.0.4), as
+    ``vescale_tpu.telemetry.exporters.prometheus_text`` renders it:
+    histograms as summaries (``{quantile=...}`` plus ``_count``/``_sum``)."""
+    with registry._lock:
+        counters = dict(registry.counters)
+        hists = dict(registry.histograms)
+    gauges = dict(registry.gauges)
+    lines = []
+    for name in sorted(counters):
+        pname = _metric_name(name)
+        lines += [f"# TYPE {pname} counter", f"{pname} {_fmt(counters[name])}"]
+    for name in sorted(gauges):
+        pname = _metric_name(name)
+        lines += [f"# TYPE {pname} gauge", f"{pname} {_fmt(gauges[name])}"]
+    for name in sorted(hists):
+        pname = _metric_name(name)
+        xs, count, total = hists[name]._sorted_window()
+        lines.append(f"# TYPE {pname} summary")
+        if xs:
+            for q in ("0.5", "0.95", "0.99"):
+                lines.append(f'{pname}{{quantile="{q}"}} {_fmt(Histogram._nearest_rank(xs, float(q)))}')
+        lines += [f"{pname}_count {_fmt(count)}", f"{pname}_sum {_fmt(total)}"]
+    return "\n".join(lines) + "\n"
