@@ -78,6 +78,33 @@ Phases, each printing one JSON line with its seconds:
            requests over HTTP; ``/router`` carries the frozen v5 fields,
            ``/outcomes`` the in-process ``run_serve`` tokens at that depth,
            and SIGTERM drains it to ``preempted`` with exit code 0
+  spmd     the SPMD core on the card.  A one-rank NCCL mesh
+           (``distributed.initialize`` at a localhost address, then
+           ``init_device_mesh("cuda", (1,))``): every
+           placement kind (Shard on either dim, InterleavedShard, Replicate,
+           Partial sum/avg/max, RaggedShard, StridedRaggedShard) through
+           ``distribute_tensor`` -> ``to_local`` -> ``full_tensor``, eleven
+           ``redistribute`` hops and the three ``api`` calls on the 8B's
+           embedding (128256 x 4096) and one layer's down_proj (14336 x
+           4096), bf16, every result bitwise its input, the NCCL calls
+           counted; 8-rank layouts (a 1-D mesh of 8, a 2-D 2x4: Shard even
+           and uneven, nested, InterleavedShard, RaggedShard with uneven
+           units, StridedRaggedShard) computed in one process with the
+           ``rank=`` path, reassembled bitwise; a ragged -> ragged
+           transition rank by rank through ``redistribute_local_tensor``,
+           bitwise, its peak allocation within the destination piece plus
+           2 MiB; the RNG's uniform and dropout (p = 0.1) at GPT-2's
+           activation shape and the MLP shape, whole and shard by shard,
+           bitwise, with the draw's device ms; the 8B's parameters
+           materialized as rank 3's Shard(0) pieces of a mesh of 8: bitwise
+           the serve phase's weights sliced, the peak allocation within the
+           pieces plus the largest full leaf and its piece plus 2 MiB; then
+           the 8B's parameters from ``deferred_init`` on ``meta`` and
+           ``materialize_module`` (Replicate) on the mesh, bitwise the serve
+           phase's weights, a
+           ``ServeEngine(..., mesh=)`` over them serving the serve phase's
+           16 requests: every check of the serve phase, streams bitwise
+           the serve phase's; the group destroyed, the engine freed
   profile  device time by kernel kind and the device's idle share over a
            second run of the serve requests (``torch.profiler``), for the
            graphed and the eager engine
@@ -1978,6 +2005,311 @@ def run_serve_resilient_phase(dev, eng, kernels_mod, serve, serve_streams):
     return out
 
 
+# -------------------------------------------------------------------- spmd
+def _pieces_bitwise(x, d) -> bool:
+    """A one-rank DArray's piece is the whole tensor (flat when ragged)."""
+    loc = d.to_local()
+    return torch.equal(loc, x.reshape(loc.shape))
+
+
+def spmd_nccl_round_trips(mesh, leaves):
+    """Every placement kind and the transitions between them through a
+    one-rank NCCL mesh at full width: each piece, full tensor and
+    redistributed tensor bitwise its input."""
+    from vescale_tpu_torch import api
+    from vescale_tpu_torch.darray import distribute_tensor, from_local
+    from vescale_tpu_torch.placements import (InterleavedShard, Partial, RaggedShard, Replicate,
+                                              Shard, StridedRaggedShard)
+
+    kinds = {"shard0": Shard(0), "shard1": Shard(1), "interleaved": InterleavedShard(0, 2),
+             "replicate": Replicate(), "partial_sum": Partial("sum"), "partial_avg": Partial("avg"),
+             "partial_max": Partial("max"), "ragged": RaggedShard((0, 1), (1,)),
+             "strided_ragged": StridedRaggedShard((0, 1), (2,), split_factor=1)}
+    hops = [("shard0", "shard1"), ("shard1", "replicate"), ("replicate", "interleaved"),
+            ("interleaved", "shard0"), ("ragged", "replicate"), ("replicate", "ragged"),
+            ("strided_ragged", "ragged"), ("partial_sum", "shard0"), ("partial_avg", "replicate"),
+            ("partial_max", "shard1"), ("replicate", "partial_sum")]
+    out = {}
+    for name, x in leaves.items():
+        row = {}
+        for k, p in kinds.items():
+            d = distribute_tensor(x, mesh, [p])
+            row[f"{k}.to_local"] = _pieces_bitwise(x, d)
+            row[f"{k}.full_tensor"] = torch.equal(d.full_tensor(), x)
+            del d
+        for a, b in hops:
+            d = distribute_tensor(x, mesh, [kinds[a]]).redistribute(placements=[kinds[b]])
+            row[f"{a}->{b}"] = _pieces_bitwise(x, d) and torch.equal(d.full_tensor(), x)
+            del d
+        g = api.vescale_all_gather(distribute_tensor(x, mesh, [Shard(0)]))
+        r = api.vescale_all_reduce(from_local(x, mesh, [Partial()]))
+        s = api.vescale_reduce_scatter(from_local(x, mesh, [Partial()]), scatter_dim=1)
+        row["vescale_all_gather"] = torch.equal(g.to_local(), x)
+        row["vescale_all_reduce"] = torch.equal(r.to_local(), x)
+        row["vescale_reduce_scatter"] = torch.equal(s.to_local(), x) and s.placements == (Shard(1),)
+        del g, r, s
+        out[name] = row
+        free_memory()
+    return out
+
+
+def spmd_virtual_layouts(dev, leaves):
+    """Every rank's piece of 8-rank layouts (a 1-D mesh of 8, a 2-D 2x4)
+    computed in this process with the ``rank=`` path and reassembled:
+    bitwise the leaf.  Then one ragged -> ragged transition, rank by rank,
+    through ``redistribute_local_tensor``: bitwise the slice of the leaf,
+    its peak allocation above the inputs within the destination piece plus
+    2 MiB (the logical tensor would be 8-16x that)."""
+    from vescale_tpu_torch.darray import distribute_tensor
+    from vescale_tpu_torch.mesh import DeviceMesh
+    from vescale_tpu_torch.placements import (InterleavedShard, RaggedShard, Replicate, Shard,
+                                              StridedRaggedShard)
+    from vescale_tpu_torch.redistribute import redistribute_local_tensor
+    from vescale_tpu_torch.spec import DArraySpec, TensorMeta
+
+    m8 = DeviceMesh(("x",), (8,), device_type="cuda")
+    m24 = DeviceMesh(("dp", "tp"), (2, 4), device_type="cuda")
+    emb, down = leaves["embedding"], leaves["down_proj"]
+    # the 8B's first 128,250 rows: 8 chunks of 16,032, the last 16,026
+    cut = f"embedding[:{emb.shape[0] - 6}]"
+    uneven = emb.narrow(0, 0, emb.shape[0] - 6)
+    cases = [("embedding", emb, m8, [Shard(0)]), (cut, uneven, m8, [Shard(0)]),
+             ("down_proj", down, m8, [Shard(1)]), ("down_proj", down, m8, [InterleavedShard(0, 2)]),
+             ("embedding", emb, m8, [RaggedShard((0, 1), (1, 2, 3, 2, 1, 3, 3, 1))]),
+             ("down_proj", down, m24, [Shard(0), StridedRaggedShard((0, 1), (1, 2, 3, 2), split_factor=2)]),
+             ("embedding", emb, m24, [Shard(0), Shard(1)]),
+             ("down_proj", down, m24, [Shard(1), InterleavedShard(0, 2)]),
+             (cut, uneven, m24, [Shard(0), Shard(0)])]
+    rows = []
+    for name, x, m, pls in cases:
+        pieces = [distribute_tensor(x, m, pls, rank=r).to_local() for r in range(m.size())]
+        meta = TensorMeta(tuple(x.shape), x.dtype)
+        full = redistribute_local_tensor(pieces, DArraySpec(m, pls, meta),
+                                         DArraySpec(m, [Replicate()] * m.ndim, meta), rank=0)
+        rows.append(dict(leaf=name, mesh=list(m.shape), placements=[str(p) for p in pls],
+                         piece_rows=[int(t.shape[0]) for t in pieces], bitwise=torch.equal(full, x)))
+        del pieces, full
+        free_memory()
+
+    src_pl, dst_pl = RaggedShard((0, 1), (1, 2, 3, 2, 1, 3, 3, 1)), RaggedShard((0, 1), (2,) * 8)
+    meta = TensorMeta(tuple(emb.shape), emb.dtype)
+    src, dst = DArraySpec(m8, [src_pl], meta), DArraySpec(m8, [dst_pl], meta)
+    pieces = [distribute_tensor(emb, m8, [src_pl], rank=r).to_local() for r in range(8)]
+    flat = emb.reshape(-1)
+    sizes, offs = dst_pl.local_sizes_and_offsets(flat.numel())
+    item = emb.element_size()
+    ragged = dict(bitwise=[], peak_above_inputs_bytes=[], bound_bytes=[], logical_bytes=flat.numel() * item)
+    for r in range(8):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = redistribute_local_tensor(pieces, src, dst, rank=r)
+        torch.cuda.synchronize()
+        ragged["peak_above_inputs_bytes"].append(torch.cuda.max_memory_allocated(dev) - base)
+        ragged["bound_bytes"].append(sizes[r] * item + (2 << 20))
+        ragged["bitwise"].append(torch.equal(got, flat.narrow(0, offs[r], sizes[r])))
+        del got
+    ragged["within_bound"] = all(a <= b for a, b in zip(ragged["peak_above_inputs_bytes"],
+                                                        ragged["bound_bytes"]))
+    del pieces
+    free_memory()
+    return rows, ragged
+
+
+def spmd_rng(dev, leaves):
+    """uniform and dropout (p = 0.1) drawn whole and drawn shard by shard
+    (boxes of an 8-way Shard(0) for GPT-2's activation shape; the pieces of
+    a 2x4 [Shard(1), InterleavedShard(0, 2)] layout, by global index, for
+    the MLP shape): bitwise equal.  Device ms of each whole draw."""
+    from vescale_tpu_torch import random as R
+    from vescale_tpu_torch.mesh import DeviceMesh
+    from vescale_tpu_torch.placements import InterleavedShard, Shard
+    from vescale_tpu_torch.spec import DArraySpec, TensorMeta
+
+    k = R.key(0)
+    out = {}
+    act = torch.randn((12, 1024, 768), generator=torch.Generator(device=dev).manual_seed(1),
+                      device=dev, dtype=torch.bfloat16)
+    down = leaves["down_proj"]
+    for name, x in (("gpt2_activation_12x1024x768", act), ("mlp_14336x4096", down)):
+        shape = tuple(x.shape)
+        u = R.uniform(shape, key=k, device=dev)
+        dr = R.dropout(x, 0.1, key=k)
+        u_ok, d_ok = [], []
+        if name.startswith("gpt2"):
+            for r in range(8):
+                sz, off = Shard(0).local_shard_size_and_offset(shape[0], 8, r)
+                goff = (off,) + (0,) * (len(shape) - 1)
+                box = (sz,) + shape[1:]
+                u_ok.append(torch.equal(R.uniform(box, key=k, device=dev, global_offset=goff,
+                                                  global_shape=shape), u.narrow(0, off, sz)))
+                d_ok.append(torch.equal(R.dropout(x.narrow(0, off, sz).contiguous(), 0.1, key=k,
+                                                  global_offset=goff, global_shape=shape),
+                                        dr.narrow(0, off, sz)))
+        else:
+            m24 = DeviceMesh(("dp", "tp"), (2, 4), device_type="cuda")
+            spec = DArraySpec(m24, [Shard(1), InterleavedShard(0, 2)], TensorMeta(shape, x.dtype))
+            for r in range(8):
+                c = m24.coordinate_of_rank(r)
+                idx = R.linear_index(spec.index_set(c), shape, dev)
+                u_ok.append(torch.equal(R.uniform(idx.shape, key=k, device=dev, index=idx),
+                                        spec.local_from_full(u, c)))
+                d_ok.append(torch.equal(R.dropout(spec.local_from_full(x, c), 0.1, key=k, index=idx),
+                                        spec.local_from_full(dr, c)))
+                del idx
+        kept = float((dr != 0).float().mean()) if name.startswith("mlp") else None
+        del u, dr
+        free_memory()
+        out[name] = dict(uniform_bitwise=u_ok, dropout_bitwise=d_ok, dropout_kept_share=kept,
+                         uniform_ms=cuda_ms(lambda: R.uniform(shape, key=k, device=dev), iters=5, warmup=1),
+                         dropout_ms=cuda_ms(lambda: R.dropout(x, 0.1, key=k), iters=5, warmup=1))
+        free_memory()
+    return out
+
+
+def spmd_sharded_materialize(dev, cfg, params):
+    """The 8B's parameters materialized as rank 3's Shard(0) pieces of a
+    layout-only mesh of 8: bitwise the serve weights' rows, and the peak
+    allocation above the start within every piece plus the largest full
+    leaf and its piece plus 2 MiB (the eager tree would be the whole
+    model).  Timed twice: the first call also loads torch's meta kernels."""
+    from vescale_tpu_torch.darray import distribute_tensor
+    from vescale_tpu_torch.initialize import materialize_module
+    from vescale_tpu_torch.mesh import DeviceMesh
+    from vescale_tpu_torch.models import init_params
+    from vescale_tpu_torch.placements import Shard
+
+    m8 = DeviceMesh(("x",), (8,), device_type="cuda")
+    free_memory()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    tree = materialize_module(init_params, [Shard(0)], cfg, seed=0, dtype=torch.bfloat16, mesh=m8,
+                              rank=3)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    pieces, fulls, bitwise = [], [], True
+
+    def walk(node, ref):
+        nonlocal bitwise
+        if isinstance(node, dict):
+            for k in node:
+                walk(node[k], ref[k])
+            return
+        want = distribute_tensor(ref, m8, [Shard(0)], rank=3).to_local()
+        bitwise = bitwise and torch.equal(node.to_local(), want)
+        pieces.append(node.to_local().nbytes)
+        fulls.append(ref.nbytes)
+
+    walk(tree, params)
+    del tree
+    free_memory()
+    t = time.perf_counter()  # again, without the first call's one-time set-up
+    tree = materialize_module(init_params, [Shard(0)], cfg, seed=0, dtype=torch.bfloat16, mesh=m8,
+                              rank=3)
+    torch.cuda.synchronize()
+    del tree
+    again_s = time.perf_counter() - t
+    free_memory()
+    bound = sum(pieces) + max(fulls) + max(pieces) + (2 << 20)
+    return dict(materialize_s=seconds, again_s=again_s, peak_above_start_bytes=peak, bound_bytes=bound,
+                pieces_bytes=sum(pieces), largest_leaf_bytes=max(fulls), model_bytes=sum(fulls),
+                leaves=len(fulls), bitwise=bitwise, within_bound=peak <= bound)
+
+
+def run_spmd_phase(dev, eng, kernels_mod, serve_streams, card):
+    """The SPMD core on the card (module docstring)."""
+    import torch.distributed as dist
+
+    from vescale_tpu_torch import collectives
+    from vescale_tpu_torch.initialize import deferred_init, is_deferred, materialize_module
+    from vescale_tpu_torch.mesh import init_device_mesh
+    from vescale_tpu_torch.models import init_params
+    from vescale_tpu_torch.placements import Replicate
+    from vescale_tpu_torch.serve import ServeEngine
+
+    cfg = eng.config
+    leaves = {"embedding": eng.params["embed_tokens"]["embedding"],
+              "down_proj": eng.params["layers_0"]["mlp"]["down_proj"]["kernel"]}
+    out, checks = {}, {}
+    from vescale_tpu_torch import distributed as D
+
+    D.initialize(f"127.0.0.1:{free_port()}", 1, 0, device_type="cuda", timeout_s=120)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("dp",))
+        collectives.reset_calls()
+        t = time.perf_counter()
+        round_trips = spmd_nccl_round_trips(mesh, leaves)
+        torch.cuda.synchronize()
+        calls = dict(collectives.CALLS)
+        out["nccl"] = dict(seconds=time.perf_counter() - t, leaves={k: list(v.shape) for k, v in leaves.items()},
+                           checks=round_trips, calls=calls,
+                           nccl_calls=sum(v for k, v in calls.items() if k.startswith("nccl.")))
+        checks["nccl_round_trips_bitwise"] = all(all(r.values()) for r in round_trips.values())
+        checks["nccl_only"] = out["nccl"]["nccl_calls"] > 0 and out["nccl"]["nccl_calls"] == sum(calls.values())
+
+        t = time.perf_counter()
+        layouts, ragged = spmd_virtual_layouts(dev, leaves)
+        out["virtual_layouts"] = dict(seconds=time.perf_counter() - t, layouts=layouts, ragged=ragged)
+        checks["virtual_layouts_bitwise"] = all(r["bitwise"] for r in layouts)
+        checks["ragged_transition_bitwise"] = all(ragged["bitwise"])
+        checks["ragged_transition_within_bound"] = ragged["within_bound"]
+
+        t = time.perf_counter()
+        rng = spmd_rng(dev, leaves)
+        out["rng"] = dict(seconds=time.perf_counter() - t, **rng)
+        checks["rng_sharded_equals_whole"] = all(all(v["uniform_bitwise"]) and all(v["dropout_bitwise"])
+                                                 for v in rng.values())
+
+        t = time.perf_counter()
+        sharded = spmd_sharded_materialize(dev, cfg, eng.params)
+        out["sharded_materialize"] = dict(seconds=time.perf_counter() - t, card=card, **sharded)
+        checks["sharded_materialize_bitwise"] = sharded["bitwise"]
+        checks["sharded_materialize_within_bound"] = sharded["within_bound"]
+
+        # Llama-3-8B from deferred-init DArrays on the one-rank mesh
+        t = time.perf_counter()
+        before = torch.cuda.memory_allocated(dev)
+        meta = deferred_init(init_params, cfg, seed=0, dtype=torch.bfloat16)
+        deferred = is_deferred(meta) and torch.cuda.memory_allocated(dev) == before
+        del meta
+        torch.cuda.synchronize()
+        t_mat = time.perf_counter()
+        tree = materialize_module(init_params, [Replicate()], cfg, seed=0, dtype=torch.bfloat16, mesh=mesh)
+        torch.cuda.synchronize()
+        materialize_s = time.perf_counter() - t_mat
+        same = _trees_bitwise(tree, eng.params)
+        mesh_eng = ServeEngine(cfg, tree, eng.cache, mesh=mesh)
+        mesh_eng.replay_greedy([1, 2, 3], 2)  # loads cuBLAS paths and captures the decode graph
+        run, streams = serve_run(dev, mesh_eng, serve_requests(cfg.vocab_size), kernels_mod)
+        del mesh_eng, tree
+        free_memory()
+        out["mesh_serve"] = dict(seconds=time.perf_counter() - t, materialize_s=materialize_s,
+                                 deferred_allocated_nothing=deferred, weights_bitwise_serve=same,
+                                 streams_equal_serve=streams == serve_streams, card=card, **run)
+        checks["deferred"] = deferred
+        checks["weights_bitwise_serve"] = same
+        checks["mesh_serve"] = run["checks"]
+        checks["mesh_streams_equal_serve"] = streams == serve_streams
+        out["launches"] = run["launches"]
+    finally:
+        dist.destroy_process_group()
+    out["checks"] = checks
+    check(all(v if isinstance(v, bool) else all(v.values()) for v in checks.values()),
+          f"spmd checks failed: {checks}")
+    return out
+
+
+def _trees_bitwise(tree, params) -> bool:
+    """Every DArray piece of ``tree`` bitwise the tensor at the same path
+    of ``params``."""
+    if isinstance(tree, dict):
+        return tree.keys() == params.keys() and all(_trees_bitwise(tree[k], params[k]) for k in tree)
+    return torch.equal(tree.to_local(), params)
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2053,6 +2385,9 @@ def main() -> int:
     resilient = run_serve_resilient_phase(dev, eng, kernels_mod, serve, serve_streams)
     log("serve_resilient", seconds=time.perf_counter() - t, card=card, **resilient)
     t = time.perf_counter()
+    spmd = run_spmd_phase(dev, eng, kernels_mod, serve_streams, card)
+    log("spmd", seconds=time.perf_counter() - t, card=card, **spmd)
+    t = time.perf_counter()
     prof = {"graph": run_profile(eng, cfg, serve["graph"]["serve_s"]),
             "eager": run_profile(eager, cfg, serve["eager"]["serve_s"])}
     log("profile", seconds=time.perf_counter() - t, **prof)
@@ -2089,7 +2424,8 @@ def main() -> int:
         by_path = {"train": train["launches"][name], "serve": serve["launches"][name],
                    "serve_eager": serve["eager"]["launches"][name],
                    "spec_prefix": spec_prefix["launches"][name],
-                   "serve_resilient": resilient["launches"][name], "gpt2": gpt2["launches"][name]}
+                   "serve_resilient": resilient["launches"][name], "spmd": spmd["launches"][name],
+                   "gpt2": gpt2["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

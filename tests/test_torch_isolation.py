@@ -37,6 +37,10 @@ def test_every_port_module_imports_without_jax():
             "vescale_tpu_torch.resilience.watchdog", "vescale_tpu_torch.resilience.preempt",
             "vescale_tpu_torch.resilience.consistency", "vescale_tpu_torch.serve.fleet",
             "vescale_tpu_torch.serve.obs", "vescale_tpu_torch.telemetry.ops_server"} <= set(mods)
+    assert {"vescale_tpu_torch.placements", "vescale_tpu_torch.mesh", "vescale_tpu_torch.devicemesh_api",
+            "vescale_tpu_torch.spec", "vescale_tpu_torch.collectives", "vescale_tpu_torch.darray",
+            "vescale_tpu_torch.redistribute", "vescale_tpu_torch.api", "vescale_tpu_torch.random",
+            "vescale_tpu_torch.initialize.deferred_init", "vescale_tpu_torch.config"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {['vescale_tpu_torch'] + mods!r}:\n"
@@ -70,6 +74,31 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     assert len(files) > 15
     bad = {f: m for f in files for m in _imports(f) if _forbidden(m)}
     assert bad == {}
+
+
+CHILDREN = ("torch_spmd_child.py", "torch_serve_child.py")
+
+
+def test_the_child_scripts_of_the_port_tests_import_no_jax():
+    """The gloo ranks the port's tests spawn import only torch and the
+    port, by their source and by what loading them pulls in."""
+    for name in CHILDREN:
+        path = os.path.join(REPO, "tests", name)
+        assert [m for m in _imports(path) if _forbidden(m)] == [], name
+        code = (
+            "import importlib.util, json, sys\n"
+            f"spec = importlib.util.spec_from_file_location('child', {path!r})\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "import vescale_tpu_torch.initialize, vescale_tpu_torch.redistribute\n"
+            "print(json.dumps(sorted(sys.modules)))\n"
+        )
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+        env["PYTHONPATH"] = REPO
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                             text=True, timeout=120, check=True)
+        loaded = json.loads(out.stdout.strip().splitlines()[-1])
+        assert [m for m in loaded if _forbidden(m)] == [], name
 
 
 @pytest.fixture

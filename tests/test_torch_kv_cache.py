@@ -12,7 +12,7 @@ from vescale_tpu.analysis import envreg
 from vescale_tpu.mesh import DeviceMesh
 from vescale_tpu.serve import kv_cache as jkv
 
-from vescale_tpu_torch.serve import config as tconfig
+from vescale_tpu_torch import config as tconfig
 from vescale_tpu_torch.serve import kv_cache as tkv
 
 GEOM = dict(layers=2, kv_heads=2, head_dim=8, num_slots=3, page_size=4, pages_per_slot=3)

@@ -576,7 +576,7 @@ def test_check_raises_the_reference_errors():
 
 def test_arm_from_env_and_knob_defaults(monkeypatch):
     from vescale_tpu.analysis import envreg
-    from vescale_tpu_torch.serve import config as tconfig
+    from vescale_tpu_torch import config as tconfig
 
     names = [n for n in tconfig.DEFAULTS if n.startswith(("VESCALE_FAULTSIM", "VESCALE_WATCHDOG",
                                                            "VESCALE_BARRIER", "VESCALE_SERVE_"))]

@@ -33,7 +33,7 @@ from vescale_tpu_torch.kernels import ulps_at_scale
 from vescale_tpu_torch.kernels.flash_attention import flash_fwd_reference
 from vescale_tpu_torch.models import LlamaConfig, init_params, params_from_jax
 from vescale_tpu_torch import serve as tserve
-from vescale_tpu_torch.serve import config as tconfig
+from vescale_tpu_torch import config as tconfig
 from vescale_tpu_torch.serve.speculative import drafter_config, slice_drafter_params
 
 from test_torch_serve import KV_ULP_BOUND, LOGIT_ULP_BOUND, SHAPES

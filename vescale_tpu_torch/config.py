@@ -1,8 +1,8 @@
-"""Serve knobs read from the environment, with the JAX package's defaults.
+"""The port's knobs read from the environment, with the JAX package's defaults.
 
-The same names and defaults as the serving, resilience and faultsim blocks
-of ``vescale_tpu/analysis/envreg.py``; read live at each call, without that
-module's registry machinery.  A knob whose default is ``None`` reads as
+The same names and defaults as the serving, resilience, faultsim and
+redistribute knobs of ``vescale_tpu/analysis/envreg.py``; read live at each
+call, without that module's registry machinery.  A knob whose default is ``None`` reads as
 ``None`` while unset.
 """
 
@@ -38,6 +38,8 @@ DEFAULTS = {
     "VESCALE_FAULTSIM_HANG_S": 3600.0,
     "VESCALE_FAULTSIM_SLOW_DECODE_S": 0.05,
     "VESCALE_FAULTSIM_KILL_EXIT_CODE": 29,
+    # the SPMD core
+    "VESCALE_STRICT_REDISTRIBUTE": False,
 }
 # envreg's booleans: unset takes the default; these (case-insensitive) are
 # false, anything else is true
@@ -46,14 +48,14 @@ _FALSE = ("", "0", "false", "off", "no")
 
 def _raw(name: str) -> Optional[str]:
     if name not in DEFAULTS:
-        raise KeyError(f"{name} is not a serve knob of the port")
+        raise KeyError(f"{name} is not a knob of the port")
     v = os.environ.get(name)
     return v if v not in (None, "") else None
 
 
 def get_bool(name: str) -> bool:
     if name not in DEFAULTS:
-        raise KeyError(f"{name} is not a serve knob of the port")
+        raise KeyError(f"{name} is not a knob of the port")
     v = os.environ.get(name)
     return bool(DEFAULTS[name]) if v is None else v.strip().lower() not in _FALSE
 

@@ -1,8 +1,10 @@
-"""Cross-process control plane: ``allgather_ints``, ``barrier`` and
-``BarrierTimeout`` over ``torch.distributed``.
+"""Process start-up and the cross-process control plane over
+``torch.distributed``.
 
-The port of the three calls of ``vescale_tpu/distributed.py`` that the
-serve loop's coordination uses.  They move small int64 vectors as CPU
+The port of ``vescale_tpu/distributed.py``: ``initialize`` /
+``is_initialized`` (the default process group), ``hybrid_device_mesh``,
+and the control plane ``allgather_ints``, ``all_processes_ok``,
+``barrier`` and ``BarrierTimeout``.  The control plane moves small int64 vectors as CPU
 tensors through gloo: the default process group when its backend is
 gloo, else a gloo group made once over the same ranks (the first call is
 then collective, as every call is anyway).  A process without a group, or
@@ -19,16 +21,31 @@ supervisor restart it.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
+import zlib
+from datetime import timedelta
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["BarrierTimeout", "allgather_ints", "barrier", "process_count", "process_index"]
+from . import config
+
+__all__ = [
+    "BarrierTimeout",
+    "all_processes_ok",
+    "allgather_ints",
+    "barrier",
+    "hybrid_device_mesh",
+    "initialize",
+    "is_initialized",
+    "process_count",
+    "process_index",
+]
 
 
 class BarrierTimeout(RuntimeError):
@@ -58,25 +75,24 @@ def process_index() -> int:
     return dist.get_rank() if _world() > 1 else 0
 
 
-_GLOO = {}  # id of the default group -> its gloo twin
+_GLOO = {}  # id of the default group -> (the default group, its gloo twin)
 
 
 def _gloo_group():
-    """The group CPU tensors travel on: the default one when it is gloo."""
+    """The group CPU tensors travel on: the default one when it is gloo.
+    The entry holds the default group, so its id is not reused."""
     if dist.get_backend() == "gloo":
         return None
-    key = id(dist.group.WORLD)
-    if key not in _GLOO:
-        _GLOO[key] = dist.new_group(backend="gloo")
-    return _GLOO[key]
+    world = dist.group.WORLD
+    if id(world) not in _GLOO:
+        _GLOO[id(world)] = (world, dist.new_group(backend="gloo"))
+    return _GLOO[id(world)][1]
 
 
 def _resolve_timeout(timeout_s: Optional[float]) -> Optional[float]:
     """None -> ``VESCALE_BARRIER_TIMEOUT`` (unset: no timeout); <= 0 disables."""
     if timeout_s is None:
-        from .serve import config as _config
-
-        timeout_s = _config.get_float("VESCALE_BARRIER_TIMEOUT")
+        timeout_s = config.get_float("VESCALE_BARRIER_TIMEOUT")
         if timeout_s is None:
             return None
     return timeout_s if timeout_s > 0 else None
@@ -157,3 +173,80 @@ def allgather_ints(values: Sequence[int], tag: str = "vescale_allgather",
         return torch.stack(out).numpy()
 
     return _sync_with_timeout(_gather, tag, timeout_s).reshape(world, -1)
+
+
+def initialize(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
+               process_id: Optional[int] = None, local_device_ids: Optional[Sequence[int]] = None,
+               *, device_type: str = "cuda", timeout_s: Optional[float] = None) -> None:
+    """Join this process to the world (reference ``initialize``; upstream
+    ``init_process_group``): the default process group, NCCL for
+    ``device_type="cuda"`` and gloo for ``"cpu"``.  The group meets at
+    ``tcp://<coordinator_address>`` (host:port) with ``num_processes`` and
+    ``process_id``; without an address, at torch's ``env://`` rendezvous
+    (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, as
+    ``torchrun`` sets them) when ``MASTER_ADDR`` is set, else in a world of
+    one on a local store.  On the card this process takes
+    ``local_device_ids[0]``, else ``LOCAL_RANK``, else its rank modulo the
+    host's cards.  A second call does nothing."""
+    from .mesh import backend_of
+
+    if is_initialized():
+        return
+    backend = backend_of(device_type)
+    kw = {} if timeout_s is None else {"timeout": timedelta(seconds=timeout_s)}
+    if coordinator_address is not None:
+        if num_processes is None or process_id is None:
+            raise ValueError("coordinator_address needs num_processes and process_id")
+        kw.update(init_method=f"tcp://{coordinator_address}", world_size=int(num_processes),
+                  rank=int(process_id))
+    elif os.environ.get("MASTER_ADDR"):
+        kw.update(init_method="env://")
+    else:
+        if num_processes not in (None, 1):
+            raise ValueError(f"a world of {num_processes} processes needs coordinator_address "
+                             "or the env:// variables (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE)")
+        kw.update(store=dist.HashStore(), world_size=1, rank=0)
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: initialize(device_type='cuda') needs the card; "
+                               "pass device_type='cpu' for gloo")
+        if local_device_ids:
+            local = local_device_ids[0]
+        elif os.environ.get("LOCAL_RANK"):
+            local = int(os.environ["LOCAL_RANK"])
+        else:
+            rank = kw.get("rank", int(os.environ.get("RANK", 0)))
+            local = rank % torch.cuda.device_count()
+        torch.cuda.set_device(local)
+    dist.init_process_group(backend, **kw)
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def all_processes_ok(ok: bool, tag: str = "vescale_ok", timeout_s: Optional[float] = None) -> bool:
+    """Cross-process AND of a local success flag; doubles as a barrier.
+    The tag travels with the vote, so two processes voting at differently
+    tagged points raise instead of pairing their votes up; a peer that
+    never votes raises ``BarrierTimeout`` past ``timeout_s``."""
+    rows = allgather_ints([zlib.crc32(tag.encode("utf-8")), 1 if ok else 0], tag, timeout_s)
+    if len(set(int(t) for t in rows[:, 0])) != 1:
+        raise RuntimeError(f"all_processes_ok({tag!r}): processes voted at differently tagged points")
+    return bool(rows[:, 1].all())
+
+
+def hybrid_device_mesh(mesh_dim_names: Sequence[str], ici_shape: Sequence[int],
+                       dcn_shape: Sequence[int], *, device_type: str = "cuda"):
+    """A live mesh whose leading dims span hosts (``dcn_shape``) and
+    trailing dims the cards of one host (``ici_shape``): ranks are laid out
+    host-major, so the trailing dims' groups stay on NVLink and only the
+    leading dims' traffic crosses hosts (the reference's DCN x ICI mesh).
+    ``mesh_dim_names`` covers the dcn dims, then the ici dims."""
+    from .mesh import init_device_mesh
+
+    ici_shape = tuple(ici_shape)
+    dcn_shape = tuple(dcn_shape)
+    if len(mesh_dim_names) != len(ici_shape) + len(dcn_shape):
+        raise ValueError(f"{len(mesh_dim_names)} names for {len(dcn_shape)}+{len(ici_shape)} dims")
+    return init_device_mesh(device_type, dcn_shape + ici_shape, mesh_dim_names=tuple(mesh_dim_names))

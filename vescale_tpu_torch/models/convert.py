@@ -121,11 +121,14 @@ def init_params(config: Union[LlamaConfig, GPTConfig], seed: int = 0, device=Non
     (flax's lecun-normal scale, untruncated); an embedding is normal with
     std 1/sqrt(width).  The same seed on the same device type gives the
     same tree; CPU and CUDA generators differ, so make the tree on one
-    device and copy it to compare two."""
+    device and copy it to compare two.  On ``device="meta"`` it allocates
+    nothing (shapes and dtypes only: ``initialize.deferred_init``)."""
     dev = resolve_device(device)
     dt = dtype if dtype is not None else config.dtype
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
 
     def draw(path: str, shape):
         if path.endswith(("weight", "scale")):

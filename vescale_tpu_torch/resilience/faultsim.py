@@ -270,7 +270,7 @@ def arm_from_env(var: str = "VESCALE_FAULTSIM") -> Optional[FaultInjector]:
     """Arm from the schedule in ``var`` if it is set; None otherwise.
     ``VESCALE_FAULTSIM`` is read through the port's knobs; any other name
     is read as it stands."""
-    from ..serve import config as _config
+    from .. import config as _config
 
     if var in _config.DEFAULTS:
         text = _config.get_str(var)

@@ -194,7 +194,7 @@ class Watchdog:
     def _dump_path(self) -> Optional[str]:
         root = self.dump_dir
         if root is None:
-            from ..serve import config as _config
+            from .. import config as _config
 
             root = _config.get_str("VESCALE_WATCHDOG_DIR")
         if root is None:
@@ -214,7 +214,7 @@ class Watchdog:
         deadline is unset or <= 0.  ``timeout_s`` overrides the knob's
         deadline (an explicit 0 disables it) while abort and exit code
         still come from the knobs."""
-        from ..serve import config as _config
+        from .. import config as _config
 
         if timeout_s is None:
             timeout_s = _config.get_float("VESCALE_WATCHDOG_TIMEOUT")

@@ -153,7 +153,13 @@ class ServeEngine:
     """Prefill/decode over ``cache``.  ``config`` is the model's
     ``LlamaConfig``; ``params`` the nested dict of tensors in the flax
     layout.  Leaves not on ``device`` (default: the card) are copied there
-    once, at construction."""
+    once, at construction.
+
+    With ``mesh`` (a ``DeviceMesh``) the mesh's device is the engine's
+    device (a different ``device`` raises), leaves may be ``DArray`` pieces
+    laid out ``Replicate`` on that mesh, and host leaves are replicated
+    onto it once here, as the JAX engine does (``_replicate``).  Sharded
+    weights wait for tensor parallelism."""
 
     def __init__(
         self,
@@ -163,9 +169,17 @@ class ServeEngine:
         *,
         num_stages: int = 1,
         device=None,
+        mesh=None,
     ):
         c = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = mesh.device
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"engine device {resolve_device(device)} is not the mesh's "
+                                 f"device {self.device}")
+        else:
+            self.device = resolve_device(device)
         if cache.device != self.device:
             raise ValueError(f"cache lives on {cache.device}, engine on {self.device}")
         if cache.config.layers != c.num_hidden_layers:
@@ -195,6 +209,17 @@ class ServeEngine:
     def _place(self, tree):
         if isinstance(tree, dict):
             return {k: self._place(v) for k, v in tree.items()}
+        from ..darray import DArray, distribute_tensor
+
+        if isinstance(tree, DArray):
+            if self.mesh is not None and tree.mesh != self.mesh:
+                raise ValueError(f"a weight lives on {tree.mesh}, the engine on {self.mesh}")
+            if not tree.spec.is_replicated():
+                raise ValueError(f"the engine serves replicated weights; got {tree.placements} "
+                                 "(sharded weights come with tensor parallelism)")
+            return tree.to_local().to(self.device)
+        if self.mesh is not None:
+            return distribute_tensor(torch.as_tensor(tree), self.mesh).to_local()
         return torch.as_tensor(tree).to(self.device)
 
     def swap_params(self, params: Dict[str, Any]) -> Dict[str, Any]:

@@ -23,7 +23,7 @@ from collections import deque
 from typing import Any, Deque, Dict, List, Optional
 
 from ..telemetry import ops_server as _ops
-from . import config as _config
+from .. import config as _config
 from .scheduler import TERMINAL, ContinuousBatchingScheduler, Request
 
 __all__ = ["RequestInbox", "request_from_payload", "serve_replica"]

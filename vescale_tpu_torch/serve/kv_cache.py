@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import config as _config
+from .. import config as _config
 
 __all__ = ["KVCacheConfig", "KVCacheOutOfPages", "PagedKVCache"]
 

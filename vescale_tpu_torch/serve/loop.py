@@ -73,7 +73,7 @@ from ..resilience import faultsim as _fs
 from ..resilience.preempt import PreemptionHandler
 from ..resilience.watchdog import Watchdog
 from ..telemetry import ops_server as _ops
-from . import config as _config
+from .. import config as _config
 from .engine import ServeEngine
 from .obs import ServeObservability
 from .scheduler import ContinuousBatchingScheduler, Request

@@ -28,7 +28,7 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional
 
-from . import config as _config
+from .. import config as _config
 from ..device import peak_bf16_flops
 
 __all__ = ["ServeObservability", "ROUTER_SCHEMA_VERSION", "ROUTER_FIELDS"]

@@ -48,7 +48,7 @@ from __future__ import annotations
 import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from . import config as _config
+from .. import config as _config
 from .kv_cache import PagedKVCache
 
 __all__ = ["PrefixCache", "PrefixCacheStats"]

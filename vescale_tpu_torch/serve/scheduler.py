@@ -35,7 +35,7 @@ from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 from ..telemetry.registry import Histogram, Registry
-from . import config as _config
+from .. import config as _config
 from .kv_cache import PagedKVCache
 from .prefix_cache import PrefixCache
 

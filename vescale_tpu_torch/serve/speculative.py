@@ -38,7 +38,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import config as _config
+from .. import config as _config
 from .engine import ServeEngine, _as_tree
 from .kv_cache import KVCacheConfig, KVCacheOutOfPages, PagedKVCache
 

@@ -232,7 +232,7 @@ def maybe_start(
     process's :func:`active_server`."""
     global _ACTIVE
     if port is None:
-        from ..serve import config as _config
+        from .. import config as _config
 
         port = _config.get_int("VESCALE_SERVE_OPS_PORT")
     if port is None:

@@ -4,7 +4,8 @@ Just enough of ``vescale_tpu/telemetry`` (``registry.Histogram``, the
 ``api`` calls ``count`` / ``observe`` / ``set_gauge`` / ``record_event``
 and ``exporters.prometheus_text``) for the serve scheduler, loop and ops
 endpoints.  No global gate: each scheduler owns a :class:`Registry`, so two
-schedulers in one process never share numbers.
+schedulers in one process never share numbers.  ``GLOBAL`` holds the
+library's own process-wide counters (``redistribute.fallbacks``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import threading
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Union
 
-__all__ = ["Histogram", "Registry", "prometheus_text"]
+__all__ = ["GLOBAL", "Histogram", "Registry", "prometheus_text"]
 
 Number = Union[int, float]
 
@@ -104,6 +105,9 @@ class Registry:
 
     def counter(self, name: str) -> float:
         return self.counters.get(name, 0)
+
+
+GLOBAL = Registry()
 
 
 _NAME_OK = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
