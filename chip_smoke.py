@@ -105,6 +105,23 @@ Phases, each printing one JSON line with its seconds:
            ``ServeEngine(..., mesh=)`` over them serving the serve phase's
            16 requests: every check of the serve phase, streams bitwise
            the serve phase's; the group destroyed, the engine freed
+  checkpoint  the 8B serve weights (as Replicate pieces of a one-rank
+           mesh) and a small optimizer subtree saved to a temporary
+           directory outside the checkout through the native writer (every
+           chunk file counted by it; bytes, seconds, GB/s); restored through
+           ``serve.load_params`` into a template on ``meta``: bitwise, only
+           the model's chunk files read, GB/s with the copy to the card;
+           the restored weights serve the 16 requests (every check of the
+           serve phase, streams bitwise the serve phase's); the ``/control``
+           rollout over the same requests (a ``reload`` with baseline and
+           canary at step 2, a ``commit`` after it): the states walk
+           draining, baseline, swapping, canary, committed, streams bitwise
+           golden, each kernel launch accounted for (the serve steps plus
+           the baseline and canary replays), drain, swap and canary seconds;
+           the same with ``canary_diverge`` armed: rolled back, golden
+           streams; the embedding and layer 0 restored as rank 3's Shard(0)
+           pieces of a layout-only mesh of 8: bitwise the serve weights'
+           rows, elastic, VSC130, bytes read; the directory removed
   profile  device time by kernel kind and the device's idle share over a
            second run of the serve requests (``torch.profiler``), for the
            graphed and the eager engine
@@ -137,6 +154,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import signal
 import socket
 import subprocess
@@ -2302,6 +2320,249 @@ def run_spmd_phase(dev, eng, kernels_mod, serve_streams, card):
     return out
 
 
+# -------------------------------------------------------------- checkpoint
+def _dir_bytes(root: str, sub: str):
+    """(files, bytes) of the chunk files under ``root/data/<sub>``."""
+    files = nbytes = 0
+    for dirpath, _dirs, names in os.walk(os.path.join(root, "data", sub)):
+        for n in names:
+            files += 1
+            nbytes += os.path.getsize(os.path.join(dirpath, n))
+    return files, nbytes
+
+
+def _leaves_bitwise(a, b) -> bool:
+    from vescale_tpu_torch.checkpoint.planner import flatten_state
+
+    fa, fb = flatten_state(a), flatten_state(b)
+    return [k for k, _ in fa] == [k for k, _ in fb] and all(
+        x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(fa, fb))
+
+
+def rollout_run(eng, arrivals, kernels_mod, root, schedule=None):
+    """The serve requests through ``run_serve_resilient`` with a
+    ``ControlChannel``: at step 2 a ``reload`` of ``root`` (baseline, canary,
+    two prompts), and a ``commit`` once the reload has committed.  Returns
+    the run's row, its stage seconds, the rollout states in order, its
+    streams and whether every kernel launch is accounted for (the serve
+    steps plus the baseline and canary replays)."""
+    from vescale_tpu_torch.serve import ControlChannel
+
+    control = ControlChannel()
+    mnt, prompts = 8, [[1, 2, 3, 4], [5, 6, 7, 8, 9, 10]]
+    posted = []
+
+    def on_step(step, active):
+        st = control.state
+        if step == 2:
+            posted.append(control.provider({"op": "reload", "checkpoint": root, "prompts": prompts,
+                                             "max_new_tokens": mnt, "canary": True,
+                                             "baseline": True}))
+        elif (st and st["state"] == "committed" and not st["detail"]["finalized"]
+              and len(posted) == 1):
+            posted.append(control.provider({"op": "commit"}))
+
+    row, res, sched = resilient_run(eng, arrivals, kernels_mod, schedule=schedule, control=control,
+                                    on_step=on_step)
+    events = sched.telemetry.events
+    states = [e["kind"][len("serve_rollout_"):] for e in events
+              if e["kind"].startswith("serve_rollout_") and e["kind"] != "serve_rollout_stage"]
+    stages = {e["stage"]: e["seconds"] for e in events if e["kind"] == "serve_rollout_stage"}
+    replays = 3 * len(prompts)  # the baseline once, the canary twice
+    L = eng.config.num_hidden_layers
+    launches_ok = (row["launches"]["flash_fwd"] == L * (row["prefills"] + replays)
+                   and row["launches"]["paged_decode"] == L * (row["decode_steps"]
+                                                              + replays * (mnt - 1)))
+    row.update(states=states, stage_seconds=stages, final=control.state["state"],
+               reason=control.state["detail"].get("reason"), posted=posted)
+    return row, completed_streams(res), launches_ok
+
+
+def checkpoint_breakdown(root: str, eng) -> dict:
+    """Where the save's and the restore's time goes, leg by leg, on the
+    embedding (one 1,050,673,152-byte chunk) and the chunk files of the
+    embedding, the head and layers 0-1: the host copy and serialization a
+    save does on its own thread (``array_to_bytes``), the plain file read,
+    and the pageable copy to the card a restore does."""
+    from vescale_tpu_torch.checkpoint.storage import array_to_bytes, bytes_to_array
+
+    emb = eng.params["embed_tokens"]["embedding"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    data = array_to_bytes(emb)
+    serialize_s = time.perf_counter() - t
+    files = [os.path.join(dirpath, n)
+             for sub in ("embed_tokens", "lm_head", "layers_0", "layers_1")
+             for dirpath, _d, names in os.walk(os.path.join(root, "data", "model", sub))
+             for n in names]
+    t = time.perf_counter()
+    nread = 0
+    for path in files:
+        with open(path, "rb") as f:
+            nread += len(f.read())
+    read_s = time.perf_counter() - t
+    host = torch.from_numpy(bytes_to_array(data).view(np.int16).copy())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    on_card = host.to(emb.device)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t
+    equal = torch.equal(on_card.view(torch.bfloat16).reshape(emb.shape), emb)
+    return dict(serialize_gb_per_s=len(data) / serialize_s / 1e9, serialize_s=serialize_s,
+                read_bytes=nread, read_s=read_s, read_gb_per_s=nread / read_s / 1e9,
+                h2d_s=h2d_s, h2d_gb_per_s=host.nbytes / h2d_s / 1e9, h2d_bitwise=equal)
+
+
+def run_checkpoint_phase(dev, eng, eager, kernels_mod, serve_streams, card):
+    """The checkpoint on the card (module docstring)."""
+    from vescale_tpu_torch import checkpoint as ckpt
+    from vescale_tpu_torch.checkpoint import elastic, native_io
+    from vescale_tpu_torch.checkpoint.planner import flatten_state
+    from vescale_tpu_torch.darray import distribute_tensor, empty
+    from vescale_tpu_torch.mesh import DeviceMesh
+    from vescale_tpu_torch.models import init_params
+    from vescale_tpu_torch.placements import Replicate, Shard
+    from vescale_tpu_torch.serve import load_params
+
+    cfg = eng.config
+    out, checks = {}, {}
+    tmp = tempfile.mkdtemp(prefix="vtt_ckpt_")  # outside the checkout
+    try:
+        root = os.path.join(tmp, "ckpt")
+        # the serve weights as Replicate pieces of a one-rank mesh (the
+        # tensors themselves, no copy): the writer's world carries a mesh,
+        # so the rank-3 restore below crosses worlds
+        m1 = DeviceMesh(("dp",), (1,), device_type="cuda")
+
+        def on_m1(node):
+            if isinstance(node, dict):
+                return {k: on_m1(v) for k, v in node.items()}
+            return distribute_tensor(node, m1, [Replicate()], rank=0)
+
+        state = {"model": on_m1(eng.params),
+                 "optimizer": {"mu": eng.params["norm"]["weight"].float() * 0.5, "count": 7}}
+        native_io.reset_writes()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt.save(root, state)
+        save_s = time.perf_counter() - t
+        del state
+        model_files, model_bytes = _dir_bytes(root, "model")
+        opt_files, opt_bytes = _dir_bytes(root, "optimizer")
+        written = dict(native_io.WRITES)
+        out["save"] = dict(seconds=save_s, bytes=model_bytes + opt_bytes, model_bytes=model_bytes,
+                           files=model_files + opt_files, gb_per_s=(model_bytes + opt_bytes) / save_s / 1e9,
+                           native_writes=written, free_bytes_at_root=_free_bytes(tmp), card=card)
+        checks["native_pool_wrote_every_chunk"] = (written["files"] == model_files + opt_files
+                                                    and written["bytes"] == model_bytes + opt_bytes)
+
+        template = init_params(cfg, device="meta", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        restored = load_params(root, template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        stats = dict(ckpt.LAST_LOAD_STATS)
+        out["restore"] = dict(seconds=restore_s, gb_per_s=stats["bytes_read"] / restore_s / 1e9,
+                              stats=stats, card=card)
+        checks["restore_bitwise"] = _leaves_bitwise(restored, eng.params)
+        checks["restore_on_card"] = restored["norm"]["weight"].device == eng.params["norm"]["weight"].device
+        checks["read_model_chunks_only"] = (stats["bytes_read"] == model_bytes
+                                            and stats["files_read"] == model_files
+                                            and stats["elastic"] == 0)
+        out["breakdown"] = dict(card=card, **checkpoint_breakdown(root, eng))
+
+        # serve the 16 requests from the restored tree, then put the original
+        # back (bitwise equal; the eager engine holds the original too)
+        eng.swap_params(restored)
+        del restored
+        eng.replay_greedy([1, 2, 3], 2)  # captures the decode graph again
+        run, streams = serve_run(dev, eng, serve_requests(cfg.vocab_size), kernels_mod)
+        eng.swap_params(eager.params)
+        free_memory()
+        out["serve"] = dict(card=card, **run)
+        checks["serve"] = run["checks"]
+        checks["serve_streams_equal_serve"] = streams == serve_streams
+        launches = dict(run["launches"])
+
+        # the /control rollout: a checkpoint-equivalence reload that commits,
+        # then the same with canary_diverge armed, which rolls back
+        arrivals = serve_requests(cfg.vocab_size)
+        rolls = {}
+        for name, schedule in (("commit", None), ("canary_diverge", "canary_diverge:call=1,count=1")):
+            row, streams, launches_ok = rollout_run(eng, arrivals, kernels_mod, root, schedule)
+            rolls[name] = dict(card=card, streams_equal_serve=streams == serve_streams,
+                               launches_accounted=launches_ok, **row)
+            for k, v in row["launches"].items():
+                launches[k] += v
+            eng.swap_params(eager.params)  # the committed tree out, the original back
+            free_memory()
+        out["rollout"] = rolls
+        checks["rollout_commit"] = dict(
+            states=rolls["commit"]["states"] == ["draining", "baseline", "swapping", "canary",
+                                                  "committed", "committed"],
+            streams=rolls["commit"]["streams_equal_serve"], launches=rolls["commit"]["launches_accounted"],
+            counts=rolls["commit"]["counts"]["completed"] == len(arrivals))
+        checks["rollout_canary_diverge"] = dict(
+            states=rolls["canary_diverge"]["states"] == ["draining", "baseline", "swapping", "canary",
+                                                          "rolled_back"],
+            reason="deterministic" in (rolls["canary_diverge"]["reason"] or ""),
+            fired=rolls["canary_diverge"]["fired"] == {"canary_diverge": 1},
+            streams=rolls["canary_diverge"]["streams_equal_serve"],
+            launches=rolls["canary_diverge"]["launches_accounted"],
+            counts=rolls["canary_diverge"]["counts"]["completed"] == len(arrivals))
+
+        # the embedding and layer 0 as rank 3's Shard(0) pieces of a
+        # layout-only mesh of 8 (the rank= path): a restore across worlds
+        m8 = DeviceMesh(("x",), (8,), device_type="cuda")
+
+        def piece_template(node):
+            if isinstance(node, dict):
+                return {k: piece_template(v) for k, v in node.items()}
+            return empty(*node.shape, device_mesh=m8, placements=[Shard(0)], dtype=node.dtype, rank=3)
+
+        part = {k: eng.params[k] for k in ("embed_tokens", "layers_0")}
+        tmpl = piece_template(part)
+        with open(os.path.join(root, "meta.json")) as f:
+            report, _elastic = elastic.preflight(json.load(f), {"model": tmpl}, root)
+        t = time.perf_counter()
+        pieces = load_params(root, tmpl)
+        torch.cuda.synchronize()
+        cross_s = time.perf_counter() - t
+        stats = dict(ckpt.LAST_LOAD_STATS)
+        ok = True
+
+        def walk(got, ref):
+            nonlocal ok
+            if isinstance(got, dict):
+                for k in got:
+                    walk(got[k], ref[k])
+                return
+            want = distribute_tensor(ref, m8, [Shard(0)], rank=3).to_local()
+            ok = ok and got.rank == 3 and torch.equal(got.to_local(), want)
+
+        walk(pieces, part)
+        piece_bytes = sum(x.to_local().nbytes for _, x in flatten_state(pieces))
+        del pieces, tmpl
+        free_memory()
+        out["cross_world"] = dict(seconds=cross_s, stats=stats, piece_bytes=piece_bytes,
+                                  findings=report.codes(), card=card)
+        checks["cross_world_bitwise"] = ok
+        checks["cross_world_elastic"] = stats["elastic"] == 1 and report.codes() == ["VSC130"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["checks"] = checks
+    check(all(v if isinstance(v, bool) else all(v.values()) for v in checks.values()),
+          f"checkpoint checks failed: {checks}")
+    return out
+
+
+def _free_bytes(path: str) -> int:
+    st = os.statvfs(path)
+    return st.f_bavail * st.f_frsize
+
+
 def _trees_bitwise(tree, params) -> bool:
     """Every DArray piece of ``tree`` bitwise the tensor at the same path
     of ``params``."""
@@ -2388,6 +2649,9 @@ def main() -> int:
     spmd = run_spmd_phase(dev, eng, kernels_mod, serve_streams, card)
     log("spmd", seconds=time.perf_counter() - t, card=card, **spmd)
     t = time.perf_counter()
+    ckpt = run_checkpoint_phase(dev, eng, eager, kernels_mod, serve_streams, card)
+    log("checkpoint", seconds=time.perf_counter() - t, card=card, **ckpt)
+    t = time.perf_counter()
     prof = {"graph": run_profile(eng, cfg, serve["graph"]["serve_s"]),
             "eager": run_profile(eager, cfg, serve["eager"]["serve_s"])}
     log("profile", seconds=time.perf_counter() - t, **prof)
@@ -2425,7 +2689,7 @@ def main() -> int:
                    "serve_eager": serve["eager"]["launches"][name],
                    "spec_prefix": spec_prefix["launches"][name],
                    "serve_resilient": resilient["launches"][name], "spmd": spmd["launches"][name],
-                   "gpt2": gpt2["launches"][name]}
+                   "checkpoint": ckpt["launches"][name], "gpt2": gpt2["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

@@ -7,6 +7,8 @@ import os
 import pkgutil
 import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -41,6 +43,11 @@ def test_every_port_module_imports_without_jax():
             "vescale_tpu_torch.spec", "vescale_tpu_torch.collectives", "vescale_tpu_torch.darray",
             "vescale_tpu_torch.redistribute", "vescale_tpu_torch.api", "vescale_tpu_torch.random",
             "vescale_tpu_torch.initialize.deferred_init", "vescale_tpu_torch.config"} <= set(mods)
+    assert {"vescale_tpu_torch.checkpoint", "vescale_tpu_torch.checkpoint.storage",
+            "vescale_tpu_torch.checkpoint.native_io", "vescale_tpu_torch.checkpoint.reshard",
+            "vescale_tpu_torch.checkpoint.planner", "vescale_tpu_torch.checkpoint.elastic",
+            "vescale_tpu_torch.checkpoint.mem_server", "vescale_tpu_torch.checkpoint.manager",
+            "vescale_tpu_torch.analysis.findings", "vescale_tpu_torch.resilience.retry"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {['vescale_tpu_torch'] + mods!r}:\n"
@@ -54,7 +61,8 @@ def test_every_port_module_imports_without_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "vescale_tpu_torch.serve.loop" in loaded
     assert "vescale_tpu_torch.serve.speculative" in loaded
-    assert [m for m in loaded if _forbidden(m)] == []
+    assert "vescale_tpu_torch.checkpoint.manager" in loaded
+    assert [m for m in loaded if _forbidden(m) or m == "ml_dtypes"] == []
 
 
 def _imports(path):
@@ -99,6 +107,38 @@ def test_the_child_scripts_of_the_port_tests_import_no_jax():
                              text=True, timeout=120, check=True)
         loaded = json.loads(out.stdout.strip().splitlines()[-1])
         assert [m for m in loaded if _forbidden(m)] == [], name
+
+
+def test_the_detached_mem_server_imports_no_jax():
+    """The checkpoint memory server's detached process (``python -m
+    vescale_tpu_torch.checkpoint.mem_server``, what ``start_detached``
+    spawns) loads neither JAX, ``ml_dtypes`` nor the JAX package."""
+    from vescale_tpu_torch.checkpoint.mem_server import (RemoteMemoryStorage, shutdown_server,
+                                                         sock_path)
+
+    name = f"iso_{os.getpid()}"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen([sys.executable, "-X", "importtime", "-m",
+                                 "vescale_tpu_torch.checkpoint.mem_server", "--name", name],
+                                cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            deadline = time.monotonic() + 60.0
+            while not (os.path.exists(sock_path(name)) and RemoteMemoryStorage(name).ping()):
+                assert proc.poll() is None and time.monotonic() < deadline, "mem server never came up"
+                time.sleep(0.05)
+            shutdown_server(name)
+            proc.wait(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        lines = err.read().splitlines()
+    loaded = [ln.rsplit("|", 1)[-1].strip() for ln in lines if ln.startswith("import time:")]
+    assert "vescale_tpu_torch.checkpoint.mem_server" in loaded or "vescale_tpu_torch.checkpoint" in loaded
+    assert [m for m in loaded if _forbidden(m) or m == "ml_dtypes"] == []
 
 
 @pytest.fixture
@@ -169,5 +209,6 @@ def test_package_exports_the_serve_api():
                  "Request", "run_serve", "run_serve_resilient", "serve_replica", "LLAMA3_8B",
                  "init_params", "params_from_jax"):
         assert hasattr(vescale_tpu_torch, name), name
-    for name in ("PrefixCache", "PrefixCacheStats", "SpeculativeDecoder", "slice_drafter_params"):
+    for name in ("PrefixCache", "PrefixCacheStats", "SpeculativeDecoder", "slice_drafter_params",
+                 "ControlChannel", "load_params", "load_drafter_params", "drafter_template"):
         assert hasattr(vescale_tpu_torch.serve, name), name

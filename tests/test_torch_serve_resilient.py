@@ -391,10 +391,18 @@ def test_run_serve_is_the_resilient_loop_with_the_envelope_off(rigs, monkeypatch
 
 
 def test_control_is_refused_until_the_rollout_is_ported(rigs):
+    """The rollout is ported: a loop given a control channel runs,
+    and only a coordinated one refuses it, as the reference's does."""
     _, _, teng, tcache = rigs
-    with pytest.raises(NotImplementedError, match="A12"):
+    tcache.reset()
+    res = tserve.run_serve_resilient(engine=teng, scheduler=tserve.ContinuousBatchingScheduler(tcache),
+                                     arrivals=(), control=tserve.ControlChannel(),
+                                     install_signal_handlers=False, coordinate=False)
+    assert res.status == "completed"
+    with pytest.raises(ValueError, match="single-process"):
         tserve.run_serve_resilient(engine=teng, scheduler=tserve.ContinuousBatchingScheduler(tcache),
-                                   arrivals=(), control=object())
+                                   arrivals=(), control=tserve.ControlChannel(), coordinate=True,
+                                   install_signal_handlers=False)
 
 
 def test_preemption_signal_drains_and_uninstalls(rigs):

@@ -372,6 +372,108 @@ def case_elementwise(mesh_shape, names, seed):
             "div": (a / 4.0).to_local()}
 
 
+# ------------------------------------------------------ checkpoint cases
+def ckpt_value(leaf, rank=None):
+    """A checkpoint case's leaf value: ``make_input`` in float32 cast to the
+    leaf's dtype (integer-valued inputs for int32); with ``rank``, that
+    rank's own operand of a Partial leaf."""
+    kind = "int" if leaf["dtype"] == "int32" else leaf.get("kind", "normal")
+    if rank is None:
+        x = make_input(leaf["shape"], leaf["seed"], kind)
+    else:
+        x = local_operand(leaf["mesh_shape"], leaf["placements"], leaf["shape"], leaf["seed"], kind,
+                          rank)
+    return torch.from_numpy(x).to(getattr(torch, leaf["dtype"]))
+
+
+def _ckpt_leaves(m, leaves, template=False):
+    from vescale_tpu_torch.darray import distribute_tensor, from_local
+
+    out = {}
+    for leaf in leaves:
+        if leaf.get("host"):
+            out[leaf["key"]] = np.zeros(leaf["shape"]) if template else np.arange(
+                float(np.prod(leaf["shape"]))).reshape(leaf["shape"])
+        elif leaf.get("partial") and not template:
+            x = ckpt_value(dict(leaf, mesh_shape=list(m.shape)), rank=m.get_rank())
+            out[leaf["key"]] = from_local(x, m, _pl(leaf["placements"]), shape=tuple(leaf["shape"]))
+        else:
+            x = ckpt_value(leaf)
+            out[leaf["key"]] = distribute_tensor(torch.zeros_like(x) if template else x, m,
+                                                 _pl(leaf["placements"]))
+    return out
+
+
+def case_ckpt_save(root, mesh_shape, names, leaves, fail=None, async_save=False,
+                   submit_fails_on=None):
+    """Every rank saves its pieces of ``leaves`` to ``root`` (``fail``: a
+    faultsim schedule armed around the save, through the Python writer;
+    ``submit_fails_on``: the rank whose first chunk cannot be serialized);
+    returns ``{"ok": True}`` or what the save raised."""
+    from vescale_tpu_torch import checkpoint
+    from vescale_tpu_torch.checkpoint import storage
+    from vescale_tpu_torch.resilience import faultsim
+    from vescale_tpu_torch.resilience.retry import reset_default_policies
+
+    m = mesh(mesh_shape, names)
+    state = {"m": _ckpt_leaves(m, leaves)}
+    real_submit = storage.AsyncWriter.submit
+    if submit_fails_on == m.get_rank():
+        def failing(self, name, arr):
+            raise TypeError(f"cannot serialize {name} (injected)")
+
+        storage.AsyncWriter.submit = failing
+    if fail:
+        os.environ["VESCALE_NATIVE_CKPT_IO"] = "0"
+        os.environ["VESCALE_CKPT_RETRIES"] = "1"
+        reset_default_policies()
+        faultsim.arm(faultsim.parse_schedule(fail))
+    try:
+        handle = checkpoint.save(root, state, async_checkpoint=async_save)
+        if handle is not None:
+            handle.wait()
+        return {"ok": True}
+    except Exception as e:  # noqa: BLE001 — the parent test reads it
+        return {"raised": f"{type(e).__name__}: {e}"}
+    finally:
+        storage.AsyncWriter.submit = real_submit
+        faultsim.disarm()
+        os.environ.pop("VESCALE_NATIVE_CKPT_IO", None)
+        os.environ.pop("VESCALE_CKPT_RETRIES", None)
+        reset_default_policies()
+
+
+def case_ckpt_load(root, mesh_shape, names, leaves):
+    """Every rank loads ``leaves`` laid out on this mesh: its pieces, their
+    full tensors and its ``LAST_LOAD_STATS``."""
+    from vescale_tpu_torch import checkpoint
+
+    m = mesh(mesh_shape, names)
+    out = checkpoint.load(root, {"m": _ckpt_leaves(m, leaves, template=True)})["m"]
+    return {"locals": {k: v.to_local() for k, v in out.items() if not isinstance(v, np.ndarray)},
+            "full": {k: v.full_tensor() if not isinstance(v, np.ndarray) else v
+                     for k, v in out.items()},
+            "placements": {k: [enc(p) for p in v.placements] for k, v in out.items()
+                           if not isinstance(v, np.ndarray)},
+            "stats": dict(checkpoint.LAST_LOAD_STATS)}
+
+
+def case_ckpt_manager(root, mesh_shape, names, leaves, steps, keep):
+    """Every rank saves ``steps`` through one ``CheckpointManager`` (values
+    shifted by the step), then agrees on the newest step and restores it."""
+    from vescale_tpu_torch.checkpoint import CheckpointManager
+
+    m = mesh(mesh_shape, names)
+    mgr = CheckpointManager(root, keep=keep)
+    for step in steps:
+        state = _ckpt_leaves(m, leaves)
+        mgr.save(step, {"m": {k: v + float(step) for k, v in state.items()}})
+    common = mgr.latest_common_step(timeout_s=60)
+    out = mgr.restore({"m": _ckpt_leaves(m, leaves, template=True)}, step=common)["m"]
+    return {"common": common, "dirs": sorted(os.listdir(root)),
+            "full": {k: v.full_tensor() for k, v in out.items()}}
+
+
 PROMPTS = ([3, 9, 27], [1, 2, 3, 4, 5], [60, 7], [11, 12, 13, 14, 15, 16, 17])
 
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}

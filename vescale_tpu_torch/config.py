@@ -1,9 +1,9 @@
 """The port's knobs read from the environment, with the JAX package's defaults.
 
-The same names and defaults as the serving, resilience, faultsim and
-redistribute knobs of ``vescale_tpu/analysis/envreg.py``; read live at each
-call, without that module's registry machinery.  A knob whose default is ``None`` reads as
-``None`` while unset.
+The same names and defaults as the serving, resilience, faultsim,
+redistribute and checkpoint knobs of ``vescale_tpu/analysis/envreg.py``;
+read live at each call, without that module's registry machinery.  A knob
+whose default is ``None`` reads as ``None`` while unset.
 """
 
 from __future__ import annotations
@@ -40,6 +40,14 @@ DEFAULTS = {
     "VESCALE_FAULTSIM_KILL_EXIT_CODE": 29,
     # the SPMD core
     "VESCALE_STRICT_REDISTRIBUTE": False,
+    # the checkpoint and its storage retries
+    "VESCALE_NATIVE_CKPT_IO": True,
+    "VESCALE_CKPT_RETRIES": 3,
+    "VESCALE_IO_BACKOFF_BASE": 0.05,
+    "VESCALE_IO_BACKOFF_MAX": 5.0,
+    "VESCALE_IO_BACKOFF_JITTER": 0.25,
+    "VESCALE_IO_ATTEMPT_TIMEOUT": 0.0,
+    "VESCALE_ELASTIC_RESTORE": True,
 }
 # envreg's booleans: unset takes the default; these (case-insensitive) are
 # false, anything else is true

@@ -36,10 +36,9 @@ PyTorch on one device.
 
 Decode is a deterministic function of (params, prompt, cache geometry): a
 slot's result depends on its own tokens only, so a request replayed in any
-slot and any pages regenerates the same tokens.
-
-Not in this slice: the rollout canary's faultsim hook in
-``replay_greedy`` (it comes with faultsim).
+slot and any pages regenerates the same tokens.  ``replay_greedy`` is the
+weight rollout's canary replay; with ``canary=True`` it consults the
+faultsim ``canary_diverge`` hook.
 """
 
 from __future__ import annotations
@@ -58,6 +57,7 @@ from ..kernels.paged_attention import paged_decode
 from ..models.llama import rmsnorm, rotary
 from ..ops.flash_attention import flash_attention
 from ..pipe.pipe_stage import _cuts_by_weight
+from ..resilience import faultsim as _fs
 from .kv_cache import PagedKVCache
 
 __all__ = ["ServeEngine", "stack_params_check"]
@@ -529,16 +529,31 @@ class ServeEngine:
         return float(2 * S * (c.num_hidden_layers * (proj + attn) + E * V))
 
     def replay_greedy(self, prompt: Sequence[int], max_new_tokens: int,
-                      *, eos_id: Optional[int] = None) -> List[int]:
+                      *, eos_id: Optional[int] = None, canary: bool = False) -> List[int]:
         """Standalone greedy generation through the CURRENT weights on a
-        temporarily allocated slot; the slot is freed before returning."""
+        temporarily allocated slot, freed before returning: the rollout's
+        canary replay and its baseline recorder.  Call it only while a slot
+        is free (the rollout replays after its drain).
+
+        ``canary=True`` marks a verification replay after a weight swap:
+        each greedy pick consults the faultsim ``canary_diverge`` hook,
+        which, when armed and due, flips the sign of the pick's top logit
+        (the deterministic stand-in for a bad checkpoint)."""
         cache = self.cache
         slot = cache.alloc(len(prompt), max_new_tokens)
+
+        def _pick(row: np.ndarray) -> int:
+            if canary and _fs.fires("canary_diverge", ctx="replay"):
+                row = np.array(row, copy=True)
+                j = int(np.argmax(row))
+                row[j] = -row[j]
+            return self.greedy(row)
+
         try:
             row = self.prefill(list(prompt), slot)
             cache.commit_prefill(slot, len(prompt))
             out: List[int] = []
-            tok = self.greedy(row)
+            tok = _pick(row)
             out.append(tok)
             for _ in range(max_new_tokens - 1):
                 if eos_id is not None and tok == eos_id:
@@ -547,7 +562,7 @@ class ServeEngine:
                 toks[slot] = tok
                 logits = self.decode(toks)
                 cache.advance(slot)
-                tok = self.greedy(logits[slot])
+                tok = _pick(logits[slot])
                 out.append(tok)
             return out
         finally:

@@ -114,11 +114,12 @@ def serve_replica(
 
     The ops server starts here (``port`` overrides ``VESCALE_SERVE_OPS_PORT``;
     0 = a free port) and goes into ``run_serve_resilient``, which registers
-    ``/healthz`` and ``/router`` on it; this wrapper registers ``/submit``
-    and ``/outcomes``.  After the loop returns the endpoints keep answering
+    ``/healthz`` and ``/router`` on it; this wrapper registers ``/submit``,
+    ``/outcomes`` and ``/control``, the weight-rollout channel (``control``,
+    a ``ControlChannel``; one is made when none is given).  After the loop returns the endpoints keep answering
     for ``linger_s`` (``/healthz`` says ``terminated``, ``/submit`` refuses)
     so a router mid-poll can harvest what the drain finished."""
-    from .loop import run_serve_resilient
+    from .loop import ControlChannel, run_serve_resilient
 
     name = replica_id or _config.get_str("VESCALE_SERVE_REPLICA_ID") or f"pid{os.getpid()}"
     if port is None:
@@ -142,13 +143,15 @@ def serve_replica(
             "counts": dict(scheduler.counts),
         }
 
+    control = loop_kwargs.pop("control", None) or ControlChannel()
     srv = _ops.OpsServer(port=int(port), registry=scheduler.telemetry)
     srv.register("submit", _submit).register("outcomes", _outcomes)
+    srv.register("control", control.provider)
     srv.start()
     try:
         result = run_serve_resilient(
             engine=engine, scheduler=scheduler, arrivals=(), inbox=inbox, ops=srv,
-            max_steps=max_steps, replica_id=name, **loop_kwargs,
+            max_steps=max_steps, replica_id=name, control=control, **loop_kwargs,
         )
         # linger: the drain's last completions must stay harvestable
         inbox.close()

@@ -52,14 +52,26 @@ tree; with ``speculative=`` each decode step drafts ``k`` tokens per
 mirrored slot and verifies them in one ``decode_multi`` step, the streams
 staying those of plain decode.
 
-``run_serve`` is this loop with the envelope off.  Not ported yet: the
-``/control`` weight rollout, request trace spans, alerts and the cost
-audit.
+The weight rollout (``control``, a :class:`ControlChannel`, which
+``serve_replica`` wires to the ``/control`` endpoint): a ``reload`` job
+runs drain -> [baseline] -> swap -> canary -> committed | rolled_back at
+step boundaries.  Admission pauses while in-flight requests decode out on
+the old weights; the checkpoint is restored params-only in this process
+(``serve.load_params`` into ``ServeEngine.swap_params``); pinned prompts
+replay twice through the new weights, and any divergence swaps the old
+tree straight back.  ``commit`` drops the retained old tree, ``revert``
+swaps it back.  Each stage's seconds go into ``scheduler.telemetry`` as a
+``serve_rollout_stage`` event (the reference's ``fleettrace`` span, which
+comes with ROADMAP A19).
+
+``run_serve`` is this loop with the envelope off.  Not ported yet: request
+trace spans, alerts and the cost audit.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 import zlib
 from dataclasses import dataclass, field
@@ -79,7 +91,7 @@ from .obs import ServeObservability
 from .scheduler import ContinuousBatchingScheduler, Request
 from .speculative import SpeculativeDecoder
 
-__all__ = ["ServeResult", "run_serve", "run_serve_resilient"]
+__all__ = ["ControlChannel", "ServeResult", "run_serve", "run_serve_resilient"]
 
 # the control vector (fixed width): [magic, step, preempt, oom, rtimeout,
 # wall_mask, draining, the scheduler fingerprint fields, the sampled-token
@@ -102,6 +114,58 @@ class ServeResult:
     counts: Dict[str, int] = field(default_factory=dict)
     drained: int = 0  # in-flight requests finished during the drain
     rejected_on_drain: int = 0
+
+
+class ControlChannel:
+    """The replica's thread-safe control mailbox: the ``/control`` POST
+    provider (on the ops HTTP thread) posts one job at a time, and the serve
+    loop takes it at a step boundary, so weights only ever change between
+    decode steps.
+
+    Ops (the rolling-rollout wire protocol of the reference
+    ``RolloutController``):
+
+      ``reload``   ``{"op": "reload", "checkpoint": path, "prompts":
+                   [[tok, ...], ...], "max_new_tokens": N, "canary": bool,
+                   "baseline": bool, "expected": [[tok, ...], ...] | null}``:
+                   drain, swap in the checkpoint's weights, then replay
+                   each prompt TWICE through them (the two streams must be
+                   equal: the determinism check that catches
+                   ``canary_diverge``) and, with ``expected``, equal to it.
+                   ``baseline`` records ``expected`` from the OLD weights
+                   first.  A divergence swaps the old weights back
+                   (``rolled_back``); a pass keeps them parked
+                   (``committed``) until ``commit`` or ``revert``.
+      ``commit``   drop the parked old tree.
+      ``revert``   drain, swap the parked old tree back in.
+      ``status``   the live rollout state (also on ``/router``).
+
+    Posting while a job is pending answers ``{"ok": false, "error":
+    "busy"}``; the controller retries."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._job: Optional[Dict[str, Any]] = None
+        self.state: Optional[Dict[str, Any]] = None  # mirror of obs.rollout
+
+    def provider(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        op = payload.get("op")
+        if op == "status":
+            return {"ok": True, "rollout": self.state}
+        if op in ("reload", "commit", "revert"):
+            if op == "reload" and not payload.get("checkpoint"):
+                return {"ok": False, "error": "reload needs a checkpoint path"}
+            with self._lock:
+                if self._job is not None:
+                    return {"ok": False, "error": "busy", "rollout": self.state}
+                self._job = dict(payload)
+            return {"ok": True, "accepted": op}
+        return {"ok": False, "error": f"unknown op {op!r}"}
+
+    def take(self) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            job, self._job = self._job, None
+            return job
 
 
 def run_serve(
@@ -142,7 +206,7 @@ def run_serve_resilient(
     idle_sleep_s: Optional[float] = None,
     replica_id: Optional[str] = None,
     speculative: Optional[SpeculativeDecoder] = None,
-    control: Optional[Any] = None,
+    control: Optional[ControlChannel] = None,
 ) -> ServeResult:
     """Serve ``arrivals`` (a deterministic open-loop schedule of
     ``(arrival_step, Request)`` pairs) under the fault envelope; returns
@@ -160,19 +224,10 @@ def run_serve_resilient(
     from ``VESCALE_FAULTSIM`` when nothing is armed).  Counters and latency
     histograms land in ``scheduler.telemetry``.
 
-    ``control`` (the ``/control`` weight rollout) is not ported yet."""
-    if control is not None:
-        raise NotImplementedError(
-            "the /control weight rollout is not ported yet (ROADMAP A12: it needs "
-            "serve.load_params from a checkpoint)"
-        )
+    ``control`` runs the weight rollout (module docstring).  It is for
+    single-process replicas: nothing coordinates a weight swap across
+    ranks, so a coordinated loop refuses it."""
     tel = scheduler.telemetry
-    if not _fs.is_armed():
-        _fs.arm_from_env()
-    handler = preemption or PreemptionHandler()
-    own_handler = preemption is None
-    if own_handler and install_signal_handlers:
-        handler.install()
     coord = (_dist.process_count() > 1) if coordinate is None else bool(coordinate)
     if wall_deadline_s is None:
         wall_deadline_s = _config.get_float("VESCALE_SERVE_DEADLINE_S") or 0.0
@@ -182,6 +237,15 @@ def run_serve_resilient(
             f"control plane: num_slots={scheduler.cache.num_slots} > 63; "
             "use per-request deadline_steps instead"
         )
+    if coord and control is not None:
+        raise ValueError("the /control reload machine is single-process (fleet mode): "
+                         "nothing coordinates a weight swap across ranks")
+    if not _fs.is_armed():
+        _fs.arm_from_env()
+    handler = preemption or PreemptionHandler()
+    own_handler = preemption is None
+    if own_handler and install_signal_handlers:
+        handler.install()
 
     own_wd = False
     wd = watchdog
@@ -205,6 +269,9 @@ def run_serve_resilient(
     next_arrival = 0
     token_crc = 0  # running digest of every sampled token (desync tripwire)
     draining = False
+    reload_job: Optional[Dict[str, Any]] = None  # the /control job in flight
+    reload_t0 = 0.0  # when its drain began
+    retained_params = None  # the old tree a committed swap parks
     result = ServeResult(status="completed")
     cache = scheduler.cache
 
@@ -232,6 +299,102 @@ def run_serve_resilient(
                 tel.count("serve_inbox_rejected_total")
                 tel.record_event("serve_inbox_reject", rid=getattr(req, "rid", -1),
                                  at_step=step, error=str(e))
+
+    # ------------------------------------------------- rollout machine
+    def _rollout_state(state: str, step: int, **detail) -> None:
+        """Publish the rollout stage at once on ``/router`` (v5
+        ``rollout``), the ``/control`` status and a
+        ``serve_rollout_<state>`` event."""
+        snap = {"state": state, "checkpoint": (reload_job or {}).get("checkpoint"),
+                "detail": detail}
+        obs.rollout = snap
+        if control is not None:
+            control.state = snap
+        tel.record_event(f"serve_rollout_{state}", at_step=step,
+                         **{k: v for k, v in detail.items() if not isinstance(v, (list, dict))})
+
+    def _stage(stage: str, seconds: float, **tags) -> None:
+        tel.record_event("serve_rollout_stage", stage=stage, seconds=seconds,
+                         replica=obs.replica_id, **tags)
+
+    def _perform_reload(step: int) -> None:
+        """The post-drain half of a ``/control`` job, at a step boundary
+        with nothing in flight: [baseline ->] swap -> canary -> committed |
+        rolled_back for ``reload``; drop the parked tree for ``commit``;
+        swap it back for ``revert``.  Queued requests wait and then decode
+        through whichever tree survives."""
+        nonlocal retained_params
+        from . import load_params
+
+        job = reload_job
+        op = job.get("op", "reload")
+        if op == "commit":
+            finalized = retained_params is not None
+            retained_params = None
+            _rollout_state("committed", step, finalized=finalized)
+            return
+        if op == "revert":
+            if retained_params is None:
+                _rollout_state("rolled_back", step, reverted=False, reason="nothing retained")
+                return
+            t0 = time.perf_counter()
+            engine.swap_params(retained_params)
+            retained_params = None
+            tel.count("serve_rollbacks_total")
+            _stage("reverted", time.perf_counter() - t0)
+            _rollout_state("rolled_back", step, reverted=True)
+            return
+        ckpt = job["checkpoint"]
+        prompts = [[int(t) for t in p] for p in (job.get("prompts") or [])]
+        mnt = max(1, int(job.get("max_new_tokens") or 8))
+        canary = bool(job.get("canary", True)) and bool(prompts)
+        expected = job.get("expected")
+        tel.count("serve_rollouts_total")
+        if canary and expected is None and job.get("baseline"):
+            # the checkpoint-equivalence rollout: the OLD weights' streams are
+            # what the new weights must reproduce
+            _rollout_state("baseline", step, prompts=len(prompts))
+            b0 = time.perf_counter()
+            expected = [engine.replay_greedy(p, mnt) for p in prompts]
+            _stage("baseline", time.perf_counter() - b0, checkpoint=ckpt)
+        _rollout_state("swapping", step)
+        s0 = time.perf_counter()
+        try:
+            old = engine.swap_params(load_params(ckpt, engine.params, device=engine.device))
+        except Exception as e:  # noqa: BLE001 — an unreadable checkpoint: no swap
+            why = f"restore failed: {e}"
+            _stage("swap", time.perf_counter() - s0, ok=False, reason=why, checkpoint=ckpt)
+            tel.count("serve_rollbacks_total")
+            _rollout_state("rolled_back", step, reason=why)
+            return
+        _stage("swap", time.perf_counter() - s0, checkpoint=ckpt)
+        ok, why, streams = True, "", []
+        if canary:
+            _rollout_state("canary", step, prompts=len(prompts))
+            c0 = time.perf_counter()
+            for p in prompts:
+                s1 = engine.replay_greedy(p, mnt, canary=True)
+                s2 = engine.replay_greedy(p, mnt, canary=True)
+                if ok and s1 != s2:
+                    # one replay's flipped logit (faultsim canary_diverge, or
+                    # real nondeterminism) does not reproduce
+                    ok, why = False, "canary replay not deterministic"
+                streams.append(s1)
+            if ok and expected is not None:
+                if [[int(t) for t in s] for s in expected] != streams:
+                    ok, why = False, "canary streams diverged from expected"
+            _stage("canary", time.perf_counter() - c0, ok=ok, reason=why or None, checkpoint=ckpt)
+        if ok:
+            # two-phase: park the old tree until the fleet-wide commit (or a
+            # revert, if a later replica's canary fails)
+            retained_params = old
+            _stage("committed", 0.0, checkpoint=ckpt)
+            _rollout_state("committed", step, finalized=False, streams=streams, canary=canary)
+        else:
+            engine.swap_params(old)
+            tel.count("serve_rollbacks_total")
+            _stage("rolled_back", 0.0, ok=False, reason=why, checkpoint=ckpt)
+            _rollout_state("rolled_back", step, reason=why, streams=streams)
 
     def _coordinate(step: int, oom_fired: bool, rt_fired: bool,
                     wall_mask: int) -> Tuple[bool, bool, bool, int]:
@@ -411,6 +574,24 @@ def run_serve_resilient(
                 # below ends them preempted_requeue
                 _submit_inbox(inbox.drain(), step)
 
+            # -------------------------------------------- weight rollout
+            if control is not None:
+                if reload_job is None:
+                    reload_job = control.take()
+                    if reload_job is not None:
+                        reload_t0 = time.perf_counter()
+                        if reload_job.get("op", "reload") != "commit":
+                            # admission pauses (the /router feed drops
+                            # accepting); in-flight requests decode out
+                            _rollout_state("draining", step, inflight=len(scheduler.active))
+                if reload_job is not None:
+                    op = reload_job.get("op", "reload")
+                    if op == "commit" or not scheduler.active:
+                        if op != "commit":
+                            _stage("drain", time.perf_counter() - reload_t0)
+                        _perform_reload(step)
+                        reload_job = None
+
             # ------------------------------------------- control plane
             # wall-deadline verdicts are rank-local clock reads: computed
             # before the exchange so every rank applies the ORed set
@@ -470,7 +651,7 @@ def run_serve_resilient(
                 # free drafter slots whose target ended since the last
                 # boundary, before admission can reuse the slot ids
                 speculative.sync_slots(scheduler.active)
-            if not draining:
+            if not draining and reload_job is None:
                 _prefill_admitted(step)
                 # the prefill-sampled token may already satisfy the request
                 _finish_done(step)

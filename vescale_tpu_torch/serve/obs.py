@@ -15,9 +15,10 @@ per ``run_serve_resilient`` call:
     step then is no single-token decode).
   * **the ``/router`` feed**, FROZEN at schema v5 (``ROUTER_FIELDS``, the
     JAX package's field set, asserted at the source): the reference fleet
-    router polls it.  ``alerts`` carries the engine's digest while it is
-    off and ``rollout`` is ``None`` (no rollout in progress): neither the
-    alert engine nor the weight rollout is ported yet.
+    router polls it.  ``rollout`` is the loop's live weight-rollout state
+    (``None`` outside a rollout), and ``accepting`` is false while a
+    rollout holds admission.  ``alerts`` carries the engine's digest while
+    it is off: the alert engine is not ported yet.
 
 Everything here is host-side arithmetic: the providers run on the ops
 thread and make no CUDA call.
@@ -69,6 +70,9 @@ class ServeObservability:
         self.replica_id = (replica_id or _config.get_str("VESCALE_SERVE_REPLICA_ID")
                            or f"rank{self.rank}")
         self.draining = False  # the loop sets it; /healthz reports it
+        # the loop's reload machine sets it: None outside a rollout, else
+        # {"state", "checkpoint", "detail"} (passed through on /router)
+        self.rollout: Optional[Dict] = None
         self.serve_step = 0
         self.decode_steps = 0
         self._start = time.perf_counter()
@@ -138,12 +142,18 @@ class ServeObservability:
         submitted = max(1, sched.counts["submitted"])
         prefix = sched.prefix
         spec = self.speculative
+        ro = self.rollout
+        rollout_busy = ro is not None and ro.get("state") in (
+            "draining", "baseline", "swapping", "canary")
         out = {
             "schema_version": ROUTER_SCHEMA_VERSION,
             "rank": self.rank,
             "replica_id": self.replica_id,
             "draining": self.draining,
-            "accepting": not self.draining and sched.currently_shedding() is None,
+            # false while draining, while admission would shed, or while a
+            # rollout holds admission
+            "accepting": (not self.draining and not rollout_busy
+                          and sched.currently_shedding() is None),
             "queue_depth": len(sched.queue),
             "inflight": len(sched.active),
             "slots": cache.num_slots,
@@ -165,7 +175,7 @@ class ServeObservability:
             "spec_accept_rate": spec.accept_rate() if spec is not None else None,
             "alerts": dict(_ALERTS_DORMANT),
             "tenants": sched.tenant_stats(),
-            "rollout": None,
+            "rollout": self.rollout,
         }
         assert set(out) == ROUTER_FIELDS  # the freeze, enforced at the source
         return out

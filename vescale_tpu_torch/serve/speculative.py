@@ -42,7 +42,8 @@ from .. import config as _config
 from .engine import ServeEngine, _as_tree
 from .kv_cache import KVCacheConfig, KVCacheOutOfPages, PagedKVCache
 
-__all__ = ["SpeculativeDecoder", "drafter_config", "slice_drafter_params"]
+__all__ = ["SpeculativeDecoder", "drafter_config", "drafter_template", "load_drafter_params",
+           "slice_drafter_params"]
 
 
 def drafter_config(config, layers: int):
@@ -66,6 +67,27 @@ def slice_drafter_params(params: Dict[str, Any], layers: int) -> Dict[str, Any]:
             raise ValueError(f"params missing {key} (drafter_layers={layers})")
         out[key] = params[key]
     return out
+
+
+def drafter_template(config, layers: int, dtype=None) -> Dict[str, Any]:
+    """The params-only restore template of a ``layers``-deep drafter:
+    tensors on ``meta`` (``dtype``, default the config's) naming only the
+    drafter's subtree, so ``checkpoint.load`` never reads the deeper layers
+    (nor the optimizer)."""
+    from ..models import init_params
+
+    return init_params(drafter_config(config, layers), device="meta", dtype=dtype)
+
+
+def load_drafter_params(path: str, config, layers: int, *, device=None,
+                        dtype=None) -> Dict[str, Any]:
+    """Restore the drafter's subtree (the first ``layers`` blocks, the
+    embedding, norm and head) from a training checkpoint through the elastic
+    preflight, onto ``device`` (default: the card)."""
+    from .. import checkpoint as ckpt
+
+    return ckpt.load(path, {"model": drafter_template(config, layers, dtype)},
+                     device=device)["model"]
 
 
 class SpeculativeDecoder:

@@ -10,6 +10,8 @@ The port of ``vescale_tpu/telemetry/ops_server.py``.  One
                  (serve/obs.py), which the fleet router polls
   ``/outcomes``  the terminal-outcome ledger (serve/fleet.py registers it)
   ``/submit``    POST: one request into the replica's inbox (serve/fleet.py)
+  ``/control``   POST: the weight-rollout channel (``reload``, ``commit``,
+                 ``revert``, ``status``; serve/loop.py ``ControlChannel``)
 
 Hardening, as in the JAX package:
 
@@ -48,7 +50,7 @@ _ACTIVE: Optional["OpsServer"] = None
 _LOCK = threading.Lock()
 
 _GET_ENDPOINTS = ("healthz", "router", "outcomes")
-_POST_ENDPOINTS = ("submit",)
+_POST_ENDPOINTS = ("submit", "control")
 
 _STATUS_TEXT = {
     200: "OK",
@@ -85,7 +87,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(ops.providers.get(path.lstrip("/")))
         else:
             self._send(404, "text/plain; charset=utf-8",
-                       "not found (endpoints: /metrics /healthz /router /outcomes /submit)\n")
+                       "not found (endpoints: /metrics /healthz /router /outcomes /submit "
+                       "/control)\n")
 
     def do_POST(self):  # noqa: N802 (stdlib naming)
         ops: "OpsServer" = self.server.ops  # type: ignore[attr-defined]
