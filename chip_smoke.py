@@ -4,6 +4,8 @@ Hopper card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel parity only
+    python3 chip_smoke.py --tp       # serve, train and gpt2, then the TP phases
+    python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
 
@@ -142,6 +144,30 @@ Phases, each printing one JSON line with its seconds:
            forward, 1 fused xent backward and 1 AdamW launch per step; step
            time, tokens/s, MFU, peak memory, and one profiled step's device
            time by kernel kind
+
+  tp_train  tensor and sequence parallelism on two ranks of the one card:
+           child processes (``--tp-child``) joined over gloo at a free
+           localhost port (NCCL refuses two ranks on one GPU), a ("tp",)
+           mesh of 2.  The 1.3B Llama under ``llama_plan`` and GPT-2 124M
+           under ``nanogpt_plan``, both with sequence parallelism, at full
+           width and depth, built on ``meta`` and materialized as each
+           rank's pieces of the single-card phase's seed-0 weights, trained
+           on its batches through the vocab-parallel loss with
+           ``AdamWLowmem``: 2 warm-up and 3 timed steps, losses within 1%
+           of the ``train`` / ``gpt2`` phase's at each step, every kernel
+           launch of each step counted (24 or 12 K1, dq and dkv, one K8,
+           K9 and K10); per rank step time, peak memory and the
+           collectives' calls and bytes by kind.  The kernels' parity and
+           timing at one rank's shapes are in the parity phase
+  tp_serve  Llama-3-8B over two such ranks: the serve weights
+           materialized from ``meta`` as ``llama_plan`` pieces, a Shard(3)
+           pool (4 of 8 kv heads a rank), the serve phase's 16 requests
+           through ``run_serve``: every check of the serve phase (512 K1
+           launches on 16 heads, a K7 launch a layer a decode step, on 4 kv
+           heads), teacher-forced logits of 4 requests within
+           ``TP_SERVE_BF16_STEPS`` bf16 steps at scale of the single-card
+           engine's, how many streams equal the serve phase's, tokens/s,
+           decode p50/p99, and ``engine.graphed`` (false over gloo)
 
 Then the card line, the kernels line and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero before that line.  Imports
@@ -314,6 +340,10 @@ def flash_cases():
         ("train 1.3b bf16", 1, 4096, 16, 8, 128, True, bf16, 2 * BF16_ULP, 16.0),
         ("gpt2 bf16", 12, 1024, 12, 12, 64, True, bf16, 2 * BF16_ULP, 16.0),
         ("gpt2 fp32", 12, 1024, 12, 12, 64, True, fp32, 16.0, 16.0),
+        # one rank's heads at tp = 2: the 1.3B train, the 8B prefill, GPT-2
+        ("tp2 1.3b bf16", 1, 4096, 8, 4, 128, True, bf16, 2 * BF16_ULP, 16.0),
+        ("tp2 8b prefill bf16", 1, 1024, 16, 4, 128, True, bf16, 2 * BF16_ULP, 16.0),
+        ("tp2 gpt2 bf16", 12, 1024, 6, 6, 64, True, bf16, 2 * BF16_ULP, 16.0),
     ]
 
 
@@ -372,11 +402,14 @@ def paged_geometries():
     """The K7 timing shapes.  A: the Llama-3-8B serve shape (S=8, page 16,
     Pmax 64, KV=8, H=32, hd 128) with ragged lengths from only the fresh
     token to a full slot; B: 8 slots at the 8B's own 8k context (Pmax 512);
-    C: 64 slots of 64-1024 positions."""
+    C: 64 slots of 64-1024 positions; A_tp2: A on one rank's heads at
+    tp = 2 (H=16, KV=4)."""
     base = dict(page=16, KV=8, H=32, hd=128)
     rng = np.random.default_rng
+    a_lengths = [1, 1024, 17, 300, 511, 64, 700, 2]
     return {
-        "A": dict(S=8, Pmax=64, lengths=[1, 1024, 17, 300, 511, 64, 700, 2], **base),
+        "A": dict(S=8, Pmax=64, lengths=a_lengths, **base),
+        "A_tp2": dict(S=8, Pmax=64, lengths=a_lengths, page=16, KV=4, H=16, hd=128),
         "B": dict(S=8, Pmax=512, lengths=[int(x) for x in rng(0).integers(4096, 8193, 8)], **base),
         "C": dict(S=64, Pmax=64, lengths=[int(x) for x in rng(0).integers(64, 1025, 64)], **base),
     }
@@ -404,7 +437,7 @@ def paged_cases():
     g16_128 = dict(S=4, page=16, Pmax=20, KV=1, H=16, hd=128, lengths=[2, 64, 300, 320])
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = []
-    for label, g in (("A", geo["A"]), ("B", geo["B"]), ("C", geo["C"]),
+    for label, g in (("A", geo["A"]), ("A_tp2", geo["A_tp2"]), ("B", geo["B"]), ("C", geo["C"]),
                      ("chunk edges", edges), ("page 6 chunk edges hd64", edges6),
                      ("G16 hd64", g16), ("G16 hd128", g16_128)):
         cases += [(f"{label} bf16", bf16, bf16, g, 64.0), (f"{label} fp32", fp32, fp32, g, 8.0)]
@@ -556,6 +589,9 @@ def flash_bwd_cases():
         ("full (non-causal) T=256 fp32", 2, 256, 8, 4, 128, False, fp32, 8.0),
         ("gpt2 bf16", 12, 1024, 12, 12, 64, True, bf16, 2 * BF16_ULP),
         ("gpt2 fp32", 12, 1024, 12, 12, 64, True, fp32, 8.0),
+        # one rank's heads at tp = 2
+        ("tp2 1.3b bf16", 1, 4096, 8, 4, 128, True, bf16, 2 * BF16_ULP),
+        ("tp2 gpt2 bf16", 12, 1024, 6, 6, 64, True, bf16, 2 * BF16_ULP),
     ]
 
 
@@ -664,7 +700,8 @@ def flash_bwd_timing(dev):
 
     by_label = {case[0]: case for case in flash_bwd_cases()}
     rows = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
-    for label in ("main bf16", "gpt2 bf16"):
+    keys = {"gpt2 bf16": "gpt2", "tp2 1.3b bf16": "tp2_1.3b", "tp2 gpt2 bf16": "tp2_gpt2"}
+    for label in ("main bf16", "gpt2 bf16", "tp2 1.3b bf16", "tp2 gpt2 bf16"):
         _, B, T, H, KV, D, causal, dtype, _ = by_label[label]
         q, k, v, o, do, lse, args = flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype)
         lse2, delta = lse.reshape(B * H, T), _delta(o, do)
@@ -701,7 +738,7 @@ def flash_bwd_timing(dev):
             if label == "main bf16":
                 rows[name].update(fields)
             else:
-                rows[name]["gpt2"] = fields
+                rows[name][keys[label]] = fields
         del q, k, v, o, do, lse, got, ref, q4, k4, v4, out4
         free_memory()
     return rows
@@ -741,6 +778,23 @@ def train_leaf_shapes():
     return flat(param_shapes(LlamaConfig(**RUNGS["1.3b"][0])))
 
 
+def tp2_leaf_shapes():
+    """One rank's pieces of the 1.3B's leaves under ``llama_plan`` at tp=2:
+    the leaves K8 steps in ``tp_train``."""
+    from vescale_tpu_torch.bench import RUNGS
+    from vescale_tpu_torch.dmodule.api import _match
+    from vescale_tpu_torch.mesh import DeviceMesh
+    from vescale_tpu_torch.models import LlamaConfig, llama_plan, param_shapes
+    from vescale_tpu_torch.models.convert import _flatten
+    from vescale_tpu_torch.spec import DArraySpec, TensorMeta
+
+    mesh = DeviceMesh(("tp",), (2,), device_type="cpu")
+    plan = llama_plan(mesh)["parameter"]
+    return [DArraySpec(mesh, _match(plan, path)[1], TensorMeta(tuple(shape), torch.float32))
+            .local_shape((0,))
+            for path, shape in _flatten(param_shapes(LlamaConfig(**RUNGS["1.3b"][0]))).items()]
+
+
 def adamw_leaves(dev, shapes, state_dtype, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     gs = [torch.randn(s, generator=g, device=dev) for s in shapes]
@@ -766,6 +820,8 @@ def run_adamw_parity(dev):
     out, timing = [], None
     cases = [("1.3b leaves, bf16 state", shapes, torch.bfloat16),
              ("1.3b leaves, fp32 state", shapes, torch.float32),
+             ("tp2 1.3b leaves (one rank's pieces), bf16 state", tp2_leaf_shapes(),
+              torch.bfloat16),
              ("odd and empty leaves, bf16 state", [(0,), (1,), (37,), (1023,), (4097,), (3, 0)],
               torch.bfloat16)]
     for label, leaf_shapes, state_dtype in cases:
@@ -784,6 +840,8 @@ def run_adamw_parity(dev):
                         ok=moments_equal and worst_u <= 4.0))
         if state_dtype == torch.bfloat16 and timing is None:
             timing = adamw_timing(gs, ms, vs, c1, c2, hp, err)
+        elif label.startswith("tp2"):
+            timing["tp2_1.3b"] = adamw_timing(gs, ms, vs, c1, c2, hp, err)
         del gs, ms, vs, us, mos, vos
         free_memory()
     # NaN poison
@@ -825,7 +883,9 @@ def flash_timing(dev, parity_rows):
     by_label = {case[0]: case for case in flash_cases()}
     errs = {row["case"]: row["max_abs_err"] for row in parity_rows if row["kernel"] == "flash_fwd"}
     out = {}
-    for label, key in (("main bf16", None), ("train 1.3b bf16", "train_1.3b"), ("gpt2 bf16", "gpt2")):
+    for label, key in (("main bf16", None), ("train 1.3b bf16", "train_1.3b"), ("gpt2 bf16", "gpt2"),
+                       ("tp2 1.3b bf16", "tp2_1.3b"), ("tp2 8b prefill bf16", "tp2_8b_prefill"),
+                       ("tp2 gpt2 bf16", "tp2_gpt2")):
         _, B, T, H, KV, D, causal, dtype, _, _ = by_label[label]
         q, k, v, args = flash_fwd_inputs(dev, B, T, H, KV, D, causal, dtype)
         ms = cuda_ms(lambda: flash_fwd(q, k, v, **args))
@@ -908,6 +968,8 @@ def bound(nbytes: float, flops: float, dtype) -> dict:
 
 # ---------------------------------------------------------- cross entropy
 XENT_PATH = (12 * 1024, 50304)  # the GPT-2 train path's logits: B*T rows, vocab 50304
+# one rank's vocab slice at tp = 2: the 1.3B, the 8B's vocab, GPT-2
+XENT_TP_PATHS = (("1.3b", 4096, 16000), ("8b", 4096, 64128), ("gpt2", 12 * 1024, 25152))
 
 
 def xent_cases():
@@ -929,7 +991,9 @@ def xent_cases():
     shapes = [("gpt2 path", *XENT_PATH), ("llama 1.3b", 4096, 32000),
               ("llama-3 vocab", 4096, 128256), ("odd 1000x7", 1000, 7), ("odd 3x1", 3, 1)]
     return [(f"{label} {str(dt)[6:]}", N, Vs, dt) for label, N, Vs in shapes
-            for dt in (torch.float32, torch.bfloat16)]
+            for dt in (torch.float32, torch.bfloat16)] + [
+        # one rank's vocab slice at tp = 2, in the paths' dtype
+        (f"tp2 {label} bfloat16", N, Vs, torch.bfloat16) for label, N, Vs in XENT_TP_PATHS]
 
 
 def xent_inputs(dev, N, Vs, dtype, seed):
@@ -1028,6 +1092,25 @@ def xent_timing(dev):
             f"ms{sfx}": bwd_ms, f"plain_ms{sfx}": bwd_plain, f"library_ms{sfx}": lib_bwd,
             f"library_fwd_bwd_ms{sfx}": lib_both, f"max_abs_err{sfx}": err_b,
             **{f"{k}{sfx}": v for k, v in bwd_b.items()}, f"shape{sfx}": shape})
+        del lg, idx, gmax, cts, x, loss
+        free_memory()
+    for label, N, Vs in XENT_TP_PATHS:
+        lg, idx, gmax, cts = xent_inputs(dev, N, Vs, torch.bfloat16, seed=2)
+        x = lg.detach().requires_grad_()
+        loss = F.cross_entropy(x, idx)
+        rows_n = N * (8 + 4)
+        for name, fn, plain, lib, nb, ops in (
+                ("fused_xent_fwd", lambda: xent_fwd(lg, idx, gmax),
+                 lambda: xent_parts_reference(lg, idx, gmax), lambda: F.cross_entropy(lg, idx),
+                 N * Vs * 2 + rows_n + 3 * N * 4, 4 * N * Vs),
+                ("fused_xent_bwd", lambda: xent_bwd(lg, idx, gmax, *cts),
+                 lambda: xent_bwd_reference(lg, idx, gmax, *cts),
+                 lambda: torch.autograd.grad(loss, x, retain_graph=True),
+                 2 * N * Vs * 2 + rows_n + 3 * N * 4, 5 * N * Vs)):
+            rows[name][f"tp2_{label}"] = dict(
+                ms=cuda_ms(fn, iters=10), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                library_ms=cuda_ms(lib, iters=10), **bound(nb, ops, torch.float32),
+                shape=dict(N=N, Vs=Vs, dtype="torch.bfloat16"))
         del lg, idx, gmax, cts, x, loss
         free_memory()
     for r in rows.values():
@@ -2572,10 +2655,467 @@ def _trees_bitwise(tree, params) -> bool:
 
 
 # -------------------------------------------------------------------- main
+# --------------------------------------------------------- tensor parallel
+TP_WORLD = 2  # ranks of the TP phases, all on the one card
+TP_LOSS_REL = 0.01  # the reference's bf16 loss bar (nanogpt_4d_finetune/README.md)
+TP_SERVE_BF16_STEPS = 16.0  # teacher-forced logits vs the single-card engine (PERF.md)
+TP_FORCED = 4  # teacher-forced requests of the tp_serve check
+
+
+def tp_spawn(job: str, args: dict, timeout_s: float):
+    """``TP_WORLD`` ranks of ``chip_smoke.py --tp-child`` on the one card,
+    joined over gloo at a free localhost port (NCCL refuses two ranks on
+    one GPU); each runs ``TP_JOBS[job](mesh, **args)`` and writes its JSON
+    result.  A rank that fails, exits without a result or outlives
+    ``timeout_s`` fails the phase; every rank is stopped before this
+    returns.  Returns the results in rank order."""
+    port = free_port()
+    tmp = tempfile.mkdtemp(prefix="vtt_tp_")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("VESCALE_")}
+    procs, logs = [], []
+    try:
+        for r in range(TP_WORLD):
+            spec = os.path.join(tmp, f"spec{r}.json")
+            with open(spec, "w") as f:
+                json.dump(dict(job=job, rank=r, world=TP_WORLD, port=port, args=args,
+                               out=os.path.join(tmp, f"out{r}.json")), f)
+            logs.append(open(os.path.join(tmp, f"log{r}.txt"), "w+"))
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                           "--tp-child", spec], env=env, stdout=logs[-1],
+                                          stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        codes = [p.poll() for p in procs]
+        tails = []
+        for lg in logs:
+            lg.seek(0)
+            tails.append(lg.read()[-3000:])
+        check(codes == [0] * TP_WORLD, f"tp {job}: rank exit codes {codes}:\n" + "\n".join(tails))
+        out = []
+        for r in range(TP_WORLD):
+            with open(os.path.join(tmp, f"out{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for lg in logs:
+            lg.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def tp_child(spec_path: str) -> int:
+    """``--tp-child``: one rank of a TP phase (``tp_spawn``)."""
+    import torch.distributed as dist
+
+    from vescale_tpu_torch import distributed as D
+    from vescale_tpu_torch.mesh import init_device_mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    D.initialize(f"127.0.0.1:{spec['port']}", spec["world"], spec["rank"], device_type="cuda",
+                 backend="gloo", timeout_s=900)
+    try:
+        mesh = init_device_mesh("cuda", (spec["world"],), mesh_dim_names=("tp",), backend="gloo")
+        res = TP_JOBS[spec["job"]](mesh, **spec["args"])
+        with open(spec["out"], "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_collectives() -> dict:
+    from vescale_tpu_torch import collectives as C
+
+    return dict(calls=dict(C.CALLS), bytes=dict(C.BYTES))
+
+
+def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None):
+    """One rank of ``tp_train``: ``rung`` of the bench (the 1.3B Llama or
+    GPT-2 124M) at full width and depth under its plan with sequence
+    parallelism, built on ``meta`` and materialized as this rank's pieces
+    of the bench's seed-0 weights, trained through the vocab-parallel loss
+    with ``AdamWLowmem`` on the bench's batches: ``bench.WARMUP`` untimed
+    and ``TP_TIMED`` timed steps."""
+    import functools
+
+    from vescale_tpu_torch import bench, kernels
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch.data import TokenDataLoader
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.loss import vocab_parallel_cross_entropy
+    from vescale_tpu_torch.models import (GPT, GPTConfig, Llama, LlamaConfig, init_params,
+                                          llama_plan, nanogpt_plan)
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.train import make_train_step
+
+    dev = mesh.device
+    gpt = rung in bench.GPT_RUNGS
+    fields, B, T, state_dtype, _ = (bench.GPT_RUNGS if gpt else bench.RUNGS)[rung]
+    t0 = time.perf_counter()
+    if gpt:
+        cfg = GPTConfig(**fields)
+        model, plan = GPT(cfg, device="meta"), nanogpt_plan(mesh, sequence_parallel=True)
+    else:
+        cfg = LlamaConfig(max_position_embeddings=T, **fields)
+        model, plan = Llama(cfg, device="meta"), llama_plan(mesh, sequence_parallel=True)
+    dm = parallelize_module(model, mesh, plan,
+                            init_fn=functools.partial(init_params, cfg, 0, dtype=torch.float32))
+    opt = AdamWLowmem(dm.parameters(), bench.LR, state_dtype=state_dtype)
+    step = make_train_step(dm, opt, lambda lg, b: vocab_parallel_cross_entropy(
+        lg, b["target"], mesh=mesh, vocab_dim_name="tp"))
+    loader = None
+    if gpt:
+        loader = TokenDataLoader(token_file, B, T, seed=bench.DATA_SEED, device=dev)
+        next_batch = loader.next
+    else:
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T + 1))
+        toks = torch.from_numpy(toks.astype(np.int64)).to(dev)
+        batch = {"input": toks[:, :-1], "target": toks[:, 1:]}
+        next_batch = lambda: batch
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, step_ms, launches, comm, total = [], [], [], [], {}
+    for i in range(bench.WARMUP + TP_TIMED):
+        if i == bench.WARMUP:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        C.reset_calls()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(step(next_batch())))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        launches.append(dict(kernels.LAUNCHES))
+        comm.append(tp_collectives())
+        for k, v in launches[-1].items():
+            total[k] = total.get(k, 0) + v
+    # one more step with the collectives timed (each waits for the card
+    # first): the share of a step spent in gloo
+    C.reset_calls()
+    C.TIMING = True
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    extra_loss = float(step(next_batch()))
+    timed_step_s = time.perf_counter() - t1
+    C.TIMING = False
+    gloo = dict(step_ms=timed_step_s * 1e3, loss=extra_loss,
+                seconds_by_op=dict(C.SECONDS), share=sum(C.SECONDS.values()) / timed_step_s)
+    if loader is not None:
+        loader.close()
+    L = cfg.n_layer if gpt else cfg.num_hidden_layers
+    want = {**{k: 0 for k in kernels.LAUNCHES}, "flash_fwd": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "fused_xent_fwd": 1, "fused_xent_bwd": 1, "fused_adamw": 1}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    checks = {
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "losses_within_1pct": len(rel) == len(losses) and max(rel) <= TP_LOSS_REL,
+        "launches_per_step": all(s == want for s in launches),
+        "local_heads": all(p.shape[1] * TP_WORLD == s.shape[1] for n, p, s in (
+            (n, p, dm._specs[n]) for n, p in dm.named_parameters())
+            if n.endswith(("q_proj.kernel", "c_attn.kernel"))),
+    }
+    timed = step_ms[bench.WARMUP:]
+    return dict(rank=mesh.get_rank(), setup_s=setup_s, losses=losses, ref_losses=ref_losses,
+                loss_rel_diffs=rel, step_ms=step_ms, step_ms_median=float(np.median(timed)),
+                tokens_per_s_per_rank=B * T / (float(np.median(timed)) / 1e3),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                params_local=sum(p.numel() for p in dm.parameters()),
+                launches_per_step=launches[-1], launches_total=total,
+                collectives_per_step=comm[-1], gloo_timed_step=gloo,
+                sync_params=sum(len(v) for v in dm._sync_params.values()), checks=checks)
+
+
+def tp_serve_job(mesh, golden: dict, forced: list, forced_logits_file: str):
+    """One rank of ``tp_serve``: Llama-3-8B's serve weights (seed 0, bf16)
+    materialized as this rank's ``llama_plan`` pieces from ``meta``, a
+    Shard(3) pool, and the serve phase's 16 requests through ``run_serve``
+    (every check of the serve phase); then teacher-forced logits (a
+    prefill and decode steps along the golden stream) of ``forced``
+    requests against the single-card engine's, in bf16 steps at scale."""
+    import re
+
+    from vescale_tpu_torch import kernels
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch.initialize import materialize_module
+    from vescale_tpu_torch.kernels import ulps_at_scale
+    from vescale_tpu_torch.models import LLAMA3_8B, init_params, llama_plan, param_shapes
+    from vescale_tpu_torch.models.convert import _flatten
+    from vescale_tpu_torch.serve import KVCacheConfig, PagedKVCache, ServeEngine
+
+    cfg = LLAMA3_8B
+    dev = mesh.device
+    t0 = time.perf_counter()
+    plan = llama_plan(mesh)["parameter"]
+
+    def placements(node, path=""):
+        if isinstance(node, dict):
+            return {k: placements(v, f"{path}.{k}" if path else k) for k, v in node.items()}
+        return next(v for p, v in plan.items() if re.fullmatch(p, path))
+
+    tree = materialize_module(init_params, placements(param_shapes(cfg)), cfg, seed=0,
+                              dtype=torch.bfloat16, mesh=mesh)
+    kc = KVCacheConfig(layers=cfg.num_hidden_layers, kv_heads=cfg.num_key_value_heads,
+                       head_dim=cfg.head_dim, num_slots=8, page_size=16, pages_per_slot=64,
+                       dtype=torch.bfloat16)
+    cache = PagedKVCache(kc, mesh=mesh)
+    eng = ServeEngine(cfg, tree, cache, mesh=mesh)
+    del tree
+    local_bytes = sum(t.numel() * t.element_size() for _, t in _flatten(eng.params).items())
+    eng.replay_greedy([1, 2, 3], 2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    C.reset_calls()
+    run, streams = serve_run(dev, eng, serve_requests(cfg.vocab_size), kernels)
+    comm = tp_collectives()
+    same = sum(streams[r] == golden[str(r)] for r in streams)
+    # teacher-forced: prefill, then decode along the golden stream, the
+    # collectives timed (each waits for the card first): gloo's share
+    ref = np.load(forced_logits_file)
+    worst = 0.0
+    C.reset_calls()
+    C.TIMING = True
+    t1 = time.perf_counter()
+    for i, (prompt, toks) in enumerate(forced):
+        cache.reset()
+        slot = cache.alloc(len(prompt), len(toks))
+        rows = [eng.prefill(prompt, slot)]
+        cache.commit_prefill(slot, len(prompt))
+        for t in toks[:-1]:
+            tt = np.zeros((cache.num_slots,), np.int64)
+            tt[slot] = t
+            rows.append(eng.decode(tt)[slot])
+            cache.advance(slot)
+        worst = max(worst, ulps_at_scale(np.stack(rows), ref[i]) / BF16_ULP)
+    forced_s = time.perf_counter() - t1
+    C.TIMING = False
+    gloo = dict(forced_s=forced_s, seconds_by_op=dict(C.SECONDS),
+                share=sum(C.SECONDS.values()) / forced_s)
+    cache.reset()
+    checks = dict(run["checks"])
+    checks["kv_heads_local"] = cache.k.shape[3] == kc.kv_heads // TP_WORLD
+    checks["q_heads_local"] = eng._heads(eng.params["layers_0"]) == (
+        cfg.num_attention_heads // TP_WORLD, cfg.num_key_value_heads // TP_WORLD)
+    checks["forced_logits_within_bound"] = worst <= TP_SERVE_BF16_STEPS
+    checks["eager_over_gloo"] = not eng.graphed
+    return dict(rank=mesh.get_rank(), setup_s=setup_s, local_weight_bytes=local_bytes,
+                launches_total=run["launches"],
+                pool_bytes_local=2 * cache.k.numel() * cache.k.element_size(),
+                streams_equal_serve=int(same), streams=len(streams), graphed=eng.graphed,
+                forced_worst_bf16_steps=worst, forced_bound_bf16_steps=TP_SERVE_BF16_STEPS,
+                gloo_timed_forced=gloo,
+                collectives=comm, checks=checks, **{k: v for k, v in run.items() if k != "checks"})
+
+
+TP_JOBS = {"train": tp_train_job, "serve": tp_serve_job}
+TP_TIMED = 3  # timed steps of tp_train
+
+
+def run_tp_train(dev, train, gpt2, card):
+    """``tp_train``: the 1.3B Llama (``llama_plan``) and GPT-2 124M
+    (``nanogpt_plan``), both with sequence parallelism, at full width and
+    depth on two ranks of one card over gloo, each from the weights and
+    batches of its single-card phase (``train``, ``gpt2``): losses within
+    1% of that phase's at each step, every kernel launch of each step."""
+    from vescale_tpu_torch import bench
+
+    out = {}
+    steps = bench.WARMUP + TP_TIMED
+    for rung, ref in (("1.3b", train), ("gpt2", gpt2)):
+        tmpdir = token_file = None
+        if rung == "gpt2":
+            tmpdir = tempfile.mkdtemp(prefix="vtt_tokens_")
+            token_file = bench.write_token_file(os.path.join(tmpdir, "tokens.bin"),
+                                                bench.DATA_TOKENS, 50304)
+        t = time.perf_counter()
+        try:
+            ranks = tp_spawn("train", dict(rung=rung, ref_losses=ref["losses"][:steps],
+                                           token_file=token_file), timeout_s=600)
+        finally:
+            if tmpdir is not None:
+                shutil.rmtree(tmpdir, ignore_errors=True)
+        ok = all(all(r["checks"].values()) for r in ranks)
+        out[rung] = dict(wall_s=time.perf_counter() - t, card=card, ranks=ranks, ok=ok)
+        check(ok, f"tp_train {rung} checks failed: {json.dumps(out[rung])[:4000]}")
+    return out
+
+
+def forced_reference(eng, streams, n=TP_FORCED):
+    """The single-card engine's teacher-forced logits for the first ``n``
+    serve requests: the prefill row, then a decode row for each golden
+    token but the last, fp32 (n, 32, vocab)."""
+    cfg = eng.config
+    arrivals = serve_requests(cfg.vocab_size)
+    cache = eng.cache
+    forced, rows = [], []
+    for _, req in arrivals[:n]:
+        toks = streams[req.rid]
+        cache.reset()
+        slot = cache.alloc(len(req.prompt), len(toks))
+        got = [eng.prefill(req.prompt, slot)]
+        cache.commit_prefill(slot, len(req.prompt))
+        for t in toks[:-1]:
+            tt = np.zeros((cache.num_slots,), np.int64)
+            tt[slot] = t
+            got.append(eng.decode(tt)[slot])
+            cache.advance(slot)
+        forced.append((list(req.prompt), list(toks)))
+        rows.append(np.stack(got))
+    cache.reset()
+    return forced, np.stack(rows)
+
+
+def run_tp_serve(dev, serve_streams, forced, card):
+    """``tp_serve``: the 8B over two ranks of one card (``tp_serve_job``)."""
+    tmp = tempfile.mkdtemp(prefix="vtt_forced_")
+    try:
+        path = os.path.join(tmp, "forced.npy")
+        np.save(path, forced[1])
+        t = time.perf_counter()
+        ranks = tp_spawn("serve", dict(golden={str(k): v for k, v in serve_streams.items()},
+                                       forced=forced[0], forced_logits_file=path), timeout_s=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok = all(all(r["checks"].values()) for r in ranks)
+    out = dict(wall_s=time.perf_counter() - t, card=card, ranks=ranks, ok=ok)
+    check(ok, f"tp_serve checks failed: {json.dumps(out)[:4000]}")
+    return out
+
+
+GLOO_OPS = ("all_reduce", "all_reduce_max", "all_reduce_bf16", "all_gather_into_tensor",
+            "reduce_scatter_tensor", "all_to_all_single", "broadcast", "scatter",
+            "send_recv")
+
+
+def gloo_probe_child(op: str, rank: int, port: int) -> int:
+    """``--gloo-probe-child``: one rank of a two-rank gloo world on the one
+    card running ``op`` once on CUDA tensors, torch.distributed directly."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    dev = torch.device("cuda", 0)
+    x = torch.full((8, 4), float(rank + 1), device=dev)
+    if op == "all_reduce":
+        dist.all_reduce(x)
+        ok = bool((x == 3).all())
+    elif op == "all_reduce_max":
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        ok = bool((x == 2).all())
+    elif op == "all_reduce_bf16":
+        y = x.bfloat16()
+        dist.all_reduce(y)
+        ok = bool((y == 3).all())
+    elif op == "all_gather_into_tensor":
+        out = torch.empty(16, 4, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        ok = bool((out[:8] == 1).all() and (out[8:] == 2).all())
+    elif op == "reduce_scatter_tensor":
+        out = torch.empty(4, 4, device=dev)
+        dist.reduce_scatter_tensor(out, x)
+        ok = bool((out == 3).all())
+    elif op == "all_to_all_single":
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        ok = bool((out[:4] == 1).all() and (out[4:] == 2).all())
+    elif op == "broadcast":
+        dist.broadcast(x, src=0)
+        ok = bool((x == 1).all())
+    elif op == "scatter":
+        out = torch.empty(4, 4, device=dev)
+        dist.scatter(out, [x[:4].contiguous(), x[4:].contiguous()] if rank == 0 else None, src=0)
+        ok = bool((out == 1).all())
+    else:
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, 1 - rank), dist.P2POp(dist.irecv, out, 1 - rank)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        ok = bool((out == 2 - rank).all())
+    torch.cuda.synchronize()
+    print(json.dumps({"op": op, "rank": rank, "ok": ok}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_gloo_probe() -> dict:
+    """Each op of ``GLOO_OPS`` in its own two-rank gloo world on CUDA
+    tensors (a refused op may raise or end the process): ``ok``, a wrong
+    result, or the failure (exit code and the last of its output)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("VESCALE_")}
+    out = {}
+    for op in GLOO_OPS:
+        port = free_port()
+        logs = [tempfile.TemporaryFile(mode="w+") for _ in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-probe-child",
+                                   op, str(r), str(port)], env=env, stdout=logs[r],
+                                  stderr=subprocess.STDOUT) for r in range(2)]
+        deadline = time.monotonic() + 60
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                time.sleep(2)
+                break
+            time.sleep(0.2)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for lg in logs:
+            lg.seek(0)
+            texts.append(lg.read())
+            lg.close()
+        codes = [p.returncode for p in procs]
+        good = all(c == 0 for c in codes) and all('"ok": true' in t for t in texts)
+        out[op] = "ok" if good else dict(
+            codes=codes, tail=[t.strip().splitlines()[-1][-300:] if t.strip() else "" for t in texts])
+    return out
+
+
+def tp_launches(phase: dict, name: str) -> int:
+    """A kernel's launches over every rank of a TP phase (``tp_train``:
+    both rungs, every step)."""
+    runs = [r for v in phase.values() if isinstance(v, dict) for r in v["ranks"]] \
+        if "ranks" not in phase else phase["ranks"]
+    return int(sum(r["launches_total"].get(name, 0) for r in runs))
+
+
+def tp_only(dev, card, kernels_mod) -> int:
+    """``--tp``: the single-card phases the TP phases are held to (serve,
+    train, gpt2), then ``tp_train`` and ``tp_serve``."""
+    serve, eng, _, _, serve_streams = run_serve_8b(dev, kernels_mod)
+    log("serve", **{k: v for k, v in serve.items() if k in ("checks", "launches")})
+    forced = forced_reference(eng, serve_streams)
+    del eng
+    free_memory()
+    train = run_train_13b(dev, kernels_mod)
+    log("train", losses=train["losses"], step_ms_median=train["step_ms_median"])
+    gpt2 = run_train_gpt2(dev, kernels_mod)
+    log("gpt2", losses=gpt2["losses"], step_ms_median=gpt2["step_ms_median"])
+    t = time.perf_counter()
+    log("tp_train", seconds=time.perf_counter() - t, **run_tp_train(dev, train, gpt2, card))
+    t = time.perf_counter()
+    log("tp_serve", seconds=time.perf_counter() - t, **run_tp_serve(dev, serve_streams, forced, card))
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true", help="device, build and kernel parity only")
+    ap.add_argument("--tp", action="store_true",
+                    help="device, build, and the serve, train, gpt2 and TP phases only")
+    ap.add_argument("--gloo-probe", action="store_true",
+                    help="which collectives gloo carries on CUDA tensors, then exit")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-child", help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-probe-child", nargs=3, help=argparse.SUPPRESS)
     opts = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2583,6 +3123,14 @@ def main() -> int:
         return 2
     if opts.replica_child:
         return replica_child()
+    if opts.tp_child:
+        return tp_child(opts.tp_child)
+    if opts.gloo_probe_child:
+        op, rank, port = opts.gloo_probe_child
+        return gloo_probe_child(op, int(rank), int(port))
+    if opts.gloo_probe:
+        log("gloo_probe", card=card_line(), torch=torch.__version__, ops=run_gloo_probe())
+        return 0
     from vescale_tpu_torch import kernels as kernels_mod
     from vescale_tpu_torch.kernels import _build, ulps_at_scale
 
@@ -2607,6 +3155,9 @@ def main() -> int:
           f"HGMMA in every tensor-core flash kernel and in no other: {hgmma}")
     check(paged["kernels"] and not paged["spills"],
           f"paged_decode kernels built without spills: {paged}")
+
+    if opts.tp:
+        return tp_only(dev, card, kernels_mod)
 
     t = time.perf_counter()
     flash_rows = run_flash_parity(dev, ulps_at_scale)
@@ -2655,6 +3206,7 @@ def main() -> int:
     prof = {"graph": run_profile(eng, cfg, serve["graph"]["serve_s"]),
             "eager": run_profile(eager, cfg, serve["eager"]["serve_s"])}
     log("profile", seconds=time.perf_counter() - t, **prof)
+    forced = forced_reference(eng, serve_streams)
     del eng, eager
     free_memory()
     t = time.perf_counter()
@@ -2669,6 +3221,12 @@ def main() -> int:
     t = time.perf_counter()
     gpt2 = run_train_gpt2(dev, kernels_mod)
     log("gpt2", seconds=time.perf_counter() - t, **gpt2)
+    t = time.perf_counter()
+    tp_train = run_tp_train(dev, train, gpt2, card)
+    log("tp_train", seconds=time.perf_counter() - t, **tp_train)
+    t = time.perf_counter()
+    tp_serve = run_tp_serve(dev, serve_streams, forced, card)
+    log("tp_serve", seconds=time.perf_counter() - t, **tp_serve)
     log("done", seconds=time.perf_counter() - t_all)
     check(not bad_parity, "kernel parity failed: " + json.dumps(bad_parity))
 
@@ -2689,7 +3247,8 @@ def main() -> int:
                    "serve_eager": serve["eager"]["launches"][name],
                    "spec_prefix": spec_prefix["launches"][name],
                    "serve_resilient": resilient["launches"][name], "spmd": spmd["launches"][name],
-                   "checkpoint": ckpt["launches"][name], "gpt2": gpt2["launches"][name]}
+                   "checkpoint": ckpt["launches"][name], "gpt2": gpt2["launches"][name],
+                   "tp_train": tp_launches(tp_train, name), "tp_serve": tp_launches(tp_serve, name)}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

@@ -48,6 +48,10 @@ def test_every_port_module_imports_without_jax():
             "vescale_tpu_torch.checkpoint.planner", "vescale_tpu_torch.checkpoint.elastic",
             "vescale_tpu_torch.checkpoint.mem_server", "vescale_tpu_torch.checkpoint.manager",
             "vescale_tpu_torch.analysis.findings", "vescale_tpu_torch.resilience.retry"} <= set(mods)
+    assert {"vescale_tpu_torch.dmodule", "vescale_tpu_torch.dmodule.api",
+            "vescale_tpu_torch.dmodule._comm", "vescale_tpu_torch.model.patch.linear",
+            "vescale_tpu_torch.model.patch.vp_embedding",
+            "vescale_tpu_torch.model.patch.monkey_patch"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {['vescale_tpu_torch'] + mods!r}:\n"

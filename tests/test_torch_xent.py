@@ -245,12 +245,21 @@ def test_nan_poisoned_logits_give_a_nan_loss(monkeypatch, mode):
 
 
 def test_mesh_path_is_not_ported_yet():
+    """The mesh path is ported (the vocab-parallel body; its multi-rank
+    parity is ``tests/test_torch_tp_ops.py``): on a one-rank mesh it is
+    the single-device branch, bitwise, in function and module form."""
+    from vescale_tpu_torch.mesh import DeviceMesh
+
+    mesh = DeviceMesh(("tp",), (1,), device_type="cpu")
     logits, tgt = _loss_case((2, 4, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vocab_parallel_cross_entropy(_torch(logits), torch.from_numpy(tgt), mesh=object(),
-                                     vocab_dim_name="tp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VocabParallelCrossEntropy(mesh=object())(_torch(logits), torch.from_numpy(tgt))
+    t = torch.from_numpy(tgt)
+    for ls in (0.0, 0.1):
+        want = vocab_parallel_cross_entropy(_torch(logits), t, label_smoothing=ls)
+        got = vocab_parallel_cross_entropy(_torch(logits), t, mesh=mesh, vocab_dim_name="tp",
+                                           label_smoothing=ls)
+        assert torch.equal(got, want)
+        mod = VocabParallelCrossEntropy(mesh=mesh, label_smoothing=ls)(_torch(logits), t)
+        assert torch.equal(mod, want)
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])

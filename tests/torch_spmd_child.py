@@ -476,6 +476,473 @@ def case_ckpt_manager(root, mesh_shape, names, leaves, steps, keep):
 
 PROMPTS = ([3, 9, 27], [1, 2, 3, 4, 5], [60, 7], [11, 12, 13, 14, 15, 16, 17])
 
+# ------------------------------------------------ tensor parallel (A10)
+# the GPT of tests/test_dmodule.py, a GQA Llama whose heads split 4 ways,
+# and the serve tests' tiny Llama (tests/test_serve.py)
+TP_CONFIGS = {
+    "gpt": dict(block_size=32, vocab_size=128, n_layer=2, n_head=4, n_embd=64),
+    "llama": dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                  num_attention_heads=8, num_key_value_heads=4, max_position_embeddings=64),
+    "serve": dict(vocab_size=64, hidden_size=16, intermediate_size=32, num_hidden_layers=2,
+                  num_attention_heads=2, num_key_value_heads=2, max_position_embeddings=64),
+}
+TP_BATCH = (2, 16)  # (B, T) of a training batch
+TP_LR = 1e-3
+
+
+def tp_config(kind, mod=None):
+    """``kind``'s config of the port (or of the module ``mod`` holding
+    ``GPTConfig`` / ``LlamaConfig``, e.g. the reference's), fp32."""
+    if mod is None:
+        from vescale_tpu_torch import models as mod
+    if kind == "gpt":
+        return mod.GPTConfig(**TP_CONFIGS[kind], dropout=0.0)
+    dtype = torch.float32 if mod.__name__.startswith("vescale_tpu_torch") else np.float32
+    return mod.LlamaConfig(**TP_CONFIGS[kind], dtype=dtype)
+
+
+def tp_tree(kind, seed):
+    """The numpy-seeded flax-layout weights of ``kind``: kernels normal over
+    sqrt(fan_in), embeddings normal, norm weights and scales 1 plus noise,
+    biases noise, drawn leaf by leaf in ``param_shapes`` order."""
+    from vescale_tpu_torch.models import param_shapes
+
+    rng = np.random.default_rng(seed)
+
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, f"{path}.{k}" if path else k) for k, v in node.items()}
+        x = rng.standard_normal(node).astype(np.float32)
+        if path.endswith(("weight", "scale")):
+            return (1.0 + 0.1 * x).astype(np.float32)
+        if path.endswith("bias"):
+            return (0.1 * x).astype(np.float32)
+        if path.endswith("embedding"):
+            return (0.5 * x).astype(np.float32)
+        return (x / np.sqrt(node[0])).astype(np.float32)
+
+    return build(param_shapes(tp_config(kind)), "")
+
+
+def tp_tokens(kind, seed):
+    rng = np.random.default_rng(seed + 100)
+    B, T = TP_BATCH
+    return rng.integers(0, TP_CONFIGS[kind]["vocab_size"], (B, T + 1)).astype(np.int64)
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True))
+
+
+def tp_model(kind, params, device="cpu"):
+    from vescale_tpu_torch.models import GPT, Llama
+
+    cls = GPT if kind == "gpt" else Llama
+    return cls(tp_config(kind), _torch_tree(params), device=device)
+
+
+def tp_loss(mesh_=None):
+    from vescale_tpu_torch.loss import vocab_parallel_cross_entropy
+
+    if mesh_ is None:
+        return lambda lg, b: vocab_parallel_cross_entropy(lg, b["target"])
+    return lambda lg, b: vocab_parallel_cross_entropy(lg, b["target"], mesh=mesh_,
+                                                      vocab_dim_name="tp")
+
+
+def case_tp_model(kind, tp, sp, seed, steps=3, names=("tp",)):
+    """``kind`` parallelized by its plan on a mesh of ``tp`` ranks (a 2-D
+    ("dp", "tp") mesh with dp = 1 when ``names`` says so): this rank's
+    parameter pieces, the full logits of a forward, the loss and this
+    rank's gradient pieces of one step, then ``steps`` AdamWLowmem steps'
+    losses and parameter pieces."""
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.models import llama_plan, nanogpt_plan
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.train import make_train_step
+
+    shape = [tp] if len(names) == 1 else [1, tp]
+    m = mesh(shape, names)
+    plan = (nanogpt_plan if kind == "gpt" else llama_plan)(m, sequence_parallel=sp)
+    dm = parallelize_module(tp_model(kind, tp_tree(kind, seed)), m, plan)
+    toks = torch.from_numpy(tp_tokens(kind, seed))
+    batch = {"input": toks[:, :-1], "target": toks[:, 1:]}
+    out = {"pieces": {n: p.detach().clone() for n, p in dm.named_parameters()}}
+    flat = {}
+
+    def walk(node, prefix=""):
+        for k, v in node.items():
+            path = f"{prefix}.{k}" if prefix else k
+            walk(v, path) if isinstance(v, dict) else flat.__setitem__(path, list(v.shape))
+
+    walk(dm.param_specs())
+    out["spec_shapes"] = flat
+    with torch.no_grad():
+        out["logits"] = dm(batch["input"])
+    opt = AdamWLowmem(dm.parameters(), TP_LR, state_dtype=torch.float32)
+    step = make_train_step(dm, opt, tp_loss(m))
+    # the first step's gradients, read before its update
+    grads = {}
+    real = opt.step
+
+    def spy():
+        grads.update({n: p.grad.detach().clone() for n, p in dm.named_parameters()})
+        real()
+
+    opt.step = spy
+    out["losses"] = [float(step(batch))]
+    opt.step = real
+    out["grads"] = grads
+    out["losses"] += [float(step(batch)) for _ in range(steps - 1)]
+    out["final"] = {n: p.detach().clone() for n, p in dm.named_parameters()}
+    return out
+
+
+def case_tp_plan_behaviors(tp):
+    """The forward plan's behaviors of tests/test_dmodule.py:185-256 on a
+    mesh of ``tp`` ranks: kwargs resharded, a method-scoped entry, the
+    matched-nothing warnings, and a DModule called inside another."""
+    import warnings as _w
+
+    from torch import nn
+
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.models.llama import Dense, Embed
+    from vescale_tpu_torch.placements import Replicate, Shard
+
+    m = mesh([tp], ["tp"])
+    rng = np.random.default_rng(3)
+
+    class KwModel(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc = Dense(16, 32, torch.float32, "cpu", use_bias=True)
+            with torch.no_grad():
+                self.fc.kernel.copy_(torch.from_numpy(rng.standard_normal((16, 32)).astype(np.float32)))
+                self.fc.bias.zero_()
+
+        def forward(self, x, scale=None):
+            h = self.fc(x)
+            return h if scale is None else h * scale
+
+    res = {}
+    x = torch.ones(4, 16)
+    scale = torch.full((4, 32), 2.0)
+    km = KwModel()
+    dm = parallelize_module(km, m, {"forward": {r"": {"input": [[Shard(0)]]}}})
+    out = dm(x, scale=scale)
+    res["kwargs_out"] = out
+    res["kwargs_ref"] = dm(x) * 2.0
+    res["kwargs_tag"] = enc(out._vtt_placements[0])
+
+    class Tied(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = Embed(64, 16, torch.float32, "cpu")
+            with torch.no_grad():
+                self.emb.embedding.copy_(torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32)))
+
+        def forward(self, idx):
+            return self.emb.attend(self.emb(idx))
+
+    dm = parallelize_module(Tied(), m, {"forward": {r"emb:attend": {"output": [[Shard(0)]]}}})
+    out = dm(torch.ones(4, 8, dtype=torch.int64))
+    res["method_shape"] = list(out.shape)
+    res["method_matched"] = r"emb:attend" in dm._fwd_matched
+    bad_plan = {
+        "parameter": {r"fc_TYPO\.kernel": [Shard(1)], r".*": [Replicate()]},
+        "forward": {r"does_not_exist": {"input": [[Shard(0)]]}},
+    }
+    with _w.catch_warnings(record=True) as got:
+        _w.simplefilter("always")
+        dm = parallelize_module(KwModel(), m, bad_plan)
+        res["param_warning"] = [str(w.message) for w in got]
+    with _w.catch_warnings(record=True) as got:
+        _w.simplefilter("always")
+        dm(x)
+        res["fwd_warning"] = [str(w.message) for w in got]
+    inner = parallelize_module(KwModel(), m, {"forward": {r"": {"output": [[Shard(0)]]}}})
+
+    class Outer(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.head = Dense(32, 8, torch.float32, "cpu")
+            with torch.no_grad():
+                self.head.kernel.copy_(torch.from_numpy(rng.standard_normal((32, 8)).astype(np.float32)))
+
+        def forward(self, x):
+            return self.head(inner(x))
+
+    outer = parallelize_module(Outer(), m, {"forward": {r"": {"input": [[Shard(0)]]}}})
+    out = outer(x)
+    res["nested_shape"] = list(out.shape)
+    res["nested_finite"] = bool(torch.isfinite(out).all())
+    return res
+
+
+def case_tp_xent(rows, vocab, label_smoothing, seed, tp):
+    """The vocab-parallel loss on this rank's slice of numpy-seeded fp32
+    logits: the loss and this rank's dlogits piece."""
+    from vescale_tpu_torch.loss import vocab_parallel_cross_entropy
+
+    m = mesh([tp], ["tp"])
+    rng = np.random.default_rng(seed)
+    lg = rng.standard_normal((rows, vocab)).astype(np.float32) * 3.0
+    tgt = rng.integers(0, vocab, (rows,)).astype(np.int64)
+    w = vocab // tp
+    r = m.get_coordinate()[0]
+    piece = torch.from_numpy(lg[:, r * w:(r + 1) * w].copy()).requires_grad_(True)
+    loss = vocab_parallel_cross_entropy(piece, torch.from_numpy(tgt), mesh=m,
+                                        vocab_dim_name="tp", label_smoothing=label_smoothing)
+    loss.backward()
+    return {"loss": loss.detach(), "dlogits": piece.grad}
+
+
+def case_tp_patch(seed, tp):
+    """ColumnParallelLinear, RowParallelLinear and VocabParallelEmbedding on
+    this rank: a column-parallel layer feeding a row-parallel one (the
+    Megatron MLP) and the embedding, from full numpy weights; the outputs,
+    the input's gradient and this rank's weight-gradient pieces."""
+    from vescale_tpu_torch.model.patch import (ColumnParallelLinear, RowParallelLinear,
+                                               VocabParallelEmbedding)
+
+    m = mesh([tp], ["tp"])
+    rng = np.random.default_rng(seed)
+    w1 = rng.standard_normal((16, 32)).astype(np.float32) / 4
+    b1 = rng.standard_normal((32,)).astype(np.float32) / 10
+    w2 = rng.standard_normal((32, 8)).astype(np.float32) / 6
+    b2 = rng.standard_normal((8,)).astype(np.float32) / 10
+    table = rng.standard_normal((64, 16)).astype(np.float32)
+    x = rng.standard_normal((4, 16)).astype(np.float32)
+    ids = rng.integers(0, 64, (4, 5)).astype(np.int64)
+    col = ColumnParallelLinear(16, 32, mesh=m)
+    row = RowParallelLinear(32, 8, mesh=m)
+    emb = VocabParallelEmbedding(64, 16, mesh=m)
+    col.load_full(torch.from_numpy(w1), torch.from_numpy(b1))
+    row.load_full(torch.from_numpy(w2), torch.from_numpy(b2))
+    emb.load_full(torch.from_numpy(table))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    h = col(xt)
+    y = row(h)
+    y.square().sum().backward()
+    e = emb(torch.from_numpy(ids))
+    e.square().sum().backward()
+    return {"h": h.detach(), "y": y.detach(), "dx": xt.grad, "dw1": col.kernel.grad,
+            "db1": col.bias.grad, "dw2": row.kernel.grad, "db2": row.bias.grad,
+            "e": e.detach(), "dtable": emb.embedding.grad}
+
+
+def case_tp_flash(shape, seed, tp):
+    """``flash_attention_sharded`` on this rank's heads of numpy-seeded
+    (B, T, H, D) q and (B, T, KV, D) k/v: its output piece."""
+    from vescale_tpu_torch.ops.flash_attention import flash_attention_sharded
+
+    B, T, H, KV, D = shape
+    m = mesh([tp], ["tp"])
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, KV, D)).astype(np.float32)
+    r = m.get_coordinate()[0]
+
+    def heads(a):
+        w = a.shape[2] // tp
+        return torch.from_numpy(a[:, :, r * w:(r + 1) * w].copy())
+
+    return {"o": flash_attention_sharded(heads(q), heads(k), heads(v), m, causal=True)}
+
+
+TP_COMM_OPS = ("copy_to_tp", "reduce_from_tp", "all_gather_partial", "all_gather_split",
+               "reduce_scatter", "split")
+
+
+def case_tp_comm(op, seed, tp, dim=1):
+    """One of ``dmodule._comm``'s autograd collectives on this rank's
+    numpy-seeded operand (the same on every rank where the op's input is
+    Replicate) and cotangent: the output and the input's gradient."""
+    from vescale_tpu_torch.dmodule import _comm
+    from vescale_tpu_torch.dmodule._comm import TPDim
+
+    m = mesh([tp], ["tp"])
+    t = TPDim(m, "tp")
+    r = t.rank
+    replicated_in = op in ("copy_to_tp", "split")
+    x = make_input((4, 8, 3), seed, rank=None if replicated_in else r)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    fn = {
+        "copy_to_tp": lambda v: _comm.copy_to_tp(v, t),
+        "reduce_from_tp": lambda v: _comm.reduce_from_tp(v, t),
+        "all_gather_partial": lambda v: _comm.all_gather(v, t, dim, True),
+        "all_gather_split": lambda v: _comm.all_gather(v, t, dim, False),
+        "reduce_scatter": lambda v: _comm.reduce_scatter(v, t, dim),
+        "split": lambda v: _comm.split(v, t, dim),
+    }[op]
+    y = fn(xt)
+    g = make_input(tuple(y.shape), seed + 1, rank=r)
+    y.backward(torch.from_numpy(g))
+    return {"x": x, "y": y.detach(), "g": g, "dx": xt.grad}
+
+
+def case_tp_dp_refuses(kind="llama", seed=0):
+    """A training step over a ("dp", "tp") mesh of (2, 2): refused (the dp
+    gradient reduce is not ported); the forward runs on each dp rank's
+    own batch."""
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.models import llama_plan
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.train import make_train_step
+
+    m = mesh([2, 2], ["dp", "tp"])
+    dm = parallelize_module(tp_model(kind, tp_tree(kind, seed)), m, llama_plan(m))
+    toks = torch.from_numpy(tp_tokens(kind, seed))
+    dp = m.get_coordinate()[0]
+    with torch.no_grad():
+        logits = dm(toks[dp:dp + 1, :-1])
+    try:
+        make_train_step(dm, AdamWLowmem(dm.parameters(), TP_LR), tp_loss(m))
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    return {"dp": dp, "logits": logits, "refused": refused}
+
+
+def case_host_route(seed, tp):
+    """``mesh_ppermute`` (the op gloo refuses on CUDA tensors) run twice on
+    this rank's operand: as the backend carries it, and through
+    ``collectives.HOST_ROUTE``'s host copy; the results and the host-copy
+    counts."""
+    from vescale_tpu_torch import collectives as C
+
+    m = mesh([tp], ["tp"])
+    x = torch.from_numpy(make_input((4 * tp, 3), seed, rank=m.get_coordinate()[0]))
+    ops = {"ppermute": lambda: C.mesh_ppermute(x, m)}
+    plain = {k: f() for k, f in ops.items()}
+    saved = dict(C.HOST_ROUTE)
+    C.HOST_ROUTE[("gloo", "cpu")] = frozenset(ops)
+    C.reset_calls()
+    try:
+        routed = {k: f() for k, f in ops.items()}
+    finally:
+        C.HOST_ROUTE.clear()
+        C.HOST_ROUTE.update(saved)
+    return {"plain": plain, "routed": routed,
+            "copies": {k: int(v) for k, v in C.CALLS.items() if k.endswith(".host_copy")}}
+
+
+SERVE_PROMPTS = ((5, 9, 17, 3, 44), (7, 3, 29), (40, 2, 33, 8, 12, 6))
+SERVE_CACHE = dict(num_slots=2, page_size=4, pages_per_slot=4)
+SERVE_STEPS = 6
+
+
+def serve_generate(eng, cache, prompts=SERVE_PROMPTS, steps=SERVE_STEPS):
+    """Two prompts in one decode batch, then the third alone: prefill, then
+    ``steps`` greedy decode steps each; the slots stay allocated until the
+    batch ends.  Either package's engine."""
+    streams = []
+    for batch in (prompts[:2], prompts[2:]):
+        slots, toks = [], []
+        for p in batch:
+            s = cache.alloc(len(p), steps + 1)
+            first = np.asarray(eng.prefill(p, s))
+            cache.commit_prefill(s, len(p))
+            slots.append(s)
+            toks.append([int(np.argmax(first))])
+        for _ in range(steps):
+            t = np.zeros((cache.num_slots,), np.int32)
+            for s, tk in zip(slots, toks):
+                t[s] = tk[-1]
+            lg = np.asarray(eng.decode(t))
+            for s, tk in zip(slots, toks):
+                cache.advance(s)
+                tk.append(int(np.argmax(lg[s])))
+        for s in slots:
+            cache.free(s)
+        streams += toks
+    return streams
+
+
+def case_tp_serve(form, seed, tp=2):
+    """The serve tests' tiny Llama on a ("tp",) mesh of ``tp`` ranks over a
+    Shard(3) pool, from the numpy-seeded weights as Replicate host tensors
+    (``form="replicated"``) or as ``llama_plan`` DArray pieces
+    (``"plan"``): the greedy streams and this rank's pool piece."""
+    import re
+
+    from vescale_tpu_torch.darray import distribute_tensor
+    from vescale_tpu_torch.models import llama_plan
+    from vescale_tpu_torch.serve import KVCacheConfig, PagedKVCache, ServeEngine
+
+    cfg = tp_config("serve")
+    m = mesh([tp], ["tp"])
+    tree = _torch_tree(tp_tree("serve", seed))
+    if form == "plan":
+        plan = llama_plan(m)["parameter"]
+
+        def lay(node, path=""):
+            if isinstance(node, dict):
+                return {k: lay(v, f"{path}.{k}" if path else k) for k, v in node.items()}
+            return distribute_tensor(node, m, next(v for p, v in plan.items()
+                                                   if re.fullmatch(p, path)))
+
+        tree = lay(tree)
+    kc = KVCacheConfig(layers=cfg.num_hidden_layers, kv_heads=cfg.num_key_value_heads,
+                       head_dim=cfg.head_dim, **SERVE_CACHE)
+    cache = PagedKVCache(kc, mesh=m)
+    eng = ServeEngine(cfg, tree, cache, mesh=m)
+    streams = serve_generate(eng, cache)
+    return {"streams": streams, "k": cache.k, "v": cache.v, "graphed": eng.graphed,
+            "kv_local": int(cache.k.shape[3])}
+
+
+def case_tp_serve_paths(seed, tp=2):
+    """The multi-token step, the suffix prefill, ``swap_params`` and
+    ``decode_flops_per_step`` of the tensor-parallel engine against a
+    single-device engine on the same weights (both in this process): max
+    fp32 ulps at scale of ``decode_multi`` and ``prefill_suffix`` logits,
+    streams before, during and after a swap to other weights and back."""
+    from vescale_tpu_torch.kernels import ulps_at_scale
+    from vescale_tpu_torch.serve import KVCacheConfig, PagedKVCache, ServeEngine
+
+    cfg = tp_config("serve")
+    m = mesh([tp], ["tp"])
+    kc = KVCacheConfig(layers=cfg.num_hidden_layers, kv_heads=cfg.num_key_value_heads,
+                       head_dim=cfg.head_dim, **SERVE_CACHE)
+    tree = _torch_tree(tp_tree("serve", seed))
+    other = _torch_tree(tp_tree("serve", seed + 1))
+    tpe = ServeEngine(cfg, tree, PagedKVCache(kc, mesh=m), mesh=m)
+    one = ServeEngine(cfg, tree, PagedKVCache(kc, device="cpu"), device="cpu")
+    out = {"flops": [tpe.decode_flops_per_step(), one.decode_flops_per_step()]}
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3]
+    ulps = []
+    for eng in (tpe, one):
+        c = eng.cache
+        s_ = c.alloc(4, 8)
+        eng.prefill(prompt[:4], s_)
+        c.commit_prefill(s_, 4)
+        toks = np.zeros((c.num_slots, 3), np.int64)
+        toks[s_] = prompt[4:7]
+        eng._multi_out = eng.decode_multi(toks)[s_]
+        c.free(s_)
+        b = c.alloc(len(prompt), 2)
+        eng.prefill(prompt[:4], b)
+        c.commit_prefill(b, 4)
+        eng._suffix_out = eng.prefill_suffix(prompt, b, 4)
+        c.free(b)
+    ulps.append(ulps_at_scale(tpe._multi_out, one._multi_out))
+    ulps.append(ulps_at_scale(tpe._suffix_out, one._suffix_out))
+    out["ulps"] = ulps
+    before = tpe.replay_greedy(prompt, 6)
+    old = tpe.swap_params(other)
+    swapped = tpe.replay_greedy(prompt, 6)
+    tpe.swap_params(old)
+    out["streams"] = [before, swapped, tpe.replay_greedy(prompt, 6)]
+    one.swap_params(other)
+    out["single_swapped"] = one.replay_greedy(prompt, 6)
+    return out
+
+
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}
 
 

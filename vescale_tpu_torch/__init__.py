@@ -8,7 +8,9 @@ fleet replica over HTTP) and trains them on one
 card (the ``Llama`` module, ``AdamWLowmem`` and ``make_train_step``, with
 the flash-attention backward and a fused AdamW update), and trains nanoGPT
 (``GPT``) through ``vocab_parallel_cross_entropy`` and its fused
-cross-entropy kernels on batches from ``TokenDataLoader``.  Every kernel
+cross-entropy kernels on batches from ``TokenDataLoader``; both train and
+serve tensor- and sequence-parallel over a mesh (``dmodule.parallelize_module``
+with ``models.llama_plan`` / ``nanogpt_plan``).  Every kernel
 is hand-written CUDA for ``sm_90a``.  Entry points run on the card unless the
 caller passes ``device="cpu"``; kernels dispatch by the tensor's device.
 """

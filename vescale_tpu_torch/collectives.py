@@ -13,7 +13,20 @@ tensors live on the mesh's device and the group's backend carries them.
 Ragged and uneven pieces are padded to one chunk size, because both
 backends want equal-sized buffers, and unpadded after.
 
-``CALLS`` counts every collective issued, keyed by ``"<backend>.<op>"``.
+``CALLS`` counts every collective issued, keyed by ``"<backend>.<op>"``,
+and ``BYTES`` the bytes of each rank's operand under the same key.  With
+``TIMING`` set, each collective waits for the card's queued work first
+and ``SECONDS[op]`` adds its own wall time (a measurement mode: the waits
+change the overlap it measures).
+
+A backend may refuse a device's tensors for some ops.  ``HOST_ROUTE``
+names those ops for each (backend, device type); their operands are
+copied to the host, the op runs there and the result is copied back,
+each such copy counted under ``"<backend>.<op>.host_copy"``.  The rule
+is a table, fixed in advance: nothing catches a refusal and retries.  On
+the card gloo carries every collective on CUDA tensors and refuses only
+point-to-point sends (``mesh_ppermute``), so that is the one op the
+table routes.
 
 Not here yet: the quantized collectives (``q_*``, ``all_reduce_q``,
 ``reduce_scatter_q``) come with the data-parallel item, and the cost model
@@ -22,6 +35,8 @@ with the planner.
 
 from __future__ import annotations
 
+import functools
+import time
 import warnings
 from collections import Counter
 from typing import List, Sequence
@@ -32,7 +47,10 @@ import torch.distributed as dist
 from .mesh import DeviceMesh
 
 __all__ = [
+    "BYTES",
     "CALLS",
+    "SECONDS",
+    "HOST_ROUTE",
     "reset_calls",
     "mesh_all_reduce",
     "mesh_all_gather",
@@ -44,16 +62,61 @@ __all__ = [
 ]
 
 CALLS: Counter = Counter()
+BYTES: Counter = Counter()
+SECONDS: Counter = Counter()
+TIMING = False
+
+# (backend, device type) -> the ops that backend refuses on that device's
+# tensors.  gloo on CUDA tensors (torch 2.11, H100): point-to-point sends
+# hand the device pointer to the socket ("writev ... Bad address"); every
+# collective is carried (``chip_smoke.py --gloo-probe``)
+HOST_ROUTE = {("gloo", "cuda"): frozenset({"ppermute"})}
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
 
 def reset_calls() -> None:
     CALLS.clear()
+    BYTES.clear()
+    SECONDS.clear()
 
 
-def _count(group, op: str) -> None:
-    CALLS[f"{dist.get_backend(group)}.{op}"] += 1
+def _timed(op: str):
+    """Add the wrapped collective's wall time to ``SECONDS[op]`` while
+    ``TIMING`` is set, the card's queued work drained before and after."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if not TIMING:
+                return fn(*args, **kwargs)
+            cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if cuda:
+                torch.cuda.synchronize()
+            SECONDS[op] += time.perf_counter() - t0
+            return out
+        return run
+    return wrap
+
+
+def _count(group, op: str, t: torch.Tensor = None) -> None:
+    key = f"{dist.get_backend(group)}.{op}"
+    CALLS[key] += 1
+    if t is not None:
+        BYTES[key] += t.numel() * t.element_size()
+
+
+def _via_host(group, op: str, t: torch.Tensor) -> bool:
+    """Whether ``op`` on ``t`` runs on a host copy (``HOST_ROUTE``); counts
+    the copy when it does."""
+    backend = dist.get_backend(group)
+    if op not in HOST_ROUTE.get((backend, t.device.type), ()):
+        return False
+    CALLS[f"{backend}.{op}.host_copy"] += 1
+    return True
 
 
 def _quiet(fn, *args, **kwargs):
@@ -65,28 +128,31 @@ def _quiet(fn, *args, **kwargs):
 
 
 # ------------------------------------------------------------ primitives
+@_timed("all_reduce")
 def all_reduce(t: torch.Tensor, group, reduce_op: str = "sum") -> torch.Tensor:
     """The reduction of every member's ``t`` (a new tensor).  ``avg`` is a
     sum divided by the group size, as ``jax.lax.pmean`` computes it."""
     out = t.contiguous().clone()
-    _count(group, "all_reduce")
+    _count(group, "all_reduce", out)
     dist.all_reduce(out, op=_OPS["sum" if reduce_op == "avg" else reduce_op], group=group)
     if reduce_op == "avg":
         out = out / dist.get_world_size(group)
     return out
 
 
+@_timed("all_gather")
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """Every member's ``t`` (equal shapes) concatenated along dim 0, in
     group-rank order."""
     t = t.contiguous()
     n = dist.get_world_size(group)
     out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
-    _count(group, "all_gather")
+    _count(group, "all_gather", t)
     _quiet(dist.all_gather_into_tensor, out, t, group=group)
     return out
 
 
+@_timed("reduce_scatter")
 def reduce_scatter(t: torch.Tensor, group, reduce_op: str = "sum") -> torch.Tensor:
     """Dim 0 of ``t`` cut into group-size equal chunks; this member gets
     the reduction of every member's chunk at its own group rank."""
@@ -95,7 +161,7 @@ def reduce_scatter(t: torch.Tensor, group, reduce_op: str = "sum") -> torch.Tens
     if t.shape[0] % n:
         raise ValueError(f"reduce_scatter: dim 0 of {tuple(t.shape)} not divisible by {n}")
     out = t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
-    _count(group, "reduce_scatter")
+    _count(group, "reduce_scatter", t)
     _quiet(dist.reduce_scatter_tensor, out, t,
            op=_OPS["sum" if reduce_op == "avg" else reduce_op], group=group)
     if reduce_op == "avg":
@@ -103,13 +169,14 @@ def reduce_scatter(t: torch.Tensor, group, reduce_op: str = "sum") -> torch.Tens
     return out
 
 
+@_timed("all_to_all")
 def all_to_all_v(send: torch.Tensor, send_splits: Sequence[int], recv_splits: Sequence[int],
                  group) -> torch.Tensor:
     """A flat all-to-all with per-member split sizes (all-to-all-v):
     ``send`` is the concatenation of the pieces for each member in group
     order; the result concatenates the pieces received from each."""
     out = send.new_empty((int(sum(recv_splits)),))
-    _count(group, "all_to_all")
+    _count(group, "all_to_all", send)
     dist.all_to_all_single(out, send.contiguous(), output_split_sizes=list(recv_splits),
                            input_split_sizes=list(send_splits), group=group)
     return out
@@ -181,6 +248,7 @@ def mesh_all_to_all(tensor: torch.Tensor, mesh: DeviceMesh, mesh_dim=0, split_di
     return torch.cat([p.view(shape) for p in out.split(sizes)], dim=concat_dim)
 
 
+@_timed("broadcast")
 def mesh_broadcast(tensor: torch.Tensor, mesh: DeviceMesh, mesh_dim=0,
                    src_rank: int = 0) -> torch.Tensor:
     """Rank ``src_rank``'s ``tensor`` (its index along ``mesh_dim``) on
@@ -188,7 +256,7 @@ def mesh_broadcast(tensor: torch.Tensor, mesh: DeviceMesh, mesh_dim=0,
     tensor of the same shape and dtype."""
     g = mesh.get_group(mesh_dim)
     out = tensor.contiguous().clone()
-    _count(g, "broadcast")
+    _count(g, "broadcast", out)
     dist.broadcast(out, src=dist.get_global_rank(g, src_rank), group=g)
     return out
 
@@ -199,6 +267,7 @@ def _split_sizes(extent: int, n: int) -> List[int]:
     return [q + 1 if j < r else q for j in range(n)]
 
 
+@_timed("scatter")
 def mesh_scatter(tensor: torch.Tensor, mesh: DeviceMesh, mesh_dim=0, scatter_dim: int = 0,
                  src_rank: int = 0) -> torch.Tensor:
     """Rank ``src_rank``'s ``tensor`` cut along ``scatter_dim`` as
@@ -216,11 +285,12 @@ def mesh_scatter(tensor: torch.Tensor, mesh: DeviceMesh, mesh_dim=0, scatter_dim
     pieces = None
     if me == src_rank:
         pieces = [pad_dim0(p, pad).contiguous() for p in torch.split(moved, sizes)]
-    _count(g, "scatter")
+    _count(g, "scatter", out)
     dist.scatter(out, scatter_list=pieces, src=src, group=g)
     return out.narrow(0, 0, sizes[me]).movedim(0, scatter_dim).contiguous()
 
 
+@_timed("ppermute")
 def mesh_ppermute(tensor: torch.Tensor, mesh: DeviceMesh, mesh_dim=0, shift: int = 1) -> torch.Tensor:
     """Rank ``j`` sends ``tensor`` to rank ``j + shift`` (mod the dim size)
     and returns what rank ``j - shift`` sent: the ring permute of pipeline
@@ -232,9 +302,11 @@ def mesh_ppermute(tensor: torch.Tensor, mesh: DeviceMesh, mesh_dim=0, shift: int
     out = torch.empty_like(send)
     if shift % n == 0:
         return send.clone()
-    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(g, (me + shift) % n), g),
-           dist.P2POp(dist.irecv, out, dist.get_global_rank(g, (me - shift) % n), g)]
-    _count(g, "ppermute")
+    _count(g, "ppermute", send)
+    host = _via_host(g, "ppermute", send)
+    s_buf, r_buf = (send.cpu(), out.cpu()) if host else (send, out)
+    ops = [dist.P2POp(dist.isend, s_buf, dist.get_global_rank(g, (me + shift) % n), g),
+           dist.P2POp(dist.irecv, r_buf, dist.get_global_rank(g, (me - shift) % n), g)]
     for w in dist.batch_isend_irecv(ops):
         w.wait()
-    return out
+    return out.copy_(r_buf) if host else out

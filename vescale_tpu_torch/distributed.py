@@ -177,10 +177,12 @@ def allgather_ints(values: Sequence[int], tag: str = "vescale_allgather",
 
 def initialize(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
                process_id: Optional[int] = None, local_device_ids: Optional[Sequence[int]] = None,
-               *, device_type: str = "cuda", timeout_s: Optional[float] = None) -> None:
+               *, device_type: str = "cuda", timeout_s: Optional[float] = None,
+               backend: Optional[str] = None) -> None:
     """Join this process to the world (reference ``initialize``; upstream
-    ``init_process_group``): the default process group, NCCL for
-    ``device_type="cuda"`` and gloo for ``"cpu"``.  The group meets at
+    ``init_process_group``): the default process group of ``backend``
+    (default NCCL for ``device_type="cuda"`` and gloo for ``"cpu"``;
+    ``backend="gloo"`` with ``"cuda"`` lets several ranks share a card).  The group meets at
     ``tcp://<coordinator_address>`` (host:port) with ``num_processes`` and
     ``process_id``; without an address, at torch's ``env://`` rendezvous
     (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, as
@@ -192,7 +194,9 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
 
     if is_initialized():
         return
-    backend = backend_of(device_type)
+    backend = backend_of(device_type) if backend is None else backend
+    if backend not in ("nccl", "gloo") or (backend == "nccl" and device_type != "cuda"):
+        raise ValueError(f"backend {backend!r} for device_type {device_type!r}")
     kw = {} if timeout_s is None else {"timeout": timedelta(seconds=timeout_s)}
     if coordinator_address is not None:
         if num_processes is None or process_id is None:

@@ -221,19 +221,27 @@ def init_device_mesh(
     mesh_shape: Sequence[int],
     *,
     mesh_dim_names: Optional[Sequence[str]] = None,
+    backend: Optional[str] = None,
 ) -> DeviceMesh:
     """A live mesh over every rank of the default process group: one
-    process group per mesh dim, NCCL for ``"cuda"`` and gloo for ``"cpu"``
-    (reference init_device_mesh).  The default group must exist
-    (``torch.distributed.init_process_group``, or
-    ``vescale_tpu_torch.distributed.initialize``) and its world size must
-    equal the mesh's size.  ``"cuda"`` without a card raises."""
+    process group per mesh dim, of ``backend`` (default NCCL for
+    ``"cuda"`` and gloo for ``"cpu"``; passed to torch's
+    ``backend_override``) (reference init_device_mesh).  ``backend="gloo"``
+    on a ``"cuda"`` mesh keeps the tensors on the card and carries them
+    over gloo: several ranks may then share one card, which NCCL refuses.
+    The default group must exist (``torch.distributed.init_process_group``,
+    or ``vescale_tpu_torch.distributed.initialize``) and its world size
+    must equal the mesh's size.  ``"cuda"`` without a card raises."""
     from torch.distributed.device_mesh import init_device_mesh as _torch_init
 
-    backend = backend_of(device_type)
+    backend = backend_of(device_type) if backend is None else backend
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}: expected 'nccl' or 'gloo'")
+    if backend == "nccl" and device_type != "cuda":
+        raise ValueError("NCCL carries CUDA tensors only: make a 'cuda' mesh or use gloo")
     if device_type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: init_device_mesh('cuda', ...) needs the card "
-                           "(NCCL); make a 'cpu' mesh for gloo")
+        raise RuntimeError("no CUDA device: init_device_mesh('cuda', ...) needs the card; "
+                           "make a 'cpu' mesh for gloo")
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("torch.distributed is not initialized: call "
                            "torch.distributed.init_process_group (or "

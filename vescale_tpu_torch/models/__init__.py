@@ -16,10 +16,11 @@ from .llama import (
     OPEN_LLAMA_3B,
     Llama,
     LlamaConfig,
+    llama_plan,
     rmsnorm,
     rotary,
 )
-from .nanogpt import GPT, GPTConfig, cross_entropy_loss
+from .nanogpt import GPT, GPTConfig, cross_entropy_loss, nanogpt_plan
 
 __all__ = [
     "GPT",
@@ -27,6 +28,8 @@ __all__ = [
     "Llama",
     "LlamaConfig",
     "cross_entropy_loss",
+    "llama_plan",
+    "nanogpt_plan",
     "load_params",
     "module_tree",
     "rmsnorm",

@@ -14,6 +14,10 @@ fp32 math, then the result cast).  Attention runs
 repeating K/V.  The serve engine keeps its own functional forward over the
 same parameter tree.
 
+``llama_plan`` is the reference's TP/SP sharding plan for
+``dmodule.parallelize_module``; a parallelized ``Llama`` computes on this
+rank's weight pieces (``Dense``, ``Embed``, ``LlamaAttention``).
+
 ``remat`` with ``remat_scope`` "block" or "mlp" checkpoints through
 ``torch.utils.checkpoint``.  ``scan_layers``, ``remat_policy`` and
 ``use_fp8`` are accepted by the config, so that a config moves between the
@@ -44,6 +48,7 @@ __all__ = [
     "LlamaMLP",
     "LlamaBlock",
     "Llama",
+    "llama_plan",
     "LLAMA2_7B",
     "LLAMA3_8B",
     "LLAMA3_70B",
@@ -169,10 +174,34 @@ class RMSNorm(nn.Module):
         return rmsnorm(x, self.weight, self.eps).to(self.dtype)
 
 
+def _tp_dense(x, kernel, bias, dtype, kind: str, tp):
+    """A dense layer on this rank's kernel piece.  ``"col"``: kernel (in,
+    out/tp) and bias (out/tp,), ``x`` entering tensor-parallel compute,
+    the output Shard(-1).  ``"row"``: kernel (in/tp, out), ``x`` this
+    rank's features (a full-width ``x`` is cut to them), the products
+    summed over the dim, then the whole bias added once (the reference's
+    ``linear.py:56``); the output Replicate."""
+    from ..dmodule import _comm
+    from ..placements import Shard
+
+    if kind == "col":
+        x = _comm.enter_tp(x, tp)
+        y = x.to(dtype) @ kernel.to(dtype)
+        if bias is not None:
+            y = y + bias.to(dtype)
+        return _comm.tag(y, tp.placements(Shard(y.ndim - 1)))
+    if x.shape[-1] != kernel.shape[0]:
+        x = _comm.take_piece(x, tp, -1)
+    y = _comm.reduce_from_tp(x.to(dtype) @ kernel.to(dtype), tp)
+    return y if bias is None else y + bias.to(dtype)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``kernel`` (in, out) and, with ``use_bias``,
     ``bias`` (out,); input, kernel and bias cast to ``dtype``, then the
-    product, then the bias added (two roundings, as in flax)."""
+    product, then the bias added (two roundings, as in flax).  A kernel
+    sharded by ``parallelize_module`` makes it column-parallel
+    (``Shard(1)``) or row-parallel (``Shard(0)``): ``_tp_dense``."""
 
     def __init__(self, features_in: int, features_out: int, dtype, device=None,
                  use_bias: bool = False):
@@ -180,29 +209,86 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.kernel = _param((features_in, features_out), device)
         self.bias = _param((features_out,), device) if use_bias else None
+        self.tp, self.tp_kind = None, None
+
+    def shard_param(self, name: str, placement, tp) -> None:
+        """``parallelize_module``'s notice that ``name`` is now a piece."""
+        kind = {("kernel", 1): "col", ("kernel", 0): "row", ("bias", 0): "col"}.get(
+            (name, getattr(placement, "dim", None)))
+        if kind is None or (self.tp_kind not in (None, kind)):
+            raise NotImplementedError(f"Dense.{name} as {placement} (kernel {self.tp_kind})")
+        self.tp, self.tp_kind = tp, kind
 
     def forward(self, x):
+        if self.tp is not None:
+            return _tp_dense(x, self.kernel, self.bias, self.dtype, self.tp_kind, self.tp)
         y = x.to(self.dtype) @ self.kernel.to(self.dtype)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
+def _vocab_lookup(idx, table, dtype, tp):
+    """A vocab-sharded lookup: this rank's rows (ids outside them read
+    zeros), summed over the dim."""
+    from ..dmodule import _comm
+
+    n = table.shape[0]
+    lo = tp.rank * n
+    hit = (idx >= lo) & (idx < lo + n)
+    y = F.embedding(torch.where(hit, idx - lo, torch.zeros_like(idx)), table.to(dtype))
+    return _comm.reduce_from_tp(y * hit[..., None].to(dtype), tp)
+
+
 class Embed(nn.Module):
     """flax ``nn.Embed``: the table cast to ``dtype``, then gathered;
-    ``attend`` is the tied head."""
+    ``attend`` is the tied head.  A table sharded by
+    ``parallelize_module`` on the hidden dim (``Shard(1)``) looks up this
+    rank's columns and all-gathers them (Replicate out), and ``attend``
+    gives Partial logits; on the vocab dim (``Shard(0)``) the lookup is
+    masked and summed, and ``attend`` gives vocab-sharded logits."""
 
     def __init__(self, num: int, features: int, dtype, device=None):
         super().__init__()
         self.dtype = dtype
         self.embedding = _param((num, features), device)
+        self.tp, self.tp_kind = None, None
+
+    def shard_param(self, name: str, placement, tp) -> None:
+        kind = {1: "hidden", 0: "vocab"}.get(getattr(placement, "dim", None))
+        if kind is None:
+            raise NotImplementedError(f"Embed.{name} as {placement}")
+        self.tp, self.tp_kind = tp, kind
 
     def forward(self, idx):
-        return F.embedding(idx, self.embedding.to(self.dtype))
+        if self.tp is None:
+            return F.embedding(idx, self.embedding.to(self.dtype))
+        from ..dmodule import _comm
+
+        if self.tp_kind == "vocab":
+            return _vocab_lookup(idx, self.embedding, self.dtype, self.tp)
+        y = F.embedding(idx, self.embedding.to(self.dtype))
+        return _comm.all_gather(y, self.tp, -1, False)
 
     def attend(self, x):
-        return x.to(self.dtype) @ self.embedding.to(self.dtype).T
+        if self.tp is None:
+            return x.to(self.dtype) @ self.embedding.to(self.dtype).T
+        from ..dmodule import _comm
+        from ..placements import Partial, Shard
+
+        tp = self.tp
+        if self.tp_kind == "vocab":
+            y = _comm.enter_tp(x, tp).to(self.dtype) @ self.embedding.to(self.dtype).T
+            return _comm.tag(y, tp.placements(Shard(y.ndim - 1)))
+        y = _comm.take_piece(x, tp, -1).to(self.dtype) @ self.embedding.to(self.dtype).T
+        return _comm.tag(y, tp.placements(Partial()))
 
 
 class LlamaAttention(nn.Module):
+    """Grouped-query attention.  Its head counts are read from its
+    weights, so a tensor-parallel rank (column-parallel q/k/v, row-parallel
+    o) attends over its own H/tp query and KV/tp kv heads."""
+
+    _tp_region = True  # its input feeds column-parallel products
+
     def __init__(self, c: LlamaConfig, device=None):
         super().__init__()
         self.config = c
@@ -215,16 +301,29 @@ class LlamaAttention(nn.Module):
     def forward(self, x, positions):
         c = self.config
         B, T, _ = x.shape
-        H, KV, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        hd = c.head_dim
+        H, KV = self.q_proj.kernel.shape[1] // hd, self.k_proj.kernel.shape[1] // hd
+        if KV < 1 or KV * hd != self.k_proj.kernel.shape[1] or H % KV:
+            raise ValueError(f"attention pieces of {H} query and {self.k_proj.kernel.shape[1]} "
+                             f"key columns do not hold whole GQA groups of head_dim {hd}")
+        tp = self.q_proj.tp
+        if tp is not None:
+            from ..dmodule._comm import enter_tp
+
+            x = enter_tp(x, tp)  # once for q, k and v
         q = self.q_proj(x).reshape(B, T, H, hd)
         k = self.k_proj(x).reshape(B, T, KV, hd)
         v = self.v_proj(x).reshape(B, T, KV, hd)
         q, k = rotary(q, k, positions, c.rope_theta)
         if c.use_flash_attention:
-            from ..ops.flash_attention import flash_attention
+            from ..ops.flash_attention import flash_attention, flash_attention_sharded
 
             # GQA runs natively in the kernels: no repeated K/V
-            y = flash_attention(q, k, v, causal=True).reshape(B, T, H * hd)
+            if tp is not None:
+                y = flash_attention_sharded(q, k, v, tp.mesh, causal=True)
+            else:
+                y = flash_attention(q, k, v, causal=True)
+            y = y.reshape(B, T, H * hd)
         else:
             if KV != H:  # GQA: repeat kv heads for the dense einsum
                 k = torch.repeat_interleave(k, H // KV, dim=2)
@@ -238,7 +337,10 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    """SwiGLU: ``down(silu(gate(x)) * up(x))`` in the compute dtype."""
+    """SwiGLU: ``down(silu(gate(x)) * up(x))`` in the compute dtype; under
+    tensor parallelism on this rank's intermediate columns."""
+
+    _tp_region = True
 
     def __init__(self, c: LlamaConfig, device=None):
         super().__init__()
@@ -248,6 +350,10 @@ class LlamaMLP(nn.Module):
         self.down_proj = Dense(Fi, E, c.dtype, device)
 
     def forward(self, x):
+        if self.gate_proj.tp is not None:
+            from ..dmodule._comm import enter_tp
+
+            x = enter_tp(x, self.gate_proj.tp)  # once for gate and up
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
@@ -312,3 +418,49 @@ class Llama(nn.Module):
         if c.tie_word_embeddings:
             return self.embed_tokens.attend(x)
         return self.lm_head(x)
+
+
+def llama_plan(mesh, sequence_parallel: bool = True, scanned: bool = False):
+    """TP/SP plan (reference ``models/llama.py::llama_plan``, after
+    legacy/examples/open_llama_4D_benchmark/sharding_plan.py): column-parallel
+    q/k/v + gate/up, row-parallel o/down, hidden-sharded embedding,
+    vocab-sharded head; RMSNorms replicated with SP activations.  The same
+    regexes as the reference; shardings bind to the mesh dims *named*
+    "dp"/"tp" (``plan_axes``), and the forward-plan regexes tolerate a
+    missing ``layers_N.`` prefix.  ``scanned=True`` (the ``scan_layers``
+    layout) raises: ``scan_layers`` is not ported (ROADMAP.md queue A,
+    item 2)."""
+    if scanned:
+        raise NotImplementedError("llama_plan(scanned=True): scan_layers is not ported yet "
+                                  "(ROADMAP.md queue A, item 2)")
+    from ..placements import Shard, plan_axes
+
+    S = Shard
+    col = plan_axes(mesh, tp=S(1))  # column-parallel kernel (in, out/tp)
+    row = plan_axes(mesh, tp=S(0))  # row-parallel kernel (in/tp, out)
+    rep = plan_axes(mesh)
+    dp_only = plan_axes(mesh, dp=S(0))
+    seq_par = plan_axes(mesh, dp=S(0), tp=S(1)) if sequence_parallel else dp_only
+    blk = r"(layers_\d+\.)?"
+    param_plan = {
+        r"embed_tokens\.embedding": col,
+        blk + r"self_attn\.(q_proj|k_proj|v_proj)\.kernel": col,
+        blk + r"self_attn\.o_proj\.kernel": row,
+        blk + r"mlp\.(gate_proj|up_proj)\.kernel": col,
+        blk + r"mlp\.down_proj\.kernel": row,
+        r"lm_head\.kernel": col,
+        r".*layernorm\.weight": rep,
+        r"norm\.weight": rep,
+        r".*": rep,
+    }
+    fwd_plan = {
+        r"": {"input": [dp_only], "output": [dp_only]},
+        blk + r"(input_layernorm|post_attention_layernorm)": {
+            "input": [seq_par],
+            "output": [seq_par],
+        },
+        blk + r"self_attn": {"input": [dp_only], "output": [dp_only]},
+        blk + r"mlp": {"input": [dp_only], "output": [dp_only]},
+        r"norm": {"input": [seq_par], "output": [dp_only]},
+    }
+    return {"parameter": param_plan, "forward": fwd_plan}

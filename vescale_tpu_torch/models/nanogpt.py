@@ -17,9 +17,12 @@ default), and the head is tied: ``wte.attend``.  Attention runs
 ``use_flash_attention``, else the reference's dense einsum branch in the
 compute dtype.
 
+``nanogpt_plan`` is the reference's TP/SP plan for
+``dmodule.parallelize_module``.
+
 Not here yet: dropout (``dropout > 0`` raises; its RNG streams are an open
-item of ROADMAP.md queue A, item 5), ``nanogpt_plan`` (waits for items 9
-and 10) and the pipeline stage units (item 15).
+item of ROADMAP.md queue A, item 5) and the pipeline stage units (item
+15).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..device import resolve_device
 from .llama import Dense, Embed, _param
 
 __all__ = ["GPTConfig", "LayerNorm", "CausalSelfAttention", "MLP", "Block", "GPT",
-           "cross_entropy_loss"]
+           "cross_entropy_loss", "nanogpt_plan"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +81,15 @@ class LayerNorm(nn.Module):
 
 
 class CausalSelfAttention(nn.Module):
+    """Multi-head attention over the fused ``c_attn`` projection.  Under
+    tensor parallelism ``c_attn`` is column-parallel on its fused (q | k |
+    v) columns, whose pieces do not follow head boundaries: the pieces are
+    all-gathered (reduce-scatter backward) and this rank keeps its
+    ``c_proj`` rows' heads of q, k and v, so its head count is read from
+    ``c_proj``'s local kernel."""
+
+    _tp_region = True
+
     def __init__(self, c: GPTConfig, device=None):
         super().__init__()
         self.config = c
@@ -86,26 +98,43 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x):
         c = self.config
-        B, T, E = x.shape
-        H, hd = c.n_head, E // c.n_head
-        q, k, v = self.c_attn(x).split(E, dim=-1)
+        B, T, _ = x.shape
+        E = c.n_embd
+        hd = E // c.n_head
+        El = self.c_proj.kernel.shape[0]  # this rank's q/k/v width
+        H = El // hd
+        qkv = self.c_attn(x)
+        tp = self.c_attn.tp
+        if tp is not None:
+            from ..dmodule._comm import all_gather
+
+            qkv = all_gather(qkv, tp, -1, True)
+        q, k, v = qkv.split(E, dim=-1)
+        if El != E:
+            q, k, v = (t.narrow(-1, tp.rank * El, El) for t in (q, k, v))
         q, k, v = (t.reshape(B, T, H, hd) for t in (q, k, v))
         if c.use_flash_attention:
-            from ..ops.flash_attention import flash_attention
+            from ..ops.flash_attention import flash_attention, flash_attention_sharded
 
-            y = flash_attention(q, k, v, causal=True).reshape(B, T, E)
+            if tp is not None:
+                y = flash_attention_sharded(q, k, v, tp.mesh, causal=True).reshape(B, T, El)
+            else:
+                y = flash_attention(q, k, v, causal=True).reshape(B, T, El)
         else:
             # the reference's dense branch, op by op in the compute dtype
             att = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
             mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device))
             att = torch.where(mask, att, torch.full_like(att, torch.finfo(att.dtype).min))
             att = torch.softmax(att, dim=-1)
-            y = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, T, E)
+            y = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, T, El)
         return self.c_proj(y)
 
 
 class MLP(nn.Module):
-    """``c_proj(gelu(c_fc(x)))`` with the tanh GELU, in the compute dtype."""
+    """``c_proj(gelu(c_fc(x)))`` with the tanh GELU, in the compute dtype;
+    column- then row-parallel under tensor parallelism."""
+
+    _tp_region = True
 
     def __init__(self, c: GPTConfig, device=None):
         super().__init__()
@@ -175,3 +204,45 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Ten
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return torch.mean(logz - gold)
+
+
+def nanogpt_plan(mesh, sequence_parallel: bool = True):
+    """TP/SP sharding plan over mesh dims ("dp", "tp") (reference
+    ``models/nanogpt.py::nanogpt_plan``, after
+    legacy/examples/nanogpt_4D_finetune/sharding_plan.py:23-70), with the
+    reference's regexes: column-parallel c_attn/c_fc, row-parallel c_proj,
+    hidden-sharded embeddings, LayerNorms replicated; batch over dp, the
+    LayerNorm regions sequence-parallel, attn/mlp tensor-parallel."""
+    from ..placements import Shard, plan_axes
+
+    S = Shard
+    col = plan_axes(mesh, tp=S(1))
+    # column-parallel bias and row-parallel kernel both shard tensor dim 0 on tp
+    row = plan_axes(mesh, tp=S(0))
+    col_b = row
+    rep = plan_axes(mesh)
+    dp_only = plan_axes(mesh, dp=S(0))  # activations (B, T, E): batch over dp
+    seq_par = plan_axes(mesh, dp=S(0), tp=S(1)) if sequence_parallel else dp_only
+    param_plan = {
+        r"wte\.embedding": col,
+        r"wpe\.embedding": col,
+        r"h_\d+\.attn\.c_attn\.kernel": col,
+        r"h_\d+\.attn\.c_attn\.bias": col_b,
+        r"h_\d+\.attn\.c_proj\.kernel": row,
+        r"h_\d+\.attn\.c_proj\.bias": rep,
+        r"h_\d+\.mlp\.c_fc\.kernel": col,
+        r"h_\d+\.mlp\.c_fc\.bias": col_b,
+        r"h_\d+\.mlp\.c_proj\.kernel": row,
+        r"h_\d+\.mlp\.c_proj\.bias": rep,
+        # LayerNorm scales/biases replicated (their grads summed by grad sync)
+        r".*ln_\d*\.(scale|bias)": rep,
+        r".*": rep,
+    }
+    fwd_plan = {
+        r"": {"input": [dp_only], "output": [dp_only]},
+        r"h_\d+\.ln_[12]": {"input": [seq_par], "output": [seq_par]},
+        r"h_\d+\.attn": {"input": [dp_only], "output": [dp_only]},
+        r"h_\d+\.mlp": {"input": [dp_only], "output": [dp_only]},
+        r"ln_f": {"input": [seq_par], "output": [dp_only]},
+    }
+    return {"parameter": param_plan, "forward": fwd_plan}

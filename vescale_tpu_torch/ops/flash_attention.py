@@ -4,7 +4,9 @@ The port of ``vescale_tpu/ops/flash_attention.py::flash_attention``: a
 ``torch.autograd.Function`` (the reference's ``custom_vjp``) whose forward
 runs ``kernels.flash_fwd`` and saves q, k, v, o and the logsumexp, and
 whose backward runs ``kernels.flash_bwd``.  Under ``torch.no_grad`` (the
-serve path) only the forward runs.  No sharding rule yet.  The kernels mask
+serve path) only the forward runs.  ``flash_attention_sharded`` is the
+reference's multi-rank entry: it runs the same op on this rank's batch
+and head pieces, with no communication.  The kernels mask
 any T, so there is no block-size divisibility rule and no dense fallback:
 a CUDA tensor always runs the kernels, a CPU tensor their plain versions.
 """
@@ -18,7 +20,7 @@ import torch
 
 from ..kernels.flash_attention import flash_bwd, flash_fwd
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_attention_sharded"]
 
 _NEG_INF = -1e30
 
@@ -82,3 +84,27 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
         raise ValueError(f"q heads {H} not a multiple of kv heads {G}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     return _Flash.apply(q, k, v, float(scale), bool(causal))
+
+
+def flash_attention_sharded(q, k, v, mesh, *, batch_dims=("dp",), head_dim: Optional[str] = "tp",
+                            causal: bool = True, scale: Optional[float] = None):
+    """Multi-rank flash attention (reference ``ops/flash_attention.py:346``):
+    batch sharded over ``batch_dims`` and heads over ``head_dim``.
+    Attention is independent per (batch, head), so each rank runs
+    :func:`flash_attention` (the kernels) on its own pieces with no
+    communication.  ``q``: this rank's (B/dp, T, H/tp, D) piece, ``k``/``v``
+    its (B/dp, T, KV/tp, D) pieces (heads [r·H/tp, (r+1)·H/tp) for the
+    coordinate r on ``head_dim``); returns its (B/dp, T, H/tp, D) output
+    piece.  A GQA group must not straddle ranks: KV divisible by the head
+    dim's size, as the reference's shard_map requires, so the local pieces
+    keep H/KV.  ``batch_dims`` is taken as the reference takes it, and
+    asks for no check: each rank's batch piece is its own.  ``scale``
+    defaults to 1/sqrt(D)."""
+    hd = head_dim if head_dim in mesh.mesh_dim_names else None
+    if hd is not None:
+        H, G = q.shape[2], k.shape[2]
+        if G < 1 or H % G or v.shape[2] != G:
+            raise ValueError(f"flash_attention_sharded: local q heads {H}, kv heads {G} "
+                             f"and {v.shape[2]}: the kv heads must split over {hd!r} "
+                             "with their query groups")
+    return flash_attention(q, k, v, causal=causal, scale=scale)

@@ -34,6 +34,21 @@ PyTorch on one device.
   The JAX package computes this step outside any Pallas kernel, so it is
   plain PyTorch here too, eager.
 
+**Tensor parallelism** — on a mesh whose dim named "tp" shards the pool's
+kv heads (``PagedKVCache(..., mesh=)``, Shard(3) by default) each rank
+holds the ``llama_plan`` pieces of the weights: ``DArray`` leaves laid out
+by ``llama_plan`` are taken as they are, and replicated leaves (the JAX
+package's own tp2 form: replicated weights over a Shard(3) pool) are cut
+to those pieces at construction.  A rank embeds through its hidden columns
+and all-gathers them, runs prefill (flash) and decode (paged) on its H/tp
+query and KV/tp kv heads against its own pool piece, sums the
+row-parallel o/down products over "tp" (all-reduce), and all-gathers the
+vocab-sharded logits before the greedy argmax, so ties break as on one
+device.  The decode step is a CUDA graph only when every collective in it
+can be captured, i.e. when the "tp" group is NCCL; over gloo (several
+ranks on one card) the step runs eagerly.  ``graphed`` reports the
+choice, made from the mesh's backend at construction.
+
 Decode is a deterministic function of (params, prompt, cache geometry): a
 slot's result depends on its own tokens only, so a request replayed in any
 slot and any pages regenerates the same tokens.  ``replay_greedy`` is the
@@ -157,9 +172,11 @@ class ServeEngine:
 
     With ``mesh`` (a ``DeviceMesh``) the mesh's device is the engine's
     device (a different ``device`` raises), leaves may be ``DArray`` pieces
-    laid out ``Replicate`` on that mesh, and host leaves are replicated
-    onto it once here, as the JAX engine does (``_replicate``).  Sharded
-    weights wait for tensor parallelism."""
+    on that mesh, and host leaves are replicated onto it once here, as the
+    JAX engine does (``_replicate``).  When the cache's pool is sharded on
+    the mesh's "tp" dim the engine runs tensor-parallel (module
+    docstring): sharded leaves must be laid out as ``llama_plan`` lays
+    them out."""
 
     def __init__(
         self,
@@ -182,6 +199,19 @@ class ServeEngine:
             self.device = resolve_device(device)
         if cache.device != self.device:
             raise ValueError(f"cache lives on {cache.device}, engine on {self.device}")
+        self.tp = None
+        if cache.spec is not None:
+            if mesh is None or cache.mesh != mesh:
+                raise ValueError(f"the cache's pool lives on {cache.mesh}, the engine on {mesh}")
+            from ..dmodule._comm import TPDim
+
+            for i, p in enumerate(cache.spec.placements):
+                if p.is_shard(3) and mesh.shape[i] > 1:
+                    if mesh.dim_name(i) != "tp":
+                        raise NotImplementedError(
+                            f"kv heads sharded on mesh dim {mesh.dim_name(i)!r}: the engine "
+                            "shards its weights as llama_plan does, on the dim named 'tp'")
+                    self.tp = TPDim(mesh, i)
         if cache.config.layers != c.num_hidden_layers:
             raise ValueError(
                 f"cache has {cache.config.layers} layers, model {c.num_hidden_layers}"
@@ -199,33 +229,56 @@ class ServeEngine:
         self.num_stages = num_stages
         params = _as_tree(params)
         stack_params_check(params, c.num_hidden_layers)
+        self._specs = self._plan_specs()
         self.params = self._place(params)
         self.stage_bounds = self._stage_bounds(num_stages)
         self._positions = torch.arange(cache.max_seq_len, device=self.device)[None, :]
         self._scale = 1.0 / math.sqrt(c.head_dim)
         self._graph: Optional[_DecodeGraph] = None
+        # a graph captures every collective of the step: NCCL ones only
+        self.graphed = self.device.type == "cuda" and (
+            self.tp is None or torch.distributed.get_backend(mesh.get_group(self.tp.index)) == "nccl")
 
     # ------------------------------------------------------------- params
-    def _place(self, tree):
-        if isinstance(tree, dict):
-            return {k: self._place(v) for k, v in tree.items()}
-        from ..darray import DArray, distribute_tensor
+    def _plan_specs(self) -> Dict[str, Any]:
+        """Each weight path's ``llama_plan`` placements under tensor
+        parallelism (empty without it)."""
+        if self.tp is None:
+            return {}
+        from ..dmodule.api import _match
+        from ..models.convert import _flatten, param_shapes
+        from ..models.llama import llama_plan
 
+        plan = llama_plan(self.mesh)["parameter"]
+        return {path: _match(plan, path)[1] for path in _flatten(param_shapes(self.config))}
+
+    def _place(self, tree, path: str = ""):
+        if isinstance(tree, dict):
+            return {k: self._place(v, f"{path}.{k}" if path else k) for k, v in tree.items()}
+        from ..darray import DArray, distribute_tensor
+        from ..placements import normalize_placements
+
+        want = self._specs.get(path)
         if isinstance(tree, DArray):
             if self.mesh is not None and tree.mesh != self.mesh:
                 raise ValueError(f"a weight lives on {tree.mesh}, the engine on {self.mesh}")
-            if not tree.spec.is_replicated():
-                raise ValueError(f"the engine serves replicated weights; got {tree.placements} "
-                                 "(sharded weights come with tensor parallelism)")
+            if tree.spec.is_replicated() and want is not None:
+                return distribute_tensor(tree.to_local(), self.mesh, want).to_local()
+            if not tree.spec.is_replicated() and (
+                    want is None or tree.placements != normalize_placements(
+                        want, self.mesh.ndim, tree.ndim)):
+                raise ValueError(f"{path}: placements {tree.placements}; the engine serves "
+                                 "replicated weights or llama_plan's pieces over a Shard(3) pool")
             return tree.to_local().to(self.device)
         if self.mesh is not None:
-            return distribute_tensor(torch.as_tensor(tree), self.mesh).to_local()
+            return distribute_tensor(torch.as_tensor(tree), self.mesh, want).to_local()
         return torch.as_tensor(tree).to(self.device)
 
     def swap_params(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """Hot-swap the weight tree: a tree with identical structure, shapes
         and dtypes slots straight in.  Returns the PRIOR tree (the rollback
-        handle).  Incompatible trees raise before anything is touched."""
+        handle; under tensor parallelism as this rank's ``llama_plan``
+        DArrays).  Incompatible trees raise before anything is touched."""
         new = _as_tree(params)
         stack_params_check(new, self.config.num_hidden_layers)
         new = self._place(new)
@@ -243,7 +296,21 @@ class ServeEngine:
                 )
         old, self.params = self.params, new
         self._graph = None  # it reads the old weights by address
-        return old
+        return self._as_darrays(old) if self.tp is not None else old
+
+    def _as_darrays(self, tree, path: str = ""):
+        """This rank's pieces as ``llama_plan`` DArrays, which ``_place``
+        takes back as they are (swapping back a tree of bare pieces would
+        read them as full weights)."""
+        if isinstance(tree, dict):
+            return {k: self._as_darrays(v, f"{path}.{k}" if path else k) for k, v in tree.items()}
+        from ..darray import DArray
+        from ..models.convert import _flatten, param_shapes
+        from ..spec import DArraySpec, TensorMeta
+
+        shape = _flatten(param_shapes(self.config))[path]
+        spec = DArraySpec(self.mesh, self._specs[path], TensorMeta(tuple(shape), tree.dtype))
+        return DArray(tree, spec, self.mesh.get_rank())
 
     def _stage_bounds(self, num_stages: int) -> List[Tuple[int, int]]:
         """Contiguous layer ranges balanced by param count — the pipe
@@ -267,16 +334,38 @@ class ServeEngine:
         dtype = self.config.dtype
         return x.to(dtype) @ kernel.to(dtype)
 
+    def _row(self, x, kernel):
+        """A row-parallel product: this rank's partial sum, summed over
+        "tp" (the plain product without tensor parallelism)."""
+        y = self._dense(x, kernel)
+        if self.tp is None:
+            return y
+        from ..collectives import mesh_all_reduce
+
+        return mesh_all_reduce(y, self.mesh, "sum", self.tp.index)
+
+    def _gather_last(self, x):
+        if self.tp is None:
+            return x
+        from ..collectives import mesh_all_gather
+
+        return mesh_all_gather(x, self.mesh, self.tp.index, gather_dim=x.ndim - 1)
+
     def _embed(self, tokens):
-        return self.params["embed_tokens"]["embedding"][tokens].to(self.config.dtype)
+        return self._gather_last(
+            self.params["embed_tokens"]["embedding"][tokens].to(self.config.dtype))
 
     def _head(self, x):
         c = self.config
         xn = rmsnorm(x, self.params["norm"]["weight"], c.rms_norm_eps).to(c.dtype)
         if c.tie_word_embeddings:
-            logits = xn @ self.params["embed_tokens"]["embedding"].to(c.dtype).T
+            emb = self.params["embed_tokens"]["embedding"]
+            if self.tp is not None:  # hidden-sharded table: Partial logits
+                w = emb.shape[1]
+                return self._row(xn.narrow(-1, self.tp.rank * w, w), emb.T).float()
+            logits = xn @ emb.to(c.dtype).T
         else:
-            logits = self._dense(xn, self.params["lm_head"]["kernel"])
+            logits = self._gather_last(self._dense(xn, self.params["lm_head"]["kernel"]))
         return logits.float()
 
     def _mlp(self, lp, x):
@@ -284,11 +373,18 @@ class ServeEngine:
         xn2 = rmsnorm(x, lp["post_attention_layernorm"]["weight"], c.rms_norm_eps).to(c.dtype)
         g = self._dense(xn2, lp["mlp"]["gate_proj"]["kernel"])
         u = self._dense(xn2, lp["mlp"]["up_proj"]["kernel"])
-        return x + self._dense(F.silu(g) * u, lp["mlp"]["down_proj"]["kernel"])
+        return x + self._row(F.silu(g) * u, lp["mlp"]["down_proj"]["kernel"])
+
+    def _heads(self, lp):
+        """This rank's query and kv head counts, read from its weights."""
+        hd = self.config.head_dim
+        att = lp["self_attn"]
+        return att["q_proj"]["kernel"].shape[1] // hd, att["k_proj"]["kernel"].shape[1] // hd
 
     def _qkv(self, lp, x, B, T):
         c = self.config
-        H, KV, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        hd = c.head_dim
+        H, KV = self._heads(lp)
         xn = rmsnorm(x, lp["input_layernorm"]["weight"], c.rms_norm_eps).to(c.dtype)
         q = self._dense(xn, lp["self_attn"]["q_proj"]["kernel"]).reshape(B, T, H, hd)
         k = self._dense(xn, lp["self_attn"]["k_proj"]["kernel"]).reshape(B, T, KV, hd)
@@ -309,7 +405,7 @@ class ServeEngine:
             raise ValueError(f"prompt length {n} not in (0, {cache.max_seq_len}]")
         Tmax = cache.max_seq_len
         page, Pmax = cache.config.page_size, cache.config.pages_per_slot
-        KV, hd = c.num_key_value_heads, c.head_dim
+        hd = c.head_dim
         toks = np.zeros((Tmax,), np.int64)
         toks[:n] = np.asarray(prompt, np.int64)
         x = self._embed(torch.from_numpy(toks).to(self.device))[None]
@@ -322,8 +418,9 @@ class ServeEngine:
                 q, k, v = self._qkv(lp, x, 1, Tmax)
                 q, k = rotary(q, k, self._positions, c.rope_theta)
                 y = flash_attention(q, k, v, causal=True).reshape(1, Tmax, -1)
-                x = x + self._dense(y, lp["self_attn"]["o_proj"]["kernel"])
+                x = x + self._row(y, lp["self_attn"]["o_proj"]["kernel"])
                 x = self._mlp(lp, x)
+                KV = k.shape[2]
                 cache.k[l, page_row] = k[0].reshape(Pmax, page, KV, hd).to(cache.dtype)
                 cache.v[l, page_row] = v[0].reshape(Pmax, page, KV, hd).to(cache.dtype)
         logits = self._head(x[:, n - 1])[0]
@@ -337,8 +434,8 @@ class ServeEngine:
         Callers advance lengths via ``cache.advance`` for slots whose token
         was real.  On the card this replays the captured graph (capturing
         it first when there is none, or when the pools were replaced); on
-        the CPU it is :meth:`decode_eager`."""
-        if self.device.type != "cuda":
+        the CPU, or when ``graphed`` is false, it is :meth:`decode_eager`."""
+        if not self.graphed:
             return self.decode_eager(tokens)
         g = self._graph
         if g is None or not g.current(self.cache):
@@ -412,7 +509,7 @@ class ServeEngine:
             vl[pg, off] = v[:, 0].to(cache.dtype)
             y = paged_decode(q[:, 0].contiguous(), kl, vl, table, attend_len, scale=self._scale)
             y = y.reshape(S, -1).to(c.dtype)
-            x = x + self._dense(y, lp["self_attn"]["o_proj"]["kernel"])
+            x = x + self._row(y, lp["self_attn"]["o_proj"]["kernel"])
             x = self._mlp(lp, x)
         return self._head(x)
 
@@ -433,7 +530,8 @@ class ServeEngine:
         cache = self.cache
         S, Tmax = cache.num_slots, cache.max_seq_len
         page, Pmax = cache.config.page_size, cache.config.pages_per_slot
-        H, KV, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        hd = c.head_dim
+        H, KV = self._heads(self.params["layers_0"])
         dev = self.device
         tokens = np.asarray(tokens, np.int64)
         W = int(tokens.shape[-1])
@@ -471,7 +569,7 @@ class ServeEngine:
             p = torch.softmax(s, dim=-1)
             o = torch.einsum("swkgt,stkd->swkgd", p, vs)
             y = o.reshape(S, W, H * hd).to(c.dtype)
-            x = x + self._dense(y, lp["self_attn"]["o_proj"]["kernel"])
+            x = x + self._row(y, lp["self_attn"]["o_proj"]["kernel"])
             x = self._mlp(lp, x)
         return self._head(x)  # (S, W, vocab) fp32
 
@@ -518,12 +616,15 @@ class ServeEngine:
         each over the ``num_slots`` rows, plus attention's two products over
         each slot's gathered pages (``page_size · pages_per_slot`` positions
         a slot, whatever its length).  Norms, rotary, the softmax and the
-        activation are not counted."""
+        activation are not counted.  Under tensor parallelism it counts this
+        rank's share: its heads, intermediate and vocab columns."""
         c = self.config
         cache = self.cache
         S, Tmax = cache.num_slots, cache.max_seq_len
-        E, F_, V = c.hidden_size, c.intermediate_size, c.vocab_size
-        H, KV, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        n = self.tp.size if self.tp is not None else 1
+        E, F_, V = c.hidden_size, c.intermediate_size // n, c.vocab_size // n
+        hd = c.head_dim
+        H, KV = self._heads(self.params["layers_0"])
         proj = E * (H + 2 * KV) * hd + H * hd * E + 3 * E * F_
         attn = 2 * H * hd * Tmax
         return float(2 * S * (c.num_hidden_layers * (proj + attn) + E * V))

@@ -2,8 +2,10 @@
 
 The port of ``vescale_tpu/serve/kv_cache.py``.  K and V are two torch
 tensors of shape ``(layers, num_pages, page_size, kv_heads, head_dim)`` on
-one device; the JAX package's mesh placement (kv heads over "tp") waits for
-the distributed slice.  Page 0 is the reserved NULL page: unused table
+one device.  On a mesh (``mesh=``) the pool is placed as the JAX package
+places it, ``plan_axes(mesh, tp=Shard(3))`` by default (kv heads over the
+dim named "tp"), and each rank holds its piece: its own kv heads, every
+page.  Page 0 is the reserved NULL page: unused table
 entries point at it and everything read through it is masked by the
 length vector, so its contents never reach a logit.  The engine writes the
 pools in place.
@@ -88,14 +90,18 @@ class PagedKVCache:
 
     Device side: ``k``/``v`` are tensors of shape
     ``(L, num_pages, page_size, KV, hd)`` on ``device`` (default: the
-    card).  Host side: ``page_table`` (num_slots, pages_per_slot) int32 and
-    ``lengths`` (num_slots,) int32 are the only mutable state — both travel
-    into the engine's steps as DATA, never as shapes.
+    card).  With ``mesh`` (a live ``DeviceMesh``) they live on the mesh's
+    device and hold this rank's piece under ``placements`` (default
+    ``plan_axes(mesh, tp=Shard(3))``: KV/tp heads a rank); ``spec`` is the
+    pool's ``DArraySpec``.  Host side: ``page_table`` (num_slots,
+    pages_per_slot) int32 and ``lengths`` (num_slots,) int32 are the only
+    mutable state — both travel into the engine's steps as DATA, never as
+    shapes.
     """
 
-    def __init__(self, config: KVCacheConfig, device=None):
+    def __init__(self, config: KVCacheConfig, device=None, *, mesh=None, placements=None):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
         dtype = config.dtype if config.dtype is not None else torch.float32
         shape = (
             config.layers,
@@ -104,6 +110,36 @@ class PagedKVCache:
             config.kv_heads,
             config.head_dim,
         )
+        self.spec = None
+        if mesh is not None:
+            from ..placements import Shard, plan_axes
+            from ..spec import DArraySpec, TensorMeta
+
+            self.device = mesh.device
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"cache device {resolve_device(device)} is not the mesh's "
+                                 f"device {self.device}")
+            if placements is None:
+                # kv-heads (axis 3) split over the mesh dim NAMED "tp" when it
+                # exists; any other axis name stays replicated
+                placements = plan_axes(mesh, tp=Shard(3))
+            placements = tuple(placements)
+            if any(not (p.is_replicate() or p.is_shard(3)) for p in placements):
+                raise NotImplementedError(f"pool placements {placements}: only kv heads "
+                                          "(Shard(3)) are sharded")
+            tp = next((mesh.shape[i] for i, p in enumerate(placements) if p.is_shard(3)), 1)
+            if config.kv_heads % max(tp, 1):
+                raise ValueError(
+                    f"kv_heads={config.kv_heads} not divisible by the head-sharded "
+                    f"mesh extent {tp}"
+                )
+            self.spec = DArraySpec(mesh, placements, TensorMeta(shape, dtype))
+            if mesh.size() > 1 and not mesh.is_live:
+                raise ValueError("a pool over several ranks needs a live mesh (init_device_mesh)")
+            coord = mesh.get_coordinate() if mesh.is_live else (0,) * mesh.ndim
+            shape = self.spec.local_shape(coord)
+        else:
+            self.device = resolve_device(device)
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         # ---------------------------------------------- host bookkeeping

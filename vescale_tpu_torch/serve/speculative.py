@@ -90,6 +90,14 @@ def load_drafter_params(path: str, config, layers: int, *, device=None,
                      device=device)["model"]
 
 
+def _placed_like(cache: PagedKVCache) -> Dict[str, Any]:
+    """Where a drafter's pool goes: the target pool's mesh and placements,
+    or its device."""
+    if cache.spec is not None:
+        return {"mesh": cache.mesh, "placements": cache.spec.placements}
+    return {"device": cache.device}
+
+
 class SpeculativeDecoder:
     """Drafter engine + cache mirror + the greedy accept bookkeeping, handed
     to ``run_serve(speculative=...)``.  ``k`` and ``drafter_layers`` default
@@ -126,9 +134,10 @@ class SpeculativeDecoder:
                 num_pages=tc.num_pages,
                 dtype=engine.cache.dtype,
             ),
-            device=engine.device,
+            **_placed_like(engine.cache),
         )
-        self.engine = ServeEngine(dcfg, drafter_params, self.cache, device=engine.device)
+        on = {"mesh": engine.mesh} if engine.mesh is not None else {"device": engine.device}
+        self.engine = ServeEngine(dcfg, drafter_params, self.cache, **on)
         # drafted counts every proposed token that HAD a chance to be
         # accepted (budget-clamped proposals excluded by the loop), accepted
         # only those the target confirmed

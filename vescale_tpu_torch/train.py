@@ -6,6 +6,15 @@ over a module and an optimizer that updates the parameters in place,
 where the reference returns new params and optimizer state from one
 compiled program.
 
+Over a ``DModule`` (``dmodule.parallelize_module``) the step runs tensor
+and sequence parallel: the model's output stays vocab-sharded (a Partial
+tied head is reduce-scattered to it) and goes to ``loss_fn`` as this
+rank's slice, the Partial gradients are summed (``finish_grad_sync``)
+before the optimizer steps this rank's parameter pieces (the fused AdamW
+on local shards, as the reference's custom_partitioning rule runs it).
+A data-parallel dim of size > 1 raises: its gradient reduce is ROADMAP.md
+queue A, item 11.
+
 Not here yet (ROADMAP.md): the fp8 ``_overwrite_with_gradient`` bundle,
 ``DistributedOptimizer`` loss scaling, the telemetry feed and the
 ndtimeline spans, and dropout RNG streams (the Llama has no dropout).
@@ -63,12 +72,33 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
     grads are summed in fp32 and averaged before the one update, as is the
     loss; ``loss_fn`` must be mean-reduced for that to equal one full
     batch.  With ``has_aux``, float aux leaves are averaged across
-    micro-batches and integer ones summed."""
+    micro-batches and integer ones summed.
+
+    ``model`` may be a ``DModule``: ``loss_fn`` then gets this rank's
+    vocab slice of the logits (Shard(-1) on the mesh's "tp" dim) and must
+    compute the whole loss from it, as
+    ``vocab_parallel_cross_entropy(..., mesh=, vocab_dim_name="tp")``
+    does."""
+    from .dmodule import DModule
+
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps={grad_accum_steps}")
+    dm = model if isinstance(model, DModule) else None
+    if dm is not None and dm.data_parallel_size() > 1:
+        raise NotImplementedError(
+            "a training step over a data-parallel mesh dim of size > 1: the gradient "
+            "reduce over 'dp' is not ported yet (ROADMAP.md queue A, item 11)")
+
+    def forward(x):
+        if dm is None:
+            return model(x)
+        from .placements import Shard, plan_axes
+
+        out = dm.forward_local(x)
+        return dm.output_to(out, plan_axes(dm.mesh, tp=Shard(out.ndim - 1)))
 
     def micro(mb):
-        res = loss_fn(model(mb["input"]), mb)
+        res = loss_fn(forward(mb["input"]), mb)
         return res if has_aux else (res, None)
 
     def step(batch: Dict[str, Any]):
@@ -94,6 +124,8 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
                 p.grad = (acc / grad_accum_steps).to(p.dtype)
             loss = l_sum / grad_accum_steps
             aux = _reduce_aux(auxes) if has_aux else None
+        if dm is not None:
+            dm.finish_grad_sync()
         optimizer.step()
         return (loss, aux) if has_aux else loss
 
