@@ -5,6 +5,7 @@ Hopper card.
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel parity only
     python3 chip_smoke.py --tp       # serve, train and gpt2, then the TP phases
+    python3 chip_smoke.py --dp       # train and gpt2, then the DP phase
     python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
@@ -73,8 +74,8 @@ Phases, each printing one JSON line with its seconds:
            cost: ``run_serve`` against ``run_serve_resilient`` with the
            watchdog on and faultsim armed but quiet, decode p50/p99,
            tokens/s and each run's wall split into prefills, decode steps
-           and the rest, in the order plain, envelope, envelope, plain
-           twice, then the watchdog alone and faultsim alone; and a
+           and the rest, in the order plain, envelope, envelope, plain,
+           then the watchdog alone and faultsim alone; and a
            replica: a child process serving a 2-layer engine at the 8B widths
            (serve seed) through ``serve_replica`` on a free port, fed 8
            requests over HTTP; ``/router`` carries the frozen v5 fields,
@@ -168,6 +169,27 @@ Phases, each printing one JSON line with its seconds:
            ``TP_SERVE_BF16_STEPS`` bf16 steps at scale of the single-card
            engine's, how many streams equal the serve phase's, tokens/s,
            decode p50/p99, and ``engine.graphed`` (false over gloo)
+  dp_train  data parallelism on two such ranks, a ("dp",) mesh of 2.  The
+           1.3B Llama at full width and depth (B=1 a rank, T=4096, the
+           bench's seed-0 weights, ``AdamWLowmem(3e-4)``, a global batch of
+           2 rows) under ``ddp``, ``zero2`` (a dynamic loss scale) and
+           ``fsdp`` (``bench.prepare_dp``), 1 warm-up and 2 timed steps
+           each: losses within 1% of a single-card run of the same two
+           rows (``grad_accum_steps=2``), every rank's parameters bitwise
+           the other's, the modes bitwise equal (or within
+           ``DP_MODE_BOUND``), one K8 launch a step; under ``zero2`` one
+           more step with an inf in rank 1's gradient: skipped on both
+           ranks, parameters, main params, moments and step bitwise
+           unchanged, no K8 launch, the scale halved; per mode and rank
+           step time, peak memory, collectives by kind, gloo's share of the
+           last step.  GPT-2 124M under DDP at B=6 a rank from the elastic
+           loader (the gpt2 phase's B=12 stream), exact and with
+           ``grad_compress="int8"``: exact within 1% of the gpt2 phase,
+           int8 within 5% of exact at 3.5x or more fewer gradient bytes.
+           Then K8 at rank 0's ZeRO pieces and FSDP flat piece against its
+           plain version (moments bitwise, u within 4 ulps), timed against
+           the plain version and its bound, and the block quantizer's
+           quantize and dequantize ms on one 40M-element bucket
 
 Then the card line, the kernels line and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero before that line.  Imports
@@ -211,18 +233,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, sleep_cycles: int = 1 << 26) -> float:
     """Mean device milliseconds of ``fn()`` over ``iters`` back-to-back
     calls, timed with CUDA events after ``warmup`` calls.  A device-side
-    wait of 2^26 cycles (~35 ms) is queued ahead of the start event, so the
-    host has queued the calls before the card reaches them: the events
-    bracket the card's time, not the host's launch rate, which would
-    otherwise show in kernels shorter than a wrapper call."""
+    wait of ``sleep_cycles`` (2^26: ~35 ms) is queued ahead of the start
+    event, so the host has queued the calls before the card reaches them:
+    the events bracket the card's time, not the host's launch rate, which
+    would otherwise show in kernels shorter than a wrapper call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(1 << 26)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -858,7 +880,11 @@ def run_adamw_parity(dev):
 def adamw_timing(gs, ms, vs, c1, c2, hp, err):
     from vescale_tpu_torch.kernels.fused_adamw import fused_adamw_reference, fused_adamw_update
 
-    ms_k = cuda_ms(lambda: fused_adamw_update(gs, ms, vs, c1, c2, **hp), iters=10)
+    # a call's host side (its leaf table, 3 outputs a leaf) can take longer
+    # than a 3 ms launch over 219 pieces on a slow host: queue all ten
+    # behind a longer wait (2^28 cycles, ~140 ms)
+    ms_k = cuda_ms(lambda: fused_adamw_update(gs, ms, vs, c1, c2, **hp), iters=10,
+                   sleep_cycles=1 << 28)
     plain_ms = cuda_ms(lambda: fused_adamw_reference(gs, ms, vs, c1, c2, **hp), iters=3, warmup=1)
     n = sum(g.numel() for g in gs)
     nbytes = n * (2 * gs[0].element_size() + 4 * ms[0].element_size())  # g, u; m, v, m', v'
@@ -2065,12 +2091,11 @@ def run_serve_resilient_phase(dev, eng, kernels_mod, serve, serve_streams):
         launches=runs["hang"]["launches_match"])
     runs["hang"].update(dumps=dumps, stalled_s=wd.last_bundle["stalled_s"] if wd.last_bundle else None)
 
-    # the envelope's cost in one process: plain and envelope twice over in
-    # the order P E E P P E E P, then the watchdog alone and faultsim alone
-    # (W F F W) to tell their shares apart
+    # the envelope's cost in one process: plain and envelope in the order
+    # P E E P, then the watchdog alone and faultsim alone to tell their
+    # shares apart
     overhead = {"plain": [], "envelope": [], "watchdog_only": [], "faultsim_only": []}
-    order = ("plain", "envelope", "envelope", "plain") * 2 + (
-        "watchdog_only", "faultsim_only", "faultsim_only", "watchdog_only")
+    order = ("plain", "envelope", "envelope", "plain", "watchdog_only", "faultsim_only")
     for which in order:
         schedule = "oom:step=1000000" if which in ("envelope", "faultsim_only") else None
         wd = Watchdog(timeout_s=60.0, abort=False).start() if which in (
@@ -2662,11 +2687,11 @@ TP_SERVE_BF16_STEPS = 16.0  # teacher-forced logits vs the single-card engine (P
 TP_FORCED = 4  # teacher-forced requests of the tp_serve check
 
 
-def tp_spawn(job: str, args: dict, timeout_s: float):
+def tp_spawn(job: str, args: dict, timeout_s: float, names=("tp",)):
     """``TP_WORLD`` ranks of ``chip_smoke.py --tp-child`` on the one card,
     joined over gloo at a free localhost port (NCCL refuses two ranks on
-    one GPU); each runs ``TP_JOBS[job](mesh, **args)`` and writes its JSON
-    result.  A rank that fails, exits without a result or outlives
+    one GPU) on a mesh of one dim named ``names``; each runs
+    ``TP_JOBS[job](mesh, **args)`` and writes its JSON result.  A rank that fails, exits without a result or outlives
     ``timeout_s`` fails the phase; every rank is stopped before this
     returns.  Returns the results in rank order."""
     port = free_port()
@@ -2678,7 +2703,7 @@ def tp_spawn(job: str, args: dict, timeout_s: float):
             spec = os.path.join(tmp, f"spec{r}.json")
             with open(spec, "w") as f:
                 json.dump(dict(job=job, rank=r, world=TP_WORLD, port=port, args=args,
-                               out=os.path.join(tmp, f"out{r}.json")), f)
+                               names=list(names), out=os.path.join(tmp, f"out{r}.json")), f)
             logs.append(open(os.path.join(tmp, f"log{r}.txt"), "w+"))
             procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                            "--tp-child", spec], env=env, stdout=logs[-1],
@@ -2710,7 +2735,7 @@ def tp_spawn(job: str, args: dict, timeout_s: float):
 
 
 def tp_child(spec_path: str) -> int:
-    """``--tp-child``: one rank of a TP phase (``tp_spawn``)."""
+    """``--tp-child``: one rank of a TP or DP phase (``tp_spawn``)."""
     import torch.distributed as dist
 
     from vescale_tpu_torch import distributed as D
@@ -2722,7 +2747,8 @@ def tp_child(spec_path: str) -> int:
     D.initialize(f"127.0.0.1:{spec['port']}", spec["world"], spec["rank"], device_type="cuda",
                  backend="gloo", timeout_s=900)
     try:
-        mesh = init_device_mesh("cuda", (spec["world"],), mesh_dim_names=("tp",), backend="gloo")
+        mesh = init_device_mesh("cuda", (spec["world"],), mesh_dim_names=tuple(spec["names"]),
+                                backend="gloo")
         res = TP_JOBS[spec["job"]](mesh, **spec["args"])
         with open(spec["out"], "w") as f:
             json.dump(res, f)
@@ -2773,7 +2799,7 @@ def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None):
         lg, b["target"], mesh=mesh, vocab_dim_name="tp"))
     loader = None
     if gpt:
-        loader = TokenDataLoader(token_file, B, T, seed=bench.DATA_SEED, device=dev)
+        loader = TokenDataLoader(token_file, B, T, seed=bench.DATA_SEED, elastic=True, device=dev)
         next_batch = loader.next
     else:
         toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T + 1))
@@ -3078,6 +3104,310 @@ def run_gloo_probe() -> dict:
     return out
 
 
+# ----------------------------------------------------------- data parallel
+DP_STEPS = 3  # steps of each 1.3B dp mode: 1 warm-up, 2 timed
+DP_WARMUP = 1
+DP_GPT2_STEPS = 4
+DP_INT8_LOSS_REL = 0.05  # the reference's LOSS_TOL (scripts/quantcomm_smoke.py:52)
+DP_INT8_BYTES = 3.5  # int8 must move at least this many times fewer gradient bytes
+# the modes are expected bitwise equal (a two-rank fp32 sum commutes, AdamW
+# is elementwise); a mode that is not is held to this bound on every
+# parameter, the drift Adam's normalised update can make of last-bit
+# gradient differences in DP_STEPS steps (bench.LR a step at most)
+DP_MODE_BOUND = 2 * DP_STEPS * 3e-4
+
+
+def fingerprint(tensors) -> list:
+    """An int64 hash of each tensor's bits (position-weighted sum, mod 2^64:
+    any summation order gives the same value), computed on its device."""
+    out = []
+    for t in tensors:
+        v = t.detach().reshape(-1)
+        bits = v.view(torch.int32 if v.element_size() == 4 else torch.int16).to(torch.int64)
+        w = torch.arange(v.numel(), device=v.device, dtype=torch.int64).remainder_(1000003).add_(1)
+        out.append(int((bits * w).sum()))
+    return out
+
+
+def dp_state_fingerprint(dopt) -> dict:
+    """The main params, moments and step of a ``DistributedOptimizer``."""
+    group, mus, nus = dopt._inner_state()
+    return dict(main=fingerprint(dopt.main_params), mu=fingerprint(mus), nu=fingerprint(nus),
+                step=int(group["step"]))
+
+
+def dp_mode_job(mesh, mode: str, ref_losses: list, ddp_params=None):
+    """One rank of one 1.3B dp mode (``bench.prepare_dp``): ``DP_STEPS``
+    steps on this rank's row, the last with the collectives timed; for
+    ``zero2`` (dynamic loss scale) one more step in which rank 1's gradient
+    holds an inf before the reduce.  Returns the record, and the final
+    parameters on the host for ``ddp``."""
+    from vescale_tpu_torch import bench, kernels
+    from vescale_tpu_torch import collectives as C
+
+    dev = mesh.device
+    free_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run = bench.prepare_dp("1.3b", mode, mesh, loss_scale="dynamic" if mode == "zero2" else None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, step_ms, launches, gloo = [], [], [], None
+    for i in range(DP_STEPS):
+        kernels.reset_launches()
+        C.reset_calls()
+        C.TIMING = i == DP_STEPS - 1
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(run.step(run.next_batch())))
+        dt = time.perf_counter() - t1
+        C.TIMING = False
+        step_ms.append(dt * 1e3)
+        launches.append(dict(kernels.LAUNCHES))
+        if i == DP_STEPS - 1:
+            gloo = dict(step_ms=dt * 1e3, seconds_by_op=dict(C.SECONDS),
+                        share=sum(C.SECONDS.values()) / dt)
+    comm = tp_collectives()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if mode == "fsdp":
+        run.optimizer.gather()  # the model holds the last step's inputs until refilled
+    params = [p for _, p in run.model.named_parameters()]
+    rec = dict(rank=mesh.get_rank(), mode=mode, setup_s=setup_s, losses=losses,
+               loss_rel_diffs=[abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)],
+               step_ms=step_ms, step_ms_median=float(np.median(step_ms[DP_WARMUP:])),
+               peak_memory_bytes=peak, launches_per_step=launches,
+               collectives_per_step=comm, gloo_timed_step=gloo, fingerprint=fingerprint(params))
+    if ddp_params is not None:
+        diffs = [float((p.detach().cpu() - q).abs().max()) for p, q in zip(params, ddp_params)]
+        rec["max_abs_diff_vs_ddp"] = max(diffs)
+    host = [p.detach().cpu() for p in params] if mode == "ddp" else None
+    if mode == "zero2":
+        dopt = run.optimizer
+        before = dict(params=rec["fingerprint"], state=dp_state_fingerprint(dopt),
+                      scale=dopt.current_scale())
+        real = dopt.reduce_grads
+
+        def poisoned(grads=None):
+            if mesh.get_rank() == 1:
+                params[0].grad.view(-1)[0] = float("inf")
+            return real(grads)
+
+        dopt.reduce_grads = poisoned
+        kernels.reset_launches()
+        loss_inf = float(run.step(run.next_batch()))
+        dopt.reduce_grads = real
+        rec["inf_step"] = dict(
+            loss=loss_inf, scale_before=before["scale"], scale_after=dopt.current_scale(),
+            skip_count=int(dopt.loss_scale_state["skip_count"]),
+            params_unchanged=fingerprint(params) == before["params"],
+            state_unchanged=dp_state_fingerprint(dopt) == before["state"],
+            fused_adamw_launches=kernels.LAUNCHES["fused_adamw"], launches=dict(kernels.LAUNCHES))
+    run.close()
+    del run, params
+    free_memory()
+    return rec, host
+
+
+def dp_gpt2_job(mesh, ref_losses: list, token_file: str, grad_compress=None):
+    """One rank of GPT-2 124M under DDP at B=6 (the elastic loader: the
+    ranks' rows are the gpt2 phase's B=12 stream), exact or int8."""
+    from vescale_tpu_torch import bench, kernels
+    from vescale_tpu_torch import collectives as C
+
+    run = bench.prepare_dp("gpt2", "ddp", mesh, grad_compress=grad_compress,
+                           token_file=token_file)
+    losses, comm, total = [], [], {}
+    try:
+        for _ in range(DP_GPT2_STEPS):
+            kernels.reset_launches()
+            C.reset_calls()
+            losses.append(float(run.step(run.next_batch())))
+            comm.append(dict(tp_collectives(), compress=dict(C.COMPRESS)))
+            for k, v in kernels.LAUNCHES.items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        run.close()
+    del run
+    free_memory()
+    grad_bytes = {k: v for k, v in comm[-1]["bytes"].items() if "all_reduce" in k or "q_psum" in k}
+    return dict(compress=grad_compress, losses=losses, launches_total=total,
+                collectives_per_step=comm[-1], grad_bytes_per_step=sum(grad_bytes.values()),
+                loss_rel_diffs=[abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)])
+
+
+def dp_train_job(mesh, ref_losses: list, gpt2_ref: list, token_file: str):
+    """One rank of ``dp_train``: the 1.3B under ddp, zero2 and fsdp, then
+    GPT-2 exact and int8."""
+    out, host = {}, None
+    for mode in ("ddp", "zero2", "fsdp"):
+        out[mode], got = dp_mode_job(mesh, mode, ref_losses, ddp_params=host)
+        host = got if mode == "ddp" else host
+    del host
+    free_memory()
+    out["gpt2"] = {str(c): dp_gpt2_job(mesh, gpt2_ref, token_file, c) for c in (None, "int8")}
+    out["launches_total"] = {}
+    for rec in [out[m] for m in ("ddp", "zero2", "fsdp")] + list(out["gpt2"].values()):
+        steps = rec["launches_per_step"] if "launches_per_step" in rec else [rec["launches_total"]]
+        if "inf_step" in rec:
+            steps = steps + [rec["inf_step"]["launches"]]
+        for step in steps:
+            for k, v in step.items():
+                out["launches_total"][k] = out["launches_total"].get(k, 0) + v
+    out["rank"] = mesh.get_rank()
+    return out
+
+
+TP_JOBS["dp"] = dp_train_job
+
+
+def dp_adamw_shapes():
+    """Rank 0's K8 leaves of the 1.3B at dp=2 in each mode: DDP's whole
+    leaves, the ZeRO pieces (each leaf's first dim halved,
+    ``zero_placements``) and the FSDP flat piece."""
+    from vescale_tpu_torch.mesh import DeviceMesh
+    from vescale_tpu_torch.models import LlamaConfig, init_params
+    from vescale_tpu_torch.parallel import FSDPParamBuffer
+    from vescale_tpu_torch.parallel.optimizer import zero_placements
+    from vescale_tpu_torch.placements import Replicate
+    from vescale_tpu_torch.spec import DArraySpec, TensorMeta
+    from vescale_tpu_torch.bench import RUNGS
+
+    mesh = DeviceMesh(("dp",), (TP_WORLD,), device_type="cpu")
+    meta = init_params(LlamaConfig(**RUNGS["1.3b"][0]), device="meta", dtype=torch.float32)
+    zero = [DArraySpec(mesh, zero_placements(tuple(s), [Replicate()], mesh, ("dp",)),
+                       TensorMeta(tuple(s), torch.float32)).local_shape((0,)) for s in
+            train_leaf_shapes()]
+    fsdp = FSDPParamBuffer(meta, mesh).groups["float32"].spec.ragged_local_chunk((0,))[0]
+    return {"ddp": train_leaf_shapes(), "zero2": zero, "fsdp": [(fsdp,)]}
+
+
+def dp_adamw_parity(dev):
+    """K8 at the dp path's shapes, as ``run_adamw_parity`` holds it: the
+    moments bitwise, u within 4 ulps per element of the plain version; and
+    its time against the plain version and the bound."""
+    from vescale_tpu_torch.kernels.fused_adamw import fused_adamw_reference, fused_adamw_update
+    from vescale_tpu_torch.parallel.optimizer import bias_corrections
+
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8)
+    c1, c2 = bias_corrections(0.9, 0.999, 5)
+    rows = {}
+    for label, shapes in dp_adamw_shapes().items():
+        gs, ms, vs = adamw_leaves(dev, shapes, torch.bfloat16, seed=len(shapes))
+        us, mos, vos = fused_adamw_update(gs, ms, vs, c1, c2, **hp)
+        worst_u, moments_equal, err = 0.0, True, 0.0
+        for i in range(len(gs)):
+            ru, rm, rv = fused_adamw_reference([gs[i]], [ms[i]], [vs[i]], c1, c2, **hp)
+            moments_equal &= bits_equal(mos[i], rm[0]) and bits_equal(vos[i], rv[0])
+            worst_u = max(worst_u, ulps_elementwise(us[i], ru[0]))
+            err = max(err, float((us[i] - ru[0]).abs().max()))
+            del ru, rm, rv
+        del us, mos, vos
+        free_memory()
+        rows[label] = dict(leaves=len(gs), elements=sum(g.numel() for g in gs),
+                           moments_bitwise=moments_equal, u_ulps=worst_u, u_bound=4.0,
+                           ok=moments_equal and worst_u <= 4.0,
+                           timing=adamw_timing(gs, ms, vs, c1, c2, hp, err))
+        del gs, ms, vs
+        free_memory()
+    return rows
+
+
+def quant_timing(dev) -> dict:
+    """Block quantize + pack, and unpack + dequantize, of one 40M-element
+    fp32 gradient bucket (DDP's ``bucket_size``) on the card."""
+    from vescale_tpu_torch.parallel.ddp import DEFAULT_BUCKET
+    from vescale_tpu_torch.quant import blockscale as B
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(DEFAULT_BUCKET, generator=g, device=dev)
+    qb = B.quantize_int8_blocks(x)
+    payload = B.pack_int8_payload(qb)
+    nb = qb.q.shape[0]
+    back = B.dequantize_int8_blocks(B.unpack_int8_payload(payload, nb, B.DEFAULT_BLOCK), x.shape,
+                                    x.dtype)
+    err = float(((back - x).abs() / B.block_amax(x).repeat_interleave(B.DEFAULT_BLOCK)[:x.numel()]
+                 ).max())
+    q_ms = cuda_ms(lambda: B.pack_int8_payload(B.quantize_int8_blocks(x)), iters=5, warmup=1)
+    d_ms = cuda_ms(lambda: B.dequantize_int8_blocks(
+        B.unpack_int8_payload(payload, nb, B.DEFAULT_BLOCK), x.shape, x.dtype), iters=5, warmup=1)
+    out = dict(elements=x.numel(), quantize_ms=q_ms, dequantize_ms=d_ms,
+               payload_bytes=payload.numel(), max_err_over_block_amax=err,
+               ok=err <= 1.0 / 127.0 + 1e-7)
+    del x, qb, payload, back
+    free_memory()
+    return out
+
+
+def run_dp_train(dev, gpt2, card):
+    """``dp_train``: the 1.3B at dp=2 under ddp, zero2 and fsdp (two ranks
+    of one card over gloo), each held to a single-card run of the same two
+    rows (``grad_accum_steps=2``); GPT-2 exact and int8; K8 at the dp
+    shapes."""
+    from vescale_tpu_torch import bench
+
+    t = time.perf_counter()
+    ref = bench.prepare("1.3b", device=dev, rows=bench.RUNGS["1.3b"][1] * TP_WORLD,
+                        grad_accum_steps=TP_WORLD)
+    ref_losses, ref_ms = [], []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref_losses.append(float(ref.step(ref.next_batch())))
+        ref_ms.append((time.perf_counter() - t1) * 1e3)
+    ref_fp = fingerprint([p for _, p in ref.model.named_parameters()])
+    del ref
+    free_memory()
+    tmpdir = tempfile.mkdtemp(prefix="vtt_tokens_")
+    try:
+        token_file = bench.write_token_file(os.path.join(tmpdir, "tokens.bin"), bench.DATA_TOKENS,
+                                            50304)
+        ranks = tp_spawn("dp", dict(ref_losses=ref_losses,
+                                    gpt2_ref=gpt2["losses"][:DP_GPT2_STEPS],
+                                    token_file=token_file), timeout_s=900, names=("dp",))
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    adamw = dp_adamw_parity(dev)
+    quant = quant_timing(dev)
+    modes = ("ddp", "zero2", "fsdp")
+    fps = {m: [r[m]["fingerprint"] for r in ranks] for m in modes}
+    exact = [r["gpt2"]["None"] for r in ranks]
+    q = [r["gpt2"]["int8"] for r in ranks]
+    checks = {
+        "losses_within_1pct": all(max(r[m]["loss_rel_diffs"]) <= TP_LOSS_REL and
+                                  len(r[m]["losses"]) == DP_STEPS for r in ranks for m in modes),
+        "ranks_bitwise": all(fps[m][0] == fps[m][1] for m in modes),
+        "modes_bitwise_or_bounded": all(
+            fps[m][0] == fps["ddp"][0] or max(r[m]["max_abs_diff_vs_ddp"] for r in ranks)
+            <= DP_MODE_BOUND for m in ("zero2", "fsdp")),
+        "k8_launched_each_step": all(s["fused_adamw"] == 1 for r in ranks for m in modes
+                                     for s in r[m]["launches_per_step"]),
+        "inf_skipped_on_both_ranks": all(
+            r["zero2"]["inf_step"]["params_unchanged"] and r["zero2"]["inf_step"]["state_unchanged"]
+            and r["zero2"]["inf_step"]["skip_count"] == 1
+            and r["zero2"]["inf_step"]["fused_adamw_launches"] == 0
+            and r["zero2"]["inf_step"]["scale_after"] == r["zero2"]["inf_step"]["scale_before"] / 2
+            for r in ranks),
+        "k8_dp_shapes_parity": all(v["ok"] for v in adamw.values()),
+        "gpt2_exact_within_1pct": all(max(e["loss_rel_diffs"]) <= TP_LOSS_REL for e in exact),
+        "gpt2_int8_within_5pct": all(
+            abs(a - b) <= DP_INT8_LOSS_REL * abs(b) for e, i in zip(exact, q)
+            for a, b in zip(i["losses"], e["losses"])),
+        "gpt2_int8_bytes": all(e["grad_bytes_per_step"] >= DP_INT8_BYTES * i["grad_bytes_per_step"]
+                               for e, i in zip(exact, q)),
+        "quantize_round_trip": quant["ok"],
+    }
+    out = dict(wall_s=time.perf_counter() - t, card=card, world=TP_WORLD, backend="gloo",
+               single_card=dict(losses=ref_losses, step_ms=ref_ms, fingerprint_equals_ddp=
+                                ref_fp == fps["ddp"][0]),
+               modes_bitwise={m: fps[m][0] == fps["ddp"][0] for m in ("zero2", "fsdp")},
+               mode_bound=DP_MODE_BOUND,
+               ranks=ranks, k8_dp_shapes=adamw, quantize=quant, checks=checks,
+               ok=all(checks.values()))
+    check(out["ok"], f"dp_train checks failed: {json.dumps(checks)} "
+                     f"{json.dumps({m: [r[m].get('max_abs_diff_vs_ddp') for r in ranks] for m in modes})}")
+    return out
+
+
 def tp_launches(phase: dict, name: str) -> int:
     """A kernel's launches over every rank of a TP phase (``tp_train``:
     both rungs, every step)."""
@@ -3099,9 +3429,24 @@ def tp_only(dev, card, kernels_mod) -> int:
     gpt2 = run_train_gpt2(dev, kernels_mod)
     log("gpt2", losses=gpt2["losses"], step_ms_median=gpt2["step_ms_median"])
     t = time.perf_counter()
-    log("tp_train", seconds=time.perf_counter() - t, **run_tp_train(dev, train, gpt2, card))
+    tp_train = run_tp_train(dev, train, gpt2, card)
+    log("tp_train", seconds=time.perf_counter() - t, **tp_train)
     t = time.perf_counter()
-    log("tp_serve", seconds=time.perf_counter() - t, **run_tp_serve(dev, serve_streams, forced, card))
+    tp_serve = run_tp_serve(dev, serve_streams, forced, card)
+    log("tp_serve", seconds=time.perf_counter() - t, **tp_serve)
+    print(card, flush=True)
+    return 0
+
+
+def dp_only(dev, card, kernels_mod) -> int:
+    """``--dp``: the single-card train and gpt2 phases, then ``dp_train``."""
+    train = run_train_13b(dev, kernels_mod)
+    log("train", losses=train["losses"], step_ms_median=train["step_ms_median"])
+    gpt2 = run_train_gpt2(dev, kernels_mod)
+    log("gpt2", losses=gpt2["losses"], step_ms_median=gpt2["step_ms_median"])
+    t = time.perf_counter()
+    dp_train = run_dp_train(dev, gpt2, card)
+    log("dp_train", seconds=time.perf_counter() - t, **dp_train)
     print(card, flush=True)
     return 0
 
@@ -3111,6 +3456,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="device, build and kernel parity only")
     ap.add_argument("--tp", action="store_true",
                     help="device, build, and the serve, train, gpt2 and TP phases only")
+    ap.add_argument("--dp", action="store_true",
+                    help="device, build, and the train, gpt2 and DP phases only")
     ap.add_argument("--gloo-probe", action="store_true",
                     help="which collectives gloo carries on CUDA tensors, then exit")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
@@ -3158,6 +3505,8 @@ def main() -> int:
 
     if opts.tp:
         return tp_only(dev, card, kernels_mod)
+    if opts.dp:
+        return dp_only(dev, card, kernels_mod)
 
     t = time.perf_counter()
     flash_rows = run_flash_parity(dev, ulps_at_scale)
@@ -3227,6 +3576,9 @@ def main() -> int:
     t = time.perf_counter()
     tp_serve = run_tp_serve(dev, serve_streams, forced, card)
     log("tp_serve", seconds=time.perf_counter() - t, **tp_serve)
+    t = time.perf_counter()
+    dp_train = run_dp_train(dev, gpt2, card)
+    log("dp_train", seconds=time.perf_counter() - t, **dp_train)
     log("done", seconds=time.perf_counter() - t_all)
     check(not bad_parity, "kernel parity failed: " + json.dumps(bad_parity))
 
@@ -3248,7 +3600,8 @@ def main() -> int:
                    "spec_prefix": spec_prefix["launches"][name],
                    "serve_resilient": resilient["launches"][name], "spmd": spmd["launches"][name],
                    "checkpoint": ckpt["launches"][name], "gpt2": gpt2["launches"][name],
-                   "tp_train": tp_launches(tp_train, name), "tp_serve": tp_launches(tp_serve, name)}
+                   "tp_train": tp_launches(tp_train, name), "tp_serve": tp_launches(tp_serve, name),
+                   "dp_train": sum(r["launches_total"].get(name, 0) for r in dp_train["ranks"])}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

@@ -52,6 +52,9 @@ def test_every_port_module_imports_without_jax():
             "vescale_tpu_torch.dmodule._comm", "vescale_tpu_torch.model.patch.linear",
             "vescale_tpu_torch.model.patch.vp_embedding",
             "vescale_tpu_torch.model.patch.monkey_patch"} <= set(mods)
+    assert {"vescale_tpu_torch.parallel.ddp", "vescale_tpu_torch.parallel.fsdp",
+            "vescale_tpu_torch.parallel.optimizer", "vescale_tpu_torch.quant",
+            "vescale_tpu_torch.quant.blockscale"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {['vescale_tpu_torch'] + mods!r}:\n"

@@ -785,27 +785,45 @@ def case_tp_comm(op, seed, tp, dim=1):
     return {"x": x, "y": y.detach(), "g": g, "dx": xt.grad}
 
 
-def case_tp_dp_refuses(kind="llama", seed=0):
-    """A training step over a ("dp", "tp") mesh of (2, 2): refused (the dp
-    gradient reduce is not ported); the forward runs on each dp rank's
-    own batch."""
+def dp_rows(m, toks):
+    """This rank's rows of a global batch: dim 0 split over the "dp" dim."""
+    names = m.mesh_dim_names
+    if "dp" not in names:
+        return toks
+    n, r = m.size("dp"), m.get_coordinate()[names.index("dp")]
+    b = toks.shape[0] // n
+    return toks[r * b:(r + 1) * b]
+
+
+def case_tp_dp_step(kind="llama", seed=0, steps=3, dp=2, tp=2):
+    """``make_train_step`` over a ("dp", "tp") mesh: ``kind`` under its plan
+    with sequence parallelism, each dp rank on its own rows of the batch,
+    ``steps`` AdamWLowmem (fp32 moments) steps; the losses, the first
+    step's gradient pieces (after the dp average) and the final pieces."""
     from vescale_tpu_torch.dmodule import parallelize_module
-    from vescale_tpu_torch.models import llama_plan
+    from vescale_tpu_torch.models import llama_plan, nanogpt_plan
     from vescale_tpu_torch.parallel import AdamWLowmem
     from vescale_tpu_torch.train import make_train_step
 
-    m = mesh([2, 2], ["dp", "tp"])
-    dm = parallelize_module(tp_model(kind, tp_tree(kind, seed)), m, llama_plan(m))
-    toks = torch.from_numpy(tp_tokens(kind, seed))
-    dp = m.get_coordinate()[0]
-    with torch.no_grad():
-        logits = dm(toks[dp:dp + 1, :-1])
-    try:
-        make_train_step(dm, AdamWLowmem(dm.parameters(), TP_LR), tp_loss(m))
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    return {"dp": dp, "logits": logits, "refused": refused}
+    m = mesh([dp, tp], ["dp", "tp"])
+    plan = (nanogpt_plan if kind == "gpt" else llama_plan)(m, sequence_parallel=True)
+    dm = parallelize_module(tp_model(kind, tp_tree(kind, seed)), m, plan)
+    toks = torch.from_numpy(dp_rows(m, dp_tokens(kind, seed)))
+    batch = {"input": toks[:, :-1], "target": toks[:, 1:]}
+    opt = AdamWLowmem(dm.parameters(), TP_LR, state_dtype=torch.float32)
+    step = make_train_step(dm, opt, tp_loss(m))
+    grads, real = {}, opt.step
+
+    def spy():
+        grads.update({n: p.grad.detach().clone() for n, p in dm.named_parameters()})
+        real()
+
+    opt.step = spy
+    losses = [float(step(batch))]
+    opt.step = real
+    losses += [float(step(batch)) for _ in range(steps - 1)]
+    return {"losses": losses, "grads": grads,
+            "final": {n: p.detach().clone() for n, p in dm.named_parameters()}}
 
 
 def case_host_route(seed, tp):
@@ -941,6 +959,330 @@ def case_tp_serve_paths(seed, tp=2):
     one.swap_params(other)
     out["single_swapped"] = one.replay_greedy(prompt, 6)
     return out
+
+
+# ------------------------------------------- data parallel, ZeRO, FSDP (A11)
+DP_BATCH = (4, 16)  # (B, T) of the global batch of the dp cases
+DP_LR = 1e-3
+
+
+def dp_tokens(kind, seed, batch=DP_BATCH):
+    rng = np.random.default_rng(seed + 200)
+    B, T = batch
+    return rng.integers(0, TP_CONFIGS[kind]["vocab_size"], (B, T + 1)).astype(np.int64)
+
+
+def _state_locals(tree):
+    """A state tree's DArray leaves as {key: local piece} and the
+    placements of each."""
+    from vescale_tpu_torch.checkpoint.planner import flatten_state
+    from vescale_tpu_torch.darray import DArray
+
+    locs, pls = {}, {}
+    for key, leaf in flatten_state(tree):
+        if isinstance(leaf, DArray):
+            locs[key] = leaf.to_local()
+            pls[key] = [enc(p) for p in leaf.placements]
+        else:
+            locs[key] = torch.as_tensor(leaf)
+    return locs, pls
+
+
+def case_dp_qcoll(mesh_shape, names, shape, seed, rounding="nearest", key_seed=None, mesh_dim=0):
+    """The quantized collectives on this rank's operand: ``all_reduce_q``
+    and ``reduce_scatter_q`` (sum and avg), ``q_all_gather`` along dim 0
+    and ``q_all_to_all`` (split 0, concat 1), with ``COMPRESS`` and the
+    counted calls."""
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch import random as R
+
+    m = mesh(mesh_shape, names)
+    x = torch.from_numpy(make_input(shape, seed, rank=m.get_rank()))
+    key = None if key_seed is None else R.key(key_seed)
+    kw = dict(block=64, rounding=rounding, key=key)
+    g = m.get_group(mesh_dim)
+    n = m.size(mesh_dim)
+    C.reset_calls()
+    out = {"ar_sum": C.all_reduce_q(x, m, "sum", mesh_dim, **kw),
+           "ar_avg": C.all_reduce_q(x, m, "avg", mesh_dim, **kw),
+           "rs_sum": C.reduce_scatter_q(x, m, "sum", 0, mesh_dim, **kw),
+           "rs_avg": C.reduce_scatter_q(x, m, "avg", 0, mesh_dim, **kw),
+           "ag": C.q_all_gather(x, g, axis=0, extent=shape[0] * n, **kw),
+           "a2a": C.q_all_to_all(x, g, split_axis=0, concat_axis=1, **kw)}
+    out["compress"] = {k: float(v) for k, v in C.COMPRESS.items()}
+    out["calls"] = {k: int(v) for k, v in C.CALLS.items()}
+    out["bytes"] = {k: int(v) for k, v in C.BYTES.items()}
+    from vescale_tpu_torch.parallel import dp_grad_reduce
+
+    grads = {"b": x * 2.0, "a": x}
+    out["dpgr"] = dp_grad_reduce(grads, g, compress="int8", step=3, reduce_op="avg", **kw)
+    out["dpgr_exact"] = dp_grad_reduce(grads, g, compress="off", reduce_op="avg")
+    return out
+
+
+def case_dp_ddp_sync(seed=0, compress=None):
+    """``DistributedDataParallel.finish_grad_sync`` on DArray gradients of
+    a ("dp", "tp") (2, 2) mesh: ones Partial on dp (tests/test_optim.py:242),
+    a leaf Partial on both dims (the kept tp Partial), one Shard(1) on tp,
+    each to Replicate and, with ``use_distributed_optimizer``, to Shard(0);
+    every leaf's piece and full value; and the wrapper's batch and main
+    grad helpers."""
+    from vescale_tpu_torch.darray import from_local
+    from vescale_tpu_torch.parallel import DistributedDataParallel
+    from vescale_tpu_torch.placements import Partial, Replicate, Shard
+
+    m = mesh([2, 2], ["dp", "tp"])
+    r = m.get_rank()
+    leaves = {
+        "ones": from_local(torch.ones(2, 2), m, [Partial(), Replicate()]),
+        "pp": from_local(torch.from_numpy(make_input((4, 6), seed, rank=r)), m,
+                         [Partial(), Partial()]),
+        "ps": from_local(torch.from_numpy(make_input((4, 3), seed + 1, rank=r)), m,
+                         [Partial(), Shard(1)], shape=(4, 6)),
+    }
+    out = {}
+    for zero in (False, True):
+        ddp = DistributedDataParallel(torch.nn.Linear(2, 2), m, use_distributed_optimizer=zero,
+                                      grad_compress=compress)
+        got = ddp.finish_grad_sync(leaves)
+        tag = "zero" if zero else "ddp"
+        out[tag] = {k: {"local": v.to_local(), "full": v.full_tensor(),
+                        "placements": [enc(p) for p in v.placements]} for k, v in got.items()}
+    ddp = DistributedDataParallel(torch.nn.Linear(2, 2), m)
+    toks = torch.arange(8 * 3).reshape(8, 3)
+    out["batch"] = ddp.shard_batch({"input": toks})["input"]
+    g = {"w": torch.ones(4, 4, dtype=torch.bfloat16)}
+    acc = ddp.accumulate_grads(ddp.accumulate_grads(ddp.init_main_grads(g), g), g)
+    out["scaled"] = ddp.scale_grads(acc, 2)["w"]
+    out["main_dtype"] = str(acc["w"].dtype)
+    return out
+
+
+def _gpt_dm(m, seed, plan=True):
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.models import nanogpt_plan
+
+    return parallelize_module(tp_model("gpt", tp_tree("gpt", seed)), m,
+                              nanogpt_plan(m) if plan else {})
+
+
+def _ref_state_from_npz(path):
+    """A reference optimizer state read back from ``np.savez`` of its
+    flattened checkpoint keys: ``{"inner": [(count, mu, nu)], ...}`` with
+    nested dicts, as ``models.convert.zero_state_from_jax`` reads it."""
+    from collections import namedtuple
+
+    Adam = namedtuple("ScaleByAdamLowmemState", ["count", "mu", "nu"])
+    tree = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node, *path_, leaf = key.split("/")
+            cur = tree.setdefault(node, {})
+            for k in path_:
+                cur = cur.setdefault(k, {})
+            cur[leaf] = z[key]
+    inner = tree["inner"]["0"]
+    tree["inner"] = [Adam(inner[".count"], inner[".mu"], inner[".nu"])]
+    return tree
+
+
+def case_dp_zero(mesh_shape, names, seed=0, steps=3, loss_scale=None, grad_compress=None,
+                 state_dtype="float32", grad_clip=None, from_state=None):
+    """ZeRO-2 on the tiny GPT under ``nanogpt_plan``: ``DistributedOptimizer``
+    over ``AdamWLowmem`` through ``make_train_step``, each dp rank on its
+    own rows (started from a reference state saved to ``from_state`` when
+    given, through ``zero_state_from_jax``); the losses, every state piece
+    and its placements after the steps, the final parameter pieces, and
+    the collective counts of a step."""
+    import functools
+
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch.parallel import AdamWLowmem, DistributedOptimizer
+    from vescale_tpu_torch.train import make_train_step
+
+    m = mesh(mesh_shape, names)
+    dm = _gpt_dm(m, seed)
+    dopt = DistributedOptimizer(
+        functools.partial(AdamWLowmem, lr=DP_LR, state_dtype=getattr(torch, state_dtype)),
+        models=dm, loss_scale=loss_scale, grad_compress=grad_compress, grad_clip=grad_clip)
+    if from_state is not None:
+        from vescale_tpu_torch.models.convert import zero_state_from_jax
+
+        dopt.load_state_tree(zero_state_from_jax(_ref_state_from_npz(from_state),
+                                                 dopt.state_template()))
+    step = make_train_step(dm, dopt, tp_loss(m if "tp" in names else None))
+    toks = torch.from_numpy(dp_rows(m, dp_tokens("gpt", seed)))
+    batch = {"input": toks[:, :-1], "target": toks[:, 1:]}
+    losses = []
+    for _ in range(steps):
+        C.reset_calls()
+        losses.append(float(step(batch)))
+    locs, pls = _state_locals(dopt.state_tree())
+
+    def walk(node, path, out):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}" if path else k, out)
+        elif hasattr(node, "_fields"):
+            for f in node._fields:
+                walk(getattr(node, f), f"{path}/.{f}", out)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}", out)
+        elif node is not None:
+            out[path] = [enc(p) for p in node]
+        return out
+
+    return {"losses": losses, "state": locs, "placements": pls,
+            "state_placements": walk(dopt.state_placements(), "", {}),
+            "final": {n: p.detach().clone() for n, p in dm.named_parameters()},
+            "calls": {k: int(v) for k, v in C.CALLS.items()},
+            "compress": {k: float(v) for k, v in C.COMPRESS.items()}}
+
+
+def case_dp_scale_sequence(inf_rank=None):
+    """tests/test_optim.py:91-175 on a ("tp",) mesh used as the dp dim:
+    ``DistributedOptimizer`` over ``AdamWLowmem`` (fp32 moments) with a
+    dynamic scale (1024, growth 2) stepped on a bad grad (an inf on every
+    rank, or on ``inf_rank``'s only), then two good ones; then the floor
+    and skip counter (init 4, min 1: four bad steps and a good one); then
+    a static scale of 8 with a NaN.  Every rank's params, main params,
+    moments and step after each step, and the scale state."""
+    import functools
+
+    from vescale_tpu_torch.parallel import AdamWLowmem, DistributedOptimizer
+
+    m = mesh([2], ["tp"])
+    r = m.get_rank()
+    opt = functools.partial(AdamWLowmem, lr=1e-2, state_dtype=torch.float32)
+    out = {}
+
+    def snap(dopt, params):
+        locs, _ = _state_locals(dopt.state_tree())
+        return {"w": params["w"].detach().clone(), **locs}
+
+    params = {"w": torch.nn.Parameter(torch.arange(16.0).reshape(4, 4))}
+    dopt = DistributedOptimizer(opt, m, models=params, dp_dims=("tp",), loss_scale="dynamic",
+                                init_scale=1024.0, growth_interval=2)
+    good = torch.ones(4, 4) * 1024.0
+    bad = good.clone()
+    if inf_rank is None or inf_rank == r:
+        bad[1, 2] = float("inf")
+    seq = [snap(dopt, params)]
+    for g in (bad, good, good):
+        params["w"].grad = g.clone()
+        skipped = dopt.step()
+        seq.append(dict(snap(dopt, params), skipped=skipped))
+    out["dynamic"] = seq
+    out["scale_loss"] = float(dopt.scale_loss(torch.tensor(2.0)))
+    params = {"w": torch.nn.Parameter(torch.ones(4, 4))}
+    dopt = DistributedOptimizer(opt, m, models=params, dp_dims=("tp",), loss_scale="dynamic",
+                                init_scale=4.0, min_scale=1.0)
+    floor = []
+    for g in [torch.full((4, 4), float("inf"))] * 4 + [torch.ones(4, 4)]:
+        params["w"].grad = g.clone()
+        dopt.step()
+        floor.append(snap(dopt, params))
+    out["floor"] = floor
+    out["floor_scale_loss"] = float(dopt.scale_loss(torch.tensor(3.0)))
+    params = {"w": torch.nn.Parameter(torch.arange(16.0).reshape(4, 4))}
+    dopt = DistributedOptimizer(opt, m, models=params, dp_dims=("tp",), loss_scale=8.0)
+    g = torch.ones(4, 4) * 1024.0
+    g[0, 0] = float("nan")
+    params["w"].grad = g
+    out["static_skipped"] = dopt.step()
+    out["static_w"] = params["w"].detach().clone()
+    out["static_has_scale_state"] = "loss_scale" in dopt.state_tree()
+    return out
+
+
+def case_dp_fsdp(dp, seed=0, steps=3, names=("dp",)):
+    """The ragged FSDP buffer over the tiny GPT's weights on a ("dp",)
+    mesh of ``dp``: units, every rank's ``local_params``, this rank's
+    packed piece, a gather round trip, then ``steps`` of
+    ``make_fsdp_train_step`` (AdamWLowmem, fp32 moments) on this rank's
+    rows: losses and the gathered final params."""
+    import functools
+
+    from vescale_tpu_torch.models.convert import _flatten
+    from vescale_tpu_torch.parallel import AdamWLowmem, FSDPParamBuffer, make_fsdp_train_step
+
+    m = mesh([dp], list(names))
+    tree = _torch_tree(tp_tree("gpt", seed))
+    buf = FSDPParamBuffer(tree, m, dim="dp")
+    pieces = buf.pack(tree)
+    back = _flatten(buf.gather(pieces))
+    roundtrip = all(torch.equal(back[k], v) for k, v in _flatten(tree).items())
+    model = tp_model("gpt", tp_tree("gpt", seed))
+    step = make_fsdp_train_step(model, functools.partial(AdamWLowmem, lr=DP_LR,
+                                                         state_dtype=torch.float32),
+                                tp_loss(), buf)
+    toks = torch.from_numpy(dp_rows(m, dp_tokens("gpt", seed)))
+    batch = {"input": toks[:, :-1], "target": toks[:, 1:]}
+    losses = [float(step(batch)) for _ in range(steps)]
+    final = _flatten(buf.gather(step.pieces))
+    return {"units": list(buf.local_units), "paths": buf.paths,
+            "local_params": [buf.local_params(r) for r in range(dp)],
+            "pieces": pieces, "roundtrip": roundtrip, "losses": losses,
+            "final": final}
+
+
+def case_dp_ckpt(root, phase, dp, seed=0, names=("dp",), steps=1, fsdp=True, zero=True):
+    """``phase="save"``: on a ("dp",) mesh of ``dp`` (or a ("dp", "tp") mesh
+    when ``names`` says so), ZeRO-2 (the tiny GPT, ``steps`` steps) and the
+    FSDP buffer with its AdamW moments after ``steps`` steps, saved to
+    ``root``; returns the full values.  ``phase="load"``: both restored
+    through ``state_template`` / ``buffer_templates`` on this mesh; returns
+    this rank's pieces and their placements."""
+    import functools
+
+    from vescale_tpu_torch import checkpoint
+    from vescale_tpu_torch.parallel import (AdamWLowmem, DistributedOptimizer, FSDPParamBuffer,
+                                            make_fsdp_train_step)
+    from vescale_tpu_torch.train import make_train_step
+
+    shape = [dp] if len(names) == 1 else [dp, 2]
+    m = mesh(shape, list(names))
+    opt = functools.partial(AdamWLowmem, lr=DP_LR, state_dtype=torch.float32)
+    dm = _gpt_dm(m, seed)
+    dopt = DistributedOptimizer(opt, models=dm)
+    toks = torch.from_numpy(dp_rows(m, dp_tokens("gpt", seed)))
+    batch = {"input": toks[:, :-1], "target": toks[:, 1:]}
+    state = {}
+    if zero:
+        if phase == "save":
+            step = make_train_step(dm, dopt, tp_loss(m if "tp" in names else None))
+            for _ in range(steps):
+                step(batch)
+            state["optimizer"] = dopt.state_tree()
+        else:
+            state["optimizer"] = dopt.state_template()
+    if fsdp:
+        buf = FSDPParamBuffer(_torch_tree(tp_tree("gpt", seed)), m, dim="dp")
+        if phase == "save":
+            fstep = make_fsdp_train_step(tp_model("gpt", tp_tree("gpt", seed)), opt, tp_loss(), buf)
+            for _ in range(steps):
+                fstep(batch)
+            st = fstep.optimizer.state[fstep.pieces["float32"]]
+            state["fsdp"] = {"params": buf.constrain(fstep.pieces),
+                             "exp_avg": buf.constrain({"float32": st["exp_avg"]}),
+                             "exp_avg_sq": buf.constrain({"float32": st["exp_avg_sq"]})}
+        else:
+            t = buf.buffer_templates()
+            state["fsdp"] = {"params": t, "exp_avg": dict(t), "exp_avg_sq": dict(t)}
+    if phase == "save":
+        checkpoint.save(root, state)
+        from vescale_tpu_torch.checkpoint.planner import flatten_state
+        from vescale_tpu_torch.darray import DArray
+
+        return {k: (v.full_tensor() if isinstance(v, DArray) else torch.as_tensor(v))
+                for k, v in flatten_state(state)}
+    got = checkpoint.load(root, state)
+    if zero:
+        dopt.load_state_tree(got["optimizer"])
+    locs, pls = _state_locals(got)
+    return {"locals": locs, "placements": pls,
+            "params": {n: p.detach().clone() for n, p in dm.named_parameters()}}
 
 
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}

@@ -22,10 +22,20 @@ T=1024 (karpathy/nanoGPT ``config/train_gpt2.py``), ``AdamWLowmem(3e-4)``
 with bf16 moments; gpt_cpu is a 2-layer fp32 GPT of width 128 at B=2,
 T=128 with fp32 moments.  Their uint16 token file is written from a numpy
 seed into a temporary directory: Zipf-distributed ids below the vocab, so
-the loss has a unigram distribution to learn and falls.  The
+the loss has a unigram distribution to learn and falls; the loader runs
+in its elastic mode, so the global stream is the same for any split of
+the batch over data-parallel ranks.  The
 MFU denominator is the card's dense bf16 peak: 989 TFLOP/s for an H100
 SXM, 756 for the PCIe part, told apart by the device name.  A CPU run
 reports no MFU.  Prints one JSON line.  Weights are random, from a seed.
+
+The data-parallel rungs (``prepare_dp``) run a rung on a live ("dp",)
+mesh, each rank on its own rows of the global batch, in one of
+``DP_MODES``: ``ddp`` (``DistributedDataParallel`` and ``AdamWLowmem``),
+``zero2`` (``DistributedOptimizer`` over ``AdamWLowmem``, optionally with
+a loss scale) or ``fsdp`` (``FSDPParamBuffer`` and
+``make_fsdp_train_step``).  The Llama rungs' global batch is ``rows``
+rows of the same numpy-seeded draw, rank r taking rows ``[r*B, (r+1)*B)``.
 """
 
 from __future__ import annotations
@@ -53,8 +63,8 @@ from .models import GPT, GPTConfig, Llama, LlamaConfig, cross_entropy_loss, init
 from .parallel import AdamWLowmem
 from .train import make_train_step
 
-__all__ = ["RUNGS", "GPT_RUNGS", "TrainRun", "prepare", "measure", "peak_bf16_flops",
-           "write_token_file", "main"]
+__all__ = ["RUNGS", "GPT_RUNGS", "DP_MODES", "TrainRun", "prepare", "prepare_dp", "measure",
+           "peak_bf16_flops", "write_token_file", "main"]
 
 LR = 3e-4  # the reference bench's adamw_lowmem(3e-4)
 WARMUP, STEPS = 2, 5  # untimed, then timed steps of a measurement
@@ -79,6 +89,7 @@ GPT_RUNGS: Dict[str, Any] = {
                      use_flash_attention=True, dtype=torch.float32),
                 2, 128, torch.float32, "gpt_cpu_smoke_tokens_per_s"),
 }
+DP_MODES = ("ddp", "zero2", "fsdp")
 CPU_RUNGS = ("cpu", "gpt_cpu")  # rungs that run on the CPU unless told otherwise
 DATA_SEED = 0
 DATA_TOKENS = 1 << 22  # tokens in a generated token file (8 MiB of uint16)
@@ -118,6 +129,7 @@ class TrainRun:
     metric: str
     loader: Optional[TokenDataLoader] = None
     tmpdir: Optional[str] = None
+    optimizer: Any = None
 
     def close(self) -> None:
         """Close the loader and delete a generated token file."""
@@ -127,39 +139,101 @@ class TrainRun:
             shutil.rmtree(self.tmpdir, ignore_errors=True)
 
 
-def prepare(rung: str = "1.3b", *, device=None) -> TrainRun:
-    """Model (random fp32 master weights from seed 0), optimizer, step and
-    batches of ``rung`` on ``device`` (default: the card; the cpu rungs run
-    on the CPU).  Llama rungs repeat one numpy-seeded batch; GPT rungs read
-    a fresh batch each step from the token file :func:`write_token_file`
-    makes in a temporary directory (``TrainRun.close`` deletes it)."""
+def _model_and_data(rung: str, dev, *, rows: Optional[int] = None, dp_rank: int = 0,
+                    dp_world: int = 1, token_file: Optional[str] = None):
+    """(config, model, loss_fn, next_batch, loader, tmpdir, B, T, layers,
+    width) of ``rung``: random fp32 master weights from seed 0; Llama rungs
+    repeat rows ``[dp_rank*B, (dp_rank+1)*B)`` of one numpy-seeded draw of
+    ``rows`` rows (default B, times ``dp_world``); GPT rungs read this
+    rank's share of the elastic global stream of ``token_file`` (default: a
+    file written into a temporary directory)."""
     gpt = rung in GPT_RUNGS
-    fields, B, T, state_dtype, metric = (GPT_RUNGS if gpt else RUNGS)[rung]
-    dev = torch.device("cpu") if rung in CPU_RUNGS and device is None else resolve_device(device)
+    fields, B, T, _, _ = (GPT_RUNGS if gpt else RUNGS)[rung]
     loader = tmpdir = None
     if gpt:
         cfg = GPTConfig(**fields)
         model = GPT(cfg, init_params(cfg, 0, device=dev, dtype=torch.float32), device=dev)
         loss_fn = lambda logits, b: vocab_parallel_cross_entropy(logits, b["target"])
-        tmpdir = tempfile.mkdtemp(prefix="vtt_tokens_")
-        data = write_token_file(os.path.join(tmpdir, "tokens.bin"), DATA_TOKENS, cfg.vocab_size)
-        loader = TokenDataLoader(data, B, T, seed=DATA_SEED, device=dev)
+        if token_file is None:
+            tmpdir = tempfile.mkdtemp(prefix="vtt_tokens_")
+            token_file = write_token_file(os.path.join(tmpdir, "tokens.bin"), DATA_TOKENS,
+                                          cfg.vocab_size)
+        B //= dp_world
+        loader = TokenDataLoader(token_file, B, T, seed=DATA_SEED, dp_rank=dp_rank,
+                                 dp_world=dp_world, elastic=True, device=dev)
         next_batch = loader.next
         layers, width = cfg.n_layer, cfg.n_embd
     else:
         cfg = LlamaConfig(max_position_embeddings=T, **fields)
         model = Llama(cfg, init_params(cfg, 0, device=dev, dtype=torch.float32), device=dev)
         loss_fn = lambda logits, b: cross_entropy_loss(logits, b["target"])
-        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T + 1))
+        rows = B * dp_world if rows is None else rows
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (rows, T + 1))
+        toks = toks[dp_rank * (rows // dp_world):(dp_rank + 1) * (rows // dp_world)]
         toks = torch.from_numpy(toks.astype(np.int64)).to(dev)
+        B = toks.shape[0]
         batch = {"input": toks[:, :-1], "target": toks[:, 1:]}
         next_batch = lambda: batch
         layers, width = cfg.num_hidden_layers, cfg.hidden_size
+    return cfg, model, loss_fn, next_batch, loader, tmpdir, B, T, layers, width
+
+
+def prepare(rung: str = "1.3b", *, device=None, rows: Optional[int] = None,
+            grad_accum_steps: int = 1) -> TrainRun:
+    """Model (random fp32 master weights from seed 0), optimizer, step and
+    batches of ``rung`` on ``device`` (default: the card; the cpu rungs run
+    on the CPU).  Llama rungs repeat one numpy-seeded batch (``rows`` rows,
+    default the rung's B, in ``grad_accum_steps`` micro-batches); GPT rungs
+    read a fresh batch each step from the token file
+    :func:`write_token_file` makes in a temporary directory
+    (``TrainRun.close`` deletes it)."""
+    state_dtype, metric = (GPT_RUNGS if rung in GPT_RUNGS else RUNGS)[rung][3:]
+    dev = torch.device("cpu") if rung in CPU_RUNGS and device is None else resolve_device(device)
+    cfg, model, loss_fn, next_batch, loader, tmpdir, B, T, layers, width = _model_and_data(
+        rung, dev, rows=rows)
     opt = AdamWLowmem(model.parameters(), LR, state_dtype=state_dtype)
-    step = make_train_step(model, opt, loss_fn)
+    step = make_train_step(model, opt, loss_fn, grad_accum_steps=grad_accum_steps)
     n_params = sum(p.numel() for p in model.parameters())
     return TrainRun(rung, cfg, model, step, next_batch, n_params, B * T,
-                    6.0 * n_params + 12.0 * layers * T * width, metric, loader, tmpdir)
+                    6.0 * n_params + 12.0 * layers * T * width, metric, loader, tmpdir, opt)
+
+
+def prepare_dp(rung: str, mode: str, mesh, *, loss_scale=None, grad_compress=None,
+               token_file: Optional[str] = None) -> TrainRun:
+    """``rung`` on this rank of the live ("dp",) ``mesh`` in ``mode``
+    (``DP_MODES``): the same weights on every rank, this rank's rows of the
+    global batch, the gradient averaged over "dp".  ``loss_scale`` goes to
+    the ``zero2`` optimizer, ``grad_compress`` to ``ddp`` and ``zero2``.
+    ``TrainRun.optimizer`` is the optimizer (for ``fsdp``, the step, whose
+    ``pieces`` and ``optimizer`` hold this rank's flat pieces)."""
+    import functools
+
+    from .models import module_tree
+    from .parallel import (DistributedDataParallel, DistributedOptimizer, FSDPParamBuffer,
+                           make_fsdp_train_step)
+
+    if mode not in DP_MODES:
+        raise ValueError(f"mode {mode!r}: expected one of {DP_MODES}")
+    state_dtype, metric = (GPT_RUNGS if rung in GPT_RUNGS else RUNGS)[rung][3:]
+    n, r = mesh.size("dp"), mesh.get_coordinate()[mesh._dim_index("dp")]
+    cfg, model, loss_fn, next_batch, loader, tmpdir, B, T, layers, width = _model_and_data(
+        rung, mesh.device, dp_rank=r, dp_world=n, token_file=token_file)
+    inner = functools.partial(AdamWLowmem, lr=LR, state_dtype=state_dtype)
+    n_params = sum(p.numel() for p in model.parameters())
+    if mode == "ddp":
+        opt = AdamWLowmem(model.parameters(), LR, state_dtype=state_dtype)
+        step = make_train_step(DistributedDataParallel(model, mesh, grad_compress=grad_compress),
+                               opt, loss_fn)
+    elif mode == "zero2":
+        opt = DistributedOptimizer(inner, mesh, models=model, loss_scale=loss_scale,
+                                   grad_compress=grad_compress)
+        step = make_train_step(model, opt, loss_fn)
+    else:
+        step = opt = make_fsdp_train_step(model, inner, loss_fn,
+                                          FSDPParamBuffer(module_tree(model), mesh, dim="dp"))
+    return TrainRun(rung, cfg, model, step, next_batch, n_params, B * T,
+                    6.0 * n_params + 12.0 * layers * T * width, f"{metric}_dp{n}_{mode}", loader,
+                    tmpdir, opt)
 
 
 def _sync(dev) -> None:

@@ -28,18 +28,28 @@ the card gloo carries every collective on CUDA tensors and refuses only
 point-to-point sends (``mesh_ppermute``), so that is the one op the
 table routes.
 
-Not here yet: the quantized collectives (``q_*``, ``all_reduce_q``,
-``reduce_scatter_q``) come with the data-parallel item, and the cost model
-with the planner.
+The quantized collectives (``q_psum``, ``q_all_gather``,
+``q_psum_scatter``, ``q_all_to_all`` over a process group, and the mesh
+wrappers ``all_reduce_q`` and ``reduce_scatter_q``) quantize each rank's
+operand once to block-scaled int8 (``quant/blockscale.py``), move one
+packed buffer, and dequantize and accumulate every rank's contribution in
+fp32 in rank order, so the result is deterministic and the reference's
+bit for bit.  They count under their own names (``"<backend>.q_psum"``
+...), and ``COMPRESS`` keeps the wire-byte reckoning of each
+(``_compress_wire_bytes``): raw against quantized bytes.
+
+Not here yet: the cost model, with the planner (ROADMAP.md queue A, item
+18).
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import time
 import warnings
 from collections import Counter
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -52,6 +62,8 @@ __all__ = [
     "SECONDS",
     "HOST_ROUTE",
     "reset_calls",
+    "gather_v",
+    "reduce_scatter_v",
     "mesh_all_reduce",
     "mesh_all_gather",
     "mesh_reduce_scatter",
@@ -59,11 +71,22 @@ __all__ = [
     "mesh_broadcast",
     "mesh_scatter",
     "mesh_ppermute",
+    "COMPRESS",
+    "next_sr_key",
+    "q_psum",
+    "q_all_gather",
+    "q_psum_scatter",
+    "q_all_to_all",
+    "all_reduce_q",
+    "reduce_scatter_q",
 ]
 
 CALLS: Counter = Counter()
 BYTES: Counter = Counter()
 SECONDS: Counter = Counter()
+# "<op>.raw_wire" / "<op>.q_wire": each quantized call's wire bytes a rank,
+# uncompressed and quantized (``_compress_wire_bytes``)
+COMPRESS: Counter = Counter()
 TIMING = False
 
 # (backend, device type) -> the ops that backend refuses on that device's
@@ -79,6 +102,7 @@ def reset_calls() -> None:
     CALLS.clear()
     BYTES.clear()
     SECONDS.clear()
+    COMPRESS.clear()
 
 
 def _timed(op: str):
@@ -189,14 +213,57 @@ def pad_dim0(t: torch.Tensor, size: int) -> torch.Tensor:
     return torch.cat([t, pad])
 
 
-def gather_v(t: torch.Tensor, sizes: Sequence[int], group) -> torch.Tensor:
+def gather_v(t: torch.Tensor, sizes: Sequence[int], group, *, bucket: Optional[int] = None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """All-gather-v along dim 0: member ``j`` holds ``sizes[j]`` rows; pad
-    each to the largest, all-gather, unpad."""
+    each to the largest, all-gather, unpad (into ``out`` when given).
+    With ``bucket`` (rows over all members) the padded pieces go in
+    windows, one all-gather a window, so no call moves more than a
+    bucket."""
     pad = max(sizes) if sizes else 0
-    buf = all_gather(pad_dim0(t, pad), group)
-    if all(s == pad for s in sizes):
-        return buf
-    return torch.cat([buf.narrow(0, j * pad, s) for j, s in enumerate(sizes)])
+    n = len(sizes)
+    w = pad if bucket is None else max(1, min(pad, int(bucket) // max(1, n)))
+    if out is None:
+        if w >= pad and all(s == pad for s in sizes):
+            return all_gather(pad_dim0(t, pad), group)
+        out = t.new_empty((int(sum(sizes)),) + tuple(t.shape[1:]))
+    offs = [0]
+    for s_ in sizes[:-1]:
+        offs.append(offs[-1] + s_)
+    for a in range(0, pad, max(1, w)):
+        b = min(pad, a + w)
+        piece = t.narrow(0, min(a, t.shape[0]), max(0, min(b, t.shape[0]) - a))
+        got = all_gather(pad_dim0(piece, b - a), group)
+        for j, s_ in enumerate(sizes):
+            valid = max(0, min(b, s_) - a)
+            if valid:
+                out.narrow(0, offs[j] + a, valid).copy_(got.narrow(0, j * (b - a), valid))
+    return out
+
+
+def reduce_scatter_v(t: torch.Tensor, sizes: Sequence[int], group, reduce_op: str = "sum", *,
+                     bucket: Optional[int] = None) -> torch.Tensor:
+    """Reduce-scatter-v along dim 0: every member passes the whole ``t``
+    (``sum(sizes)`` rows); member ``j`` gets rows ``[off_j, off_j +
+    sizes[j])`` reduced over the group.  Each member's piece is padded to
+    the largest (``reduce_scatter`` wants equal chunks), in windows of
+    ``bucket`` rows over all members when given."""
+    n, me = len(sizes), dist.get_rank(group)
+    pad = max(sizes) if sizes else 0
+    w = pad if bucket is None else max(1, min(pad, int(bucket) // max(1, n)))
+    offs = [0]
+    for s_ in sizes[:-1]:
+        offs.append(offs[-1] + s_)
+    out = t.new_empty((sizes[me],) + tuple(t.shape[1:]))
+    for a in range(0, pad, max(1, w)):
+        b = min(pad, a + w)
+        buf = torch.cat([pad_dim0(t.narrow(0, offs[j] + min(a, s_), max(0, min(b, s_) - a)), b - a)
+                         for j, s_ in enumerate(sizes)])
+        red = reduce_scatter(buf, group, reduce_op)
+        valid = max(0, min(b, sizes[me]) - a)
+        if valid:
+            out.narrow(0, a, valid).copy_(red.narrow(0, 0, valid))
+    return out
 
 
 # ---------------------------------------------------- mesh collectives
@@ -310,3 +377,250 @@ def mesh_ppermute(tensor: torch.Tensor, mesh: DeviceMesh, mesh_dim=0, shift: int
     for w in dist.batch_isend_irecv(ops):
         w.wait()
     return out.copy_(r_buf) if host else out
+
+
+# ------------------------------------------------- quantized collectives
+# Block-scaled int8 collectives (EQuARX, arXiv:2506.17615): quantize each
+# rank's contribution once, move one packed int8 buffer, accumulate the
+# dequantized contributions in fp32 in fixed rank order.  Reductions move
+# int8 payloads and pure data movement uint8, the reference's wire-dtype
+# convention.
+_SR_CALLS = itertools.count()
+_WARNED_COUNTERPRODUCTIVE: set = set()
+
+
+def _rank_key(key, index: int, rounding: str):
+    """This rank's stochastic-rounding key: its position ``index`` on the
+    mesh dim folded into ``key``."""
+    if rounding != "stochastic":
+        return None
+    from .random import fold_in
+
+    return fold_in(key, index)
+
+
+def next_sr_key():
+    """A fresh stochastic-rounding key for one eager quantized reduction:
+    ``fold_in(key(VESCALE_GRAD_COMPRESS_SEED), call_index)``, a pure
+    function of (seed, call order)."""
+    from . import config
+    from .random import fold_in, key
+
+    return fold_in(key(config.get_int("VESCALE_GRAD_COMPRESS_SEED") or 0), next(_SR_CALLS))
+
+
+def _compress_settings(block, rounding):
+    """Explicit arguments win, else the ``VESCALE_GRAD_COMPRESS_*`` knobs."""
+    from . import config
+    from .quant import blockscale
+
+    if block is None:
+        block = config.get_int("VESCALE_GRAD_COMPRESS_BLOCK") or blockscale.DEFAULT_BLOCK
+    if rounding is None:
+        rounding = "stochastic" if config.get_bool("VESCALE_GRAD_COMPRESS_SR") else "nearest"
+    return int(block), rounding
+
+
+def _compress_defaults(block, rounding, key):
+    """``_compress_settings`` plus a fresh ``next_sr_key`` for a
+    stochastic call without a key."""
+    block, rounding = _compress_settings(block, rounding)
+    if rounding == "stochastic" and key is None:
+        key = next_sr_key()
+    return block, rounding, key
+
+
+def _check_op(reduce_op: str) -> None:
+    if reduce_op not in ("sum", "avg"):
+        raise ValueError(f"quantized reduction supports sum/avg, got {reduce_op!r}")
+
+
+def _payload(x: torch.Tensor, block: int, rounding: str, key):
+    from .quant import blockscale
+
+    qb = blockscale.quantize_int8_blocks(x, block, rounding, key)
+    return blockscale.pack_int8_payload(qb), qb.q.shape[0]
+
+
+def _gather_payload(payload: torch.Tensor, group, op: str) -> torch.Tensor:
+    """Every member's payload, (n, P), in group order; counted as ``op``."""
+    n = dist.get_world_size(group)
+    out = payload.new_empty((n * payload.numel(),))
+    _count(group, op, payload)
+    _quiet(dist.all_gather_into_tensor, out, payload.contiguous(), group=group)
+    return out.view(n, -1)
+
+
+def _exchange_payloads(payloads: torch.Tensor, group, op: str) -> torch.Tensor:
+    """(n, P) -> (n, P): row ``j`` goes to member ``j``; row ``r`` of the
+    result came from member ``r``.  Counted as ``op``."""
+    out = torch.empty_like(payloads)
+    _count(group, op, payloads)
+    dist.all_to_all_single(out, payloads.contiguous(), group=group)
+    return out
+
+
+def _accumulate(rows, n_blocks: int, block: int, acc_dtype, reduce_op: str, n: int):
+    """The dequantized rows summed in ``acc_dtype`` in rank order (the
+    multiply is exact: power-of-two scales)."""
+    from .quant import blockscale
+
+    acc = None
+    for r in range(n):
+        qr = blockscale.unpack_int8_payload(rows[r], n_blocks, block)
+        d = qr.q.to(acc_dtype) * qr.scales.to(acc_dtype)[:, None]
+        acc = d if acc is None else acc + d
+    return acc / n if reduce_op == "avg" else acc
+
+
+@_timed("q_psum")
+def q_psum(x: torch.Tensor, group, *, block: int, rounding: str = "nearest", key=None,
+           acc_dtype=torch.float32, reduce_op: str = "sum") -> torch.Tensor:
+    """Quantized all-reduce over ``group``: quantize, all-gather one packed
+    int8 buffer, dequantize and accumulate every member's in rank order."""
+    _check_op(reduce_op)
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    payload, nb = _payload(x, block, rounding, _rank_key(key, me, rounding))
+    rows = _gather_payload(payload, group, "q_psum")
+    acc = _accumulate(rows, nb, block, acc_dtype, reduce_op, n)
+    return acc.reshape(-1)[: x.numel()].reshape(x.shape).to(x.dtype)
+
+
+@_timed("q_all_gather")
+def q_all_gather(x: torch.Tensor, group, *, axis: int, extent: int, block: int,
+                 rounding: str = "nearest", key=None, acc_dtype=torch.float32) -> torch.Tensor:
+    """Quantized all-gather along ``axis``: every member's chunk (this
+    one's too) round-trips through int8, concatenated in rank order and
+    trimmed to ``extent``."""
+    from .quant import blockscale
+
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    payload, nb = _payload(x, block, rounding, _rank_key(key, me, rounding))
+    rows = _gather_payload(payload.view(torch.uint8), group, "q_all_gather")
+    parts = [blockscale.dequantize_int8_blocks(
+        blockscale.unpack_int8_payload(rows[r].view(torch.int8), nb, block), x.shape, x.dtype,
+        acc_dtype) for r in range(n)]
+    out = torch.cat(parts, dim=axis)
+    return out.narrow(axis, 0, extent) if out.shape[axis] != extent else out
+
+
+def _chunk_payloads(x: torch.Tensor, n: int, dim: int, me: int, block: int, rounding: str, key,
+                    name: str):
+    if x.shape[dim] % n:
+        raise ValueError(f"{name}: dim {dim} extent {x.shape[dim]} not divisible by {n} "
+                         "(pad first)")
+    chunks = torch.chunk(x, n, dim=dim)
+    key0 = _rank_key(key, me, rounding)
+    from .random import fold_in
+
+    out, nb = [], None
+    for c, chunk in enumerate(chunks):
+        p, nb = _payload(chunk, block, rounding, None if key0 is None else fold_in(key0, c))
+        out.append(p)
+    return chunks[0].shape, torch.stack(out), nb
+
+
+@_timed("q_psum_scatter")
+def q_psum_scatter(x: torch.Tensor, group, *, scatter_dim: int, block: int,
+                   rounding: str = "nearest", key=None, acc_dtype=torch.float32,
+                   reduce_op: str = "sum") -> torch.Tensor:
+    """Quantized reduce-scatter: ``x`` cut into group-size chunks along
+    ``scatter_dim`` (divisible), each quantized on its own; one all-to-all
+    of the packed chunks; this member accumulates the chunks it received in
+    rank order."""
+    _check_op(reduce_op)
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    cshape, stack, nb = _chunk_payloads(x, n, scatter_dim, me, block, rounding, key,
+                                        "q_psum_scatter")
+    recv = _exchange_payloads(stack, group, "q_psum_scatter")
+    acc = _accumulate(recv, nb, block, acc_dtype, reduce_op, n)
+    csize = 1
+    for s in cshape:
+        csize *= int(s)
+    return acc.reshape(-1)[:csize].reshape(cshape).to(x.dtype)
+
+
+@_timed("q_all_to_all")
+def q_all_to_all(x: torch.Tensor, group, *, split_axis: int, concat_axis: int, block: int,
+                 rounding: str = "nearest", key=None, acc_dtype=torch.float32) -> torch.Tensor:
+    """Quantized all-to-all: split along ``split_axis`` (divisible), move
+    packed uint8 chunks, concatenate what arrives along ``concat_axis`` in
+    rank order."""
+    from .quant import blockscale
+
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    cshape, stack, nb = _chunk_payloads(x, n, split_axis, me, block, rounding, key,
+                                        "q_all_to_all")
+    recv = _exchange_payloads(stack.view(torch.uint8), group, "q_all_to_all")
+    parts = [blockscale.dequantize_int8_blocks(
+        blockscale.unpack_int8_payload(recv[r].view(torch.int8), nb, block), cshape, x.dtype,
+        acc_dtype) for r in range(n)]
+    return torch.cat(parts, dim=concat_axis)
+
+
+def _compress_wire_bytes(n_elements: int, itemsize: int, block: int, op: str, n: int):
+    """(raw, quantized) wire bytes a rank of one collective: the quantized
+    all-reduce gathers (n-1) packed contributions against the ring's
+    2(n-1)/n raw, so at large n it moves more; the reduce-scatter is an
+    all-to-all of packed chunks against the ring's (n-1)/n raw."""
+    from .quant import blockscale
+
+    raw = n_elements * itemsize
+    packed = blockscale.packed_nbytes(n_elements, block)
+    f = (n - 1) / max(1, n)
+    if op == "all_reduce":
+        return 2.0 * f * raw, float((n - 1) * packed)
+    return f * raw, f * packed
+
+
+def _compress_telemetry(n_elements: int, itemsize: int, block: int, op: str, n: int) -> None:
+    """Add one quantized call's wire bytes to ``COMPRESS`` and the
+    ``grad_compress_*`` counters of ``telemetry.registry.GLOBAL``; warn
+    once per (op, n) where quantizing moves no fewer bytes."""
+    from .telemetry.registry import GLOBAL
+
+    GLOBAL.count("grad_compress_collectives_total")
+    GLOBAL.count(f"grad_compress_{op}_total")
+    COMPRESS[f"{op}.calls"] += 1
+    if n <= 1:
+        return
+    raw_wire, q_wire = _compress_wire_bytes(n_elements, itemsize, block, op, n)
+    COMPRESS[f"{op}.raw_wire"] += raw_wire
+    COMPRESS[f"{op}.q_wire"] += q_wire
+    GLOBAL.count("grad_compress_bytes_saved_total", max(0.0, raw_wire - q_wire))
+    if q_wire >= raw_wire and (op, n) not in _WARNED_COUNTERPRODUCTIVE:
+        _WARNED_COUNTERPRODUCTIVE.add((op, n))
+        warnings.warn(
+            f"grad_compress='int8' {op} over a mesh dim of {n} moves ~{int(q_wire)} bytes on "
+            f"the wire vs ~{int(raw_wire)} uncompressed (the gather-based quantized all-reduce "
+            "is O(n) in wire bytes): prefer the ZeRO reduce-scatter path or disable "
+            "VESCALE_GRAD_COMPRESS", stacklevel=3)
+
+
+def all_reduce_q(tensor: torch.Tensor, mesh: DeviceMesh, reduce_op: str = "sum", mesh_dim=0, *,
+                 block: Optional[int] = None, rounding: Optional[str] = None, key=None,
+                 acc_dtype=torch.float32) -> torch.Tensor:
+    """Block-scaled int8 all-reduce of every rank's ``tensor`` along
+    ``mesh_dim``: the quantized ``mesh_all_reduce``; the knobs default
+    from ``VESCALE_GRAD_COMPRESS_*``."""
+    block, rounding, key = _compress_defaults(block, rounding, key)
+    out = q_psum(tensor, mesh.get_group(mesh_dim), block=block, rounding=rounding, key=key,
+                 acc_dtype=acc_dtype, reduce_op=reduce_op)
+    _compress_telemetry(tensor.numel(), tensor.element_size(), block, "all_reduce",
+                        mesh.size(mesh_dim))
+    return out
+
+
+def reduce_scatter_q(tensor: torch.Tensor, mesh: DeviceMesh, reduce_op: str = "sum",
+                     scatter_dim: int = 0, mesh_dim=0, *, block: Optional[int] = None,
+                     rounding: Optional[str] = None, key=None,
+                     acc_dtype=torch.float32) -> torch.Tensor:
+    """Block-scaled int8 reduce-scatter: each rank contributes a full
+    ``tensor``; rank ``j`` along ``mesh_dim`` gets chunk ``j`` (of
+    ``scatter_dim``, evenly divided) of the reduction."""
+    block, rounding, key = _compress_defaults(block, rounding, key)
+    out = q_psum_scatter(tensor, mesh.get_group(mesh_dim), scatter_dim=scatter_dim, block=block,
+                         rounding=rounding, key=key, acc_dtype=acc_dtype, reduce_op=reduce_op)
+    _compress_telemetry(tensor.numel(), tensor.element_size(), block, "reduce_scatter",
+                        mesh.size(mesh_dim))
+    return out

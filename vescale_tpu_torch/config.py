@@ -1,9 +1,10 @@
 """The port's knobs read from the environment, with the JAX package's defaults.
 
 The same names and defaults as the serving, resilience, faultsim,
-redistribute and checkpoint knobs of ``vescale_tpu/analysis/envreg.py``;
-read live at each call, without that module's registry machinery.  A knob
-whose default is ``None`` reads as ``None`` while unset.
+redistribute, checkpoint and gradient-compression knobs of
+``vescale_tpu/analysis/envreg.py``; read live at each call, without that
+module's registry machinery.  A knob whose default is ``None`` reads as
+``None`` while unset.
 """
 
 from __future__ import annotations
@@ -48,6 +49,11 @@ DEFAULTS = {
     "VESCALE_IO_BACKOFF_JITTER": 0.25,
     "VESCALE_IO_ATTEMPT_TIMEOUT": 0.0,
     "VESCALE_ELASTIC_RESTORE": True,
+    # the int8 gradient collectives (parallel/ddp.py, collectives.py)
+    "VESCALE_GRAD_COMPRESS": "",
+    "VESCALE_GRAD_COMPRESS_BLOCK": 64,
+    "VESCALE_GRAD_COMPRESS_SR": False,
+    "VESCALE_GRAD_COMPRESS_SEED": 0,
 }
 # envreg's booleans: unset takes the default; these (case-insensitive) are
 # false, anything else is true

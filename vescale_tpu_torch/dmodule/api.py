@@ -226,7 +226,8 @@ class DModule:
                 if len(sharded) > 1 or sharded[0] not in self._move:
                     raise NotImplementedError(
                         f"parameter {name} sharded as {pl}: one tensor-parallel mesh dim a "
-                        "parameter; data-parallel sharding is ROADMAP.md queue A, item 11")
+                        "parameter; shard over data parallelism with parallel.FSDPParamBuffer "
+                        "(a plan that shards over 'dp': ROADMAP.md, A11's leftovers)")
                 if not hasattr(owner, "shard_param"):
                     raise NotImplementedError(
                         f"parameter {name} sharded as {pl}, but {type(owner).__name__} "

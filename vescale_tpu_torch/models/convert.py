@@ -40,7 +40,7 @@ from .llama import LlamaConfig
 from .nanogpt import GPTConfig
 
 __all__ = ["params_from_jax", "init_params", "param_shapes", "tree_to", "module_tree",
-           "load_params"]
+           "load_params", "zero_state_from_jax", "fsdp_buffer_from_jax"]
 
 
 def params_from_jax(tree: Mapping[str, Any], device=None,
@@ -58,6 +58,68 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
         return t.to(device=dev, dtype=dtype if dtype is not None else t.dtype)
 
     return conv(tree)
+
+
+def _piece(value, template, device=None) -> Any:
+    """A full reference array (read through ``np.asarray``) cut as the
+    template leaf is: a ``DArray`` template gives its rank's piece, a
+    tensor template the whole value in its dtype."""
+    from ..darray import DArray
+
+    full = torch.from_numpy(np.array(np.asarray(value), copy=True))
+    if isinstance(template, DArray):
+        spec = template.spec
+        local = spec.local_from_full(full, spec.mesh.coordinate_of_rank(template.rank))
+        dev = spec.mesh.device if device is None else resolve_device(device)
+        return DArray(local.to(device=dev, dtype=spec.dtype).contiguous(), spec, template.rank)
+    dev = template.device if device is None else resolve_device(device)
+    return full.to(device=dev, dtype=template.dtype).reshape(template.shape)
+
+
+def zero_state_from_jax(state: Mapping[str, Any], template, device=None):
+    """A reference ``DistributedOptimizer`` state over ``adamw_lowmem``
+    (``{"inner": (ScaleByAdamLowmemState(count, mu, nu), ...),
+    "main_params": ..., "loss_scale": ...}``, leaves read through
+    ``np.asarray``) as the port's ``DistributedOptimizer.state_tree``: each
+    leaf cut as ``template`` (``state_template()``) lays it out, so the
+    result is this rank's pieces, ready for ``load_state_tree``."""
+    from ..parallel.optimizer import ScaleByAdamLowmemState
+
+    def cut(values, tmpl):
+        if isinstance(tmpl, Mapping):
+            return {k: cut(values[k], v) for k, v in tmpl.items()}
+        return _piece(values, tmpl, device)
+
+    inner, t_inner = state["inner"][0], template["inner"][0]
+    out = {"inner": [ScaleByAdamLowmemState(cut(inner.count, t_inner.count),
+                                            cut(inner.mu, t_inner.mu),
+                                            cut(inner.nu, t_inner.nu))],
+           "main_params": cut(state["main_params"], template["main_params"])}
+    if "loss_scale" in template:
+        out["loss_scale"] = cut(state["loss_scale"], template["loss_scale"])
+    return out
+
+
+def fsdp_buffer_from_jax(physicals: Mapping[str, Any], buffer, rank: Optional[int] = None,
+                         device=None) -> Dict[str, torch.Tensor]:
+    """A reference ``FSDPParamBuffer.pack`` output (``{dtype name: padded
+    rank-major physical buffer}``: rank ``r``'s chunk at ``r * pad``, pad
+    the largest chunk) as ``rank``'s pieces of the port's ``buffer``
+    (default: this process's rank), the port's ``pack`` layout."""
+    coord = buffer._coord(rank)
+    dev = buffer.mesh.device if device is None else resolve_device(device)
+    out = {}
+    for name, g in buffer.groups.items():
+        phys = torch.from_numpy(np.array(np.asarray(physicals[name]), copy=True))
+        c = list(coord)
+        sizes = []
+        for r in range(buffer.mesh.size(buffer.dim)):
+            c[buffer.dim_index] = r
+            sizes.append(g.spec.ragged_local_chunk(c)[0])
+        me = coord[buffer.dim_index]
+        pad = max(sizes)
+        out[name] = phys.narrow(0, me * pad, sizes[me]).to(device=dev, dtype=g.dtype).clone()
+    return out
 
 
 def _gpt_param_shapes(c: GPTConfig) -> Dict[str, Any]:

@@ -1,5 +1,18 @@
-"""Optimizers of the port (single device so far)."""
+"""Optimizers and data parallelism of the port: ``AdamWLowmem``,
+``BasicOptimizer``, ``DistributedOptimizer`` (ZeRO), DDP and the ragged
+FSDP buffer."""
 
-from .optimizer import AdamWLowmem, BasicOptimizer, clip_grad_norm_fp32, found_inf
+from .ddp import DistributedDataParallel, dp_grad_reduce, resolve_grad_compress
+from .fsdp import FSDPParamBuffer, fsdp_plan, make_fsdp_train_step
+from .optimizer import (
+    AdamWLowmem,
+    BasicOptimizer,
+    DistributedOptimizer,
+    clip_grad_norm_fp32,
+    found_inf,
+    zero_sharded,
+)
 
-__all__ = ["AdamWLowmem", "BasicOptimizer", "clip_grad_norm_fp32", "found_inf"]
+__all__ = ["AdamWLowmem", "BasicOptimizer", "DistributedDataParallel", "DistributedOptimizer",
+           "FSDPParamBuffer", "clip_grad_norm_fp32", "dp_grad_reduce", "found_inf", "fsdp_plan",
+           "make_fsdp_train_step", "resolve_grad_compress", "zero_sharded"]

@@ -1,8 +1,8 @@
-"""Optimizers: ``AdamWLowmem``, ``BasicOptimizer``, ``clip_grad_norm_fp32``,
-``found_inf``.
+"""Optimizers: ``AdamWLowmem``, ``BasicOptimizer``, ``DistributedOptimizer``
+(ZeRO), ``zero_sharded``, ``clip_grad_norm_fp32``, ``found_inf``.
 
-The single-device part of ``vescale_tpu/parallel/optimizer.py``, written
-from scratch on ``torch.optim`` (the reference is an optax chain):
+The port of ``vescale_tpu/parallel/optimizer.py``, written on
+``torch.optim`` (the reference is an optax chain):
 
   * ``AdamWLowmem`` — ``adamw_lowmem``: ``scale_by_adam_lowmem`` (moments
     kept in ``state_dtype``, bf16 by default, all arithmetic in fp32; the
@@ -14,31 +14,65 @@ from scratch on ``torch.optim`` (the reference is an optax chain):
     step, as every leaf of the reference's tree does: one whose ``.grad``
     is None is stepped with zero grads.
   * ``BasicOptimizer`` — an optimizer plus an optional global-norm clip.
+  * ``DistributedOptimizer`` — ZeRO-2: fp32 main params and the inner
+    optimizer's state sharded over the dp dims, each leaf on its first
+    free dim that the dp world divides (``zero_placements``, the
+    reference's ``_zero_pspec_for``), so each rank's state pieces are the
+    reference's shards.  ``reduce_grads`` reduce-scatters the gradients
+    into those pieces, the inner optimizer (``AdamWLowmem``: one K8 launch
+    over this rank's pieces) steps them, and the params are all-gathered
+    back.  Loss scaling (``None``, a float or ``"dynamic"``), the found-inf
+    skip (all-reduced over every mesh dim: a step is skipped on every rank
+    or none, before the inner step, so a skipped step changes no bit) and
+    the global-norm clip (over every dp and tp piece) ride along.
   * ``clip_grad_norm_fp32`` and ``found_inf`` over lists of grads.
 
-Not here yet: ``DistributedOptimizer`` (ZeRO), the loss scaler, Muon.
+Not here yet: Muon (ROADMAP.md queue A, item 4).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .. import collectives as C
 from ..kernels.fused_adamw import fused_adamw_update
+from ..mesh import DeviceMesh
+from ..placements import InterleavedShard, Placement, Replicate, Shard
+from ..spec import DArraySpec, TensorMeta
+from .ddp import (DEFAULT_BUCKET, bucketed_all_gather, bucketed_all_reduce, bucketed_reduce_scatter,
+                  resolve_grad_compress, tree_map)
 
-__all__ = ["AdamWLowmem", "BasicOptimizer", "clip_grad_norm_fp32", "found_inf", "bias_corrections"]
+__all__ = ["AdamWLowmem", "BasicOptimizer", "DistributedOptimizer", "ScaleByAdamLowmemState",
+           "clip_grad_norm_fp32", "found_inf", "bias_corrections", "zero_placements",
+           "zero_sharded"]
 
 
-def found_inf(grads: Iterable[torch.Tensor]) -> torch.Tensor:
+def _all_reduce_mesh(t: torch.Tensor, mesh: Optional[DeviceMesh], op: str) -> torch.Tensor:
+    """``t`` reduced over every dim of a live ``mesh`` (one all-reduce a
+    dim of size > 1), or ``t`` itself."""
+    if mesh is None or not mesh.is_live:
+        return t
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            t = C.all_reduce(t, mesh.get_group(i), op)
+    return t
+
+
+def found_inf(grads: Iterable[torch.Tensor], mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     """Scalar bool tensor: any non-finite value in any grad (the
-    reference's ``found_inf``)."""
+    reference's ``found_inf``).  With a live ``mesh`` the flag is
+    all-reduced (max) over every mesh dim, so every rank agrees, as the
+    reference's found_inf_reduce_handler does."""
     flags = [(~torch.isfinite(g)).any() for g in grads if g is not None]
-    if not flags:
-        return torch.tensor(False)
-    out = flags[0]
+    out = torch.tensor(False) if not flags else flags[0]
     for f in flags[1:]:
         out = torch.logical_or(out, f)
+    if mesh is not None and mesh.is_live:
+        flag = out.to(device=mesh.device, dtype=torch.int32).reshape(1)
+        out = _all_reduce_mesh(flag, mesh, "max")[0] > 0
     return out
 
 
@@ -147,3 +181,464 @@ class BasicOptimizer:
             for p, g in zip(params, clipped):
                 p.grad = g
         self.optimizer.step()
+
+
+# -------------------------------------------------------------------- ZeRO
+class ScaleByAdamLowmemState(NamedTuple):
+    """The reference's ``scale_by_adam_lowmem`` state: the step counter
+    and the two moment trees (``inner/0/.count``, ``.mu``, ``.nu`` in a
+    checkpoint, as optax's chain names them)."""
+
+    count: Any
+    mu: Any
+    nu: Any
+
+
+def zero_placements(shape: Sequence[int], placements: Sequence[Placement], mesh: DeviceMesh,
+                    dp_dims: Sequence[str]) -> Tuple[Placement, ...]:
+    """The ZeRO placements of a state leaf of a parameter laid out as
+    ``placements`` (the reference's ``_zero_pspec_for``): the dp mesh dims
+    shard the first tensor dim that no mesh dim shards and that the dp
+    world divides.  A leaf already sharded on a dp dim, too small or
+    indivisible keeps ``placements``."""
+    placements = tuple(placements)
+    dp_idx = [mesh._dim_index(d) for d in dp_dims]
+    if any(not placements[i].is_replicate() for i in dp_idx):
+        return placements
+    used = set()
+    for p in placements:
+        if isinstance(p, (Shard, InterleavedShard)):
+            used.add(p.dim)
+        elif not (p.is_replicate() or p.is_partial()):
+            return placements  # ragged: the whole tensor is already cut
+    dp_total = 1
+    for i in dp_idx:
+        dp_total *= mesh.size(i)
+    for d, s in enumerate(shape):
+        if d not in used and s % dp_total == 0 and s >= dp_total:
+            new = list(placements)
+            for i in dp_idx:
+                new[i] = Shard(d)
+            return tuple(new)
+    return placements
+
+
+def _flat_specs(tree, prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flat_specs(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Dotted names to the nested dict of the flax tree."""
+    tree: Dict[str, Any] = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+class _ZeroLeaf:
+    """One parameter under ZeRO: its global spec, the state spec, the
+    tensor dim the dp dims cut (None: not cut) and this rank's offset and
+    extent on it."""
+
+    __slots__ = ("name", "param", "spec", "zspec", "dim", "offset", "size")
+
+    def __init__(self, name, param, spec, zspec, dim, offset, size):
+        self.name, self.param, self.spec, self.zspec = name, param, spec, zspec
+        self.dim, self.offset, self.size = dim, offset, size
+
+
+class DistributedOptimizer:
+    """ZeRO-2 optimizer (reference ``DistributedOptimizer``, legacy
+    ``distributed_optimizer.py:131``).
+
+    ``optimizer`` makes the inner optimizer from a list of tensors, e.g.
+    ``functools.partial(AdamWLowmem, lr=3e-4)``; it steps this rank's fp32
+    main-param pieces.  ``models`` is the model: a ``DModule`` (its mesh
+    and parameter specs are the defaults), a module, or a dict of named
+    tensors, each this rank's piece under ``param_specs`` (a dict, flat or
+    nested, of ``DArraySpec``; default Replicate).  Without a ``mesh``
+    nothing is sharded and no collective runs.  A step::
+
+        dopt.zero_grad()
+        dopt.scale_loss(loss).backward()
+        dm.finish_grad_sync()       # tensor-parallel sums, if any
+        dopt.reduce_grads()         # dp reduce-scatter into the pieces
+        dopt.step()
+
+    Each rank's gradient is its own contribution (the gradient of its
+    rows' mean loss); ``reduce_grads`` averages over the dp dim.  With
+    ``loss_scale="dynamic"`` (or a float), ``step`` unscales, all-reduces
+    the found-inf flag over every mesh dim and, on overflow, skips: the
+    params, the main params, the moments and the step counter are left
+    bit for bit, and the dynamic scale backs off (never below
+    ``min_scale``); after ``growth_interval`` clean steps it grows.  The
+    flag is read on the host each step.  ``state_tree`` is the
+    reference's state layout (``inner/0/.mu``, ``main_params``,
+    ``loss_scale``) as ``DArray``s; ``state_template`` the same without
+    data, for ``checkpoint.load``.  The module path reduce-scatters over
+    one dp mesh dim (``dp_dims`` of one name).
+    """
+
+    def __init__(self, optimizer: Callable[[List[torch.Tensor]], torch.optim.Optimizer],
+                 mesh: Optional[DeviceMesh] = None, param_specs=None, models=None,
+                 dp_dims: Sequence[str] = ("dp",), grad_clip: Optional[float] = None,
+                 main_param_dtype: torch.dtype = torch.float32, loss_scale=None, init_scale: float = 2.0 ** 15, growth_interval: int = 2000,
+                 growth_factor: float = 2.0, backoff_factor: float = 0.5, min_scale: float = 1.0,
+                 skip_nonfinite: Optional[bool] = None, grad_compress: Optional[str] = None,
+                 compress_block: Optional[int] = None, **_: Any):
+        from ..dmodule import DModule
+
+        if models is None:
+            raise ValueError("DistributedOptimizer needs models= (a DModule, module or dict)")
+        if isinstance(models, DModule):
+            mesh = mesh if mesh is not None else models.mesh
+            if param_specs is None:
+                param_specs = dict(models._specs)
+            named = list(models.module.named_parameters())
+        elif isinstance(models, torch.nn.Module):
+            named = list(models.named_parameters())
+        else:
+            named = list(_flat_specs(models).items())
+        specs = _flat_specs(param_specs) if param_specs is not None else {}
+        self.mesh = mesh
+        self.dp_dims = tuple(dp_dims)
+        self.grad_compress = resolve_grad_compress(grad_compress)
+        self.compress_block = compress_block
+        self.grad_clip = grad_clip
+        self.main_param_dtype = main_param_dtype
+        self.loss_scale = loss_scale
+        self.init_scale = float(init_scale)
+        self.growth_interval = int(growth_interval)
+        self.growth_factor = float(growth_factor)
+        self.backoff_factor = float(backoff_factor)
+        if float(min_scale) <= 0.0:
+            raise ValueError(f"min_scale must be > 0, got {min_scale}")
+        # the floor sits at most at init_scale, so a backoff never raises it
+        self.min_scale = min(float(min_scale), float(init_scale))
+        self.skip_nonfinite = (loss_scale is not None) if skip_nonfinite is None else skip_nonfinite
+        if loss_scale == "dynamic" and not self.skip_nonfinite:
+            raise ValueError("loss_scale='dynamic' requires skip_nonfinite: the scale's backoff "
+                             "and growth are driven by the overflow flag")
+        live = mesh is not None and mesh.is_live
+        coord = mesh.get_coordinate() if live else (0,) * (mesh.ndim if mesh is not None else 0)
+        self._rank = mesh.get_rank() if live else 0
+        self.leaves: List[_ZeroLeaf] = []
+        mains = []
+        for name, p in named:
+            spec = specs.get(name)
+            if mesh is None:
+                spec = zspec = None
+                dim, off, size = None, 0, 0
+            else:
+                if not isinstance(spec, DArraySpec):
+                    spec = DArraySpec(mesh, spec if spec is not None else [Replicate()] * mesh.ndim,
+                                      TensorMeta(tuple(p.shape), p.dtype))
+                zpl = zero_placements(spec.shape, spec.placements, mesh, self.dp_dims)
+                zspec = DArraySpec(mesh, zpl, TensorMeta(spec.shape, main_param_dtype))
+                dim = next((zpl[i].dim for i in (mesh._dim_index(d) for d in self.dp_dims)
+                            if zpl[i] != spec.placements[i]), None)
+                off = size = 0
+                if dim is not None:
+                    shape, offs = zspec.local_chunk(coord)
+                    off, size = offs[dim], shape[dim]
+            leaf = _ZeroLeaf(name, p, spec, zspec, dim, off, size)
+            src = p.detach()
+            if dim is not None:
+                src = src.narrow(dim, off, size)
+            mains.append(src.to(main_param_dtype, copy=True, memory_format=torch.contiguous_format))
+            self.leaves.append(leaf)
+        self.main_params = mains
+        self.inner = optimizer(mains)
+        self._pieces: Optional[List[torch.Tensor]] = None
+        self.loss_scale_state = None
+        if loss_scale == "dynamic":
+            self.loss_scale_state = {"scale": torch.tensor(self.init_scale, dtype=torch.float32),
+                                     "growth_count": torch.tensor(0, dtype=torch.int32),
+                                     "skip_count": torch.tensor(0, dtype=torch.int32)}
+
+    # ------------------------------------------------------- loss scaling
+    def current_scale(self) -> float:
+        if self.loss_scale == "dynamic":
+            return float(self.loss_scale_state["scale"])
+        if self.loss_scale is not None:
+            return float(np.float32(self.loss_scale))
+        return 1.0
+
+    def scale_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The loss times the current scale (call before ``backward``)."""
+        return loss * torch.tensor(self.current_scale(), dtype=loss.dtype, device=loss.device)
+
+    # ----------------------------------------------------- grad reduction
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for leaf in self.leaves:
+            leaf.param.grad = None
+        self._pieces = None
+
+    def _dp_index(self) -> Optional[int]:
+        if self.mesh is None:
+            return None
+        if len(self.dp_dims) != 1:
+            raise NotImplementedError(
+                f"the module path reduces over one dp mesh dim, got dp_dims={self.dp_dims}")
+        return self.mesh._dim_index(self.dp_dims[0])
+
+    def reduce_grads(self, grads=None, dp_dim: Optional[str] = None):
+        """With ``grads`` (a tree of ``DArray``s): each leaf Partial on the
+        dp dim reduced there to Shard(0) when dim 0 divides the dp world,
+        else to Replicate; int8 with ``grad_compress``; other leaves
+        unchanged (the reference's ``reduce_grads``).  Without: the
+        parameters' gradients averaged over the dp dim into this rank's
+        state pieces, in flat buckets (reduce-scatter for the ZeRO-cut
+        leaves, all-reduce for the others); the parameters' ``.grad`` is
+        released."""
+        from ..darray import DArray
+        from .ddp import _reduce_partial_leaf
+
+        if grads is not None:
+            if self.mesh is None:
+                return grads
+            dp_index = self.mesh._dim_index(dp_dim or self.dp_dims[0])
+            n = self.mesh.size(dp_index)
+
+            def one(g):
+                if not (isinstance(g, DArray) and g.placements[dp_index].is_partial()):
+                    return g
+                target = Shard(0) if g.shape and g.shape[0] % n == 0 else Replicate()
+                return _reduce_partial_leaf(g, dp_index, target, self.grad_compress,
+                                            self.compress_block)
+
+            return tree_map(one, grads, is_leaf=lambda x: isinstance(x, DArray))
+        grads = [leaf.param.grad if leaf.param.grad is not None else torch.zeros_like(leaf.param)
+                 for leaf in self.leaves]
+        dp_index = self._dp_index()
+        if dp_index is None or self.mesh.size(dp_index) == 1:
+            pieces = [g.narrow(leaf.dim, leaf.offset, leaf.size) if leaf.dim is not None else g
+                      for g, leaf in zip(grads, self.leaves)]
+        else:
+            group = self.mesh.get_group(dp_index)
+            kw = dict(compress=self.grad_compress, block=self.compress_block, mesh=self.mesh,
+                      mesh_dim=dp_index)
+            pieces = [None] * len(grads)
+            whole = [i for i, leaf in enumerate(self.leaves) if leaf.dim is None]
+            g32 = [grads[i].float() for i in whole]
+            if g32:
+                bucketed_all_reduce(g32, group, "avg", DEFAULT_BUCKET, **kw)
+            for i, g in zip(whole, g32):
+                pieces[i] = g
+            cut = [i for i, leaf in enumerate(self.leaves) if leaf.dim is not None]
+            flats = [grads[i].float().movedim(self.leaves[i].dim, 0).contiguous().view(-1)
+                     for i in cut]
+            outs = bucketed_reduce_scatter(flats, group, "avg", DEFAULT_BUCKET, **kw)
+            for i, out in zip(cut, outs):
+                leaf = self.leaves[i]
+                moved = list(grads[i].movedim(leaf.dim, 0).shape)
+                moved[0] = leaf.size
+                pieces[i] = out.view(moved).movedim(0, leaf.dim)
+        for leaf in self.leaves:
+            leaf.param.grad = None
+        self._pieces = pieces
+        return None
+
+    # -------------------------------------------------------------- step
+    def _clip(self, g32: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The global-norm clip of ``clip_grad_norm_fp32`` over every dp
+        and tp piece: each element counted once (a piece replicated on a
+        mesh dim counts at its coordinate 0 only)."""
+        dev = g32[0].device if g32 else torch.device("cpu")
+        live = self.mesh is not None and self.mesh.is_live
+        coord = self.mesh.get_coordinate() if live else None
+        amax = torch.stack([g.abs().max() if g.numel() else torch.zeros((), device=dev)
+                            for g in g32]).max().reshape(1)
+        gmax = torch.clamp(_all_reduce_mesh(amax, self.mesh, "max"), min=1e-30)
+        sq = torch.zeros(1, dtype=torch.float32, device=dev)
+        for g, leaf in zip(g32, self.leaves):
+            if coord is not None and any(coord[i] != 0 for i, p in enumerate(leaf.zspec.placements)
+                                         if p.is_replicate()):
+                continue
+            sq = sq + torch.sum(torch.square(g / gmax))
+        total = gmax * torch.sqrt(_all_reduce_mesh(sq, self.mesh, "sum"))
+        scale = torch.clamp(self.grad_clip / (total + 1e-6), max=1.0)
+        return [g * scale for g in g32]
+
+    def _update_scale(self, overflow: bool) -> None:
+        ls = self.loss_scale_state
+        if ls is None:
+            return
+        f32 = np.float32
+        scale = f32(ls["scale"])
+        growth = 0 if overflow else int(ls["growth_count"]) + 1
+        grown = growth >= self.growth_interval
+        if overflow:
+            scale = max(f32(scale * f32(self.backoff_factor)), f32(self.min_scale))
+        elif grown:
+            scale = f32(scale * f32(self.growth_factor))
+        ls["scale"] = torch.tensor(float(scale), dtype=torch.float32)
+        ls["growth_count"] = torch.tensor(0 if grown else growth, dtype=torch.int32)
+        ls["skip_count"] = torch.tensor(int(ls["skip_count"]) + 1 if overflow else 0,
+                                        dtype=torch.int32)
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """Unscale, check, clip, step the pieces, gather the params (the
+        reference's ``step``).  Returns whether the step was skipped."""
+        if self._pieces is None:
+            self.reduce_grads()
+        pieces, self._pieces = self._pieces, None
+        inv = float(np.float32(1.0) / np.float32(self.current_scale()))
+        g32 = [g.to(self.main_param_dtype) for g in pieces]
+        if inv != 1.0:
+            g32 = [g * torch.tensor(inv, dtype=g.dtype, device=g.device) for g in g32]
+        overflow = bool(found_inf(g32, self.mesh)) if self.skip_nonfinite else False
+        if overflow:
+            self._update_scale(True)
+            return True
+        if self.grad_clip is not None:
+            g32 = self._clip(g32)
+        for m, g in zip(self.main_params, g32):
+            m.grad = g
+        self.inner.step()
+        for m in self.main_params:
+            m.grad = None
+        del g32, pieces
+        self._write_params()
+        self._update_scale(False)
+        return False
+
+    def _write_params(self) -> None:
+        """main -> params: the ZeRO-cut leaves all-gathered over the dp dim
+        (flat buckets), the others copied."""
+        cut = [i for i, leaf in enumerate(self.leaves) if leaf.dim is not None]
+        for i, leaf in enumerate(self.leaves):
+            if leaf.dim is None:
+                leaf.param.data.copy_(self.main_params[i].to(leaf.param.dtype))
+        if not cut:
+            return
+        dp_index = self._dp_index()
+        if self.mesh.size(dp_index) == 1:
+            for i in cut:
+                self.leaves[i].param.data.copy_(self.main_params[i].to(self.leaves[i].param.dtype))
+            return
+        outs, writes = [], []
+        for i in cut:
+            leaf, m = self.leaves[i], self.main_params[i]
+            p = leaf.param.data
+            if leaf.dim == 0 and p.dtype == m.dtype and p.is_contiguous():
+                outs.append(p.view(-1))
+                writes.append(None)
+            else:
+                moved = p.movedim(leaf.dim, 0)
+                outs.append(torch.empty(moved.numel(), dtype=m.dtype, device=m.device))
+                writes.append(tuple(moved.shape))
+        sources = [self.main_params[i].movedim(self.leaves[i].dim, 0).contiguous() for i in cut]
+        bucketed_all_gather(sources, outs, self.mesh.get_group(dp_index), DEFAULT_BUCKET)
+        for i, out, shape in zip(cut, outs, writes):
+            if shape is not None:
+                leaf = self.leaves[i]
+                leaf.param.data.copy_(out.view(shape).movedim(0, leaf.dim).to(leaf.param.dtype))
+
+    # ------------------------------------------------------------- state
+    def _darray(self, leaf: _ZeroLeaf, local, dtype):
+        from ..darray import DArray
+
+        spec = DArraySpec(self.mesh, leaf.zspec.placements, TensorMeta(leaf.zspec.shape, dtype))
+        return DArray(local, spec, self._rank)
+
+    def _inner_state(self):
+        if not isinstance(self.inner, AdamWLowmem):
+            raise TypeError(f"state_tree lays out AdamWLowmem's state, not "
+                            f"{type(self.inner).__name__}'s")
+        group = self.inner.param_groups[0]
+        sd = group["state_dtype"]
+        mus, nus = [], []
+        for m in self.main_params:
+            st = self.inner.state.get(m) or {}
+            mus.append(st.get("exp_avg", torch.zeros_like(m, dtype=sd)))
+            nus.append(st.get("exp_avg_sq", torch.zeros_like(m, dtype=sd)))
+        return group, mus, nus
+
+    def _tree(self, leaf_fn, scalar_fn):
+        group, mus, nus = self._inner_state()
+        sd = group["state_dtype"]
+
+        def tree(values, dtype):
+            return _nest({leaf.name: leaf_fn(leaf, v, dtype)
+                          for leaf, v in zip(self.leaves, values)})
+
+        state = {"inner": [ScaleByAdamLowmemState(
+                     scalar_fn(torch.tensor(group["step"], dtype=torch.int32)),
+                     tree(mus, sd), tree(nus, sd))],
+                 "main_params": tree(self.main_params, self.main_param_dtype)}
+        if self.loss_scale_state is not None:
+            state["loss_scale"] = {k: scalar_fn(v.clone()) for k, v in self.loss_scale_state.items()}
+        return state
+
+    def state_tree(self):
+        """This rank's optimizer state in the reference's layout:
+        ``{"inner": [ScaleByAdamLowmemState(count, mu, nu)], "main_params":
+        ..., "loss_scale": {...}}`` with ``DArray`` pieces (plain tensors
+        without a mesh) and 0-d host tensors for the scalars."""
+        if self.mesh is None:
+            return self._tree(lambda leaf, v, dt: v, lambda t: t)
+        return self._tree(lambda leaf, v, dt: self._darray(leaf, v, dt), lambda t: t)
+
+    def state_placements(self):
+        """The placements of every state leaf (None for the host scalars):
+        the counterpart of the reference's ``state_pspecs``."""
+        if self.mesh is None:
+            return self._tree(lambda leaf, v, dt: None, lambda t: None)
+        return self._tree(lambda leaf, v, dt: leaf.zspec.placements, lambda t: None)
+
+    def state_template(self):
+        """``state_tree``'s layout with no data: ``DArray`` templates for
+        ``checkpoint.load``, which fills each rank's pieces from whichever
+        saved chunks intersect them (an elastic restore across dp worlds)."""
+        if self.mesh is None:
+            return self._tree(lambda leaf, v, dt: torch.empty_like(v), lambda t: torch.zeros_like(t))
+        return self._tree(lambda leaf, v, dt: self._darray(leaf, None, dt),
+                          lambda t: torch.zeros_like(t))
+
+    @torch.no_grad()
+    def load_state_tree(self, state) -> None:
+        """Restore from a tree laid out as ``state_tree`` (e.g. what
+        ``checkpoint.load`` returned for ``state_template()``)."""
+        from ..darray import DArray
+        from ..models.convert import _flatten
+
+        def local(x, like):
+            t = x.to_local() if isinstance(x, DArray) else torch.as_tensor(x)
+            return t.to(device=like.device, dtype=like.dtype).reshape(like.shape)
+
+        inner = state["inner"][0]
+        mains = _flatten(state["main_params"])
+        mus, nus, count = _flatten(inner.mu), _flatten(inner.nu), inner.count
+        group, cur_mu, cur_nu = self._inner_state()
+        for leaf, m, mu, nu in zip(self.leaves, self.main_params, cur_mu, cur_nu):
+            m.copy_(local(mains[leaf.name], m))
+            st = self.inner.state[m]
+            st["exp_avg"] = local(mus[leaf.name], mu)
+            st["exp_avg_sq"] = local(nus[leaf.name], nu)
+        group["step"] = int(torch.as_tensor(count))
+        if self.loss_scale_state is not None and "loss_scale" in state:
+            for k in self.loss_scale_state:
+                self.loss_scale_state[k] = torch.as_tensor(state["loss_scale"][k]).clone().cpu()
+        self._write_params()
+
+
+def zero_sharded(optimizer: Callable[[List[torch.Tensor]], torch.optim.Optimizer],
+                 mesh: DeviceMesh, param_specs=None, dp_dims: Sequence[str] = ("dp",), *,
+                 models=None, **kwargs) -> DistributedOptimizer:
+    """``optimizer`` with its state (and fp32 main params) ZeRO-sharded
+    over ``dp_dims``: a ``DistributedOptimizer`` without loss scaling."""
+    return DistributedOptimizer(optimizer, mesh, param_specs, models=models, dp_dims=dp_dims,
+                                **kwargs)

@@ -12,12 +12,18 @@ tied head is reduce-scattered to it) and goes to ``loss_fn`` as this
 rank's slice, the Partial gradients are summed (``finish_grad_sync``)
 before the optimizer steps this rank's parameter pieces (the fused AdamW
 on local shards, as the reference's custom_partitioning rule runs it).
-A data-parallel dim of size > 1 raises: its gradient reduce is ROADMAP.md
-queue A, item 11.
+
+Over a "dp" mesh dim of size > 1 each rank computes on its own rows, and
+the gradient is then averaged over "dp": by a ``DistributedDataParallel``
+(passed as ``model``, or made with its defaults around a ``DModule``), or
+by ``DistributedOptimizer.reduce_grads`` into its ZeRO pieces.  With a
+``DistributedOptimizer`` the loss is scaled before backward and reported
+unscaled, as the reference's step does (``vescale_tpu/train.py:221-228``).
+The reported loss is the mean over the dp ranks.
 
 Not here yet (ROADMAP.md): the fp8 ``_overwrite_with_gradient`` bundle,
-``DistributedOptimizer`` loss scaling, the telemetry feed and the
-ndtimeline spans, and dropout RNG streams (the Llama has no dropout).
+the telemetry feed and the ndtimeline spans, and dropout RNG streams (the
+Llama has no dropout).
 """
 
 from __future__ import annotations
@@ -78,16 +84,29 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
     vocab slice of the logits (Shard(-1) on the mesh's "tp" dim) and must
     compute the whole loss from it, as
     ``vocab_parallel_cross_entropy(..., mesh=, vocab_dim_name="tp")``
-    does."""
+    does.  ``batch`` is then this rank's rows on a "dp" dim.  ``model``
+    may be a ``DistributedDataParallel`` (around a ``DModule`` or a plain
+    module): its ``finish_grad_sync`` averages the gradients over "dp".
+    ``optimizer`` may be a ``DistributedOptimizer``: it scales the loss
+    and reduces the gradients into its pieces itself."""
     from .dmodule import DModule
+    from .parallel.ddp import DistributedDataParallel
+    from .parallel.optimizer import DistributedOptimizer
 
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps={grad_accum_steps}")
+    ddp = model if isinstance(model, DistributedDataParallel) else None
+    if ddp is not None:
+        model = ddp.module
     dm = model if isinstance(model, DModule) else None
-    if dm is not None and dm.data_parallel_size() > 1:
-        raise NotImplementedError(
-            "a training step over a data-parallel mesh dim of size > 1: the gradient "
-            "reduce over 'dp' is not ported yet (ROADMAP.md queue A, item 11)")
+    dopt = optimizer if isinstance(optimizer, DistributedOptimizer) else None
+    if ddp is None and dopt is None and dm is not None and dm.data_parallel_size() > 1:
+        ddp = DistributedDataParallel(dm)
+    dp_group = None
+    if ddp is not None and ddp.dp_size > 1:
+        dp_group = ddp.mesh.get_group(ddp.dp_dim)
+    elif dopt is not None and dopt.mesh is not None and dopt.mesh.size(dopt.dp_dims[0]) > 1:
+        dp_group = dopt.mesh.get_group(dopt.dp_dims[0])
 
     def forward(x):
         if dm is None:
@@ -101,11 +120,14 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
         res = loss_fn(forward(mb["input"]), mb)
         return res if has_aux else (res, None)
 
+    def backward(loss):
+        (dopt.scale_loss(loss) if dopt is not None else loss).backward()
+
     def step(batch: Dict[str, Any]):
         optimizer.zero_grad(set_to_none=True)
         if grad_accum_steps == 1:
             loss, aux = micro(batch)
-            loss.backward()
+            backward(loss)
             loss, aux = loss.detach(), _detach(aux)
         else:
             params = [p for p in model.parameters() if p.requires_grad]
@@ -113,7 +135,7 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
             l_sum, auxes = None, []
             for mb in _split(batch, grad_accum_steps):
                 l, aux_i = micro(mb)
-                l.backward()
+                backward(l)
                 for acc, p in zip(g_sum, params):
                     if p.grad is not None:
                         acc.add_(p.grad.float())
@@ -126,7 +148,15 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
             aux = _reduce_aux(auxes) if has_aux else None
         if dm is not None:
             dm.finish_grad_sync()
+        if ddp is not None:
+            ddp.finish_grad_sync()
+        if dopt is not None:
+            dopt.reduce_grads()
         optimizer.step()
+        if dp_group is not None:
+            from . import collectives as C
+
+            loss = C.all_reduce(loss.float().reshape(1), dp_group, "avg")[0].to(loss.dtype)
         return (loss, aux) if has_aux else loss
 
     return step
