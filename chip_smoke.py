@@ -6,6 +6,7 @@ Hopper card.
     python3 chip_smoke.py --quick    # device, build and kernel parity only
     python3 chip_smoke.py --tp       # serve, train and gpt2, then the TP phases
     python3 chip_smoke.py --dp       # train and gpt2, then the DP phase
+    python3 chip_smoke.py --resil    # the train_resilient phase alone
     python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
@@ -146,6 +147,30 @@ Phases, each printing one JSON line with its seconds:
            time, tokens/s, MFU, peak memory, and one profiled step's device
            time by kernel kind
 
+  train_resilient  ``resilience.run_resilient`` over ``train.FunctionalStep``
+           at full width.  GPT-2 124M (the gpt2 rung, its token file, 12
+           steps, async saves every 3, ``CheckpointManager(keep=2)``): an
+           unfaulted golden run, then the schedule of
+           ``scripts/resilience_smoke.py`` extended for the card (a
+           ``storage_write`` and a ``loader_next`` absorbed by the retries,
+           NaN at steps 6-7 under ``AnomalyPolicy(threshold=2)``, a real
+           CUDA OOM in step 9's wrapper, a preemption at step 10) and a
+           resume on fresh objects: the ``RunResult`` the reference loop
+           gives, losses, parameters and moments bitwise the golden run's,
+           the ``resilience_*`` and ``checkpoint_*`` counters, the
+           dashboard's ``resilience:`` block, ``steps.jsonl``, the OOM's
+           flight record; a timed save and restore, memtrack's gauges
+           against the allocator.  The quiet envelope: 12 GPT-2 steps of
+           the bare loop, of the loop with nothing armed, and of it with
+           telemetry on (median step ms).  The 1.3B: 4 bare steps against
+           a run preempted at step 2 (an emergency synchronous save of the
+           10.1 GB state) and its resume, bitwise, one K8 a step, the
+           save's and restore's seconds, peak memory.  Two ranks of the
+           card over gloo (GPT-2 at B=6 a rank, DDP, coordinated,
+           consistency every 2, 8 steps): a real SIGTERM to rank 1 agreed
+           by both, emergency-saved and resumed bitwise; a one-ulp change
+           of a replicated parameter on rank 1 raising ``DesyncError`` on
+           both ranks with nothing committed after it
   tp_train  tensor and sequence parallelism on two ranks of the one card:
            child processes (``--tp-child``) joined over gloo at a free
            localhost port (NCCL refuses two ranks on one GPU), a ("tp",)
@@ -154,7 +179,7 @@ Phases, each printing one JSON line with its seconds:
            width and depth, built on ``meta`` and materialized as each
            rank's pieces of the single-card phase's seed-0 weights, trained
            on its batches through the vocab-parallel loss with
-           ``AdamWLowmem``: 2 warm-up and 3 timed steps, losses within 1%
+           ``AdamWLowmem``: 2 warm-up and 2 timed steps, losses within 1%
            of the ``train`` / ``gpt2`` phase's at each step, every kernel
            launch of each step counted (24 or 12 K1, dq and dkv, one K8,
            K9 and K10); per rank step time, peak memory and the
@@ -828,9 +853,10 @@ def adamw_leaves(dev, shapes, state_dtype, seed):
 
 def run_adamw_parity(dev):
     """Over the 1.3B leaf set, bf16 and fp32 state: moments bit for bit
-    against the plain chain, u within 4 ulps per element (the JAX
-    package's bound, docs/kernels.md: c1/c2 are the same fp32 scalars
-    here, so the two should agree exactly); then tiny, odd and zero-size
+    against the plain chain (and the in-place launch, moments written
+    over their inputs, bitwise the out-of-place one), u within 4 ulps per
+    element (the JAX package's bound, docs/kernels.md: c1/c2 are the same
+    fp32 scalars here, so the two should agree exactly); then tiny, odd and zero-size
     leaves; then a NaN in one g, which must poison u, m' and v' at that
     element only.  Times of the bf16-state case."""
     from vescale_tpu_torch.kernels.fused_adamw import fused_adamw_reference, fused_adamw_update
@@ -849,6 +875,11 @@ def run_adamw_parity(dev):
     for label, leaf_shapes, state_dtype in cases:
         gs, ms, vs = adamw_leaves(dev, leaf_shapes, state_dtype, seed=len(leaf_shapes))
         us, mos, vos = fused_adamw_update(gs, ms, vs, c1, c2, **hp)
+        # the train path's form: m' and v' written over m and v
+        mi, vi = [m.clone() for m in ms], [v.clone() for v in vs]
+        ui, _, _ = fused_adamw_update(gs, mi, vi, c1, c2, inplace=True, **hp)
+        inplace_equal = all(bits_equal(a, b) for a, b in zip(ui + mi + vi, us + mos + vos))
+        del ui, mi, vi
         worst_u, moments_equal, err = 0.0, True, 0.0
         for i in range(len(gs)):
             ru, rm, rv = fused_adamw_reference([gs[i]], [ms[i]], [vs[i]], c1, c2, **hp)
@@ -858,8 +889,8 @@ def run_adamw_parity(dev):
                 err = max(err, float((us[i] - ru[0]).abs().max()))
         out.append(dict(kernel="fused_adamw", case=label, leaves=len(gs),
                         elements=sum(g.numel() for g in gs), moments_bitwise=moments_equal,
-                        u_ulps=worst_u, u_bound=4.0, max_abs_err=err,
-                        ok=moments_equal and worst_u <= 4.0))
+                        inplace_bitwise=inplace_equal, u_ulps=worst_u, u_bound=4.0,
+                        max_abs_err=err, ok=moments_equal and inplace_equal and worst_u <= 4.0))
         if state_dtype == torch.bfloat16 and timing is None:
             timing = adamw_timing(gs, ms, vs, c1, c2, hp, err)
         elif label.startswith("tp2"):
@@ -2940,7 +2971,7 @@ def tp_serve_job(mesh, golden: dict, forced: list, forced_logits_file: str):
 
 
 TP_JOBS = {"train": tp_train_job, "serve": tp_serve_job}
-TP_TIMED = 3  # timed steps of tp_train
+TP_TIMED = 2  # timed steps of tp_train
 
 
 def run_tp_train(dev, train, gpt2, card):
@@ -3408,6 +3439,534 @@ def run_dp_train(dev, gpt2, card):
     return out
 
 
+# --------------------------------------------------------- train_resilient
+# The schedule of scripts/resilience_smoke.py extended for the card, on
+# GPT-2's 12 steps (saves every 3: steps 2, 5, 8, 11).  faultsim's call=
+# is 0-based: the second save's meta.json write fails once (the native
+# writer carries the chunks, meta.json the retried storage path) and the
+# fifth batch fetch once; NaN at steps 6-7; the wrapper of step 9 asks,
+# once, for more than the card has free; a preemption at step 10.
+RESIL_SCHEDULE = ("storage_write:call=1;loader_next:call=4;nonfinite_loss:step=6,count=2;"
+                  "preempt:step=10")
+RESIL_OOM_STEP = 9
+# what the reference loop gives for this schedule on the toy step, with the
+# OOM injected by faultsim (tests/test_torch_resilience.py, case
+# card_schedule, holds both loops to it): one rollback, one restart, the
+# emergency save of step 9
+RESIL_EXPECT = dict(status="preempted", step=9, restarts=1, rollbacks=1, anomaly_steps=2,
+                    emergency_save_step=9)
+RESIL_STEPS, RESIL_SAVE_EVERY = 12, 3
+RESIL_GPT_RUNG, RESIL_LLAMA_RUNG = "gpt2", "1.3b"  # bench rungs of the legs
+RESIL_13B_STEPS, RESIL_13B_PREEMPT = 4, 2
+RESIL_DP_STEPS, RESIL_DP_SIGTERM_AFTER, RESIL_DP_ULP_AFTER = 8, 3, 3
+
+
+def _leaf_bytes(params, opt_state) -> dict:
+    """Every parameter and optimizer-state leaf as a uint8 view, where it
+    lies."""
+    from vescale_tpu_torch.checkpoint.planner import flatten_state
+
+    return {f"{top}/{k}": torch.as_tensor(v).detach().contiguous().view(-1).view(torch.uint8)
+            for top, tree in (("model", params), ("optimizer", opt_state))
+            for k, v in flatten_state(tree)}
+
+
+def _state_bits(params, opt_state) -> dict:
+    """Every leaf's bytes copied into one pinned host buffer (a copy held
+    on the card would count in the peaks the legs read)."""
+    leaves = _leaf_bytes(params, opt_state)
+    buf = torch.empty(sum(t.numel() for t in leaves.values()), dtype=torch.uint8,
+                      pin_memory=True)
+    out, at = {}, 0
+    for k, t in leaves.items():
+        out[k] = buf[at:at + t.numel()]
+        out[k].copy_(t, non_blocking=True)
+        at += t.numel()
+    torch.cuda.synchronize()
+    return out
+
+
+def _matches(params, opt_state, bits: dict) -> bool:
+    """The state bitwise ``bits`` (``_state_bits``), leaf by leaf where the
+    state lies."""
+    leaves = _leaf_bytes(params, opt_state)
+    return leaves.keys() == bits.keys() and all(
+        torch.equal(t, bits[k].to(t.device, non_blocking=True)) for k, t in leaves.items())
+
+
+def _loss_hex(losses: dict) -> list:
+    return [np.float64(losses[i]).tobytes().hex() for i in sorted(losses)]
+
+
+def resil_prepare(rung: str, dev, token_file=None):
+    """A bench rung in the functional signature: (run, FunctionalStep)."""
+    from vescale_tpu_torch import bench
+    from vescale_tpu_torch.train import FunctionalStep
+
+    run = bench.prepare(rung, device=dev, token_file=token_file)
+    return run, FunctionalStep(run.step, run.model, run.optimizer)
+
+
+def resil_drive(fstep, run, root, *, total, save_every, step_fn=None, times=None, drain_at=(3,),
+                keep=2, peaks=None, **kw):
+    """``run_resilient`` over ``fstep`` and ``run``'s batches.  ``times``
+    collects each committed step's wall (the gap between ``on_step``
+    calls: the batch, the step, the loss read and the loop); ``peaks``
+    the allocator's peak bytes over the same gap (the first one from the
+    call's start, so it holds a resume's restore).  The pending
+    save is drained after each step in ``drain_at`` (``on_step`` runs
+    before that step's own save: 3 drains the save of step 2), so that a
+    committed checkpoint exists before a fault restores.  The loop, as the
+    reference's, asks for a committed step before it drains a pending one,
+    so an async commit would race it; a drain moves when a commit lands,
+    not what is computed."""
+    from vescale_tpu_torch.checkpoint import CheckpointManager
+    from vescale_tpu_torch.resilience import run_resilient
+
+    mgr = CheckpointManager(root, keep=keep)
+    last = [time.perf_counter()]
+
+    def on_step(step, loss):
+        now = time.perf_counter()
+        if times is not None:
+            times.append((now - last[0]) * 1e3)
+        last[0] = now
+        if peaks is not None:
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+        if step in drain_at:
+            mgr.wait_pending()
+
+    data = dict(loader=run.loader) if run.loader is not None else \
+        dict(batch_fn=lambda i: run.next_batch())
+    res = run_resilient(step_fn=step_fn or fstep, params=fstep.params, opt_state=fstep.opt_state,
+                        manager=mgr, total_steps=total, save_every=save_every,
+                        install_signal_handlers=False, restart_backoff=0.01, on_step=on_step,
+                        **data, **kw)
+    return res, mgr
+
+
+def resil_oom(fstep, dev, step: int):
+    """``fstep`` that, once, before step ``step`` (by the optimizer's
+    count, which a restore brings back), allocates 1 GiB more than the
+    card holds (more than it has free, the allocator's cached blocks
+    included): a real ``torch.cuda.OutOfMemoryError``."""
+    fired = []
+
+    def step_fn(params, opt_state, batch, step_key=None):
+        if not fired and fstep.optimizer.param_groups[0]["step"] == step:
+            free, total = torch.cuda.mem_get_info(dev)
+            fired.append(dict(free=free, total=total, asked=total + (1 << 30)))
+            torch.empty(total + (1 << 30), dtype=torch.uint8, device=dev)
+        return fstep(params, opt_state, batch, step_key)
+
+    return step_fn, fired
+
+
+def resil_save_restore(fstep, root) -> dict:
+    """One synchronous save and one restore of ``fstep``'s state through a
+    manager: seconds, GB/s of the chunk bytes, and the restore bitwise."""
+    from vescale_tpu_torch import checkpoint
+    from vescale_tpu_torch.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(root, keep=1)
+    state = {"model": fstep.params, "optimizer": fstep.opt_state}
+    before = _state_bits(fstep.params, fstep.opt_state)
+    nbytes = sum(v.numel() for v in before.values())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mgr.save(0, state)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    out = mgr.restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    ok = _matches(out["model"], out["optimizer"], before)
+    del out, before
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(bytes=int(nbytes), save_s=save_s, save_GBps=nbytes / save_s / 1e9,
+                restore_s=restore_s, restore_GBps=nbytes / restore_s / 1e9,
+                bytes_read=checkpoint.LAST_LOAD_STATS["bytes_read"], restored_bitwise=ok)
+
+
+def resil_gpt2_leg(dev, token_file, tmp, kernels_mod):
+    """Leg 1: GPT-2 124M, the golden run against the faulted run and its
+    resume on fresh objects."""
+    from vescale_tpu_torch import telemetry
+    from vescale_tpu_torch.resilience import AnomalyPolicy, faultsim, parse_schedule
+
+    tel_dir = os.path.join(tmp, "telemetry")
+    kw = dict(total=RESIL_STEPS, save_every=RESIL_SAVE_EVERY, async_save=True,
+              anomaly=AnomalyPolicy(threshold=2))
+    telemetry.init(out_dir=tel_dir)
+    try:
+        reg = telemetry.get_registry()
+        kernels_mod.reset_launches()
+        run, fstep = resil_prepare(RESIL_GPT_RUNG, dev, token_file)
+        golden_ms = []
+        golden, _ = resil_drive(fstep, run, os.path.join(tmp, "golden"), times=golden_ms, **kw)
+        torch.cuda.synchronize()
+        golden_launches = dict(kernels_mod.LAUNCHES)
+        golden_bits = _state_bits(fstep.params, fstep.opt_state)
+        snap = reg.snapshot()
+        # the gauges as the last step's sample (inside the step) set them, and
+        # the census between steps
+        from vescale_tpu_torch.telemetry import memtrack
+
+        mem = dict(torch_memory_allocated=torch.cuda.memory_allocated(dev),
+                   census_between_steps=memtrack.get_tracker().census()["tags"],
+                   **{k: v for k, v in snap["gauges"].items() if k.startswith("mem_")})
+        submit = snap["histograms"]["checkpoint_save_seconds"]
+        sr = resil_save_restore(fstep, os.path.join(tmp, "timed"))
+        run.close()
+        del run, fstep
+        free_memory()
+        before = dict(reg.snapshot()["counters"])
+        kernels_mod.reset_launches()
+        run, fstep = resil_prepare(RESIL_GPT_RUNG, dev, token_file)
+        root = os.path.join(tmp, "faulted")
+        step_fn, oom_fired = resil_oom(fstep, dev, RESIL_OOM_STEP)
+        faultsim.arm(parse_schedule(RESIL_SCHEDULE))
+        try:
+            r1, _ = resil_drive(fstep, run, root, step_fn=step_fn, **kw)
+            fired = dict(faultsim.get_injector().fired_total)
+        finally:
+            faultsim.disarm()
+        run.close()
+        del run, fstep, step_fn
+        free_memory()
+        run, fstep = resil_prepare(RESIL_GPT_RUNG, dev, token_file)  # a new process's objects
+        r2, _ = resil_drive(fstep, run, root, **kw)
+        torch.cuda.synchronize()
+        resumed_bitwise = _matches(fstep.params, fstep.opt_state, golden_bits)
+        del golden_bits
+        launches = dict(kernels_mod.LAUNCHES)
+        after = reg.snapshot()["counters"]
+        counters = {k: v - before.get(k, 0) for k, v in after.items()}
+        dash = telemetry.dashboard()
+        run.close()
+        del run, fstep
+        free_memory()
+    finally:
+        telemetry.shutdown()
+    records = [json.loads(line) for line in open(os.path.join(tel_dir, "steps.jsonl"))]
+    step_lines = [r for r in records if "event" not in r]
+    events = sorted({r["event"] for r in records if "event" in r})
+    flights = sorted(f for f in os.listdir(tel_dir) if f.startswith("flight_record_"))
+    ooms = [d for d in (json.load(open(os.path.join(tel_dir, f))) for f in flights)
+            if d["reason"] == "oom:OutOfMemoryError"]
+    got = dict(status=r1.status, step=r1.step, restarts=r1.restarts, rollbacks=r1.rollbacks,
+               anomaly_steps=r1.anomaly_steps, emergency_save_step=r1.emergency_save_step)
+    losses = {**r1.losses, **r2.losses}
+    for k in golden_launches:
+        launches[k] += golden_launches[k]
+    checks = {
+        "golden_completed": golden.status == "completed" and golden.step == RESIL_STEPS - 1,
+        "run_result_is_the_references": got == RESIL_EXPECT,
+        "resumed_completed": r2.status == "completed" and r2.step == RESIL_STEPS - 1,
+        "losses_bitwise": len(losses) == RESIL_STEPS
+        and _loss_hex(losses) == _loss_hex(golden.losses),
+        "params_and_moments_bitwise": resumed_bitwise,
+        "faults_fired": (fired["storage_write"], fired["loader_next"], fired["nonfinite_loss"],
+                         fired["preempt"], len(oom_fired)) == (1, 1, 2, 1, 1),
+        "counters": counters.get("resilience_rollbacks_total") == 1
+        and counters.get("resilience_restarts_total") == 1
+        and counters.get("resilience_emergency_saves_total") == 1
+        and counters.get("resilience_io_retries_total", 0) >= 2
+        and counters.get("checkpoint_saves_total", 0) >= 4
+        and counters.get("checkpoint_commits_total", 0) >= 4
+        and counters.get("checkpoint_loads_total", 0) >= 3,
+        "dashboard_resilience_block": "resilience:" in dash and "memory:" in dash,
+        "steps_jsonl_line_a_step": len(step_lines) == int(after["train_steps_total"])
+        and {"resilience_rollback", "resilience_restart", "resilience_preempted",
+             "resilience_resume"} <= set(events),
+        "flight_record_names_the_oom": len(ooms) == 1
+        and "CUDA out of memory" in ooms[0]["exception"]
+        and ooms[0]["device_memory"][0]["source"] == "device",
+        "timed_restore_bitwise": sr["restored_bitwise"],
+        "k8_a_step": golden_launches["fused_adamw"] == RESIL_STEPS,
+    }
+    return dict(run_result=got, steps_jsonl_lines=len(step_lines),
+                train_steps_total=after["train_steps_total"], losses=losses,
+                golden_losses=golden.losses,
+                golden_step_ms=golden_ms, golden_step_ms_median=float(np.median(golden_ms)),
+                async_save_submit_s=dict(p50=submit.get("p50"), max=submit.get("max"),
+                                         n=submit["count"]),
+                save_restore=sr, memtrack_vs_allocator=mem, faults_fired=fired,
+                oom_free_bytes=oom_fired, counters=counters, events=events,
+                flight_records=flights, launches=launches, checks=checks)
+
+
+def resil_envelope_leg(dev, token_file, tmp, kernels_mod):
+    """Leg 2: the quiet envelope's cost on GPT-2, 12 steps each: the bare
+    loop of ``bench.measure``, ``run_resilient`` with nothing armed and no
+    save but the final one, and the same with telemetry on; in the order
+    bare, loop, telemetry, telemetry, loop, bare."""
+    from vescale_tpu_torch import telemetry
+
+    def bare():
+        run, _ = resil_prepare(RESIL_GPT_RUNG, dev, token_file)
+        ms = []
+        for _ in range(RESIL_STEPS):
+            t = time.perf_counter()
+            float(run.step(run.next_batch()))
+            ms.append((time.perf_counter() - t) * 1e3)
+        run.close()
+        return ms
+
+    parts = {}
+
+    def loop(tel: bool):
+        run, fstep = resil_prepare(RESIL_GPT_RUNG, dev, token_file)
+        if tel:
+            telemetry.init(out_dir=os.path.join(tmp, "tel_envelope"))
+        ms = []
+        try:
+            resil_drive(fstep, run, os.path.join(tmp, "envelope"), total=RESIL_STEPS,
+                        save_every=10 ** 9, async_save=True, times=ms, drain_at=())
+            if tel:  # the telemetry step's parts, 20 calls each, host clock
+                from vescale_tpu_torch.telemetry import memory_report, memtrack
+
+                reg = telemetry.get_registry()
+                for name, fn in (("memtrack_on_step", lambda: memtrack.get_tracker().on_step(
+                                     0, reg)),
+                                 ("device_memory_stats", memory_report.device_memory_stats),
+                                 ("census", lambda: memtrack.get_tracker().census()),
+                                 ("tag_trees", fstep._refresh)):
+                    t = time.perf_counter()
+                    for _ in range(20):
+                        fn()
+                    parts.setdefault(name, []).append((time.perf_counter() - t) / 20 * 1e3)
+        finally:
+            telemetry.shutdown()
+            run.close()
+            shutil.rmtree(os.path.join(tmp, "envelope"), ignore_errors=True)
+        return ms[:-1]  # the last step carries the final save
+
+    out = {}
+    for i, (name, fn) in enumerate((("bare", bare), ("loop", lambda: loop(False)),
+                                    ("telemetry", lambda: loop(True)),
+                                    ("telemetry", lambda: loop(True)),
+                                    ("loop", lambda: loop(False)), ("bare", bare))):
+        ms = fn()
+        free_memory()
+        out.setdefault(name, []).append(dict(step_ms=ms, median_ms=float(np.median(ms[2:]))))
+    med = {k: [r["median_ms"] for r in v] for k, v in out.items()}
+    return dict(runs=out, median_ms=med, telemetry_parts_ms=parts,
+                loop_over_bare=float(np.mean(med["loop"]) / np.mean(med["bare"])),
+                telemetry_over_bare=float(np.mean(med["telemetry"]) / np.mean(med["bare"])))
+
+
+def resil_13b_leg(dev, tmp, kernels_mod):
+    """Leg 3: the 1.3B, 4 steps of the bare step loop of ``bench.measure``
+    (what the loop with nothing armed must compute; its peak bytes are the
+    loop's yardstick) against a run preempted at step 2 (an emergency
+    synchronous save of the whole state) and its resume on fresh objects,
+    bitwise; K8 once a completed step."""
+    root = os.path.join(tmp, "llama13b")
+    run, fstep = resil_prepare(RESIL_LLAMA_RUNG, dev)
+    golden, bare_peaks = [], []
+    for _ in range(RESIL_13B_STEPS):
+        torch.cuda.reset_peak_memory_stats(dev)
+        golden.append(float(run.step(run.next_batch())))
+        bare_peaks.append(torch.cuda.max_memory_allocated(dev))
+    fstep._refresh()  # the trees of the state the bare steps left
+    golden_bits = _state_bits(fstep.params, fstep.opt_state)
+    nbytes = sum(v.numel() for v in golden_bits.values())
+    del run, fstep
+    free_memory()
+    from vescale_tpu_torch.resilience import faultsim, parse_schedule
+
+    from vescale_tpu_torch import checkpoint, telemetry
+
+    out = {}
+    for leg in ("preempted", "resumed"):
+        kernels_mod.reset_launches()
+        run, fstep = resil_prepare(RESIL_LLAMA_RUNG, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        peaks = []
+        if leg == "preempted":
+            faultsim.arm(parse_schedule(f"preempt:step={RESIL_13B_PREEMPT}"))
+        telemetry.init(out_dir=None, memtrack=False)  # the checkpoint's seconds
+        t = time.perf_counter()
+        try:
+            res, mgr = resil_drive(fstep, run, root, total=RESIL_13B_STEPS, save_every=10 ** 9,
+                                   async_save=True, drain_at=(), keep=1, peaks=peaks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            hist = telemetry.get_registry().snapshot()["histograms"]
+        finally:
+            faultsim.disarm()
+            telemetry.shutdown()
+        out[leg] = dict(status=res.status, step=res.step, losses=res.losses, wall_s=wall,
+                        emergency_save_step=res.emergency_save_step,
+                        launches=dict(kernels_mod.LAUNCHES), step_peak_bytes=peaks,
+                        peak_memory_bytes=max(peaks + [torch.cuda.max_memory_allocated(dev)]),
+                        checkpoint_seconds={k: dict(n=v["count"], sum=v["sum"])
+                                            for k, v in hist.items()
+                                            if k.startswith("checkpoint_")})
+        if leg == "preempted":  # the one save: the emergency save, synchronous
+            out[leg]["emergency_save_s"] = hist["checkpoint_save_seconds"]["sum"]
+        else:  # the one load: the resume's restore
+            out[leg]["restore_s"] = hist["checkpoint_load_seconds"]["sum"]
+            out[leg]["bytes_read"] = checkpoint.LAST_LOAD_STATS["bytes_read"]
+        if leg == "resumed":
+            out[leg]["bitwise"] = _matches(fstep.params, fstep.opt_state, golden_bits)
+        del run, fstep, res, mgr
+        free_memory()
+    del golden_bits
+    free_memory()
+    out["bare_step_peak_bytes"] = bare_peaks
+    return out, golden, nbytes
+
+
+def resil_dp_job(mesh, root: str, token_file: str):
+    """One rank of leg 4: GPT-2 at B=6 a rank under the default
+    ``DistributedDataParallel``, coordinated (two processes), consistency
+    every 2 steps, saves every 3, 8 steps: (golden) uninterrupted; (a) a
+    real SIGTERM to rank 1 after step 3, agreed, emergency-saved with a
+    two-phase commit, resumed on fresh objects; (b) rank 1 alone moves one
+    sampled element of a replicated parameter by one ulp after step 3."""
+    from vescale_tpu_torch import bench, kernels
+    from vescale_tpu_torch.checkpoint import CheckpointManager
+    from vescale_tpu_torch.resilience import DesyncError, run_resilient
+    from vescale_tpu_torch.train import FunctionalStep
+
+    me = mesh.get_rank()
+
+    def drive(sub, step_fn_of=None, on_step=None, install=False):
+        run = bench.prepare_dp(RESIL_GPT_RUNG, "ddp", mesh, token_file=token_file)
+        fstep = FunctionalStep(run.step, run.model, run.optimizer)
+        mgr = CheckpointManager(os.path.join(root, sub), keep=2)
+        ms, last = [], [time.perf_counter()]
+
+        def tick(step, loss):
+            now = time.perf_counter()
+            ms.append((now - last[0]) * 1e3)
+            last[0] = now
+            if on_step is not None:
+                on_step(step)
+
+        try:
+            res = run_resilient(step_fn=step_fn_of(fstep) if step_fn_of else fstep,
+                                params=fstep.params, opt_state=fstep.opt_state, manager=mgr,
+                                total_steps=RESIL_DP_STEPS, loader=run.loader, save_every=3,
+                                async_save=True, consistency_every=2,
+                                install_signal_handlers=install, barrier_timeout_s=300.0,
+                                on_step=tick)
+            out = dict(status=res.status, step=res.step, losses=res.losses,
+                       emergency_save_step=res.emergency_save_step)
+        except DesyncError as e:
+            out = dict(desync=sorted(e.mismatched))
+        out.update(latest=mgr.latest_step(), step_ms=ms)
+        run.close()
+        del run, fstep
+        free_memory()
+        return out
+
+    def sigterm(step):
+        if me == 1 and step == RESIL_DP_SIGTERM_AFTER:
+            os.kill(os.getpid(), signal.SIGTERM)  # a real signal; the handler sets a flag
+
+    def bump(fstep):
+        def step_fn(params, opt_state, batch, step_key=None):
+            out = fstep(params, opt_state, batch, step_key)
+            if me == 1 and fstep.optimizer.param_groups[0]["step"] == RESIL_DP_ULP_AFTER + 1:
+                p = next(iter(fstep.module.parameters()))
+                with torch.no_grad():  # element 0: the fingerprint samples every 4097th
+                    v = p.view(-1)[0]
+                    p.view(-1)[0] = torch.nextafter(v, v + 1)
+            return out
+        return step_fn
+
+    t = time.perf_counter()
+    golden = drive("golden")
+    kernels.reset_launches()
+    preempted = drive("preempt", on_step=sigterm, install=True)
+    resumed = drive("preempt")
+    launches = dict(kernels.LAUNCHES)
+    desync = drive("desync", step_fn_of=bump)
+    return dict(rank=me, golden=golden, preempted=preempted, resumed=resumed, desync=desync,
+                launches_total=launches, wall_s=time.perf_counter() - t)
+
+
+TP_JOBS["resil"] = resil_dp_job
+
+
+def run_train_resilient(dev, card, kernels_mod):
+    """``train_resilient``: the resilient loop on the card (legs 1-4)."""
+    from vescale_tpu_torch import bench
+    from vescale_tpu_torch.models import GPTConfig
+
+    tmp = tempfile.mkdtemp(prefix="vtt_resil_")
+    t0 = time.perf_counter()
+    try:
+        vocab = GPTConfig(**bench.GPT_RUNGS[RESIL_GPT_RUNG][0]).vocab_size
+        token_file = bench.write_token_file(os.path.join(tmp, "tokens.bin"), bench.DATA_TOKENS,
+                                            vocab)
+        t = time.perf_counter()
+        gpt2 = resil_gpt2_leg(dev, token_file, tmp, kernels_mod)
+        gpt2["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        envelope = resil_envelope_leg(dev, token_file, tmp, kernels_mod)
+        envelope["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        llama, golden13, nbytes = resil_13b_leg(dev, tmp, kernels_mod)
+        llama_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ranks = tp_spawn("resil", dict(root=os.path.join(tmp, "dp"), token_file=token_file),
+                         timeout_s=600, names=("dp",))
+        dp_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pre, res = llama["preempted"], llama["resumed"]
+    llama_losses = {**pre["losses"], **res["losses"]}
+    g = [r["golden"] for r in ranks]
+    a = [(r["preempted"], r["resumed"]) for r in ranks]
+    b = [r["desync"] for r in ranks]
+    checks = {
+        **{f"gpt2_{k}": v for k, v in gpt2["checks"].items()},
+        "13b_preempted": (pre["status"], pre["step"], pre["emergency_save_step"])
+        == ("preempted", RESIL_13B_PREEMPT - 1, RESIL_13B_PREEMPT - 1),
+        "13b_resumed": res["status"] == "completed" and res["step"] == RESIL_13B_STEPS - 1,
+        "13b_losses_bitwise": _loss_hex(llama_losses) == _loss_hex(dict(enumerate(golden13))),
+        "13b_masters_and_moments_bitwise": res["bitwise"],
+        "13b_k8_once_a_step": pre["launches"]["fused_adamw"] == RESIL_13B_PREEMPT
+        and res["launches"]["fused_adamw"] == RESIL_13B_STEPS - RESIL_13B_PREEMPT,
+        "dp_golden": all(x["status"] == "completed" for x in g)
+        and _loss_hex(g[0]["losses"]) == _loss_hex(g[1]["losses"]),
+        "dp_sigterm_agreed": all(p["status"] == "preempted" and p["step"] == RESIL_DP_SIGTERM_AFTER
+                                 and p["emergency_save_step"] == RESIL_DP_SIGTERM_AFTER
+                                 and p["latest"] == RESIL_DP_SIGTERM_AFTER for p, _ in a),
+        "dp_resumed_bitwise": all(r["status"] == "completed" and
+                                  _loss_hex({**p["losses"], **r["losses"]}) ==
+                                  _loss_hex(g[0]["losses"]) for p, r in a),
+        "dp_desync_on_both_ranks": all(x.get("desync") == ["params"] for x in b),
+        "dp_nothing_committed_after_the_change": all(
+            x["latest"] is not None and x["latest"] < RESIL_DP_ULP_AFTER for x in b),
+    }
+    llama_out = dict(
+        model="llama 1.3B (bench rung 1.3b)", state_bytes=nbytes, golden_losses=golden13,
+        preempted=pre, resumed=res, seconds=llama_s,
+        bare_step_peak_bytes=llama["bare_step_peak_bytes"],
+        loop_peak_over_bare=max(pre["peak_memory_bytes"], res["peak_memory_bytes"])
+        / max(llama["bare_step_peak_bytes"]),
+        emergency_save_GBps=nbytes / pre["emergency_save_s"] / 1e9,
+        restore_GBps=nbytes / res["restore_s"] / 1e9)
+    out = dict(card=card, wall_s=time.perf_counter() - t0, gpt2=gpt2, envelope=envelope,
+               llama13b=llama_out, dp=dict(ranks=ranks, seconds=dp_s), checks=checks,
+               ok=all(checks.values()),
+               launches={k: gpt2["launches"][k] + pre["launches"][k] + res["launches"][k]
+                         + sum(r["launches_total"].get(k, 0) for r in ranks)
+                         for k in kernels_mod.LAUNCHES})
+    check(out["ok"], "train_resilient checks failed: "
+          + json.dumps({k: v for k, v in checks.items() if not v}) + " "
+          + json.dumps({k: gpt2[k] for k in ("run_result", "faults_fired", "oom_free_bytes",
+                                             "counters", "events", "flight_records",
+                                             "steps_jsonl_lines", "train_steps_total")}))
+    return out
+
+
 def tp_launches(phase: dict, name: str) -> int:
     """A kernel's launches over every rank of a TP phase (``tp_train``:
     both rungs, every step)."""
@@ -3458,6 +4017,8 @@ def main() -> int:
                     help="device, build, and the serve, train, gpt2 and TP phases only")
     ap.add_argument("--dp", action="store_true",
                     help="device, build, and the train, gpt2 and DP phases only")
+    ap.add_argument("--resil", action="store_true",
+                    help="device, build, and the train_resilient phase only")
     ap.add_argument("--gloo-probe", action="store_true",
                     help="which collectives gloo carries on CUDA tensors, then exit")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
@@ -3503,6 +4064,12 @@ def main() -> int:
     check(paged["kernels"] and not paged["spills"],
           f"paged_decode kernels built without spills: {paged}")
 
+    if opts.resil:
+        t = time.perf_counter()
+        log("train_resilient", seconds=None, **run_train_resilient(dev, card, kernels_mod))
+        log("done", seconds=time.perf_counter() - t)
+        print(card, flush=True)
+        return 0
     if opts.tp:
         return tp_only(dev, card, kernels_mod)
     if opts.dp:
@@ -3571,6 +4138,9 @@ def main() -> int:
     gpt2 = run_train_gpt2(dev, kernels_mod)
     log("gpt2", seconds=time.perf_counter() - t, **gpt2)
     t = time.perf_counter()
+    resilient_train = run_train_resilient(dev, card, kernels_mod)
+    log("train_resilient", seconds=time.perf_counter() - t, **resilient_train)
+    t = time.perf_counter()
     tp_train = run_tp_train(dev, train, gpt2, card)
     log("tp_train", seconds=time.perf_counter() - t, **tp_train)
     t = time.perf_counter()
@@ -3601,7 +4171,8 @@ def main() -> int:
                    "serve_resilient": resilient["launches"][name], "spmd": spmd["launches"][name],
                    "checkpoint": ckpt["launches"][name], "gpt2": gpt2["launches"][name],
                    "tp_train": tp_launches(tp_train, name), "tp_serve": tp_launches(tp_serve, name),
-                   "dp_train": sum(r["launches_total"].get(name, 0) for r in dp_train["ranks"])}
+                   "dp_train": sum(r["launches_total"].get(name, 0) for r in dp_train["ranks"]),
+                   "train_resilient": resilient_train["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

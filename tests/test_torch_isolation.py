@@ -55,6 +55,10 @@ def test_every_port_module_imports_without_jax():
     assert {"vescale_tpu_torch.parallel.ddp", "vescale_tpu_torch.parallel.fsdp",
             "vescale_tpu_torch.parallel.optimizer", "vescale_tpu_torch.quant",
             "vescale_tpu_torch.quant.blockscale"} <= set(mods)
+    assert {"vescale_tpu_torch.resilience.loop", "vescale_tpu_torch.telemetry.api",
+            "vescale_tpu_torch.telemetry.exporters", "vescale_tpu_torch.telemetry.memtrack",
+            "vescale_tpu_torch.telemetry.memory_report", "vescale_tpu_torch.telemetry.registry",
+            "vescale_tpu_torch.train"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {['vescale_tpu_torch'] + mods!r}:\n"
@@ -69,6 +73,8 @@ def test_every_port_module_imports_without_jax():
     assert "vescale_tpu_torch.serve.loop" in loaded
     assert "vescale_tpu_torch.serve.speculative" in loaded
     assert "vescale_tpu_torch.checkpoint.manager" in loaded
+    assert {"vescale_tpu_torch.resilience.loop", "vescale_tpu_torch.telemetry.memtrack"} <= \
+        set(loaded)
     assert [m for m in loaded if _forbidden(m) or m == "ml_dtypes"] == []
 
 
@@ -89,6 +95,53 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     assert len(files) > 15
     bad = {f: m for f in files for m in _imports(f) if _forbidden(m)}
     assert bad == {}
+
+
+def test_the_resilient_loop_and_telemetry_run_with_jax_blocked(tmp_path):
+    """The loop, the consistency fingerprints, the telemetry API, its
+    exporters and memtrack import and run with ``jax``, ``ml_dtypes`` and
+    the JAX package made unimportable: a tiny CPU Llama through
+    ``FunctionalStep`` and ``run_resilient`` with a preemption, telemetry
+    on, then the resume."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'vescale_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "from vescale_tpu_torch import telemetry\n"
+        "from vescale_tpu_torch.checkpoint import CheckpointManager\n"
+        "from vescale_tpu_torch.models import Llama, LlamaConfig, cross_entropy_loss, init_params\n"
+        "from vescale_tpu_torch.parallel import AdamWLowmem\n"
+        "from vescale_tpu_torch.resilience import consistency, faultsim, parse_schedule, run_resilient\n"
+        "from vescale_tpu_torch.train import FunctionalStep, make_train_step\n"
+        "cfg = LlamaConfig(vocab_size=64, hidden_size=16, intermediate_size=32, num_hidden_layers=1,\n"
+        "                  num_attention_heads=2, num_key_value_heads=1, max_position_embeddings=16,\n"
+        "                  dtype=torch.float32)\n"
+        "def batch(i):\n"
+        "    t = torch.from_numpy(np.random.default_rng(i).integers(0, 64, (2, 9)))\n"
+        "    return {'input': t[:, :-1], 'target': t[:, 1:]}\n"
+        "def run():\n"
+        "    model = Llama(cfg, init_params(cfg, 0, device='cpu', dtype=torch.float32), device='cpu')\n"
+        "    opt = AdamWLowmem(model.parameters(), 1e-3, state_dtype=torch.float32)\n"
+        "    f = FunctionalStep(make_train_step(model, opt, lambda lg, b: cross_entropy_loss(lg, b['target'])), model, opt)\n"
+        f"    return run_resilient(step_fn=f, params=f.params, opt_state=f.opt_state, manager=CheckpointManager({str(tmp_path / 'c')!r}),\n"
+        "                         total_steps=4, batch_fn=batch, save_every=2, install_signal_handlers=False)\n"
+        f"telemetry.init(out_dir={str(tmp_path / 't')!r})\n"
+        "faultsim.arm(parse_schedule('preempt:step=3'))\n"
+        "assert run().status == 'preempted'\n"
+        "faultsim.disarm()\n"
+        "res = run()\n"
+        "assert res.status == 'completed' and sorted(res.losses) == [3]\n"
+        "assert 'resilience:' in telemetry.dashboard()\n"
+        "assert consistency.fingerprint(step=1, params=res.params)[6] != 0\n"
+        "telemetry.shutdown()\n"
+        "print('OK')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip().endswith("OK"), out.stderr[-3000:]
 
 
 CHILDREN = ("torch_spmd_child.py", "torch_serve_child.py")

@@ -1285,6 +1285,200 @@ def case_dp_ckpt(root, phase, dp, seed=0, names=("dp",), steps=1, fsdp=True, zer
             "params": {n: p.detach().clone() for n, p in dm.named_parameters()}}
 
 
+# ------------------------------------------------------ resilient loop
+RESIL_TOTAL = 8
+
+
+def resil_batch(i):
+    """Global batch i, the same on every rank: x (8, 16), y (8, 32)."""
+    g = np.random.default_rng(1000 + (i % 64))
+    return (torch.from_numpy(g.normal(size=(8, 16)).astype(np.float32)),
+            torch.from_numpy(g.normal(size=(8, 32)).astype(np.float32)))
+
+
+def resil_state(m):
+    """tests/multiproc/worker_resilience.py's mixed state: a weight cut by
+    columns over the ("tp",) mesh (every rank writes chunks of it), a
+    replicated bias (the fingerprint's sampled leaf) and a numpy count."""
+    from vescale_tpu_torch.darray import distribute_tensor
+    from vescale_tpu_torch.placements import Shard
+
+    w = np.random.default_rng(0).normal(size=(16, 32)).astype(np.float32) * 0.1
+    return ({"W": distribute_tensor(torch.from_numpy(w), m, [Shard(1)]),
+             "b": torch.zeros(32)}, {"count": np.int64(0)})
+
+
+def resil_step(params, opt, batch, step_key=None):
+    """Least squares on this rank's columns; the bias gradient and the loss
+    are gathered / summed over the ranks, so every rank agrees."""
+    import torch.distributed as dist
+
+    from vescale_tpu_torch.darray import DArray
+
+    W, b = params["W"], params["b"]
+    x, y = batch
+    n = W.to_local().shape[1]
+    cols = slice(W.rank * n, (W.rank + 1) * n)
+    err = x @ W.to_local() + b[cols] - y[:, cols]
+    gw = 2.0 * x.T @ err / err.numel()
+    parts = [torch.empty(n) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, 2.0 * err.sum(0) / err.numel())
+    loss = (err * err).sum().reshape(1)
+    dist.all_reduce(loss)
+    new_w = DArray(W.to_local() - 0.05 * gw, W.spec, W.rank)
+    return ({"W": new_w, "b": b - 0.05 * torch.cat(parts)},
+            {"count": np.int64(int(opt["count"]) + 1)}, float(loss[0]) / (8 * 32))
+
+
+def case_resil(root, mode, schedule=None, env=None, seed=7, expect_resume=False, **kw):
+    """One rank of tests/multiproc/worker_resilience.py's modes through the
+    port's coordinated ``run_resilient`` (``coordinate`` is on by itself:
+    two processes).  ``schedule`` arms faultsim with its ``rank=``
+    selectors; ``env`` sets knobs in this process first."""
+    import torch.distributed as dist
+
+    from vescale_tpu_torch import telemetry
+    from vescale_tpu_torch.checkpoint import CheckpointManager
+    from vescale_tpu_torch.resilience import (DesyncError, faultsim, parse_schedule,
+                                              reset_default_policies, run_resilient)
+
+    me = dist.get_rank()
+    for k, v in (env or {}).items():
+        os.environ[k] = str(v)
+    reset_default_policies()
+    if schedule:
+        faultsim.arm(parse_schedule(schedule))
+    m = mesh([2], ["tp"])
+    params, opt = resil_state(m)
+    mgr = CheckpointManager(root, keep=3)
+    step_fn = resil_step
+    if mode == "desync_ulp":
+        # rank 1 alone moves one sampled element (the fingerprint samples
+        # every 4097th) of the replicated bias by one ulp after step 3: the
+        # next check (step 4) must name "params"
+        def step_fn(p, o, b, k=None):
+            p2, o2, loss = resil_step(p, o, b, k)
+            if me == 1 and int(o2["count"]) == 4:
+                bias = p2["b"].clone()
+                bias[0] = torch.nextafter(bias[0], torch.tensor(float("inf")))
+                p2 = {**p2, "b": bias}
+            return p2, o2, loss
+    telemetry.init(out_dir=None, memtrack=False)
+    args = dict(step_fn=step_fn, params=params, opt_state=opt, manager=mgr, batch_fn=resil_batch,
+                total_steps=RESIL_TOTAL, save_every=3, async_save=True,
+                rng_seed=seed + (1 if mode == "desync_rng" and me == 1 else 0),
+                install_signal_handlers=False, barrier_timeout_s=60.0)
+    args.update(kw)
+    out = {"rank": me}
+    try:
+        res = run_resilient(**args)
+        out.update(status=res.status, step=res.step, restarts=res.restarts,
+                   emergency_save_step=res.emergency_save_step,
+                   losses={str(k): v for k, v in res.losses.items()},
+                   bias=res.params["b"].clone())
+    except DesyncError as e:
+        out.update(desync=sorted(e.mismatched))
+    finally:
+        faultsim.disarm()
+        for k in (env or {}):
+            os.environ.pop(k, None)
+        reset_default_policies()
+    out.update(latest=mgr.latest_step(), latest_common=mgr.latest_common_step(),
+               metas=sorted(d for d in os.listdir(root)
+                            if os.path.exists(os.path.join(root, d, "meta.json"))),
+               counters=telemetry.get_registry().snapshot()["counters"])
+    telemetry.shutdown()
+    if expect_resume:
+        out["resumed"] = out["counters"].get("resilience_resumes_total", 0)
+    return out
+
+
+def case_resil_barrier_timeout(timeout_s=1.0):
+    """Rank 0 times out in a barrier rank 1 enters late; rank 1's late
+    entry completes the pending collective, so the world stays usable."""
+    import torch.distributed as dist
+
+    from vescale_tpu_torch import telemetry
+    from vescale_tpu_torch.distributed import BarrierTimeout, barrier
+
+    if dist.get_rank() == 0:
+        telemetry.init(out_dir=None, memtrack=False)
+        try:
+            barrier("bt_probe", timeout_s=timeout_s)
+        except BarrierTimeout as e:
+            n = telemetry.get_registry().counter("resilience_barrier_timeouts_total").value
+            telemetry.shutdown()
+            return {"raised": True, "tag": e.tag, "elapsed": e.elapsed_s, "counted": n}
+        telemetry.shutdown()
+        return {"raised": False}
+    time.sleep(timeout_s * 2.5)
+    barrier("bt_probe")
+    return {"raised": None}
+
+
+ELASTIC_TOTAL, ELASTIC_BATCH, ELASTIC_SEQ, ELASTIC_SEED = 10, 8, 16, 11
+
+
+def elastic_run(root, tok_path, world, rank, mesh_, schedule=None):
+    """scripts/elastic_smoke.py's run on the port: a ("dp",)-sharded weight
+    and moments updated elementwise, a float64 scalar, and a batch
+    statistic summed as integers over the ranks, so the trajectory is
+    bitwise the same for any world size; batches from the elastic loader
+    (the global batch split over the ranks)."""
+    from vescale_tpu_torch.checkpoint import CheckpointManager
+    from vescale_tpu_torch.darray import DArray, distribute_tensor
+    from vescale_tpu_torch.data import TokenDataLoader
+    from vescale_tpu_torch.distributed import allgather_ints
+    from vescale_tpu_torch.placements import Shard
+    from vescale_tpu_torch.resilience import faultsim, parse_schedule, run_resilient
+
+    def sharded(x):
+        return distribute_tensor(torch.from_numpy(x), mesh_, [Shard(0)], rank=rank)
+
+    w0 = (np.arange(64, dtype=np.float32) / 64.0) - 0.5
+    z = np.zeros(64, np.float32)
+    params = {"w": sharded(w0), "b": np.float64(0.25)}
+    opt = {"mu": sharded(z), "nu": sharded(z), "count": np.int64(0)}
+
+    def step_fn(p, o, batch, step_key=None):
+        s = int(allgather_ints([int(batch["input"].sum())], tag="elastic_sum").sum())
+        g = (float(s % 1000003) / 1000003.0) - 0.5
+        gt = torch.tensor(g, dtype=torch.float32)
+        w, mu, nu = p["w"].to_local(), o["mu"].to_local(), o["nu"].to_local()
+        mu2 = 0.9 * mu + 0.1 * gt * w
+        nu2 = 0.99 * nu + 0.01 * gt * gt * w * w
+        w2 = w - 0.05 * (gt * w + 0.001 * mu2)
+        b2 = np.float64(p["b"]) - np.float64(0.05) * np.float64(g)
+        wrap = lambda t, like: DArray(t, like.spec, like.rank)
+        return ({"w": wrap(w2, p["w"]), "b": b2},
+                {"mu": wrap(mu2, o["mu"]), "nu": wrap(nu2, o["nu"]),
+                 "count": np.int64(int(o["count"]) + 1)}, float(b2 * b2) + g)
+
+    if schedule:
+        faultsim.arm(parse_schedule(schedule))
+    loader = TokenDataLoader(tok_path, ELASTIC_BATCH // world, ELASTIC_SEQ, seed=ELASTIC_SEED,
+                             dp_rank=rank, dp_world=world, elastic=True, device="cpu")
+    try:
+        res = run_resilient(step_fn=step_fn, params=params, opt_state=opt,
+                            manager=CheckpointManager(root, keep=4), loader=loader,
+                            total_steps=ELASTIC_TOTAL, save_every=3, async_save=False, rng_seed=3,
+                            install_signal_handlers=False,
+                            barrier_timeout_s=60.0 if world > 1 else None)
+    finally:
+        faultsim.disarm()
+        loader.close()
+    return res
+
+
+def case_resil_elastic(root, tok_path, schedule=None):
+    import torch.distributed as dist
+
+    res = elastic_run(root, tok_path, 2, dist.get_rank(), mesh([2], ["dp"]), schedule)
+    return {"status": res.status, "step": res.step,
+            "emergency_save_step": res.emergency_save_step,
+            "losses": {str(k): v for k, v in res.losses.items()}}
+
+
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}
 
 

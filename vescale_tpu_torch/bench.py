@@ -179,18 +179,18 @@ def _model_and_data(rung: str, dev, *, rows: Optional[int] = None, dp_rank: int 
 
 
 def prepare(rung: str = "1.3b", *, device=None, rows: Optional[int] = None,
-            grad_accum_steps: int = 1) -> TrainRun:
+            grad_accum_steps: int = 1, token_file: Optional[str] = None) -> TrainRun:
     """Model (random fp32 master weights from seed 0), optimizer, step and
     batches of ``rung`` on ``device`` (default: the card; the cpu rungs run
     on the CPU).  Llama rungs repeat one numpy-seeded batch (``rows`` rows,
     default the rung's B, in ``grad_accum_steps`` micro-batches); GPT rungs
-    read a fresh batch each step from the token file
-    :func:`write_token_file` makes in a temporary directory
-    (``TrainRun.close`` deletes it)."""
+    read a fresh batch each step from ``token_file`` (default: one that
+    :func:`write_token_file` makes in a temporary directory, which
+    ``TrainRun.close`` deletes)."""
     state_dtype, metric = (GPT_RUNGS if rung in GPT_RUNGS else RUNGS)[rung][3:]
     dev = torch.device("cpu") if rung in CPU_RUNGS and device is None else resolve_device(device)
     cfg, model, loss_fn, next_batch, loader, tmpdir, B, T, layers, width = _model_and_data(
-        rung, dev, rows=rows)
+        rung, dev, rows=rows, token_file=token_file)
     opt = AdamWLowmem(model.parameters(), LR, state_dtype=state_dtype)
     step = make_train_step(model, opt, loss_fn, grad_accum_steps=grad_accum_steps)
     n_params = sum(p.numel() for p in model.parameters())

@@ -31,9 +31,18 @@ on its own device (a ``meta`` template: on ``device``, default the card);
 a numpy or scalar template on the host.
 
 Roots: a directory, ``mem://<name>`` (this process's memory) or
-``memsvr://<server>/<prefix>`` (``mem_server.py``).  The reference's
-telemetry counters and ndtimeline spans come with the port's telemetry
-(ROADMAP A14).
+``memsvr://<server>/<prefix>`` (``mem_server.py``).
+
+While telemetry is on (``telemetry.init``), save and load count into it
+as the reference does: ``checkpoint_saves_total`` with
+``checkpoint_save_seconds`` (an async save's is its submit time, the copy
+to the host included), ``checkpoint_bytes_written_total`` (this process's
+chunks), ``checkpoint_commits_total`` with ``checkpoint_commit_seconds``,
+``checkpoint_loads_total`` with ``checkpoint_load_seconds`` and
+``checkpoint_bytes_read_total``; an elastic load counts
+``resilience_elastic_restores_total`` and ``resilience_reshard_seconds``,
+and memtrack tags what a load returns as ``checkpoint_buffers``.  The
+ndtimeline spans wait for ndtimeline (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from __future__ import annotations
 import json
 import sys
 import threading
+import time
 import warnings
 from typing import Any, Dict, Optional
 
@@ -48,6 +58,7 @@ import numpy as np
 import torch
 
 from .. import distributed as _dist
+from .. import telemetry as _tel
 from ..darray import DArray, distribute_tensor
 from ..device import resolve_device
 from .elastic import ElasticMismatchError, preflight, writer_meta
@@ -202,6 +213,17 @@ def save(
     background and the returned handle's ``wait()`` commits; across
     processes it MUST be waited, because the commit's vote runs on the
     calling thread.  ``on_commit`` runs right after ``meta.json`` lands."""
+    t0 = time.perf_counter()
+    out = _save_impl(path, checkpoint_state, async_checkpoint, num_io_workers, on_commit)
+    if _tel.is_active():
+        # an async save's submit time: the I/O workers keep writing, and
+        # the commit's time lands on checkpoint_commit_seconds
+        _tel.count("checkpoint_saves_total")
+        _tel.observe("checkpoint_save_seconds", time.perf_counter() - t0)
+    return out
+
+
+def _save_impl(path, checkpoint_state, async_checkpoint, num_io_workers, on_commit):
     storage = _storage_for(path)
     me, nproc = _dist.process_index(), _dist.process_count()
     flats = {}
@@ -216,6 +238,7 @@ def save(
     # template's and reshards (VSC130) instead of failing in the chunk loop
     meta: Dict[str, Any] = {"arrays": {}, "writer": writer_meta(checkpoint_state)}
     writer = AsyncWriter(storage, num_io_workers)
+    bytes_submitted = 0  # this process's share of the chunks
     try:
         for top_key, flat in flats.items():
             sig = _PLANNER.plan_signature(flat)
@@ -230,7 +253,9 @@ def save(
                     fname = f"data/{full_key}/{i}.npy"
                     entry["chunks"].append({**box.to_json(), "file": fname})
                     if _writer_process(leaf, owner, i, nproc) == me:
-                        writer.submit(fname, fetch_chunk(leaf, box, owner))
+                        data = fetch_chunk(leaf, box, owner)
+                        bytes_submitted += data.nbytes
+                        writer.submit(fname, data)
                 meta["arrays"][full_key] = entry
     except BaseException as e:
         writer.pool.shutdown(wait=False)
@@ -239,8 +264,17 @@ def save(
             # a local failure still votes, or the peers would wait in theirs
             _dist.all_processes_ok(False, f"ckpt_save:{path}")
         raise
+    if _tel.is_active():
+        _tel.count("checkpoint_bytes_written_total", bytes_submitted)
 
     def _commit(ok: bool = True) -> None:
+        t0 = time.perf_counter()
+        _commit_impl(ok)
+        if _tel.is_active():
+            _tel.count("checkpoint_commits_total")
+            _tel.observe("checkpoint_commit_seconds", time.perf_counter() - t0)
+
+    def _commit_impl(ok: bool) -> None:
         if nproc > 1:
             # the vote doubles as the pre-commit barrier: every process
             # enters it even after a local failure, so a failed save errors
@@ -404,6 +438,25 @@ def load(path: str, checkpoint_state: Dict[str, Any], strict: bool = True,
     lacks (a state field added after the checkpoint was written); under
     ``strict=True`` a missing key raises ``KeyError``.  ``device`` is where
     the leaves of ``meta`` tensor templates land (default: the card)."""
+    from ..telemetry import memtrack as _memtrack
+
+    t0 = time.perf_counter()
+    out = _load_impl(path, checkpoint_state, strict, device)
+    elapsed = time.perf_counter() - t0
+    if LAST_LOAD_STATS.get("elastic"):
+        # a cross-world reshard on load (VSC130): the elastic restore's cost
+        _tel.count("resilience_elastic_restores_total")
+        _tel.observe("resilience_reshard_seconds", elapsed)
+        _tel.set_gauge("resilience_last_reshard_seconds", elapsed)
+    if _tel.is_active():
+        _tel.count("checkpoint_loads_total")
+        _tel.count("checkpoint_bytes_read_total", LAST_LOAD_STATS["bytes_read"])
+        _tel.observe("checkpoint_load_seconds", elapsed)
+    # loaded tensors are checkpoint buffers until the runtime claims them
+    return _memtrack.tag_tree(out, "checkpoint_buffers")
+
+
+def _load_impl(path, checkpoint_state, strict, device):
     storage = _storage_for(path)
     LAST_LOAD_STATS.update(bytes_read=0, files_read=0, elastic=0)
     meta = json.loads(storage.read_bytes("meta.json").decode())

@@ -12,9 +12,11 @@ process meets at ``distributed.barrier`` or ``all_processes_ok`` around it.
 
 One manager owns a root a process: saves behind its back (a second
 instance, a direct ``checkpoint.save`` into the root) cannot be tracked.
-The reference's telemetry counters (``resilience_quarantined_total``,
-``resilience_commit_failures_total``) come with the port's telemetry
-(ROADMAP A14); a failed async commit prints one line on stderr.
+A quarantine counts ``resilience_quarantined_total``; a failed async
+commit prints one line on stderr, counts
+``resilience_commit_failures_total`` and records a
+``resilience_commit_failed`` event (the telemetry API's no-ops while
+telemetry is off).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import sys
 from typing import Any, Dict, List, Optional
 
 from .. import distributed as _dist
+from .. import telemetry as _tel
 from . import CheckpointHandle, load, save
 
 __all__ = ["CheckpointManager"]
@@ -221,7 +224,10 @@ class CheckpointManager:
             # a failed quarantine would leave rank 0 raising while the
             # others retry the same step — a guaranteed desync)
             renamed = _dist.all_processes_ok(renamed, f"ckpt_quarantine:{step}")
-        return dst if renamed else None
+        if not renamed:
+            return None
+        _tel.count("resilience_quarantined_total")
+        return dst
 
     def wait_pending(self) -> None:
         """Drain every in-flight async save: failed ones are joined without
@@ -247,6 +253,8 @@ class CheckpointManager:
     @staticmethod
     def _commit_failed(step: int, error) -> None:
         print(f"[checkpoint] step {step} was not committed: {error!r}", file=sys.stderr)
+        _tel.count("resilience_commit_failures_total")
+        _tel.record_event("resilience_commit_failed", ckpt_step=step, error=repr(error))
 
     # -------------------------------------------------------------- save
     def save(

@@ -85,7 +85,11 @@ def unflatten_state(state, fn: Callable[[str, Any], Any]):
         if node is None:
             return None
         if isinstance(node, dict):
-            return {k: walk(node[k], path + (k,)) for k in node}
+            # leaves in jax.tree_util's order (sorted keys), as flatten_state
+            # visits them, so a load reads (and reports a missing key) in the
+            # reference's order; the result keeps the template's key order
+            done = {k: walk(node[k], path + (k,)) for k in sorted(node)}
+            return {k: done[k] for k in node}
         if _is_namedtuple(node):
             return type(node)(*(walk(getattr(node, f), path + (f".{f}",)) for f in node._fields))
         if isinstance(node, (list, tuple)):

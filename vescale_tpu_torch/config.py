@@ -1,7 +1,7 @@
 """The port's knobs read from the environment, with the JAX package's defaults.
 
 The same names and defaults as the serving, resilience, faultsim,
-redistribute, checkpoint and gradient-compression knobs of
+redistribute, checkpoint, gradient-compression and telemetry knobs of
 ``vescale_tpu/analysis/envreg.py``; read live at each call, without that
 module's registry machinery.  A knob whose default is ``None`` reads as
 ``None`` while unset.
@@ -49,6 +49,9 @@ DEFAULTS = {
     "VESCALE_IO_BACKOFF_JITTER": 0.25,
     "VESCALE_IO_ATTEMPT_TIMEOUT": 0.0,
     "VESCALE_ELASTIC_RESTORE": True,
+    # the train loop: the loader's retries and the consistency cadence
+    "VESCALE_LOADER_RETRIES": 3,
+    "VESCALE_CONSISTENCY_EVERY": None,
     # the int8 gradient collectives (parallel/ddp.py, collectives.py)
     "VESCALE_GRAD_COMPRESS": "",
     "VESCALE_GRAD_COMPRESS_BLOCK": 64,

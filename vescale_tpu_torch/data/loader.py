@@ -21,11 +21,14 @@ card).
     rank-invariant global cursor so a resume onto a different world size
     re-splits the position sample-exactly.
 
-Not here yet: the reference wraps ``next()`` in its retry/backoff policy,
-the faultsim ``loader_next`` hook, the ndtimeline ``DATA_LOAD`` span and
-the ``data_load_seconds`` telemetry (``loader.py:174-219``); they come with
-ROADMAP.md queue A, items 13 and 14.  Here ``next()`` calls the native
-fetch directly, and ``elastic`` is an argument only (no env knob).
+``next()`` runs the native fetch under the loader's retry policy
+(``resilience.retry.loader_policy``, ``VESCALE_LOADER_RETRIES`` attempts):
+the faultsim ``loader_next`` hook sits inside the retried fetch, so an
+injected fault uses up one attempt and a clean retry returns the very
+batch a fault-free run gets; a closed loader fails at once, outside the
+retries.  While telemetry is on, each fetch is observed as
+``data_load_seconds``.  Not here yet (ROADMAP A14): the ndtimeline
+``DATA_LOAD`` span; ``elastic`` is an argument only (no env knob).
 
 The shared library builds with ``g++`` at first use into ``data/build/``,
 under a name that carries the ABI version, so it can never load the JAX
@@ -38,6 +41,7 @@ import ctypes
 import os
 import subprocess
 import threading
+import time
 from typing import Dict
 
 import numpy as np
@@ -145,9 +149,13 @@ class TokenDataLoader:
     def batches_served(self) -> int:
         return self._batches_served
 
-    def next(self) -> Dict[str, torch.Tensor]:
-        """The next batch, ``{"input", "target"}`` (batch, seq_len) int64 on
-        the loader's device."""
+    def _fetch(self):
+        """One native batch fetch: the unit the retry policy wraps.  The
+        faultsim hook sits inside, so an injected fault uses up one attempt
+        and a clean retry can succeed."""
+        from ..resilience import faultsim as _fs
+
+        _fs.check("loader_next", ctx=f"batch#{self._batches_served} {self.path}")
         if self._h is None:
             raise RuntimeError(f"TokenDataLoader({self.path!r}) is closed")
         x = np.empty((self.batch, self.seq_len), np.int32)
@@ -157,7 +165,24 @@ class TokenDataLoader:
         if rc != 0:
             raise RuntimeError(f"native loader failed: vdl_next rc={rc} "
                                f"(path={self.path!r}, batch_index={self._batches_served})")
+        return x, y
+
+    def next(self) -> Dict[str, torch.Tensor]:
+        """The next batch, ``{"input", "target"}`` (batch, seq_len) int64 on
+        the loader's device."""
+        from .. import telemetry as _tel
+        from ..resilience.retry import loader_policy
+
+        # a closed loader is a programming error: fail at once, without
+        # spending retries and backoff on it
+        if self._h is None:
+            raise RuntimeError(f"TokenDataLoader({self.path!r}) is closed")
+        t0 = time.perf_counter()
+        x, y = loader_policy().call(
+            self._fetch, description=f"batch#{self._batches_served} of {self.path}")
         self._batches_served += 1
+        if _tel.is_active():
+            _tel.observe("data_load_seconds", time.perf_counter() - t0)
         return {k: torch.from_numpy(v).to(torch.int64).to(self.device)
                 for k, v in (("input", x), ("target", y))}
 

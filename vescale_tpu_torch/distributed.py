@@ -140,6 +140,9 @@ def _sync_with_timeout(fn: Callable, tag: str, timeout_s: Optional[float]):
     t0 = time.monotonic()
     box, done = _SYNC_WORKER.submit(fn)
     if not done.wait(timeout_s):
+        from . import telemetry as _tel
+
+        _tel.count("resilience_barrier_timeouts_total")
         raise BarrierTimeout(tag, time.monotonic() - t0, timeout_s)
     if "error" in box:
         raise box["error"]

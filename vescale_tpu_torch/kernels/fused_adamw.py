@@ -16,7 +16,10 @@ the TPU ran once per leaf); on CPU tensors it runs
 :func:`fused_adamw_reference`, the same chain op by op.  ``c1`` and ``c2``
 are the caller's fp32 bias corrections.  The moments come out bit for bit
 equal to the chain; ``u`` within a few ulps where ``c1``/``c2`` were
-rounded differently.
+rounded differently.  With ``inplace=True`` m' and v' are written into the
+given m and v, which are returned: the kernel may alias them, since each
+thread reads its elements of m and v before it writes the same elements,
+so the optimizer keeps one generation of moments.
 """
 
 from __future__ import annotations
@@ -68,23 +71,29 @@ def fused_adamw_reference(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor]
 
 def fused_adamw_update(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
                        vs: Sequence[torch.Tensor], c1: float, c2: float, *,
-                       b1: float, b2: float, eps: float) -> Leaves:
+                       b1: float, b2: float, eps: float, inplace: bool = False) -> Leaves:
     """(us, ms', vs') for lists of leaves; see the module docstring.  Every
-    g must share one dtype, and every m and v another (fp32 or bf16)."""
+    g must share one dtype, and every m and v another (fp32 or bf16).
+    ``inplace``: ms' and vs' are ms and vs, updated."""
     gs, ms, vs = list(gs), list(ms), list(vs)
     if not (len(gs) == len(ms) == len(vs)):
         raise ValueError(f"fused_adamw: {len(gs)} grads, {len(ms)} m, {len(vs)} v")
     if not gs:
         return [], [], []
     if gs[0].device.type == "cpu":
-        return fused_adamw_reference(gs, ms, vs, c1, c2, b1=b1, b2=b2, eps=eps)
+        us, mos, vos = fused_adamw_reference(gs, ms, vs, c1, c2, b1=b1, b2=b2, eps=eps)
+        if not inplace:
+            return us, mos, vos
+        for t, new in zip(ms + vs, mos + vos):
+            t.copy_(new)
+        return us, ms, vs
     require_hopper(gs[0])
     dev, g_dt, s_dt = gs[0].device, gs[0].dtype, ms[0].dtype
     if g_dt not in _DTYPES or s_dt not in _DTYPES:
         raise ValueError(f"fused_adamw: grad dtype {g_dt}, state dtype {s_dt}")
     us = [torch.empty_like(g) for g in gs]
-    mos = [torch.empty_like(m) for m in ms]
-    vos = [torch.empty_like(v) for v in vs]
+    mos = ms if inplace else [torch.empty_like(m) for m in ms]
+    vos = vs if inplace else [torch.empty_like(v) for v in vs]
     rows, block0 = [], 0
     for i, group in enumerate(zip(gs, ms, vs, us, mos, vos)):
         g, m, v = group[:3]

@@ -7,7 +7,7 @@ The port of ``vescale_tpu/parallel/optimizer.py``, written on
   * ``AdamWLowmem`` — ``adamw_lowmem``: ``scale_by_adam_lowmem`` (moments
     kept in ``state_dtype``, bf16 by default, all arithmetic in fp32; the
     moment update is ``kernels.fused_adamw_update``, one launch for every
-    leaf on the card), then ``add_decayed_weights(weight_decay)``, then
+    leaf on the card, in the moments' own storage), then ``add_decayed_weights(weight_decay)``, then
     ``scale_by_learning_rate(lr)``, then ``apply_updates``, in optax's op
     order: ``u + wd * p``, ``(-lr) * u``, ``(p + u)`` in p's dtype.  The
     parameters are updated in place.  Every parameter of a group takes the
@@ -45,7 +45,8 @@ from ..spec import DArraySpec, TensorMeta
 from .ddp import (DEFAULT_BUCKET, bucketed_all_gather, bucketed_all_reduce, bucketed_reduce_scatter,
                   resolve_grad_compress, tree_map)
 
-__all__ = ["AdamWLowmem", "BasicOptimizer", "DistributedOptimizer", "ScaleByAdamLowmemState",
+__all__ = ["AdamWLowmem", "BasicOptimizer", "DistributedOptimizer", "EmptyState",
+           "ScaleByAdamLowmemState",
            "clip_grad_norm_fp32", "found_inf", "bias_corrections", "zero_placements",
            "zero_sharded"]
 
@@ -141,13 +142,13 @@ class AdamWLowmem(torch.optim.Optimizer):
                     st["exp_avg_sq"] = torch.zeros_like(p, dtype=group["state_dtype"])
             group["step"] += 1
             c1, c2 = bias_corrections(b1, b2, group["step"])
-            us, ms, vs = fused_adamw_update(
+            # the moments are updated in their own storage: a state_tree
+            # taken before the step still names the live state after it
+            us, _, _ = fused_adamw_update(
                 grads, [self.state[p]["exp_avg"] for p in params],
                 [self.state[p]["exp_avg_sq"] for p in params], c1, c2,
-                b1=b1, b2=b2, eps=group["eps"],
+                b1=b1, b2=b2, eps=group["eps"], inplace=True,
             )
-            for p, m, v in zip(params, ms, vs):
-                self.state[p]["exp_avg"], self.state[p]["exp_avg_sq"] = m, v
             # add_decayed_weights, scale_by_learning_rate, apply_updates;
             # u + wd * p promotes a low-precision u to p's dtype, as in jnp
             us = [u.to(torch.promote_types(u.dtype, p.dtype)) for u, p in zip(us, params)]
@@ -159,6 +160,77 @@ class AdamWLowmem(torch.optim.Optimizer):
                 for p, u in zip(params, us):
                     p.copy_(p + u)
         return loss
+
+    # --------------------------------------------------------------- state
+    def _named(self, module: torch.nn.Module):
+        """(group, [(dotted name, param)]) of the one parameter group, named
+        by ``module``."""
+        if len(self.param_groups) != 1:
+            raise ValueError("state_tree lays out one parameter group, as adamw_lowmem's one "
+                             f"tree; this optimizer has {len(self.param_groups)}")
+        names = {id(p): n for n, p in module.named_parameters()}
+        group = self.param_groups[0]
+        missing = [i for i, p in enumerate(group["params"]) if id(p) not in names]
+        if missing:
+            raise ValueError(f"state_tree: parameters {missing[:5]} are not in the module")
+        return group, [(names[id(p)], p) for p in group["params"]]
+
+    def state_tree(self, module: torch.nn.Module):
+        """The state in the reference ``adamw_lowmem`` layout, its moment
+        trees keyed by ``module``'s parameter names as ``models.
+        module_tree`` keys the parameters: optax's chain
+        ``(ScaleByAdamLowmemState(count, mu, nu), EmptyState(),
+        EmptyState())``, which a checkpoint names ``0/.count``,
+        ``0/.mu/<param>`` and ``0/.nu/<param>``.  ``count`` is a 0-d int32
+        tensor; the moments are the live state tensors (zeros of
+        ``state_dtype`` before the first step), not copies."""
+        group, named = self._named(module)
+        sd = group["state_dtype"]
+        mu: Dict[str, Any] = {}
+        nu: Dict[str, Any] = {}
+        for name, p in named:
+            st = self.state[p]
+            if not st:
+                st["exp_avg"] = torch.zeros_like(p, dtype=sd)
+                st["exp_avg_sq"] = torch.zeros_like(p, dtype=sd)
+            _set_path(mu, name, st["exp_avg"])
+            _set_path(nu, name, st["exp_avg_sq"])
+        count = torch.tensor(group["step"], dtype=torch.int32)
+        return (ScaleByAdamLowmemState(count, mu, nu), EmptyState(), EmptyState())
+
+    @torch.no_grad()
+    def load_state_tree(self, state, module: torch.nn.Module) -> None:
+        """Restore from a tree laid out as :meth:`state_tree` (a
+        reference checkpoint's ``"optimizer"`` branch included): the step
+        count (the bias corrections come from it) and the moments, copied
+        into the live state tensors where they exist."""
+        group, named = self._named(module)
+        inner = state[0]
+        for name, p in named:
+            st = self.state[p]
+            for key, tree in (("exp_avg", inner.mu), ("exp_avg_sq", inner.nu)):
+                src = torch.as_tensor(_get_path(tree, name))
+                if tuple(src.shape) != tuple(p.shape):
+                    raise ValueError(f"load_state_tree: {name} has shape {tuple(src.shape)}, "
+                                     f"the parameter {tuple(p.shape)}")
+                if key in st:
+                    st[key].copy_(src)
+                else:
+                    st[key] = src.to(device=p.device, dtype=group["state_dtype"]).clone()
+        group["step"] = int(torch.as_tensor(inner.count))
+
+
+def _set_path(tree: Dict[str, Any], dotted: str, value) -> None:
+    *path, leaf = dotted.split(".")
+    for key in path:
+        tree = tree.setdefault(key, {})
+    tree[leaf] = value
+
+
+def _get_path(tree, dotted: str):
+    for key in dotted.split("."):
+        tree = tree[key]
+    return tree
 
 
 class BasicOptimizer:
@@ -192,6 +264,11 @@ class ScaleByAdamLowmemState(NamedTuple):
     count: Any
     mu: Any
     nu: Any
+
+
+class EmptyState(NamedTuple):
+    """optax's stateless transforms' state (``add_decayed_weights``,
+    ``scale_by_learning_rate`` in the chain): no leaves."""
 
 
 def zero_placements(shape: Sequence[int], placements: Sequence[Placement], mesh: DeviceMesh,

@@ -172,6 +172,10 @@ class FaultInjector:
                     hit = True
             if hit:
                 self.fired_total[kind] += 1
+        if hit:
+            from .. import telemetry as _tel
+
+            _tel.count("resilience_faults_injected_total")
         return hit
 
     def check(self, kind: str, ctx: str = "") -> None:

@@ -1,17 +1,21 @@
-"""Retry and backoff policy for flaky I/O: the checkpoint's storage.
+"""Retry and backoff policy for flaky I/O: the checkpoint's storage and the
+token loader.
 
 The port of ``vescale_tpu/resilience/retry.py``, framework-free as there.
 A checkpoint write can hit object-store throttling, NFS hiccups and
-transient ``OSError``s that one retry absorbs.  ``RetryPolicy`` bounds the
-attempts, sleeps an exponential backoff with deterministic jitter, and can
-bound each attempt's time.  ``FileSystemStorage.read_bytes`` and
+transient ``OSError``s that one retry absorbs, and a batch fetch a
+transient native-loader failure.  ``RetryPolicy`` bounds the attempts,
+sleeps an exponential backoff with deterministic jitter, and can bound
+each attempt's time.  ``FileSystemStorage.read_bytes`` and
 ``write_bytes`` (``checkpoint/storage.py``) route through
-:func:`ckpt_policy`, built from the knobs:
+:func:`ckpt_policy`, ``TokenDataLoader.next`` through
+:func:`loader_policy`, built from the knobs:
 
   ===========================  ======== =====================================
   env                          default  meaning
   ---------------------------  -------- -------------------------------------
   VESCALE_CKPT_RETRIES         3        max attempts for checkpoint I/O
+  VESCALE_LOADER_RETRIES       3        max attempts for a batch fetch
   VESCALE_IO_BACKOFF_BASE      0.05     first backoff sleep (seconds)
   VESCALE_IO_BACKOFF_MAX       5.0      backoff ceiling (seconds)
   VESCALE_IO_BACKOFF_JITTER    0.25     +/- fraction of jitter on each sleep
@@ -20,10 +24,10 @@ bound each attempt's time.  ``FileSystemStorage.read_bytes`` and
 
 ``VESCALE_CKPT_RETRIES=1`` restores fail-fast semantics.  The jitter is
 seeded (attempt index and policy seed), so two runs of one faultsim
-schedule sleep alike.  Every absorbed fault prints one line on stderr.  The
-reference also counts ``resilience_io_retries_total`` and
-``resilience_io_giveups_total`` into its telemetry; the port's telemetry
-API comes later (ROADMAP A14), and until then nothing is counted.
+schedule sleep alike.  Every absorbed fault prints one line on stderr and
+counts ``resilience_io_retries_total`` and ``resilience_<name>_retries_total``;
+an exhausted retry counts ``resilience_io_giveups_total`` (the telemetry
+API's no-ops while telemetry is off).
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from typing import Callable, Optional, Tuple, Type
 
 from .. import config
 
-__all__ = ["RetryPolicy", "ckpt_policy", "reset_default_policies"]
+__all__ = ["RetryPolicy", "ckpt_policy", "loader_policy", "reset_default_policies"]
 
 
 @dataclass
@@ -115,6 +119,8 @@ class RetryPolicy:
     def call(self, fn: Callable, *args, description: str = "", **kwargs):
         """Run ``fn`` under the policy.  ``description`` names the resource
         in the absorbed-fault line on stderr."""
+        from .. import telemetry as _tel
+
         last: Optional[BaseException] = None
         for attempt in range(1, self.max_attempts + 1):
             try:
@@ -125,6 +131,8 @@ class RetryPolicy:
                 last = e
                 if attempt >= self.max_attempts:
                     break
+                _tel.count("resilience_io_retries_total")
+                _tel.count(f"resilience_{self.name}_retries_total")
                 delay = self.backoff_for(attempt)
                 print(
                     f"[resilience] {self.name} {description or getattr(fn, '__name__', 'op')}: "
@@ -134,14 +142,16 @@ class RetryPolicy:
                 )
                 if delay > 0:
                     time.sleep(delay)
-        # out of attempts: re-raise the original exception, so callers'
-        # except clauses keep their types
+        # out of attempts: count it, then re-raise the original exception,
+        # so callers' except clauses keep their types
+        _tel.count("resilience_io_giveups_total")
         raise last
 
 
 # built at the first I/O, so knobs a launcher sets before then apply;
 # reset_default_policies() reads them again (tests)
 _CKPT: Optional[RetryPolicy] = None
+_LOADER: Optional[RetryPolicy] = None
 _LOCK = threading.Lock()
 
 
@@ -154,8 +164,21 @@ def ckpt_policy() -> RetryPolicy:
         return _CKPT
 
 
+def loader_policy() -> RetryPolicy:
+    """``TokenDataLoader.next``'s policy (``VESCALE_LOADER_RETRIES``
+    attempts); a native-loader failure is a ``RuntimeError``, so that is
+    retried too."""
+    global _LOADER
+    with _LOCK:
+        if _LOADER is None:
+            _LOADER = RetryPolicy.from_env("VESCALE_LOADER_RETRIES", name="loader")
+            _LOADER.retry_on = (OSError, RuntimeError, TimeoutError)
+        return _LOADER
+
+
 def reset_default_policies() -> None:
-    """Drop the cached policy (tests change the knobs)."""
-    global _CKPT
+    """Drop the cached policies (tests change the knobs)."""
+    global _CKPT, _LOADER
     with _LOCK:
         _CKPT = None
+        _LOADER = None

@@ -12,16 +12,20 @@ no beat lands within ``timeout_s`` the watchdog fires once per stall:
      supervisor's restart path takes over: nothing can unwind a wedged
      collective or kernel.
 
-The dump keeps the JAX package's keys.  Its ``flight_record`` is ``None``:
-the memory flight recorder is not ported yet, and ``None`` is what that
-recorder gives while it is off.  The watchdog thread makes no CUDA call,
-so it never touches a stream while the main thread captures or replays
-the decode graph.
+The dump keeps the JAX package's keys.  While memtrack is live
+(``telemetry.init``) its ``flight_record`` names the memory flight
+record written beside it (``telemetry.memtrack.dump_now``); otherwise it
+is ``None``.  Counters go to the ``telemetry=`` registry when one is given
+(the serve loop's own) and to the global telemetry otherwise.  While
+memtrack is off the watchdog thread makes no CUDA call, so it never
+touches a stream while the main thread captures or replays the decode
+graph.
 
 Knobs (``Watchdog.from_env``): ``VESCALE_WATCHDOG_TIMEOUT`` (seconds;
 unset or 0 disarms), ``VESCALE_WATCHDOG_ABORT`` (default on),
 ``VESCALE_WATCHDOG_EXIT_CODE`` (default 17) and ``VESCALE_WATCHDOG_DIR``
-(where dumps go when no ``dump_dir`` is given; unset writes none).
+(where dumps go when no ``dump_dir`` is given and telemetry has no
+``out_dir``; unset writes none).
 """
 
 from __future__ import annotations
@@ -154,6 +158,15 @@ class Watchdog:
             "threads": dump_all_stacks(),
             "flight_record": None,
         }
+        from .. import telemetry as _gtel
+        from ..telemetry import memtrack as _memtrack
+
+        try:  # the memory flight record rides along while memtrack is live
+            mem = _memtrack.dump_now(reason=f"watchdog_hang@step{self._step}")
+            if mem is not None:
+                bundle["flight_record"] = mem.get("path", "<in-memory>")
+        except Exception:
+            pass  # diagnostics must never mask the hang handling itself
         path = self._dump_path()
         if path is not None:
             try:
@@ -163,11 +176,10 @@ class Watchdog:
                 bundle["path"] = path
             except OSError:
                 path = None
-        tel = self.telemetry
-        if tel is not None:
-            tel.count("resilience_hang_detected_total")
-            tel.record_event("resilience_hang", at_step=self._step, phase=self._phase,
-                             stalled_s=bundle["stalled_s"], dump=path, abort=self.abort)
+        tel = self.telemetry if self.telemetry is not None else _gtel
+        tel.count("resilience_hang_detected_total")
+        tel.record_event("resilience_hang", at_step=self._step, phase=self._phase,
+                         stalled_s=bundle["stalled_s"], dump=path, abort=self.abort)
         print(
             f"[watchdog] no step progress for {bundle['stalled_s']:.1f}s "
             f"(deadline {self.timeout_s:g}s) at step={self._step} "
@@ -184,8 +196,7 @@ class Watchdog:
             except Exception:
                 pass
         if self.abort:
-            if tel is not None:
-                tel.count("resilience_hang_aborts_total")
+            tel.count("resilience_hang_aborts_total")
             sys.stderr.flush()
             sys.stdout.flush()
             # os._exit: the main thread is wedged where no exception reaches
@@ -195,8 +206,12 @@ class Watchdog:
         root = self.dump_dir
         if root is None:
             from .. import config as _config
+            from ..telemetry import api as _api
 
-            root = _config.get_str("VESCALE_WATCHDOG_DIR")
+            st = _api.get_state()
+            root = st.out_dir if st is not None else None
+            if root is None:
+                root = _config.get_str("VESCALE_WATCHDOG_DIR")
         if root is None:
             return None
         from .faultsim import _process_rank

@@ -40,7 +40,8 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional
 
-from .registry import Registry, prometheus_text
+from .exporters import prometheus_text
+from .registry import Registry
 
 __all__ = ["OpsServer", "maybe_start", "active_server"]
 

@@ -1,30 +1,75 @@
-"""An in-process metric registry: counters, gauges, rolling histograms, events.
+"""Metric registries: counters, gauges, rolling histograms, events.
 
-Just enough of ``vescale_tpu/telemetry`` (``registry.Histogram``, the
-``api`` calls ``count`` / ``observe`` / ``set_gauge`` / ``record_event``
-and ``exporters.prometheus_text``) for the serve scheduler, loop and ops
-endpoints.  No global gate: each scheduler owns a :class:`Registry`, so two
-schedulers in one process never share numbers.  ``GLOBAL`` holds the
-library's own process-wide counters (``redistribute.fallbacks``).
+Two registries live here.  :class:`MetricsRegistry` (with
+:class:`Counter`, :class:`Gauge` and :class:`Histogram`) is the port of
+``vescale_tpu/telemetry/registry.py``: the process-global registry that
+``telemetry.init()`` creates and the train loop, the checkpoint layer and
+the retry policies feed through ``telemetry.api``; the exporters read its
+``snapshot()``.  :class:`Registry` is the serve path's own: each
+scheduler owns one, so two schedulers in one process never share numbers,
+and ``GLOBAL`` holds the library's process-wide counters
+(``redistribute.fallbacks``).  Both render through
+``exporters.prometheus_text``.  Percentiles use the nearest-rank method.
 """
 
 from __future__ import annotations
 
 import math
-import re
 import threading
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Union
 
-__all__ = ["GLOBAL", "Histogram", "Registry", "prometheus_text"]
+__all__ = ["GLOBAL", "Counter", "Gauge", "Histogram", "MetricsRegistry", "Registry"]
 
 Number = Union[int, float]
 
 
+class Counter:
+    """Monotonic counter (Prometheus 'counter' semantics)."""
+
+    __slots__ = ("name", "help", "_value", "_lock")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, n: Number = 1) -> None:
+        if n < 0:
+            raise ValueError(f"counter {self.name}: negative increment {n}")
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge:
+    """Last-value gauge (may go up or down)."""
+
+    __slots__ = ("name", "help", "_value")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._value = 0.0
+
+    def set(self, v: Number) -> None:
+        self._value = float(v)
+
+    def inc(self, n: Number = 1) -> None:
+        self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
 class Histogram:
     """Rolling-window histogram: percentiles over the last ``window``
-    observations, exact monotonic count/sum over the whole run (a copy of
-    ``vescale_tpu.telemetry.registry.Histogram``)."""
+    observations, exact monotonic count/sum over the whole run."""
 
     __slots__ = ("name", "help", "window", "_values", "_pos", "_filled", "_count", "_sum", "_lock")
 
@@ -74,6 +119,70 @@ class Histogram:
         xs, _, _ = self._sorted_window()
         return self._nearest_rank(xs, q) if xs else None
 
+    def snapshot(self) -> Dict[str, float]:
+        xs, count, total = self._sorted_window()
+        out: Dict[str, float] = {"count": count, "sum": total, "window": len(xs)}
+        if xs:
+            for label, q in (("p50", 0.5), ("p95", 0.95), ("p99", 0.99)):
+                out[label] = self._nearest_rank(xs, q)
+            out["min"] = xs[0]
+            out["max"] = xs[-1]
+            out["mean"] = (total / count) if count else 0.0
+        return out
+
+
+class MetricsRegistry:
+    """Get-or-create registry of named metrics.  A name is bound to one
+    metric kind for the registry's lifetime: asking for it as another kind
+    raises instead of shadowing it."""
+
+    def __init__(self, default_window: int = 1024):
+        self.default_window = default_window
+        self._metrics: Dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def _get_or_create(self, name: str, cls, **kwargs):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = cls(name, **kwargs)
+            elif not isinstance(m, cls):
+                raise TypeError(f"metric {name!r} already registered as {type(m).__name__}, "
+                                f"requested {cls.__name__}")
+            return m
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get_or_create(name, Counter, help=help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get_or_create(name, Gauge, help=help)
+
+    def histogram(self, name: str, help: str = "", window: Optional[int] = None) -> Histogram:
+        return self._get_or_create(name, Histogram, help=help,
+                                   window=window or self.default_window)
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
+    def get(self, name: str):
+        with self._lock:
+            return self._metrics.get(name)
+
+    def snapshot(self) -> Dict[str, Dict]:
+        """A consistent read of every metric, grouped by kind."""
+        with self._lock:
+            items = list(self._metrics.items())
+        out: Dict[str, Dict] = {"counters": {}, "gauges": {}, "histograms": {}}
+        for name, m in items:
+            if isinstance(m, Counter):
+                out["counters"][name] = m.value
+            elif isinstance(m, Gauge):
+                out["gauges"][name] = m.value
+            elif isinstance(m, Histogram):
+                out["histograms"][name] = m.snapshot()
+        return out
+
 
 class Registry:
     """Named counters, gauges and histograms plus a bounded event log."""
@@ -106,52 +215,14 @@ class Registry:
     def counter(self, name: str) -> float:
         return self.counters.get(name, 0)
 
+    def snapshot(self) -> Dict[str, Dict]:
+        """The numbers in ``MetricsRegistry.snapshot``'s layout (what the
+        exporters read)."""
+        with self._lock:
+            counters, hists = dict(self.counters), dict(self.histograms)
+        return {"counters": counters, "gauges": dict(self.gauges),
+                "histograms": {n: h.snapshot() for n, h in hists.items()}}
+
 
 GLOBAL = Registry()
 
-
-_NAME_OK = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
-_NAME_FIX = re.compile(r"[^a-zA-Z0-9_:]")
-
-
-def _metric_name(name: str) -> str:
-    """An internal metric name mapped onto the Prometheus charset."""
-    if _NAME_OK.match(name):
-        return name
-    fixed = _NAME_FIX.sub("_", name)
-    return fixed if re.match(r"[a-zA-Z_:]", fixed[:1] or "_") else "_" + fixed
-
-
-def _fmt(v: float) -> str:
-    f = float(v)
-    if math.isnan(f):
-        return "NaN"
-    if math.isinf(f):
-        return "+Inf" if f > 0 else "-Inf"
-    return str(int(f)) if f.is_integer() else repr(f)
-
-
-def prometheus_text(registry: Registry) -> str:
-    """The registry in the Prometheus text exposition format (0.0.4), as
-    ``vescale_tpu.telemetry.exporters.prometheus_text`` renders it:
-    histograms as summaries (``{quantile=...}`` plus ``_count``/``_sum``)."""
-    with registry._lock:
-        counters = dict(registry.counters)
-        hists = dict(registry.histograms)
-    gauges = dict(registry.gauges)
-    lines = []
-    for name in sorted(counters):
-        pname = _metric_name(name)
-        lines += [f"# TYPE {pname} counter", f"{pname} {_fmt(counters[name])}"]
-    for name in sorted(gauges):
-        pname = _metric_name(name)
-        lines += [f"# TYPE {pname} gauge", f"{pname} {_fmt(gauges[name])}"]
-    for name in sorted(hists):
-        pname = _metric_name(name)
-        xs, count, total = hists[name]._sorted_window()
-        lines.append(f"# TYPE {pname} summary")
-        if xs:
-            for q in ("0.5", "0.95", "0.99"):
-                lines.append(f'{pname}{{quantile="{q}"}} {_fmt(Histogram._nearest_rank(xs, float(q)))}')
-        lines += [f"{pname}_count {_fmt(count)}", f"{pname}_sum {_fmt(total)}"]
-    return "\n".join(lines) + "\n"

@@ -21,18 +21,29 @@ by ``DistributedOptimizer.reduce_grads`` into its ZeRO pieces.  With a
 unscaled, as the reference's step does (``vescale_tpu/train.py:221-228``).
 The reported loss is the mean over the dp ranks.
 
+While telemetry is on (``telemetry.init`` before the step runs), each
+step reads its loss on the host (the sync that makes the step time wall
+clock, the observability trade a telemetry run opts into) and records
+``step_time_s``, ``loss``, ``tokens`` and ``tokens_per_sec`` through
+``telemetry.record_step`` (reference ``train.py:310-343``).
+
+:class:`FunctionalStep` wraps the in-place step in the reference's
+functional signature, ``step_fn(params, opt_state, batch[, step_key]) ->
+(params, opt_state, loss)``, for ``resilience.run_resilient``.
+
 Not here yet (ROADMAP.md): the fp8 ``_overwrite_with_gradient`` bundle,
-the telemetry feed and the ndtimeline spans, and dropout RNG streams (the
-Llama has no dropout).
+the grad-norm and loss-scale scalars of the telemetry feed, the ndtimeline
+spans, and dropout RNG streams (the Llama has no dropout).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict
 
 import torch
 
-__all__ = ["make_train_step"]
+__all__ = ["FunctionalStep", "make_train_step"]
 
 
 def _split(batch, n: int):
@@ -124,6 +135,29 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
         (dopt.scale_loss(loss) if dopt is not None else loss).backward()
 
     def step(batch: Dict[str, Any]):
+        from . import telemetry as _tel
+
+        if not _tel.is_active():
+            return run(batch)
+        t0 = time.perf_counter()
+        out = run(batch)
+        # reading the loss waits for the step: the recorded time is wall
+        # clock, not launch time
+        loss_val = float(out[0] if has_aux else out)
+        dt = time.perf_counter() - t0
+        rec: Dict[str, Any] = {"step_time_s": dt, "loss": loss_val}
+        leaf = batch.get("input") if isinstance(batch, dict) else None
+        if leaf is not None and hasattr(leaf, "shape"):
+            tokens = 1
+            for n in leaf.shape:
+                tokens *= int(n)
+            rec["tokens"] = tokens
+            if dt > 0:
+                rec["tokens_per_sec"] = tokens / dt
+        _tel.record_step(rec)
+        return out
+
+    def run(batch: Dict[str, Any]):
         optimizer.zero_grad(set_to_none=True)
         if grad_accum_steps == 1:
             loss, aux = micro(batch)
@@ -160,3 +194,99 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
         return (loss, aux) if has_aux else loss
 
     return step
+
+
+def _state_tree(optimizer, module):
+    from .parallel.optimizer import AdamWLowmem, BasicOptimizer
+
+    if isinstance(optimizer, BasicOptimizer):
+        optimizer = optimizer.optimizer
+    if isinstance(optimizer, AdamWLowmem):
+        return optimizer.state_tree(module)
+    return optimizer.state_tree()
+
+
+def _load_state_tree(optimizer, state, module) -> None:
+    from .parallel.optimizer import AdamWLowmem, BasicOptimizer
+
+    if isinstance(optimizer, BasicOptimizer):
+        optimizer = optimizer.optimizer
+    if isinstance(optimizer, AdamWLowmem):
+        optimizer.load_state_tree(state, module)
+    else:
+        optimizer.load_state_tree(state)
+
+
+class FunctionalStep:
+    """The in-place train step in the reference's functional signature::
+
+        fstep = FunctionalStep(make_train_step(model, opt, loss_fn), model, opt)
+        res = run_resilient(step_fn=fstep, params=fstep.params,
+                            opt_state=fstep.opt_state, ...)
+
+    ``params`` is ``models.module_tree(model)`` (the parameters, detached,
+    not copies) and ``opt_state`` the optimizer's ``state_tree`` (the
+    reference ``adamw_lowmem`` layout for ``AdamWLowmem``, the ZeRO layout
+    for a ``DistributedOptimizer``); both are rebuilt after every step, so
+    they always describe the live state.  When the caller hands in trees
+    that are not the live ones (``run_resilient`` after a restore), they
+    are copied into the module's parameters and the optimizer's state
+    first, in place: the parameters keep their storage (``data_ptr``), and
+    the optimizer's step count comes back with the moments, so the bias
+    corrections of a replayed step are the original's; the handed-in
+    trees then alias the live state (:meth:`load`).  The train step
+    uses no CUDA graph, so no captured pointer can go stale.  ``step_key``
+    is accepted and unused: the port's models draw no dropout.
+
+    While memtrack is live the parameters are tagged ``params`` and the
+    optimizer's state ``optimizer_state`` after each step."""
+
+    def __init__(self, step: Callable, model: torch.nn.Module, optimizer, *,
+                 has_aux: bool = False):
+        self.step = step
+        self.module = getattr(model, "module", model)  # a DDP wrapper: its module
+        self.optimizer = optimizer
+        self.has_aux = has_aux
+        self._refresh()
+
+    def _refresh(self) -> None:
+        from .models import module_tree
+        from .telemetry import memtrack as _memtrack
+
+        self.params = module_tree(self.module)
+        self.opt_state = _state_tree(self.optimizer, self.module)
+        _memtrack.tag_tree(list(self.module.parameters()), "params")
+        _memtrack.tag_tree(self.opt_state, "optimizer_state")
+
+    @torch.no_grad()
+    def load(self, params, opt_state) -> None:
+        """Copy ``params`` and ``opt_state`` (trees of the live layout) into
+        the module and the optimizer.  Each tensor leaf of the given trees
+        is then pointed at the live tensor it was copied into: the caller
+        (``run_resilient`` after a restore) holds its trees until the step
+        returns, and their own storage, a second copy of the whole state,
+        is freed here instead of living through that step."""
+        from .checkpoint.planner import flatten_state
+        from .models import load_params
+
+        load_params(self.module, params)
+        _load_state_tree(self.optimizer, opt_state, self.module)
+        self._refresh()
+        for given, live in ((params, self.params), (opt_state, self.opt_state)):
+            live_leaves = dict(flatten_state(live))
+            for key, t in flatten_state(given):
+                dst = live_leaves.get(key)
+                if (isinstance(t, torch.Tensor) and isinstance(dst, torch.Tensor)
+                        and t is not dst and (t.dtype, t.shape, t.device)
+                        == (dst.dtype, dst.shape, dst.device)):
+                    t.set_(dst.detach())
+
+    def __call__(self, params, opt_state, batch, step_key=None):
+        if params is not self.params or opt_state is not self.opt_state:
+            self.load(params, opt_state)
+        out = self.step(batch)
+        self._refresh()
+        if self.has_aux:
+            loss, aux = out
+            return self.params, self.opt_state, loss, aux
+        return self.params, self.opt_state, out
