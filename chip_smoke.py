@@ -7,6 +7,7 @@ Hopper card.
     python3 chip_smoke.py --tp       # serve, train and gpt2, then the TP phases
     python3 chip_smoke.py --dp       # train and gpt2, then the DP phase
     python3 chip_smoke.py --resil    # the train_resilient phase alone
+    python3 chip_smoke.py --telemetry   # serve and gpt2, then the telemetry phase
     python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
@@ -171,6 +172,27 @@ Phases, each printing one JSON line with its seconds:
            by both, emergency-saved and resumed bitwise; a one-ulp change
            of a replicated parameter on rank 1 raising ``DesyncError`` on
            both ranks with nothing committed after it
+  telemetry  the profiler and telemetry on the two traced paths.  The 8B
+           serve (run while the serve phase's engine is alive): the 16
+           requests with ``telemetry.init`` (time-series store, alert engine
+           and cost auditor on), ndtimeline active and the ops server up,
+           then untraced: streams bitwise the serve phase's,
+           ``verify_request_chains`` clean, ``/router``'s ``alerts`` live,
+           K1/K7 launches counted, decode p50 traced against untraced beside
+           the calibrated step estimate (from the card's matmul sample, and
+           from the harvested decode spans).  GPT-2 124M (after the gpt2
+           phase): 6 steps with the same stack and a ``ChromeTraceHandler``,
+           an async save after step 3 committed in step 4, the last 2 steps
+           under ``torch.profiler``: losses bitwise the gpt2 phase's, six
+           TRAIN_STEP, DATA_LOAD and OPTIMIZER_STEP spans and one
+           CHECKPOINT_SAVE and COMMIT, a ``spans`` rollup on every
+           ``steps.jsonl`` line, the Perfetto file's spans back, every K1,
+           K3, K4, K9 and K10 launch of the profiled steps inside a
+           train-step range and every K8 inside an optimizer-step range,
+           counted as ``LAUNCHES`` counts them; the step report (FLOPs
+           against the analytic count, peak bytes, the top 5 layers against
+           the card's roofline); the calibration's matmul sample and
+           ``device_peak_flops``
   tp_train  tensor and sequence parallelism on two ranks of the one card:
            child processes (``--tp-child``) joined over gloo at a free
            localhost port (NCCL refuses two ranks on one GPU), a ("tp",)
@@ -230,6 +252,7 @@ import os
 import shutil
 import signal
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -742,7 +765,8 @@ def flash_bwd_timing(dev):
     import torch.nn.functional as F
 
     from vescale_tpu_torch.kernels.flash_attention import (
-        _delta, flash_bwd, flash_bwd_dkv, flash_bwd_dq, flash_bwd_reference,
+        _delta, flash_bwd, flash_bwd_dkv, flash_bwd_dkv_cost, flash_bwd_dq, flash_bwd_dq_cost,
+        flash_bwd_reference,
     )
 
     by_label = {case[0]: case for case in flash_bwd_cases()}
@@ -767,19 +791,18 @@ def flash_bwd_timing(dev):
         do4 = do.reshape(B, H, T, D)
         library_ms = cuda_ms(
             lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True))
-        elt = q.element_size()
-        n_q, n_kv, n_rows = q.numel(), k.numel(), B * H * T
-        frac = 0.5 if causal else 1.0
         shape = dict(B=B, T=T, H=H, KV=KV, D=D, dtype=str(dtype), causal=causal)
-        dq_bytes = (n_q + 2 * n_kv + n_q + n_q) * elt + 2 * n_rows * 4   # q k v do in, dq out
-        dkv_bytes = (n_q + 2 * n_kv + n_q + 2 * n_kv) * elt + 2 * n_rows * 4  # ..., dk dv out
+        # the kernels' own counts (kernels/flash_attention.py): q k v do, lse
+        # and delta read; dq, or dk and dv, written
+        dq_flops, dq_bytes = flash_bwd_dq_cost(q, k, v, do, lse2, delta, **args)
+        dkv_flops, dkv_bytes = flash_bwd_dkv_cost(q, k, v, do, lse2, delta, **args)
         common = dict(plain_ms=plain_ms, library_ms=library_ms,
                       pair_over_library=(dq_ms + dkv_ms) / library_ms, shape=shape)
         timed = {
             "flash_bwd_dq": dict(ms=dq_ms, max_abs_err=err[0], **common,
-                                 **bound(dq_bytes, 6 * frac * T * T * H * D * B, dtype)),
+                                 **bound(dq_bytes, dq_flops, dtype)),
             "flash_bwd_dkv": dict(ms=dkv_ms, max_abs_err=max(err[1], err[2]), **common,
-                                  **bound(dkv_bytes, 8 * frac * T * T * H * D * B, dtype)),
+                                  **bound(dkv_bytes, dkv_flops, dtype)),
         }
         for name, fields in timed.items():
             if label == "main bf16":
@@ -909,7 +932,8 @@ def run_adamw_parity(dev):
 
 
 def adamw_timing(gs, ms, vs, c1, c2, hp, err):
-    from vescale_tpu_torch.kernels.fused_adamw import fused_adamw_reference, fused_adamw_update
+    from vescale_tpu_torch.kernels.fused_adamw import (fused_adamw_cost, fused_adamw_reference,
+                                                       fused_adamw_update)
 
     # a call's host side (its leaf table, 3 outputs a leaf) can take longer
     # than a 3 ms launch over 219 pieces on a slow host: queue all ten
@@ -918,10 +942,10 @@ def adamw_timing(gs, ms, vs, c1, c2, hp, err):
                    sleep_cycles=1 << 28)
     plain_ms = cuda_ms(lambda: fused_adamw_reference(gs, ms, vs, c1, c2, **hp), iters=3, warmup=1)
     n = sum(g.numel() for g in gs)
-    nbytes = n * (2 * gs[0].element_size() + 4 * ms[0].element_size())  # g, u; m, v, m', v'
-    # fp32 arithmetic on the CUDA cores: 3 for m', 4 for v', 5 for u
+    # the kernel's own count: g, u; m, v, m', v'; 12 fp32 operations an element
+    flops, nbytes = fused_adamw_cost(gs, ms)
     return dict(ms=ms_k, plain_ms=plain_ms, library_ms=None, max_abs_err=err,
-                **bound(nbytes, 12 * n, torch.float32),
+                **bound(nbytes, flops, torch.float32),
                 shape=dict(leaves=len(gs), elements=n, grad=str(gs[0].dtype), state=str(ms[0].dtype)),
                 library_note="none: no single PyTorch call computes AdamW with bf16 moments")
 
@@ -935,7 +959,8 @@ def flash_timing(dev, parity_rows):
     ms.  ``max_abs_err`` is the parity case's at that shape."""
     import torch.nn.functional as F
 
-    from vescale_tpu_torch.kernels.flash_attention import flash_fwd, flash_fwd_reference
+    from vescale_tpu_torch.kernels.flash_attention import (flash_fwd, flash_fwd_cost,
+                                                           flash_fwd_reference)
 
     by_label = {case[0]: case for case in flash_cases()}
     errs = {row["case"]: row["max_abs_err"] for row in parity_rows if row["kernel"] == "flash_fwd"}
@@ -953,9 +978,7 @@ def flash_timing(dev, parity_rows):
         k4 = k.reshape(B, KV, T, D).repeat_interleave(rep, dim=1)
         v4 = v.reshape(B, KV, T, D).repeat_interleave(rep, dim=1)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
-        elt = q.element_size()
-        nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * elt + B * H * T * 4
-        flops = (2 if causal else 4) * T * T * H * D * B
+        flops, nbytes = flash_fwd_cost(q, k, v, **args)  # the kernel's own count
         fields = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                       over_library=ms / library_ms, max_abs_err=errs[label],
                       **bound(nbytes, flops, dtype),
@@ -979,7 +1002,8 @@ def paged_timing(dev, parity_rows):
     layer reads its own pool, so A's ``ms`` cycles over 8 distinct pool
     pairs (86 MB referenced) between calls.  The row's own fields are A's
     (rotated); B and C go under their names."""
-    from vescale_tpu_torch.kernels.paged_attention import paged_decode, paged_decode_reference
+    from vescale_tpu_torch.kernels.paged_attention import (paged_decode, paged_decode_cost,
+                                                           paged_decode_reference)
 
     errs = {row["case"]: row["max_abs_err"] for row in parity_rows if "max_abs_err" in row}
     out = {}
@@ -996,11 +1020,11 @@ def paged_timing(dev, parity_rows):
         S, H, hd = q.shape
         KV = kp.shape[2]
         tokens = int(lengths.sum())
-        # the K/V rows the slots hold, read once; q, table, lengths; fp32 out
-        nbytes = (2 * tokens * KV * hd * kp.element_size() + q.numel() * q.element_size()
-                  + table.numel() * 4 + lengths.numel() * 4 + S * H * hd * 4)
+        # the kernel's own count over this run's lengths: the K/V rows the
+        # slots hold, read once; q, table, lengths; fp32 out
+        flops, nbytes = paged_decode_cost(q, kp, vp, table, lengths)
         fields = dict(ms=ms, ms_l2_warm=warm, plain_ms=plain_ms, library_ms=None,
-                      max_abs_err=errs[f"{name} bf16"], **bound(nbytes, 4 * tokens * H * hd, kp.dtype),
+                      max_abs_err=errs[f"{name} bf16"], **bound(nbytes, flops, kp.dtype),
                       pools_cycled=len(sets), referenced_bytes_cycled=len(sets) * 2 * tokens * KV * hd * 2,
                       shape=dict(S=S, H=H, KV=KV, hd=hd, page=kp.shape[1], Pmax=table.shape[1],
                                  tokens=tokens, dtype=str(kp.dtype)))
@@ -1113,7 +1137,8 @@ def xent_timing(dev):
     import torch.nn.functional as F
 
     from vescale_tpu_torch.kernels.cross_entropy import (
-        xent_bwd, xent_bwd_reference, xent_fwd, xent_parts_reference,
+        xent_bwd, xent_bwd_cost, xent_bwd_reference, xent_fwd, xent_fwd_cost,
+        xent_parts_reference,
     )
 
     N, Vs = XENT_PATH
@@ -1121,7 +1146,6 @@ def xent_timing(dev):
     for dtype in (torch.bfloat16, torch.float32):
         lg, idx, gmax, cts = xent_inputs(dev, N, Vs, dtype, seed=1)
         sfx = "" if dtype == torch.bfloat16 else "_fp32"
-        elt = lg.element_size()
         fwd_ms = cuda_ms(lambda: xent_fwd(lg, idx, gmax), iters=10)
         bwd_ms = cuda_ms(lambda: xent_bwd(lg, idx, gmax, *cts), iters=10)
         fwd_plain = cuda_ms(lambda: xent_parts_reference(lg, idx, gmax), iters=3, warmup=1)
@@ -1136,10 +1160,11 @@ def xent_timing(dev):
                                                               xent_parts_reference(lg, idx, gmax)))
         err_b = float((xent_bwd(lg, idx, gmax, *cts).float()
                        - xent_bwd_reference(lg, idx, gmax, *cts).float()).abs().max())
-        rows_n = N * (8 + 4)  # idx int64 and gmax fp32, read once per row
-        # a few fp32 operations per element on the CUDA cores: exp, 2 subtract/add, compare
-        fwd_b = bound(N * Vs * elt + rows_n + 3 * N * 4, 4 * N * Vs, torch.float32)
-        bwd_b = bound(2 * N * Vs * elt + rows_n + 3 * N * 4, 5 * N * Vs, torch.float32)
+        # the kernels' own counts: fp32 operations on the CUDA cores
+        f_flops, f_bytes = xent_fwd_cost(lg, idx, gmax)
+        b_flops, b_bytes = xent_bwd_cost(lg, idx, gmax, *cts)
+        fwd_b = bound(f_bytes, f_flops, torch.float32)
+        bwd_b = bound(b_bytes, b_flops, torch.float32)
         shape = dict(N=N, Vs=Vs, dtype=str(dtype))
         rows["fused_xent_fwd"].update({
             f"ms{sfx}": fwd_ms, f"plain_ms{sfx}": fwd_plain, f"library_ms{sfx}": lib_fwd,
@@ -1155,15 +1180,14 @@ def xent_timing(dev):
         lg, idx, gmax, cts = xent_inputs(dev, N, Vs, torch.bfloat16, seed=2)
         x = lg.detach().requires_grad_()
         loss = F.cross_entropy(x, idx)
-        rows_n = N * (8 + 4)
-        for name, fn, plain, lib, nb, ops in (
+        for name, fn, plain, lib, (ops, nb) in (
                 ("fused_xent_fwd", lambda: xent_fwd(lg, idx, gmax),
                  lambda: xent_parts_reference(lg, idx, gmax), lambda: F.cross_entropy(lg, idx),
-                 N * Vs * 2 + rows_n + 3 * N * 4, 4 * N * Vs),
+                 xent_fwd_cost(lg, idx, gmax)),
                 ("fused_xent_bwd", lambda: xent_bwd(lg, idx, gmax, *cts),
                  lambda: xent_bwd_reference(lg, idx, gmax, *cts),
                  lambda: torch.autograd.grad(loss, x, retain_graph=True),
-                 2 * N * Vs * 2 + rows_n + 3 * N * 4, 5 * N * Vs)):
+                 xent_bwd_cost(lg, idx, gmax, *cts))):
             rows[name][f"tp2_{label}"] = dict(
                 ms=cuda_ms(fn, iters=10), plain_ms=cuda_ms(plain, iters=3, warmup=1),
                 library_ms=cuda_ms(lib, iters=10), **bound(nb, ops, torch.float32),
@@ -1497,7 +1521,7 @@ def eager_engine(eng):
     return EagerServeEngine(eng.config, eng.params, eng.cache, device=eng.device)
 
 
-def serve_run(dev, eng, arrivals, kernels_mod):
+def serve_run(dev, eng, arrivals, kernels_mod, on_step=None):
     """One run of ``arrivals`` through ``eng`` from an empty cache, with the
     launch counts set to 0 just before it and read just after."""
     from vescale_tpu_torch.serve import ContinuousBatchingScheduler, run_serve
@@ -1509,7 +1533,7 @@ def serve_run(dev, eng, arrivals, kernels_mod):
     torch.cuda.reset_peak_memory_stats(dev)
     kernels_mod.reset_launches()
     t1 = time.perf_counter()
-    res = run_serve(eng, sched, arrivals)
+    res = run_serve(eng, sched, arrivals, on_step=on_step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = dict(kernels_mod.LAUNCHES)
@@ -3967,6 +3991,306 @@ def run_train_resilient(dev, card, kernels_mod):
     return out
 
 
+# --------------------------------------------------------------- telemetry
+TELEMETRY_STEPS = 6  # GPT-2 steps of the traced leg: the gpt2 phase's first six
+TELEMETRY_SAVE_AFTER = 3  # an async save follows this step; the next one commits it
+TELEMETRY_PROFILED = 2  # the last steps, under torch.profiler
+# the span each kernel's launches must lie in
+KERNEL_SPAN = {"flash_fwd": "train-step", "flash_bwd_dq": "train-step",
+               "flash_bwd_dkv": "train-step", "fused_xent_fwd": "train-step",
+               "fused_xent_bwd": "train-step", "fused_adamw": "optimizer-step"}
+
+
+def launch_name(kernel: str):
+    """The ``LAUNCHES`` name of a device kernel's name in a trace, or None."""
+    for part, name in (("flash_fwd_kernel", "flash_fwd"), ("dq::kernel", "flash_bwd_dq"),
+                       ("dkv::kernel", "flash_bwd_dkv"), ("adamw_kernel", "fused_adamw"),
+                       ("xent_fwd_kernel", "fused_xent_fwd"),
+                       ("xent_bwd_kernel", "fused_xent_bwd"),
+                       ("paged_decode_kernel", "paged_decode")):
+        if part in kernel:
+            return name
+    return None
+
+
+def launches_in_spans(trace_path: str) -> dict:
+    """Where each launch of the port's kernels in a ``torch.profiler``
+    Chrome trace lies: per kernel, how many launches, and how many lie
+    inside a host range of its span (``KERNEL_SPAN``).  A launch is placed
+    by its runtime call (``cuda_runtime``/``cuda_driver`` events joined to
+    the kernel by correlation id) inside the span's ``user_annotation``
+    range; a kernel without a joined call is placed by its device interval
+    inside the span's ``gpu_user_annotation`` range."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    host, device, calls = {}, {}, {}
+    for e in events:
+        cat, name = e.get("cat"), e.get("name")
+        if cat == "user_annotation":
+            host.setdefault(name, []).append((e["ts"], e["ts"] + e.get("dur", 0)))
+        elif cat == "gpu_user_annotation":
+            device.setdefault(name, []).append((e["ts"], e["ts"] + e.get("dur", 0)))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            calls[e["args"]["correlation"]] = e["ts"]
+    out = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = launch_name(e.get("name", ""))
+        if name is None:
+            continue
+        row = out.setdefault(name, {"launches": 0, "inside": 0, "by_call": 0, "by_device": 0})
+        row["launches"] += 1
+        span = KERNEL_SPAN.get(name)
+        t = calls.get(e.get("args", {}).get("correlation"))
+        if t is not None:
+            row["by_call"] += 1
+            inside = any(a <= t <= b for a, b in host.get(span, ()))
+        else:
+            row["by_device"] += 1
+            a0, b0 = e["ts"], e["ts"] + e.get("dur", 0)
+            inside = any(a <= a0 and b0 <= b for a, b in device.get(span, ()))
+        row["inside"] += int(inside)
+    return out
+
+
+def run_telemetry_gpt2(dev, kernels_mod, gpt2: dict) -> dict:
+    """GPT-2 124M at full width with the whole telemetry stack on:
+    ``telemetry.init`` (the time-series store, the alert engine and the cost
+    auditor on), ndtimeline active with a ``ChromeTraceHandler``, six steps
+    from ``TokenDataLoader`` with an async save after step 3 (committed in
+    step 4), the last two under ``torch.profiler``.  Then the step report,
+    and the calibration's matmul sample and ``device_peak_flops``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vescale_tpu_torch import checkpoint
+    from vescale_tpu_torch import ndtimeline as nd
+    from vescale_tpu_torch import telemetry as tel
+    from vescale_tpu_torch.bench import prepare
+    from vescale_tpu_torch.models import module_tree
+    from vescale_tpu_torch.ndtimeline import predefined as P
+    from vescale_tpu_torch.telemetry import calibrate, trace
+
+    tmp = tempfile.mkdtemp(prefix="vtt_telemetry_")
+    run = prepare("gpt2", device=dev)
+    try:
+        st = tel.init(out_dir=os.path.join(tmp, "telemetry"))
+        chrome = nd.ChromeTraceHandler(os.path.join(tmp, "gpt2_spans.json"))
+        mgr = nd.init_ndtimers(handlers=[chrome])
+        kernels_mod.reset_launches()
+        losses, step_ms, handle, prof_launches = [], [], None, {}
+        trace_path = os.path.join(tmp, "profile.json")
+
+        def one_step():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(run.step(run.next_batch())))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+
+        for i in range(TELEMETRY_STEPS - TELEMETRY_PROFILED):
+            one_step()
+            if i + 1 == TELEMETRY_SAVE_AFTER:
+                state = {"model": module_tree(run.model),
+                         "optimizer": run.optimizer.state_tree(run.model)}
+                handle = checkpoint.save(os.path.join(tmp, "ckpt"), state, async_checkpoint=True)
+            elif handle is not None:
+                handle.wait()
+                handle = None
+        before = dict(kernels_mod.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TELEMETRY_PROFILED):
+                one_step()
+            torch.cuda.synchronize()
+        prof_launches = {k: kernels_mod.LAUNCHES[k] - before[k] for k in before}
+        prof.export_chrome_trace(trace_path)
+        placed = launches_in_spans(trace_path)
+        launches = dict(kernels_mod.LAUNCHES)
+        spans = mgr.tail(1_000_000)
+        counts = {m: sum(1 for s in spans if s.metric == m) for m in (
+            P.TRAIN_STEP, P.DATA_LOAD, P.OPTIMIZER_STEP, P.CHECKPOINT_SAVE, P.CHECKPOINT_COMMIT)}
+        lines = [json.loads(x) for x in
+                 open(os.path.join(tmp, "telemetry", "steps.jsonl")).read().splitlines()]
+        step_lines = [x for x in lines if "event" not in x]
+        nd.flush()
+        perfetto = chrome.write()
+        back = trace.spans_from_perfetto(perfetto)
+        cp = trace.critical_path(back)
+        traced_ms = statistics.median(step_ms[1:TELEMETRY_STEPS - TELEMETRY_PROFILED])
+
+        t = time.perf_counter()
+        rep = tel.write_step_report("gpt2", run.step, run.next_batch())
+        report_s = time.perf_counter() - t
+        analytic = run.flops_per_token * run.tokens_per_step
+        layers = rep["layer_attribution"]["layers"]
+        top = [{k: r[k] for k in ("layer", "flops", "bytes", "bound", "est_us", "kernels")}
+               for r in layers[:5]]
+        # the blocks' share of the FLOPs, backward included: the tied head
+        # (a top-level matmul, keyed "mm") and the loss take the rest
+        blocks_share = sum(r["flops"] for r in layers if r["layer"].startswith("h_")) / rep["flops"]
+        mm = calibrate.matmul_gflops(dev)
+        peak = calibrate.device_peak_flops(dev)
+        alerts_digest = tel.alerts.digest()
+        ref = gpt2["losses"][:TELEMETRY_STEPS]
+        L = run.config.n_layer
+        want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "fused_xent_fwd": 1,
+                "fused_xent_bwd": 1, "fused_adamw": 1}
+        checks = {
+            "three_subsystems_on": st.timeseries is not None and st.alerts is not None
+            and st.costaudit is not None,
+            "losses_bitwise_the_gpt2_phase": losses == ref,
+            "span_counts": counts == {P.TRAIN_STEP: TELEMETRY_STEPS, P.DATA_LOAD: TELEMETRY_STEPS,
+                                      P.OPTIMIZER_STEP: TELEMETRY_STEPS, P.CHECKPOINT_SAVE: 1,
+                                      P.CHECKPOINT_COMMIT: 1},
+            "every_step_line_has_spans": len(step_lines) == TELEMETRY_STEPS and all(
+                P.TRAIN_STEP in x.get("spans", {}) for x in step_lines),
+            "perfetto_round_trip": sorted((s.metric, s.step) for s in back)
+            == sorted((s.metric, s.step) for s in spans),
+            "profiled_launches_counted": all(
+                placed.get(k, {}).get("launches", 0) == prof_launches[k] == n * TELEMETRY_PROFILED
+                for k, n in want.items()),
+            "profiled_launches_in_their_spans": all(
+                k in placed and placed[k]["inside"] == placed[k]["launches"] for k in want),
+            "step_report_flops": rep["flops"] is not None and rep["flops"] > 0,
+            "step_report_peak": rep["peak_bytes"] is not None and rep["peak_bytes"] > 0,
+            "step_report_blocks_attributed": blocks_share >= 0.6,
+        }
+        out = dict(
+            model="GPT-2 124M (bench rung gpt2)", steps=TELEMETRY_STEPS, losses=losses,
+            step_ms=step_ms, traced_step_ms_median=traced_ms,
+            untraced_step_ms_median=gpt2["step_ms_median"],
+            traced_over_untraced=traced_ms / gpt2["step_ms_median"],
+            span_counts=counts, launches=launches, profiled_launches=prof_launches,
+            profiled_placement=placed, critical_path_coverage=cp["coverage"],
+            perfetto_events=len(back), alerts=alerts_digest,
+            step_report=dict(seconds=report_s, flops=rep["flops"], analytic_flops=analytic,
+                             flops_over_analytic=rep["flops"] / analytic,
+                             bytes_accessed=rep["bytes_accessed"], peak_bytes=rep["peak_bytes"],
+                             gpt2_phase_peak_bytes=gpt2["peak_memory_bytes"],
+                             collectives=rep["collectives"], top_layers=top,
+                             blocks_flops_share=blocks_share,
+                             roofline=dict(peak_flops=rep["layer_attribution"]["peak_flops"],
+                                           mem_gbps=rep["layer_attribution"]["mem_gbps"])),
+            calibration=dict(matmul_gflops_fp32_256=mm, device_peak_flops=peak),
+            checks=checks)
+        check(all(checks.values()), f"telemetry gpt2 checks failed: {out}")
+    finally:
+        tel.shutdown()
+        nd.api.deinit_ndtimers()
+        run.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del run
+    free_memory()
+    return out
+
+
+def run_telemetry_serve(dev, eng, kernels_mod, serve_streams) -> dict:
+    """The serve phase's 8B engine and 16 requests with the whole telemetry
+    stack on (``telemetry.init``, ndtimeline active, request traces, the
+    ops server for ``/router``), then the same requests untraced, in this
+    order in one process.  A calibration table carrying the card's matmul
+    sample prices the decode step before the run; the auditor's harvest of
+    the run's decode spans prices it after."""
+    from vescale_tpu_torch import ndtimeline as nd
+    from vescale_tpu_torch import telemetry as tel
+    from vescale_tpu_torch.serve import ContinuousBatchingScheduler, ServeObservability, run_serve
+    from vescale_tpu_torch.serve import reqtrace
+    from vescale_tpu_torch.telemetry import calibrate, ops_server
+
+    arrivals = serve_requests(eng.config.vocab_size)
+    L = eng.config.num_hidden_layers
+    table = calibrate.CalibrationTable(meta={"platform": "cuda",
+                                             "matmul_gflops": calibrate.matmul_gflops(dev)})
+    calibrate.set_active(table)
+    router = {}
+
+    def on_step(step, active):
+        srv = ops_server.active_server()
+        if srv is not None and not router and active:
+            router.update(http_json(srv.url + "/router"))
+
+    os.environ["VESCALE_SERVE_OPS_PORT"] = "0"
+    try:
+        st = tel.init(out_dir=None)
+        mgr = nd.init_ndtimers()
+        eng.cache.reset()
+        sched = ContinuousBatchingScheduler(eng.cache)
+        est_analytic = ServeObservability(sched, engine=eng).calibrated_step_estimate()
+        kernels_mod.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_serve(eng, sched, arrivals, on_step=on_step)
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+        launches = dict(kernels_mod.LAUNCHES)
+        spans = mgr.tail(1_000_000)
+        problems = reqtrace.verify_request_chains(spans, res.outcomes)
+        est_audited = ServeObservability(sched, engine=eng).calibrated_step_estimate()
+        digest = tel.alerts.digest()
+        three_on = (st.timeseries is not None and st.alerts is not None
+                    and st.costaudit is not None)
+        traced = dict(serve_s=traced_wall, decode_step_p50_ms=1e3 * sched.percentile("step_time", 0.5),
+                      decode_step_p99_ms=1e3 * sched.percentile("step_time", 0.99),
+                      ttft_p50_s=sched.percentile("ttft", 0.5),
+                      tokens_per_s=sum(len(o["tokens"]) for o in res.outcomes.values()) / traced_wall,
+                      spans=len(spans), harvested_samples=len(table))
+        prefills = int(sched.telemetry.counter("serve_prefills_total"))
+        steps = int(sched.telemetry.counter("serve_decode_steps_total"))
+        streams = {r: o["tokens"] for r, o in res.outcomes.items()}
+    finally:
+        del os.environ["VESCALE_SERVE_OPS_PORT"]
+        tel.shutdown()
+        nd.api.deinit_ndtimers()
+        calibrate.reset_active()
+    untraced, untraced_streams = serve_run(dev, eng, arrivals, kernels_mod)
+    checks = {
+        "three_subsystems_on": three_on,
+        "streams_bitwise_the_serve_phase": streams == serve_streams == untraced_streams,
+        "request_chains_verified": problems == [],
+        "router_alerts_live": router.get("alerts", {}).get("active") is True,
+        "flash_launches": launches["flash_fwd"] == L * prefills,
+        "paged_launches": launches["paged_decode"] == L * steps and steps > 0,
+        "untraced_checks": all(untraced["checks"].values()),
+    }
+    out = dict(model="LLAMA3_8B", requests=len(arrivals), traced=traced,
+               untraced={k: untraced[k] for k in ("serve_s", "decode_step_p50_ms",
+                                                   "decode_step_p99_ms", "ttft_p50_s",
+                                                   "tokens_per_s")},
+               decode_p50_traced_over_untraced=traced["decode_step_p50_ms"]
+               / untraced["decode_step_p50_ms"],
+               calibrated_step_estimate_ms=dict(
+                   analytic=None if est_analytic is None else 1e3 * est_analytic,
+                   audited=None if est_audited is None else 1e3 * est_audited),
+               matmul_gflops_fp32_256=table.meta["matmul_gflops"], router_alerts=router.get("alerts"),
+               alerts=digest, launches={k: launches[k] + untraced["launches"][k] for k in launches},
+               chain_problems=problems[:5], checks=checks)
+    check(all(checks.values()), f"telemetry serve checks failed: {out}")
+    return out
+
+
+def telemetry_only(dev, card, kernels_mod) -> int:
+    """``--telemetry``: the serve phase's engine and the gpt2 phase (the
+    prerequisites), then the telemetry phase's legs."""
+    t = time.perf_counter()
+    serve, eng, eager, cfg, serve_streams = run_serve_8b(dev, kernels_mod)
+    log("serve", seconds=time.perf_counter() - t, decode_step_p50_ms=serve["graph"][
+        "decode_step_p50_ms"], checks=serve["checks"])
+    t = time.perf_counter()
+    tel_serve = run_telemetry_serve(dev, eng, kernels_mod, serve_streams)
+    serve_s = time.perf_counter() - t
+    del eng, eager
+    free_memory()
+    t = time.perf_counter()
+    gpt2 = run_train_gpt2(dev, kernels_mod)
+    log("gpt2", seconds=time.perf_counter() - t, losses=gpt2["losses"],
+        step_ms_median=gpt2["step_ms_median"])
+    t = time.perf_counter()
+    tel_gpt2 = run_telemetry_gpt2(dev, kernels_mod, gpt2)
+    log("telemetry", seconds=serve_s + time.perf_counter() - t, card=card, serve=tel_serve,
+        gpt2=tel_gpt2)
+    print(card, flush=True)
+    return 0
+
+
 def tp_launches(phase: dict, name: str) -> int:
     """A kernel's launches over every rank of a TP phase (``tp_train``:
     both rungs, every step)."""
@@ -4019,6 +4343,8 @@ def main() -> int:
                     help="device, build, and the train, gpt2 and DP phases only")
     ap.add_argument("--resil", action="store_true",
                     help="device, build, and the train_resilient phase only")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="device, build, the serve and gpt2 phases, and the telemetry phase only")
     ap.add_argument("--gloo-probe", action="store_true",
                     help="which collectives gloo carries on CUDA tensors, then exit")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
@@ -4070,6 +4396,8 @@ def main() -> int:
         log("done", seconds=time.perf_counter() - t)
         print(card, flush=True)
         return 0
+    if opts.telemetry:
+        return telemetry_only(dev, card, kernels_mod)
     if opts.tp:
         return tp_only(dev, card, kernels_mod)
     if opts.dp:
@@ -4122,6 +4450,9 @@ def main() -> int:
     prof = {"graph": run_profile(eng, cfg, serve["graph"]["serve_s"]),
             "eager": run_profile(eager, cfg, serve["eager"]["serve_s"])}
     log("profile", seconds=time.perf_counter() - t, **prof)
+    t = time.perf_counter()
+    tel_serve = run_telemetry_serve(dev, eng, kernels_mod, serve_streams)
+    tel_serve_s = time.perf_counter() - t
     forced = forced_reference(eng, serve_streams)
     del eng, eager
     free_memory()
@@ -4137,6 +4468,10 @@ def main() -> int:
     t = time.perf_counter()
     gpt2 = run_train_gpt2(dev, kernels_mod)
     log("gpt2", seconds=time.perf_counter() - t, **gpt2)
+    t = time.perf_counter()
+    tel_gpt2 = run_telemetry_gpt2(dev, kernels_mod, gpt2)
+    log("telemetry", seconds=tel_serve_s + time.perf_counter() - t, card=card, serve=tel_serve,
+        gpt2=tel_gpt2)
     t = time.perf_counter()
     resilient_train = run_train_resilient(dev, card, kernels_mod)
     log("train_resilient", seconds=time.perf_counter() - t, **resilient_train)
@@ -4172,7 +4507,8 @@ def main() -> int:
                    "checkpoint": ckpt["launches"][name], "gpt2": gpt2["launches"][name],
                    "tp_train": tp_launches(tp_train, name), "tp_serve": tp_launches(tp_serve, name),
                    "dp_train": sum(r["launches_total"].get(name, 0) for r in dp_train["ranks"]),
-                   "train_resilient": resilient_train["launches"][name]}
+                   "train_resilient": resilient_train["launches"][name],
+                   "telemetry": tel_serve["launches"][name] + tel_gpt2["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

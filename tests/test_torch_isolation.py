@@ -59,6 +59,12 @@ def test_every_port_module_imports_without_jax():
             "vescale_tpu_torch.telemetry.exporters", "vescale_tpu_torch.telemetry.memtrack",
             "vescale_tpu_torch.telemetry.memory_report", "vescale_tpu_torch.telemetry.registry",
             "vescale_tpu_torch.train"} <= set(mods)
+    assert {"vescale_tpu_torch.ndtimeline", *(f"vescale_tpu_torch.ndtimeline.{m}" for m in (
+        "timer", "world_info", "api", "predefined", "handlers", "parser_handler", "streamer")),
+        *(f"vescale_tpu_torch.telemetry.{m}" for m in (
+            "trace", "straggler", "timeseries", "alerts", "calibrate", "costaudit",
+            "step_report")),
+        "vescale_tpu_torch.serve.reqtrace"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {['vescale_tpu_torch'] + mods!r}:\n"
@@ -75,6 +81,8 @@ def test_every_port_module_imports_without_jax():
     assert "vescale_tpu_torch.checkpoint.manager" in loaded
     assert {"vescale_tpu_torch.resilience.loop", "vescale_tpu_torch.telemetry.memtrack"} <= \
         set(loaded)
+    assert {"vescale_tpu_torch.ndtimeline.streamer", "vescale_tpu_torch.telemetry.costaudit",
+            "vescale_tpu_torch.serve.reqtrace"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m == "ml_dtypes"] == []
 
 

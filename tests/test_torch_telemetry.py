@@ -47,6 +47,12 @@ def _ref_init(**kw):
     return ref_tel.init(timeseries=False, alerts=False, costaudit=False, **kw)
 
 
+def _init(**kw):
+    """The port with the three subsystems off, as ``_ref_init`` runs the
+    reference (tests/test_torch_trace.py holds them on, both sides)."""
+    return tel.init(timeseries=False, alerts=False, costaudit=False, **kw)
+
+
 # ------------------------------------------------------------------- gate
 def test_dormant_helpers_are_noops_and_allocate_nothing(tmp_path):
     assert not tel.is_active() and tel_api._STATE is None
@@ -58,24 +64,29 @@ def test_dormant_helpers_are_noops_and_allocate_nothing(tmp_path):
     assert list(tmp_path.iterdir()) == []
 
 
-def test_init_shutdown_cycle_and_refused_subsystems(tmp_path):
+def test_init_shutdown_cycle_and_refused_subsystems(tmp_path, monkeypatch):
+    """The cycle, and the three subsystems the reference turns on from its
+    knobs: each comes on with ``True``, goes with ``shutdown``, and
+    defaults to its knob (all three on)."""
+    from vescale_tpu_torch.telemetry import alerts, costaudit, timeseries
+
     st = tel.init(out_dir=str(tmp_path / "run"))
     assert tel.is_active() and tel.get_state() is st and st.memtrack is memtrack.get_tracker()
+    assert st.timeseries is not None and st.alerts is not None and st.costaudit is not None
     tel.count("c", 2)
     assert tel.get_registry().counter("c").value == 2
     tel.shutdown()
     assert not tel.is_active() and tel.get_registry() is None
     assert memtrack.tag_array is memtrack._noop_tag_array
-    for kw in (dict(alerts=True), dict(timeseries=True), dict(costaudit=True)):
-        with pytest.raises(NotImplementedError, match="A14"):
-            tel.init(out_dir=None, **kw)
-        assert not tel.is_active()
-    os.environ["VESCALE_ALERTS"] = "1"
-    try:
-        tel.init(out_dir=None, alerts=None, timeseries=False)  # the knob turns nothing on
-    finally:
-        del os.environ["VESCALE_ALERTS"]
-    assert tel.is_active()
+    off = dict(timeseries=False, alerts=False, costaudit=False)
+    for name, mod in (("alerts", alerts), ("timeseries", timeseries), ("costaudit", costaudit)):
+        st = tel.init(out_dir=None, **{**off, name: True})
+        assert getattr(st, name) is not None and mod.is_active()
+        tel.shutdown()
+        assert not mod.is_active()
+    monkeypatch.setenv("VESCALE_ALERTS", "0")
+    st = tel.init(out_dir=None, alerts=None, timeseries=False)  # the knob turns it off
+    assert tel.is_active() and st.alerts is None and not alerts.is_active()
 
 
 # --------------------------------------------------------------- registry
@@ -145,7 +156,7 @@ def _records(out_dir):
 def test_same_calls_give_the_references_exports(tmp_path):
     _ref_init(out_dir=str(tmp_path / "ref"), memtrack=False)
     _feed(ref_tel, str(tmp_path / "ref"))
-    tel.init(out_dir=str(tmp_path / "port"), memtrack=False)
+    _init(out_dir=str(tmp_path / "port"), memtrack=False)
     _feed(tel, str(tmp_path / "port"))
     from vescale_tpu.telemetry.exporters import parse_prometheus_text as ref_parse
 
@@ -167,7 +178,7 @@ def test_same_calls_give_the_references_exports(tmp_path):
 
 def test_dashboard_equal_with_memtrack_on_but_for_the_memory_lines(tmp_path):
     _ref_init(out_dir=None, memtrack=True)
-    tel.init(out_dir=None, memtrack=True)
+    _init(out_dir=None, memtrack=True)
     for pkg in (ref_tel, tel):
         pkg.count("resilience_restarts_total")
         pkg.record_step({"step_time_s": 0.25, "loss": 2.0})
@@ -239,8 +250,11 @@ def test_memtrack_census_interval_and_history_ring():
 def test_leak_warning_after_growing_untagged_bytes():
     import gc
 
+    from vescale_tpu_torch.telemetry import alerts
+
     gc.collect()  # earlier tests' garbage must not be freed mid-run
-    tel.init(out_dir=None, memtrack_leak_steps=3)
+    alerts.clear_fallback_warned()  # the warning is once a rule a process
+    _init(out_dir=None, memtrack_leak_steps=3)  # the engine off: the one-shot warning
     hoard = []
     with pytest.warns(UserWarning, match="possible leak"):
         for i in range(1, 6):
@@ -324,7 +338,10 @@ def test_watchdog_hang_dump_carries_the_flight_record(tmp_path):
     reg = tel.get_registry()
     assert reg.counter("resilience_hang_detected_total").value == 1
     events = [json.loads(l) for l in open(tmp_path / "steps.jsonl")]
-    assert [e["event"] for e in events] == ["resilience_hang"]
+    # the stall also fires the alert engine's watchdog-stall rule (the
+    # engine is on by default, as in the reference)
+    assert [e["event"] for e in events] == ["resilience_hang", "alert"]
+    assert (events[1]["rule"], events[1]["transition"]) == ("watchdog-stall", "ok->firing")
 
 
 # --------------------------------------------------------- the runtime feeds

@@ -41,8 +41,10 @@ chunks), ``checkpoint_commits_total`` with ``checkpoint_commit_seconds``,
 ``checkpoint_loads_total`` with ``checkpoint_load_seconds`` and
 ``checkpoint_bytes_read_total``; an elastic load counts
 ``resilience_elastic_restores_total`` and ``resilience_reshard_seconds``,
-and memtrack tags what a load returns as ``checkpoint_buffers``.  The
-ndtimeline spans wait for ndtimeline (ROADMAP A14).
+and memtrack tags what a load returns as ``checkpoint_buffers``.  While
+ndtimeline is active, ``save`` (an async save's submit), the commit and
+``load`` are ``CHECKPOINT_SAVE``, ``CHECKPOINT_COMMIT`` and
+``CHECKPOINT_LOAD`` spans, tagged as the reference tags them.
 """
 
 from __future__ import annotations
@@ -213,8 +215,12 @@ def save(
     background and the returned handle's ``wait()`` commits; across
     processes it MUST be waited, because the commit's vote runs on the
     calling thread.  ``on_commit`` runs right after ``meta.json`` lands."""
+    from ..ndtimeline.api import ndtimeit
+    from ..ndtimeline.predefined import CHECKPOINT_SAVE
+
     t0 = time.perf_counter()
-    out = _save_impl(path, checkpoint_state, async_checkpoint, num_io_workers, on_commit)
+    with ndtimeit(CHECKPOINT_SAVE, tags={"path": path, "async": async_checkpoint}):
+        out = _save_impl(path, checkpoint_state, async_checkpoint, num_io_workers, on_commit)
     if _tel.is_active():
         # an async save's submit time: the I/O workers keep writing, and
         # the commit's time lands on checkpoint_commit_seconds
@@ -268,8 +274,12 @@ def _save_impl(path, checkpoint_state, async_checkpoint, num_io_workers, on_comm
         _tel.count("checkpoint_bytes_written_total", bytes_submitted)
 
     def _commit(ok: bool = True) -> None:
+        from ..ndtimeline.api import ndtimeit
+        from ..ndtimeline.predefined import CHECKPOINT_COMMIT
+
         t0 = time.perf_counter()
-        _commit_impl(ok)
+        with ndtimeit(CHECKPOINT_COMMIT, tags={"path": path}):
+            _commit_impl(ok)
         if _tel.is_active():
             _tel.count("checkpoint_commits_total")
             _tel.observe("checkpoint_commit_seconds", time.perf_counter() - t0)
@@ -438,10 +448,13 @@ def load(path: str, checkpoint_state: Dict[str, Any], strict: bool = True,
     lacks (a state field added after the checkpoint was written); under
     ``strict=True`` a missing key raises ``KeyError``.  ``device`` is where
     the leaves of ``meta`` tensor templates land (default: the card)."""
+    from ..ndtimeline.api import ndtimeit
+    from ..ndtimeline.predefined import CHECKPOINT_LOAD
     from ..telemetry import memtrack as _memtrack
 
     t0 = time.perf_counter()
-    out = _load_impl(path, checkpoint_state, strict, device)
+    with ndtimeit(CHECKPOINT_LOAD, tags={"path": path}):
+        out = _load_impl(path, checkpoint_state, strict, device)
     elapsed = time.perf_counter() - t0
     if LAST_LOAD_STATS.get("elastic"):
         # a cross-world reshard on load (VSC130): the elastic restore's cost

@@ -57,6 +57,28 @@ DEFAULTS = {
     "VESCALE_GRAD_COMPRESS_BLOCK": 64,
     "VESCALE_GRAD_COMPRESS_SR": False,
     "VESCALE_GRAD_COMPRESS_SEED": 0,
+    # telemetry: the time-series store, the alert engine, the cost auditor,
+    # the calibration table, the clock sync and the fleet trace stream
+    "VESCALE_TIMESERIES": True,
+    "VESCALE_TIMESERIES_CADENCE_S": 1.0,
+    "VESCALE_TIMESERIES_BASE_LEN": 512,
+    "VESCALE_TIMESERIES_TIER_FACTOR": 8,
+    "VESCALE_TIMESERIES_TIERS": 3,
+    "VESCALE_ALERTS": True,
+    "VESCALE_ALERTS_HISTORY": 256,
+    "VESCALE_ALERTS_EVAL_INTERVAL_S": 0.25,
+    "VESCALE_ALERTS_BURN_WINDOWS": None,
+    "VESCALE_ALERTS_BURN_FOR_S": 0.0,
+    "VESCALE_COSTAUDIT": True,
+    "VESCALE_COSTAUDIT_DEPTH": 256,
+    "VESCALE_COSTAUDIT_THRESHOLD": 3.0,
+    "VESCALE_COSTAUDIT_DECAY": 0.25,
+    "VESCALE_COSTAUDIT_CADENCE_S": 30.0,
+    "VESCALE_COSTAUDIT_HARVEST": True,
+    "VESCALE_COST_CALIBRATION": None,
+    "VESCALE_CLOCK_SYNC_ROUNDS": 8,
+    "VESCALE_FLEET_TRACE_DIR": None,
+    "VESCALE_FLEET_TRACE_FLUSH_EVERY": 1,
 }
 # envreg's booleans: unset takes the default; these (case-insensitive) are
 # false, anything else is true

@@ -27,8 +27,9 @@ the faultsim ``loader_next`` hook sits inside the retried fetch, so an
 injected fault uses up one attempt and a clean retry returns the very
 batch a fault-free run gets; a closed loader fails at once, outside the
 retries.  While telemetry is on, each fetch is observed as
-``data_load_seconds``.  Not here yet (ROADMAP A14): the ndtimeline
-``DATA_LOAD`` span; ``elastic`` is an argument only (no env knob).
+``data_load_seconds``; while ndtimeline is active, each ``next()`` (the
+fetch and the copy to the device) is one ``DATA_LOAD`` span.
+``elastic`` is an argument only (no env knob).
 
 The shared library builds with ``g++`` at first use into ``data/build/``,
 under a name that carries the ABI version, so it can never load the JAX
@@ -171,6 +172,8 @@ class TokenDataLoader:
         """The next batch, ``{"input", "target"}`` (batch, seq_len) int64 on
         the loader's device."""
         from .. import telemetry as _tel
+        from ..ndtimeline.api import ndtimeit
+        from ..ndtimeline.predefined import DATA_LOAD
         from ..resilience.retry import loader_policy
 
         # a closed loader is a programming error: fail at once, without
@@ -178,13 +181,14 @@ class TokenDataLoader:
         if self._h is None:
             raise RuntimeError(f"TokenDataLoader({self.path!r}) is closed")
         t0 = time.perf_counter()
-        x, y = loader_policy().call(
-            self._fetch, description=f"batch#{self._batches_served} of {self.path}")
-        self._batches_served += 1
-        if _tel.is_active():
-            _tel.observe("data_load_seconds", time.perf_counter() - t0)
-        return {k: torch.from_numpy(v).to(torch.int64).to(self.device)
-                for k, v in (("input", x), ("target", y))}
+        with ndtimeit(DATA_LOAD):
+            x, y = loader_policy().call(
+                self._fetch, description=f"batch#{self._batches_served} of {self.path}")
+            self._batches_served += 1
+            if _tel.is_active():
+                _tel.observe("data_load_seconds", time.perf_counter() - t0)
+            return {k: torch.from_numpy(v).to(torch.int64).to(self.device)
+                    for k, v in (("input", x), ("target", y))}
 
     # --------------------------------------------------------- resume state
     def state(self) -> Dict[str, int]:

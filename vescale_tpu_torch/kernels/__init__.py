@@ -27,15 +27,25 @@ Kernels:
 Each wrapper adds one to ``LAUNCHES[name]`` when its kernel launched, and
 nowhere else, so a run can show that its main path went through the
 kernels.  The CUDA sources build on first use (``_build.py``).
+
+Each kernel has a ``<name>_cost(...)`` beside its wrapper, taking the
+wrapper's arguments and giving ``(flops, bytes)``: the operations it does
+and the bytes it must move (each input read once, each output written
+once), the counts its roofline bound divides by.  While a layer
+attribution runs (``telemetry.costaudit.LayerAttribution``), a wrapper
+adds its cost to the current layer and nothing inside it is counted, on
+the card and on the CPU alike (:func:`costed`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
 
-__all__ = ["LAUNCHES", "reset_launches", "on_hopper", "require_hopper", "ulps_at_scale"]
+__all__ = ["LAUNCHES", "reset_launches", "on_hopper", "require_hopper", "ulps_at_scale",
+           "costed"]
 
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0,
@@ -51,6 +61,29 @@ LAUNCHES: Dict[str, int] = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# the running layer attribution, or None: one module-global check a call
+COST_SINK = None
+
+
+def costed(name: str, cost):
+    """Decorate a kernel wrapper: while a layer attribution runs, it takes
+    ``cost(*args, **kwargs)`` (flops, bytes) for the call and counts nothing
+    inside it; otherwise the wrapper runs as it is."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            sink = COST_SINK
+            if sink is None:
+                return fn(*args, **kwargs)
+            return sink.kernel(name, cost(*args, **kwargs), fn, args, kwargs)
+
+        wrapped.cost = cost
+        return wrapped
+
+    return deco
 
 
 def on_hopper() -> bool:

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, require_hopper
+from . import LAUNCHES, _build, costed, require_hopper
 
 __all__ = ["fused_xent_parts", "xent_fwd", "xent_bwd", "xent_parts_reference",
            "xent_bwd_reference"]
@@ -103,6 +103,26 @@ def _check(what, lg, idx, rows):
     return lg, idx.to(torch.int64).contiguous(), vec
 
 
+def _rows_bytes(N, idx):
+    # idx and gmax read once a row; the three fp32 sums (or cotangents) a row
+    return N * (idx.element_size() + 4) + 3 * N * 4
+
+
+def xent_fwd_cost(lg, idx, gmax):
+    """(flops, bytes) of the forward: the logits read once; exp, two
+    adds and a compare an element, counted as fp32 operations."""
+    N, Vs = lg.shape
+    return 4 * N * Vs, N * Vs * lg.element_size() + _rows_bytes(N, idx)
+
+
+def xent_bwd_cost(lg, idx, gmax, gse, gpk, gsl):
+    """(flops, bytes) of the backward: the logits read and dlogits
+    written once; five fp32 operations an element."""
+    N, Vs = lg.shape
+    return 5 * N * Vs, 2 * N * Vs * lg.element_size() + _rows_bytes(N, idx)
+
+
+@costed("fused_xent_fwd", xent_fwd_cost)
 def xent_fwd(lg, idx, gmax):
     """(sumexp, picked, sumlg), (N,) fp32 each; see the module docstring."""
     if lg.device.type == "cpu":
@@ -122,6 +142,7 @@ def xent_fwd(lg, idx, gmax):
     return outs
 
 
+@costed("fused_xent_bwd", xent_bwd_cost)
 def xent_bwd(lg, idx, gmax, gse, gpk, gsl):
     """dlg (N, Vs) in lg's dtype; see the module docstring."""
     if lg.device.type == "cpu":

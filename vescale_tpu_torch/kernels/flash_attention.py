@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, require_hopper
+from . import LAUNCHES, _build, costed, require_hopper
 
 __all__ = [
     "flash_fwd",
@@ -116,6 +116,45 @@ def _check(what, q3, k3, v3, H, KV, **others):
     return B, T, D
 
 
+def flash_fwd_cost(q3, k3, v3, *, causal, H, KV, **_):
+    """(flops, bytes) of one forward: QK^T and PV, halved when causal; q,
+    k, v read and o written in their dtype, lse written in fp32."""
+    BH, T, D = q3.shape
+    B = BH // H
+    elt = q3.element_size()
+    nbytes = (q3.numel() + k3.numel() + v3.numel() + q3.numel()) * elt + B * H * T * 4
+    return (2 if causal else 4) * T * T * H * D * B, nbytes
+
+
+def _bwd_cost(q3, k3, causal, H, products, outs_kv):
+    BH, T, D = q3.shape
+    B = BH // H
+    elt = q3.element_size()
+    n_q, n_kv = q3.numel(), k3.numel()
+    frac = 0.5 if causal else 1.0
+    # q k v do read, lse and delta read in fp32, then dq or (dk, dv) written
+    nbytes = (n_q + 2 * n_kv + n_q + (2 * n_kv if outs_kv else n_q)) * elt + 2 * BH * T * 4
+    return 2 * products * frac * T * T * H * D * B, nbytes
+
+
+def flash_bwd_dq_cost(q3, k3, v3, do3, lse, delta, *, causal, H, KV, **_):
+    """(flops, bytes) of the dq kernel: S, dP and dQ recomputed per tile."""
+    return _bwd_cost(q3, k3, causal, H, 3, False)
+
+
+def flash_bwd_dkv_cost(q3, k3, v3, do3, lse, delta, *, causal, H, KV, **_):
+    """(flops, bytes) of the dkv kernel: S, dP, dV and dK."""
+    return _bwd_cost(q3, k3, causal, H, 4, True)
+
+
+def flash_bwd_cost(q3, k3, v3, o3, do3, lse, *, causal, H, KV, **_):
+    """(flops, bytes) of the backward: the dq and dkv kernels together."""
+    a = _bwd_cost(q3, k3, causal, H, 3, False)
+    b = _bwd_cost(q3, k3, causal, H, 4, True)
+    return a[0] + b[0], a[1] + b[1]
+
+
+@costed("flash_fwd", flash_fwd_cost)
 def flash_fwd(q3, k3, v3, *, scale, causal, H, KV):
     """(o, lse) of softmax attention; see the module docstring for layouts.
     o has q's dtype; lse is fp32 (B, H, T)."""
@@ -199,6 +238,7 @@ def _bwd_launch(symbol, q3, k3, v3, do3, lse, delta, outs, scale, causal, H, KV)
         raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
 
 
+@costed("flash_bwd_dq", flash_bwd_dq_cost)
 def flash_bwd_dq(q3, k3, v3, do3, lse, delta, *, scale, causal, H, KV):
     """dq (B*H, T, D) in q's dtype from the dq kernel; CUDA tensors only.
     ``delta`` is :func:`_delta` of (o, do)."""
@@ -209,6 +249,7 @@ def flash_bwd_dq(q3, k3, v3, do3, lse, delta, *, scale, causal, H, KV):
     return dq
 
 
+@costed("flash_bwd_dkv", flash_bwd_dkv_cost)
 def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, *, scale, causal, H, KV):
     """(dk, dv) (B*KV, T, D) in k's dtype from the dkv kernel; CUDA
     tensors only."""
@@ -225,6 +266,7 @@ def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, *, scale, causal, H, KV):
     return dk, dv
 
 
+@costed("flash_bwd", flash_bwd_cost)
 def flash_bwd(q3, k3, v3, o3, do3, lse, *, scale, causal, H, KV):
     """(dq, dk, dv) of softmax attention; see the module docstring for
     layouts.  ``lse`` is the forward's, (B, H, T) or (B*H, T) fp32."""

@@ -30,7 +30,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import LAUNCHES, _build, require_hopper
+from . import LAUNCHES, _build, costed, require_hopper
 
 __all__ = ["fused_adamw_update", "fused_adamw_reference"]
 
@@ -69,6 +69,18 @@ def fused_adamw_reference(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor]
     return us, mos, vos
 
 
+def fused_adamw_cost(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor], *_, **__):
+    """(flops, bytes) of one update: g read and u written in the grads'
+    dtype, m and v read and written in the state's; fp32 arithmetic on the
+    CUDA cores, 3 operations for m', 4 for v' and 5 for u an element."""
+    gs, ms = list(gs), list(ms)
+    if not gs:
+        return 0, 0
+    n = sum(g.numel() for g in gs)
+    return 12 * n, n * (2 * gs[0].element_size() + 4 * ms[0].element_size())
+
+
+@costed("fused_adamw", fused_adamw_cost)
 def fused_adamw_update(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
                        vs: Sequence[torch.Tensor], c1: float, c2: float, *,
                        b1: float, b2: float, eps: float, inplace: bool = False) -> Leaves:

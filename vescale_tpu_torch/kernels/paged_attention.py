@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, require_hopper
+from . import LAUNCHES, _build, costed, require_hopper
 
 __all__ = ["paged_decode", "paged_decode_reference", "paged_decode_split_reference",
            "kernel_layout", "CHUNK", "CLUSTER", "WARP_ROWS"]
@@ -145,6 +145,19 @@ def kernel_layout(kv_dtype, hd: int, group: int) -> dict:
     return dict(smem_bytes=smem.value, stages=stages.value)
 
 
+def paged_decode_cost(q, k_pool, v_pool, table, lengths, **_):
+    """(flops, bytes) of one decode step over this call's lengths (read
+    on the host): the K/V rows the slots hold, read once; q, the table and
+    the lengths; the fp32 output.  QK^T and PV over those rows."""
+    S, H, hd = q.shape
+    KV = k_pool.shape[2]
+    tokens = int(lengths.sum())
+    nbytes = (2 * tokens * KV * hd * k_pool.element_size() + q.numel() * q.element_size()
+              + table.numel() * 4 + lengths.numel() * 4 + S * H * hd * 4)
+    return 4 * tokens * H * hd, nbytes
+
+
+@costed("paged_decode", paged_decode_cost)
 def paged_decode(q, k_pool, v_pool, table, lengths, *, scale):
     """One decode-step attention over ONE layer's paged pool.
 

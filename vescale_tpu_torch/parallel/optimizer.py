@@ -27,11 +27,18 @@ The port of ``vescale_tpu/parallel/optimizer.py``, written on
     the global-norm clip (over every dp and tp piece) ride along.
   * ``clip_grad_norm_fp32`` and ``found_inf`` over lists of grads.
 
+While ndtimeline is active (``ndtimeline.init_ndtimers``) each optimizer's
+``step`` records one OPTIMIZER_STEP span (the outermost one when a step
+calls another optimizer's, as ``DistributedOptimizer`` and
+``BasicOptimizer`` do).  The reference records it only for its eager
+optimizer steps; every optimizer of the port is eager.
+
 Not here yet: Muon (ROADMAP.md queue A, item 4).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,6 +56,29 @@ __all__ = ["AdamWLowmem", "BasicOptimizer", "DistributedOptimizer", "EmptyState"
            "ScaleByAdamLowmemState",
            "clip_grad_norm_fp32", "found_inf", "bias_corrections", "zero_placements",
            "zero_sharded"]
+
+
+_SPAN_DEPTH = [0]  # > 0 inside an optimizer step that records its span
+
+
+def _optimizer_step_span(step):
+    """Wrap an optimizer's ``step`` in an OPTIMIZER_STEP span while
+    ndtimeline is active; a step inside another records none."""
+    from ..ndtimeline import api as _nd
+    from ..ndtimeline.predefined import OPTIMIZER_STEP
+
+    @functools.wraps(step)
+    def wrapped(*args, **kwargs):
+        if _SPAN_DEPTH[0] or not _nd.is_active():
+            return step(*args, **kwargs)
+        _SPAN_DEPTH[0] += 1
+        try:
+            with _nd.ndtimeit(OPTIMIZER_STEP):
+                return step(*args, **kwargs)
+        finally:
+            _SPAN_DEPTH[0] -= 1
+
+    return wrapped
 
 
 def _all_reduce_mesh(t: torch.Tensor, mesh: Optional[DeviceMesh], op: str) -> torch.Tensor:
@@ -119,6 +149,7 @@ class AdamWLowmem(torch.optim.Optimizer):
                         state_dtype=state_dtype, step=0)
         super().__init__(params, defaults)
 
+    @_optimizer_step_span
     @torch.no_grad()
     def step(self, closure=None):
         loss = None
@@ -244,6 +275,7 @@ class BasicOptimizer:
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
+    @_optimizer_step_span
     @torch.no_grad()
     def step(self):
         if self.grad_clip is not None:
@@ -565,6 +597,7 @@ class DistributedOptimizer:
         ls["skip_count"] = torch.tensor(int(ls["skip_count"]) + 1 if overflow else 0,
                                         dtype=torch.int32)
 
+    @_optimizer_step_span
     @torch.no_grad()
     def step(self) -> bool:
         """Unscale, check, clip, step the pieces, gather the params (the

@@ -130,6 +130,12 @@ class Watchdog:
         # the beat's time BEFORE clearing the trip latch: the reverse order
         # lets the watchdog see a cleared latch beside a stale timestamp
         self._last_beat = time.monotonic()
+        if self._tripped:
+            # progress after a trip: the stall is over (a no-op while the
+            # alert engine is off)
+            from ..telemetry import alerts as _alerts
+
+            _alerts.resolve("watchdog-stall")
         self._tripped = False
 
     @property
@@ -180,6 +186,16 @@ class Watchdog:
         tel.count("resilience_hang_detected_total")
         tel.record_event("resilience_hang", at_step=self._step, phase=self._phase,
                          stalled_s=bundle["stalled_s"], dump=path, abort=self.abort)
+        # the stall goes through the alert engine too (a one-shot warning
+        # while it is off); the stderr lines stay for an aborting process
+        from ..telemetry import alerts as _alerts
+
+        _alerts.raise_alert(
+            "watchdog-stall",
+            message=(f"no step progress for {bundle['stalled_s']:.1f}s (deadline "
+                     f"{self.timeout_s:g}s) at step={self._step} phase={self._phase}; "
+                     f"stacks -> {path or '<not written>'}"),
+            severity="critical", value=bundle["stalled_s"])
         print(
             f"[watchdog] no step progress for {bundle['stalled_s']:.1f}s "
             f"(deadline {self.timeout_s:g}s) at step={self._step} "

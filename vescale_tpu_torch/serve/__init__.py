@@ -2,6 +2,7 @@
 loop, with the radix-tree prefix cache, speculative decoding, the
 network-fed fleet replica and the ``/control`` weight rollout."""
 
+from . import reqtrace
 from .engine import ServeEngine, stack_params_check
 from .fleet import RequestInbox, request_from_payload, serve_replica
 from .kv_cache import KVCacheConfig, KVCacheOutOfPages, PagedKVCache
@@ -14,6 +15,7 @@ from .speculative import (
     drafter_template,
     load_drafter_params,
     slice_drafter_params,
+    suggested_k,
 )
 
 __all__ = [
@@ -36,12 +38,14 @@ __all__ = [
     "drafter_template",
     "load_drafter_params",
     "load_params",
+    "reqtrace",
     "request_from_payload",
     "run_serve",
     "run_serve_resilient",
     "serve_replica",
     "slice_drafter_params",
     "stack_params_check",
+    "suggested_k",
 ]
 
 

@@ -64,8 +64,18 @@ swaps it back.  Each stage's seconds go into ``scheduler.telemetry`` as a
 ``serve_rollout_stage`` event (the reference's ``fleettrace`` span, which
 comes with ROADMAP A19).
 
-``run_serve`` is this loop with the envelope off.  Not ported yet: request
-trace spans, alerts and the cost audit.
+Observability: while ndtimeline is active every request emits its span
+chain (``reqtrace.py``: submit, queue wait, prefill, decode tokens, the
+draft and verify of speculation, evictions, the terminal outcome), and
+each decode step advances the ndtimeline step counter and is recorded on
+the global telemetry as a ``kind="serve"`` step.  The alert engine's
+serve pack is armed while the engine is live, ``/alerts`` is served next
+to ``/healthz`` and ``/router``, and the cost auditor ledgers each decode
+step's predicted wall against the measured one.
+``VESCALE_FLEET_TRACE_DIR`` streams this replica's spans to
+``<dir>/<replica_id>.spans.jsonl`` as the run goes.
+
+``run_serve`` is this loop with the envelope off.
 """
 
 from __future__ import annotations
@@ -80,6 +90,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import distributed as _dist
+from .. import telemetry as _gtel
+from ..ndtimeline import api as _nd
 from ..resilience import consistency as _cons
 from ..resilience import faultsim as _fs
 from ..resilience.preempt import PreemptionHandler
@@ -88,6 +100,7 @@ from ..telemetry import ops_server as _ops
 from .. import config as _config
 from .engine import ServeEngine
 from .obs import ServeObservability
+from . import reqtrace
 from .scheduler import ContinuousBatchingScheduler, Request
 from .speculative import SpeculativeDecoder
 
@@ -280,14 +293,49 @@ def run_serve_resilient(
     obs = ServeObservability(scheduler, engine=engine, watchdog=wd,
                              rank=_dist.process_index(), replica_id=replica_id,
                              speculative=speculative)
+    from ..telemetry import alerts as _alerts
+    from ..telemetry import costaudit as _ca
+
     if ops is not None:
         # a started server (fleet mode): its owner keeps it serving after
         # this loop returns
         ops.register("healthz", obs.health).register("router", obs.router)
+        ops.register("alerts", _alerts.payload)
         own_ops = False
     else:
-        ops = _ops.maybe_start(health=obs.health, router=obs.router, registry=tel)
+        ops = _ops.maybe_start(health=obs.health, router=obs.router, registry=tel,
+                               extra={"alerts": _alerts.payload})
         own_ops = ops is not None
+    # the default serve rule pack on a live engine (idempotent by pack
+    # name); the TTFT burn rule arms only with an SLO
+    if _alerts.is_active():
+        _alerts.get_engine().arm_pack("serve", _alerts.serve_rule_pack(
+            slo_ttft_s=_config.get_float("VESCALE_SERVE_SLO_TTFT_S") or 0.0))
+    # the fleet trace stream: this replica's spans land on disk as the run
+    # goes, flushed every VESCALE_FLEET_TRACE_FLUSH_EVERY boundaries when
+    # the loop owns the profiler (an outside owner keeps its own flushes)
+    fleet_trace_every = 0
+    fleet_trace_handler = None
+    own_nd_trace = False
+    fleet_trace_dir = _config.get_str("VESCALE_FLEET_TRACE_DIR")
+    if fleet_trace_dir:
+        from ..ndtimeline.handlers import LocalRawHandler
+
+        own_nd_trace = not _nd.is_active()
+        if own_nd_trace:
+            _nd.init_ndtimers(rank=_dist.process_index())
+        stream = (obs.replica_id if _dist.process_count() == 1
+                  else f"{obs.replica_id}.rank{_dist.process_index()}")
+        fleet_trace_handler = LocalRawHandler(
+            os.path.join(fleet_trace_dir, f"{stream}.spans.jsonl"))
+        _nd.get_manager().register_handler(fleet_trace_handler)
+        if own_nd_trace:
+            fleet_trace_every = max(1, _config.get_int("VESCALE_FLEET_TRACE_FLUSH_EVERY") or 1)
+    # the cold-start retry_after_s seed: a calibration table prices the
+    # decode step before anything ran (the first prefill covers the rest)
+    cal_seed = obs.calibrated_step_estimate()
+    if cal_seed is not None:
+        scheduler.seed_step_time(cal_seed)
 
     def _submit_inbox(reqs, step: int) -> None:
         # a malformed or duplicate wire submission is rejected and counted,
@@ -443,7 +491,11 @@ def run_serve_resilient(
         for inf in scheduler.admit(step):
             _beat(step, "prefill")
             inf.admit_wall = time.perf_counter()
-            tel.observe("serve_ttft_queue_wait_seconds", max(0.0, inf.admit_wall - inf.submit_wall))
+            # measured to this request's own prefill start, so queue wait
+            # and prefill tile the TTFT
+            wait_s = max(0.0, inf.admit_wall - inf.submit_wall)
+            reqtrace.queue_wait(inf.req.rid, inf.slot, wait_s, replays=inf.replays)
+            tel.observe("serve_ttft_queue_wait_seconds", wait_s)
             if inf.prefix_hit:
                 # the slot's leading table entries map cached pages: commit
                 # them and run only the suffix
@@ -466,6 +518,7 @@ def run_serve_resilient(
             _sample(inf.slot, engine.greedy(logits))
             now = time.perf_counter()
             prefill_s = now - inf.admit_wall
+            reqtrace.prefill(inf.req.rid, inf.slot, prefill_s, tokens=len(inf.req.prompt))
             scheduler.seed_step_time(prefill_s)
             tenant = inf.req.tenant
             ttft = now - inf.submit_wall
@@ -510,12 +563,16 @@ def run_serve_resilient(
                 _sample(slot, engine.greedy(logits[slot]))
         else:
             spec = speculative
+            d0 = time.perf_counter()
             drafts = spec.draft(tokens, drafted_rows)
+            reqtrace.draft(step, spec.k, time.perf_counter() - d0, len(drafted_rows))
             toks = np.zeros((cache.num_slots, spec.k + 1), np.int64)
             for slot in active_slots:
                 toks[slot, 0] = tokens[slot]
                 toks[slot, 1:] = drafts[slot]
+            v0 = time.perf_counter()
             vlogits = engine.decode_multi(toks)
+            verify_s = time.perf_counter() - v0
             drafted_now = accepted_now = 0
             for slot in sorted(active_slots):
                 inf = scheduler.active[slot]
@@ -534,10 +591,11 @@ def run_serve_resilient(
             # rejected draft positions: roll the drafter back to the
             # target's committed lengths
             spec.rewind(cache.lengths, drafted_rows)
+            rate = spec.accept_rate()
+            reqtrace.verify(step, verify_s, drafted_now, accepted_now, rate)
             tel.count("serve_spec_drafted_tokens_total", drafted_now)
             tel.count("serve_spec_accepted_tokens_total", accepted_now)
             tel.count("serve_spec_verify_steps_total")
-            rate = spec.accept_rate()
             if rate is not None:
                 tel.set_gauge("serve_spec_accept_rate", rate)
         return time.perf_counter() - t0, emitted_per_slot
@@ -660,13 +718,23 @@ def run_serve_resilient(
                     time.sleep(_config.get_float("VESCALE_FAULTSIM_SLOW_DECODE_S"))
                 _beat(step, "decode")
                 active = len(scheduler.active)
+                predicted_step_s = scheduler.step_time_estimate() if _ca.is_active() else None
                 dt, emitted_per_slot = _decode(step)
+                if predicted_step_s is not None:
+                    pid = _ca.record_prediction("serve_step", predicted_us=predicted_step_s * 1e6,
+                                                detail={"active": active})
+                    _ca.record_measurement(pid, measured_us=dt * 1e6)
                 scheduler.observe_step_time(dt)
                 # the step's wall is each active slot's gap between tokens,
-                # split evenly over the tokens it emitted for the slot
-                for m in emitted_per_slot.values():
-                    for _ in range(m):
+                # split evenly over the tokens it emitted for the slot; one
+                # decode-token span a token, in the slot's lane
+                reqtrace.decode_step(step, dt, active)
+                for slot, m in emitted_per_slot.items():
+                    inf = scheduler.active[slot]
+                    for j in range(m):
                         scheduler.observe_itl(dt / max(1, m))
+                        reqtrace.decode_token(inf.req.rid, slot, len(inf.tokens) - m + j,
+                                              dt / max(1, m))
                 tel.count("serve_decode_steps_total")
                 obs.on_decode_step(step, dt, active)
                 if _fires("replica_kill", step):
@@ -678,6 +746,18 @@ def run_serve_resilient(
                 _finish_done(step)
                 if draining:
                     result.drained += scheduler.counts["completed"] - before
+                # every span of this iteration carries the current profiler
+                # step: advance it and record the step line now, so the
+                # steps.jsonl spans rollup lands on this decode step
+                if _nd.is_active():
+                    mgr = _nd.get_manager()
+                    span_step = mgr.step
+                    mgr.inc_step()
+                else:
+                    span_step = step
+                _gtel.record_step({"step": span_step, "serve_step": step, "step_time_s": dt,
+                                   "active": active, "queue_depth": len(scheduler.queue)},
+                                  kind="serve")
             if on_step is not None:
                 on_step(step, len(scheduler.active))
             if (inbox is not None and not draining and not scheduler.active
@@ -688,11 +768,21 @@ def run_serve_resilient(
                     idle_sleep_s = _config.get_float("VESCALE_SERVE_IDLE_S")
                 if idle_sleep_s:
                     time.sleep(idle_sleep_s)
+            if fleet_trace_every and step % fleet_trace_every == 0:
+                # this boundary's spans reach the stream before the next
+                # decode step can end the process
+                _nd.flush()
             step += 1
     finally:
         result.steps = step
         result.outcomes = dict(scheduler.outcomes)
         result.counts = dict(scheduler.counts)
+        if fleet_trace_handler is not None:
+            if fleet_trace_every:
+                _nd.flush()
+            _nd.get_manager().unregister_handler(fleet_trace_handler)
+            if own_nd_trace:
+                _nd.deinit_ndtimers()
         if own_ops:
             ops.stop()
         if own_wd:

@@ -17,8 +17,11 @@ per ``run_serve_resilient`` call:
     JAX package's field set, asserted at the source): the reference fleet
     router polls it.  ``rollout`` is the loop's live weight-rollout state
     (``None`` outside a rollout), and ``accepting`` is false while a
-    rollout holds admission.  ``alerts`` carries the engine's digest while
-    it is off: the alert engine is not ported yet.
+    rollout holds admission.  ``alerts`` (on ``/router`` and ``/healthz``)
+    is the alert engine's digest (``telemetry.alerts.digest``).
+  * **the calibrated step estimate** (``calibrated_step_estimate``): the
+    decode step priced from the active calibration table, the scheduler's
+    cold-start ``retry_after_s`` seed.
 
 Everything here is host-side arithmetic: the providers run on the ops
 thread and make no CUDA call.
@@ -30,7 +33,6 @@ import time
 from typing import Dict, Optional
 
 from .. import config as _config
-from ..device import peak_bf16_flops
 
 __all__ = ["ServeObservability", "ROUTER_SCHEMA_VERSION", "ROUTER_FIELDS"]
 
@@ -48,8 +50,11 @@ ROUTER_FIELDS = frozenset((
     "tenants", "rollout",
 ))
 
-# the alert engine's digest while it is off (the engine is not ported yet)
-_ALERTS_DORMANT = {"active": False, "firing": [], "pending": []}
+def _alerts_digest() -> Dict:
+    """The inline alert summary every feed carries (dormant-safe)."""
+    from ..telemetry import alerts as _alerts
+
+    return _alerts.digest()
 
 
 def _pcts(hist) -> Dict[str, Optional[float]]:
@@ -82,8 +87,38 @@ class ServeObservability:
         # FLOP count or a device publishes no MFU
         flops = getattr(engine, "decode_flops_per_step", None)
         self._flops = flops() if flops is not None else None
-        device = getattr(engine, "device", None)
-        self._peak = peak_bf16_flops(device) if device is not None else None
+        self._peak = self._peak_flops()
+
+    # ------------------------------------------------------------- rates
+    def _peak_flops(self) -> Optional[float]:
+        """The card's bf16 peak (``calibrate.device_peak_flops``); None
+        without a CUDA engine, so the CPU publishes no MFU."""
+        import torch
+
+        device = getattr(self.engine, "device", None)
+        if device is None or torch.device(device).type != "cuda":
+            return None
+        from ..telemetry.calibrate import device_peak_flops
+
+        return device_peak_flops(device)
+
+    def calibrated_step_estimate(self) -> Optional[float]:
+        """Decode-step seconds priced from the calibration table, or None
+        without one: measured ``serve_decode`` buckets when the table has
+        them (harvested from a prior run's tagged decode spans), else the
+        engine's decode FLOPs over the table's measured ``matmul_gflops``."""
+        from ..telemetry.calibrate import active_table
+
+        t = active_table()
+        if t is None:
+            return None
+        us = t.op_estimate_us("serve_decode")
+        if us is not None:
+            return float(us) / 1e6
+        g = t.meta.get("matmul_gflops")
+        if not g or not self._flops:
+            return None
+        return float(self._flops) / (float(g) * 1e9)
 
     def on_decode_step(self, step: int, dt_s: float, active: int) -> None:
         """Per decode step: advance the rate clocks and publish the goodput,
@@ -131,7 +166,7 @@ class ServeObservability:
             ),
             "uptime_s": round(now - self._start, 6),
             "wall_time_us": int(time.time() * 1e6),
-            "alerts": dict(_ALERTS_DORMANT),
+            "alerts": _alerts_digest(),
         }
 
     def router(self) -> Dict:
@@ -173,7 +208,7 @@ class ServeObservability:
             # null (never 0.0) while the multiplier is off or has no samples
             "prefix_hit_rate": prefix.stats.hit_rate() if prefix is not None else None,
             "spec_accept_rate": spec.accept_rate() if spec is not None else None,
-            "alerts": dict(_ALERTS_DORMANT),
+            "alerts": _alerts_digest(),
             "tenants": sched.tenant_stats(),
             "rollout": self.rollout,
         }

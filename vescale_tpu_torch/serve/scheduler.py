@@ -36,6 +36,7 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 from ..telemetry.registry import Histogram, Registry
 from .. import config as _config
+from . import reqtrace
 from .kv_cache import PagedKVCache
 from .prefix_cache import PrefixCache
 
@@ -333,6 +334,7 @@ class ContinuousBatchingScheduler:
         tcounts = self._tenant_counts(req.tenant)
         tcounts["submitted"] += 1
         tel.count(f"serve_tenant_{_safe(req.tenant)}_submitted_total")
+        reqtrace.submit(req.rid, step, tag=req.tag)
         reason = self.currently_shedding()
         tenant_shed = False
         if reason is None:
@@ -365,6 +367,7 @@ class ContinuousBatchingScheduler:
             tel.count("resilience_shed_total")
             tel.count(f"serve_tenant_{_safe(req.tenant)}_shed_total")
             tel.record_event("serve_shed", rid=req.rid, reason=reason, retry_after_s=retry)
+            reqtrace.terminal(req.rid, "shed", 0, reason=reason)
             self._fold(10, req.rid, step)
             if tenant_shed:
                 self._fold(20, req.rid, step)
@@ -448,6 +451,7 @@ class ContinuousBatchingScheduler:
         self.goodput_tokens += len(inf.tokens)
         self._fold(13, inf.req.rid, slot, len(inf.tokens))
         self._terminal(inf, "completed")
+        reqtrace.terminal(inf.req.rid, "completed", len(inf.tokens), slot=slot)
         tel.count("serve_requests_completed_total")
         tel.count(f"serve_tenant_{_safe(inf.req.tenant)}_completed_total")
         tel.count("serve_goodput_tokens_total", len(inf.tokens))
@@ -463,6 +467,7 @@ class ContinuousBatchingScheduler:
         self.counts["timed_out"] += 1
         self._fold(14, inf.req.rid, slot)
         self._terminal(inf, "timed_out", reason=reason)
+        reqtrace.terminal(inf.req.rid, "timed_out", len(inf.tokens), reason=reason, slot=slot)
         tel.count("serve_requests_timed_out_total")
         tel.record_event("serve_timeout", rid=inf.req.rid, slot=slot, reason=reason)
         tel.set_gauge("serve_inflight", len(self.active))
@@ -486,6 +491,7 @@ class ContinuousBatchingScheduler:
                     "reason": "queued past deadline",
                     "tag": req.tag,
                 }
+                reqtrace.terminal(req.rid, "timed_out", 0, reason="queued past deadline")
                 tel.count("serve_requests_timed_out_total")
                 tel.record_event("serve_timeout", rid=req.rid, reason="queued past deadline")
                 expired.append(req.rid)
@@ -533,6 +539,8 @@ class ContinuousBatchingScheduler:
         # everything since the client submitted
         self.queue.appendleft((inf.req, inf.submit_step, inf.submit_wall))
         self._tq(inf.req.tenant, +1)
+        # the fork marker: this rid's chain runs queue-wait -> prefill again
+        reqtrace.evict(inf.req.rid, slot, reason, replays=inf.replays + 1)
         tel.count("serve_requests_evicted_total")
         tel.record_event("serve_evict", rid=inf.req.rid, slot=slot, reason=reason)
         tel.set_gauge("serve_inflight", len(self.active))
@@ -555,6 +563,7 @@ class ContinuousBatchingScheduler:
                 "retry_after_s": self.retry_after_s(),
                 "tag": req.tag,
             }
+            reqtrace.terminal(req.rid, "preempted_requeue", 0, reason=reason)
             self.counts["shed"] += 1
             tel.count("serve_requests_shed_total")
             tel.count("resilience_shed_total")

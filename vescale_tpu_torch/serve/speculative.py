@@ -25,10 +25,11 @@ committed lengths, so rejected positions become uncommitted bytes the next
 write overwrites.  The target's verify writes K/V for all ``k + 1``
 positions too; only the accepted ones are committed via ``cache.advance``.
 
-Not in this slice: ``load_drafter_params`` and ``drafter_template`` (they
-restore from a checkpoint) and ``suggested_k`` (it reads the calibration
-table of the telemetry layer): a ``k`` below 1 raises where the JAX package
-would consult that table.
+``suggested_k`` reads the drafter depth from the active calibration
+table's measured ``serve_decode`` and ``serve_draft`` buckets; a
+``SpeculativeDecoder`` without a ``k`` of at least 1 (argument, then
+``VESCALE_SPEC_K``) takes it, as the reference does, and raises when the
+table has no serve measurements.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from .engine import ServeEngine, _as_tree
 from .kv_cache import KVCacheConfig, KVCacheOutOfPages, PagedKVCache
 
 __all__ = ["SpeculativeDecoder", "drafter_config", "drafter_template", "load_drafter_params",
-           "slice_drafter_params"]
+           "slice_drafter_params", "suggested_k"]
 
 
 def drafter_config(config, layers: int):
@@ -98,6 +99,37 @@ def _placed_like(cache: PagedKVCache) -> Dict[str, Any]:
     return {"device": cache.device}
 
 
+def suggested_k(table=None) -> Optional[int]:
+    """The drafter depth the audited calibration table suggests.
+
+    Serve runs harvest their tagged spans into the active table
+    (``telemetry/costaudit.py``): ``serve_decode`` buckets hold measured
+    decode-step wall times, and ``serve_draft`` buckets measured draft
+    phases keyed by depth (``bytes`` = k, so a sample prices k + 1 drafter
+    launches).  The hint is the deepest k whose draft phase, at the
+    measured per-launch cost, stays under half a measured decode step,
+    clamped to [1, 8]; None when the table lacks serve measurements."""
+    from ..telemetry.calibrate import active_table
+
+    t = table if table is not None else active_table()
+    if t is None:
+        return None
+    decode_us = t.op_estimate_us("serve_decode")
+    if not decode_us:
+        return None
+    total = weight = 0.0
+    for (op, _axis, bucket), cell in t.entries.items():
+        if op == "serve_draft" and bucket >= 1:
+            total += cell["us"] / (bucket + 1) * cell["samples"]
+            weight += cell["samples"]
+    if not weight:
+        return None
+    per_launch = total / weight
+    if per_launch <= 0:
+        return None
+    return max(1, min(8, int(decode_us / (2.0 * per_launch)) - 1))
+
+
 class SpeculativeDecoder:
     """Drafter engine + cache mirror + the greedy accept bookkeeping, handed
     to ``run_serve(speculative=...)``.  ``k`` and ``drafter_layers`` default
@@ -114,10 +146,11 @@ class SpeculativeDecoder:
         if k is None:
             k = _config.get_int("VESCALE_SPEC_K")
         if not k or k < 1:
-            raise ValueError(
-                f"speculative k must be >= 1, got {k} (the calibrated suggestion "
-                "of the JAX package comes with the telemetry layer)"
-            )
+            # the audited table's hint, when neither the caller nor the knob
+            # chose a depth; without serve measurements an explicit k stands
+            k = suggested_k()
+        if not k or k < 1:
+            raise ValueError(f"speculative k must be >= 1, got {k}")
         if drafter_layers is None:
             drafter_layers = _config.get_int("VESCALE_SPEC_DRAFTER_LAYERS")
         self.k = int(k)

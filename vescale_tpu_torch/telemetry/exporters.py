@@ -7,10 +7,9 @@ step record as it is emitted (the stream a dashboard tails).  For the same
 metrics the text is the reference's, line for line: the dashboard's
 blocks (``resilience:`` with the ``resilience_*`` and ``consistency_*``
 series, ``memory:`` with the ``mem_*`` gauges, and the others) are cut
-by the same name prefixes.  The reference's alert-engine and time-series
-store lines render only while those subsystems are live; the port has
-neither (ROADMAP A14), so they never render, as in a reference run with
-both off.
+by the same name prefixes.  The ``alerts:`` block names the live
+engine's firing and pending rules, and a ``timeseries:`` block describes
+the live time-series store, as the reference's do.
 """
 
 from __future__ import annotations
@@ -166,6 +165,37 @@ def _in_block(name: str, prefixes) -> bool:
     return not (prefixes == ("fleet_",) and name.startswith("fleet_timeline_"))
 
 
+def _alert_lines():
+    """The live alert engine's firing and pending rule names."""
+    from . import alerts as _alerts
+
+    eng = _alerts.get_engine()
+    if eng is None:
+        return []
+    firing, pending = eng.firing(), eng.pending()
+    out = [f"  firing:  {', '.join(firing) if firing else '(none)'}"]
+    if pending:
+        out.append(f"  pending: {', '.join(pending)}")
+    return out
+
+
+def _timeseries_lines():
+    """The live time-series store's shape: what the alert rules read."""
+    from . import timeseries as _timeseries
+
+    store = _timeseries.get_store()
+    if store is None:
+        return []
+    s = store.stats()
+    shape = f"{s['tiers']} x {s['base_len']} @ /{s['tier_factor']}"
+    return ["timeseries:",
+            f"  {'timeseries_series':<48} {_fmt(s['series']):>12}",
+            f"  {'timeseries_retained_samples':<48} {_fmt(s['retained_samples']):>12}",
+            f"  {'timeseries_samples_taken':<48} {_fmt(s['samples_taken']):>12}",
+            f"  {'timeseries_cadence_s':<48} {s['cadence_s']:>12.6g}",
+            f"  {'timeseries_tiers':<48} {shape:>12}"]
+
+
 def dashboard(registry: MetricsRegistry, title: str = "telemetry") -> str:
     """A fixed-width dump of the registry: the quick look at how a run is
     doing.  Memory gauges (the ``mem_`` names memtrack feeds) render as
@@ -186,6 +216,8 @@ def dashboard(registry: MetricsRegistry, title: str = "telemetry") -> str:
         for name in sorted(other_gauges):
             lines.append(f"  {name:<48} {other_gauges[name]:>12.6g}")
     for block, prefixes in _BLOCKS:
+        if block == "resilience:":
+            lines.extend(_timeseries_lines())
         bc = {n: v for n, v in counters.items() if _in_block(n, prefixes)}
         bg = {n: v for n, v in gauges.items() if _in_block(n, prefixes)}
         if not (bc or bg):
@@ -199,6 +231,8 @@ def dashboard(registry: MetricsRegistry, title: str = "telemetry") -> str:
                 lines.append(f"  {name:<48} {_fmt(bc[name]):>12}")
         for name in sorted(bg):
             lines.append(f"  {name:<48} {bg[name]:>12.6g}")
+        if block == "alerts:":
+            lines.extend(_alert_lines())
     mem_gauges = {n: v for n, v in gauges.items() if n.startswith("mem_")}
     if mem_gauges:
         lines.append("memory:")

@@ -15,12 +15,13 @@ the reference's keys (``bytes_in_use``, ``peak_bytes_in_use``,
 reference does on the CPU backend.  The census walks the tensors memtrack
 tagged, not every live tensor: PyTorch has no ``jax.live_arrays()``.
 
-``compare_with_aot`` (the compiled step's memory report against an
-``AOT_*_REPORT.json``) waits for the port's step report (ROADMAP A14).
+``compare_with_aot`` diffs a step report's measured peak against an
+``AOT_*_REPORT.json`` budget, as the reference diffs its compiled one.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
@@ -31,6 +32,8 @@ __all__ = [
     "host_peak_rss_bytes",
     "device_memory_stats",
     "live_array_census",
+    "aot_memory_budget",
+    "compare_with_aot",
 ]
 
 
@@ -110,3 +113,49 @@ def live_array_census(tag_of: Callable[[Any], Optional[str]], arrays: Iterable[A
         largest.append({"shape": shape, "dtype": dtype, "bytes": nbytes, "tag": tag})
     largest.sort(key=lambda e: e["bytes"], reverse=True)
     return {"live_arrays": n, "tags": buckets, "top_arrays": largest[:top_k]}
+
+
+# ----------------------------------------------------------- AOT drift
+def aot_memory_budget(aot: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """The per-device memory budget of an ``AOT_*_REPORT.json`` document:
+    the measured fp32-compile bytes, else the bf16-basis total; None when
+    it carries neither."""
+    measured = (aot.get("measured") or {}).get("per_device_bytes_fp32_compile")
+    if measured:
+        return {"bytes": float(measured), "source": "measured.per_device_bytes_fp32_compile"}
+    bf16 = (aot.get("bf16_basis_memory") or {}).get("total_bytes")
+    if bf16:
+        return {"bytes": float(bf16), "source": "bf16_basis_memory.total_bytes"}
+    return None
+
+
+def compare_with_aot(report: Dict[str, Any], aot: Any,
+                     tolerance: float = 0.10) -> Optional[Dict[str, Any]]:
+    """Diff a step report's ``peak_bytes`` against the matching AOT report's
+    budget; ``exceeds_tolerance`` flags drift beyond ``tolerance`` (10%)
+    either way.  ``aot`` is a loaded document or a path to one.  None
+    (never raises) when either side lacks a usable byte count — on the
+    CPU the port's report has no ``peak_bytes``."""
+    if isinstance(aot, str):
+        try:
+            with open(aot) as f:
+                aot = json.load(f)
+        except (OSError, ValueError):
+            return None
+    if not isinstance(aot, dict):
+        return None
+    budget = aot_memory_budget(aot)
+    measured = report.get("peak_bytes")
+    if budget is None or not measured:
+        return None
+    drift = (float(measured) - budget["bytes"]) / budget["bytes"]
+    return {
+        "aot_bytes": budget["bytes"],
+        "aot_source": budget["source"],
+        "measured_bytes": float(measured),
+        "drift_frac": drift,
+        "tolerance": tolerance,
+        "exceeds_tolerance": abs(drift) > tolerance,
+        "components": {k: report.get(k) for k in ("argument_bytes", "output_bytes", "temp_bytes",
+                                                  "alias_bytes", "generated_code_bytes")},
+    }

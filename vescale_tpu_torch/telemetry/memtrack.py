@@ -29,8 +29,8 @@ Gating contract (as the rest of telemetry): while dormant the hooks
 (``_noop_tag_array`` / ``_noop_tag_tree``), and there is no tracker, no
 registry dict and no lock.  Call them as ``memtrack.tag_array(...)``, never
 ``from memtrack import tag_array``, which would freeze the dormant binding.
-The reference's ``ndtimeline_tail`` is None until the port has ndtimeline
-(ROADMAP A14).
+The leak watcher raises the ``mem-leak`` alert (``alerts.py``), which is a
+one-shot ``UserWarning`` while the alert engine is off.
 """
 
 from __future__ import annotations
@@ -42,12 +42,12 @@ import json
 import os
 import threading
 import time
-import warnings
 import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from . import alerts as _alerts
 from .memory_report import device_memory_stats, live_array_census
 
 __all__ = [
@@ -267,6 +267,9 @@ class MemoryTracker:
         if self._last_untagged is not None and untagged > self._last_untagged:
             self._growth_run += 1
         else:
+            if self._leak_warned:
+                # the growth broke: the episode is over
+                _alerts.resolve("mem-leak")
             self._growth_run = 0
             self._leak_warned = False
         self._last_untagged = untagged
@@ -274,11 +277,14 @@ class MemoryTracker:
         if self._growth_run >= self.leak_steps and not self._leak_warned:
             self._leak_warned = True
             registry.counter("mem_leak_warnings_total").inc()
-            warnings.warn(
-                f"[alert:mem-leak] memtrack: untagged live-array bytes grew monotonically for "
-                f"{self._growth_run} consecutive steps (now {untagged} B) — possible leak.  "
-                "telemetry.dump_now() writes a tagged census to identify the owner.",
-                stacklevel=2,
+            _alerts.raise_alert(
+                "mem-leak",
+                message=(f"memtrack: untagged live-array bytes grew monotonically for "
+                         f"{self._growth_run} consecutive steps (now {untagged} B) — possible "
+                         "leak.  telemetry.dump_now() writes a tagged census to identify the "
+                         "owner."),
+                severity="warning",
+                value=float(untagged),
             )
         sample = {
             "step": step,
@@ -316,8 +322,19 @@ class MemoryTracker:
             "history": list(self.history),
             "last_step_report": getattr(st, "last_step_report", None),
             "registry": st.registry.snapshot() if st is not None else None,
-            "ndtimeline_tail": None,
+            "ndtimeline_tail": _ndtimeline_tail(),
         }
+
+
+def _ndtimeline_tail(n: int = 200) -> Optional[List[Dict[str, Any]]]:
+    """The last ``n`` buffered spans while ndtimeline is active (peeked,
+    not drained): what the run was doing when the record was taken."""
+    from ..ndtimeline import api as _nd
+
+    if not _nd.is_active():
+        return None
+    return [{"metric": s.metric, "start": s.start, "duration": s.duration, "step": s.step,
+             "rank": s.rank, "tags": s.tags} for s in _nd.get_manager().tail(n)]
 
 
 # --------------------------------------------------------------- gate flips

@@ -9,6 +9,8 @@ The port of ``vescale_tpu/telemetry/ops_server.py``.  One
   ``/router``    the replica's dispatch feed, frozen schema v5
                  (serve/obs.py), which the fleet router polls
   ``/outcomes``  the terminal-outcome ledger (serve/fleet.py registers it)
+  ``/alerts``    the alert engine's lifecycle snapshot
+                 (``telemetry/alerts.py`` ``payload``, frozen schema v1)
   ``/submit``    POST: one request into the replica's inbox (serve/fleet.py)
   ``/control``   POST: the weight-rollout channel (``reload``, ``commit``,
                  ``revert``, ``status``; serve/loop.py ``ControlChannel``)
@@ -50,7 +52,7 @@ Provider = Callable[[], Dict]
 _ACTIVE: Optional["OpsServer"] = None
 _LOCK = threading.Lock()
 
-_GET_ENDPOINTS = ("healthz", "router", "outcomes")
+_GET_ENDPOINTS = ("healthz", "router", "outcomes", "alerts")
 _POST_ENDPOINTS = ("submit", "control")
 
 _STATUS_TEXT = {
@@ -88,8 +90,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(ops.providers.get(path.lstrip("/")))
         else:
             self._send(404, "text/plain; charset=utf-8",
-                       "not found (endpoints: /metrics /healthz /router /outcomes /submit "
-                       "/control)\n")
+                       "not found (endpoints: /metrics /healthz /router /outcomes /alerts "
+                       "/submit /control)\n")
 
     def do_POST(self):  # noqa: N802 (stdlib naming)
         ops: "OpsServer" = self.server.ops  # type: ignore[attr-defined]

@@ -21,29 +21,70 @@ by ``DistributedOptimizer.reduce_grads`` into its ZeRO pieces.  With a
 unscaled, as the reference's step does (``vescale_tpu/train.py:221-228``).
 The reported loss is the mean over the dp ranks.
 
-While telemetry is on (``telemetry.init`` before the step runs), each
-step reads its loss on the host (the sync that makes the step time wall
-clock, the observability trade a telemetry run opts into) and records
-``step_time_s``, ``loss``, ``tokens`` and ``tokens_per_sec`` through
-``telemetry.record_step`` (reference ``train.py:310-343``).
+While ndtimeline is active (``ndtimeline.init_ndtimers``), each step is
+one TRAIN_STEP span (a host region around the step's launches, also a
+``torch.profiler`` range) and, with ``auto_inc_step`` (default), advances
+the ndtimeline step counter, as the reference's step does
+(``train.py:256-300``).  While telemetry is on (``telemetry.init`` before
+the step runs), each step reads its loss on the host (the sync that makes
+the step time wall clock, the observability trade a telemetry run opts
+into), arms the train alert pack and records ``step_time_s``, ``loss``,
+``tokens``, ``tokens_per_sec`` and ``grad_norm`` (the global fp32 norm of
+the grads before the update, unscaled), and under a
+``DistributedOptimizer`` with loss scaling ``loss_scale`` and
+``skip_count``, through ``telemetry.record_step`` (reference
+``train.py:231-343``).  None of this changes a number of the step.
 
 :class:`FunctionalStep` wraps the in-place step in the reference's
 functional signature, ``step_fn(params, opt_state, batch[, step_key]) ->
 (params, opt_state, loss)``, for ``resilience.run_resilient``.
 
-Not here yet (ROADMAP.md): the fp8 ``_overwrite_with_gradient`` bundle,
-the grad-norm and loss-scale scalars of the telemetry feed, the ndtimeline
-spans, and dropout RNG streams (the Llama has no dropout).
+Not here yet (ROADMAP.md): the fp8 ``_overwrite_with_gradient`` bundle
+and dropout RNG streams (the Llama has no dropout).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 __all__ = ["FunctionalStep", "make_train_step"]
+
+# the double-increment guard of auto_inc_step: the manager it last saw, the
+# step it left the counter at, and whether it has warned (reference
+# ``train.py:25-32``)
+_AUTO_STEP_GUARD: Dict[str, Any] = {"mgr": None, "step": None, "warned": False}
+
+
+def _auto_inc_step() -> None:
+    from .ndtimeline import api as _nd
+
+    mgr = _nd.get_manager()
+    g = _AUTO_STEP_GUARD
+    if g["mgr"] is not mgr:  # a new manager: start tracking afresh
+        g["mgr"], g["step"] = mgr, None
+    if not g["warned"] and g["step"] is not None and mgr.step > g["step"]:
+        import warnings
+
+        g["warned"] = True
+        warnings.warn(
+            "make_train_step(auto_inc_step=True) advances the ndtimeline step counter itself, "
+            "but it was also advanced elsewhere (inc_step() or flush(next_iteration=True)) "
+            "within one training step, so steps are counted twice.  Pass auto_inc_step=False "
+            "to keep manual control, or drop the other increment.", stacklevel=3)
+    mgr.inc_step()
+    g["step"] = mgr.step
+
+
+def _grad_norm(params) -> float:
+    """The global L2 norm of the grads, in fp32 (0.0 without grads)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return 0.0
+    return float(torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])))
 
 
 def _split(batch, n: int):
@@ -75,7 +116,8 @@ def _reduce_aux(leaves):
 
 
 def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
-                    has_aux: bool = False, grad_accum_steps: int = 1):
+                    has_aux: bool = False, grad_accum_steps: int = 1,
+                    auto_inc_step: bool = True):
     """Build ``step(batch) -> loss`` (``(loss, aux)`` with ``has_aux``).
 
     ``loss_fn(output, batch)`` computes the scalar loss from the model's
@@ -99,7 +141,13 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
     may be a ``DistributedDataParallel`` (around a ``DModule`` or a plain
     module): its ``finish_grad_sync`` averages the gradients over "dp".
     ``optimizer`` may be a ``DistributedOptimizer``: it scales the loss
-    and reduces the gradients into its pieces itself."""
+    and reduces the gradients into its pieces itself.
+
+    ``auto_inc_step`` (default True): while ndtimeline is active, each
+    call advances its step counter after the TRAIN_STEP span, so a loop
+    over this step must not call ``inc_step()`` too (it warns once if it
+    does).  The returned step carries ``.model`` and ``.optimizer``, which
+    ``telemetry.costaudit.layer_attribution`` and the step report read."""
     from .dmodule import DModule
     from .parallel.ddp import DistributedDataParallel
     from .parallel.optimizer import DistributedOptimizer
@@ -136,11 +184,20 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
 
     def step(batch: Dict[str, Any]):
         from . import telemetry as _tel
+        from .ndtimeline import api as _nd
+        from .ndtimeline.predefined import TRAIN_STEP
 
-        if not _tel.is_active():
+        tel_on = _tel.is_active()
+        if not tel_on and not _nd.is_active():
             return run(batch)
         t0 = time.perf_counter()
-        out = run(batch)
+        metrics: Optional[Dict[str, Any]] = {} if tel_on else None
+        with _nd.ndtimeit(TRAIN_STEP):
+            out = run(batch, metrics)
+        if auto_inc_step and _nd.is_active():
+            _auto_inc_step()
+        if not tel_on:
+            return out
         # reading the loss waits for the step: the recorded time is wall
         # clock, not launch time
         loss_val = float(out[0] if has_aux else out)
@@ -154,10 +211,15 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
             rec["tokens"] = tokens
             if dt > 0:
                 rec["tokens_per_sec"] = tokens / dt
+        rec.update(metrics)
+        from .telemetry import alerts as _alerts
+
+        if _alerts.is_active():  # arm_pack dedups by name
+            _alerts.get_engine().arm_pack("train", _alerts.train_rule_pack())
         _tel.record_step(rec)
         return out
 
-    def run(batch: Dict[str, Any]):
+    def run(batch: Dict[str, Any], metrics=None):
         optimizer.zero_grad(set_to_none=True)
         if grad_accum_steps == 1:
             loss, aux = micro(batch)
@@ -184,15 +246,26 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
             dm.finish_grad_sync()
         if ddp is not None:
             ddp.finish_grad_sync()
+        if metrics is not None:  # the telemetry feed: read, never written
+            gnorm = _grad_norm(model.parameters())
+            if dopt is not None:
+                gnorm /= dopt.current_scale()
+            metrics["grad_norm"] = gnorm
         if dopt is not None:
             dopt.reduce_grads()
         optimizer.step()
+        if metrics is not None and dopt is not None and dopt.loss_scale_state is not None:
+            # the scale after the step, as the reference's new state has it
+            metrics["loss_scale"] = dopt.current_scale()
+            metrics["skip_count"] = int(dopt.loss_scale_state["skip_count"])
         if dp_group is not None:
             from . import collectives as C
 
             loss = C.all_reduce(loss.float().reshape(1), dp_group, "avg")[0].to(loss.dtype)
         return (loss, aux) if has_aux else loss
 
+    step.model = model
+    step.optimizer = optimizer
     return step
 
 
