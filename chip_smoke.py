@@ -8,6 +8,7 @@ Hopper card.
     python3 chip_smoke.py --dp       # train and gpt2, then the DP phase
     python3 chip_smoke.py --resil    # the train_resilient phase alone
     python3 chip_smoke.py --telemetry   # serve and gpt2, then the telemetry phase
+    python3 chip_smoke.py --pp       # gpt2, then the pipeline phase
     python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
@@ -129,7 +130,7 @@ Phases, each printing one JSON line with its seconds:
            rows, elastic, VSC130, bytes read; the directory removed
   profile  device time by kernel kind and the device's idle share over a
            second run of the serve requests (``torch.profiler``), for the
-           graphed and the eager engine
+           graphed engine
   train_small  a 2-layer fp32 Llama trained 3 steps on the card and on the
            CPU from the same weights: losses within a stated bound
   train    the 1.3B Llama of the bench (``vescale_tpu_torch.bench``) at full
@@ -238,6 +239,27 @@ Phases, each printing one JSON line with its seconds:
            the plain version and its bound, and the block quantizer's
            quantize and dequantize ms on one 40M-element bucket
 
+  pipeline (a) GPT-2 124M at the gpt2 rung's batch (B=12, T=1024) as 4
+           microbatches through ``PipeEngine`` over ``gpt_pipeline_units``:
+           GPipe, 1F1B and zero bubble at 4 stages, interleaved at 2x2, the
+           cost-driven zero bubble priced by ``profile_costs``: each loss
+           bitwise the unpipelined step's (``make_train_step``'s
+           accumulation), grads bitwise but the tied wte (GPipe: within a
+           bound), launches equal to the schedule's count, no weight-grad
+           matmul in a dgrad, the spans' bubble fraction, one K8 step's
+           masters; (b) ``split_graph`` of the same model into 4 groups:
+           its forward and 1F1B loss bitwise, one node per kernel; (d) the
+           1.3B scanned and under each mapped ``remat_policy``: losses and
+           masters bitwise the plain step's, each run's forward stash and
+           its phases' peaks (the optimizer's sets the step's); (c) the
+           1.3B (scanned) at
+           pp=2, two gloo ranks of the card, 4 rows of T=4096 in 4
+           microbatches, embedding and head replicated, through
+           ``pipeline_blocks`` (V=1, 2) and ``pipeline_blocks_zb`` (V=2):
+           losses and grads within stated bounds of one card's, the
+           replicated grads equal on both ranks, each rank's launches the
+           leg's count (flash only); step ms, peak, ppermutes and gloo's
+           share per rank
 Then the card line, the kernels line and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero before that line.  Imports
 nothing of JAX or of ``vescale_tpu``.
@@ -397,8 +419,9 @@ def flash_cases():
     rounding in both, so the fp32 bounds above hold).  Two launches are
     bitwise equal.  The main cases are the Llama-3-8B prefill shape; the
     train 1.3b case is the 1.3B train shape; the gpt2 cases the GPT-2 124M
-    train shape (head_dim 64, no GQA); rep 4 at T=333 runs the GQA map and
-    a ragged edge on the tensor cores."""
+    train shape (head_dim 64, no GQA), and its pipeline microbatch of 3
+    rows; rep 4 at T=333 runs the GQA map and a ragged edge on the tensor
+    cores."""
     bf16, fp32 = torch.bfloat16, torch.float32
     return [
         ("main bf16", 1, 1024, 32, 8, 128, True, bf16, 2 * BF16_ULP, 16.0),
@@ -410,6 +433,8 @@ def flash_cases():
         ("train 1.3b bf16", 1, 4096, 16, 8, 128, True, bf16, 2 * BF16_ULP, 16.0),
         ("gpt2 bf16", 12, 1024, 12, 12, 64, True, bf16, 2 * BF16_ULP, 16.0),
         ("gpt2 fp32", 12, 1024, 12, 12, 64, True, fp32, 16.0, 16.0),
+        # the pipeline's GPT-2 microbatch: 3 of the rung's 12 rows
+        ("gpt2 pp micro bf16", 3, 1024, 12, 12, 64, True, bf16, 2 * BF16_ULP, 16.0),
         # one rank's heads at tp = 2: the 1.3B train, the 8B prefill, GPT-2
         ("tp2 1.3b bf16", 1, 4096, 8, 4, 128, True, bf16, 2 * BF16_ULP, 16.0),
         ("tp2 8b prefill bf16", 1, 1024, 16, 4, 128, True, bf16, 2 * BF16_ULP, 16.0),
@@ -645,8 +670,9 @@ def flash_bwd_cases():
     (adjacent bf16 values are one step apart); the fp32 plain version's
     distance to float64 is reported beside.  Two launches of each bf16
     kernel are bitwise equal.  The main cases are the 1.3B train shapes;
-    the gpt2 cases the GPT-2 124M train shape (head_dim 64, no GQA); rep 4
-    at T=333 runs the GQA loop and a ragged edge on the tensor cores."""
+    the gpt2 cases the GPT-2 124M train shape (head_dim 64, no GQA), and
+    its pipeline microbatch of 3 rows; rep 4 at T=333 runs the GQA loop and
+    a ragged edge on the tensor cores."""
     bf16, fp32 = torch.bfloat16, torch.float32
     return [
         ("main bf16", 1, 4096, 16, 8, 128, True, bf16, 2 * BF16_ULP),
@@ -659,6 +685,8 @@ def flash_bwd_cases():
         ("full (non-causal) T=256 fp32", 2, 256, 8, 4, 128, False, fp32, 8.0),
         ("gpt2 bf16", 12, 1024, 12, 12, 64, True, bf16, 2 * BF16_ULP),
         ("gpt2 fp32", 12, 1024, 12, 12, 64, True, fp32, 8.0),
+        # the pipeline's GPT-2 microbatch: 3 of the rung's 12 rows
+        ("gpt2 pp micro bf16", 3, 1024, 12, 12, 64, True, bf16, 2 * BF16_ULP),
         # one rank's heads at tp = 2
         ("tp2 1.3b bf16", 1, 4096, 8, 4, 128, True, bf16, 2 * BF16_ULP),
         ("tp2 gpt2 bf16", 12, 1024, 6, 6, 64, True, bf16, 2 * BF16_ULP),
@@ -1051,12 +1079,17 @@ def bound(nbytes: float, flops: float, dtype) -> dict:
 XENT_PATH = (12 * 1024, 50304)  # the GPT-2 train path's logits: B*T rows, vocab 50304
 # one rank's vocab slice at tp = 2: the 1.3B, the 8B's vocab, GPT-2
 XENT_TP_PATHS = (("1.3b", 4096, 16000), ("8b", 4096, 64128), ("gpt2", 12 * 1024, 25152))
+# the pipeline's GPT-2 microbatch: 3 of the rung's 12 rows (the Llama's
+# loss is the plain fp32 logsumexp, which launches neither kernel)
+XENT_PP_PATH = (3 * 1024, 50304)
 
 
 def xent_cases():
     """(label, N, Vs): the GPT-2 path's shape, the 1.3B Llama's, the
     Llama-3 vocab (2.1 GB of fp32 logits) and odd shapes, each in fp32 and
-    in bf16 (the path's dtype: the kernels read bf16 logits directly).
+    in bf16 (the path's dtype: the kernels read bf16 logits directly); a
+    rank's vocab slice at tp = 2 and the pipeline's GPT-2 microbatch, in
+    bf16.
 
     Bounds.  picked: exact.  sumexp and sumlg: against the plain version
     run in float64 on the same inputs (upcast exactly), within 8 ulps at
@@ -1074,7 +1107,8 @@ def xent_cases():
     return [(f"{label} {str(dt)[6:]}", N, Vs, dt) for label, N, Vs in shapes
             for dt in (torch.float32, torch.bfloat16)] + [
         # one rank's vocab slice at tp = 2, in the paths' dtype
-        (f"tp2 {label} bfloat16", N, Vs, torch.bfloat16) for label, N, Vs in XENT_TP_PATHS]
+        (f"tp2 {label} bfloat16", N, Vs, torch.bfloat16) for label, N, Vs in XENT_TP_PATHS] + [
+        ("pp gpt2 micro bfloat16", *XENT_PP_PATH, torch.bfloat16)]
 
 
 def xent_inputs(dev, N, Vs, dtype, seed):
@@ -1531,6 +1565,10 @@ def serve_run(dev, eng, arrivals, kernels_mod, on_step=None):
     sched = ContinuousBatchingScheduler(eng.cache)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    # what the process holds at the reset (this engine's weights and pool,
+    # and any other engine or tree a phase keeps): the run's own peak is
+    # the peak above it
+    held = torch.cuda.memory_allocated(dev)
     kernels_mod.reset_launches()
     t1 = time.perf_counter()
     res = run_serve(eng, sched, arrivals, on_step=on_step)
@@ -1562,7 +1600,9 @@ def serve_run(dev, eng, arrivals, kernels_mod, on_step=None):
                decode_step_p99_ms=1e3 * sched.percentile("step_time", 0.99),
                prefill_p50_ms=1e3 * hist["serve_ttft_prefill_seconds"].percentile(0.5),
                queue_wait_p50_s=hist["serve_ttft_queue_wait_seconds"].percentile(0.5),
-               peak_memory_bytes=peak, counts=res.counts, launches=launches, checks=checks)
+               peak_memory_bytes=peak, held_at_reset_bytes=held,
+               peak_above_held_bytes=peak - held, counts=res.counts, launches=launches,
+               checks=checks)
     return out, {r: o["tokens"] for r, o in res.outcomes.items()}
 
 
@@ -2798,6 +2838,9 @@ def tp_child(spec_path: str) -> int:
 
     with open(spec_path) as f:
         spec = json.load(f)
+    if spec["job"] == "pp":
+        # two ranks' activation stashes share the card: grow segments in place
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     torch.cuda.set_device(0)
     D.initialize(f"127.0.0.1:{spec['port']}", spec["world"], spec["rank"], device_type="cuda",
                  backend="gloo", timeout_s=900)
@@ -4267,6 +4310,710 @@ def run_telemetry_serve(dev, eng, kernels_mod, serve_streams) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- pipeline
+PP_M = 4            # microbatches of every pipelined step
+PP_GRAD_ULPS = 64.0  # non-bitwise grads of the eager engine: fp32 sums in other orders, at scale
+PP_LOSS_ULPS = 64.0  # the compiled pipeline's loss: one mean over 4 rows vs 4 row means
+PP_BLOCK_ULPS = 64.0  # the compiled pipeline's stacked grads: fp32 sums of per-row bf16 products
+# the replicated embedding's and head's grads: bf16 products over the 4 rows
+# at once where the golden rounds each row's to bf16 and sums them in fp32
+PP_REP_BF16_STEPS = 4.0
+
+
+class _HoldGrads:
+    """The optimizer ``make_train_step`` is given to leave each parameter's
+    accumulated gradient in place (its step does nothing)."""
+
+    def __init__(self, params):
+        self.params = list(params)
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        pass
+
+
+def pp_golden(model, batch, M, loss_fn):
+    """The unpipelined model over ``batch`` in ``M`` microbatches through
+    ``make_train_step(grad_accum_steps=M)``: the loss (l_sum / M) and every
+    parameter's gradient (fp32 sums in microbatch order, / M)."""
+    from vescale_tpu_torch.train import make_train_step
+
+    hold = _HoldGrads(model.parameters())
+    loss = make_train_step(model, hold, lambda y, b: loss_fn(y, b["target"]),
+                           grad_accum_steps=M)(batch)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    hold.zero_grad()
+    return loss, grads
+
+
+def pp_unit_grads(grads_pg, n_layer: int) -> dict:
+    """The engine's per-group grads of ``gpt_pipeline_units`` by the GPT's
+    parameter names (the tied wte once: both groups hold the synced sum)."""
+    from vescale_tpu_torch.pipe.pipe_stage import flatten_tree
+
+    out = {}
+    for gd in grads_pg:
+        for unit, tree in gd.items():
+            for name, g in flatten_tree(tree).items():
+                out[name if unit in ("wte", "wpe", "ln_f", "head") else f"{unit}.{name}"] = g
+    return out
+
+
+def pp_compare(got: dict, want: dict) -> dict:
+    """Leaves bitwise, and the largest fp32 ulps at scale of the rest."""
+    bitwise, worst, worst_leaf = [], 0.0, None
+    for k, w in want.items():
+        if bits_equal(got[k], w):
+            bitwise.append(k)
+            continue
+        u = ulps_at_scale_t(got[k], w)
+        if u > worst:
+            worst, worst_leaf = u, k
+    return dict(bitwise=len(bitwise), leaves=len(want), not_bitwise=sorted(set(want) - set(bitwise)),
+                max_ulps=worst, max_ulps_leaf=worst_leaf)
+
+
+def pp_expected_launches(pm, M: int, zb: bool) -> dict:
+    """The kernel launches one ``forward_backward`` implies: a flash forward
+    per block and microbatch; its backward once, twice under zero bubble
+    for every group but the first (the weight-grad walk re-runs the
+    group's cotangents); the loss's kernels on the last group likewise."""
+    blocks = [sum(1 for u in g if u.name.startswith("h_")) for g in pm.groups]
+    bwd = sum(b * (2 if zb and g > 0 else 1) for g, b in enumerate(blocks))
+    return {"flash_fwd": M * sum(blocks), "flash_bwd_dq": M * bwd, "flash_bwd_dkv": M * bwd,
+            "fused_xent_fwd": M, "fused_xent_bwd": M * (2 if zb else 1), "fused_adamw": 0,
+            "paged_decode": 0}
+
+
+def pp_engine_run(pm, plan, params_pg, batch, loss_fn, kernels_mod, census=False):
+    """One warm-up ``forward_backward`` of ``plan`` on ``pm``, then one
+    timed: loss, per-group grads, launches, step ms, peak bytes above the
+    bytes held at its start, and (``census``) the matmuls of the FORWARDs
+    and of the BACKWARD_DGRADs."""
+    import contextlib
+
+    from vescale_tpu_torch.pipe import PipeEngine
+    from vescale_tpu_torch.pipe.graph_split import OpRecorder
+
+    eng = PipeEngine(pm, plan, loss_fn)
+    eng.forward_backward(params_pg, batch, num_microbatches=PP_M)
+    # the allocator keeps the warm-up's blocks: the timed run is a steady
+    # step, as the rung's are, not one that pays cudaMalloc for every buffer
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels_mod.reset_launches()
+    cens = {"F": OpRecorder(), "Bd": OpRecorder()}
+    if census:
+        eng.instruction_context = lambda ins: cens.get(ins.kind.value, contextlib.nullcontext())
+    t0 = time.perf_counter()
+    loss, grads = eng.forward_backward(params_pg, batch, num_microbatches=PP_M)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    out = dict(loss=loss, grads=grads, launches=dict(kernels_mod.LAUNCHES), step_ms=ms,
+               peak_above_held_bytes=torch.cuda.max_memory_allocated() - held)
+    if census:
+        out["census"] = {k: sum(1 for s in c.matmul_shapes() if len(s) == 2)
+                         for k, c in cens.items()}
+    return out
+
+
+def pp_bubble_fraction(pm, plan, params_pg, batch, loss_fn) -> float:
+    """``telemetry.trace.bubble_fraction`` over the ndtimeline spans of one
+    ``forward_backward`` (host-dispatch spans, one per instruction)."""
+    from vescale_tpu_torch import ndtimeline
+    from vescale_tpu_torch.ndtimeline.handlers import ChromeTraceHandler
+    from vescale_tpu_torch.pipe import PipeEngine
+    from vescale_tpu_torch.telemetry.trace import bubble_fraction, spans_from_perfetto
+
+    tmp = tempfile.mkdtemp(prefix="vtt_pp_trace_")
+    try:
+        path = os.path.join(tmp, "trace.json")
+        handler = ChromeTraceHandler(path)
+        ndtimeline.init_ndtimers(handlers=[handler])
+        try:
+            PipeEngine(pm, plan, loss_fn).forward_backward(params_pg, batch,
+                                                           num_microbatches=PP_M)
+            torch.cuda.synchronize()
+            ndtimeline.flush()
+            handler.write()
+        finally:
+            ndtimeline.api.deinit_ndtimers()
+        spans = spans_from_perfetto(path)
+        n = sum(1 for s in spans if s.tags and "stage" in s.tags)
+        return bubble_fraction(spans), n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def pp_adamw_masters(model, grads: dict):
+    """One K8 step (``AdamWLowmem(bench.LR)``, bf16 moments) from copies of
+    ``model``'s masters with ``grads``: the new masters by name."""
+    from vescale_tpu_torch.bench import LR
+    from vescale_tpu_torch.parallel import AdamWLowmem
+
+    leaves = {n: torch.nn.Parameter(p.detach().clone()) for n, p in model.named_parameters()}
+    for n, p in leaves.items():
+        p.grad = grads[n]
+    AdamWLowmem(list(leaves.values()), LR, state_dtype=torch.bfloat16).step()
+    return {n: p.detach() for n, p in leaves.items()}
+
+
+def run_pp_gpt2(dev, kernels_mod):
+    """(a) and (b): GPT-2 124M at the gpt2 rung's width and batch (B=12,
+    T=1024 from its ``TokenDataLoader``) as M=4 microbatches of 3 through
+    ``PipeEngine`` over ``gpt_pipeline_units`` (16 units): GPipe, 1F1B and
+    zero bubble at S=4, interleaved at S=2, V=2, and the cost-driven zero
+    bubble from ``profile_costs`` measured here; then ``split_graph`` of the
+    same model into 4 groups under 1F1B.  Golden: the rung's unpipelined
+    model over the same microbatches (``make_train_step``'s accumulation).
+    Each loss bitwise the golden's; grads bitwise where the sums run in the
+    same order (every leaf but the tied wte under 1F1B, zero bubble and
+    interleaved), else within ``PP_GRAD_ULPS``; launches equal to the
+    schedule's count; no weight-grad matmul in any dgrad; one K8 step from
+    1F1B's and zero bubble's grads gives the golden's masters by the same
+    rule."""
+    from vescale_tpu_torch.bench import prepare
+    from vescale_tpu_torch.loss import vocab_parallel_cross_entropy
+    from vescale_tpu_torch.models import gpt_pipeline_units, gpt_unit_params, module_tree
+    from vescale_tpu_torch.pipe import construct_pipeline_stage, split_graph
+    from vescale_tpu_torch.pipe.pipe_stage import flatten_tree
+    from vescale_tpu_torch.plan import PipelineParallelPlan, PipelineScheduleType as ST
+
+    run = prepare("gpt2", device=dev)
+    try:
+        model, cfg = run.model, run.config
+        batch = run.next_batch()
+        L = cfg.n_layer
+
+        def loss_fn(y, t):
+            return vocab_parallel_cross_entropy(y, t)
+
+        kernels_mod.reset_launches()
+        gloss, ggrads = pp_golden(model, batch, PP_M, loss_fn)
+        golden_launches = dict(kernels_mod.LAUNCHES)
+        del ggrads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # the same golden again, on the warm allocator: its time
+        gloss, ggrads = pp_golden(model, batch, PP_M, loss_fn)
+        torch.cuda.synchronize()
+        golden_ms = 1e3 * (time.perf_counter() - t0)
+        tree = module_tree(model)
+        unit_params = gpt_unit_params(tree, L)
+        units = gpt_pipeline_units(cfg)
+        legs, out = {}, {}
+        schedules = [("gpipe", ST.GPIPE, 4, 1), ("1f1b", ST.SIMPLE_1F1B, 4, 1),
+                     ("zero_bubble", ST.ZERO_BUBBLE, 4, 1),
+                     ("interleaved", ST.INTERLEAVED_1F1B, 2, 2)]
+        kept = {}
+        for name, st, S, V in schedules:
+            plan = PipelineParallelPlan(num_stages=S, virtual_chunks=V, schedule_type=st)
+            pm = construct_pipeline_stage(units, plan)
+            res = pp_engine_run(pm, plan, pm.partition_params(unit_params), batch, loss_fn,
+                                kernels_mod, census=(st == ST.ZERO_BUBBLE))
+            grads = pp_unit_grads(res.pop("grads"), L)
+            loss = res.pop("loss")
+            want = pp_expected_launches(pm, PP_M, st == ST.ZERO_BUBBLE)
+            leg = dict(stages=S, virtual_chunks=V, groups=[[u.name for u in g] for g in pm.groups],
+                       loss=float(loss), loss_bitwise=bits_equal(loss, gloss),
+                       grads=pp_compare(grads, ggrads), launches_expected=want, **res)
+            leg["launches_ok"] = res["launches"] == want
+            if "census" in res:
+                # one input-grad product per forward product of every group
+                # but the first (whose dgrad computes nothing)
+                f_first = 4 * sum(1 for u in pm.groups[0] if u.name.startswith("h_"))
+                leg["dgrad_matmuls_expected"] = res["census"]["F"] - PP_M * f_first
+                leg["wgrad_matmuls_in_dgrad"] = res["census"]["Bd"] - leg["dgrad_matmuls_expected"]
+            if name in ("1f1b", "zero_bubble"):
+                kept[name] = grads
+            legs[name] = leg
+            free_memory()
+        # the cost-driven zero bubble, priced by profile_costs on the card
+        plan = PipelineParallelPlan(num_stages=4, schedule_type=ST.ZERO_BUBBLE)
+        pm = construct_pipeline_stage(units, plan)
+        from vescale_tpu_torch.pipe import PipeEngine
+
+        costs = PipeEngine(pm, plan, loss_fn).profile_costs(
+            pm.partition_params(unit_params), batch, num_microbatches=PP_M, warmup=1)
+        plan_c = PipelineParallelPlan(num_stages=4, schedule_type=ST.ZERO_BUBBLE,
+                                      schedule_costs=costs)
+        res = pp_engine_run(pm, plan_c, pm.partition_params(unit_params), batch, loss_fn,
+                            kernels_mod)
+        grads = pp_unit_grads(res.pop("grads"), L)
+        loss = res.pop("loss")
+        want = pp_expected_launches(pm, PP_M, True)
+        legs["zero_bubble_cost"] = dict(
+            stages=4, costs_ms={k: [1e3 * v for v in getattr(costs, k)] for k in ("f", "bd", "w")},
+            loss=float(loss), loss_bitwise=bits_equal(loss, gloss),
+            grads=pp_compare(grads, ggrads), launches_expected=want,
+            launches_ok=res["launches"] == want, **res)
+        free_memory()
+        plan = PipelineParallelPlan(num_stages=4)
+        pm = construct_pipeline_stage(units, plan)
+        frac, n_spans = pp_bubble_fraction(pm, plan, pm.partition_params(unit_params), batch,
+                                           loss_fn)
+        out["bubble_fraction_1f1b"] = frac
+        out["pipe_spans"] = n_spans
+        # where a 1F1B step's time goes: the card's busy time under the profiler
+        eng = PipeEngine(pm, plan, loss_fn)
+        prof = device_time_by_kind(lambda: eng.forward_backward(
+            pm.partition_params(unit_params), batch, num_microbatches=PP_M))
+        prof["device_idle_share"] = max(0.0, 1.0 - prof["device_busy_ms"] / legs["1f1b"]["step_ms"])
+        out["profile_1f1b"] = prof
+        del eng
+        free_memory()
+        # one K8 step from the pipelined grads against the golden's
+        golden_masters = pp_adamw_masters(model, ggrads)
+        for name, grads in kept.items():
+            masters = pp_adamw_masters(model, grads)
+            out[f"k8_masters_{name}"] = pp_compare(masters, golden_masters)
+            del masters
+        del golden_masters, kept
+        free_memory()
+
+        # (b) split_graph of the same model into 4 groups, 1F1B
+        micro = {k: v[: v.shape[0] // PP_M] for k, v in batch.items()}
+
+        def fn(p, x):
+            return torch.func.functional_call(model, flatten_tree(p), (x,))
+
+        plan = PipelineParallelPlan(num_stages=4)
+        t0 = time.perf_counter()
+        gm = split_graph(fn, tree, micro["input"], plan)
+        trace_s = time.perf_counter() - t0
+        with torch.no_grad():
+            full_bitwise = bits_equal(gm.full_forward(tree, micro["input"]), model(micro["input"]))
+        res = pp_engine_run(gm, plan, gm.partition_params(tree), batch, loss_fn, kernels_mod)
+        res.pop("grads")
+        loss = res.pop("loss")
+        kernel_nodes = sum(1 for n in gm.graph_module.graph.nodes
+                           if n.op == "call_function" and str(n.target).startswith("vtt."))
+        legs["split_graph"] = dict(
+            nodes=len(gm._eqns), kernel_nodes=kernel_nodes, trace_s=trace_s,
+            group_flops=[gm.group_flops(g) for g in range(gm.num_groups)],
+            full_forward_bitwise=full_bitwise, loss=float(loss),
+            loss_bitwise=bits_equal(loss, gloss), golden_launches=golden_launches,
+            flash_launches_equal=all(res["launches"][k] == golden_launches[k]
+                                     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+            **res)
+        del gm
+    finally:
+        run.close()
+    out.update(model="GPT-2 124M (bench rung gpt2)", batch=dict(B=12, T=1024, M=PP_M),
+               golden_loss=float(gloss), golden_step_ms=golden_ms, legs=legs)
+    del run, model, ggrads
+    free_memory()
+    checks = {f"{k}_loss_bitwise": v["loss_bitwise"] for k, v in legs.items()}
+    checks.update({f"{k}_launches": v["launches_ok"] for k, v in legs.items() if "launches_ok" in v})
+    for k in ("1f1b", "zero_bubble", "interleaved"):
+        checks[f"{k}_grads_bitwise_but_wte"] = legs[k]["grads"]["not_bitwise"] in ([], ["wte.embedding"])
+    checks.update({f"{k}_grads_bound": v["grads"]["max_ulps"] <= PP_GRAD_ULPS
+                   for k, v in legs.items() if "grads" in v})
+    checks["zb_no_wgrad_matmul_in_dgrad"] = legs["zero_bubble"]["wgrad_matmuls_in_dgrad"] == 0
+    checks["bubble_fraction"] = out["bubble_fraction_1f1b"] is not None and out["bubble_fraction_1f1b"] > 0
+    for name in ("1f1b", "zero_bubble"):
+        m = out[f"k8_masters_{name}"]
+        checks[f"k8_{name}"] = (m["not_bitwise"] in ([], ["wte.embedding"])
+                                and m["max_ulps"] <= PP_GRAD_ULPS)
+    checks["split_graph_full_forward_bitwise"] = legs["split_graph"]["full_forward_bitwise"]
+    checks["split_graph_flash_launches"] = legs["split_graph"]["flash_launches_equal"]
+    checks["split_graph_kernel_nodes"] = legs["split_graph"]["kernel_nodes"] == L
+    out["checks"] = checks
+    if not all(checks.values()):
+        log("pipeline_gpt2_failed", **out)
+    check(all(checks.values()), f"pipeline gpt2 checks failed: {checks}")
+    return out
+
+
+# the 1.3B rung through the compiled pipeline on a ("pp",) mesh of 2 ranks
+PP_ROWS = 4  # B rows of T=4096, in PP_M microbatches of one row
+L_13B = 24
+
+
+def pp_13b_config(scan: bool = True):
+    from vescale_tpu_torch.bench import RUNGS
+    from vescale_tpu_torch.models import LlamaConfig
+
+    fields, _, T, _, _ = RUNGS["1.3b"]
+    return LlamaConfig(max_position_embeddings=T, scan_layers=scan, **fields), T
+
+
+def pp_13b_batch(cfg, T, dev, rows=PP_ROWS):
+    """The 1.3B rung's numpy-seeded rows (``bench._model_and_data``'s draw)."""
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (rows, T + 1))
+    toks = torch.from_numpy(toks.astype(np.int64)).to(dev)
+    return {"input": toks[:, :-1], "target": toks[:, 1:]}
+
+
+def pp_13b_golden(dev, path: str) -> dict:
+    """One card's unpipelined ``scan_layers`` 1.3B over the PP_ROWS rows in
+    PP_M microbatches (``make_train_step``'s accumulation): its loss, and
+    every gradient saved to ``path`` (``torch.save``) for the ranks."""
+    from vescale_tpu_torch.models import Llama, cross_entropy_loss, init_params
+
+    cfg, T = pp_13b_config()
+    model = Llama(cfg, init_params(cfg, 0, device=dev, dtype=torch.float32), device=dev)
+    batch = pp_13b_batch(cfg, T, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = pp_golden(model, batch, PP_M, cross_entropy_loss)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    free_memory()
+    t0 = time.perf_counter()
+    torch.save({k: v.cpu() for k, v in grads.items()}, path)
+    save_s = time.perf_counter() - t0
+    del grads
+    free_memory()
+    return dict(loss=float(loss), loss_hex=float(loss).hex(), step_ms=ms, peak_bytes=peak,
+                grads_saved_s=save_s)
+
+
+def pp_block_fn(cfg):
+    """``block_fn(chunk, x)`` for the compiled pipeline: the chunk's layers
+    (leaves with a leading layer axis, unbound once) in order, each a
+    ``LlamaBlock`` on its slices."""
+    from vescale_tpu_torch.models.llama import LlamaBlock
+    from vescale_tpu_torch.pipe.pipe_stage import flatten_tree
+
+    tmpl = LlamaBlock(cfg, torch.device("meta"))
+
+    def block_fn(chunk, x):
+        flat = flatten_tree(chunk)
+        names = list(flat)
+        slices = [t.unbind(0) for t in flat.values()]
+        pos = torch.arange(x.shape[1], device=x.device)[None, :].expand(x.shape[0], x.shape[1])
+        for layer in zip(*slices):
+            x = torch.func.functional_call(tmpl, dict(zip(names, layer)), (x, pos))
+        return x
+
+    return block_fn
+
+
+def pp_13b_job(mesh, legs: list, golden_path: str, golden_loss: float):
+    """One rank of the 1.3B on the ("pp",) mesh, for each leg (name, V,
+    zb) in turn in this one process: its chunks of the scanned block stack
+    (the golden's seed-0 weights), the embedding and head replicated
+    outside, PP_ROWS rows in PP_M microbatches through ``pipeline_blocks``
+    (or ``pipeline_blocks_zb``) with V chunks a rank, then the rung's loss
+    and backward.  Per leg: its loss, its stacked grads and the replicated
+    ones against the golden's, its step ms, peak, ppermutes and gloo's
+    share."""
+    return {name: pp_13b_leg(mesh, V, zb, golden_path, golden_loss) for name, V, zb in legs}
+
+
+def pp_13b_leg(mesh, V: int, zb: bool, golden_path: str, golden_loss: float):
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch import kernels
+    from vescale_tpu_torch.models import cross_entropy_loss, init_params
+    from vescale_tpu_torch.models.llama import rmsnorm
+    from vescale_tpu_torch.pipe import spmd
+    from vescale_tpu_torch.pipe.pipe_stage import flatten_tree, unflatten_tree
+
+    dev = mesh.device
+    cfg, T = pp_13b_config()
+    S = mesh.size("pp")
+    r = mesh.get_coordinate()[0]
+    L = cfg.num_hidden_layers
+    n = L // (S * V)
+    params = init_params(cfg, 0, device=dev, dtype=torch.float32)
+    block = flatten_tree(params["layers"]["block"])
+    groups = [{k: t[g * n:(g + 1) * n] for k, t in block.items()} for g in range(S * V)]
+    local = {k: t.clone().requires_grad_() for k, t in
+             flatten_tree(spmd.stage_chunks(spmd.stack_interleaved_params(groups, S), mesh)).items()}
+    emb = params["embed_tokens"]["embedding"].requires_grad_()
+    norm_w = params["norm"]["weight"].requires_grad_()
+    head = params["lm_head"]["kernel"].requires_grad_()
+    del params, block, groups
+    free_memory()
+    batch = pp_13b_batch(cfg, T, dev)
+    block_fn = pp_block_fn(cfg)
+    run = spmd.pipeline_blocks_zb if zb else spmd.pipeline_blocks
+    times = []
+    for it in range(2):  # a warm-up step, then the timed one (on the warm allocator)
+        for t in (emb, norm_w, head, *local.values()):
+            t.grad = None
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        C.reset_calls()
+        C.TIMING = it == 1
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        x = torch.nn.functional.embedding(batch["input"], emb.to(cfg.dtype))
+        out = run(block_fn, unflatten_tree(local), x, mesh, num_microbatches=PP_M, virtual_chunks=V)
+        # the rung's head: LlamaHead's RMSNorm and lm_head, as Llama runs them
+        logits = rmsnorm(out, norm_w, cfg.rms_norm_eps).to(cfg.dtype) @ head.to(cfg.dtype)
+        loss = cross_entropy_loss(logits, batch["target"])
+        del logits, out, x
+        loss.backward()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        C.TIMING = False
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.LAUNCHES)
+    calls, nbytes, secs = dict(C.CALLS), dict(C.BYTES), dict(C.SECONDS)
+    golden = torch.load(golden_path, mmap=True)
+    worst, worst_leaf, bitwise = 0.0, None, 0
+    for k, t in local.items():
+        for v in range(V):
+            g0 = (v * S + r) * n
+            want = golden["layers.block." + k][g0:g0 + n].to(dev)
+            if bits_equal(t.grad[v], want):
+                bitwise += 1
+            u = ulps_at_scale_t(t.grad[v], want)
+            if u > worst:
+                worst, worst_leaf = u, k
+            del want
+    rep = {}
+    for name, t in (("embed_tokens.embedding", emb), ("norm.weight", norm_w),
+                    ("lm_head.kernel", head)):
+        want = golden[name].to(dev)
+        rep[name] = dict(bitwise=bits_equal(t.grad, want), ulps=ulps_at_scale_t(t.grad, want),
+                         fingerprint=fingerprint([t.grad])[0])
+    n_leaves = len(local)
+    del golden, local, emb, norm_w, head, want
+    free_memory()
+    lv = float(loss.detach())
+    gloo_s = sum(secs.values())
+    return dict(rank=r, loss=lv, loss_hex=lv.hex(), loss_ulps=ulps_at_scale_t(
+                    torch.tensor(lv), torch.tensor(golden_loss)),
+                step_ms=times[-1], warmup_ms=times[0], peak_above_held_bytes=peak - held,
+                held_bytes=held, launches=launches, calls=calls, bytes=nbytes,
+                collective_seconds=secs, gloo_share=gloo_s / (times[-1] / 1e3),
+                block_grads=dict(chunks=V, layers_per_chunk=n, max_ulps=worst,
+                                 max_ulps_leaf=worst_leaf, bitwise_chunks=bitwise,
+                                 chunks_total=V * n_leaves),
+                replicated_grads=rep)
+
+
+def ulps_at_scale_t(a, b) -> float:
+    """``kernels.ulps_at_scale`` of two tensors on the card: max |a - b|
+    over the fp32 spacing at b's largest magnitude."""
+    a64, b64 = a.double(), b.double()
+    scale = float(b64.abs().max()) or 1.0
+    step = float(np.spacing(np.float32(scale)))
+    return float((a64 - b64).abs().max()) / step
+
+
+def run_pp_13b(dev, card):
+    """(c): the 1.3B rung (24 layers, width 2048, ``scan_layers``) through
+    ``pipeline_blocks`` with V=1 and V=2 and ``pipeline_blocks_zb`` with
+    V=2, as two gloo ranks of the card on a ("pp",) mesh of 2, PP_ROWS
+    rows of T=4096 in PP_M microbatches, the embedding and head
+    replicated.  Golden: one card's unpipelined scanned model over the same
+    rows, run here first and then freed.  Losses within PP_LOSS_ULPS, the
+    stacked grads within PP_BLOCK_ULPS, the replicated grads equal on both
+    ranks."""
+    tmp = tempfile.mkdtemp(prefix="vtt_pp_")
+    try:
+        path = os.path.join(tmp, "golden.pt")
+        golden = pp_13b_golden(dev, path)
+        t = time.perf_counter()
+        # one pair of ranks runs the three legs in turn
+        ranks = tp_spawn("pp", dict(legs=[("blocks_v1", 1, False), ("blocks_v2", 2, False),
+                                          ("zb_v2", 2, True)],
+                                    golden_path=path, golden_loss=golden["loss"]),
+                         timeout_s=900, names=("pp",))
+        wall = time.perf_counter() - t
+        legs = {name: dict(ranks=[r[name] for r in ranks]) for name in ranks[0]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    checks = {}
+    for name, leg in legs.items():
+        rs = leg["ranks"]
+        checks[f"{name}_loss"] = all(r["loss_ulps"] <= PP_LOSS_ULPS for r in rs)
+        checks[f"{name}_losses_equal"] = len({r["loss_hex"] for r in rs}) == 1
+        checks[f"{name}_block_grads"] = all(r["block_grads"]["max_ulps"] <= PP_BLOCK_ULPS for r in rs)
+        for k in ("embed_tokens.embedding", "lm_head.kernel", "norm.weight"):
+            checks[f"{name}_{k}_equal_on_ranks"] = len(
+                {r["replicated_grads"][k]["fingerprint"] for r in rs}) == 1
+            checks[f"{name}_{k}_bound"] = all(
+                r["replicated_grads"][k]["ulps"] <= PP_REP_BF16_STEPS * BF16_ULP for r in rs)
+        # a flash forward per layer, microbatch and pass (zero bubble: the
+        # forward, the dgrad's and the wgrad's recomputations), its
+        # backward once (twice under zero bubble); nothing else: the head's
+        # loss is the Llama's plain fp32 logsumexp (no K9/K10), and the leg
+        # takes no optimizer step (no K8)
+        per = PP_M * L_13B // 2
+        bwd = per * (2 if "zb" in name else 1)
+        want = {k: 0 for k in rs[0]["launches"]}
+        want.update(flash_fwd=per * (3 if "zb" in name else 1), flash_bwd_dq=bwd,
+                    flash_bwd_dkv=bwd)
+        leg["launches_expected"] = want
+        checks[f"{name}_launches"] = all(r["launches"] == want for r in rs)
+    out = dict(model="llama 1.3B (bench rung 1.3b, scan_layers)", card=card, rows=PP_ROWS,
+               microbatches=PP_M, golden=golden, ranks_wall_s=wall, legs=legs, checks=checks,
+               bounds=dict(loss_ulps=PP_LOSS_ULPS, block_ulps=PP_BLOCK_ULPS,
+                           replicated_bf16_steps=PP_REP_BF16_STEPS))
+    if not all(checks.values()):
+        log("pipeline_13b_failed", **out)
+    check(all(checks.values()), f"pipeline 1.3b checks failed: {checks}")
+    return out
+
+
+def pp_13b_steps(dev, cfg, T, steps: int, keep: bool):
+    """``steps`` steps of the 1.3B rung's step (``AdamWLowmem(bench.LR)``,
+    bf16 moments, the rung's one row) on ``cfg``: losses, peak bytes, and
+    (``keep``) the masters in the unscanned layout; then one more step by
+    hand, whose phases' bytes ``pp_13b_phase_bytes`` reads."""
+    from vescale_tpu_torch.bench import LR
+    from vescale_tpu_torch.models import Llama, cross_entropy_loss, init_params, module_tree
+    from vescale_tpu_torch.models import unscan_tree
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.pipe.pipe_stage import flatten_tree
+    from vescale_tpu_torch.train import make_train_step
+
+    model = Llama(cfg, init_params(cfg, 0, device=dev, dtype=torch.float32), device=dev)
+    opt = AdamWLowmem(model.parameters(), LR, state_dtype=torch.bfloat16)
+
+    def loss_fn(lg, b):
+        return cross_entropy_loss(lg, b["target"])
+
+    step = make_train_step(model, opt, loss_fn)
+    batch = pp_13b_batch(cfg, T, dev, rows=1)
+    free_memory()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    masters = None
+    if keep:
+        tree = module_tree(model)
+        flat = flatten_tree(unscan_tree(tree) if cfg.scan_layers else tree)
+        masters = {k: v.clone() for k, v in flat.items()}
+    phases = pp_13b_phase_bytes(model, opt, batch, loss_fn)
+    del model, step, opt
+    free_memory()
+    return losses, peak, masters, phases
+
+
+def pp_13b_phase_bytes(model, opt, batch, loss_fn) -> dict:
+    """One step by hand (``make_train_step``'s: zero the grads, the loss,
+    its backward, the optimizer's step), in bytes above what the masters
+    and the moments hold at its start: the forward's stash (allocated once
+    the loss is out: what the backward will read, which a remat policy
+    sets), the forward and backward's peak, the grads, and the optimizer
+    step's own peak."""
+    opt.zero_grad(set_to_none=True)
+    free_memory()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = loss_fn(model(batch["input"]), batch)
+    torch.cuda.synchronize()
+    stash = torch.cuda.memory_allocated() - held
+    loss.backward()
+    del loss
+    torch.cuda.synchronize()
+    fwd_bwd_peak = torch.cuda.max_memory_allocated() - held
+    grads = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    opt.step()
+    torch.cuda.synchronize()
+    opt_peak = torch.cuda.max_memory_allocated() - held
+    opt.zero_grad(set_to_none=True)
+    return dict(held_bytes=held, stash_bytes=stash, fwd_bwd_peak_above_held_bytes=fwd_bwd_peak,
+                grads_bytes=grads, optimizer_peak_above_held_bytes=opt_peak)
+
+
+def run_pp_scan_remat(dev, kernels_mod, train=None):
+    """(d): the 1.3B rung on one card: two steps unscanned and two with
+    ``scan_layers`` (the same seed-0 weights, stacked): losses and masters
+    bitwise; then one step each with ``remat=True`` and each mapped
+    ``remat_policy``: losses bitwise, peaks printed.  Each run's extra
+    step by hand gives the forward's stash and the phases' peaks
+    (``pp_13b_phase_bytes``): the stash is what a policy moves.  With the
+    train phase's run, its first two losses too."""
+    cfg, T = pp_13b_config(scan=False)
+    kernels_mod.reset_launches()
+    plain, plain_peak, plain_masters, plain_phases = pp_13b_steps(dev, cfg, T, 2, keep=True)
+    scan, scan_peak, scan_masters, scan_phases = pp_13b_steps(
+        dev, dataclasses.replace(cfg, scan_layers=True), T, 2, keep=True)
+    masters_bitwise = all(bits_equal(scan_masters[k], v) for k, v in plain_masters.items())
+    del plain_masters, scan_masters
+    free_memory()
+    remat = {}
+    for policy in ("dots_saveable", "dots_with_no_batch_dims_saveable", "nothing_saveable"):
+        losses, peak, _, phases = pp_13b_steps(dev, dataclasses.replace(
+            cfg, scan_layers=True, remat=True, remat_policy=policy), T, 1, keep=False)
+        remat[policy] = dict(loss_hex=float(losses[0]).hex(), peak_above_held_bytes=peak,
+                             loss_bitwise=bits_equal(losses[0], plain[0]), phases=phases)
+    launches = dict(kernels_mod.LAUNCHES)
+    out = dict(plain_losses=[float(x) for x in plain], scan_losses=[float(x) for x in scan],
+               plain_peak_above_held_bytes=plain_peak, scan_peak_above_held_bytes=scan_peak,
+               plain_phases=plain_phases, scan_phases=scan_phases,
+               masters_bitwise=masters_bitwise, remat=remat, launches=launches)
+    checks = {"scan_losses_bitwise": all(bits_equal(a, b) for a, b in zip(scan, plain)),
+              "scan_masters_bitwise": masters_bitwise,
+              **{f"remat_{k}_loss_bitwise": v["loss_bitwise"] for k, v in remat.items()}}
+    if train is not None:
+        checks["plain_losses_are_the_train_phases"] = [float(x) for x in plain] == train["losses"][:2]
+    out["checks"] = checks
+    if not all(checks.values()):
+        log("pipeline_scan_remat_failed", **out)
+    check(all(checks.values()), f"pipeline scan/remat checks failed: {checks}")
+    return out
+
+
+def run_pipeline(dev, card, kernels_mod, train=None) -> dict:
+    """The ``pipeline`` phase: (a)+(b) GPT-2 through the eager engine and
+    a split graph, (d) ``scan_layers`` and ``remat_policy`` on the 1.3B,
+    (c) the 1.3B through the compiled pipeline on two ranks; each leg
+    logs its own line as it ends.  Its launches: every kernel launch of
+    the phase's runs, in this process and in the ranks."""
+    launches = {k: 0 for k in kernels_mod.LAUNCHES}
+
+    def add(d):
+        for k, v in d.items():
+            launches[k] += int(v)
+
+    t = time.perf_counter()
+    gpt2 = run_pp_gpt2(dev, kernels_mod)
+    gpt2["seconds"] = time.perf_counter() - t
+    log("pipeline_gpt2", **gpt2)
+    for leg in gpt2["legs"].values():
+        add(leg["launches"])
+    t = time.perf_counter()
+    scan = run_pp_scan_remat(dev, kernels_mod, train)
+    scan["seconds"] = time.perf_counter() - t
+    log("pipeline_scan_remat", **scan)
+    add(scan["launches"])
+    t = time.perf_counter()
+    llama = run_pp_13b(dev, card)
+    llama["seconds"] = time.perf_counter() - t
+    log("pipeline_13b", **llama)
+    for leg in llama["legs"].values():
+        for r in leg["ranks"]:
+            add(r["launches"])
+    return dict(card=card, leg_seconds={"gpt2": gpt2["seconds"], "scan_remat": scan["seconds"],
+                                    "llama_13b": llama["seconds"]},
+                checks={"gpt2": gpt2["checks"], "scan_remat": scan["checks"],
+                        "llama_13b": llama["checks"]}, launches=launches)
+
+
+TP_JOBS["pp"] = pp_13b_job
+
+
+def pp_only(dev, card, kernels_mod) -> int:
+    """``--pp``: the gpt2 phase, then the pipeline phase."""
+    gpt2 = run_train_gpt2(dev, kernels_mod)
+    log("gpt2", losses=gpt2["losses"], step_ms_median=gpt2["step_ms_median"])
+    t = time.perf_counter()
+    pipeline = run_pipeline(dev, card, kernels_mod)
+    log("pipeline", seconds=time.perf_counter() - t, **pipeline)
+    print(card, flush=True)
+    return 0
+
+
 def telemetry_only(dev, card, kernels_mod) -> int:
     """``--telemetry``: the serve phase's engine and the gpt2 phase (the
     prerequisites), then the telemetry phase's legs."""
@@ -4345,6 +5092,8 @@ def main() -> int:
                     help="device, build, and the train_resilient phase only")
     ap.add_argument("--telemetry", action="store_true",
                     help="device, build, the serve and gpt2 phases, and the telemetry phase only")
+    ap.add_argument("--pp", action="store_true",
+                    help="device, build, the gpt2 phase and the pipeline phase only")
     ap.add_argument("--gloo-probe", action="store_true",
                     help="which collectives gloo carries on CUDA tensors, then exit")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
@@ -4402,6 +5151,8 @@ def main() -> int:
         return tp_only(dev, card, kernels_mod)
     if opts.dp:
         return dp_only(dev, card, kernels_mod)
+    if opts.pp:
+        return pp_only(dev, card, kernels_mod)
 
     t = time.perf_counter()
     flash_rows = run_flash_parity(dev, ulps_at_scale)
@@ -4484,6 +5235,9 @@ def main() -> int:
     t = time.perf_counter()
     dp_train = run_dp_train(dev, gpt2, card)
     log("dp_train", seconds=time.perf_counter() - t, **dp_train)
+    t = time.perf_counter()
+    pipeline = run_pipeline(dev, card, kernels_mod, train)
+    log("pipeline", seconds=time.perf_counter() - t, **pipeline)
     log("done", seconds=time.perf_counter() - t_all)
     check(not bad_parity, "kernel parity failed: " + json.dumps(bad_parity))
 
@@ -4508,7 +5262,8 @@ def main() -> int:
                    "tp_train": tp_launches(tp_train, name), "tp_serve": tp_launches(tp_serve, name),
                    "dp_train": sum(r["launches_total"].get(name, 0) for r in dp_train["ranks"]),
                    "train_resilient": resilient_train["launches"][name],
-                   "telemetry": tel_serve["launches"][name] + tel_gpt2["launches"][name]}
+                   "telemetry": tel_serve["launches"][name] + tel_gpt2["launches"][name],
+                   "pipeline": pipeline["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

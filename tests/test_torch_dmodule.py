@@ -309,8 +309,21 @@ def test_plans_are_the_references(kind, sp):
 
 
 def test_llama_plan_scanned_raises():
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        llama_plan(DeviceMesh(("tp",), (2,), device_type="cpu"), scanned=True)
+    """``scanned=True`` no longer raises (``scan_layers`` is ported): the
+    scanned plan is the reference's, regexes and shifted placements."""
+    port = llama_plan(DeviceMesh(("dp", "tp"), (2, 4), device_type="cpu"), scanned=True)
+    ref = _ref_mod("llama").llama_plan(RefMesh(("dp", "tp"), (2, 4)), scanned=True)
+
+    def norm(v):
+        if isinstance(v, dict):
+            return {k: norm(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)) and v and not hasattr(v[0], "is_shard"):
+            return [norm(x) for x in v]
+        return [enc(p) for p in v]
+
+    assert list(port["parameter"]) == list(ref["parameter"])
+    assert norm(port["parameter"]) == norm(ref["parameter"])
+    assert norm(port["forward"]) == norm(ref["forward"])
 
 
 def test_data_parallel_training_step_matches_the_reference(worlds):

@@ -35,9 +35,15 @@ from vescale_tpu_torch.telemetry import memtrack
 from vescale_tpu_torch.telemetry.exporters import sanitize_metric_name
 from vescale_tpu_torch.telemetry.registry import MetricsRegistry
 
+from test_torch_ndtimeline import reset_all
+
 
 @pytest.fixture(autouse=True)
 def _reset():
+    # both packages dormant at the start too: a test file run earlier on this
+    # worker (tests/test_trace.py) can leave the reference's ndtimeline on,
+    # which adds a spans rollup to the reference's records only
+    reset_all()
     yield
     tel.shutdown()
     ref_tel.shutdown()

@@ -242,9 +242,24 @@ def test_remat_recomputes_the_same_grads(scope):
 @pytest.mark.parametrize("option", [dict(scan_layers=True), dict(remat=True, remat_policy="dots_saveable"),
                                     dict(use_fp8=True)])
 def test_unported_options_raise(option):
+    """``use_fp8`` (A17) still raises.  ``scan_layers`` and
+    ``remat_policy`` are ported: the model builds and its logits are the
+    plain model's on the same weights (tests/test_torch_scan_layers.py
+    holds them to the reference)."""
     cfg = LlamaConfig(dtype=torch.float32, **{**CONFIGS["tied"], **option})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Llama(cfg, device="cpu")
+    if "use_fp8" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Llama(cfg, device="cpu")
+        return
+    from vescale_tpu_torch.models import init_params, scan_tree
+
+    base = LlamaConfig(dtype=torch.float32, **CONFIGS["tied"])
+    params = init_params(base, 0, device="cpu")
+    if cfg.scan_layers:
+        params = scan_tree(params, cfg.num_hidden_layers)
+    toks = torch.arange(8).reshape(1, 8)
+    assert torch.equal(Llama(cfg, params, device="cpu")(toks),
+                       Llama(base, init_params(base, 0, device="cpu"), device="cpu")(toks))
 
 
 def test_entry_points_run_on_the_card_by_default(monkeypatch):

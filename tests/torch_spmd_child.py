@@ -1479,6 +1479,132 @@ def case_resil_elastic(root, tok_path, schedule=None):
             "losses": {str(k): v for k, v in res.losses.items()}}
 
 
+# ------------------------------------------------------------ pipeline
+PIPE_B, PIPE_T, PIPE_E, PIPE_H = 8, 8, 32, 64  # tests/test_pipeline.py's _ZBBlk fixture
+PIPE_VOCAB = 64
+
+
+def zb_block_params(n, seed):
+    """``n`` numpy-seeded parameter trees of the reference's ``_ZBBlk``
+    (flax names: LayerNorm_0, Dense_0 (E -> H), Dense_1 (H -> E))."""
+    rng = np.random.default_rng(seed)
+    E, H = PIPE_E, PIPE_H
+
+    def one():
+        return {"LayerNorm_0": {"scale": (1.0 + 0.1 * rng.standard_normal(E)).astype(np.float32),
+                                "bias": (0.1 * rng.standard_normal(E)).astype(np.float32)},
+                "Dense_0": {"kernel": (rng.standard_normal((E, H)) / np.sqrt(E)).astype(np.float32),
+                            "bias": (0.1 * rng.standard_normal(H)).astype(np.float32)},
+                "Dense_1": {"kernel": (rng.standard_normal((H, E)) / np.sqrt(H)).astype(np.float32),
+                            "bias": (0.1 * rng.standard_normal(E)).astype(np.float32)}}
+
+    return [one() for _ in range(n)]
+
+
+def zb_block(p, x):
+    """``_ZBBlk``: x + Dense_1(tanh(Dense_0(LayerNorm_0(x)))), flax's
+    LayerNorm (epsilon 1e-6, Var = max(0, E[x^2] - E[x]^2))."""
+    ln = p["LayerNorm_0"]
+    mean = x.mean(-1, keepdim=True)
+    var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    h = (x - mean) * (torch.rsqrt(var + 1e-6) * ln["scale"]) + ln["bias"]
+    h = h @ p["Dense_0"]["kernel"] + p["Dense_0"]["bias"]
+    return x + (torch.tanh(h) @ p["Dense_1"]["kernel"] + p["Dense_1"]["bias"])
+
+
+def pipe_input(seed):
+    return np.random.default_rng(seed).standard_normal((PIPE_B, PIPE_T, PIPE_E)).astype(np.float32)
+
+
+def pipe_stacked(S, V, seed):
+    from vescale_tpu_torch.pipe.spmd import stack_interleaved_params
+
+    groups = [_tree_torch(p) for p in zb_block_params(S * V, seed)]
+    return stack_interleaved_params(groups, S)
+
+
+def _tree_torch(tree):
+    return {k: _tree_torch(v) if isinstance(v, dict) else torch.from_numpy(v) for k, v in tree.items()}
+
+
+def case_pipe_blocks(V, M, zb, seed=0):
+    """``pipeline_blocks`` (or ``pipeline_blocks_zb``) of ``_ZBBlk`` chunks
+    on a ("pp",) mesh of the world: this rank's stacked chunks, the loss
+    mean(out^2), its local grads, the input's grad, and (zb) the matmuls
+    of the dgrad phase."""
+    from vescale_tpu_torch.pipe import spmd
+    from vescale_tpu_torch.pipe.graph_split import OpRecorder
+    from vescale_tpu_torch.pipe.pipe_stage import flatten_tree
+
+    world = torch.distributed.get_world_size()
+    m = mesh([world], ["pp"])
+    local = spmd.stage_chunks(pipe_stacked(world, V, seed), m)
+    leaves = {k: t.clone().requires_grad_() for k, t in flatten_tree(local).items()}
+    from vescale_tpu_torch.pipe.pipe_stage import unflatten_tree
+
+    x = torch.from_numpy(pipe_input(seed + 1)).requires_grad_()
+    censuses = []
+
+    def census():
+        censuses.append(OpRecorder())
+        return censuses[-1]
+
+    if zb:
+        out = spmd.pipeline_blocks_zb(zb_block, unflatten_tree(leaves), x, m, num_microbatches=M,
+                                      virtual_chunks=V, dgrad_context=census)
+    else:
+        out = spmd.pipeline_blocks(zb_block, unflatten_tree(leaves), x, m, num_microbatches=M,
+                                   virtual_chunks=V)
+    loss = (out ** 2).mean()
+    loss.backward()
+    return {"loss": float(loss.detach()), "out": out.detach(), "dx": x.grad,
+            "grads": {k: t.grad for k, t in leaves.items()},
+            "dgrad_matmuls": sum(len(c.matmul_shapes()) for c in censuses)}
+
+
+def case_pipe_embed_head(V, M, zb, seed=0):
+    """A replicated embedding and head around the pipeline on every rank:
+    tokens -> table lookup -> pipeline -> head -> cross entropy.  Each
+    rank's loss and its embedding and head grads."""
+    from vescale_tpu_torch.pipe import spmd
+
+    world = torch.distributed.get_world_size()
+    m = mesh([world], ["pp"])
+    rng = np.random.default_rng(seed + 7)
+    table = torch.from_numpy((rng.standard_normal((PIPE_VOCAB, PIPE_E)) * 0.5).astype(
+        np.float32)).requires_grad_()
+    head = torch.from_numpy((rng.standard_normal((PIPE_E, PIPE_VOCAB)) / np.sqrt(PIPE_E)).astype(
+        np.float32)).requires_grad_()
+    toks = torch.from_numpy(rng.integers(0, PIPE_VOCAB, (PIPE_B, PIPE_T + 1)))
+    local = spmd.stage_chunks(pipe_stacked(world, V, seed), m)
+    run = spmd.pipeline_blocks_zb if zb else spmd.pipeline_blocks
+    out = run(zb_block, local, table[toks[:, :-1]], m, num_microbatches=M, virtual_chunks=V)
+    logits = out @ head
+    loss = torch.nn.functional.cross_entropy(logits.reshape(-1, PIPE_VOCAB),
+                                             toks[:, 1:].reshape(-1))
+    loss.backward()
+    return {"loss": float(loss.detach()), "table_grad": table.grad, "head_grad": head.grad}
+
+
+def case_pipe_engine_refuses():
+    """``PipeEngine`` in a live world of more than one rank."""
+    from vescale_tpu_torch.models import GPTConfig, gpt_pipeline_units
+    from vescale_tpu_torch.models.nanogpt import cross_entropy_loss
+    from vescale_tpu_torch.pipe import PipeEngine, construct_pipeline_stage
+    from vescale_tpu_torch.plan import PipelineParallelPlan
+
+    cfg = GPTConfig(block_size=8, vocab_size=32, n_layer=2, n_head=2, n_embd=16)
+    plan = PipelineParallelPlan(num_stages=2)
+    pm = construct_pipeline_stage(gpt_pipeline_units(cfg), plan)
+    toks = torch.zeros((2, 9), dtype=torch.long)
+    try:
+        PipeEngine(pm, plan, cross_entropy_loss).forward_backward(
+            pm.init_all(0, device="cpu"), {"input": toks[:, :-1], "target": toks[:, 1:]}, 2)
+    except RuntimeError as e:
+        return {"refused": "single-controller" in str(e)}
+    return {"refused": False}
+
+
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}
 
 

@@ -10,7 +10,9 @@ the flash-attention backward and a fused AdamW update), and trains nanoGPT
 (``GPT``) through ``vocab_parallel_cross_entropy`` and its fused
 cross-entropy kernels on batches from ``TokenDataLoader``; both train and
 serve tensor- and sequence-parallel over a mesh (``dmodule.parallelize_module``
-with ``models.llama_plan`` / ``nanogpt_plan``).  Every kernel
+with ``models.llama_plan`` / ``nanogpt_plan``), and train pipeline-parallel
+(``pipe``: the schedules, the eager ``PipeEngine``, ``split_graph`` and the
+compiled pipeline over a ``pp`` mesh).  Every kernel
 is hand-written CUDA for ``sm_90a``.  Entry points run on the card unless the
 caller passes ``device="cpu"``; kernels dispatch by the tensor's device.
 """

@@ -18,6 +18,8 @@ a ``torch.autograd.Function`` over the counted collectives of
                        a split otherwise (its gradient is Replicate)
   ``reduce_scatter``   Partial -> Shard(d), all-gather backward
   ``split``            Replicate -> Shard(d), all-gather backward
+  ``ring_permute``     rank j's tensor to rank j + shift (the pipeline's
+                       stage-to-stage send), the reverse rotation backward
 
 Megatron's ``gather_from_sequence_parallel_region`` and
 ``reduce_scatter_to_sequence_parallel_region`` are ``all_gather(x, tp, 1,
@@ -54,6 +56,7 @@ __all__ = [
     "narrow",
     "enter_tp",
     "take_piece",
+    "ring_permute",
 ]
 
 
@@ -172,6 +175,27 @@ class _Split(torch.autograd.Function):
     def backward(ctx, g):
         tp, d = ctx.args
         return _gather(g, tp, d), None, None
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, shift):
+        ctx.args = (tp, shift)
+        return C.mesh_ppermute(x, tp.mesh, tp.index, shift=shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, shift = ctx.args
+        return C.mesh_ppermute(g, tp.mesh, tp.index, shift=-shift), None, None
+
+
+def ring_permute(x: torch.Tensor, tp: TPDim, shift: int = 1) -> torch.Tensor:
+    """Rank j sends ``x`` to rank j + ``shift`` along the dim and gets rank
+    j - ``shift``'s (``collectives.mesh_ppermute``); the gradient rotates
+    the other way."""
+    if tp.size == 1:
+        return x
+    return _RingPermute.apply(x, tp, shift)
 
 
 def copy_to_tp(x: torch.Tensor, tp: TPDim) -> torch.Tensor:

@@ -7,8 +7,8 @@ the three sums the loss needs, in fp32, from one read of the logits::
     picked = lg[:, idx]          (0 where idx is outside [0, Vs))
     sumlg  = sum_c lg[:, c]
 
-It is differentiable in ``lg`` (a ``torch.autograd.Function``, the port of
-the reference's ``custom_vjp``): the backward is
+It is differentiable in ``lg`` (custom ops ``vtt::xent_parts`` and
+``vtt::xent_bwd``, the port of the reference's ``custom_vjp``): the backward is
 ``dlg = gse * exp(lg - gmax) + onehot(idx) * gpk + gsl``, in lg's dtype,
 and ``idx`` and ``gmax`` get no gradient (``gmax`` is the caller's
 stop-gradient row max).  Gradients of unused outputs arrive as zeros.
@@ -27,6 +27,7 @@ run: there is no shape gate and no fallback.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -165,24 +166,52 @@ def xent_bwd(lg, idx, gmax, gse, gpk, gsl):
     return dlg
 
 
-class _FusedXent(torch.autograd.Function):
-    """The reference's ``fused_xent_parts`` custom_vjp: residuals (lg, idx,
-    gmax); no gradient for idx or gmax."""
+# The kernels run as two ``torch.library`` custom ops, the backward
+# registered as the forward's autograd formula (the reference's
+# ``fused_xent_parts`` custom_vjp), so a tracer (``pipe.graph_split``) or a
+# dispatch mode sees each launch as one node.
+@torch.library.custom_op("vtt::xent_parts", mutates_args=())
+def xent_parts_op(lg: torch.Tensor, idx: torch.Tensor,
+                  gmax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sumexp, picked, sumlg): :func:`xent_fwd`."""
+    return tuple(xent_fwd(lg, idx, gmax))
 
-    @staticmethod
-    def forward(ctx, lg, idx, gmax):
-        outs = xent_fwd(lg, idx, gmax)
-        ctx.save_for_backward(lg, idx, gmax)
-        return outs
 
-    @staticmethod
-    def backward(ctx, gse, gpk, gsl):
-        lg, idx, gmax = ctx.saved_tensors
-        return xent_bwd(lg, idx, gmax, gse, gpk, gsl), None, None
+@xent_parts_op.register_fake
+def _(lg, idx, gmax):
+    return tuple(lg.new_empty(lg.shape[0], dtype=torch.float32) for _ in range(3))
+
+
+@torch.library.custom_op("vtt::xent_bwd", mutates_args=())
+def xent_bwd_op(lg: torch.Tensor, idx: torch.Tensor, gmax: torch.Tensor, gse: torch.Tensor,
+                gpk: torch.Tensor, gsl: torch.Tensor) -> torch.Tensor:
+    """dlg: :func:`xent_bwd`."""
+    return xent_bwd(lg, idx, gmax, gse, gpk, gsl)
+
+
+@xent_bwd_op.register_fake
+def _(lg, idx, gmax, gse, gpk, gsl):
+    return torch.empty_like(lg)
+
+
+def _xent_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _xent_backward(ctx, gse, gpk, gsl):
+    """Residuals (lg, idx, gmax); no gradient for idx or gmax, and the
+    cotangent of an unused output is zeros."""
+    lg, idx, gmax = ctx.saved_tensors
+    gs = [torch.zeros(lg.shape[0], dtype=torch.float32, device=lg.device) if g is None else g
+          for g in (gse, gpk, gsl)]
+    return xent_bwd_op(lg, idx, gmax, *gs), None, None
+
+
+xent_parts_op.register_autograd(_xent_backward, setup_context=_xent_setup)
 
 
 def fused_xent_parts(lg: torch.Tensor, idx: torch.Tensor, gmax: torch.Tensor):
     """(sumexp, picked, sumlg) over the vocab dim of (N, Vs) ``lg`` in one
     pass; ``idx`` (N,) integer gold columns, ``gmax`` (N,) fp32 row max
     (treated as a constant)."""
-    return _FusedXent.apply(lg, idx, gmax.detach())
+    return xent_parts_op(lg, idx, gmax.detach())

@@ -24,11 +24,17 @@ is flax's nanoGPT tree::
     h_<i>.mlp.c_proj.{kernel,bias}      (4 n_embd, n_embd), (n_embd,)
     ln_f.{scale,bias}                   (n_embd,)
 
-with no ``bias`` leaves when ``config.bias`` is False.
+with no ``bias`` leaves when ``config.bias`` is False.  A Llama config with
+``scan_layers`` keeps the block leaves stacked, flax ``nn.scan``'s layout::
+
+    layers.block.<path>                 (num_hidden_layers, *shape)
+
+``scan_tree`` and ``unscan_tree`` move a tree between the two layouts.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Mapping, Optional, Union
 
@@ -40,7 +46,8 @@ from .llama import LlamaConfig
 from .nanogpt import GPTConfig
 
 __all__ = ["params_from_jax", "init_params", "param_shapes", "tree_to", "module_tree",
-           "load_params", "zero_state_from_jax", "fsdp_buffer_from_jax"]
+           "load_params", "zero_state_from_jax", "fsdp_buffer_from_jax", "scan_tree",
+           "unscan_tree"]
 
 
 def params_from_jax(tree: Mapping[str, Any], device=None,
@@ -166,8 +173,14 @@ def param_shapes(config: Union[LlamaConfig, GPTConfig]) -> Dict[str, Any]:
         },
     }
     tree: Dict[str, Any] = {"embed_tokens": {"embedding": (c.vocab_size, E)}}
-    for i in range(c.num_hidden_layers):
-        tree[f"layers_{i}"] = layer
+    if c.scan_layers:
+        L = c.num_hidden_layers
+        stack = lambda node: ({k: stack(v) for k, v in node.items()} if isinstance(node, dict)
+                              else (L, *node))
+        tree["layers"] = {"block": stack(layer)}
+    else:
+        for i in range(c.num_hidden_layers):
+            tree[f"layers_{i}"] = layer
     tree["norm"] = {"weight": (E,)}
     if not c.tie_word_embeddings:
         tree["lm_head"] = {"kernel": (E, c.vocab_size)}
@@ -178,13 +191,18 @@ def init_params(config: Union[LlamaConfig, GPTConfig], seed: int = 0, device=Non
                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Random weights drawn on ``device`` (default: the card) from a
     ``torch.Generator`` seeded with ``seed``, in ``dtype`` (default
-    ``config.dtype``).  Norm weights and scales are ones and biases zeros
+    ``config.dtype``); with ``scan_layers``, the same draws stacked.  Norm weights and scales are ones and biases zeros
     (flax's defaults); every kernel is normal with std 1/sqrt(fan_in)
     (flax's lecun-normal scale, untruncated); an embedding is normal with
     std 1/sqrt(width).  The same seed on the same device type gives the
     same tree; CPU and CUDA generators differ, so make the tree on one
     device and copy it to compare two.  On ``device="meta"`` it allocates
     nothing (shapes and dtypes only: ``initialize.deferred_init``)."""
+    if isinstance(config, LlamaConfig) and config.scan_layers:
+        # the unscanned draws, stacked: one seed gives the same weights in
+        # both layouts
+        flat = init_params(dataclasses.replace(config, scan_layers=False), seed, device, dtype)
+        return scan_tree(flat, config.num_hidden_layers)
     dev = resolve_device(device)
     dt = dtype if dtype is not None else config.dtype
     gen = None
@@ -192,20 +210,58 @@ def init_params(config: Union[LlamaConfig, GPTConfig], seed: int = 0, device=Non
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
 
-    def draw(path: str, shape):
-        if path.endswith(("weight", "scale")):
-            return torch.ones(shape, dtype=dt, device=dev)
-        if path.endswith("bias"):
-            return torch.zeros(shape, dtype=dt, device=dev)
-        std = 1.0 / math.sqrt(shape[1] if path.endswith("embedding") else shape[0])
-        return torch.empty(shape, dtype=dt, device=dev).normal_(0.0, std, generator=gen)
-
     def build(node, path: str):
         if isinstance(node, dict):
             return {k: build(v, f"{path}.{k}" if path else k) for k, v in node.items()}
-        return draw(path, node)
+        return draw_leaf(path, node, dt, dev, gen)
 
     return build(param_shapes(config), "")
+
+
+def scan_tree(tree: Mapping[str, Any], num_layers: int) -> Dict[str, Any]:
+    """A Llama tree's ``layers_<i>`` subtrees stacked into
+    ``layers.block`` (leading (L,) axis); the other leaves as they are."""
+    out = {k: v for k, v in tree.items() if not k.startswith("layers_")}
+    layers = [tree[f"layers_{i}"] for i in range(num_layers)]
+
+    def stack(*nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack(*(n[k] for n in nodes)) for k in nodes[0]}
+        return torch.stack(nodes, dim=0)
+
+    out["layers"] = {"block": stack(*layers)}
+    return out
+
+
+def unscan_tree(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`scan_tree`: ``layers.block`` unstacked into
+    ``layers_<i>`` subtrees (views of the stacked leaves)."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    block = tree["layers"]["block"]
+
+    def n_layers(node):
+        return n_layers(next(iter(node.values()))) if isinstance(node, Mapping) else node.shape[0]
+
+    def take(node, i):
+        if isinstance(node, Mapping):
+            return {k: take(v, i) for k, v in node.items()}
+        return node[i]
+
+    for i in range(n_layers(block)):
+        out[f"layers_{i}"] = take(block, i)
+    return out
+
+
+def draw_leaf(path: str, shape, dtype, device, gen):
+    """One leaf of :func:`init_params` by its path: ones for norm weights
+    and scales, zeros for biases, normal with std 1/sqrt(fan_in) for a
+    kernel (in, out) and 1/sqrt(width) for an embedding (num, width)."""
+    if path.endswith(("weight", "scale")):
+        return torch.ones(shape, dtype=dtype, device=device)
+    if path.endswith("bias"):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    std = 1.0 / math.sqrt(shape[1] if path.endswith("embedding") else shape[0])
+    return torch.empty(shape, dtype=dtype, device=device).normal_(0.0, std, generator=gen)
 
 
 def tree_to(tree: Union[Mapping[str, Any], torch.Tensor], device=None,

@@ -19,14 +19,20 @@ same parameter tree.
 rank's weight pieces (``Dense``, ``Embed``, ``LlamaAttention``).
 
 ``remat`` with ``remat_scope`` "block" or "mlp" checkpoints through
-``torch.utils.checkpoint``.  ``scan_layers``, ``remat_policy`` and
-``use_fp8`` are accepted by the config, so that a config moves between the
-packages unchanged, but ``Llama`` raises ``NotImplementedError`` for them.
+``torch.utils.checkpoint``; ``remat_policy`` names a
+``jax.checkpoint_policies`` entry, mapped onto selective checkpointing
+(``REMAT_POLICIES``).  ``scan_layers`` keeps the block parameters stacked
+under ``layers.block.*`` with a leading (L,) axis, the flax ``nn.scan``
+layout, and the forward runs one layer's slice each iteration.
+``use_fp8`` is accepted by the config, so that a config moves between the
+packages unchanged, but ``Llama`` raises ``NotImplementedError`` for it.
+``LlamaEmbed`` and ``LlamaHead`` are the pipeline's first and last units.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
@@ -36,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..telemetry.costaudit import _MATMUL_LHS
 
 __all__ = [
     "LlamaConfig",
@@ -48,6 +55,9 @@ __all__ = [
     "LlamaMLP",
     "LlamaBlock",
     "Llama",
+    "LlamaEmbed",
+    "LlamaHead",
+    "REMAT_POLICIES",
     "llama_plan",
     "LLAMA2_7B",
     "LLAMA3_8B",
@@ -71,10 +81,13 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     use_flash_attention: bool = True
     remat: bool = False
-    remat_policy: Optional[str] = None  # Llama raises: not ported yet
+    # a jax.checkpoint_policies name (REMAT_POLICIES): with a policy only the
+    # activations it does not save are recomputed; None = full remat
+    remat_policy: Optional[str] = None
     remat_scope: str = "block"
-    scan_layers: bool = False  # Llama raises: not ported yet
-    use_fp8: bool = False  # Llama raises: not ported yet
+    # block params stacked under layers.block.* with a leading (L,) axis
+    scan_layers: bool = False
+    use_fp8: bool = False  # Llama raises: not ported yet (A17)
     dtype: Any = torch.bfloat16
 
     def __post_init__(self):
@@ -375,24 +388,89 @@ class LlamaBlock(nn.Module):
         return x + self.mlp(h)
 
 
+# jax.checkpoint_policies names -> the matmuls whose outputs a selective
+# checkpoint saves (the aten matmuls costaudit counts, but convolution).
+# At dispatch a (B, T, E) @ (E, F) projection is one ``mm`` (no batch
+# dims); attention's einsums are ``bmm`` (batched).  The flash kernel's
+# custom op is no matmul: under every policy it is recomputed, as the
+# Pallas call is under JAX's policies.
+REMAT_POLICIES = {
+    "dots_saveable": tuple(n for n in _MATMUL_LHS if n != "convolution"),
+    "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
+    "nothing_saveable": (),
+}
+
+
+def _remat_context(policy: str):
+    """The ``context_fn`` of a selective checkpoint that saves the outputs
+    of ``policy``'s matmuls and recomputes everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    if policy not in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat_policy {policy!r} has no selective-checkpoint mapping in the port; "
+            f"mapped: {sorted(REMAT_POLICIES)}")
+    saved = REMAT_POLICIES[policy]
+
+    def policy_fn(ctx, func, *args, **kwargs):
+        name = getattr(getattr(func, "overloadpacket", None), "__name__", "")
+        if name in saved:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
+
+
+class ScannedBlocks(nn.Module):
+    """The ``scan_layers`` layout: one ``LlamaBlock`` template (``block``)
+    whose every parameter has a leading (L,) axis, as flax's ``nn.scan``
+    stacks them.  ``forward`` unbinds each leaf once (one stack in the
+    backward) and runs layer i on the i-th slices."""
+
+    def __init__(self, c: LlamaConfig, device=None):
+        super().__init__()
+        self.num_layers = c.num_hidden_layers
+        self.block = LlamaBlock(c, torch.device("meta"))
+        for name, p in list(self.block.named_parameters()):
+            *path, leaf = name.split(".")
+            owner = self.block.get_submodule(".".join(path))
+            setattr(owner, leaf, _param((c.num_hidden_layers, *p.shape), device))
+
+    def layer_fn(self, params):
+        """``(x, positions) -> block(x)`` on one layer's parameter slices."""
+        return lambda x, positions: torch.func.functional_call(self.block, params,
+                                                               (x, positions))
+
+    def layer_params(self):
+        names, leaves = zip(*self.block.named_parameters())
+        slices = [t.unbind(0) for t in leaves]
+        return [dict(zip(names, (s[i] for s in slices))) for i in range(self.num_layers)]
+
+
 class Llama(nn.Module):
     """The flax ``Llama``: token ids (B, T) to logits (B, T, vocab) in
     ``config.dtype``.  Parameters are fp32, on ``device`` (default: the
     card), from ``params`` (a flax-layout tree, e.g. ``init_params`` or
-    ``params_from_jax``, copied in) or else ``init_params(config, seed)``."""
+    ``params_from_jax``, copied in) or else ``init_params(config, seed)``.
+    With ``scan_layers`` the block parameters are ``layers.block.*``,
+    stacked (L, ...)."""
 
     def __init__(self, config: LlamaConfig, params=None, *, device=None, seed: int = 0):
         super().__init__()
         c = config
-        for name, item in (("scan_layers", "A2"), ("remat_policy", "A2"), ("use_fp8", "A17")):
-            if getattr(c, name):
-                raise NotImplementedError(
-                    f"LlamaConfig.{name} is not ported yet (ROADMAP.md queue A, item {item})")
+        if c.use_fp8:
+            raise NotImplementedError(
+                "LlamaConfig.use_fp8 is not ported yet (ROADMAP.md queue A, item A17)")
+        if c.remat and c.remat_policy:
+            _remat_context(c.remat_policy)  # an unmapped name raises here
         self.config = c
         dev = resolve_device(device)
         self.embed_tokens = Embed(c.vocab_size, c.hidden_size, c.dtype, dev)
-        for i in range(c.num_hidden_layers):
-            self.add_module(f"layers_{i}", LlamaBlock(c, dev))
+        if c.scan_layers:
+            self.layers = ScannedBlocks(c, dev)
+        else:
+            for i in range(c.num_hidden_layers):
+                self.add_module(f"layers_{i}", LlamaBlock(c, dev))
         self.norm = RMSNorm(c.hidden_size, c.rms_norm_eps, c.dtype, dev)
         if not c.tie_word_embeddings:
             self.lm_head = Dense(c.hidden_size, c.vocab_size, c.dtype, dev)
@@ -408,16 +486,46 @@ class Llama(nn.Module):
         x = self.embed_tokens(idx)
         positions = torch.arange(T, device=idx.device)[None, :].expand(B, T)
         remat_blocks = c.remat and c.remat_scope == "block" and torch.is_grad_enabled()
-        for i in range(c.num_hidden_layers):
-            block = getattr(self, f"layers_{i}")
+        kw = {}
+        if remat_blocks and c.remat_policy:
+            kw["context_fn"] = _remat_context(c.remat_policy)
+        if c.scan_layers:
+            blocks = [self.layers.layer_fn(p) for p in self.layers.layer_params()]
+        else:
+            blocks = [getattr(self, f"layers_{i}") for i in range(c.num_hidden_layers)]
+        for block in blocks:
             if remat_blocks:
-                x = checkpoint(block, x, positions, use_reentrant=False)
+                x = checkpoint(block, x, positions, use_reentrant=False, **kw)
             else:
                 x = block(x, positions)
         x = self.norm(x)
         if c.tie_word_embeddings:
             return self.embed_tokens.attend(x)
         return self.lm_head(x)
+
+
+class LlamaEmbed(nn.Module):
+    """Token-embedding pipeline unit (first-stage granularity; the legacy
+    smallest_unsplittable_units for HF llama, pipe_parser.py)."""
+
+    def __init__(self, c: LlamaConfig, device=None):
+        super().__init__()
+        self.embed_tokens = Embed(c.vocab_size, c.hidden_size, c.dtype, device)
+
+    def forward(self, idx):
+        return self.embed_tokens(idx)
+
+
+class LlamaHead(nn.Module):
+    """Final-norm + LM-head pipeline unit (last-stage granularity)."""
+
+    def __init__(self, c: LlamaConfig, device=None):
+        super().__init__()
+        self.norm = RMSNorm(c.hidden_size, c.rms_norm_eps, c.dtype, device)
+        self.lm_head = Dense(c.hidden_size, c.vocab_size, c.dtype, device)
+
+    def forward(self, x):
+        return self.lm_head(self.norm(x))
 
 
 def llama_plan(mesh, sequence_parallel: bool = True, scanned: bool = False):
@@ -427,27 +535,30 @@ def llama_plan(mesh, sequence_parallel: bool = True, scanned: bool = False):
     vocab-sharded head; RMSNorms replicated with SP activations.  The same
     regexes as the reference; shardings bind to the mesh dims *named*
     "dp"/"tp" (``plan_axes``), and the forward-plan regexes tolerate a
-    missing ``layers_N.`` prefix.  ``scanned=True`` (the ``scan_layers``
-    layout) raises: ``scan_layers`` is not ported (ROADMAP.md queue A,
-    item 2)."""
-    if scanned:
-        raise NotImplementedError("llama_plan(scanned=True): scan_layers is not ported yet "
-                                  "(ROADMAP.md queue A, item 2)")
+    missing ``layers_N.`` prefix.
+
+    ``scanned=True`` targets the ``scan_layers`` layout: block leaves live
+    under ``layers.block.*`` with a leading (L,) stack axis, so their tp
+    Shard dims shift by one (embed and head are unstacked and keep
+    theirs)."""
     from ..placements import Shard, plan_axes
 
     S = Shard
+    off = 1 if scanned else 0
     col = plan_axes(mesh, tp=S(1))  # column-parallel kernel (in, out/tp)
     row = plan_axes(mesh, tp=S(0))  # row-parallel kernel (in/tp, out)
+    bcol = plan_axes(mesh, tp=S(1 + off))  # block kernels (maybe stacked)
+    brow = plan_axes(mesh, tp=S(0 + off))
     rep = plan_axes(mesh)
     dp_only = plan_axes(mesh, dp=S(0))
     seq_par = plan_axes(mesh, dp=S(0), tp=S(1)) if sequence_parallel else dp_only
-    blk = r"(layers_\d+\.)?"
+    blk = r"(layers\.block\.)" if scanned else r"(layers_\d+\.)?"
     param_plan = {
         r"embed_tokens\.embedding": col,
-        blk + r"self_attn\.(q_proj|k_proj|v_proj)\.kernel": col,
-        blk + r"self_attn\.o_proj\.kernel": row,
-        blk + r"mlp\.(gate_proj|up_proj)\.kernel": col,
-        blk + r"mlp\.down_proj\.kernel": row,
+        blk + r"self_attn\.(q_proj|k_proj|v_proj)\.kernel": bcol,
+        blk + r"self_attn\.o_proj\.kernel": brow,
+        blk + r"mlp\.(gate_proj|up_proj)\.kernel": bcol,
+        blk + r"mlp\.down_proj\.kernel": brow,
         r"lm_head\.kernel": col,
         r".*layernorm\.weight": rep,
         r"norm\.weight": rep,

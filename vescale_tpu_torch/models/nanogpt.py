@@ -18,11 +18,12 @@ default), and the head is tied: ``wte.attend``.  Attention runs
 compute dtype.
 
 ``nanogpt_plan`` is the reference's TP/SP plan for
-``dmodule.parallelize_module``.
+``dmodule.parallelize_module``.  ``gpt_pipeline_units`` is the model as
+pipeline stage units (``TokEmbed``, ``PosEmbed``, the blocks, ``FinalNorm``,
+``TiedHead``) for ``pipe.construct_pipeline_stage``.
 
 Not here yet: dropout (``dropout > 0`` raises; its RNG streams are an open
-item of ROADMAP.md queue A, item 5) and the pipeline stage units (item
-15).
+item of ROADMAP.md queue A, item 5).
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ from ..device import resolve_device
 from .llama import Dense, Embed, _param
 
 __all__ = ["GPTConfig", "LayerNorm", "CausalSelfAttention", "MLP", "Block", "GPT",
-           "cross_entropy_loss", "nanogpt_plan"]
+           "cross_entropy_loss", "nanogpt_plan", "TokEmbed", "PosEmbed", "FinalNorm",
+           "TiedHead", "gpt_pipeline_units", "gpt_unit_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,3 +248,85 @@ def nanogpt_plan(mesh, sequence_parallel: bool = True):
         r"ln_f": {"input": [seq_par], "output": [dp_only]},
     }
     return {"parameter": param_plan, "forward": fwd_plan}
+
+
+# ---------------------------------------------------------------- pipeline
+class TokEmbed(nn.Module):
+    """Token embedding unit (pipeline stage granularity)."""
+
+    def __init__(self, c: GPTConfig, device=None):
+        super().__init__()
+        self.wte = Embed(c.vocab_size, c.n_embd, c.dtype, device)
+
+    def forward(self, idx):
+        return self.wte(idx)
+
+
+class PosEmbed(nn.Module):
+    """``x`` plus the position embedding, as ``GPT.forward`` adds it."""
+
+    def __init__(self, c: GPTConfig, device=None):
+        super().__init__()
+        self.wpe = Embed(c.block_size, c.n_embd, c.dtype, device)
+
+    def forward(self, x):
+        T = x.shape[1]
+        return x + self.wpe(torch.arange(T, device=x.device))[None]
+
+
+class FinalNorm(nn.Module):
+    def __init__(self, c: GPTConfig, device=None):
+        super().__init__()
+        self.ln_f = LayerNorm(c.n_embd, c.bias, c.dtype, device)
+
+    def forward(self, x):
+        return self.ln_f(x)
+
+
+class TiedHead(nn.Module):
+    """LM head tied to the token embedding: the parameter tree of
+    ``TokEmbed``, so a pipeline shared group can alias them (reference
+    build_shared_module_group, pipe_stage.py:311)."""
+
+    def __init__(self, c: GPTConfig, device=None):
+        super().__init__()
+        self.wte = Embed(c.vocab_size, c.n_embd, c.dtype, device)
+
+    def forward(self, x):
+        return self.wte.attend(x)
+
+
+def gpt_pipeline_units(config: GPTConfig, device="meta"):
+    """Ordered stage units for PP: [wte*, wpe, h_0..h_{L-1}, ln_f, head*]
+    (* = the tied "embeddings" shared group).  The units are templates
+    (on ``meta`` by default): the parameters travel in the per-group trees
+    of ``PipeModule.init_all`` or :func:`gpt_unit_params`.  Feed them to
+    ``pipe.construct_pipeline_stage``."""
+    if config.dropout > 0.0:
+        raise NotImplementedError(
+            "GPTConfig.dropout > 0 is not ported yet: dropout RNG streams "
+            "(ROADMAP.md queue A, item 5)")
+    from ..pipe.pipe_stage import StageUnit
+
+    dev = torch.device(device)
+    units = [
+        StageUnit("wte", TokEmbed(config, dev), shared_group="embeddings"),
+        StageUnit("wpe", PosEmbed(config, dev)),
+    ]
+    units += [StageUnit(f"h_{i}", Block(config, dev)) for i in range(config.n_layer)]
+    units += [
+        StageUnit("ln_f", FinalNorm(config, dev)),
+        StageUnit("head", TiedHead(config, dev), shared_group="embeddings"),
+    ]
+    return units
+
+
+def gpt_unit_params(params, n_layer: int):
+    """A ``GPT`` parameter tree as ``{unit_name: tree}`` for
+    :func:`gpt_pipeline_units` (``PipeModule.partition_params``): the
+    leaves themselves, not copies; ``wte`` serves both tied units."""
+    out = {"wte": {"wte": params["wte"]}, "wpe": {"wpe": params["wpe"]}}
+    out.update({f"h_{i}": params[f"h_{i}"] for i in range(n_layer)})
+    out["ln_f"] = {"ln_f": params["ln_f"]}
+    out["head"] = {"wte": params["wte"]}
+    return out

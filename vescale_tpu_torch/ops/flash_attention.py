@@ -1,9 +1,10 @@
 """Flash attention — the (B, T, H, D) front end over the flash kernels.
 
 The port of ``vescale_tpu/ops/flash_attention.py::flash_attention``: a
-``torch.autograd.Function`` (the reference's ``custom_vjp``) whose forward
-runs ``kernels.flash_fwd`` and saves q, k, v, o and the logsumexp, and
-whose backward runs ``kernels.flash_bwd``.  Under ``torch.no_grad`` (the
+custom op (``vtt::flash_attention``, the reference's ``custom_vjp``) whose
+forward runs ``kernels.flash_fwd`` and saves q, k, v, o and the
+logsumexp, and whose registered backward runs ``kernels.flash_bwd``
+(``vtt::flash_attention_bwd``).  Under ``torch.no_grad`` (the
 serve path) only the forward runs.  ``flash_attention_sharded`` is the
 reference's multi-rank entry: it runs the same op on this rank's batch
 and head pieces, with no communication.  The kernels mask
@@ -14,13 +15,14 @@ a CUDA tensor always runs the kernels, a CPU tensor their plain versions.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..kernels.flash_attention import flash_bwd, flash_fwd
 
-__all__ = ["flash_attention", "flash_attention_sharded"]
+__all__ = ["flash_attention", "flash_attention_sharded", "flash_attention_op",
+           "flash_attention_bwd_op"]
 
 _NEG_INF = -1e30
 
@@ -51,27 +53,56 @@ def _from3(x, B, H):
     return x.reshape(B, H, T, D).permute(0, 2, 1, 3)
 
 
-class _Flash(torch.autograd.Function):
-    """The reference's ``_flash`` custom_vjp: residuals (q, k, v, o, lse)
-    in the kernels' (B*H, T, D) layout."""
+# The kernels run as two ``torch.library`` custom ops, the forward with the
+# backward registered as its autograd formula (the reference's ``_flash``
+# custom_vjp).  A custom op is one node to every tracer and dispatch mode:
+# torch.fx (``pipe.graph_split``) records ``vtt.flash_attention`` itself,
+# and replaying that node launches the kernel on the card, where a trace of
+# the ctypes launch inside would record only the ``torch.empty`` around it.
+@torch.library.custom_op("vtt::flash_attention", mutates_args=())
+def flash_attention_op(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float,
+                       causal: bool, H: int, KV: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o3, lse) in the kernels' (B*H, T, D) layout: ``kernels.flash_fwd``."""
+    return flash_fwd(q3, k3, v3, scale=scale, causal=causal, H=H, KV=KV)
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        B, T, H, D = q.shape
-        G = k.shape[2]
-        q3, k3, v3 = _to3(q), _to3(k), _to3(v)
-        o3, lse = flash_fwd(q3, k3, v3, scale=scale, causal=causal, H=H, KV=G)
-        ctx.save_for_backward(q3, k3, v3, o3, lse)
-        ctx.args = (scale, causal, B, H, G)
-        return _from3(o3, B, H)
 
-    @staticmethod
-    def backward(ctx, do):
-        q3, k3, v3, o3, lse = ctx.saved_tensors
-        scale, causal, B, H, G = ctx.args
-        dq3, dk3, dv3 = flash_bwd(q3, k3, v3, o3, _to3(do), lse, scale=scale, causal=causal,
-                                  H=H, KV=G)
-        return _from3(dq3, B, H), _from3(dk3, B, G), _from3(dv3, B, G), None, None
+@flash_attention_op.register_fake
+def _(q3, k3, v3, scale, causal, H, KV):
+    return torch.empty_like(q3), q3.new_empty((q3.shape[0] // H, H, q3.shape[1]),
+                                             dtype=torch.float32)
+
+
+@torch.library.custom_op("vtt::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd_op(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                           o3: torch.Tensor, do3: torch.Tensor, lse: torch.Tensor, scale: float,
+                           causal: bool, H: int,
+                           KV: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq3, dk3, dv3): ``kernels.flash_bwd``."""
+    return flash_bwd(q3, k3, v3, o3, do3.contiguous(), lse, scale=scale, causal=causal, H=H,
+                     KV=KV)
+
+
+@flash_attention_bwd_op.register_fake
+def _(q3, k3, v3, o3, do3, lse, scale, causal, H, KV):
+    return torch.empty_like(q3), torch.empty_like(k3), torch.empty_like(v3)
+
+
+def _flash_setup(ctx, inputs, output):
+    q3, k3, v3, scale, causal, H, KV = inputs
+    o3, lse = output
+    ctx.save_for_backward(q3, k3, v3, o3, lse)
+    ctx.args = (scale, causal, H, KV)
+
+
+def _flash_backward(ctx, do3, dlse):
+    """Residuals (q, k, v, o, lse); the logsumexp's cotangent is unused."""
+    q3, k3, v3, o3, lse = ctx.saved_tensors
+    scale, causal, H, KV = ctx.args
+    dq3, dk3, dv3 = flash_attention_bwd_op(q3, k3, v3, o3, do3, lse, scale, causal, H, KV)
+    return dq3, dk3, dv3, None, None, None, None
+
+
+flash_attention_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
@@ -83,7 +114,8 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
     if H % max(G, 1):
         raise ValueError(f"q heads {H} not a multiple of kv heads {G}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    return _Flash.apply(q, k, v, float(scale), bool(causal))
+    o3, _ = flash_attention_op(_to3(q), _to3(k), _to3(v), float(scale), bool(causal), H, G)
+    return _from3(o3, B, H)
 
 
 def flash_attention_sharded(q, k, v, mesh, *, batch_dims=("dp",), head_dim: Optional[str] = "tp",

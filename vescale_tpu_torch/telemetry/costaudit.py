@@ -639,6 +639,8 @@ class LayerAttribution:
     def op(self, func, args, kwargs, out) -> None:
         if self._inside_kernel or self._internal or func.is_view:
             return
+        if func.namespace == "vtt":  # a kernel's custom op: its wrapper's cost counts
+            return
         outs = list(_tensors(out))
         if not outs:
             return
