@@ -4,11 +4,12 @@ Hopper card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel parity only
-    python3 chip_smoke.py --tp       # serve, train and gpt2, then the TP phases
+    python3 chip_smoke.py --tp       # serve and gpt2, then the TP phases
     python3 chip_smoke.py --dp       # train and gpt2, then the DP phase
     python3 chip_smoke.py --resil    # the train_resilient phase alone
     python3 chip_smoke.py --telemetry   # serve and gpt2, then the telemetry phase
     python3 chip_smoke.py --pp       # gpt2, then the pipeline phase
+    python3 chip_smoke.py --moe      # the moe shapes' parity, then the moe phase
     python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
@@ -197,15 +198,16 @@ Phases, each printing one JSON line with its seconds:
   tp_train  tensor and sequence parallelism on two ranks of the one card:
            child processes (``--tp-child``) joined over gloo at a free
            localhost port (NCCL refuses two ranks on one GPU), a ("tp",)
-           mesh of 2.  The 1.3B Llama under ``llama_plan`` and GPT-2 124M
-           under ``nanogpt_plan``, both with sequence parallelism, at full
-           width and depth, built on ``meta`` and materialized as each
-           rank's pieces of the single-card phase's seed-0 weights, trained
-           on its batches through the vocab-parallel loss with
-           ``AdamWLowmem``: 2 warm-up and 2 timed steps, losses within 1%
-           of the ``train`` / ``gpt2`` phase's at each step, every kernel
-           launch of each step counted (24 or 12 K1, dq and dkv, one K8,
-           K9 and K10); per rank step time, peak memory and the
+           mesh of 2.  The 1.3B Llama under ``llama_plan`` at full width
+           and 8 of its 24 layers (``GLOO_13B_LAYERS``) and GPT-2 124M under
+           ``nanogpt_plan`` at full width and depth, both with sequence
+           parallelism, built on ``meta`` and materialized as each rank's
+           pieces of the bench's seed-0 weights, trained on its batches
+           through the vocab-parallel loss with ``AdamWLowmem``: 1 warm-up
+           and 1 timed step, losses within 1% of a single-card run's (the
+           1.3B's at 8 layers, the ``gpt2`` phase's) at each step, every
+           kernel launch of each step counted (8 or 12 K1, dq and dkv, one
+           K8, K9 and K10); per rank step time, peak memory and the
            collectives' calls and bytes by kind.  The kernels' parity and
            timing at one rank's shapes are in the parity phase
   tp_serve  Llama-3-8B over two such ranks: the serve weights
@@ -218,12 +220,12 @@ Phases, each printing one JSON line with its seconds:
            engine's, how many streams equal the serve phase's, tokens/s,
            decode p50/p99, and ``engine.graphed`` (false over gloo)
   dp_train  data parallelism on two such ranks, a ("dp",) mesh of 2.  The
-           1.3B Llama at full width and depth (B=1 a rank, T=4096, the
+           1.3B Llama at full width and 8 layers (B=1 a rank, T=4096, the
            bench's seed-0 weights, ``AdamWLowmem(3e-4)``, a global batch of
            2 rows) under ``ddp``, ``zero2`` (a dynamic loss scale) and
            ``fsdp`` (``bench.prepare_dp``), 1 warm-up and 2 timed steps
            each: losses within 1% of a single-card run of the same two
-           rows (``grad_accum_steps=2``), every rank's parameters bitwise
+           rows at that depth (``grad_accum_steps=2``), every rank's parameters bitwise
            the other's, the modes bitwise equal (or within
            ``DP_MODE_BOUND``), one K8 launch a step; under ``zero2`` one
            more step with an inf in rank 1's gradient: skipped on both
@@ -260,6 +262,32 @@ Phases, each printing one JSON line with its seconds:
            replicated grads equal on both ranks, each rank's launches the
            leg's count (flash only); step ms, peak, ppermutes and gloo's
            share per rank
+  moe      mixture of experts and Mixtral (``moe/``, ``models/mixtral.py``).
+           (a) the bench's moe_cpu config at head_dim 64 (width 128, 2
+           heads, 1 kv head, FFN 256, 4 experts, fp32) trained 3 steps on
+           the card and on the CPU from the same weights: routing equal on
+           every token of the first step, losses within stated bounds; (b)
+           the bench's moe rung (the reference rung's config: 8 layers,
+           width 768, FFN 1536, 12 heads, 4 kv heads, 8 experts, top-2,
+           capacity 2.0, bf16, B=2, T=2048): 2 warm-up and 5 timed steps,
+           finite falling loss, 8 K1, 8 dq, 8 dkv and 2 K8 (the fp32 and
+           bf16 groups) a step, step ms, tokens/s, MFU over the active
+           parameters, peak, each layer's ``expert_tokens``, one profiled
+           step by kernel kind and by matmul role (the dense dispatch and
+           combine products apart from the experts'); (c) Mixtral-8x7B's
+           widths at 2 of its 32 layers, the same batch: 1 warm-up and 2
+           timed steps, launches, step ms, MFU, peak; (d) the rung under
+           ``mixtral_plan`` on two gloo ranks of the card, an ("ep",) mesh
+           of 2 (4 experts a rank): 3 steps, losses within 1% of (b)'s,
+           the replicated grads bitwise equal on both ranks, each leaf's
+           grad within a relative L2 bound of one card's (the experts'
+           against their rows) that adds the routing flips' share to the
+           bf16 noise, the tokens whose top-2 differs from one card's by
+           layer, the collectives by kind and gloo's share; (e) in the same
+           spawn, 6 steps through ``MoEParamBuffer`` and ``MoEOptimizer``
+           twice, once refreshed after step 3 to ``BasicExpertsAllocator``'s
+           units from an EMA of ``expert_tokens``: the units change, and
+           losses, parameters and moments are bitwise the unrefreshed run's
 Then the card line, the kernels line and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero before that line.  Imports
 nothing of JAX or of ``vescale_tpu``.
@@ -439,7 +467,14 @@ def flash_cases():
         ("tp2 1.3b bf16", 1, 4096, 8, 4, 128, True, bf16, 2 * BF16_ULP, 16.0),
         ("tp2 8b prefill bf16", 1, 1024, 16, 4, 128, True, bf16, 2 * BF16_ULP, 16.0),
         ("tp2 gpt2 bf16", 12, 1024, 6, 6, 64, True, bf16, 2 * BF16_ULP, 16.0),
+        # the moe rung's attention (GQA group 3) and Mixtral-8x7B's widths
+        ("moe rung bf16 (GQA 3)", 2, 2048, 12, 4, 64, True, bf16, 2 * BF16_ULP, 16.0),
+        ("mixtral 8x7b bf16", 2, 2048, 32, 8, 128, True, bf16, 2 * BF16_ULP, 16.0),
     ]
+
+
+# the parity cases at the moe phase's shapes (``--moe`` runs only these)
+MOE_PARITY = ("moe rung bf16 (GQA 3)", "mixtral 8x7b bf16")
 
 
 def flash_fwd_inputs(dev, B, T, H, KV, D, causal, dtype):
@@ -450,14 +485,17 @@ def flash_fwd_inputs(dev, B, T, H, KV, D, causal, dtype):
     return q, k, v, dict(scale=1.0 / D ** 0.5, causal=causal, H=H, KV=KV)
 
 
-def run_flash_parity(dev, ulps):
-    """Kernel against plain version per case (see ``flash_cases``); the
-    rows' ``max_abs_err`` is against the plain version the kernel is held
-    to: the fp32 one for fp32, the bf16-P model for bf16."""
+def run_flash_parity(dev, ulps, only=None):
+    """Kernel against plain version per case (see ``flash_cases``; ``only``:
+    the cases of these labels); the rows' ``max_abs_err`` is against the
+    plain version the kernel is held to: the fp32 one for fp32, the bf16-P
+    model for bf16."""
     from vescale_tpu_torch.kernels.flash_attention import flash_fwd, flash_fwd_reference
 
     out = []
     for label, B, T, H, KV, D, causal, dtype, o_bound, lse_bound in flash_cases():
+        if only is not None and label not in only:
+            continue
         q, k, v, args = flash_fwd_inputs(dev, B, T, H, KV, D, causal, dtype)
         o, lse = flash_fwd(q, k, v, **args)
         o_ref, lse_ref = flash_fwd_reference(q, k, v, **args)
@@ -690,6 +728,9 @@ def flash_bwd_cases():
         # one rank's heads at tp = 2
         ("tp2 1.3b bf16", 1, 4096, 8, 4, 128, True, bf16, 2 * BF16_ULP),
         ("tp2 gpt2 bf16", 12, 1024, 6, 6, 64, True, bf16, 2 * BF16_ULP),
+        # the moe rung's attention (GQA group 3) and Mixtral-8x7B's widths
+        ("moe rung bf16 (GQA 3)", 2, 2048, 12, 4, 64, True, bf16, 2 * BF16_ULP),
+        ("mixtral 8x7b bf16", 2, 2048, 32, 8, 128, True, bf16, 2 * BF16_ULP),
     ]
 
 
@@ -706,16 +747,19 @@ def flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype):
     return q, k, v, o, do, lse, args
 
 
-def run_flash_bwd_parity(dev, ulps):
+def run_flash_bwd_parity(dev, ulps, only=None):
     """Kernel against plain version per case, then two launches of the bf16
     kernels bitwise at the main and gpt2 shapes, then the autograd op
     against autograd through the dense reference, then the times of the
-    main and gpt2 bf16 cases."""
+    main and gpt2 bf16 cases.  ``only``: the cases of these labels, and
+    nothing after them."""
     from vescale_tpu_torch.kernels.flash_attention import flash_bwd, flash_bwd_reference
 
     names = ("dq", "dk", "dv")
     out, repeats = [], {}
     for label, B, T, H, KV, D, causal, dtype, bound in flash_bwd_cases():
+        if only is not None and label not in only:
+            continue
         q, k, v, o, do, lse, args = flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype)
         got = flash_bwd(q, k, v, o, do, lse, **args)
         plain = flash_bwd_reference(q, k, v, o, do, lse, **args)
@@ -745,6 +789,8 @@ def run_flash_bwd_parity(dev, ulps):
         out.append(row)
         del q, k, v, o, do, lse, got, plain, exact
         free_memory()
+    if only is not None:
+        return out, {}
     shapes = ("main bf16", "gpt2 bf16")
     out.append(dict(kernel="flash_bwd", case="dq and dkv, two launches bitwise equal",
                     **{label: repeats[label] for label in shapes},
@@ -799,8 +845,10 @@ def flash_bwd_timing(dev):
 
     by_label = {case[0]: case for case in flash_bwd_cases()}
     rows = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
-    keys = {"gpt2 bf16": "gpt2", "tp2 1.3b bf16": "tp2_1.3b", "tp2 gpt2 bf16": "tp2_gpt2"}
-    for label in ("main bf16", "gpt2 bf16", "tp2 1.3b bf16", "tp2 gpt2 bf16"):
+    keys = {"gpt2 bf16": "gpt2", "tp2 1.3b bf16": "tp2_1.3b", "tp2 gpt2 bf16": "tp2_gpt2",
+            "moe rung bf16 (GQA 3)": "moe", "mixtral 8x7b bf16": "mixtral_8x7b"}
+    for label in ("main bf16", "gpt2 bf16", "tp2 1.3b bf16", "tp2 gpt2 bf16",
+                  "moe rung bf16 (GQA 3)", "mixtral 8x7b bf16"):
         _, B, T, H, KV, D, causal, dtype, _ = by_label[label]
         q, k, v, o, do, lse, args = flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype)
         lse2, delta = lse.reshape(B * H, T), _delta(o, do)
@@ -893,17 +941,30 @@ def tp2_leaf_shapes():
             for path, shape in _flatten(param_shapes(LlamaConfig(**RUNGS["1.3b"][0]))).items()]
 
 
-def adamw_leaves(dev, shapes, state_dtype, seed):
+def moe_expert_leaf_shapes():
+    """The moe rung's bf16 expert leaves (8 layers x w_in, b_in, w_out,
+    b_out, w_gate): the bf16 group K8 steps on that path."""
+    from vescale_tpu_torch.bench import moe_config
+    from vescale_tpu_torch.models import param_shapes
+    from vescale_tpu_torch.models.convert import _flatten
+
+    return [shape for path, shape in _flatten(param_shapes(moe_config("moe"))).items()
+            if path.rsplit(".", 1)[-1] in EXPERT_LEAF_NAMES]
+
+
+def adamw_leaves(dev, shapes, state_dtype, seed, grad_dtype=torch.float32):
     g = torch.Generator(device=dev).manual_seed(seed)
-    gs = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    gs = [torch.randn(s, generator=g, device=dev).to(grad_dtype) for s in shapes]
     ms = [torch.randn(s, generator=g, device=dev).mul_(0.1).to(state_dtype) for s in shapes]
     vs = [torch.randn(s, generator=g, device=dev).square_().mul_(0.01).to(state_dtype)
           for s in shapes]
     return gs, ms, vs
 
 
-def run_adamw_parity(dev):
-    """Over the 1.3B leaf set, bf16 and fp32 state: moments bit for bit
+def run_adamw_parity(dev, only_moe=False):
+    """Over the 1.3B leaf set, bf16 and fp32 state, and the moe rung's
+    expert leaves with bf16 grads and bf16 state (``only_moe``: that case
+    alone, timed): moments bit for bit
     against the plain chain (and the in-place launch, moments written
     over their inputs, bitwise the out-of-place one), u within 4 ulps per
     element (the JAX package's bound, docs/kernels.md: c1/c2 are the same
@@ -923,8 +984,13 @@ def run_adamw_parity(dev):
               torch.bfloat16),
              ("odd and empty leaves, bf16 state", [(0,), (1,), (37,), (1023,), (4097,), (3, 0)],
               torch.bfloat16)]
+    moe_case = ("moe rung expert leaves, bf16 grads, bf16 state", moe_expert_leaf_shapes(),
+                torch.bfloat16)
+    cases = [moe_case] if only_moe else cases + [moe_case]
     for label, leaf_shapes, state_dtype in cases:
-        gs, ms, vs = adamw_leaves(dev, leaf_shapes, state_dtype, seed=len(leaf_shapes))
+        moe = label.startswith("moe")
+        gs, ms, vs = adamw_leaves(dev, leaf_shapes, state_dtype, seed=len(leaf_shapes),
+                                  grad_dtype=torch.bfloat16 if moe else torch.float32)
         us, mos, vos = fused_adamw_update(gs, ms, vs, c1, c2, **hp)
         # the train path's form: m' and v' written over m and v
         mi, vi = [m.clone() for m in ms], [v.clone() for v in vs]
@@ -942,12 +1008,17 @@ def run_adamw_parity(dev):
                         elements=sum(g.numel() for g in gs), moments_bitwise=moments_equal,
                         inplace_bitwise=inplace_equal, u_ulps=worst_u, u_bound=4.0,
                         max_abs_err=err, ok=moments_equal and inplace_equal and worst_u <= 4.0))
-        if state_dtype == torch.bfloat16 and timing is None:
+        if moe:
+            timing = timing if timing is not None else {}
+            timing["moe_experts"] = adamw_timing(gs, ms, vs, c1, c2, hp, err)
+        elif state_dtype == torch.bfloat16 and timing is None:
             timing = adamw_timing(gs, ms, vs, c1, c2, hp, err)
         elif label.startswith("tp2"):
             timing["tp2_1.3b"] = adamw_timing(gs, ms, vs, c1, c2, hp, err)
         del gs, ms, vs, us, mos, vos
         free_memory()
+    if only_moe:
+        return out, timing
     # NaN poison
     gs, ms, vs = adamw_leaves(dev, [(37,), (100,)], torch.bfloat16, seed=3)
     gs[0][5] = float("nan")
@@ -995,7 +1066,8 @@ def flash_timing(dev, parity_rows):
     out = {}
     for label, key in (("main bf16", None), ("train 1.3b bf16", "train_1.3b"), ("gpt2 bf16", "gpt2"),
                        ("tp2 1.3b bf16", "tp2_1.3b"), ("tp2 8b prefill bf16", "tp2_8b_prefill"),
-                       ("tp2 gpt2 bf16", "tp2_gpt2")):
+                       ("tp2 gpt2 bf16", "tp2_gpt2"), ("moe rung bf16 (GQA 3)", "moe"),
+                       ("mixtral 8x7b bf16", "mixtral_8x7b")):
         _, B, T, H, KV, D, causal, dtype, _, _ = by_label[label]
         q, k, v, args = flash_fwd_inputs(dev, B, T, H, KV, D, causal, dtype)
         ms = cuda_ms(lambda: flash_fwd(q, k, v, **args))
@@ -2777,6 +2849,10 @@ def _trees_bitwise(tree, params) -> bool:
 # -------------------------------------------------------------------- main
 # --------------------------------------------------------- tensor parallel
 TP_WORLD = 2  # ranks of the TP phases, all on the one card
+# the 1.3B's depth in tp_train and dp_train: 24 -> 8 layers (full width),
+# held to a single-card run at the same depth, so the script with the moe
+# phase stays inside its time (PERF.md §4)
+GLOO_13B_LAYERS = 8
 TP_LOSS_REL = 0.01  # the reference's bf16 loss bar (nanogpt_4d_finetune/README.md)
 TP_SERVE_BF16_STEPS = 16.0  # teacher-forced logits vs the single-card engine (PERF.md)
 TP_FORCED = 4  # teacher-forced requests of the tp_serve check
@@ -2838,7 +2914,7 @@ def tp_child(spec_path: str) -> int:
 
     with open(spec_path) as f:
         spec = json.load(f)
-    if spec["job"] == "pp":
+    if spec["job"] in ("pp", "moe"):
         # two ranks' activation stashes share the card: grow segments in place
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     torch.cuda.set_device(0)
@@ -2861,13 +2937,13 @@ def tp_collectives() -> dict:
     return dict(calls=dict(C.CALLS), bytes=dict(C.BYTES))
 
 
-def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None):
+def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None, layers=None):
     """One rank of ``tp_train``: ``rung`` of the bench (the 1.3B Llama or
     GPT-2 124M) at full width and depth under its plan with sequence
     parallelism, built on ``meta`` and materialized as this rank's pieces
     of the bench's seed-0 weights, trained through the vocab-parallel loss
-    with ``AdamWLowmem`` on the bench's batches: ``bench.WARMUP`` untimed
-    and ``TP_TIMED`` timed steps."""
+    with ``AdamWLowmem`` on the bench's batches: ``TP_WARMUP`` untimed and
+    ``TP_TIMED`` timed steps.  ``layers`` cuts the Llama's depth."""
     import functools
 
     from vescale_tpu_torch import bench, kernels
@@ -2888,6 +2964,8 @@ def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None):
         cfg = GPTConfig(**fields)
         model, plan = GPT(cfg, device="meta"), nanogpt_plan(mesh, sequence_parallel=True)
     else:
+        if layers is not None:
+            fields = dict(fields, num_hidden_layers=layers)
         cfg = LlamaConfig(max_position_embeddings=T, **fields)
         model, plan = Llama(cfg, device="meta"), llama_plan(mesh, sequence_parallel=True)
     dm = parallelize_module(model, mesh, plan,
@@ -2907,8 +2985,8 @@ def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     losses, step_ms, launches, comm, total = [], [], [], [], {}
-    for i in range(bench.WARMUP + TP_TIMED):
-        if i == bench.WARMUP:
+    for i in range(TP_WARMUP + TP_TIMED):
+        if i == TP_WARMUP:
             torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
         C.reset_calls()
@@ -2945,7 +3023,7 @@ def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None):
             (n, p, dm._specs[n]) for n, p in dm.named_parameters())
             if n.endswith(("q_proj.kernel", "c_attn.kernel"))),
     }
-    timed = step_ms[bench.WARMUP:]
+    timed = step_ms[TP_WARMUP:]
     return dict(rank=mesh.get_rank(), setup_s=setup_s, losses=losses, ref_losses=ref_losses,
                 loss_rel_diffs=rel, step_ms=step_ms, step_ms_median=float(np.median(timed)),
                 tokens_per_s_per_rank=B * T / (float(np.median(timed)) / 1e3),
@@ -3038,20 +3116,26 @@ def tp_serve_job(mesh, golden: dict, forced: list, forced_logits_file: str):
 
 
 TP_JOBS = {"train": tp_train_job, "serve": tp_serve_job}
-TP_TIMED = 2  # timed steps of tp_train
+TP_WARMUP, TP_TIMED = 1, 1  # untimed and timed steps of tp_train
 
 
-def run_tp_train(dev, train, gpt2, card):
-    """``tp_train``: the 1.3B Llama (``llama_plan``) and GPT-2 124M
-    (``nanogpt_plan``), both with sequence parallelism, at full width and
-    depth on two ranks of one card over gloo, each from the weights and
-    batches of its single-card phase (``train``, ``gpt2``): losses within
-    1% of that phase's at each step, every kernel launch of each step."""
+def run_tp_train(dev, gpt2, card):
+    """``tp_train``: the 1.3B Llama (``llama_plan``) at full width and
+    ``GLOO_13B_LAYERS`` deep and GPT-2 124M (``nanogpt_plan``) at full width
+    and depth, both with sequence parallelism, on two ranks of one card
+    over gloo, each from the weights and batches of a single-card run (the
+    1.3B's own at that depth, ``gpt2``): losses within 1% of that run's at
+    each step, every kernel launch of each step."""
     from vescale_tpu_torch import bench
 
     out = {}
-    steps = bench.WARMUP + TP_TIMED
-    for rung, ref in (("1.3b", train), ("gpt2", gpt2)):
+    steps = TP_WARMUP + TP_TIMED
+    # the 1.3B runs at GLOO_13B_LAYERS: its single-card losses at that depth
+    short = bench.prepare("1.3b", device=dev, layers=GLOO_13B_LAYERS)
+    short_losses = [float(short.step(short.next_batch())) for _ in range(steps)]
+    del short
+    free_memory()
+    for rung, ref_losses in (("1.3b", short_losses), ("gpt2", gpt2["losses"][:steps])):
         tmpdir = token_file = None
         if rung == "gpt2":
             tmpdir = tempfile.mkdtemp(prefix="vtt_tokens_")
@@ -3059,8 +3143,9 @@ def run_tp_train(dev, train, gpt2, card):
                                                 bench.DATA_TOKENS, 50304)
         t = time.perf_counter()
         try:
-            ranks = tp_spawn("train", dict(rung=rung, ref_losses=ref["losses"][:steps],
-                                           token_file=token_file), timeout_s=600)
+            ranks = tp_spawn("train", dict(rung=rung, ref_losses=ref_losses, token_file=token_file,
+                                           layers=GLOO_13B_LAYERS if rung == "1.3b" else None),
+                             timeout_s=600)
         finally:
             if tmpdir is not None:
                 shutil.rmtree(tmpdir, ignore_errors=True)
@@ -3113,7 +3198,7 @@ def run_tp_serve(dev, serve_streams, forced, card):
 
 
 GLOO_OPS = ("all_reduce", "all_reduce_max", "all_reduce_bf16", "all_gather_into_tensor",
-            "reduce_scatter_tensor", "all_to_all_single", "broadcast", "scatter",
+            "reduce_scatter_tensor", "all_to_all_single", "all_to_all_v", "broadcast", "scatter",
             "send_recv")
 
 
@@ -3149,6 +3234,14 @@ def gloo_probe_child(op: str, rank: int, port: int) -> int:
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x)
         ok = bool((out[:4] == 1).all() and (out[4:] == 2).all())
+    elif op == "all_to_all_v":  # uneven splits: the ragged refresh's exchange
+        send = torch.arange(8, dtype=torch.float32, device=dev) + 10 * rank
+        splits = [3, 5] if rank == 0 else [6, 2]
+        recv = [3, 6] if rank == 0 else [5, 2]
+        out = torch.empty(sum(recv), device=dev)
+        dist.all_to_all_single(out, send, output_split_sizes=recv, input_split_sizes=splits)
+        want = ([0, 1, 2, 10, 11, 12, 13, 14, 15] if rank == 0 else [3, 4, 5, 6, 7, 16, 17])
+        ok = out.tolist() == [float(w) for w in want]
     elif op == "broadcast":
         dist.broadcast(x, src=0)
         ok = bool((x == 1).all())
@@ -3234,7 +3327,7 @@ def dp_state_fingerprint(dopt) -> dict:
                 step=int(group["step"]))
 
 
-def dp_mode_job(mesh, mode: str, ref_losses: list, ddp_params=None):
+def dp_mode_job(mesh, mode: str, ref_losses: list, ddp_params=None, layers=None):
     """One rank of one 1.3B dp mode (``bench.prepare_dp``): ``DP_STEPS``
     steps on this rank's row, the last with the collectives timed; for
     ``zero2`` (dynamic loss scale) one more step in which rank 1's gradient
@@ -3247,7 +3340,8 @@ def dp_mode_job(mesh, mode: str, ref_losses: list, ddp_params=None):
     free_memory()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    run = bench.prepare_dp("1.3b", mode, mesh, loss_scale="dynamic" if mode == "zero2" else None)
+    run = bench.prepare_dp("1.3b", mode, mesh, loss_scale="dynamic" if mode == "zero2" else None,
+                           layers=layers)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     losses, step_ms, launches, gloo = [], [], [], None
@@ -3333,12 +3427,12 @@ def dp_gpt2_job(mesh, ref_losses: list, token_file: str, grad_compress=None):
                 loss_rel_diffs=[abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)])
 
 
-def dp_train_job(mesh, ref_losses: list, gpt2_ref: list, token_file: str):
-    """One rank of ``dp_train``: the 1.3B under ddp, zero2 and fsdp, then
-    GPT-2 exact and int8."""
+def dp_train_job(mesh, ref_losses: list, gpt2_ref: list, token_file: str, layers=None):
+    """One rank of ``dp_train``: the 1.3B (``layers`` deep) under ddp, zero2
+    and fsdp, then GPT-2 exact and int8."""
     out, host = {}, None
     for mode in ("ddp", "zero2", "fsdp"):
-        out[mode], got = dp_mode_job(mesh, mode, ref_losses, ddp_params=host)
+        out[mode], got = dp_mode_job(mesh, mode, ref_losses, ddp_params=host, layers=layers)
         host = got if mode == "ddp" else host
     del host
     free_memory()
@@ -3437,15 +3531,16 @@ def quant_timing(dev) -> dict:
 
 
 def run_dp_train(dev, gpt2, card):
-    """``dp_train``: the 1.3B at dp=2 under ddp, zero2 and fsdp (two ranks
-    of one card over gloo), each held to a single-card run of the same two
-    rows (``grad_accum_steps=2``); GPT-2 exact and int8; K8 at the dp
-    shapes."""
+    """``dp_train``: the 1.3B at full width and ``GLOO_13B_LAYERS`` deep at
+    dp=2 under ddp, zero2 and fsdp (two ranks of one card over gloo), each
+    held to a single-card run of the same two rows at that depth
+    (``grad_accum_steps=2``); GPT-2 exact and int8; K8 at the 1.3B's full
+    dp shapes."""
     from vescale_tpu_torch import bench
 
     t = time.perf_counter()
     ref = bench.prepare("1.3b", device=dev, rows=bench.RUNGS["1.3b"][1] * TP_WORLD,
-                        grad_accum_steps=TP_WORLD)
+                        grad_accum_steps=TP_WORLD, layers=GLOO_13B_LAYERS)
     ref_losses, ref_ms = [], []
     for _ in range(DP_STEPS):
         torch.cuda.synchronize()
@@ -3461,7 +3556,8 @@ def run_dp_train(dev, gpt2, card):
                                             50304)
         ranks = tp_spawn("dp", dict(ref_losses=ref_losses,
                                     gpt2_ref=gpt2["losses"][:DP_GPT2_STEPS],
-                                    token_file=token_file), timeout_s=900, names=("dp",))
+                                    token_file=token_file, layers=GLOO_13B_LAYERS),
+                         timeout_s=900, names=("dp",))
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
     adamw = dp_adamw_parity(dev)
@@ -5003,6 +5099,564 @@ def run_pipeline(dev, card, kernels_mod, train=None) -> dict:
 TP_JOBS["pp"] = pp_13b_job
 
 
+# --------------------------------------------------------------- MoE (A16)
+# the bench's moe_cpu config with head_dim 64 (the smallest the flash
+# kernels take): width 128 over 2 heads and 1 kv head (its GQA group of 2),
+# FFN 256 (its FFN / width of 2), 2 layers, 4 experts, top-2, fp32
+MOE_SMALL = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                 num_attention_heads=2, num_key_value_heads=1, num_local_experts=4,
+                 max_position_embeddings=64)
+MOE_SMALL_BATCH = (2, 64)
+MOE_FULL_LAYERS = 2  # Mixtral-8x7B's depth cut: 32 -> 2 layers (3.16B parameters)
+MOE_EP_STEPS = 3
+MOE_LOOP_STEPS = 6
+MOE_REFRESH_AFTER = 3  # the load-aware refresh follows this step
+# tests/test_moe.py:197's skew (4.0 added to router column 0): a token whose
+# features sum positive picks expert 0, else not; with -4.0 on column 1 and
+# +4.0 on column 2 beside it, experts 0-2 take ~3/4 of the routed slots, so
+# the load-aware allocation is uneven and differs from the even start
+MOE_ROUTER_SKEW = {0: 4.0, 1: -4.0, 2: 4.0}
+# the EP ranks' grads against one card's, each leaf's ||g - g1|| / ||g1||.
+# The combine's partial sums meet in a bf16 all-reduce, so each layer's
+# output differs from one card's by a bf16 rounding; through 8 layers
+# that moves the router's input enough to flip near-tied top-2 choices
+# of a few tokens (counted: ``routing_flips``), whose grads then go to
+# other experts.  An elementwise bound would measure those tokens only.
+# Each flipped token's grad goes elsewhere, so a leaf's relative error
+# grows as sqrt(2 * F / N) (F of N tokens flipped): the bound is the bf16
+# noise MOE_GRAD_REL_L2 plus twice that at the step's most flipped layer.
+# A lost contribution (another rank's experts missing from the router's
+# grad) would show on every rank as unequal replicated grads instead.
+MOE_GRAD_REL_L2 = 0.05
+EXPERT_LEAF_NAMES = ("w_in", "b_in", "w_out", "b_out", "w_gate")
+
+
+def moe_routing_hooks(model):
+    """Forward hooks recording each MoE layer's (N, K) expert choice, as
+    ``moe.layer.route`` makes it from the layer's input and router; returns
+    (records by layer, the hook handles)."""
+    from vescale_tpu_torch.moe.layer import route
+
+    records, handles = [], []
+    for block in model.blocks():
+        rec = []
+
+        def hook(mod, args, out, rec=rec):
+            with torch.no_grad():
+                x2 = args[0].reshape(-1, args[0].shape[-1])
+                rec.append(route(x2, mod.router, mod.config.top_k)[2].cpu())
+
+        records.append(rec)
+        handles.append(block.block_sparse_moe.register_forward_hook(hook))
+    return records, handles
+
+
+def run_moe_small(dev, kernels_mod):
+    """(a): the moe_cpu config (``MOE_SMALL``) trained 3 steps on the card
+    (kernels, cuBLAS) and on the CPU (plain versions) from the same
+    ``init_params(device="cpu")`` weights and batch, ``AdamWLowmem(3e-4)``
+    over ``param_dtype_groups`` (fp32: one group).  Routing equal on every
+    token of the first step; losses as ``run_train_small``'s bounds: 1e-5
+    relative at step 1, 1e-3 absolute after."""
+    from vescale_tpu_torch import bench
+    from vescale_tpu_torch.models import Mixtral, MixtralConfig, cross_entropy_loss, init_params
+    from vescale_tpu_torch.parallel import AdamWLowmem, param_dtype_groups
+    from vescale_tpu_torch.train import make_train_step
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "fp32 matmuls must not run in TF32")
+    cfg = MixtralConfig(**MOE_SMALL, dtype=torch.float32)
+    params = init_params(cfg, seed=1, device="cpu")
+    B, T = MOE_SMALL_BATCH
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T + 1)))
+    losses, routing = {}, {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = Mixtral(cfg, params, device=device)
+        opt = AdamWLowmem(param_dtype_groups(model.parameters()), bench.LR)
+        step = make_train_step(model, opt, lambda lg, b: cross_entropy_loss(lg, b["target"]))
+        t = toks.to(device)
+        batch = {"input": t[:, :-1], "target": t[:, 1:]}
+        records, handles = moe_routing_hooks(model)
+        kernels_mod.reset_launches()
+        losses[where] = [float(step(batch)) for _ in range(3)]
+        if where == "card":
+            launches = dict(kernels_mod.LAUNCHES)
+        for h in handles:
+            h.remove()
+        routing[where] = [rec[0] for rec in records]  # the first step's forward
+    diffs = [abs(a - b) for a, b in zip(losses["card"], losses["cpu"])]
+    bounds = [1e-5 * abs(losses["cpu"][0]), 1e-3, 1e-3]
+    L = cfg.num_hidden_layers
+    want = {**{k: 0 for k in kernels_mod.LAUNCHES}, "flash_fwd": 3 * L, "flash_bwd_dq": 3 * L,
+            "flash_bwd_dkv": 3 * L, "fused_adamw": 3}
+    same = [bool(torch.equal(a, b)) for a, b in zip(routing["card"], routing["cpu"])]
+    checks = {"routing_equal_first_step": all(same),
+              "losses_within_bounds": all(d <= b for d, b in zip(diffs, bounds)),
+              "losses_finite": bool(np.isfinite(losses["card"]).all()),
+              "launches": launches == want}
+    out = dict(config=dict(MOE_SMALL, B=B, T=T), losses=losses, abs_diffs=diffs, bounds=bounds,
+               tokens_routed=[int(r.numel()) for r in routing["card"]], launches=launches,
+               checks=checks)
+    check(all(checks.values()), f"moe_small checks failed: {out}")
+    return out
+
+
+def moe_matmul_split(fn, N: int, EC: int, E: int) -> dict:
+    """One run of ``fn`` under ``torch.profiler`` with shapes: the device ms,
+    calls and FLOPs of the aten matrix products by role: ``dispatch_combine``
+    (an operand holds both the N tokens and the E*C capacity slots: the
+    dense one-hot products and their backward), ``masks`` (batched over
+    the N tokens: the (N, E, C) masks built from the (N, K) choices),
+    ``experts`` (batched over the E experts) and ``dense`` (every other
+    product: attention projections, the head, the router)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {k: dict(device_ms=0.0, calls=0, gflop=0.0)
+           for k in ("dispatch_combine", "masks", "experts", "dense")}
+    for evt in prof.key_averages(group_by_input_shape=True):
+        if evt.key not in ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm"):
+            continue
+        shapes = [list(s) for s in evt.input_shapes if s and len(s) >= 2]
+        if len(shapes) < 2:
+            continue
+        a, b = shapes[-2], shapes[-1]
+        dims = {d for s in (a, b) for d in s}
+        flops = 2.0 * np.prod(a[:-1]) * a[-1] * b[-1]
+        if N in dims and EC in dims:
+            kind = "dispatch_combine"
+        elif evt.key.endswith("bmm") and a[0] == N and len(a) == 3:
+            kind = "masks"
+        elif evt.key.endswith("bmm") and a[0] == E and len(a) == 3:
+            kind = "experts"
+        else:
+            kind = "dense"
+        dev_us = getattr(evt, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "cuda_time_total", 0.0)
+        out[kind]["device_ms"] += dev_us / 1e3
+        out[kind]["calls"] += evt.count
+        out[kind]["gflop"] += flops * evt.count / 1e9
+    return out
+
+
+def run_moe_rung(dev, kernels_mod, golden_path: str):
+    """(b): the bench's moe rung (``bench.prepare("moe")``) at the reference
+    rung's TPU config: 2 warm-up and 5 timed steps; finite, falling loss;
+    per step 8 K1, 8 dq, 8 dkv and 2 K8 (the fp32 and the bf16 groups);
+    step ms, tokens/s, MFU (active parameters), peak; each layer's
+    ``expert_tokens``; one profiled step by kernel kind and one by matmul
+    role.  The first step's grads go to ``golden_path`` for the EP leg."""
+    from vescale_tpu_torch.bench import measure, prepare
+
+    t0 = time.perf_counter()
+    run = prepare("moe", device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, L = run.config, run.config.num_hidden_layers
+    first = {}
+    real = run.optimizer.step
+
+    def spy():
+        if not first:
+            first.update({n: p.grad.detach().cpu() for n, p in run.model.named_parameters()})
+        real()
+
+    run.optimizer.step = spy
+    records, handles = moe_routing_hooks(run.model)
+    kernels_mod.reset_launches()
+    res = measure(run)
+    run.optimizer.step = real
+    for h in handles:
+        h.remove()
+    launches = dict(kernels_mod.LAUNCHES)
+    torch.save({"grads": first, "routing": [rec[0] for rec in records]}, golden_path)
+    del first, records
+    timed = res["losses"][res["warmup_steps"]:]
+    want = {**{k: 0 for k in kernels_mod.LAUNCHES}, "flash_fwd": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "fused_adamw": 2}
+    groups = [(str(g["state_dtype"]), len(g["params"])) for g in run.optimizer.param_groups]
+    checks = {
+        "losses_finite": bool(np.isfinite(res["losses"]).all()),
+        "loss_falls": timed[-1] < timed[0],
+        "launches_per_step": all(step == want for step in res["launches_per_step"]),
+        "two_groups": groups == [("torch.float32", 7 * L + 3), ("torch.bfloat16", 5 * L)],
+    }
+    prof = device_time_by_kind(lambda: run.step(run.next_batch()))
+    busy = prof["device_busy_ms"]
+    prof["device_idle_share"] = max(0.0, 1.0 - busy / res["step_ms_median"])
+    B, T = run.next_batch()["input"].shape
+    N, E = B * T, cfg.num_local_experts
+    from vescale_tpu_torch.moe import TokenDispatcher
+
+    C = TokenDispatcher.capacity_for(N, E, cfg.num_experts_per_tok, cfg.capacity_factor)
+    prof["matmul_by_role"] = moe_matmul_split(lambda: run.step(run.next_batch()), N, E * C, E)
+    out = dict(model="Mixtral-style MoE (bench rung moe)", weights="random, seed 0 (fp32; bf16 experts)",
+               setup_s=setup_s, launches=launches, checks=checks, profile=prof,
+               optimizer_groups=groups, capacity=C,
+               expert_tokens=[b.block_sparse_moe.expert_tokens.tolist() for b in run.model.blocks()],
+               mfu_formula="(6 * active params + 12 * layers * T * hidden) * tokens/s / peak",
+               **{k: v for k, v in res.items() if k != "launches_per_step"},
+               launches_first_step=res["launches_per_step"][0])
+    check(all(checks.values()), f"moe rung checks failed: {out}")
+    del run
+    free_memory()
+    return out
+
+
+def run_mixtral_full(dev, kernels_mod):
+    """(c): Mixtral-8x7B at its published widths (``MIXTRAL_8X7B``: 4096 /
+    14336, 32 heads / 8 KV heads, 8 experts, top-2, vocab 32000, rope theta
+    1e6), depth cut to ``MOE_FULL_LAYERS``, the moe rung's B=2, T=2048
+    batch and optimizer: 1 warm-up and 2 timed steps; a finite loss, the
+    launches a step, step ms, MFU and peak."""
+    from vescale_tpu_torch import bench
+    from vescale_tpu_torch.models import MIXTRAL_8X7B
+
+    cfg = dataclasses.replace(MIXTRAL_8X7B, num_hidden_layers=MOE_FULL_LAYERS,
+                              max_position_embeddings=bench.MOE_RUNGS["moe"][2])
+    t0 = time.perf_counter()
+    run = bench.prepare_moe("moe", dev, config=cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kernels_mod.reset_launches()
+    res = bench.measure(run, warmup=1, steps=2)
+    launches = dict(kernels_mod.LAUNCHES)
+    L = MOE_FULL_LAYERS
+    want = {**{k: 0 for k in kernels_mod.LAUNCHES}, "flash_fwd": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "fused_adamw": 2}
+    expert = sum(p.numel() for n, p in run.model.named_parameters()
+                 if n.rsplit(".", 1)[-1] in EXPERT_LEAF_NAMES)
+    checks = {"losses_finite": bool(np.isfinite(res["losses"]).all()),
+              "launches_per_step": all(s == want for s in res["launches_per_step"])}
+    out = dict(model=f"Mixtral-8x7B widths, {L} of 32 layers", setup_s=setup_s,
+               launches=launches, checks=checks, expert_params=expert,
+               reduced=f"num_hidden_layers 32 -> {L}",
+               **{k: v for k, v in res.items() if k != "launches_per_step"},
+               launches_first_step=res["launches_per_step"][0])
+    check(all(checks.values()), f"mixtral full-width checks failed: {out}")
+    del run
+    free_memory()
+    return out
+
+
+def moe_ep_leg(mesh, golden_path: str, ref_losses: list) -> dict:
+    """(d), one rank: the moe rung's model and weights (``init_params``
+    seed 0 on the card, the (b) leg's) under ``mixtral_plan`` on the ("ep",)
+    mesh, ``MOE_EP_STEPS`` steps of ``make_train_step`` with
+    ``AdamWLowmem`` over ``param_dtype_groups`` on the rung's batch, then
+    one more with the collectives timed.  The first step's grads against
+    one card's (``golden_path``): the replicated leaves' whole, the expert
+    leaves' against this rank's rows, each leaf's relative L2 error within
+    ``MOE_GRAD_REL_L2`` plus the routing flips' share (above); the tokens
+    whose top-2 differs from one card's, by layer."""
+    from vescale_tpu_torch import bench, kernels
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.models import Mixtral, cross_entropy_loss, init_params, mixtral_plan
+    from vescale_tpu_torch.parallel import AdamWLowmem, param_dtype_groups
+    from vescale_tpu_torch.train import make_train_step
+
+    dev = mesh.device
+    cfg = bench.moe_config("moe")
+    _, B, T, _ = bench.MOE_RUNGS["moe"]
+    t0 = time.perf_counter()
+    dm = parallelize_module(Mixtral(cfg, init_params(cfg, 0, device=dev), device=dev), mesh,
+                            mixtral_plan(mesh))
+    opt = AdamWLowmem(param_dtype_groups(dm.parameters()), bench.LR)
+    step = make_train_step(dm, opt, lambda lg, b: cross_entropy_loss(lg, b["target"]))
+    batch = bench.moe_batch(cfg, B, T, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    grads = {}
+    real = opt.step
+
+    def spy():
+        if not grads:
+            grads.update({n: p.grad.detach().clone() for n, p in dm.named_parameters()})
+        real()
+
+    opt.step = spy
+    records, handles = moe_routing_hooks(dm.module)
+    losses, step_ms, launches, comm = [], [], [], []
+    for i in range(MOE_EP_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        C.reset_calls()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(step(batch)))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        launches.append(dict(kernels.LAUNCHES))
+        comm.append(tp_collectives())
+    opt.step = real
+    for h in handles:
+        h.remove()
+    C.reset_calls()
+    C.TIMING = True
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    extra_loss = float(step(batch))
+    timed_step_s = time.perf_counter() - t1
+    C.TIMING = False
+    gloo = dict(step_ms=timed_step_s * 1e3, loss=extra_loss, seconds_by_op=dict(C.SECONDS),
+                share=sum(C.SECONDS.values()) / timed_step_s)
+    golden = torch.load(golden_path)
+    flips = [int((rec[0] != want).any(dim=-1).sum())
+             for rec, want in zip(records, golden["routing"])]
+    E, n = cfg.num_local_experts, cfg.num_local_experts // mesh.size()
+    lo = mesh.get_coordinate()[0] * n
+    grad_ulps, grad_rel, replicated = {}, {}, {}
+    for name, g in grads.items():
+        want = golden["grads"][name].to(dev)
+        if name.rsplit(".", 1)[-1] in EXPERT_LEAF_NAMES:
+            want = want[lo:lo + n]
+        else:
+            replicated[name] = g
+        grad_ulps[name] = ulps_at_scale_t(g.float(), want.float())
+        grad_rel[name] = float(torch.linalg.vector_norm((g.float() - want.float()).double())
+                               / torch.linalg.vector_norm(want.double()))
+    del golden
+    L = cfg.num_hidden_layers
+    want_launches = {**{k: 0 for k in kernels.LAUNCHES}, "flash_fwd": L, "flash_bwd_dq": L,
+                     "flash_bwd_dkv": L, "fused_adamw": 2}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    N = int(records[0][0].shape[0])
+    grad_bound = MOE_GRAD_REL_L2 + 2 * float(np.sqrt(2 * max(flips) / N))
+    checks = {"losses_finite": bool(np.isfinite(losses).all()),
+              "losses_within_1pct": len(rel) == len(losses) and max(rel) <= TP_LOSS_REL,
+              "launches_per_step": all(s == want_launches for s in launches),
+              "grads_within_bound": max(grad_rel.values()) <= grad_bound,
+              "local_experts": all(p.shape[0] == n for nm, p in dm.named_parameters()
+                                   if nm.rsplit(".", 1)[-1] in EXPERT_LEAF_NAMES)}
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:6]
+    worst_ulps = sorted(grad_ulps.items(), key=lambda kv: -kv[1])[:6]
+    return dict(rank=mesh.get_rank(), setup_s=setup_s, losses=losses, ref_losses=ref_losses,
+                loss_rel_diffs=rel, step_ms=step_ms,
+                step_ms_median=float(np.median(step_ms[1:])),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                params_local=sum(p.numel() for p in dm.parameters()),
+                launches_per_step=launches[-1],
+                launches_total={k: sum(s[k] for s in launches) for k in launches[0]},
+                collectives_per_step=comm[-1], gloo_timed_step=gloo,
+                grad_rel_l2_worst=worst, grad_rel_l2_bound=grad_bound,
+                grad_rel_l2_by_layer=moe_rel_by_layer(grad_rel, cfg.num_hidden_layers),
+                grad_ulps_at_scale_worst=worst_ulps, routing_flips_first_step=flips,
+                tokens_routed_per_layer=N,
+                replicated_fingerprint=fingerprint(replicated[k] for k in sorted(replicated)),
+                checks=checks)
+
+
+def moe_rel_by_layer(rel: dict, L: int) -> dict:
+    """The worst relative grad error of each layer's leaves, and of the
+    leaves outside the layers."""
+    out = {}
+    for name, v in rel.items():
+        key = name.split(".")[0] if name.startswith("layers_") else "outside"
+        out[key] = max(out.get(key, 0.0), v)
+    return {k: out[k] for k in [f"layers_{i}" for i in range(L)] + ["outside"] if k in out}
+
+
+def moe_refresh_run(mesh, reallocate: bool) -> dict:
+    """(e), one run on one rank: the moe rung's model (router columns
+    skewed by ``MOE_ROUTER_SKEW``) with its expert leaves held in a
+    ``MoEParamBuffer`` over "ep" and stepped by ``MoEOptimizer`` (K8 on
+    this rank's pieces, bf16 moments), the other leaves by
+    ``AdamWLowmem`` (fp32 moments): ``MOE_LOOP_STEPS`` steps, each
+    gathering the experts, a forward and backward of the whole model on
+    this rank and the two optimizer steps.  With ``reallocate``, after step
+    ``MOE_REFRESH_AFTER`` ``BasicExpertsAllocator`` takes an EMA of the
+    layers' summed ``expert_tokens`` and the buffer and the moments are
+    refreshed to it."""
+    import functools
+
+    from vescale_tpu_torch import bench, kernels
+    from vescale_tpu_torch.models import Mixtral, cross_entropy_loss, init_params
+    from vescale_tpu_torch.moe import (BasicExpertsAllocator, ExpertsAllocator, MoEOptimizer,
+                                       MoEParamBuffer)
+    from vescale_tpu_torch.parallel import AdamWLowmem
+
+    dev = mesh.device
+    cfg = bench.moe_config("moe")
+    _, B, T, _ = bench.MOE_RUNGS["moe"]
+    model = Mixtral(cfg, init_params(cfg, 0, device=dev), device=dev)
+    blocks = model.blocks()
+    with torch.no_grad():
+        for b in blocks:
+            for col, add in MOE_ROUTER_SKEW.items():
+                b.block_sparse_moe.router[:, col] += add
+    E, world = cfg.num_local_experts, mesh.size()
+    expert = {f"layers_{i}": {k: getattr(b.block_sparse_moe, k) for k in EXPERT_LEAF_NAMES}
+              for i, b in enumerate(blocks)}
+    buffer = MoEParamBuffer(mesh, "ep", E, ExpertsAllocator(E, world).allocate())
+    moe_opt = MoEOptimizer(functools.partial(AdamWLowmem, lr=bench.LR), buffer)
+    sharded = buffer.shard_params({l: {k: p.detach() for k, p in d.items()}
+                                   for l, d in expert.items()})
+    state = moe_opt.init(sharded)
+    ids = {id(p) for d in expert.values() for p in d.values()}
+    dense = [p for p in model.parameters() if id(p) not in ids]
+    dense_opt = AdamWLowmem(dense, bench.LR, state_dtype=torch.float32)
+    batch = bench.moe_batch(cfg, B, T, dev)
+    ema = np.zeros(E)
+    losses, units, launches = [], [list(buffer.units)], []
+    t0 = time.perf_counter()
+    for i in range(MOE_LOOP_STEPS):
+        kernels.reset_launches()
+        full = moe_opt.buffer.gather_params(sharded)
+        with torch.no_grad():
+            for l, d in expert.items():
+                for k, p in d.items():
+                    p.copy_(full[l][k])
+        del full
+        model.zero_grad(set_to_none=True)
+        loss = cross_entropy_loss(model(batch["input"]), batch["target"])
+        loss.backward()
+        losses.append(float(loss.detach()))
+        ema = 0.9 * ema + 0.1 * sum(b.block_sparse_moe.expert_tokens for b in blocks).cpu().numpy()
+        grads = moe_opt.buffer.shard_params({l: {k: p.grad for k, p in d.items()}
+                                             for l, d in expert.items()})
+        sharded, state = moe_opt.step(sharded, state, grads)
+        dense_opt.step()
+        launches.append(dict(kernels.LAUNCHES))
+        if reallocate and i == MOE_REFRESH_AFTER - 1:
+            new = BasicExpertsAllocator(E, world).allocate(ema)
+            _, sharded, state = moe_opt.refresh(sharded, state, new)
+            units.append(list(new))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    final = dict(experts=moe_opt.buffer.gather_params(sharded),
+                 moments={key: {l: {k: d.full_tensor() for k, d in leaves.items()}
+                                for l, leaves in tree.items()}
+                          for key, tree in state.items() if key != "step"},
+                 dense=[p.detach().clone() for p in dense],
+                 dense_moments=[dense_opt.state[p][k].clone() for p in dense
+                                for k in ("exp_avg", "exp_avg_sq")])
+    return dict(losses=losses, units=units, launches=launches, wall_s=wall_s,
+                step=state["step"], local_pieces=moe_opt.buffer.local_experts(mesh.get_rank()),
+                final=final)
+
+
+def moe_ep_job(mesh, golden_path: str, ref_losses: list) -> dict:
+    """One rank of the moe phase's spawn: (d), then (e)'s two runs."""
+    from vescale_tpu_torch import kernels
+    from vescale_tpu_torch.checkpoint.planner import flatten_state
+
+    ep = moe_ep_leg(mesh, golden_path, ref_losses)
+    free_memory()
+    base = moe_refresh_run(mesh, reallocate=False)
+    base_final = [t for _, t in flatten_state(base.pop("final"))]
+    free_memory()
+    re = moe_refresh_run(mesh, reallocate=True)
+    re_final = [t for _, t in flatten_state(re.pop("final"))]
+    equal = len(base_final) == len(re_final) and all(
+        bits_equal(a, b) for a, b in zip(base_final, re_final))
+    del base_final, re_final
+    free_memory()
+    want = {**{k: 0 for k in kernels.LAUNCHES}, "flash_fwd": 8, "flash_bwd_dq": 8,
+            "flash_bwd_dkv": 8, "fused_adamw": 2}
+    checks = {"units_changed": len(re["units"]) == 2 and re["units"][1] != re["units"][0],
+              "losses_bitwise": base["losses"] == re["losses"],
+              "params_and_moments_bitwise": equal,
+              "step_kept": base["step"] == re["step"] == MOE_LOOP_STEPS,
+              "loss_falls": base["losses"][-1] < base["losses"][0],
+              "launches_per_step": all(s == want for s in base["launches"] + re["launches"])}
+    refresh = dict(base=base, refreshed=re, checks=checks)
+    launches_total = dict(ep["launches_total"])
+    for run in (base, re):
+        for s in run["launches"]:
+            for k, v in s.items():
+                launches_total[k] += v
+    return dict(rank=mesh.get_rank(), ep=ep, refresh=refresh, launches_total=launches_total)
+
+
+TP_JOBS["moe"] = moe_ep_job
+
+
+def run_moe(dev, card, kernels_mod) -> dict:
+    """The moe phase: (a) ``run_moe_small``, (b) ``run_moe_rung``, (c)
+    ``run_mixtral_full``, then (d) and (e) in one spawn of two gloo ranks of
+    the card on an ("ep",) mesh of 2 (``moe_ep_job``): every rank's
+    replicated grads bitwise equal, each rank's checks."""
+    out = {}
+    t = time.perf_counter()
+    out["small"] = run_moe_small(dev, kernels_mod)
+    out["small"]["seconds"] = time.perf_counter() - t
+    log("moe.small", **out["small"])  # each leg's line as it ends
+    tmp = tempfile.mkdtemp(prefix="vtt_moe_")
+    try:
+        golden = os.path.join(tmp, "grads.pt")
+        t = time.perf_counter()
+        out["rung"] = run_moe_rung(dev, kernels_mod, golden)
+        out["rung"]["seconds"] = time.perf_counter() - t
+        log("moe.rung", **out["rung"])
+        t = time.perf_counter()
+        out["full"] = run_mixtral_full(dev, kernels_mod)
+        out["full"]["seconds"] = time.perf_counter() - t
+        log("moe.full", **out["full"])
+        t = time.perf_counter()
+        ranks = tp_spawn("moe", dict(golden_path=golden,
+                                     ref_losses=out["rung"]["losses"][:MOE_EP_STEPS]),
+                         timeout_s=600, names=("ep",))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep_equal = ranks[0]["ep"]["replicated_fingerprint"] == ranks[1]["ep"]["replicated_fingerprint"]
+    for r in ranks:
+        r["ep"].pop("replicated_fingerprint")
+    out["ep"] = dict(ranks=[r["ep"] for r in ranks], replicated_grads_bitwise=rep_equal,
+                     seconds=time.perf_counter() - t, card=card)
+    out["refresh"] = [r["refresh"] for r in ranks]
+    log("moe.ep", **out["ep"])
+    log("moe.refresh", ranks=out["refresh"])
+    launches = {k: 0 for k in kernels_mod.LAUNCHES}
+    for leg in ("small", "rung", "full"):
+        for k, v in out[leg]["launches"].items():
+            launches[k] += v
+    for r in ranks:
+        for k, v in r["launches_total"].items():
+            launches[k] += v
+    out["launches"] = launches
+    ok = rep_equal and all(all(r["ep"]["checks"].values()) and all(r["refresh"]["checks"].values())
+                           for r in ranks)
+    check(ok, f"moe ep/refresh checks failed: {json.dumps(out['ep'])[:3000]} "
+              f"{json.dumps([r['refresh']['checks'] for r in ranks])}")
+    return out
+
+
+def moe_summary(moe: dict) -> dict:
+    """The moe phase's line: the legs' seconds and checks and the launches
+    (each leg printed its own line, ``moe.<leg>``)."""
+    return dict(launches=moe["launches"],
+                legs={leg: dict(seconds=moe[leg]["seconds"], checks=moe[leg]["checks"])
+                      for leg in ("small", "rung", "full")},
+                ep_checks=[r["checks"] for r in moe["ep"]["ranks"]],
+                ep_seconds=moe["ep"]["seconds"],
+                refresh_checks=[r["checks"] for r in moe["refresh"]],
+                replicated_grads_bitwise=moe["ep"]["replicated_grads_bitwise"])
+
+
+def moe_only(dev, card, kernels_mod) -> int:
+    """``--moe``: the new parity cases, then the moe phase."""
+    from vescale_tpu_torch.kernels import ulps_at_scale
+
+    t = time.perf_counter()
+    rows = run_flash_parity(dev, ulps_at_scale, only=MOE_PARITY)
+    bwd_rows, _ = run_flash_bwd_parity(dev, ulps_at_scale, only=MOE_PARITY)
+    adamw_rows, adamw_t = run_adamw_parity(dev, only_moe=True)
+    rows += bwd_rows + adamw_rows
+    log("parity", seconds=time.perf_counter() - t, checks=rows, timings={"fused_adamw": adamw_t})
+    t = time.perf_counter()
+    moe = run_moe(dev, card, kernels_mod)
+    log("moe", seconds=time.perf_counter() - t, **moe_summary(moe))
+    check(all(r["ok"] for r in rows), "kernel parity failed: " + json.dumps(
+        [r for r in rows if not r["ok"]]))
+    print(card, flush=True)
+    return 0
+
+
 def pp_only(dev, card, kernels_mod) -> int:
     """``--pp``: the gpt2 phase, then the pipeline phase."""
     gpt2 = run_train_gpt2(dev, kernels_mod)
@@ -5048,18 +5702,16 @@ def tp_launches(phase: dict, name: str) -> int:
 
 def tp_only(dev, card, kernels_mod) -> int:
     """``--tp``: the single-card phases the TP phases are held to (serve,
-    train, gpt2), then ``tp_train`` and ``tp_serve``."""
+    gpt2), then ``tp_train`` and ``tp_serve``."""
     serve, eng, _, _, serve_streams = run_serve_8b(dev, kernels_mod)
     log("serve", **{k: v for k, v in serve.items() if k in ("checks", "launches")})
     forced = forced_reference(eng, serve_streams)
     del eng
     free_memory()
-    train = run_train_13b(dev, kernels_mod)
-    log("train", losses=train["losses"], step_ms_median=train["step_ms_median"])
     gpt2 = run_train_gpt2(dev, kernels_mod)
     log("gpt2", losses=gpt2["losses"], step_ms_median=gpt2["step_ms_median"])
     t = time.perf_counter()
-    tp_train = run_tp_train(dev, train, gpt2, card)
+    tp_train = run_tp_train(dev, gpt2, card)
     log("tp_train", seconds=time.perf_counter() - t, **tp_train)
     t = time.perf_counter()
     tp_serve = run_tp_serve(dev, serve_streams, forced, card)
@@ -5085,7 +5737,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true", help="device, build and kernel parity only")
     ap.add_argument("--tp", action="store_true",
-                    help="device, build, and the serve, train, gpt2 and TP phases only")
+                    help="device, build, and the serve, gpt2 and TP phases only")
     ap.add_argument("--dp", action="store_true",
                     help="device, build, and the train, gpt2 and DP phases only")
     ap.add_argument("--resil", action="store_true",
@@ -5094,6 +5746,8 @@ def main() -> int:
                     help="device, build, the serve and gpt2 phases, and the telemetry phase only")
     ap.add_argument("--pp", action="store_true",
                     help="device, build, the gpt2 phase and the pipeline phase only")
+    ap.add_argument("--moe", action="store_true",
+                    help="device, build, the moe shapes' parity and the moe phase only")
     ap.add_argument("--gloo-probe", action="store_true",
                     help="which collectives gloo carries on CUDA tensors, then exit")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
@@ -5153,6 +5807,8 @@ def main() -> int:
         return dp_only(dev, card, kernels_mod)
     if opts.pp:
         return pp_only(dev, card, kernels_mod)
+    if opts.moe:
+        return moe_only(dev, card, kernels_mod)
 
     t = time.perf_counter()
     flash_rows = run_flash_parity(dev, ulps_at_scale)
@@ -5227,7 +5883,7 @@ def main() -> int:
     resilient_train = run_train_resilient(dev, card, kernels_mod)
     log("train_resilient", seconds=time.perf_counter() - t, **resilient_train)
     t = time.perf_counter()
-    tp_train = run_tp_train(dev, train, gpt2, card)
+    tp_train = run_tp_train(dev, gpt2, card)
     log("tp_train", seconds=time.perf_counter() - t, **tp_train)
     t = time.perf_counter()
     tp_serve = run_tp_serve(dev, serve_streams, forced, card)
@@ -5238,6 +5894,9 @@ def main() -> int:
     t = time.perf_counter()
     pipeline = run_pipeline(dev, card, kernels_mod, train)
     log("pipeline", seconds=time.perf_counter() - t, **pipeline)
+    t = time.perf_counter()
+    moe = run_moe(dev, card, kernels_mod)
+    log("moe", seconds=time.perf_counter() - t, **moe_summary(moe))
     log("done", seconds=time.perf_counter() - t_all)
     check(not bad_parity, "kernel parity failed: " + json.dumps(bad_parity))
 
@@ -5263,7 +5922,7 @@ def main() -> int:
                    "dp_train": sum(r["launches_total"].get(name, 0) for r in dp_train["ranks"]),
                    "train_resilient": resilient_train["launches"][name],
                    "telemetry": tel_serve["launches"][name] + tel_gpt2["launches"][name],
-                   "pipeline": pipeline["launches"][name]}
+                   "pipeline": pipeline["launches"][name], "moe": moe["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

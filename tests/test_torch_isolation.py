@@ -65,6 +65,9 @@ def test_every_port_module_imports_without_jax():
             "trace", "straggler", "timeseries", "alerts", "calibrate", "costaudit",
             "step_report")),
         "vescale_tpu_torch.serve.reqtrace"} <= set(mods)
+    assert {"vescale_tpu_torch.moe", *(f"vescale_tpu_torch.moe.{m}" for m in (
+        "api", "experts_allocator", "layer", "moe_optimizer", "moe_param_buffer",
+        "token_dispatcher")), "vescale_tpu_torch.models.mixtral"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {['vescale_tpu_torch'] + mods!r}:\n"
@@ -82,7 +85,8 @@ def test_every_port_module_imports_without_jax():
     assert {"vescale_tpu_torch.resilience.loop", "vescale_tpu_torch.telemetry.memtrack"} <= \
         set(loaded)
     assert {"vescale_tpu_torch.ndtimeline.streamer", "vescale_tpu_torch.telemetry.costaudit",
-            "vescale_tpu_torch.serve.reqtrace"} <= set(loaded)
+            "vescale_tpu_torch.serve.reqtrace", "vescale_tpu_torch.moe.moe_optimizer",
+            "vescale_tpu_torch.models.mixtral"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m == "ml_dtypes"] == []
 
 

@@ -1605,6 +1605,233 @@ def case_pipe_engine_refuses():
     return {"refused": False}
 
 
+# ------------------------------------------------------------ MoE (A16)
+# tests/test_moe.py's layer (:23) and load-aware loop (:189) configs, and
+# tests/test_models.py:26-37's tiny Mixtral (fp32)
+MOE_LAYER = dict(num_experts=4, d_model=16, d_ff=32, top_k=2, capacity_factor=8.0)
+MOE_LOOP = dict(num_experts=8, d_model=16, d_ff=32, top_k=2, capacity_factor=8.0)
+MOE_LOOP_LR = 1e-2
+MIXTRAL_TINY = dict(vocab_size=128, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, num_key_value_heads=2, num_local_experts=4,
+                    num_experts_per_tok=2, capacity_factor=4.0)
+MOE_BATCH = (4, 8)  # (B, T) of the tiny Mixtral's tokens
+
+
+def moe_tree(shapes, seed):
+    """Numpy-seeded weights over a nested dict of shapes, leaf by leaf in
+    its order: norm weights 1 plus noise, biases (``b_in``/``b_out``
+    included) noise, embeddings normal, every other leaf normal over
+    sqrt(fan_in), fan_in all but the last dim."""
+    rng = np.random.default_rng(seed)
+
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, f"{path}.{k}" if path else k) for k, v in node.items()}
+        x = rng.standard_normal(node).astype(np.float32)
+        if path.endswith("weight"):
+            return (1.0 + 0.1 * x).astype(np.float32)
+        if path.endswith(("bias", "b_in", "b_out")):
+            return (0.1 * x).astype(np.float32)
+        if path.endswith("embedding"):
+            return (0.5 * x).astype(np.float32)
+        return (x / np.sqrt(np.prod(node[:-1]))).astype(np.float32)
+
+    return build(shapes, "")
+
+
+def moe_tokens(seed):
+    B, T = MOE_BATCH
+    return np.random.default_rng(seed + 200).integers(
+        0, MIXTRAL_TINY["vocab_size"], (B, T)).astype(np.int64)
+
+
+def moe_readout(seed):
+    """The weights of the scalar sum(logits * w) the EP tests take grads of."""
+    B, T = MOE_BATCH
+    return make_input((B, T, MIXTRAL_TINY["vocab_size"]), seed + 300)
+
+
+def moe_mesh_dims(m):
+    names = m.mesh_dim_names
+    return [i for i, n in enumerate(names) if n == "dp"]
+
+
+def case_moe_ep_model(mesh_shape, names, seed=0, api="plan", aux=True):
+    """The tiny Mixtral (numpy-seeded weights, fp32) parallelized over this
+    mesh by ``mixtral_plan`` (``api="plan"``) or ``parallelize_experts``
+    over a replicate-all plan: this rank's rows' logits and aux losses,
+    then the grads of sum(logits * w) (+ the blocks' aux losses with
+    ``aux``), summed over a "dp" dim by hand (DDP beside "ep" is not
+    ported), as this rank's pieces."""
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.models import Mixtral, MixtralConfig, mixtral_plan, param_shapes
+    from vescale_tpu_torch.moe import parallelize_experts
+    from vescale_tpu_torch.placements import Replicate
+
+    cfg = MixtralConfig(**MIXTRAL_TINY, dtype=torch.float32)
+    m = mesh(mesh_shape, names)
+    model = Mixtral(cfg, _torch_tree(moe_tree(param_shapes(cfg), seed)), device="cpu")
+    if api == "plan":
+        dm = parallelize_module(model, m, mixtral_plan(m))
+    else:
+        dm = parallelize_experts(model, device_mesh=m,
+                                 sharding_plan={"parameter": {r".*": [Replicate()] * m.ndim}})
+    rows = torch.from_numpy(dp_rows(m, moe_tokens(seed)))
+    logits = dm(rows)
+    loss = (logits * torch.from_numpy(dp_rows(m, moe_readout(seed)))).sum()
+    auxes = model.router_aux_losses()
+    if aux:
+        loss = loss + sum(auxes)
+    loss.backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        g = p.grad
+        for i in moe_mesh_dims(m):
+            g = C.mesh_all_reduce(g, m, "sum", i)
+        grads[n] = g
+    return {"logits": logits.detach(), "aux": [float(a) for a in auxes], "grads": grads,
+            "local_experts": [b.block_sparse_moe.local_experts() for b in model.blocks()],
+            "expert_tokens": [b.block_sparse_moe.expert_tokens for b in model.blocks()]}
+
+
+def moe_buffer_params(E, seed):
+    return {"w_in": torch.from_numpy(make_input((E, 8, 16), seed)),
+            "b_in": torch.from_numpy(make_input((E, 16), seed + 1))}
+
+
+def case_moe_buffer(mesh_shape, names, units, new_units, tp_dim=None, seed=0):
+    """A ``MoEParamBuffer`` of two expert leaves: this rank's pieces, the
+    gathered leaves, then the same after ``refresh(new_units)``, and the
+    local expert ranges."""
+    from vescale_tpu_torch.moe import MoEParamBuffer
+
+    m = mesh(mesh_shape, names)
+    params = moe_buffer_params(sum(units), seed)
+    buf = MoEParamBuffer(m, "ep", sum(units), units, tp_dim=tp_dim)
+    sharded = buf.shard_params(params)
+    new_buf, moved = buf.refresh(sharded, new_units)
+    me = torch.distributed.get_rank()
+    return {"pieces": {k: d.to_local() for k, d in sharded.items()},
+            "gathered": buf.gather_params(sharded),
+            "moved": {k: d.to_local() for k, d in moved.items()},
+            "gathered_moved": new_buf.gather_params(moved),
+            "local": list(buf.local_experts(me)), "new_local": list(new_buf.local_experts(me))}
+
+
+def case_moe_a2a(E, C, d, seed=0):
+    """``TokenDispatcher.all_to_all_dispatch`` on a ("ep",) mesh of the
+    world: this rank's (E, C, d) block of tests/test_moe.py:165-173's
+    buffer in, its expert rows of every rank's blocks out."""
+    from vescale_tpu_torch.moe import TokenDispatcher
+
+    world = torch.distributed.get_world_size()
+    m = mesh([world], ["ep"])
+    full = torch.arange(E * world * C * d, dtype=torch.float32).reshape(E, world * C, d)
+    me = torch.distributed.get_rank()
+    out = TokenDispatcher(E, C, m).all_to_all_dispatch(full[:, me * C:(me + 1) * C].contiguous())
+    return {"local": out.to_local(), "placements": [enc(p) for p in out.placements],
+            "shape": list(out.shape)}
+
+
+def case_moe_optimizer(mesh_shape, names, units, new_units, inner, seed=0):
+    """``MoEOptimizer`` over ``inner`` ("sgd": ``torch.optim.SGD(lr=0.1)``;
+    "adam": ``AdamWLowmem(1e-2)`` without decay, fp32 moments) on the
+    buffer leaves: a step, ``refresh(new_units)``, another step; this
+    rank's parameter and moment pieces after each, and the step count."""
+    import functools
+
+    from vescale_tpu_torch.moe import MoEOptimizer, MoEParamBuffer
+    from vescale_tpu_torch.parallel import AdamWLowmem
+
+    m = mesh(mesh_shape, names)
+    E = sum(units)
+    buf = MoEParamBuffer(m, "ep", E, units)
+    sharded = buf.shard_params(moe_buffer_params(E, seed))
+    make = (functools.partial(torch.optim.SGD, lr=0.1) if inner == "sgd" else
+            functools.partial(AdamWLowmem, lr=MOE_LOOP_LR, weight_decay=0.0,
+                              state_dtype=torch.float32))
+    opt = MoEOptimizer(make, buf)
+    state = opt.init(sharded)
+    out = {}
+    for i in range(2):
+        grads = buf.shard_params(moe_buffer_params(E, seed + 10 + i))
+        sharded, state = opt.step(sharded, state, grads)
+        out[f"step{i}"] = {k: d.to_local().clone() for k, d in sharded.items()}
+        out[f"state{i}"] = {key: {k: d.to_local().clone() for k, d in tree.items()}
+                            for key, tree in state.items() if key != "step"}
+        if i == 0:
+            buf, sharded, state = opt.refresh(sharded, state, new_units)
+            out["refreshed"] = {k: d.to_local().clone() for k, d in sharded.items()}
+            out["refreshed_state"] = {key: {k: d.to_local().clone() for k, d in tree.items()}
+                                      for key, tree in state.items() if key != "step"}
+    out["step_count"] = state["step"]
+    return out
+
+
+def case_moe_loop(params, x, seed=0):
+    """tests/test_moe.py:181-240 on a ("ep",) mesh: one ``MoEMLP`` whose
+    experts live in a ``MoEParamBuffer`` stepped by ``MoEOptimizer`` and
+    whose router by ``AdamWLowmem`` (both Adam at 1e-2: fp32 moments, no
+    decay), 6 steps on the loss mean((y - x)^2) + aux, an EMA of
+    ``expert_tokens``; run twice, the second time reallocating after step
+    2 by ``BasicExpertsAllocator``.  Each run's losses, units, final full
+    parameters and this rank's final moment pieces."""
+    import functools
+
+    from vescale_tpu_torch.models import load_params
+    from vescale_tpu_torch.moe import (BasicExpertsAllocator, MoEConfig, MoEMLP, MoEOptimizer,
+                                       MoEParamBuffer)
+    from vescale_tpu_torch.parallel import AdamWLowmem
+
+    world = torch.distributed.get_world_size()
+    m = mesh([world], ["ep"])
+    cfg = MoEConfig(**MOE_LOOP)
+    params = {k: torch.from_numpy(v) for k, v in from_wire(params).items()}
+    xt = torch.from_numpy(from_wire(x))
+    keys = [k for k in params if k != "router"]
+    adam = functools.partial(AdamWLowmem, lr=MOE_LOOP_LR, weight_decay=0.0,
+                             state_dtype=torch.float32)
+
+    def run(reallocate):
+        layer = MoEMLP(cfg, device="cpu")
+        load_params(layer, params)
+        dense_opt = adam([layer.router])
+        buffer = MoEParamBuffer(m, "ep", cfg.num_experts, (2,) * world if world == 4 else
+                                (cfg.num_experts // world,) * world)
+        moe_opt = MoEOptimizer(adam, buffer)
+        sharded = buffer.shard_params({k: params[k] for k in keys})
+        state = moe_opt.init(sharded)
+        ema = np.zeros(cfg.num_experts)
+        losses, units = [], [list(buffer.units)]
+        for i in range(6):
+            full = moe_opt.buffer.gather_params(sharded)
+            with torch.no_grad():
+                for k in keys:
+                    getattr(layer, k).copy_(full[k])
+            layer.zero_grad(set_to_none=True)
+            y, aux = layer(xt)
+            loss = torch.mean((y - xt) ** 2) + aux
+            loss.backward()
+            losses.append(float(loss.detach()))
+            ema = 0.9 * ema + 0.1 * layer.expert_tokens.numpy()
+            grads = moe_opt.buffer.shard_params({k: getattr(layer, k).grad for k in keys})
+            sharded, state = moe_opt.step(sharded, state, grads)
+            dense_opt.step()
+            if reallocate and i == 2:
+                new = BasicExpertsAllocator(cfg.num_experts, world).allocate(ema)
+                _, sharded, state = moe_opt.refresh(sharded, state, new)
+                units.append(list(new))
+        return {"losses": losses, "units": units,
+                "params": {**moe_opt.buffer.gather_params(sharded),
+                           "router": layer.router.detach().clone()},
+                "moments": {key: {k: d.full_tensor() for k, d in tree.items()}
+                            for key, tree in state.items() if key != "step"},
+                "step": state["step"]}
+
+    return {"base": run(False), "re": run(True)}
+
+
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}
 
 

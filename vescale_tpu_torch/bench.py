@@ -5,6 +5,8 @@
     python -m vescale_tpu_torch.bench --rung gpt2     # GPT-2 124M (nanoGPT), on the card
     python -m vescale_tpu_torch.bench --rung cpu      # the tiny Llama CPU config
     python -m vescale_tpu_torch.bench --rung gpt_cpu  # the tiny GPT CPU config
+    python -m vescale_tpu_torch.bench --rung moe      # the Mixtral-style MoE rung, on the card
+    python -m vescale_tpu_torch.bench --rung moe_cpu  # its CPU config
 
 The port of ``bench.py``'s single-device Llama rungs: the same configs
 (1.3B: hidden 2048, FFN 5632, 24 layers, 16 heads, 8 KV heads; 350M:
@@ -36,6 +38,19 @@ mesh, each rank on its own rows of the global batch, in one of
 a loss scale) or ``fsdp`` (``FSDPParamBuffer`` and
 ``make_fsdp_train_step``).  The Llama rungs' global batch is ``rows``
 rows of the same numpy-seeded draw, rank r taking rows ``[r*B, (r+1)*B)``.
+
+The MoE rungs port ``bench.py``'s ``bench_moe``: a ``models.mixtral.
+Mixtral`` (moe: vocab 32000, hidden 768, FFN 1536, 8 layers, 12 heads, 4
+KV heads, 8 experts, top-2, capacity factor 2.0, bf16, B=2, T=2048;
+moe_cpu: vocab 256, hidden 64, FFN 128, 2 layers, 4 heads, 2 KV heads, 4
+experts, fp32, B=2, T=64) on one numpy-seeded batch, trained through the
+same loss (the router aux loss left out, as the reference rung leaves it)
+with ``AdamWLowmem(3e-4)`` over ``param_dtype_groups`` (optax's
+``adamw(3e-4)`` keeps each leaf's moments in its own dtype: fp32 for the
+fp32 leaves, bf16 for the bf16 experts; two fused AdamW launches a step).
+Their MFU counts the *active* parameters, the dense ones plus top_k / E of
+the expert products (``3 * E * hidden * FFN * layers``), as the reference
+does: ``6 * active + 12 * layers * T * hidden`` FLOPs per token.
 """
 
 from __future__ import annotations
@@ -59,11 +74,12 @@ from .data import TokenDataLoader
 from . import device as _device
 from .device import resolve_device
 from .loss import vocab_parallel_cross_entropy
-from .models import GPT, GPTConfig, Llama, LlamaConfig, cross_entropy_loss, init_params
-from .parallel import AdamWLowmem
+from .models import (GPT, GPTConfig, Llama, LlamaConfig, Mixtral, MixtralConfig,
+                     cross_entropy_loss, init_params)
+from .parallel import AdamWLowmem, param_dtype_groups
 from .train import make_train_step
 
-__all__ = ["RUNGS", "GPT_RUNGS", "DP_MODES", "TrainRun", "prepare", "prepare_dp", "measure",
+__all__ = ["RUNGS", "GPT_RUNGS", "MOE_RUNGS", "DP_MODES", "TrainRun", "prepare", "prepare_dp", "measure",
            "peak_bf16_flops", "write_token_file", "main"]
 
 LR = 3e-4  # the reference bench's adamw_lowmem(3e-4)
@@ -89,8 +105,20 @@ GPT_RUNGS: Dict[str, Any] = {
                      use_flash_attention=True, dtype=torch.float32),
                 2, 128, torch.float32, "gpt_cpu_smoke_tokens_per_s"),
 }
+# the Mixtral family: MixtralConfig fields, B, T, metric (moments in each
+# leaf's own dtype: param_dtype_groups)
+MOE_RUNGS: Dict[str, Any] = {
+    "moe": (dict(vocab_size=32000, hidden_size=768, intermediate_size=1536, num_hidden_layers=8,
+                 num_attention_heads=12, num_key_value_heads=4, num_local_experts=8,
+                 num_experts_per_tok=2, capacity_factor=2.0, dtype=torch.bfloat16),
+            2, 2048, "mixtral_moe_train_MFU_seq2048"),
+    "moe_cpu": (dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                     num_attention_heads=4, num_key_value_heads=2, num_local_experts=4,
+                     dtype=torch.float32),
+                2, 64, "mixtral_moe_cpu_smoke_MFU"),
+}
 DP_MODES = ("ddp", "zero2", "fsdp")
-CPU_RUNGS = ("cpu", "gpt_cpu")  # rungs that run on the CPU unless told otherwise
+CPU_RUNGS = ("cpu", "gpt_cpu", "moe_cpu")  # rungs that run on the CPU unless told otherwise
 DATA_SEED = 0
 DATA_TOKENS = 1 << 22  # tokens in a generated token file (8 MiB of uint16)
 
@@ -130,6 +158,7 @@ class TrainRun:
     loader: Optional[TokenDataLoader] = None
     tmpdir: Optional[str] = None
     optimizer: Any = None
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)  # rung-specific report keys
 
     def close(self) -> None:
         """Close the loader and delete a generated token file."""
@@ -140,7 +169,8 @@ class TrainRun:
 
 
 def _model_and_data(rung: str, dev, *, rows: Optional[int] = None, dp_rank: int = 0,
-                    dp_world: int = 1, token_file: Optional[str] = None):
+                    dp_world: int = 1, token_file: Optional[str] = None,
+                    layers: Optional[int] = None):
     """(config, model, loss_fn, next_batch, loader, tmpdir, B, T, layers,
     width) of ``rung``: random fp32 master weights from seed 0; Llama rungs
     repeat rows ``[dp_rank*B, (dp_rank+1)*B)`` of one numpy-seeded draw of
@@ -164,6 +194,8 @@ def _model_and_data(rung: str, dev, *, rows: Optional[int] = None, dp_rank: int 
         next_batch = loader.next
         layers, width = cfg.n_layer, cfg.n_embd
     else:
+        if layers is not None:
+            fields = dict(fields, num_hidden_layers=layers)
         cfg = LlamaConfig(max_position_embeddings=T, **fields)
         model = Llama(cfg, init_params(cfg, 0, device=dev, dtype=torch.float32), device=dev)
         loss_fn = lambda logits, b: cross_entropy_loss(logits, b["target"])
@@ -179,18 +211,22 @@ def _model_and_data(rung: str, dev, *, rows: Optional[int] = None, dp_rank: int 
 
 
 def prepare(rung: str = "1.3b", *, device=None, rows: Optional[int] = None,
-            grad_accum_steps: int = 1, token_file: Optional[str] = None) -> TrainRun:
+            grad_accum_steps: int = 1, token_file: Optional[str] = None,
+            layers: Optional[int] = None) -> TrainRun:
     """Model (random fp32 master weights from seed 0), optimizer, step and
     batches of ``rung`` on ``device`` (default: the card; the cpu rungs run
     on the CPU).  Llama rungs repeat one numpy-seeded batch (``rows`` rows,
     default the rung's B, in ``grad_accum_steps`` micro-batches); GPT rungs
     read a fresh batch each step from ``token_file`` (default: one that
     :func:`write_token_file` makes in a temporary directory, which
-    ``TrainRun.close`` deletes)."""
-    state_dtype, metric = (GPT_RUNGS if rung in GPT_RUNGS else RUNGS)[rung][3:]
+    ``TrainRun.close`` deletes).  ``layers`` cuts a Llama rung's depth
+    (the smoke's gloo phases run the 1.3B so)."""
     dev = torch.device("cpu") if rung in CPU_RUNGS and device is None else resolve_device(device)
+    if rung in MOE_RUNGS:
+        return prepare_moe(rung, dev, rows=rows, grad_accum_steps=grad_accum_steps)
+    state_dtype, metric = (GPT_RUNGS if rung in GPT_RUNGS else RUNGS)[rung][3:]
     cfg, model, loss_fn, next_batch, loader, tmpdir, B, T, layers, width = _model_and_data(
-        rung, dev, rows=rows, token_file=token_file)
+        rung, dev, rows=rows, token_file=token_file, layers=layers)
     opt = AdamWLowmem(model.parameters(), LR, state_dtype=state_dtype)
     step = make_train_step(model, opt, loss_fn, grad_accum_steps=grad_accum_steps)
     n_params = sum(p.numel() for p in model.parameters())
@@ -198,8 +234,52 @@ def prepare(rung: str = "1.3b", *, device=None, rows: Optional[int] = None,
                     6.0 * n_params + 12.0 * layers * T * width, metric, loader, tmpdir, opt)
 
 
+def moe_config(rung: str) -> MixtralConfig:
+    fields, _, T, _ = MOE_RUNGS[rung]
+    return MixtralConfig(max_position_embeddings=T, **fields)
+
+
+def moe_batch(cfg: MixtralConfig, rows: int, T: int, dev) -> Dict[str, torch.Tensor]:
+    """The reference rung's batch: ``rows`` rows of T+1 tokens from
+    ``numpy.random.default_rng(0)``, split into input and target."""
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (rows, T + 1))
+    toks = torch.from_numpy(toks.astype(np.int64)).to(dev)
+    return {"input": toks[:, :-1], "target": toks[:, 1:]}
+
+
+def moe_flops_per_token(cfg: MixtralConfig, n_params: int, T: int):
+    """(active parameters, FLOPs per token) by the reference rung's formula
+    (``bench.py:185-193``): the dense parameters plus top_k / E of the
+    expert products' ``3 * E * hidden * FFN * layers``."""
+    expert = (3 * cfg.num_local_experts * cfg.hidden_size * cfg.intermediate_size
+              * cfg.num_hidden_layers)
+    active = n_params - expert + expert * cfg.num_experts_per_tok / cfg.num_local_experts
+    return active, 6.0 * active + 12.0 * cfg.num_hidden_layers * T * cfg.hidden_size
+
+
+def prepare_moe(rung: str, dev, *, rows: Optional[int] = None, grad_accum_steps: int = 1,
+                config: Optional[MixtralConfig] = None) -> TrainRun:
+    """A Mixtral rung on ``dev``: the model (``init_params(config, 0)``,
+    the reference's leaf dtypes), ``AdamWLowmem(3e-4)`` over
+    ``param_dtype_groups``, the step and the repeated numpy-seeded batch.
+    ``config`` overrides the rung's (the smoke's full-width Mixtral-8x7B
+    runs through it)."""
+    _, B, T, metric = MOE_RUNGS[rung]
+    cfg = config if config is not None else moe_config(rung)
+    model = Mixtral(cfg, init_params(cfg, 0, device=dev), device=dev)
+    opt = AdamWLowmem(param_dtype_groups(model.parameters()), LR)
+    step = make_train_step(model, opt, lambda logits, b: cross_entropy_loss(logits, b["target"]),
+                           grad_accum_steps=grad_accum_steps)
+    batch = moe_batch(cfg, B if rows is None else rows, T, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    active, fpt = moe_flops_per_token(cfg, n_params, T)
+    return TrainRun(rung, cfg, model, step, lambda: batch, n_params,
+                    batch["input"].numel(), fpt, metric, optimizer=opt,
+                    extra={"active_params": int(active), "seq_len": T})
+
+
 def prepare_dp(rung: str, mode: str, mesh, *, loss_scale=None, grad_compress=None,
-               token_file: Optional[str] = None) -> TrainRun:
+               token_file: Optional[str] = None, layers: Optional[int] = None) -> TrainRun:
     """``rung`` on this rank of the live ("dp",) ``mesh`` in ``mode``
     (``DP_MODES``): the same weights on every rank, this rank's rows of the
     global batch, the gradient averaged over "dp".  ``loss_scale`` goes to
@@ -217,7 +297,7 @@ def prepare_dp(rung: str, mode: str, mesh, *, loss_scale=None, grad_compress=Non
     state_dtype, metric = (GPT_RUNGS if rung in GPT_RUNGS else RUNGS)[rung][3:]
     n, r = mesh.size("dp"), mesh.get_coordinate()[mesh._dim_index("dp")]
     cfg, model, loss_fn, next_batch, loader, tmpdir, B, T, layers, width = _model_and_data(
-        rung, mesh.device, dp_rank=r, dp_world=n, token_file=token_file)
+        rung, mesh.device, dp_rank=r, dp_world=n, token_file=token_file, layers=layers)
     inner = functools.partial(AdamWLowmem, lr=LR, state_dtype=state_dtype)
     n_params = sum(p.numel() for p in model.parameters())
     if mode == "ddp":
@@ -241,20 +321,20 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def measure(run: TrainRun) -> Dict[str, Any]:
-    """``WARMUP`` then ``STEPS`` timed steps, each on ``run.next_batch()``.
+def measure(run: TrainRun, warmup: int = WARMUP, steps: int = STEPS) -> Dict[str, Any]:
+    """``warmup`` then ``steps`` timed steps, each on ``run.next_batch()``.
     Each step's time is the host clock around the step and the read of its
     loss (a GPT rung's batch fetch and upload included).  Returns the
     losses, step times, the median's tokens/s and MFU (card only), peak
     device memory and the kernel launches of each timed step."""
     dev = next(run.model.parameters()).device
     losses: List[float] = []
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         losses.append(float(run.step(run.next_batch())))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     step_ms, launches = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         before = dict(kernels.LAUNCHES)
         _sync(dev)
         t0 = time.perf_counter()
@@ -266,8 +346,8 @@ def measure(run: TrainRun) -> Dict[str, Any]:
     out: Dict[str, Any] = dict(
         metric=run.metric, rung=run.rung, device=str(dev), params=run.n_params,
         tokens_per_step=run.tokens_per_step, flops_per_token=run.flops_per_token,
-        warmup_steps=WARMUP, losses=losses, step_ms=step_ms, step_ms_median=median_ms,
-        tokens_per_s=tokens_per_s, launches_per_step=launches,
+        warmup_steps=warmup, losses=losses, step_ms=step_ms, step_ms_median=median_ms,
+        tokens_per_s=tokens_per_s, launches_per_step=launches, **run.extra,
     )
     if dev.type == "cuda":
         peak = peak_bf16_flops(dev)
@@ -281,7 +361,7 @@ def measure(run: TrainRun) -> Dict[str, Any]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description="train-step bench of vescale_tpu_torch")
-    ap.add_argument("--rung", choices=sorted({**RUNGS, **GPT_RUNGS}), default="1.3b")
+    ap.add_argument("--rung", choices=sorted({**RUNGS, **GPT_RUNGS, **MOE_RUNGS}), default="1.3b")
     opts = ap.parse_args(argv)
     run = prepare(opts.rung)
     try:

@@ -30,6 +30,17 @@ with no ``bias`` leaves when ``config.bias`` is False.  A Llama config with
     layers.block.<path>                 (num_hidden_layers, *shape)
 
 ``scan_tree`` and ``unscan_tree`` move a tree between the two layouts.
+A ``MixtralConfig`` tree is the Llama tree with each layer's ``mlp``
+replaced by the stacked experts::
+
+    layers_<i>.block_sparse_moe.router          (hidden, experts)        fp32
+    layers_<i>.block_sparse_moe.{w_in,w_gate}   (experts, hidden, ffn)   config.dtype
+    layers_<i>.block_sparse_moe.w_out           (experts, ffn, hidden)   config.dtype
+    layers_<i>.block_sparse_moe.{b_in,b_out}    (experts, ffn / hidden)  config.dtype
+
+and a ``MoEConfig`` tree is one such ``block_sparse_moe`` subtree (with
+``w_gate`` only when ``swiglu``).  ``hf_llama_to_params`` and
+``hf_mixtral_to_params`` map a HuggingFace state dict onto these trees.
 """
 
 from __future__ import annotations
@@ -42,12 +53,24 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..moe.layer import MoEConfig
 from .llama import LlamaConfig
+from .mixtral import MixtralConfig
 from .nanogpt import GPTConfig
 
 __all__ = ["params_from_jax", "init_params", "param_shapes", "tree_to", "module_tree",
            "load_params", "zero_state_from_jax", "fsdp_buffer_from_jax", "scan_tree",
-           "unscan_tree"]
+           "unscan_tree", "leaf_dtype", "hf_llama_to_params", "hf_mixtral_to_params"]
+
+Config = Union[LlamaConfig, GPTConfig, MixtralConfig, MoEConfig]
+
+
+def _torch_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A numpy array as a torch tensor; an ``ml_dtypes`` bfloat16 array (a
+    bf16 JAX leaf read through ``np.asarray``) by its bits."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def params_from_jax(tree: Mapping[str, Any], device=None,
@@ -61,7 +84,7 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
     def conv(node):
         if isinstance(node, Mapping):
             return {str(k): conv(v) for k, v in node.items()}
-        t = torch.from_numpy(np.array(node, copy=True))
+        t = _torch_from_numpy(np.array(node, copy=True))
         return t.to(device=dev, dtype=dtype if dtype is not None else t.dtype)
 
     return conv(tree)
@@ -73,7 +96,7 @@ def _piece(value, template, device=None) -> Any:
     tensor template the whole value in its dtype."""
     from ..darray import DArray
 
-    full = torch.from_numpy(np.array(np.asarray(value), copy=True))
+    full = _torch_from_numpy(np.array(np.asarray(value), copy=True))
     if isinstance(template, DArray):
         spec = template.spec
         local = spec.local_from_full(full, spec.mesh.coordinate_of_rank(template.rank))
@@ -150,11 +173,24 @@ def _gpt_param_shapes(c: GPTConfig) -> Dict[str, Any]:
     return tree
 
 
-def param_shapes(config: Union[LlamaConfig, GPTConfig]) -> Dict[str, Any]:
-    """The nested dict of leaf shapes of a Llama or GPT parameter tree."""
+def _moe_param_shapes(c: MoEConfig) -> Dict[str, Any]:
+    E, d, f = c.num_experts, c.d_model, c.d_ff
+    tree = {"router": (d, E), "w_in": (E, d, f), "b_in": (E, f), "w_out": (E, f, d),
+            "b_out": (E, d)}
+    if c.swiglu:
+        tree["w_gate"] = (E, d, f)
+    return tree
+
+
+def param_shapes(config: Config) -> Dict[str, Any]:
+    """The nested dict of leaf shapes of a Llama, Mixtral, GPT or MoE
+    layer parameter tree."""
     if isinstance(config, GPTConfig):
         return _gpt_param_shapes(config)
-    c = config
+    if isinstance(config, MoEConfig):
+        return _moe_param_shapes(config)
+    mixtral = isinstance(config, MixtralConfig)
+    c = config.as_llama() if mixtral else config
     E, F = c.hidden_size, c.intermediate_size
     H, KV, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
     layer = {
@@ -166,12 +202,15 @@ def param_shapes(config: Union[LlamaConfig, GPTConfig]) -> Dict[str, Any]:
             "o_proj": {"kernel": (H * hd, E)},
         },
         "post_attention_layernorm": {"weight": (E,)},
-        "mlp": {
+    }
+    if mixtral:
+        layer["block_sparse_moe"] = _moe_param_shapes(config.moe())
+    else:
+        layer["mlp"] = {
             "gate_proj": {"kernel": (E, F)},
             "up_proj": {"kernel": (E, F)},
             "down_proj": {"kernel": (F, E)},
-        },
-    }
+        }
     tree: Dict[str, Any] = {"embed_tokens": {"embedding": (c.vocab_size, E)}}
     if c.scan_layers:
         L = c.num_hidden_layers
@@ -187,14 +226,28 @@ def param_shapes(config: Union[LlamaConfig, GPTConfig]) -> Dict[str, Any]:
     return tree
 
 
-def init_params(config: Union[LlamaConfig, GPTConfig], seed: int = 0, device=None,
+def leaf_dtype(config: Config, path: str) -> torch.dtype:
+    """The dtype the reference gives leaf ``path`` of ``config``'s tree:
+    a Mixtral's or an MoE layer's expert leaves ``config.dtype`` and every
+    other leaf fp32 (flax parameters); a Llama's or a GPT's
+    ``config.dtype`` (what ``init_params`` has always drawn; the modules
+    hold fp32 masters)."""
+    if isinstance(config, (MixtralConfig, MoEConfig)):
+        from ..moe.layer import EXPERT_LEAVES
+
+        return config.dtype if path.rsplit(".", 1)[-1] in EXPERT_LEAVES else torch.float32
+    return config.dtype
+
+
+def init_params(config: Config, seed: int = 0, device=None,
                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Random weights drawn on ``device`` (default: the card) from a
-    ``torch.Generator`` seeded with ``seed``, in ``dtype`` (default
-    ``config.dtype``); with ``scan_layers``, the same draws stacked.  Norm weights and scales are ones and biases zeros
-    (flax's defaults); every kernel is normal with std 1/sqrt(fan_in)
-    (flax's lecun-normal scale, untruncated); an embedding is normal with
-    std 1/sqrt(width).  The same seed on the same device type gives the
+    ``torch.Generator`` seeded with ``seed``, in ``dtype`` (default: each
+    leaf's :func:`leaf_dtype`); with ``scan_layers``, the same draws stacked.  Norm weights and scales are ones and biases zeros
+    (flax's defaults); every kernel is normal with std 1/sqrt(fan_in), the
+    fan-in of an (..., in, out) kernel being the product of all but its
+    last dim (flax's lecun-normal scale, untruncated); an embedding is
+    normal with std 1/sqrt(width).  The same seed on the same device type gives the
     same tree; CPU and CUDA generators differ, so make the tree on one
     device and copy it to compare two.  On ``device="meta"`` it allocates
     nothing (shapes and dtypes only: ``initialize.deferred_init``)."""
@@ -204,7 +257,6 @@ def init_params(config: Union[LlamaConfig, GPTConfig], seed: int = 0, device=Non
         flat = init_params(dataclasses.replace(config, scan_layers=False), seed, device, dtype)
         return scan_tree(flat, config.num_hidden_layers)
     dev = resolve_device(device)
-    dt = dtype if dtype is not None else config.dtype
     gen = None
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
@@ -213,6 +265,7 @@ def init_params(config: Union[LlamaConfig, GPTConfig], seed: int = 0, device=Non
     def build(node, path: str):
         if isinstance(node, dict):
             return {k: build(v, f"{path}.{k}" if path else k) for k, v in node.items()}
+        dt = dtype if dtype is not None else leaf_dtype(config, path)
         return draw_leaf(path, node, dt, dev, gen)
 
     return build(param_shapes(config), "")
@@ -254,13 +307,15 @@ def unscan_tree(tree: Mapping[str, Any]) -> Dict[str, Any]:
 
 def draw_leaf(path: str, shape, dtype, device, gen):
     """One leaf of :func:`init_params` by its path: ones for norm weights
-    and scales, zeros for biases, normal with std 1/sqrt(fan_in) for a
-    kernel (in, out) and 1/sqrt(width) for an embedding (num, width)."""
+    and scales, zeros for biases (``b_in``/``b_out`` of the experts too),
+    normal with std 1/sqrt(fan_in) for a kernel (..., in, out), fan_in
+    the product of all but the last dim, and 1/sqrt(width) for an
+    embedding (num, width)."""
     if path.endswith(("weight", "scale")):
         return torch.ones(shape, dtype=dtype, device=device)
-    if path.endswith("bias"):
+    if path.endswith(("bias", "b_in", "b_out")):
         return torch.zeros(shape, dtype=dtype, device=device)
-    std = 1.0 / math.sqrt(shape[1] if path.endswith("embedding") else shape[0])
+    std = 1.0 / math.sqrt(shape[1] if path.endswith("embedding") else math.prod(shape[:-1]))
     return torch.empty(shape, dtype=dtype, device=device).normal_(0.0, std, generator=gen)
 
 
@@ -311,8 +366,194 @@ def load_params(module: torch.nn.Module, tree: Mapping[str, Any]) -> None:
     for name, p in params.items():
         src = flat[name]
         if not isinstance(src, torch.Tensor):
-            src = torch.from_numpy(np.array(src, copy=True))
+            src = _torch_from_numpy(np.array(src, copy=True))
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(f"load_params: {name} has shape {tuple(src.shape)}, "
                              f"the module {tuple(p.shape)}")
         p.copy_(src)
+
+
+# ----------------------------------------------------- HuggingFace layouts
+def _put(params: Dict[str, Any], path: str, arr, transpose: bool = False, device=None) -> None:
+    """Insert into a nested dict at a dotted path, as an fp32 tensor (the
+    reference keeps every converted leaf fp32; the model's dtype casts)."""
+    t = arr if isinstance(arr, torch.Tensor) else _torch_from_numpy(np.asarray(arr))
+    t = t.detach().to(device=device, dtype=torch.float32)
+    if transpose:
+        t = t.T
+    node = params
+    parts = path.split(".")
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = t.clone(memory_format=torch.contiguous_format)
+
+
+def _check_layer_bound(name: str, m, num_layers: int) -> None:
+    if m and int(m.group(1)) >= num_layers:
+        raise ValueError(
+            f"{name} exceeds config.num_hidden_layers={num_layers}; "
+            "a truncated conversion would silently change the model"
+        )
+
+
+def hf_llama_to_params(state_dict: Mapping[str, Any], config: LlamaConfig,
+                       device=None) -> Dict[str, Any]:
+    """An HF ``LlamaForCausalLM`` state dict (torch tensors or numpy
+    arrays) as the flax-layout tree of ``models.llama.Llama``, fp32 on
+    ``device`` (default: the card); the reference's
+    ``models/convert.py::hf_llama_to_params``.
+
+    Name map (HF -> ours):
+      model.embed_tokens.weight            -> embed_tokens.embedding
+      model.layers.N.self_attn.{q,k,v,o}_proj.weight -> layers_N.self_attn.*.kernel (transposed)
+      model.layers.N.mlp.{gate,up,down}_proj.weight  -> layers_N.mlp.*.kernel (transposed)
+      model.layers.N.input_layernorm.weight          -> layers_N.input_layernorm.weight
+      model.layers.N.post_attention_layernorm.weight -> layers_N.post_attention_layernorm.weight
+      model.norm.weight                    -> norm.weight
+      lm_head.weight                       -> lm_head.kernel (transposed)
+    """
+    import re
+
+    dev = resolve_device(device)
+    params: Dict[str, Any] = {}
+
+    def put(path, arr, transpose=False):
+        _put(params, path, arr, transpose, dev)
+
+    consumed = set()
+    for name, tensor in state_dict.items():
+        m = re.fullmatch(r"model\.layers\.(\d+)\.(.+)", name)
+        _check_layer_bound(name, m, config.num_hidden_layers)
+        if m:
+            i, rest = int(m.group(1)), m.group(2)
+            base = f"layers_{i}"
+            if rest.endswith("_proj.weight"):
+                put(f"{base}.{rest[: -len('.weight')]}.kernel", tensor, transpose=True)
+            elif rest in ("input_layernorm.weight", "post_attention_layernorm.weight"):
+                put(f"{base}.{rest}", tensor)
+            else:
+                continue
+            consumed.add(name)
+        elif name == "model.embed_tokens.weight":
+            put("embed_tokens.embedding", tensor)
+            consumed.add(name)
+        elif name == "model.norm.weight":
+            put("norm.weight", tensor)
+            consumed.add(name)
+        elif name == "lm_head.weight":
+            if not config.tie_word_embeddings:
+                put("lm_head.kernel", tensor, transpose=True)
+            consumed.add(name)
+
+    missing = []
+    for i in range(config.num_hidden_layers):
+        for sub in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj",
+                    "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"):
+            if f"model.layers.{i}.{sub}.weight" not in consumed:
+                missing.append(f"model.layers.{i}.{sub}.weight")
+        for ln in ("input_layernorm", "post_attention_layernorm"):
+            if f"model.layers.{i}.{ln}.weight" not in consumed:
+                missing.append(f"model.layers.{i}.{ln}.weight")
+    if "model.embed_tokens.weight" not in consumed:
+        missing.append("model.embed_tokens.weight")
+    if "model.norm.weight" not in consumed:
+        missing.append("model.norm.weight")
+    if not config.tie_word_embeddings and "lm_head.weight" not in consumed:
+        missing.append("lm_head.weight (or set tie_word_embeddings=True)")
+    if missing:
+        raise ValueError(f"HF state dict is missing {len(missing)} tensors, e.g. {missing[:4]}")
+    return params
+
+
+def hf_mixtral_to_params(state_dict: Mapping[str, Any], config: MixtralConfig,
+                         device=None) -> Dict[str, Any]:
+    """An HF ``MixtralForCausalLM`` state dict as the tree of
+    ``models.mixtral.Mixtral``, every leaf fp32 on ``device`` (default: the
+    card), as the reference's ``hf_mixtral_to_params`` gives it (the
+    model's own expert leaves are ``config.dtype``: ``Mixtral(config,
+    tree)`` casts them on load).
+
+    Expert map (HF -> ours, per layer; ours stacks experts on a leading dim):
+      block_sparse_moe.gate.weight        -> block_sparse_moe.router (transposed)
+      block_sparse_moe.experts.K.w1.weight -> block_sparse_moe.w_gate[K] (transposed)
+      block_sparse_moe.experts.K.w3.weight -> block_sparse_moe.w_in[K]   (transposed)
+      block_sparse_moe.experts.K.w2.weight -> block_sparse_moe.w_out[K]  (transposed)
+    ``b_in`` and ``b_out`` are zeros (HF experts have no biases).
+    Attention, norm, embedding and head names follow the llama map.
+    """
+    import re
+
+    dev = resolve_device(device)
+    params: Dict[str, Any] = {}
+
+    def put(path, arr, transpose=False):
+        _put(params, path, arr, transpose, dev)
+
+    E = config.num_local_experts
+    expert_stacks: Dict[str, Dict[str, list]] = {}
+    consumed = set()
+    for name, tensor in state_dict.items():
+        m = re.fullmatch(r"model\.layers\.(\d+)\.(.+)", name)
+        _check_layer_bound(name, m, config.num_hidden_layers)
+        if m:
+            i, rest = int(m.group(1)), m.group(2)
+            base = f"layers_{i}"
+            em = re.fullmatch(r"block_sparse_moe\.experts\.(\d+)\.(w1|w2|w3)\.weight", rest)
+            if em:
+                k, w = int(em.group(1)), em.group(2)
+                if k >= E:
+                    raise ValueError(f"{name} exceeds config.num_local_experts={E}")
+                ours = {"w1": "w_gate", "w3": "w_in", "w2": "w_out"}[w]
+                t = tensor if isinstance(tensor, torch.Tensor) else _torch_from_numpy(
+                    np.asarray(tensor))
+                expert_stacks.setdefault(base, {}).setdefault(ours, [None] * E)[k] = \
+                    t.detach().float().T
+                consumed.add(name)
+            elif rest == "block_sparse_moe.gate.weight":
+                put(f"{base}.block_sparse_moe.router", tensor, transpose=True)
+                consumed.add(name)
+            elif rest.endswith("_proj.weight"):
+                put(f"{base}.{rest[: -len('.weight')]}.kernel", tensor, transpose=True)
+                consumed.add(name)
+            elif rest in ("input_layernorm.weight", "post_attention_layernorm.weight"):
+                put(f"{base}.{rest}", tensor)
+                consumed.add(name)
+        elif name == "model.embed_tokens.weight":
+            put("embed_tokens.embedding", tensor)
+            consumed.add(name)
+        elif name == "model.norm.weight":
+            put("norm.weight", tensor)
+            consumed.add(name)
+        elif name == "lm_head.weight":
+            put("lm_head.kernel", tensor, transpose=True)
+            consumed.add(name)
+
+    # every layer needs attention, norms, router and whole expert stacks
+    missing = []
+    for i in range(config.num_hidden_layers):
+        pre = f"model.layers.{i}."
+        for sub in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj"):
+            if pre + sub + ".weight" not in consumed:
+                missing.append(pre + sub + ".weight")
+        for ln in ("input_layernorm", "post_attention_layernorm"):
+            if pre + ln + ".weight" not in consumed:
+                missing.append(pre + ln + ".weight")
+        if pre + "block_sparse_moe.gate.weight" not in consumed:
+            missing.append(pre + "block_sparse_moe.gate.weight")
+        for k in range(E):
+            for w in ("w1", "w2", "w3"):
+                if pre + f"block_sparse_moe.experts.{k}.{w}.weight" not in consumed:
+                    missing.append(pre + f"block_sparse_moe.experts.{k}.{w}.weight")
+    for g in ("model.embed_tokens.weight", "model.norm.weight", "lm_head.weight"):
+        if g not in consumed:
+            missing.append(g)
+    if missing:
+        raise ValueError(f"HF state dict is missing {len(missing)} tensors, e.g. {missing[:4]}")
+
+    for base, stacks in expert_stacks.items():
+        for ours, slots in stacks.items():
+            put(f"{base}.block_sparse_moe.{ours}", torch.stack(slots, dim=0))
+        d_ff, d = stacks["w_out"][0].shape
+        put(f"{base}.block_sparse_moe.b_in", torch.zeros((E, d_ff)))
+        put(f"{base}.block_sparse_moe.b_out", torch.zeros((E, d)))
+    return params

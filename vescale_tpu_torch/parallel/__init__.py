@@ -10,9 +10,10 @@ from .optimizer import (
     DistributedOptimizer,
     clip_grad_norm_fp32,
     found_inf,
+    param_dtype_groups,
     zero_sharded,
 )
 
 __all__ = ["AdamWLowmem", "BasicOptimizer", "DistributedDataParallel", "DistributedOptimizer",
            "FSDPParamBuffer", "clip_grad_norm_fp32", "dp_grad_reduce", "found_inf", "fsdp_plan",
-           "make_fsdp_train_step", "resolve_grad_compress", "zero_sharded"]
+           "make_fsdp_train_step", "param_dtype_groups", "resolve_grad_compress", "zero_sharded"]

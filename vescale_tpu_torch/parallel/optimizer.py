@@ -53,7 +53,7 @@ from .ddp import (DEFAULT_BUCKET, bucketed_all_gather, bucketed_all_reduce, buck
                   resolve_grad_compress, tree_map)
 
 __all__ = ["AdamWLowmem", "BasicOptimizer", "DistributedOptimizer", "EmptyState",
-           "ScaleByAdamLowmemState",
+           "ScaleByAdamLowmemState", "param_dtype_groups",
            "clip_grad_norm_fp32", "found_inf", "bias_corrections", "zero_placements",
            "zero_sharded"]
 
@@ -194,17 +194,20 @@ class AdamWLowmem(torch.optim.Optimizer):
 
     # --------------------------------------------------------------- state
     def _named(self, module: torch.nn.Module):
-        """(group, [(dotted name, param)]) of the one parameter group, named
-        by ``module``."""
-        if len(self.param_groups) != 1:
-            raise ValueError("state_tree lays out one parameter group, as adamw_lowmem's one "
-                             f"tree; this optimizer has {len(self.param_groups)}")
+        """[(group, dotted name, param)] over every parameter group, named
+        by ``module``, and the groups' one step count (the groups of one
+        tree step together, as optax's one count does)."""
         names = {id(p): n for n, p in module.named_parameters()}
-        group = self.param_groups[0]
-        missing = [i for i, p in enumerate(group["params"]) if id(p) not in names]
-        if missing:
-            raise ValueError(f"state_tree: parameters {missing[:5]} are not in the module")
-        return group, [(names[id(p)], p) for p in group["params"]]
+        named = []
+        for group in self.param_groups:
+            missing = [i for i, p in enumerate(group["params"]) if id(p) not in names]
+            if missing:
+                raise ValueError(f"state_tree: parameters {missing[:5]} are not in the module")
+            named += [(group, names[id(p)], p) for p in group["params"]]
+        steps = {g["step"] for g in self.param_groups}
+        if len(steps) != 1:
+            raise ValueError(f"state_tree: parameter groups at different steps {sorted(steps)}")
+        return named, steps.pop()
 
     def state_tree(self, module: torch.nn.Module):
         """The state in the reference ``adamw_lowmem`` layout, its moment
@@ -213,20 +216,20 @@ class AdamWLowmem(torch.optim.Optimizer):
         ``(ScaleByAdamLowmemState(count, mu, nu), EmptyState(),
         EmptyState())``, which a checkpoint names ``0/.count``,
         ``0/.mu/<param>`` and ``0/.nu/<param>``.  ``count`` is a 0-d int32
-        tensor; the moments are the live state tensors (zeros of
-        ``state_dtype`` before the first step), not copies."""
-        group, named = self._named(module)
-        sd = group["state_dtype"]
+        tensor; the moments are the live state tensors (zeros of their
+        group's ``state_dtype`` before the first step), not copies.  Every
+        parameter group goes into the one tree (``param_dtype_groups``)."""
+        named, step = self._named(module)
         mu: Dict[str, Any] = {}
         nu: Dict[str, Any] = {}
-        for name, p in named:
+        for group, name, p in named:
             st = self.state[p]
             if not st:
-                st["exp_avg"] = torch.zeros_like(p, dtype=sd)
-                st["exp_avg_sq"] = torch.zeros_like(p, dtype=sd)
+                st["exp_avg"] = torch.zeros_like(p, dtype=group["state_dtype"])
+                st["exp_avg_sq"] = torch.zeros_like(p, dtype=group["state_dtype"])
             _set_path(mu, name, st["exp_avg"])
             _set_path(nu, name, st["exp_avg_sq"])
-        count = torch.tensor(group["step"], dtype=torch.int32)
+        count = torch.tensor(step, dtype=torch.int32)
         return (ScaleByAdamLowmemState(count, mu, nu), EmptyState(), EmptyState())
 
     @torch.no_grad()
@@ -235,9 +238,9 @@ class AdamWLowmem(torch.optim.Optimizer):
         reference checkpoint's ``"optimizer"`` branch included): the step
         count (the bias corrections come from it) and the moments, copied
         into the live state tensors where they exist."""
-        group, named = self._named(module)
+        named, _ = self._named(module)
         inner = state[0]
-        for name, p in named:
+        for group, name, p in named:
             st = self.state[p]
             for key, tree in (("exp_avg", inner.mu), ("exp_avg_sq", inner.nu)):
                 src = torch.as_tensor(_get_path(tree, name))
@@ -248,7 +251,23 @@ class AdamWLowmem(torch.optim.Optimizer):
                     st[key].copy_(src)
                 else:
                     st[key] = src.to(device=p.device, dtype=group["state_dtype"]).clone()
-        group["step"] = int(torch.as_tensor(inner.count))
+        for group in self.param_groups:
+            group["step"] = int(torch.as_tensor(inner.count))
+
+
+def param_dtype_groups(params) -> List[Dict[str, Any]]:
+    """``params`` as ``AdamWLowmem`` parameter groups, one a dtype in the
+    order each dtype first appears, each with ``state_dtype`` its
+    parameters' dtype: optax keeps an ``adamw``'s moments in each
+    parameter's own dtype.  So a model of fp32 and bf16 leaves (Mixtral:
+    bf16 experts) takes two fused AdamW launches a step, fp32 moments for
+    the fp32 leaves and bf16 for the bf16 ones.  (optax does a bf16 leaf's
+    moment arithmetic in bf16; the kernel does it in fp32 and rounds the
+    moments to bf16.)"""
+    groups: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for p in params:
+        groups.setdefault(p.dtype, []).append(p)
+    return [{"params": ps, "state_dtype": dt} for dt, ps in groups.items()]
 
 
 def _set_path(tree: Dict[str, Any], dotted: str, value) -> None:
