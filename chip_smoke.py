@@ -4,12 +4,14 @@ Hopper card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build and kernel parity only
-    python3 chip_smoke.py --tp       # serve and gpt2, then the TP phases
-    python3 chip_smoke.py --dp       # train and gpt2, then the DP phase
+    python3 chip_smoke.py --tp       # serve, then the TP phases
+    python3 chip_smoke.py --dp       # the DP phase alone
     python3 chip_smoke.py --resil    # the train_resilient phase alone
     python3 chip_smoke.py --telemetry   # serve and gpt2, then the telemetry phase
     python3 chip_smoke.py --pp       # gpt2, then the pipeline phase
     python3 chip_smoke.py --moe      # the moe shapes' parity, then the moe phase
+    python3 chip_smoke.py --longctx  # the longctx phase alone
+    python3 chip_smoke.py --fp8      # the fp8 phase alone
     python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
@@ -165,11 +167,12 @@ Phases, each printing one JSON line with its seconds:
            flight record; a timed save and restore, memtrack's gauges
            against the allocator.  The quiet envelope: 12 GPT-2 steps of
            the bare loop, of the loop with nothing armed, and of it with
-           telemetry on (median step ms).  The 1.3B: 4 bare steps against
-           a run preempted at step 2 (an emergency synchronous save of the
-           10.1 GB state) and its resume, bitwise, one K8 a step, the
+           telemetry on (median step ms).  The 1.3B at full width and 8 of
+           its 24 layers: 4 bare steps against a run preempted at step 2
+           (an emergency synchronous save of the whole state) and its
+           resume, bitwise, one K8 a step, the
            save's and restore's seconds, peak memory.  Two ranks of the
-           card over gloo (GPT-2 at B=6 a rank, DDP, coordinated,
+           card over gloo (GPT-2 at 4 of 12 layers, B=6 a rank, DDP, coordinated,
            consistency every 2, 8 steps): a real SIGTERM to rank 1 agreed
            by both, emergency-saved and resumed bitwise; a one-ulp change
            of a replicated parameter on rank 1 raising ``DesyncError`` on
@@ -200,13 +203,14 @@ Phases, each printing one JSON line with its seconds:
            localhost port (NCCL refuses two ranks on one GPU), a ("tp",)
            mesh of 2.  The 1.3B Llama under ``llama_plan`` at full width
            and 8 of its 24 layers (``GLOO_13B_LAYERS``) and GPT-2 124M under
-           ``nanogpt_plan`` at full width and depth, both with sequence
+           ``nanogpt_plan`` at full width and 4 of its 12 layers
+           (``GLOO_GPT2_LAYERS``), both with sequence
            parallelism, built on ``meta`` and materialized as each rank's
            pieces of the bench's seed-0 weights, trained on its batches
            through the vocab-parallel loss with ``AdamWLowmem``: 1 warm-up
-           and 1 timed step, losses within 1% of a single-card run's (the
-           1.3B's at 8 layers, the ``gpt2`` phase's) at each step, every
-           kernel launch of each step counted (8 or 12 K1, dq and dkv, one
+           and 1 timed step, losses within 1% of a single-card run's at the
+           same depth at each step, every
+           kernel launch of each step counted (8 or 4 K1, dq and dkv, one
            K8, K9 and K10); per rank step time, peak memory and the
            collectives' calls and bytes by kind.  The kernels' parity and
            timing at one rank's shapes are in the parity phase
@@ -232,9 +236,10 @@ Phases, each printing one JSON line with its seconds:
            ranks, parameters, main params, moments and step bitwise
            unchanged, no K8 launch, the scale halved; per mode and rank
            step time, peak memory, collectives by kind, gloo's share of the
-           last step.  GPT-2 124M under DDP at B=6 a rank from the elastic
-           loader (the gpt2 phase's B=12 stream), exact and with
-           ``grad_compress="int8"``: exact within 1% of the gpt2 phase,
+           last step.  GPT-2 124M at 4 of its 12 layers under DDP at B=6 a
+           rank from the elastic loader (a single-card run's B=12 stream at
+           that depth), exact and with ``grad_compress="int8"``: exact
+           within 1% of that run,
            int8 within 5% of exact at 3.5x or more fewer gradient bytes.
            Then K8 at rank 0's ZeRO pieces and FSDP flat piece against its
            plain version (moments bitwise, u within 4 ulps), timed against
@@ -288,6 +293,36 @@ Phases, each printing one JSON line with its seconds:
            twice, once refreshed after step 3 to ``BasicExpertsAllocator``'s
            units from an EMA of ``expert_tokens``: the units change, and
            losses, parameters and moments are bitwise the unrefreshed run's
+  longctx  long context (``parallel/context.py``, the bench's longctx rung).
+           (a) K1, dq and dkv at the rung's (1, 32768, 16, 8, 64), a ring
+           block's (1, 16384, 16, 16, 64) causal and full, and Ulysses'
+           (1, 32768, 8, 8, 64): each launched at full size, then its first
+           and last heads alone, bitwise the full launch's rows and held to
+           the plain versions on that head (float64 within 2 bf16 steps,
+           the bf16-P models within 1); times, bounds, the plain versions'
+           times on one head and SDPA's forward and backward; (b) the
+           longctx rung (the 350M at B=1, T=32768, remat over the MLP,
+           ``scan_layers``): 2 warm-up and 3 timed steps, 24 K1, dq and dkv
+           and one K8 a step, the loss falling, step ms, MFU, peak, one
+           profiled step; (d) ``blockwise_attention`` against the fp32
+           flash kernels, forward and backward at T=4096 and forward at
+           T=32768; (c) ring and Ulysses at sp=2 on two gloo ranks of the
+           card over (1, 32768, 16, 16, 64) bf16: output and q/k/v grads
+           against one card's flash attention on the whole sequence in
+           bf16 steps, permutes and all-to-alls by calls, bytes and
+           seconds, gloo's share; (e) in the same spawn ``all_reduce_q``
+           ("nearest") of each rank's fp32 operand bitwise the emulator's
+           ``quantized_all_reduce`` replay on the host
+  fp8      fp8 training (``quant/fp8.py``, ``LlamaConfig.use_fp8``).  The
+           bench's cpu rung (fp32) with ``use_fp8`` at head_dim 64, 3 steps
+           on the card and on the CPU from the same weights, losses within
+           a stated bound; the 1.3B rung with ``use_fp8`` for 20 steps: 3 x
+           7 x 24 ``_scaled_mm`` calls a step, the kernel launches of each
+           step, every state leaf finite and each history's [0] the step's
+           amax (hooks in one more step), step ms, MFU over the bf16 peak,
+           peak, one profiled step with its fp8 casts named, the quantize
+           passes timed alone; then the bf16 rung from the same seed for 20
+           steps: the fp8 loss falls and ends within 10% of the bf16 run's
 Then the card line, the kernels line and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero before that line.  Imports
 nothing of JAX or of ``vescale_tpu``.
@@ -1457,9 +1492,11 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def device_time_by_kind(fn):
+def device_time_by_kind(fn, named=()):
     """Run ``fn`` once under ``torch.profiler`` (CUDA activity only):
-    device ms by kernel kind, device launches and the top kernels."""
+    device ms by kernel kind, device launches and the top kernels; with
+    ``named``, also the device ms of the kernels whose names hold each of
+    those strings (``named_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1472,6 +1509,7 @@ def device_time_by_kind(fn):
     by_kind = {k: 0.0 for k in ("matmul", "flash_fwd", "flash_bwd", "fused_adamw", "fused_xent",
                                 "paged_decode", "other")}
     top, launches = [], 0
+    named_ms = {x: 0.0 for x in named}
     for evt in prof.key_averages():
         if getattr(evt, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
             continue
@@ -1481,13 +1519,19 @@ def device_time_by_kind(fn):
         if not dev_us:
             continue
         by_kind[kernel_kind(evt.key)] += dev_us / 1e3
+        for x in named:
+            if x in evt.key:
+                named_ms[x] += dev_us / 1e3
         launches += evt.count
         top.append((dev_us / 1e3, evt.count, evt.key[:80]))
     busy = sum(by_kind.values())
     check(busy > 0, "the profiler saw no device time")
     top.sort(reverse=True)
-    return dict(device_busy_ms=busy, traced_wall_ms=wall_ms, device_launches=launches,
-                device_ms_by_kind=by_kind, top_kernels=[[n, c, t] for t, c, n in top[:10]])
+    out = dict(device_busy_ms=busy, traced_wall_ms=wall_ms, device_launches=launches,
+               device_ms_by_kind=by_kind, top_kernels=[[n, c, t] for t, c, n in top[:10]])
+    if named:
+        out["named_ms"] = named_ms
+    return out
 
 
 def run_train_13b(dev, kernels_mod):
@@ -2853,6 +2897,10 @@ TP_WORLD = 2  # ranks of the TP phases, all on the one card
 # held to a single-card run at the same depth, so the script with the moe
 # phase stays inside its time (PERF.md §4)
 GLOO_13B_LAYERS = 8
+# GPT-2's depth where it runs on two gloo ranks (tp_train, dp_train and
+# train_resilient's two-rank leg): 12 -> 4 layers at full width, each held
+# to a single-card run at that depth (PERF.md §4)
+GLOO_GPT2_LAYERS = 4
 TP_LOSS_REL = 0.01  # the reference's bf16 loss bar (nanogpt_4d_finetune/README.md)
 TP_SERVE_BF16_STEPS = 16.0  # teacher-forced logits vs the single-card engine (PERF.md)
 TP_FORCED = 4  # teacher-forced requests of the tp_serve check
@@ -2862,23 +2910,59 @@ def tp_spawn(job: str, args: dict, timeout_s: float, names=("tp",)):
     """``TP_WORLD`` ranks of ``chip_smoke.py --tp-child`` on the one card,
     joined over gloo at a free localhost port (NCCL refuses two ranks on
     one GPU) on a mesh of one dim named ``names``; each runs
-    ``TP_JOBS[job](mesh, **args)`` and writes its JSON result.  A rank that fails, exits without a result or outlives
-    ``timeout_s`` fails the phase; every rank is stopped before this
-    returns.  Returns the results in rank order."""
+    ``TP_JOBS[job](mesh, **args)`` and writes its JSON result.  A rank that
+    fails, exits without a result or outlives ``timeout_s`` fails the
+    phase; every rank is stopped before this returns.  Returns the results
+    in rank order."""
+    return tp_spawn_finish(tp_spawn_start(job, args, names), timeout_s)
+
+
+def tp_spawn_start(job: str, args: dict, names=("tp",), held: bool = False) -> dict:
+    """Start ``tp_spawn``'s ranks and return at once; ``tp_spawn_finish``
+    collects them.  ``held``: the ranks start up (torch, the card, the gloo
+    world and mesh) and then wait for ``tp_spawn_release``, which may hand
+    them more arguments, so that a phase overlaps their start-up with its
+    own work on the card without sharing the card with them."""
     port = free_port()
     tmp = tempfile.mkdtemp(prefix="vtt_tp_")
     env = {k: v for k, v in os.environ.items() if not k.startswith("VESCALE_")}
     procs, logs = [], []
+    go = os.path.join(tmp, "go.json") if held else None
+    for r in range(TP_WORLD):
+        spec = os.path.join(tmp, f"spec{r}.json")
+        with open(spec, "w") as f:
+            json.dump(dict(job=job, rank=r, world=TP_WORLD, port=port, args=args, go=go,
+                           names=list(names), out=os.path.join(tmp, f"out{r}.json")), f)
+        logs.append(open(os.path.join(tmp, f"log{r}.txt"), "w+"))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--tp-child", spec], env=env, stdout=logs[-1],
+                                      stderr=subprocess.STDOUT))
+    return dict(job=job, tmp=tmp, procs=procs, logs=logs, go=go)
+
+
+def tp_spawn_release(spawned: dict, **args) -> None:
+    """Let held ranks go on, with ``args`` added to their job's."""
+    part = spawned["go"] + ".part"
+    with open(part, "w") as f:
+        json.dump(args, f)
+    os.replace(part, spawned["go"])
+
+
+def tp_spawn_abort(spawned: dict) -> None:
+    """Stop ``tp_spawn_start``'s ranks without waiting for them."""
+    for p in spawned["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for lg in spawned["logs"]:
+        lg.close()
+    shutil.rmtree(spawned["tmp"], ignore_errors=True)
+
+
+def tp_spawn_finish(spawned: dict, timeout_s: float):
+    """Wait for ``tp_spawn_start``'s ranks (``tp_spawn``'s contract)."""
+    job, tmp, procs, logs = (spawned[k] for k in ("job", "tmp", "procs", "logs"))
     try:
-        for r in range(TP_WORLD):
-            spec = os.path.join(tmp, f"spec{r}.json")
-            with open(spec, "w") as f:
-                json.dump(dict(job=job, rank=r, world=TP_WORLD, port=port, args=args,
-                               names=list(names), out=os.path.join(tmp, f"out{r}.json")), f)
-            logs.append(open(os.path.join(tmp, f"log{r}.txt"), "w+"))
-            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                           "--tp-child", spec], env=env, stdout=logs[-1],
-                                          stderr=subprocess.STDOUT))
         deadline = time.monotonic() + timeout_s
         while any(p.poll() is None for p in procs):
             if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
@@ -2923,7 +3007,15 @@ def tp_child(spec_path: str) -> int:
     try:
         mesh = init_device_mesh("cuda", (spec["world"],), mesh_dim_names=tuple(spec["names"]),
                                 backend="gloo")
-        res = TP_JOBS[spec["job"]](mesh, **spec["args"])
+        args = dict(spec["args"])
+        if spec.get("go"):  # held: wait for the parent's release
+            deadline = time.monotonic() + 900
+            while not os.path.exists(spec["go"]):
+                check(time.monotonic() < deadline, f"{spec['job']}: never released")
+                time.sleep(0.2)
+            with open(spec["go"]) as f:
+                args.update(json.load(f))
+        res = TP_JOBS[spec["job"]](mesh, **args)
         with open(spec["out"], "w") as f:
             json.dump(res, f)
     finally:
@@ -2943,7 +3035,7 @@ def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None, layers=None
     parallelism, built on ``meta`` and materialized as this rank's pieces
     of the bench's seed-0 weights, trained through the vocab-parallel loss
     with ``AdamWLowmem`` on the bench's batches: ``TP_WARMUP`` untimed and
-    ``TP_TIMED`` timed steps.  ``layers`` cuts the Llama's depth."""
+    ``TP_TIMED`` timed steps.  ``layers`` cuts the model's depth."""
     import functools
 
     from vescale_tpu_torch import bench, kernels
@@ -2961,7 +3053,7 @@ def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None, layers=None
     fields, B, T, state_dtype, _ = (bench.GPT_RUNGS if gpt else bench.RUNGS)[rung]
     t0 = time.perf_counter()
     if gpt:
-        cfg = GPTConfig(**fields)
+        cfg = GPTConfig(**(fields if layers is None else dict(fields, n_layer=layers)))
         model, plan = GPT(cfg, device="meta"), nanogpt_plan(mesh, sequence_parallel=True)
     else:
         if layers is not None:
@@ -3119,39 +3211,47 @@ TP_JOBS = {"train": tp_train_job, "serve": tp_serve_job}
 TP_WARMUP, TP_TIMED = 1, 1  # untimed and timed steps of tp_train
 
 
-def run_tp_train(dev, gpt2, card):
+def short_run_losses(dev, rung: str, layers: int, steps: int, token_file=None) -> list:
+    """The losses of ``steps`` single-card steps of ``rung`` cut to
+    ``layers`` deep (the reference of a gloo leg run at that depth)."""
+    from vescale_tpu_torch import bench
+
+    run = bench.prepare(rung, device=dev, layers=layers, token_file=token_file)
+    try:
+        return [float(run.step(run.next_batch())) for _ in range(steps)]
+    finally:
+        run.close()
+        del run
+        free_memory()
+
+
+def run_tp_train(dev, card):
     """``tp_train``: the 1.3B Llama (``llama_plan``) at full width and
     ``GLOO_13B_LAYERS`` deep and GPT-2 124M (``nanogpt_plan``) at full width
-    and depth, both with sequence parallelism, on two ranks of one card
-    over gloo, each from the weights and batches of a single-card run (the
-    1.3B's own at that depth, ``gpt2``): losses within 1% of that run's at
+    and ``GLOO_GPT2_LAYERS`` deep, both with sequence parallelism, on two
+    ranks of one card over gloo, each from the weights and batches of a
+    single-card run at the same depth: losses within 1% of that run's at
     each step, every kernel launch of each step."""
     from vescale_tpu_torch import bench
 
     out = {}
     steps = TP_WARMUP + TP_TIMED
-    # the 1.3B runs at GLOO_13B_LAYERS: its single-card losses at that depth
-    short = bench.prepare("1.3b", device=dev, layers=GLOO_13B_LAYERS)
-    short_losses = [float(short.step(short.next_batch())) for _ in range(steps)]
-    del short
-    free_memory()
-    for rung, ref_losses in (("1.3b", short_losses), ("gpt2", gpt2["losses"][:steps])):
-        tmpdir = token_file = None
-        if rung == "gpt2":
-            tmpdir = tempfile.mkdtemp(prefix="vtt_tokens_")
-            token_file = bench.write_token_file(os.path.join(tmpdir, "tokens.bin"),
-                                                bench.DATA_TOKENS, 50304)
-        t = time.perf_counter()
-        try:
-            ranks = tp_spawn("train", dict(rung=rung, ref_losses=ref_losses, token_file=token_file,
-                                           layers=GLOO_13B_LAYERS if rung == "1.3b" else None),
-                             timeout_s=600)
-        finally:
-            if tmpdir is not None:
-                shutil.rmtree(tmpdir, ignore_errors=True)
-        ok = all(all(r["checks"].values()) for r in ranks)
-        out[rung] = dict(wall_s=time.perf_counter() - t, card=card, ranks=ranks, ok=ok)
-        check(ok, f"tp_train {rung} checks failed: {json.dumps(out[rung])[:4000]}")
+    tmpdir = tempfile.mkdtemp(prefix="vtt_tokens_")
+    try:
+        token_file = bench.write_token_file(os.path.join(tmpdir, "tokens.bin"),
+                                            bench.DATA_TOKENS, 50304)
+        refs = {"1.3b": short_run_losses(dev, "1.3b", GLOO_13B_LAYERS, steps),
+                "gpt2": short_run_losses(dev, "gpt2", GLOO_GPT2_LAYERS, steps, token_file)}
+        for rung, layers in (("1.3b", GLOO_13B_LAYERS), ("gpt2", GLOO_GPT2_LAYERS)):
+            t = time.perf_counter()
+            ranks = tp_spawn("train", dict(rung=rung, ref_losses=refs[rung],
+                                           token_file=token_file if rung == "gpt2" else None,
+                                           layers=layers), timeout_s=600)
+            ok = all(all(r["checks"].values()) for r in ranks)
+            out[rung] = dict(wall_s=time.perf_counter() - t, card=card, ranks=ranks, ok=ok)
+            check(ok, f"tp_train {rung} checks failed: {json.dumps(out[rung])[:4000]}")
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return out
 
 
@@ -3401,13 +3501,14 @@ def dp_mode_job(mesh, mode: str, ref_losses: list, ddp_params=None, layers=None)
 
 
 def dp_gpt2_job(mesh, ref_losses: list, token_file: str, grad_compress=None):
-    """One rank of GPT-2 124M under DDP at B=6 (the elastic loader: the
-    ranks' rows are the gpt2 phase's B=12 stream), exact or int8."""
+    """One rank of GPT-2 124M at ``GLOO_GPT2_LAYERS`` deep under DDP at B=6
+    (the elastic loader: the ranks' rows are the B=12 stream of the
+    single-card reference), exact or int8."""
     from vescale_tpu_torch import bench, kernels
     from vescale_tpu_torch import collectives as C
 
     run = bench.prepare_dp("gpt2", "ddp", mesh, grad_compress=grad_compress,
-                           token_file=token_file)
+                           token_file=token_file, layers=GLOO_GPT2_LAYERS)
     losses, comm, total = [], [], {}
     try:
         for _ in range(DP_GPT2_STEPS):
@@ -3530,7 +3631,7 @@ def quant_timing(dev) -> dict:
     return out
 
 
-def run_dp_train(dev, gpt2, card):
+def run_dp_train(dev, card):
     """``dp_train``: the 1.3B at full width and ``GLOO_13B_LAYERS`` deep at
     dp=2 under ddp, zero2 and fsdp (two ranks of one card over gloo), each
     held to a single-card run of the same two rows at that depth
@@ -3554,8 +3655,8 @@ def run_dp_train(dev, gpt2, card):
     try:
         token_file = bench.write_token_file(os.path.join(tmpdir, "tokens.bin"), bench.DATA_TOKENS,
                                             50304)
-        ranks = tp_spawn("dp", dict(ref_losses=ref_losses,
-                                    gpt2_ref=gpt2["losses"][:DP_GPT2_STEPS],
+        gpt2_ref = short_run_losses(dev, "gpt2", GLOO_GPT2_LAYERS, DP_GPT2_STEPS, token_file)
+        ranks = tp_spawn("dp", dict(ref_losses=ref_losses, gpt2_ref=gpt2_ref,
                                     token_file=token_file, layers=GLOO_13B_LAYERS),
                          timeout_s=900, names=("dp",))
     finally:
@@ -3621,6 +3722,10 @@ RESIL_EXPECT = dict(status="preempted", step=9, restarts=1, rollbacks=1, anomaly
 RESIL_STEPS, RESIL_SAVE_EVERY = 12, 3
 RESIL_GPT_RUNG, RESIL_LLAMA_RUNG = "gpt2", "1.3b"  # bench rungs of the legs
 RESIL_13B_STEPS, RESIL_13B_PREEMPT = 4, 2
+# the 1.3B leg's depth: 24 -> 8 layers at full width (its golden run at the
+# same depth), so the script with the longctx and fp8 phases stays inside
+# its time (PERF.md §4); the save and restore move a third of the bytes
+RESIL_13B_LAYERS = 8
 RESIL_DP_STEPS, RESIL_DP_SIGTERM_AFTER, RESIL_DP_ULP_AFTER = 8, 3, 3
 
 
@@ -3661,12 +3766,12 @@ def _loss_hex(losses: dict) -> list:
     return [np.float64(losses[i]).tobytes().hex() for i in sorted(losses)]
 
 
-def resil_prepare(rung: str, dev, token_file=None):
+def resil_prepare(rung: str, dev, token_file=None, layers=None):
     """A bench rung in the functional signature: (run, FunctionalStep)."""
     from vescale_tpu_torch import bench
     from vescale_tpu_torch.train import FunctionalStep
 
-    run = bench.prepare(rung, device=dev, token_file=token_file)
+    run = bench.prepare(rung, device=dev, token_file=token_file, layers=layers)
     return run, FunctionalStep(run.step, run.model, run.optimizer)
 
 
@@ -3921,13 +4026,14 @@ def resil_envelope_leg(dev, token_file, tmp, kernels_mod):
 
 
 def resil_13b_leg(dev, tmp, kernels_mod):
-    """Leg 3: the 1.3B, 4 steps of the bare step loop of ``bench.measure``
-    (what the loop with nothing armed must compute; its peak bytes are the
-    loop's yardstick) against a run preempted at step 2 (an emergency
-    synchronous save of the whole state) and its resume on fresh objects,
-    bitwise; K8 once a completed step."""
+    """Leg 3: the 1.3B at full width and ``RESIL_13B_LAYERS`` deep, 4
+    steps of the bare step loop of ``bench.measure`` (what the loop with
+    nothing armed must compute; its peak bytes are the loop's yardstick)
+    against a run preempted at step 2 (an emergency synchronous save of
+    the whole state) and its resume on fresh objects, bitwise; K8 once a
+    completed step."""
     root = os.path.join(tmp, "llama13b")
-    run, fstep = resil_prepare(RESIL_LLAMA_RUNG, dev)
+    run, fstep = resil_prepare(RESIL_LLAMA_RUNG, dev, layers=RESIL_13B_LAYERS)
     golden, bare_peaks = [], []
     for _ in range(RESIL_13B_STEPS):
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3945,7 +4051,7 @@ def resil_13b_leg(dev, tmp, kernels_mod):
     out = {}
     for leg in ("preempted", "resumed"):
         kernels_mod.reset_launches()
-        run, fstep = resil_prepare(RESIL_LLAMA_RUNG, dev)
+        run, fstep = resil_prepare(RESIL_LLAMA_RUNG, dev, layers=RESIL_13B_LAYERS)
         torch.cuda.reset_peak_memory_stats(dev)
         peaks = []
         if leg == "preempted":
@@ -3984,7 +4090,8 @@ def resil_13b_leg(dev, tmp, kernels_mod):
 
 
 def resil_dp_job(mesh, root: str, token_file: str):
-    """One rank of leg 4: GPT-2 at B=6 a rank under the default
+    """One rank of leg 4: GPT-2 (``GLOO_GPT2_LAYERS`` deep) at B=6 a rank
+    under the default
     ``DistributedDataParallel``, coordinated (two processes), consistency
     every 2 steps, saves every 3, 8 steps: (golden) uninterrupted; (a) a
     real SIGTERM to rank 1 after step 3, agreed, emergency-saved with a
@@ -3998,7 +4105,8 @@ def resil_dp_job(mesh, root: str, token_file: str):
     me = mesh.get_rank()
 
     def drive(sub, step_fn_of=None, on_step=None, install=False):
-        run = bench.prepare_dp(RESIL_GPT_RUNG, "ddp", mesh, token_file=token_file)
+        run = bench.prepare_dp(RESIL_GPT_RUNG, "ddp", mesh, token_file=token_file,
+                               layers=GLOO_GPT2_LAYERS)
         fstep = FunctionalStep(run.step, run.model, run.optimizer)
         mgr = CheckpointManager(os.path.join(root, sub), keep=2)
         ms, last = [], [time.perf_counter()]
@@ -4067,18 +4175,25 @@ def run_train_resilient(dev, card, kernels_mod):
         vocab = GPTConfig(**bench.GPT_RUNGS[RESIL_GPT_RUNG][0]).vocab_size
         token_file = bench.write_token_file(os.path.join(tmp, "tokens.bin"), bench.DATA_TOKENS,
                                             vocab)
+        # leg 4's ranks start up while legs 1-3 run, and wait for them
+        spawned = tp_spawn_start("resil", dict(root=os.path.join(tmp, "dp"),
+                                               token_file=token_file), names=("dp",), held=True)
+        try:
+            t = time.perf_counter()
+            gpt2 = resil_gpt2_leg(dev, token_file, tmp, kernels_mod)
+            gpt2["seconds"] = time.perf_counter() - t
+            t = time.perf_counter()
+            envelope = resil_envelope_leg(dev, token_file, tmp, kernels_mod)
+            envelope["seconds"] = time.perf_counter() - t
+            t = time.perf_counter()
+            llama, golden13, nbytes = resil_13b_leg(dev, tmp, kernels_mod)
+            llama_s = time.perf_counter() - t
+        except BaseException:
+            tp_spawn_abort(spawned)
+            raise
         t = time.perf_counter()
-        gpt2 = resil_gpt2_leg(dev, token_file, tmp, kernels_mod)
-        gpt2["seconds"] = time.perf_counter() - t
-        t = time.perf_counter()
-        envelope = resil_envelope_leg(dev, token_file, tmp, kernels_mod)
-        envelope["seconds"] = time.perf_counter() - t
-        t = time.perf_counter()
-        llama, golden13, nbytes = resil_13b_leg(dev, tmp, kernels_mod)
-        llama_s = time.perf_counter() - t
-        t = time.perf_counter()
-        ranks = tp_spawn("resil", dict(root=os.path.join(tmp, "dp"), token_file=token_file),
-                         timeout_s=600, names=("dp",))
+        tp_spawn_release(spawned)
+        ranks = tp_spawn_finish(spawned, timeout_s=600)
         dp_s = time.perf_counter() - t
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4109,7 +4224,8 @@ def run_train_resilient(dev, card, kernels_mod):
             x["latest"] is not None and x["latest"] < RESIL_DP_ULP_AFTER for x in b),
     }
     llama_out = dict(
-        model="llama 1.3B (bench rung 1.3b)", state_bytes=nbytes, golden_losses=golden13,
+        model=f"llama 1.3B (bench rung 1.3b) at {RESIL_13B_LAYERS} of 24 layers",
+        state_bytes=nbytes, golden_losses=golden13,
         preempted=pre, resumed=res, seconds=llama_s,
         bare_step_peak_bytes=llama["bare_step_peak_bytes"],
         loop_peak_over_bare=max(pre["peak_memory_bytes"], res["peak_memory_bytes"])
@@ -5582,12 +5698,14 @@ def run_moe(dev, card, kernels_mod) -> dict:
     the card on an ("ep",) mesh of 2 (``moe_ep_job``): every rank's
     replicated grads bitwise equal, each rank's checks."""
     out = {}
-    t = time.perf_counter()
-    out["small"] = run_moe_small(dev, kernels_mod)
-    out["small"]["seconds"] = time.perf_counter() - t
-    log("moe.small", **out["small"])  # each leg's line as it ends
     tmp = tempfile.mkdtemp(prefix="vtt_moe_")
+    # (d)/(e)'s ranks start up while (a)-(c) run, and wait for them
+    spawned = tp_spawn_start("moe", {}, names=("ep",), held=True)
     try:
+        t = time.perf_counter()
+        out["small"] = run_moe_small(dev, kernels_mod)
+        out["small"]["seconds"] = time.perf_counter() - t
+        log("moe.small", **out["small"])  # each leg's line as it ends
         golden = os.path.join(tmp, "grads.pt")
         t = time.perf_counter()
         out["rung"] = run_moe_rung(dev, kernels_mod, golden)
@@ -5597,10 +5715,15 @@ def run_moe(dev, card, kernels_mod) -> dict:
         out["full"] = run_mixtral_full(dev, kernels_mod)
         out["full"]["seconds"] = time.perf_counter() - t
         log("moe.full", **out["full"])
+    except BaseException:
+        tp_spawn_abort(spawned)
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    try:
         t = time.perf_counter()
-        ranks = tp_spawn("moe", dict(golden_path=golden,
-                                     ref_losses=out["rung"]["losses"][:MOE_EP_STEPS]),
-                         timeout_s=600, names=("ep",))
+        tp_spawn_release(spawned, golden_path=golden,
+                         ref_losses=out["rung"]["losses"][:MOE_EP_STEPS])
+        ranks = tp_spawn_finish(spawned, timeout_s=600)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rep_equal = ranks[0]["ep"]["replicated_fingerprint"] == ranks[1]["ep"]["replicated_fingerprint"]
@@ -5636,6 +5759,724 @@ def moe_summary(moe: dict) -> dict:
                 ep_seconds=moe["ep"]["seconds"],
                 refresh_checks=[r["checks"] for r in moe["refresh"]],
                 replicated_grads_bitwise=moe["ep"]["replicated_grads_bitwise"])
+
+
+# ------------------------------------------------------------ long context
+# The kernels' long-context shapes: (label, B, T, H, KV, D, causal).  The
+# longctx rung's attention; a ring block at sp = 2 of the (1, 32768, 16,
+# 16, 64) sequence, causal on the diagonal and full below it; Ulysses'
+# attention at sp = 2 (8 of the 16 heads over the whole sequence).
+LONGCTX_SHAPES = (
+    ("longctx rung", 1, 32768, 16, 8, 64, True),
+    ("ring diagonal", 1, 16384, 16, 16, 64, True),
+    ("ring below", 1, 16384, 16, 16, 64, False),
+    ("ulysses", 1, 32768, 8, 8, 64, True),
+)
+LONGCTX_SEQ = (1, 32768, 16, 16, 64)  # the sp = 2 legs' global (B, T, H, KV, D)
+LONGCTX_STEPS = 3  # timed steps of the rung, after bench.WARMUP
+# ring at sp = 2 against one card's flash attention on the whole sequence,
+# in bf16 steps at the reference's scale: the ring merges two bf16 block
+# outputs in fp32 and sums two bf16 block grads in fp32, each a rounding
+# the single launch does not make
+RING_OUT_STEPS, RING_GRAD_STEPS = 4.0, 8.0
+# Ulysses runs the same kernels on the same heads' whole sequences, so its
+# output and grads are the single launch's (held within one bf16 step)
+ULYSSES_STEPS = 1.0
+# blockwise_attention (fp32, the reference's online softmax, autograd
+# backward) against the fp32 flash kernels, in fp32 ulps at scale
+BLOCKWISE_FWD_ULPS, BLOCKWISE_BWD_ULPS = 64.0, 256.0
+EMU_SHAPE = (4096, 1024)  # each rank's all_reduce_q operand of the emulator leg
+
+
+def longctx_kernels(dev, ulps):
+    """(a): K1, dq and dkv at ``LONGCTX_SHAPES``.  Each shape launches once
+    at full size; then its first and last query heads (with their kv heads)
+    launch alone, bitwise the full launch's rows (dk and dv too where a kv
+    head has one query head), and are held to the plain versions on that
+    head: float64 within 2 bf16 steps and the bf16-P models within 1, the
+    lse within 16 fp32 ulps of the model's (``flash_cases``' bounds; the
+    plain versions materialise (T, T) scores, 8.6 GB a head in float64 at
+    T=32768, so a head is what fits).  Times: the full-size launches, the
+    plain versions on one head, and ``scaled_dot_product_attention``'s
+    forward and backward at full size with the kv heads expanded."""
+    import torch.nn.functional as F
+
+    from vescale_tpu_torch.kernels.flash_attention import (
+        _delta, flash_bwd, flash_bwd_dkv, flash_bwd_dkv_cost, flash_bwd_dq, flash_bwd_dq_cost,
+        flash_bwd_reference, flash_fwd, flash_fwd_cost, flash_fwd_reference)
+
+    rows, timings = [], {}
+    for label, B, T, H, KV, D, causal in LONGCTX_SHAPES:
+        rep = H // KV
+        q, k, v, o, do, lse, args = flash_bwd_inputs(dev, B, T, H, KV, D, causal, torch.bfloat16)
+        dq, dk, dv = flash_bwd(q, k, v, o, do, lse, **args)
+        one = dict(scale=args["scale"], causal=causal, H=1, KV=1)
+        row = dict(kernel="flash_fwd+flash_bwd", case=f"{label} ({B}, {T}, {H}, {KV}, {D})",
+                   o_bound=2 * BF16_ULP, model_bound=BF16_ULP, lse_bound=16.0, heads={})
+        ok = True
+        for h in (0, H - 1):
+            g = h // rep
+            qs, ks, vs, dos = (t[i:i + 1].contiguous()
+                               for t, i in ((q, h), (k, g), (v, g), (do, h)))
+            os_, lses = flash_fwd(qs, ks, vs, **one)
+            dqs, dks, dvs = flash_bwd(qs, ks, vs, os_, dos, lses, **one)
+            hr = dict(fwd_bitwise_full=bits_equal(os_, o[h:h + 1])
+                      and bits_equal(lses.reshape(-1), lse[:, h].reshape(-1)),
+                      dq_bitwise_full=bits_equal(dqs, dq[h:h + 1]))
+            if rep == 1:
+                hr["dkv_bitwise_full"] = (bits_equal(dks, dk[g:g + 1])
+                                          and bits_equal(dvs, dv[g:g + 1]))
+            o64, _ = flash_fwd_reference(*(t.double() for t in (qs, ks, vs)), **one)
+            hr["o_ulps"] = ulps(os_.double().cpu().numpy(), o64.cpu().numpy())
+            del o64
+            free_memory()
+            om, lsem = flash_fwd_reference(qs, ks, vs, pd_dtype=torch.bfloat16, **one)
+            hr["o_model_ulps"] = ulps(os_.double().cpu().numpy(), om.double().cpu().numpy())
+            hr["lse_ulps"] = ulps(lses.cpu().numpy(), lsem.cpu().numpy())
+            del om, lsem
+            free_memory()
+            exact = flash_bwd_reference(*(t.double() for t in (qs, ks, vs, os_, dos, lses)), **one)
+            for name, a, b in zip(("dq", "dk", "dv"), (dqs, dks, dvs), exact):
+                hr[f"{name}_ulps"] = ulps(a.double().cpu().numpy(), b.cpu().numpy())
+            del exact
+            free_memory()
+            model = flash_bwd_reference(qs, ks, vs, os_, dos, lses, pd_dtype=torch.bfloat16, **one)
+            for name, a, b in zip(("dq", "dk", "dv"), (dqs, dks, dvs), model):
+                hr[f"{name}_model_ulps"] = ulps(a.double().cpu().numpy(), b.double().cpu().numpy())
+            del model
+            free_memory()
+            ok = ok and all(x for key, x in hr.items() if key.endswith("_full")) and \
+                hr["o_ulps"] <= 2 * BF16_ULP and hr["o_model_ulps"] <= BF16_ULP and \
+                hr["lse_ulps"] <= 16.0 and all(hr[f"{n}_ulps"] <= 2 * BF16_ULP and
+                                               hr[f"{n}_model_ulps"] <= BF16_ULP
+                                               for n in ("dq", "dk", "dv"))
+            row["heads"][str(h)] = hr
+        row["ok"] = ok
+        rows.append(row)
+        # times at full size; the plain versions on head 0 (what fits)
+        lse2, delta = lse.reshape(B * H, T), _delta(o, do)
+        qs, ks, vs, os_, dos = (t[:1].contiguous() for t in (q, k, v, o, do))
+        lses = lse[:, :1].contiguous()
+        fwd_ms = cuda_ms(lambda: flash_fwd(q, k, v, **args), iters=5, warmup=1)
+        dq_ms = cuda_ms(lambda: flash_bwd_dq(q, k, v, do, lse2, delta, **args), iters=5, warmup=1)
+        dkv_ms = cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse2, delta, **args), iters=5,
+                         warmup=1)
+        plain_fwd_ms = cuda_ms(lambda: flash_fwd_reference(qs, ks, vs, pd_dtype=torch.bfloat16,
+                                                           **one), iters=1, warmup=1)
+        free_memory()
+        plain_bwd_ms = cuda_ms(lambda: flash_bwd_reference(qs, ks, vs, os_, dos, lses, **one),
+                               iters=1, warmup=1)
+        free_memory()
+        q4 = q.reshape(B, H, T, D).detach().requires_grad_()
+        k4 = k.reshape(B, KV, T, D).repeat_interleave(rep, dim=1).detach().requires_grad_()
+        v4 = v.reshape(B, KV, T, D).repeat_interleave(rep, dim=1).detach().requires_grad_()
+        with torch.no_grad():
+            sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                         is_causal=causal), iters=5)
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+        do4 = do.reshape(B, H, T, D)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                          retain_graph=True), iters=5)
+        shape = dict(B=B, T=T, H=H, KV=KV, D=D, dtype="torch.bfloat16", causal=causal)
+        fwd_flops, fwd_bytes = flash_fwd_cost(q, k, v, **args)
+        dq_flops, dq_bytes = flash_bwd_dq_cost(q, k, v, do, lse2, delta, **args)
+        dkv_flops, dkv_bytes = flash_bwd_dkv_cost(q, k, v, do, lse2, delta, **args)
+        timings[label] = dict(
+            shape=shape,
+            flash_fwd=dict(ms=fwd_ms, plain_ms_one_head=plain_fwd_ms, library_ms=sdpa_fwd_ms,
+                           **bound(fwd_bytes, fwd_flops, torch.bfloat16)),
+            flash_bwd_dq=dict(ms=dq_ms, **bound(dq_bytes, dq_flops, torch.bfloat16)),
+            flash_bwd_dkv=dict(ms=dkv_ms, **bound(dkv_bytes, dkv_flops, torch.bfloat16)),
+            bwd_plain_ms_one_head=plain_bwd_ms, bwd_library_ms=sdpa_bwd_ms,
+            bwd_pair_over_library=(dq_ms + dkv_ms) / sdpa_bwd_ms)
+        del q, k, v, o, do, lse, dq, dk, dv, q4, k4, v4, out4, qs, ks, vs, os_, dos, lses
+        free_memory()
+    return rows, timings
+
+
+def longctx_rung(dev, kernels_mod):
+    """(b): the bench's longctx rung (the 350M at T=32768, remat over the
+    MLP, ``scan_layers``): ``bench.WARMUP`` warm-up and ``LONGCTX_STEPS``
+    timed steps, 24 K1, dq and dkv and one K8 a step, the loss falling;
+    then one step under the profiler."""
+    from vescale_tpu_torch.bench import measure, prepare
+
+    t0 = time.perf_counter()
+    run = prepare("longctx", device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    L = run.config.num_hidden_layers
+    kernels_mod.reset_launches()
+    res = measure(run, steps=LONGCTX_STEPS)
+    launches = dict(kernels_mod.LAUNCHES)
+    timed = res["losses"][res["warmup_steps"]:]
+    want = {**{k: 0 for k in kernels_mod.LAUNCHES}, "flash_fwd": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "fused_adamw": 1}
+    checks = {"losses_finite": bool(np.isfinite(res["losses"]).all()),
+              "loss_falls": timed[-1] < timed[0],
+              "launches_per_step": all(step == want for step in res["launches_per_step"])}
+    prof = device_time_by_kind(lambda: run.step(run.next_batch()))
+    prof["device_idle_share"] = max(0.0, 1.0 - prof["device_busy_ms"] / res["step_ms_median"])
+    out = dict(model="llama 350M at T=32768 (bench rung longctx)",
+               weights="random fp32 masters, seed 0", setup_s=setup_s, launches=launches,
+               checks=checks, profile=prof,
+               **{k: v for k, v in res.items() if k != "launches_per_step"},
+               launches_first_step=res["launches_per_step"][0])
+    check(all(checks.values()), f"longctx rung checks failed: {json.dumps(out)[:3000]}")
+    del run
+    free_memory()
+    return out
+
+
+def longctx_blockwise(dev, ulps):
+    """(d): ``blockwise_attention`` (plain torch, the reference's online
+    softmax) against ``ops.flash_attention`` (the fp32 kernels), fp32, on
+    (1, T, 16, 64): forward and autograd backward at T=4096, and the
+    forward under ``no_grad`` at T=32768; each timed once on the host
+    clock around a synchronise."""
+    import importlib
+
+    from vescale_tpu_torch.parallel import blockwise_attention
+
+    ops = importlib.import_module("vescale_tpu_torch.ops.flash_attention")
+    out = dict(fwd_bound=BLOCKWISE_FWD_ULPS, bwd_bound=BLOCKWISE_BWD_ULPS)
+    g = torch.Generator(device=dev).manual_seed(5)
+    T = 4096
+    q, k, v, w = (torch.randn(1, T, 16, 64, generator=g, device=dev) for _ in range(4))
+    res = {}
+    for name, fn in (("flash", lambda a, b, c: ops.flash_attention(a, b, c, causal=True)),
+                     ("blockwise", lambda a, b, c: blockwise_attention(a, b, c, causal=True))):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(*leaves)
+        grads = torch.autograd.grad(o, leaves, w)
+        torch.cuda.synchronize()
+        res[name] = (o.detach(), grads, (time.perf_counter() - t0) * 1e3)
+    (of, gf, tf), (ob, gb, tb) = res["flash"], res["blockwise"]
+    t4 = dict(o_ulps=ulps(ob.cpu().numpy(), of.cpu().numpy()), flash_ms=tf, blockwise_ms=tb)
+    for name, a, b in zip(("dq", "dk", "dv"), gb, gf):
+        t4[f"{name}_ulps"] = ulps(a.cpu().numpy(), b.cpu().numpy())
+    out["t4096_fwd_bwd"] = t4
+    del q, k, v, w, res, of, gf, ob, gb
+    free_memory()
+    T = 32768
+    q, k, v = (torch.randn(1, T, 16, 64, generator=g, device=dev) for _ in range(3))
+    timed = {}
+    with torch.no_grad():
+        for name, fn in (("flash", lambda: ops.flash_attention(q, k, v, causal=True)),
+                         ("blockwise", lambda: blockwise_attention(q, k, v, causal=True))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed[name] = fn()
+            torch.cuda.synchronize()
+            out[f"t32768_{name}_fwd_ms"] = (time.perf_counter() - t0) * 1e3
+    out["t32768_fwd_o_ulps"] = ulps(timed["blockwise"].cpu().numpy(), timed["flash"].cpu().numpy())
+    out["ok"] = (t4["o_ulps"] <= BLOCKWISE_FWD_ULPS
+                 and out["t32768_fwd_o_ulps"] <= BLOCKWISE_FWD_ULPS
+                 and all(t4[f"{n}_ulps"] <= BLOCKWISE_BWD_ULPS for n in ("dq", "dk", "dv")))
+    del q, k, v, timed
+    free_memory()
+    return out
+
+
+def ctx_job(mesh, seed: int, emu_seed: int):
+    """(c) and (e) on one rank of an ("sp",) mesh of 2 over gloo.  The
+    whole (1, 32768, 16, 16, 64) bf16 q, k, v and the cotangent w, drawn
+    on the card from ``seed`` (the same on both ranks); one card's flash
+    attention on the whole sequence, forward and grads (the comparison,
+    its launches not counted); then ring and Ulysses (its default
+    ``attn_fn``, the port's flash attention) on this rank's half, each forward and
+    backward, held to that launch's rows in bf16 steps, with their
+    collectives (calls, bytes, seconds under ``collectives.TIMING``) and
+    launches.  (e): ``all_reduce_q`` with "nearest" rounding of this rank's
+    fp32 operand, bitwise the emulator's ``quantized_all_reduce`` replay on
+    the host of both ranks' operands."""
+    import importlib
+
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch import emulator
+    from vescale_tpu_torch import kernels as K
+    from vescale_tpu_torch.kernels import ulps_at_scale
+    from vescale_tpu_torch.parallel import ring_self_attention, ulysses_self_attention
+
+    ops = importlib.import_module("vescale_tpu_torch.ops.flash_attention")
+    B, T, H, KV, D = LONGCTX_SEQ
+    n, r = mesh.size("sp"), mesh.get_coordinate()[0]
+    dev = mesh.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, T, KV, D, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    w = torch.randn(B, T, H, D, generator=g, device=dev).to(torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = ops.flash_attention(*leaves, causal=True)
+    ref_grads = torch.autograd.grad(ref, leaves, w)
+    ref = ref.detach()
+    t = T // n
+    sl = slice(r * t, (r + 1) * t)
+
+    def steps(a, b) -> float:
+        return ulps_at_scale(a.float().cpu().numpy(), b.float().cpu().numpy()) / BF16_ULP
+
+    out = {}
+    for kind, fn in (("ring", ring_self_attention), ("ulysses", ulysses_self_attention)):
+        loc = [x[:, sl].contiguous().requires_grad_() for x in (q, k, v)]
+        K.reset_launches()
+        C.reset_calls()
+        C.TIMING = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(*loc, mesh, "sp", causal=True)
+        grads = torch.autograd.grad(o, loc, w[:, sl].contiguous())
+        o = o.detach()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        C.TIMING = False
+        res = dict(wall_ms=wall * 1e3, launches=dict(K.LAUNCHES),
+                   collectives=dict(calls=dict(C.CALLS), bytes=dict(C.BYTES),
+                                    seconds=dict(C.SECONDS)),
+                   gloo_share=sum(C.SECONDS.values()) / wall,
+                   out_steps=steps(o, ref[:, sl]),
+                   bitwise=bits_equal(o, ref[:, sl].contiguous()) and all(
+                       bits_equal(a, b[:, sl].contiguous()) for a, b in zip(grads, ref_grads)))
+        for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+            res[f"{name}_steps"] = steps(a, b[:, sl])
+        bo, bg = (RING_OUT_STEPS, RING_GRAD_STEPS) if kind == "ring" else (ULYSSES_STEPS,) * 2
+        res["bounds_bf16_steps"] = dict(out=bo, grads=bg)
+        res["ok"] = res["out_steps"] <= bo and all(res[f"{g_}_steps"] <= bg
+                                                   for g_ in ("dq", "dk", "dv"))
+        out[kind] = res
+        del o, grads, loc
+    xs = [np.random.default_rng(emu_seed * 1000 + j).standard_normal(EMU_SHAPE).astype(np.float32)
+          for j in range(n)]
+    t0 = time.perf_counter()
+    got = C.all_reduce_q(torch.from_numpy(xs[r]).to(dev), mesh, "sum", 0, block=64,
+                         rounding="nearest").cpu().numpy()
+    q_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    replay = emulator.quantized_all_reduce(xs, 64, "nearest")[r]
+    out["emulator"] = dict(shape=list(EMU_SHAPE), all_reduce_q_ms=q_ms,
+                           replay_ms=(time.perf_counter() - t0) * 1e3,
+                           bitwise=bool(np.array_equal(got, replay)),
+                           differing=int(np.sum(got != replay)))
+    out["launches_total"] = {k_: out["ring"]["launches"][k_] + out["ulysses"]["launches"][k_]
+                             for k_ in K.LAUNCHES}
+    out["checks"] = dict(ring=out["ring"]["ok"], ulysses=out["ulysses"]["ok"],
+                         emulator_bitwise=out["emulator"]["bitwise"])
+    return out
+
+
+TP_JOBS["ctx"] = ctx_job
+
+
+def run_longctx(dev, card, kernels_mod) -> dict:
+    """The longctx phase: (a) ``longctx_kernels``, (b) ``longctx_rung``,
+    (d) ``longctx_blockwise``, then (c) and (e) in one spawn of two gloo
+    ranks of the card on an ("sp",) mesh (``ctx_job``), started held so
+    that its start-up overlaps (a)-(d), and released after them."""
+    from vescale_tpu_torch.kernels import ulps_at_scale
+
+    out = {}
+    spawned = tp_spawn_start("ctx", dict(seed=7, emu_seed=3), names=("sp",), held=True)
+    try:
+        t = time.perf_counter()
+        rows, timings = longctx_kernels(dev, ulps_at_scale)
+        out["kernels"] = dict(rows=rows, timings=timings, seconds=time.perf_counter() - t,
+                              card=card)
+        log("longctx.kernels", **out["kernels"])
+        t = time.perf_counter()
+        out["rung"] = run = longctx_rung(dev, kernels_mod)
+        run["seconds"] = time.perf_counter() - t
+        log("longctx.rung", card=card, **run)
+        t = time.perf_counter()
+        out["blockwise"] = longctx_blockwise(dev, ulps_at_scale)
+        out["blockwise"]["seconds"] = time.perf_counter() - t
+        log("longctx.blockwise", **out["blockwise"])
+    except BaseException:
+        tp_spawn_abort(spawned)
+        raise
+    t = time.perf_counter()
+    tp_spawn_release(spawned)
+    ranks = tp_spawn_finish(spawned, timeout_s=600)
+    out["sp"] = dict(ranks=ranks, seconds=time.perf_counter() - t, card=card)
+    log("longctx.sp", **out["sp"])
+    launches = dict(run["launches"])
+    for r in ranks:
+        for k, v in r["launches_total"].items():
+            launches[k] += v
+    out["launches"] = launches
+    checks = dict(kernels=all(r["ok"] for r in rows), rung=all(run["checks"].values()),
+                  blockwise=out["blockwise"]["ok"],
+                  **{f"rank{i}_{k}": v for i, r in enumerate(ranks)
+                     for k, v in r["checks"].items()})
+    out["checks"] = checks
+    check(all(checks.values()), f"longctx checks failed: {json.dumps(checks)}")
+    return out
+
+
+def longctx_summary(lc: dict) -> dict:
+    return dict(launches=lc["launches"], checks=lc["checks"],
+                legs={leg: lc[leg]["seconds"] for leg in ("kernels", "rung", "blockwise", "sp")},
+                step_ms_median=lc["rung"]["step_ms_median"], mfu=lc["rung"]["mfu"],
+                peak_memory_bytes=lc["rung"]["peak_memory_bytes"])
+
+
+# --------------------------------------------------------------------- fp8
+FP8_STEPS = 20  # steps of each 1.3B run, fp8 and bf16: bench.WARMUP, then timed
+FP8_REL = 0.1  # the fp8 run's last loss against the bf16 run's (tests/test_fp8.py:92)
+# the cpu rung with use_fp8, card against CPU: the losses of three steps,
+# relative.  On the CPU the port sits 1.1e-7 from flax
+# (tests/test_torch_fp8.py); the card's fp8 products add the tensor
+# cores' accumulation error, which the CPU's exact fp32 sums of the codes
+# do not have: ``fp8_matmul_probe`` measured the card's product 2.8e-4 of
+# its scale from the exact sum, and the three steps' losses 6.6e-4 apart
+# (without fp8 the same legs agree to 7.9e-8).  Three times that gap
+FP8_CPU_RTOL = 2e-3
+# the backward alone, card against CPU (``fp8_cpu_leg``): the projection
+# grads and g amax of one step may sit this many times the gap of the
+# CPU's "noise twin", the same step with every fp8 product's sum perturbed
+# by the probe's measured accumulation gap.  e5m2 keeps 2 mantissa bits, so
+# a small perturbation flips some codes near a rounding edge: the twin
+# moves the small model's grads by 0.174 relative L2 and its g amax by
+# 7.4e-2, the card by 0.155 and 5.3e-2 (NVIDIA H100 80GB HBM3, 700 W);
+# a wrong scale or layout moves them by 1 or more.  The g scales come
+# from the same loaded history: bitwise.
+FP8_TWIN_FACTOR = 3.0
+FP8_PROBE_REL = 1e-3  # the probe's product against the exact sum of its codes
+# the cpu rung widened to head_dim 64, the kernels' smallest (4 -> 2 heads)
+FP8_CPU_HEADS = dict(num_attention_heads=2, num_key_value_heads=2)
+
+
+def fp8_amax_hooks(model):
+    """Hooks recording each fp8 op's input, kernel and output-gradient
+    amax of the latest step, by op name; returns (records, handles)."""
+    from vescale_tpu_torch.quant.fp8 import Fp8DirectDotGeneralOp
+
+    rec, handles = {}, []
+    for name, m in model.named_modules():
+        if not isinstance(m, Fp8DirectDotGeneralOp):
+            continue
+
+        def fwd(mod, inputs, output, name=name):
+            # detached: an amax kept in the graph would hold the step's
+            # activations alive through the hooks' reference cycle
+            x, kernel = (t.detach() for t in inputs)
+            rec[name] = {"input": x.to(kernel.dtype).abs().amax().float(),
+                         "kernel": kernel.abs().amax().float()}
+            output.register_hook(lambda gr: rec[name].__setitem__(
+                "output_grad", gr.detach().abs().amax().float()))
+
+        handles.append(m.register_forward_hook(fwd))
+    return rec, handles
+
+
+def fp8_quantize_ms(dev, cfg, rows: int) -> dict:
+    """Device ms of one step's quantize passes alone (amax, scale, clip,
+    cast: ``quant.fp8._update_meta`` and ``_flax_quantize``): each block
+    projection's input and kernel (forward) and output gradient
+    (backward), ``cfg.num_hidden_layers`` times, on bf16 tensors of the
+    step's shapes."""
+    from vescale_tpu_torch.quant import fp8 as F8
+
+    E, Fi, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    H, KV = cfg.num_attention_heads, cfg.num_key_value_heads
+    shapes = [(E, H * hd), (E, KV * hd), (E, KV * hd), (H * hd, E), (E, Fi), (E, Fi), (Fi, E)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    mats = [(torch.randn(rows, i, generator=g, device=dev).to(bf),
+             torch.randn(i, o, generator=g, device=dev).to(bf),
+             torch.randn(rows, o, generator=g, device=dev).to(bf)) for i, o in shapes]
+    hist = torch.rand(1024, device=dev)
+    scale = torch.ones(1, device=dev)
+
+    def one_layer():
+        for x, k, gy in mats:
+            for t, fmax, dt in ((x, F8.E4M3_MAX, F8.E4M3), (k, F8.E4M3_MAX, F8.E4M3),
+                                (gy, F8.E5M2_MAX, F8.E5M2)):
+                s, _ = F8._update_meta(t, fmax, scale, hist)
+                F8._flax_quantize(t, dt, fmax, s, bf)
+
+    layer_ms = cuda_ms(one_layer, iters=5, warmup=1)
+    del mats
+    free_memory()
+    return dict(layer_ms=layer_ms, step_ms=layer_ms * cfg.num_hidden_layers,
+                passes_per_step=3 * len(shapes) * cfg.num_hidden_layers)
+
+
+def fp8_matmul_probe(dev) -> dict:
+    """How far the card's fp8 product sits from the exact sum of its
+    codes, and whether it flushes e4m3 subnormals: fp32 normals (x ~
+    N(0, 1), w ~ N(0, 0.088^2), the cpu rung's kernel scale at its first
+    step's unit scale) cast to e4m3 on the CPU and on the card (bytes
+    compared), then ``quant.fp8.fp8_matmul`` (``_scaled_mm``, fp32 out)
+    against the exact (float64) product of the codes and against it with
+    every subnormal code flushed to zero, relative to the product's
+    largest magnitude."""
+    from vescale_tpu_torch.quant import fp8 as F8
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(256, 128, generator=g)
+    w = torch.randn(128, 256, generator=g) * 0.088
+    qx, qw = x.to(F8.E4M3), w.to(F8.E4M3)
+    qx_d, qw_d = x.to(dev).to(F8.E4M3), w.to(dev).to(F8.E4M3)
+    cast_equal = torch.equal(qx.view(torch.uint8), qx_d.cpu().view(torch.uint8)) and torch.equal(
+        qw.view(torch.uint8), qw_d.cpu().view(torch.uint8))
+    card = F8.fp8_matmul(qx_d, qw_d, torch.float32).cpu().double()
+    tiny = 2.0 ** -6  # e4m3's smallest normal
+
+    def flush(q):
+        f = q.double()
+        return torch.where(f.abs() < tiny, torch.zeros_like(f), f)
+
+    exact = qx.double() @ qw.double()
+    ftz = flush(qx) @ flush(qw)
+    scale = float(exact.abs().max())
+    return dict(cast_bytes_equal=cast_equal,
+                subnormal_share_w=float((qw.float().abs() < tiny).float().mean()),
+                card_vs_exact=float((card - exact).abs().max()) / scale,
+                card_vs_flushed=float((card - ftz).abs().max()) / scale)
+
+
+def fp8_cpu_run(device, fp8: bool, params=None):
+    """(model, step, batch) of the bench's cpu rung (fp32, AdamWLowmem at
+    the bench's LR, its numpy-seeded batch) widened to ``FP8_CPU_HEADS``,
+    with ``use_fp8`` as asked, on ``device``: weights and fp8 state from
+    ``params`` (a ``module_tree``), else ``init_params`` seed 0."""
+    from vescale_tpu_torch.bench import LR, RUNGS
+    from vescale_tpu_torch.models import Llama, LlamaConfig, cross_entropy_loss, init_params
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.train import make_train_step
+
+    fields, B, T, state_dtype, _ = RUNGS["cpu"]
+    cfg = LlamaConfig(max_position_embeddings=T, **dict(fields, use_fp8=fp8, **FP8_CPU_HEADS))
+    if params is None:
+        params = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    model = Llama(cfg, params, device=device)
+    opt = AdamWLowmem(model.parameters(), LR, state_dtype=state_dtype)
+    step = make_train_step(model, opt, lambda lg, b: cross_entropy_loss(lg, b["target"]))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T + 1))
+    t = torch.from_numpy(toks.astype(np.int64)).to(device)
+    return model, step, {"input": t[:, :-1], "target": t[:, 1:]}
+
+
+def fp8_step_one(model, step, batch) -> dict:
+    """One step; then, on the CPU, every block projection kernel's
+    gradient of that step and the fp8 state the step wrote."""
+    from vescale_tpu_torch.quant import fp8 as F8
+
+    loss = float(step(batch))
+    grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()
+             if n.endswith("_proj.kernel")}
+    state = {n: b.detach().cpu().double() for n, b in F8.owg_buffers(model).items()}
+    return dict(loss=loss, grads=grads, state=state)
+
+
+def fp8_gap(card: dict, cpu: dict) -> dict:
+    """Card against CPU after one step from the same weights and state:
+    the largest relative L2 gap of a projection kernel's gradient (dk, and
+    through the layers above it dx), and of the output-gradient histories'
+    [0] and scales (each op's g amax and the e5m2 scale its backward
+    used), over every op."""
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    gs = {n: rel(card["grads"][n], g) for n, g in cpu["grads"].items()}
+    h0 = [n for n in cpu["state"] if n.endswith("output_grad_amax_history")]
+    sc = [n for n in cpu["state"] if n.endswith("output_grad_scale")]
+    return dict(grad_max_rel=max(gs.values()), grad_worst=max(gs, key=gs.get),
+                g_amax_max_rel=max(rel(card["state"][n][..., 0], cpu["state"][n][..., 0])
+                                   for n in h0),
+                g_scale_max_rel=max(rel(card["state"][n], cpu["state"][n]) for n in sc))
+
+
+def fp8_noise_twin(mid, ref: dict, amp: float) -> dict:
+    """``fp8_gap`` of the CPU's step from ``mid`` again, with every fp8
+    product's sum perturbed by seeded normal noise of ``amp`` times its
+    largest magnitude, against ``ref`` (the unperturbed step): the gap an
+    accumulation error of that size opens by itself."""
+    from vescale_tpu_torch.models import tree_to
+    from vescale_tpu_torch.quant import fp8 as F8
+
+    orig = F8.fp8_matmul
+    g = torch.Generator().manual_seed(0)
+
+    def noisy(a, b, out_dtype):
+        y = orig(a, b, out_dtype)
+        return y + amp * y.abs().max() * torch.randn(y.shape, generator=g, dtype=y.dtype)
+
+    F8.fp8_matmul = noisy
+    try:
+        return fp8_gap(fp8_step_one(*fp8_cpu_run("cpu", True, tree_to(mid, "cpu"))), ref)
+    finally:
+        F8.fp8_matmul = orig
+
+
+def fp8_cpu_leg(dev, kernels_mod) -> dict:
+    """The cpu rung (fp32) with ``use_fp8``, widened to head_dim 64, on the
+    CPU and on the card from the CPU's weights and state: three steps'
+    losses within ``FP8_CPU_RTOL``, the card's products through
+    ``_scaled_mm`` (out_dtype fp32).  Then the backward alone: from the
+    CPU's weights and state after its first step (each op's scales no
+    longer 1), one more step on each: their projection grads and g amax
+    within ``FP8_TWIN_FACTOR`` times the CPU noise twin's gap at the
+    probe's measured accumulation error, their g scales bitwise; and the
+    check's power: the card's step again with the e5m2 scale dropped from
+    dx's dequantize (a planted backward fault, undone after) must fail
+    that bound."""
+    from vescale_tpu_torch.models import module_tree, tree_to
+    from vescale_tpu_torch.quant import fp8 as F8
+
+    cpu = fp8_cpu_run("cpu", True)
+    start = tree_to(module_tree(cpu[0]), dev)  # copies: the CPU's steps move its leaves
+    card = fp8_cpu_run(dev, True, start)
+    kernels_mod.reset_launches()
+    F8.SCALED_MM_CALLS.clear()
+    l_cpu = [float(cpu[1](cpu[2]))]
+    mid = tree_to(module_tree(cpu[0]), dev)
+    l_cpu += [float(cpu[1](cpu[2])) for _ in range(2)]
+    l_card = [float(card[1](card[2])) for _ in range(3)]
+    launches, mm_calls = dict(kernels_mod.LAUNCHES), dict(F8.SCALED_MM_CALLS)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    ref = fp8_step_one(*fp8_cpu_run("cpu", True, tree_to(mid, "cpu")))
+    gap = fp8_gap(fp8_step_one(*fp8_cpu_run(dev, True, mid)), ref)
+    probe = fp8_matmul_probe(dev)
+    twin = fp8_noise_twin(mid, ref, probe["card_vs_exact"])
+    bound = {k: FP8_TWIN_FACTOR * twin[k] for k in ("grad_max_rel", "g_amax_max_rel")}
+    # the planted fault: dx = q_g q_w^T s_w, without s_g
+    orig = F8._Fp8DirectDot.backward
+
+    def dropped_sg(ctx, gy):
+        dx, dk, *state = orig(ctx, gy)
+        return (dx / state[-1].to(dx.dtype), dk, *state)
+
+    F8._Fp8DirectDot.backward = staticmethod(dropped_sg)
+    try:
+        planted = fp8_gap(fp8_step_one(*fp8_cpu_run(dev, True, mid)), ref)
+        bad = fp8_cpu_run(dev, True, start)
+        l_bad = [float(bad[1](bad[2])) for _ in range(3)]
+    finally:
+        F8._Fp8DirectDot.backward = orig
+    # the planted run's three losses against the CPU's: what the loss
+    # bound alone makes of the fault
+    planted["loss_max_rel"] = max(abs(a - b) / abs(b) for a, b in zip(l_bad, l_cpu))
+    planted["caught"] = planted["grad_max_rel"] > bound["grad_max_rel"]
+    out = dict(config="bench cpu rung, use_fp8, 2 heads of 64", losses_cpu=l_cpu,
+               losses_card=l_card, max_rel=rel, bound=FP8_CPU_RTOL, **gap, noise_twin=twin,
+               twin_bounds=bound, planted_fault=planted, scaled_mm_calls=mm_calls,
+               launches=launches, matmul_probe=probe,
+               ok=(rel <= FP8_CPU_RTOL and gap["grad_max_rel"] <= bound["grad_max_rel"]
+                   and gap["g_amax_max_rel"] <= bound["g_amax_max_rel"]
+                   and gap["g_scale_max_rel"] == 0.0 and planted["caught"]
+                   and sum(mm_calls.values()) == 3 * 7 * 2 * 3
+                   and probe["cast_bytes_equal"] and probe["card_vs_exact"] <= FP8_PROBE_REL))
+    # the same config without fp8, card against CPU: the gap of everything else
+    plain = [fp8_cpu_run("cpu", False)]
+    plain.append(fp8_cpu_run(dev, False, module_tree(plain[0][0])))
+    lp = [[float(step(batch)) for _ in range(3)] for _, step, batch in plain]
+    out["no_fp8_max_rel"] = max(abs(a - b) / abs(b) for a, b in zip(lp[1], lp[0]))
+    del plain, cpu, card, bad, start, mid
+    free_memory()
+    return out
+
+
+def run_fp8(dev, card, kernels_mod) -> dict:
+    """The fp8 phase: the card-against-CPU leg, the bf16 1.3B rung for
+    ``FP8_STEPS`` steps, then the same rung from the same seed with
+    ``use_fp8`` for as many steps (3 x 7 x 24 ``_scaled_mm`` calls a
+    step; every state leaf finite and each history's [0] the step's amax,
+    read by hooks in one more step; one step profiled; the quantize
+    passes timed alone): the fp8 loss falls and ends within ``FP8_REL``
+    of the bf16 run's."""
+    from vescale_tpu_torch.bench import WARMUP, measure, prepare
+    from vescale_tpu_torch.quant import fp8 as F8
+
+    out = {}
+    t = time.perf_counter()
+    out["cpu_leg"] = fp8_cpu_leg(dev, kernels_mod)
+    out["cpu_leg"]["seconds"] = time.perf_counter() - t
+    log("fp8.cpu_leg", **out["cpu_leg"])
+    t = time.perf_counter()
+    base = prepare("1.3b", device=dev)
+    res16 = measure(base, warmup=WARMUP, steps=FP8_STEPS - WARMUP)
+    del base
+    free_memory()
+    l16 = res16["losses"]
+    out["bf16"] = dict(losses=l16, step_ms_median=res16["step_ms_median"], mfu=res16["mfu"],
+                       peak_memory_bytes=res16["peak_memory_bytes"],
+                       seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    run = prepare("1.3b", device=dev, fp8=True)
+    L = run.config.num_hidden_layers
+    kernels_mod.reset_launches()
+    F8.SCALED_MM_CALLS.clear()
+    res = measure(run, warmup=WARMUP, steps=FP8_STEPS - WARMUP)
+    launches = dict(kernels_mod.LAUNCHES)
+    mm_calls = dict(F8.SCALED_MM_CALLS)
+    rec, handles = fp8_amax_hooks(run.model)
+    run.step(run.next_batch())
+    for h in handles:
+        h.remove()
+    state = F8.owg_buffers(run.model)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(b).all()) for b in state.values())
+    amax_ok, amax_checked = True, 0
+    for op, vals in rec.items():
+        for slot, leaf in (("input", "input_amax_history"), ("kernel", "kernel_amax_history"),
+                           ("output_grad", "output_grad_amax_history")):
+            amax_ok = amax_ok and bool(state[f"{op}.{leaf}"][0] == vals[slot])
+            amax_checked += 1
+    prof = device_time_by_kind(lambda: run.step(run.next_batch()), named=("Float8",))
+    prof["device_idle_share"] = max(0.0, 1.0 - prof["device_busy_ms"] / res["step_ms_median"])
+    quant = fp8_quantize_ms(dev, run.config, run.tokens_per_step)
+    want = {**{k: 0 for k in kernels_mod.LAUNCHES}, "flash_fwd": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "fused_adamw": 1}
+    out["fp8"] = dict(model="llama 1.3B (bench rung 1.3b) with use_fp8", steps=FP8_STEPS,
+                      launches=launches, scaled_mm_calls=mm_calls, state_leaves=len(state),
+                      amax_checked=amax_checked, quantize=quant, profile=prof,
+                      **{k: v for k, v in res.items() if k != "launches_per_step"},
+                      launches_first_step=res["launches_per_step"][0])
+    l8 = res["losses"]
+    del run, state, rec
+    free_memory()
+    out["fp8"]["allocated_after_bytes"] = torch.cuda.memory_allocated(dev)
+    out["fp8"]["seconds"] = time.perf_counter() - t
+    rel = abs(l8[-1] - l16[-1]) / abs(l16[-1])
+    checks = {"cpu_leg": out["cpu_leg"]["ok"],
+              "scaled_mm_per_step": sum(mm_calls.values()) == 3 * 7 * L * FP8_STEPS,
+              "launches_per_step": all(s == want for s in res["launches_per_step"]),
+              "state_finite": finite,
+              "history0_is_the_steps_amax": amax_ok and amax_checked == 3 * 7 * L,
+              "fp8_loss_falls": l8[-1] < l8[0], "fp8_tracks_bf16": rel < FP8_REL}
+    out.update(last_loss_rel=rel, checks=checks)
+    out["launches"] = {k: launches[k] + out["cpu_leg"]["launches"][k] for k in launches}
+    log("fp8.rung", card=card, **out["fp8"], bf16=out["bf16"], last_loss_rel=rel)
+    check(all(checks.values()), f"fp8 checks failed: {json.dumps(checks)}")
+    return out
+
+
+def fp8_summary(f8: dict) -> dict:
+    return dict(launches=f8["launches"], checks=f8["checks"], last_loss_rel=f8["last_loss_rel"],
+                step_ms_median=f8["fp8"]["step_ms_median"], mfu=f8["fp8"]["mfu"],
+                bf16_step_ms_median=f8["bf16"]["step_ms_median"],
+                quantize_step_ms=f8["fp8"]["quantize"]["step_ms"])
+
+
+def longctx_only(dev, card, kernels_mod) -> int:
+    """``--longctx``: the longctx phase alone."""
+    t = time.perf_counter()
+    lc = run_longctx(dev, card, kernels_mod)
+    log("longctx", seconds=time.perf_counter() - t, **longctx_summary(lc))
+    print(card, flush=True)
+    return 0
+
+
+def fp8_only(dev, card, kernels_mod) -> int:
+    """``--fp8``: the fp8 phase alone."""
+    t = time.perf_counter()
+    f8 = run_fp8(dev, card, kernels_mod)
+    log("fp8", seconds=time.perf_counter() - t, **fp8_summary(f8))
+    print(card, flush=True)
+    return 0
 
 
 def moe_only(dev, card, kernels_mod) -> int:
@@ -5701,17 +6542,15 @@ def tp_launches(phase: dict, name: str) -> int:
 
 
 def tp_only(dev, card, kernels_mod) -> int:
-    """``--tp``: the single-card phases the TP phases are held to (serve,
-    gpt2), then ``tp_train`` and ``tp_serve``."""
+    """``--tp``: the serve phase (``tp_serve`` is held to its streams),
+    then ``tp_train`` and ``tp_serve``."""
     serve, eng, _, _, serve_streams = run_serve_8b(dev, kernels_mod)
     log("serve", **{k: v for k, v in serve.items() if k in ("checks", "launches")})
     forced = forced_reference(eng, serve_streams)
     del eng
     free_memory()
-    gpt2 = run_train_gpt2(dev, kernels_mod)
-    log("gpt2", losses=gpt2["losses"], step_ms_median=gpt2["step_ms_median"])
     t = time.perf_counter()
-    tp_train = run_tp_train(dev, gpt2, card)
+    tp_train = run_tp_train(dev, card)
     log("tp_train", seconds=time.perf_counter() - t, **tp_train)
     t = time.perf_counter()
     tp_serve = run_tp_serve(dev, serve_streams, forced, card)
@@ -5721,13 +6560,10 @@ def tp_only(dev, card, kernels_mod) -> int:
 
 
 def dp_only(dev, card, kernels_mod) -> int:
-    """``--dp``: the single-card train and gpt2 phases, then ``dp_train``."""
-    train = run_train_13b(dev, kernels_mod)
-    log("train", losses=train["losses"], step_ms_median=train["step_ms_median"])
-    gpt2 = run_train_gpt2(dev, kernels_mod)
-    log("gpt2", losses=gpt2["losses"], step_ms_median=gpt2["step_ms_median"])
+    """``--dp``: ``dp_train`` alone (it runs its own single-card
+    references)."""
     t = time.perf_counter()
-    dp_train = run_dp_train(dev, gpt2, card)
+    dp_train = run_dp_train(dev, card)
     log("dp_train", seconds=time.perf_counter() - t, **dp_train)
     print(card, flush=True)
     return 0
@@ -5737,9 +6573,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true", help="device, build and kernel parity only")
     ap.add_argument("--tp", action="store_true",
-                    help="device, build, and the serve, gpt2 and TP phases only")
-    ap.add_argument("--dp", action="store_true",
-                    help="device, build, and the train, gpt2 and DP phases only")
+                    help="device, build, and the serve and TP phases only")
+    ap.add_argument("--dp", action="store_true", help="device, build and the DP phase only")
     ap.add_argument("--resil", action="store_true",
                     help="device, build, and the train_resilient phase only")
     ap.add_argument("--telemetry", action="store_true",
@@ -5748,6 +6583,9 @@ def main() -> int:
                     help="device, build, the gpt2 phase and the pipeline phase only")
     ap.add_argument("--moe", action="store_true",
                     help="device, build, the moe shapes' parity and the moe phase only")
+    ap.add_argument("--longctx", action="store_true",
+                    help="device, build and the longctx phase only")
+    ap.add_argument("--fp8", action="store_true", help="device, build and the fp8 phase only")
     ap.add_argument("--gloo-probe", action="store_true",
                     help="which collectives gloo carries on CUDA tensors, then exit")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
@@ -5809,6 +6647,10 @@ def main() -> int:
         return pp_only(dev, card, kernels_mod)
     if opts.moe:
         return moe_only(dev, card, kernels_mod)
+    if opts.longctx:
+        return longctx_only(dev, card, kernels_mod)
+    if opts.fp8:
+        return fp8_only(dev, card, kernels_mod)
 
     t = time.perf_counter()
     flash_rows = run_flash_parity(dev, ulps_at_scale)
@@ -5883,13 +6725,13 @@ def main() -> int:
     resilient_train = run_train_resilient(dev, card, kernels_mod)
     log("train_resilient", seconds=time.perf_counter() - t, **resilient_train)
     t = time.perf_counter()
-    tp_train = run_tp_train(dev, gpt2, card)
+    tp_train = run_tp_train(dev, card)
     log("tp_train", seconds=time.perf_counter() - t, **tp_train)
     t = time.perf_counter()
     tp_serve = run_tp_serve(dev, serve_streams, forced, card)
     log("tp_serve", seconds=time.perf_counter() - t, **tp_serve)
     t = time.perf_counter()
-    dp_train = run_dp_train(dev, gpt2, card)
+    dp_train = run_dp_train(dev, card)
     log("dp_train", seconds=time.perf_counter() - t, **dp_train)
     t = time.perf_counter()
     pipeline = run_pipeline(dev, card, kernels_mod, train)
@@ -5897,6 +6739,12 @@ def main() -> int:
     t = time.perf_counter()
     moe = run_moe(dev, card, kernels_mod)
     log("moe", seconds=time.perf_counter() - t, **moe_summary(moe))
+    t = time.perf_counter()
+    longctx = run_longctx(dev, card, kernels_mod)
+    log("longctx", seconds=time.perf_counter() - t, **longctx_summary(longctx))
+    t = time.perf_counter()
+    fp8 = run_fp8(dev, card, kernels_mod)
+    log("fp8", seconds=time.perf_counter() - t, **fp8_summary(fp8))
     log("done", seconds=time.perf_counter() - t_all)
     check(not bad_parity, "kernel parity failed: " + json.dumps(bad_parity))
 
@@ -5922,7 +6770,8 @@ def main() -> int:
                    "dp_train": sum(r["launches_total"].get(name, 0) for r in dp_train["ranks"]),
                    "train_resilient": resilient_train["launches"][name],
                    "telemetry": tel_serve["launches"][name] + tel_gpt2["launches"][name],
-                   "pipeline": pipeline["launches"][name], "moe": moe["launches"][name]}
+                   "pipeline": pipeline["launches"][name], "moe": moe["launches"][name],
+                   "longctx": longctx["launches"][name], "fp8": fp8["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

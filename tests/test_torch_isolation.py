@@ -52,6 +52,10 @@ def test_every_port_module_imports_without_jax():
             "vescale_tpu_torch.dmodule._comm", "vescale_tpu_torch.model.patch.linear",
             "vescale_tpu_torch.model.patch.vp_embedding",
             "vescale_tpu_torch.model.patch.monkey_patch"} <= set(mods)
+    assert {"vescale_tpu_torch.parallel.context", "vescale_tpu_torch.quant.fp8",
+            "vescale_tpu_torch.emulator", "vescale_tpu_torch.emulator.core",
+            "vescale_tpu_torch.emulator.mesh_collectives", "vescale_tpu_torch.emulator.quantized",
+            "vescale_tpu_torch.emulator.tuning", "vescale_tpu_torch.emulator.verify"} <= set(mods)
     assert {"vescale_tpu_torch.parallel.ddp", "vescale_tpu_torch.parallel.fsdp",
             "vescale_tpu_torch.parallel.optimizer", "vescale_tpu_torch.quant",
             "vescale_tpu_torch.quant.blockscale"} <= set(mods)

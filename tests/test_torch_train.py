@@ -242,14 +242,20 @@ def test_remat_recomputes_the_same_grads(scope):
 @pytest.mark.parametrize("option", [dict(scan_layers=True), dict(remat=True, remat_policy="dots_saveable"),
                                     dict(use_fp8=True)])
 def test_unported_options_raise(option):
-    """``use_fp8`` (A17) still raises.  ``scan_layers`` and
-    ``remat_policy`` are ported: the model builds and its logits are the
-    plain model's on the same weights (tests/test_torch_scan_layers.py
-    holds them to the reference)."""
+    """``scan_layers``, ``remat_policy`` and ``use_fp8`` are ported.  The
+    first two build and give the plain model's logits on the same weights
+    (tests/test_torch_scan_layers.py holds them to the reference); an fp8
+    model takes the two-collection bundle and refuses a plain tree
+    (tests/test_torch_fp8.py holds it to the reference)."""
     cfg = LlamaConfig(dtype=torch.float32, **{**CONFIGS["tied"], **option})
     if "use_fp8" in option:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Llama(cfg, device="cpu")
+        from vescale_tpu_torch.models import init_params
+
+        bundle = init_params(cfg, 0, device="cpu")
+        assert set(bundle) == {"params", "_overwrite_with_gradient"}
+        Llama(cfg, bundle, device="cpu")
+        with pytest.raises(ValueError, match="bundle"):
+            Llama(cfg, bundle["params"], device="cpu")
         return
     from vescale_tpu_torch.models import init_params, scan_tree
 

@@ -1832,6 +1832,67 @@ def case_moe_loop(params, x, seed=0):
     return {"base": run(False), "re": run(True)}
 
 
+def case_ctx_attn(kind, causal, seed, shape, kv_heads=None, names=("sp",)):
+    """Ring (``kind="ring"``) or Ulysses attention on this rank's sequence
+    piece of (B, T, H, D) q and (B, T, G, D) k/v (``kv_heads`` G, default
+    H) drawn from ``seed``; the output piece and the grads of sum(out *
+    w), w drawn from seed + 1, as this rank's pieces."""
+    from vescale_tpu_torch.parallel import ring_self_attention, ulysses_self_attention
+
+    B, T, H, D = shape
+    G = kv_heads or H
+    n = torch.distributed.get_world_size()
+    m = mesh((n,), names)
+    r = m.get_rank()
+    rng = np.random.default_rng(seed)
+    full = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, T, H, D), (B, T, G, D), (B, T, G, D))]
+    w = np.random.default_rng(seed + 1).standard_normal((B, T, H, D)).astype(np.float32)
+    t = T // n
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(a[:, r * t:(r + 1) * t])).requires_grad_(True)
+               for a in full)
+    fn = ring_self_attention if kind == "ring" else ulysses_self_attention
+    from vescale_tpu_torch import collectives as C
+
+    C.reset_calls()
+    out = fn(q, k, v, m, names[0], causal=causal)
+    (out * torch.from_numpy(np.ascontiguousarray(w[:, r * t:(r + 1) * t]))).sum().backward()
+    return {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad,
+            "calls": {k_: int(c) for k_, c in C.CALLS.items()}}
+
+
+def case_emu_qcoll(shape, seed, rounding="nearest", key_seed=None):
+    """``all_reduce_q`` and ``reduce_scatter_q`` (sum and avg) on this
+    rank's operand (``make_input(shape, seed, rank=r)``), for the
+    emulator's replay to be held against."""
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch import random as R
+
+    n = torch.distributed.get_world_size()
+    m = mesh((n,), ("dp",))
+    x = torch.from_numpy(make_input(shape, seed, rank=m.get_rank()))
+    kw = dict(block=64, rounding=rounding, key=None if key_seed is None else R.key(key_seed))
+    return {"ar_sum": C.all_reduce_q(x, m, "sum", 0, **kw),
+            "ar_avg": C.all_reduce_q(x, m, "avg", 0, **kw),
+            "rs_sum": C.reduce_scatter_q(x, m, "sum", 0, 0, **kw),
+            "rs_avg": C.reduce_scatter_q(x, m, "avg", 0, 0, **kw)}
+
+
+def case_emu_verify(shape, seed, algo="ring"):
+    """The emulator's ``verify_all_reduce_against_backend`` on every
+    rank's ``make_input(shape, seed, "int", rank=r)`` (exact sums) and on
+    normals."""
+    from vescale_tpu_torch.emulator import verify_all_reduce_against_backend
+
+    n = torch.distributed.get_world_size()
+    m = mesh((n,), ("dp",))
+    out = {}
+    for kind in ("int", "normal"):
+        locals_ = [make_input(shape, seed, kind, rank=r) for r in range(n)]
+        out[kind] = list(verify_all_reduce_against_backend(m, locals_, "sum", algo))
+    return out
+
+
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}
 
 

@@ -7,6 +7,9 @@
     python -m vescale_tpu_torch.bench --rung gpt_cpu  # the tiny GPT CPU config
     python -m vescale_tpu_torch.bench --rung moe      # the Mixtral-style MoE rung, on the card
     python -m vescale_tpu_torch.bench --rung moe_cpu  # its CPU config
+    python -m vescale_tpu_torch.bench --rung longctx  # the 350M at T=32768, on the card
+    python -m vescale_tpu_torch.bench --rung longctx_cpu  # its CPU smoke
+    python -m vescale_tpu_torch.bench --rung 1.3b --fp8  # a Llama rung with use_fp8
 
 The port of ``bench.py``'s single-device Llama rungs: the same configs
 (1.3B: hidden 2048, FFN 5632, 24 layers, 16 heads, 8 KV heads; 350M:
@@ -51,6 +54,21 @@ fp32 leaves, bf16 for the bf16 experts; two fused AdamW launches a step).
 Their MFU counts the *active* parameters, the dense ones plus top_k / E of
 the expert products (``3 * E * hidden * FFN * layers``), as the reference
 does: ``6 * active + 12 * layers * T * hidden`` FLOPs per token.
+
+The long-context rungs port ``bench.py``'s ``bench_longctx``: longctx is
+the 350M config at B=1, T=32768 in bf16 with ``remat`` over the MLP
+(``remat_scope="mlp"``: attention's residuals are kept, so the flash
+kernels are not rerun) and ``scan_layers``; longctx_cpu is the
+reference's CPU smoke (vocab 256, hidden 64, FFN 128, 2 layers, 4 heads,
+2 KV heads, fp32, block remat) at B=1, T=512.  Both step
+``AdamWLowmem(3e-4)`` with bf16 moments, the reference's
+``adamw_lowmem(3e-4)``, and report MFU by the same formula.
+
+``--fp8`` (``prepare(..., fp8=True)``) runs a Llama rung with
+``use_fp8``: the seven block projections through the delayed-scaling fp8
+op, on the card on Hopper's fp8 tensor cores.  Its metric takes an
+``_fp8`` suffix; MFU stays over the bf16 peak, as in the reference's
+formula.
 """
 
 from __future__ import annotations
@@ -96,6 +114,14 @@ RUNGS: Dict[str, Any] = {
     "cpu": (dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
                  num_attention_heads=4, num_key_value_heads=4, dtype=torch.float32),
             2, 128, torch.float32, "llama_cpu_smoke_tokens_per_s"),
+    "longctx": (dict(vocab_size=32000, hidden_size=1024, intermediate_size=2816,
+                     num_hidden_layers=24, num_attention_heads=16, num_key_value_heads=8,
+                     dtype=torch.bfloat16, remat=True, remat_scope="mlp", scan_layers=True),
+                1, 32768, torch.bfloat16, "llama350m_longctx_MFU_1chip_seq32768"),
+    "longctx_cpu": (dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                         dtype=torch.float32, remat=True),
+                    1, 512, torch.bfloat16, "llama_longctx_cpu_smoke_MFU"),
 }
 # the nanoGPT family, same layout: GPTConfig fields over its defaults
 GPT_RUNGS: Dict[str, Any] = {
@@ -118,7 +144,8 @@ MOE_RUNGS: Dict[str, Any] = {
                 2, 64, "mixtral_moe_cpu_smoke_MFU"),
 }
 DP_MODES = ("ddp", "zero2", "fsdp")
-CPU_RUNGS = ("cpu", "gpt_cpu", "moe_cpu")  # rungs that run on the CPU unless told otherwise
+# rungs that run on the CPU unless told otherwise
+CPU_RUNGS = ("cpu", "gpt_cpu", "moe_cpu", "longctx_cpu")
 DATA_SEED = 0
 DATA_TOKENS = 1 << 22  # tokens in a generated token file (8 MiB of uint16)
 
@@ -170,17 +197,20 @@ class TrainRun:
 
 def _model_and_data(rung: str, dev, *, rows: Optional[int] = None, dp_rank: int = 0,
                     dp_world: int = 1, token_file: Optional[str] = None,
-                    layers: Optional[int] = None):
+                    layers: Optional[int] = None, fp8: bool = False):
     """(config, model, loss_fn, next_batch, loader, tmpdir, B, T, layers,
     width) of ``rung``: random fp32 master weights from seed 0; Llama rungs
     repeat rows ``[dp_rank*B, (dp_rank+1)*B)`` of one numpy-seeded draw of
     ``rows`` rows (default B, times ``dp_world``); GPT rungs read this
     rank's share of the elastic global stream of ``token_file`` (default: a
-    file written into a temporary directory)."""
+    file written into a temporary directory).  ``fp8`` reaches a Llama
+    rung's config."""
     gpt = rung in GPT_RUNGS
     fields, B, T, _, _ = (GPT_RUNGS if gpt else RUNGS)[rung]
     loader = tmpdir = None
     if gpt:
+        if layers is not None:
+            fields = dict(fields, n_layer=layers)
         cfg = GPTConfig(**fields)
         model = GPT(cfg, init_params(cfg, 0, device=dev, dtype=torch.float32), device=dev)
         loss_fn = lambda logits, b: vocab_parallel_cross_entropy(logits, b["target"])
@@ -196,6 +226,7 @@ def _model_and_data(rung: str, dev, *, rows: Optional[int] = None, dp_rank: int 
     else:
         if layers is not None:
             fields = dict(fields, num_hidden_layers=layers)
+        fields = dict(fields, use_fp8=fp8)
         cfg = LlamaConfig(max_position_embeddings=T, **fields)
         model = Llama(cfg, init_params(cfg, 0, device=dev, dtype=torch.float32), device=dev)
         loss_fn = lambda logits, b: cross_entropy_loss(logits, b["target"])
@@ -212,26 +243,30 @@ def _model_and_data(rung: str, dev, *, rows: Optional[int] = None, dp_rank: int 
 
 def prepare(rung: str = "1.3b", *, device=None, rows: Optional[int] = None,
             grad_accum_steps: int = 1, token_file: Optional[str] = None,
-            layers: Optional[int] = None) -> TrainRun:
+            layers: Optional[int] = None, fp8: bool = False) -> TrainRun:
     """Model (random fp32 master weights from seed 0), optimizer, step and
     batches of ``rung`` on ``device`` (default: the card; the cpu rungs run
     on the CPU).  Llama rungs repeat one numpy-seeded batch (``rows`` rows,
     default the rung's B, in ``grad_accum_steps`` micro-batches); GPT rungs
     read a fresh batch each step from ``token_file`` (default: one that
     :func:`write_token_file` makes in a temporary directory, which
-    ``TrainRun.close`` deletes).  ``layers`` cuts a Llama rung's depth
-    (the smoke's gloo phases run the 1.3B so)."""
+    ``TrainRun.close`` deletes).  ``layers`` cuts a Llama or GPT rung's
+    depth (the smoke's gloo phases run the 1.3B and GPT-2 so); ``fp8`` runs a Llama rung
+    with ``use_fp8`` (its metric suffixed ``_fp8``)."""
+    if fp8 and (rung in GPT_RUNGS or rung in MOE_RUNGS):
+        raise ValueError(f"--fp8 applies to the Llama rungs, not {rung!r}")
     dev = torch.device("cpu") if rung in CPU_RUNGS and device is None else resolve_device(device)
     if rung in MOE_RUNGS:
         return prepare_moe(rung, dev, rows=rows, grad_accum_steps=grad_accum_steps)
     state_dtype, metric = (GPT_RUNGS if rung in GPT_RUNGS else RUNGS)[rung][3:]
     cfg, model, loss_fn, next_batch, loader, tmpdir, B, T, layers, width = _model_and_data(
-        rung, dev, rows=rows, token_file=token_file, layers=layers)
+        rung, dev, rows=rows, token_file=token_file, layers=layers, fp8=fp8)
     opt = AdamWLowmem(model.parameters(), LR, state_dtype=state_dtype)
     step = make_train_step(model, opt, loss_fn, grad_accum_steps=grad_accum_steps)
     n_params = sum(p.numel() for p in model.parameters())
     return TrainRun(rung, cfg, model, step, next_batch, n_params, B * T,
-                    6.0 * n_params + 12.0 * layers * T * width, metric, loader, tmpdir, opt)
+                    6.0 * n_params + 12.0 * layers * T * width, metric + ("_fp8" if fp8 else ""),
+                    loader, tmpdir, opt, extra={"seq_len": T} if rung.startswith("longctx") else {})
 
 
 def moe_config(rung: str) -> MixtralConfig:
@@ -362,8 +397,9 @@ def measure(run: TrainRun, warmup: int = WARMUP, steps: int = STEPS) -> Dict[str
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description="train-step bench of vescale_tpu_torch")
     ap.add_argument("--rung", choices=sorted({**RUNGS, **GPT_RUNGS, **MOE_RUNGS}), default="1.3b")
+    ap.add_argument("--fp8", action="store_true", help="a Llama rung with use_fp8")
     opts = ap.parse_args(argv)
-    run = prepare(opts.rung)
+    run = prepare(opts.rung, fp8=opts.fp8)
     try:
         print(json.dumps(measure(run)), flush=True)
     finally:

@@ -20,6 +20,8 @@ a ``torch.autograd.Function`` over the counted collectives of
   ``split``            Replicate -> Shard(d), all-gather backward
   ``ring_permute``     rank j's tensor to rank j + shift (the pipeline's
                        stage-to-stage send), the reverse rotation backward
+  ``all_to_all``       split dim s, concat dim c (Ulysses' seq <-> heads
+                       reshard), the swapped all-to-all backward
 
 Megatron's ``gather_from_sequence_parallel_region`` and
 ``reduce_scatter_to_sequence_parallel_region`` are ``all_gather(x, tp, 1,
@@ -57,6 +59,7 @@ __all__ = [
     "enter_tp",
     "take_piece",
     "ring_permute",
+    "all_to_all",
 ]
 
 
@@ -187,6 +190,28 @@ class _RingPermute(torch.autograd.Function):
     def backward(ctx, g):
         tp, shift = ctx.args
         return C.mesh_ppermute(g, tp.mesh, tp.index, shift=-shift), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, split_dim, concat_dim):
+        ctx.args = (tp, split_dim, concat_dim)
+        return C.mesh_all_to_all(x, tp.mesh, tp.index, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, split_dim, concat_dim = ctx.args
+        return C.mesh_all_to_all(g, tp.mesh, tp.index, concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, tp: TPDim, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Each rank cuts ``x`` into size-of-dim chunks along ``split_dim``,
+    sends chunk j to rank j and concatenates what it gets along
+    ``concat_dim`` in rank order (``collectives.mesh_all_to_all``, JAX's
+    tiled ``all_to_all``); the gradient takes the swapped all-to-all."""
+    if tp.size == 1:
+        return x
+    return _AllToAll.apply(x, tp, _dim(split_dim, x.ndim), _dim(concat_dim, x.ndim))
 
 
 def ring_permute(x: torch.Tensor, tp: TPDim, shift: int = 1) -> torch.Tensor:

@@ -267,15 +267,19 @@ def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, *, scale, causal, H, KV):
 
 
 @costed("flash_bwd", flash_bwd_cost)
-def flash_bwd(q3, k3, v3, o3, do3, lse, *, scale, causal, H, KV):
+def flash_bwd(q3, k3, v3, o3, do3, lse, *, scale, causal, H, KV, delta=None):
     """(dq, dk, dv) of softmax attention; see the module docstring for
-    layouts.  ``lse`` is the forward's, (B, H, T) or (B*H, T) fp32."""
+    layouts.  ``lse`` is the forward's, (B, H, T) or (B*H, T) fp32.
+    ``delta`` is :func:`_delta` of (o3, do3), computed here when not given
+    (a ring backward passes its one delta to every block); the plain
+    version computes its own."""
     if q3.device.type == "cpu":
         return flash_bwd_reference(q3, k3, v3, o3, do3, lse, scale=scale, causal=causal, H=H, KV=KV)
     if o3.shape != q3.shape or do3.shape != q3.shape:
         raise ValueError(f"flash_bwd: o {tuple(o3.shape)}, do {tuple(do3.shape)} vs q {tuple(q3.shape)}")
     lse = lse.reshape(q3.shape[0], q3.shape[1])
-    delta = _delta(o3, do3)
+    if delta is None:
+        delta = _delta(o3, do3)
     args = dict(scale=scale, causal=causal, H=H, KV=KV)
     dq = flash_bwd_dq(q3, k3, v3, do3, lse, delta, **args)
     dk, dv = flash_bwd_dkv(q3, k3, v3, do3, lse, delta, **args)

@@ -30,6 +30,17 @@ with no ``bias`` leaves when ``config.bias`` is False.  A Llama config with
     layers.block.<path>                 (num_hidden_layers, *shape)
 
 ``scan_tree`` and ``unscan_tree`` move a tree between the two layouts.
+A Llama config with ``use_fp8`` has the two-collection bundle of flax's
+fp8 model, ``{"params": <the tree above>, "_overwrite_with_gradient":
+<the fp8 state>}``, the state six leaves under each block projection::
+
+    layers_<i>.<self_attn|mlp>.<proj>.Fp8DirectDotGeneralOp_0.<leaf>
+        {input,kernel,output_grad}_amax_history (1024,) fp32, zeros
+        {input,kernel,output_grad}_scale        (1,)    fp32, ones
+
+(stacked under ``layers.block`` with ``scan_layers``); ``param_shapes``,
+``init_params``, ``load_params`` and ``module_tree`` carry it, and
+``params_from_jax`` reads flax's variables as they are.
 A ``MixtralConfig`` tree is the Llama tree with each layer's ``mlp``
 replaced by the stacked experts::
 
@@ -182,9 +193,31 @@ def _moe_param_shapes(c: MoEConfig) -> Dict[str, Any]:
     return tree
 
 
+def _fp8_state_shapes(c: LlamaConfig) -> Dict[str, Any]:
+    """The ``_overwrite_with_gradient`` collection's shapes of an fp8
+    Llama (flax's ``Fp8DirectDotGeneralOp_0`` under each projection)."""
+    from ..quant.fp8 import AMAX_HISTORY_LEN, FP8_LEAVES
+
+    op = {"Fp8DirectDotGeneralOp_0": {n: (AMAX_HISTORY_LEN,) if n.endswith("history") else (1,)
+                                      for n in FP8_LEAVES}}
+    layer = {"self_attn": {p: op for p in ("q_proj", "k_proj", "v_proj", "o_proj")},
+             "mlp": {p: op for p in ("gate_proj", "up_proj", "down_proj")}}
+    if c.scan_layers:
+        L = c.num_hidden_layers
+        stack = lambda node: ({k: stack(v) for k, v in node.items()} if isinstance(node, dict)
+                              else (L, *node))
+        return {"layers": {"block": stack(layer)}}
+    return {f"layers_{i}": layer for i in range(c.num_hidden_layers)}
+
+
 def param_shapes(config: Config) -> Dict[str, Any]:
     """The nested dict of leaf shapes of a Llama, Mixtral, GPT or MoE
-    layer parameter tree."""
+    layer parameter tree; of an fp8 Llama, the two-collection bundle."""
+    if isinstance(config, LlamaConfig) and config.use_fp8:
+        from ..quant.fp8 import OWG
+
+        return {"params": param_shapes(dataclasses.replace(config, use_fp8=False)),
+                OWG: _fp8_state_shapes(config)}
     if isinstance(config, GPTConfig):
         return _gpt_param_shapes(config)
     if isinstance(config, MoEConfig):
@@ -250,7 +283,25 @@ def init_params(config: Config, seed: int = 0, device=None,
     normal with std 1/sqrt(width).  The same seed on the same device type gives the
     same tree; CPU and CUDA generators differ, so make the tree on one
     device and copy it to compare two.  On ``device="meta"`` it allocates
-    nothing (shapes and dtypes only: ``initialize.deferred_init``)."""
+    nothing (shapes and dtypes only: ``initialize.deferred_init``).  An
+    fp8 Llama gets the bundle: the parameters the same config without fp8
+    draws, and flax's initial fp8 state (zero histories, unit scales) in
+    fp32."""
+    if isinstance(config, LlamaConfig) and config.use_fp8:
+        from ..quant.fp8 import OWG
+
+        dev = resolve_device(device)
+        state = _fp8_state_shapes(config)
+
+        def build_state(node, leaf=""):
+            if isinstance(node, dict):
+                return {k: build_state(v, k) for k, v in node.items()}
+            fill = torch.zeros if leaf.endswith("history") else torch.ones
+            return fill(node, dtype=torch.float32, device=dev)
+
+        return {"params": init_params(dataclasses.replace(config, use_fp8=False), seed, dev,
+                                      dtype),
+                OWG: build_state(state)}
     if isinstance(config, LlamaConfig) and config.scan_layers:
         # the unscanned draws, stacked: one seed gives the same weights in
         # both layouts
@@ -327,18 +378,28 @@ def tree_to(tree: Union[Mapping[str, Any], torch.Tensor], device=None,
     return tree.to(device=device, dtype=dtype if dtype is not None else tree.dtype)
 
 
-def module_tree(module: torch.nn.Module) -> Dict[str, Any]:
-    """The nested dict of ``module``'s parameters by their dotted names
-    (``models.llama.Llama`` names them as the flax tree): the leaves are
-    the parameters themselves, detached, not copies."""
+def _nest(named) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
-    for name, p in module.named_parameters():
+    for name, p in named:
         *path, leaf = name.split(".")
         node = tree
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = p.detach()
     return tree
+
+
+def module_tree(module: torch.nn.Module) -> Dict[str, Any]:
+    """The nested dict of ``module``'s parameters by their dotted names
+    (``models.llama.Llama`` names them as the flax tree): the leaves are
+    the parameters themselves, detached, not copies.  A module with fp8
+    state gives the bundle, its state buffers under
+    ``_overwrite_with_gradient``."""
+    from ..quant.fp8 import OWG, owg_buffers
+
+    tree = _nest(module.named_parameters())
+    state = owg_buffers(module)
+    return {"params": tree, OWG: _nest(state.items())} if state else tree
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -357,9 +418,23 @@ def load_params(module: torch.nn.Module, tree: Mapping[str, Any]) -> None:
     """Copy a flax-layout tree (torch tensors, or arrays read through
     ``np.asarray``) into ``module``'s parameters, each into its own dtype
     and device.  The tree must hold exactly the module's parameters, with
-    the same shapes."""
-    flat = _flatten(tree)
-    params = dict(module.named_parameters())
+    the same shapes; a module with fp8 state takes the bundle, whose
+    ``_overwrite_with_gradient`` collection must hold exactly its state
+    buffers."""
+    from ..quant.fp8 import OWG, owg_buffers
+
+    state = owg_buffers(module)
+    if state or OWG in tree:
+        if not state or set(tree) != {"params", OWG}:
+            raise ValueError(f"load_params: an fp8 model takes the bundle of 'params' and "
+                             f"'{OWG}' and only it (tree keys {sorted(tree)[:4]}, "
+                             f"{len(state)} fp8 state buffers)")
+        _copy_leaves(_flatten(tree[OWG]), state)
+        tree = tree["params"]
+    _copy_leaves(_flatten(tree), dict(module.named_parameters()))
+
+
+def _copy_leaves(flat: Dict[str, Any], params: Dict[str, torch.Tensor]) -> None:
     missing, extra = sorted(set(params) - set(flat)), sorted(set(flat) - set(params))
     if missing or extra:
         raise ValueError(f"load_params: missing {missing[:5]}, unexpected {extra[:5]}")

@@ -24,8 +24,15 @@ rank's weight pieces (``Dense``, ``Embed``, ``LlamaAttention``).
 (``REMAT_POLICIES``).  ``scan_layers`` keeps the block parameters stacked
 under ``layers.block.*`` with a leading (L,) axis, the flax ``nn.scan``
 layout, and the forward runs one layer's slice each iteration.
-``use_fp8`` is accepted by the config, so that a config moves between the
-packages unchanged, but ``Llama`` raises ``NotImplementedError`` for it.
+``use_fp8`` runs the seven block projections (q, k, v, o, gate, up, down)
+through ``quant.fp8.Fp8DirectDotGeneralOp``, flax's delayed-scaling fp8
+op: each ``Dense`` holds the op's six state leaves as buffers named as
+flax's ``_overwrite_with_gradient`` collection names them, and on the card
+its three products run on Hopper's fp8 tensor cores (``torch._scaled_mm``);
+the embedding and ``lm_head`` stay in ``dtype``.  ``make_train_step``
+overwrites the leaves with their gradients.  Such a model takes the
+two-collection bundle ``{"params": ..., "_overwrite_with_gradient":
+...}`` (``init_params`` and ``params_from_jax`` give one).
 ``LlamaEmbed`` and ``LlamaHead`` are the pipeline's first and last units.
 """
 
@@ -87,7 +94,9 @@ class LlamaConfig:
     remat_scope: str = "block"
     # block params stacked under layers.block.* with a leading (L,) axis
     scan_layers: bool = False
-    use_fp8: bool = False  # Llama raises: not ported yet (A17)
+    # the block projections through the delayed-scaling fp8 op
+    # (quant.fp8.Fp8DirectDotGeneralOp); its state is the model's buffers
+    use_fp8: bool = False
     dtype: Any = torch.bfloat16
 
     def __post_init__(self):
@@ -217,15 +226,27 @@ class Dense(nn.Module):
     (``Shard(1)``) or row-parallel (``Shard(0)``): ``_tp_dense``."""
 
     def __init__(self, features_in: int, features_out: int, dtype, device=None,
-                 use_bias: bool = False):
+                 use_bias: bool = False, fp8: bool = False):
         super().__init__()
         self.dtype = dtype
         self.kernel = _param((features_in, features_out), device)
         self.bias = _param((features_out,), device) if use_bias else None
         self.tp, self.tp_kind = None, None
+        if fp8:
+            from ..quant.fp8 import Fp8DirectDotGeneralOp
+
+            # flax's auto-name of the op inside its Dense: the state's path
+            self.Fp8DirectDotGeneralOp_0 = Fp8DirectDotGeneralOp(device)
+
+    @property
+    def fp8(self):
+        """The fp8 op, or None."""
+        return self._modules.get("Fp8DirectDotGeneralOp_0")
 
     def shard_param(self, name: str, placement, tp) -> None:
         """``parallelize_module``'s notice that ``name`` is now a piece."""
+        if self.fp8 is not None:
+            raise NotImplementedError("a tensor-parallel fp8 Dense is not ported")
         kind = {("kernel", 1): "col", ("kernel", 0): "row", ("bias", 0): "col"}.get(
             (name, getattr(placement, "dim", None)))
         if kind is None or (self.tp_kind not in (None, kind)):
@@ -235,7 +256,10 @@ class Dense(nn.Module):
     def forward(self, x):
         if self.tp is not None:
             return _tp_dense(x, self.kernel, self.bias, self.dtype, self.tp_kind, self.tp)
-        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        if self.fp8 is not None:
+            y = self.fp8(x.to(self.dtype), self.kernel.to(self.dtype))
+        else:
+            y = x.to(self.dtype) @ self.kernel.to(self.dtype)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
@@ -306,10 +330,11 @@ class LlamaAttention(nn.Module):
         super().__init__()
         self.config = c
         E, H, KV, hd = c.hidden_size, c.num_attention_heads, c.num_key_value_heads, c.head_dim
-        self.q_proj = Dense(E, H * hd, c.dtype, device)
-        self.k_proj = Dense(E, KV * hd, c.dtype, device)
-        self.v_proj = Dense(E, KV * hd, c.dtype, device)
-        self.o_proj = Dense(H * hd, E, c.dtype, device)
+        f8 = c.use_fp8
+        self.q_proj = Dense(E, H * hd, c.dtype, device, fp8=f8)
+        self.k_proj = Dense(E, KV * hd, c.dtype, device, fp8=f8)
+        self.v_proj = Dense(E, KV * hd, c.dtype, device, fp8=f8)
+        self.o_proj = Dense(H * hd, E, c.dtype, device, fp8=f8)
 
     def forward(self, x, positions):
         c = self.config
@@ -358,9 +383,10 @@ class LlamaMLP(nn.Module):
     def __init__(self, c: LlamaConfig, device=None):
         super().__init__()
         E, Fi = c.hidden_size, c.intermediate_size
-        self.gate_proj = Dense(E, Fi, c.dtype, device)
-        self.up_proj = Dense(E, Fi, c.dtype, device)
-        self.down_proj = Dense(Fi, E, c.dtype, device)
+        f8 = c.use_fp8
+        self.gate_proj = Dense(E, Fi, c.dtype, device, fp8=f8)
+        self.up_proj = Dense(E, Fi, c.dtype, device, fp8=f8)
+        self.down_proj = Dense(Fi, E, c.dtype, device, fp8=f8)
 
     def forward(self, x):
         if self.gate_proj.tp is not None:
@@ -384,7 +410,12 @@ class LlamaBlock(nn.Module):
         x = x + self.self_attn(self.input_layernorm(x), positions)
         h = self.post_attention_layernorm(x)
         if c.remat and c.remat_scope == "mlp" and torch.is_grad_enabled():
-            return x + checkpoint(self.mlp, h, use_reentrant=False)
+            # the recompute runs in the backward, after a scanned layer's
+            # ``functional_call`` has put the stacked leaves back: it takes
+            # the tensors this forward saw
+            state = {**dict(self.mlp.named_parameters()), **dict(self.mlp.named_buffers())}
+            mlp = lambda t: torch.func.functional_call(self.mlp, state, (t,))
+            return x + checkpoint(mlp, h, use_reentrant=False)
         return x + self.mlp(h)
 
 
@@ -423,18 +454,25 @@ def _remat_context(policy: str):
 
 class ScannedBlocks(nn.Module):
     """The ``scan_layers`` layout: one ``LlamaBlock`` template (``block``)
-    whose every parameter has a leading (L,) axis, as flax's ``nn.scan``
-    stacks them.  ``forward`` unbinds each leaf once (one stack in the
-    backward) and runs layer i on the i-th slices."""
+    whose every parameter (and fp8 state buffer) has a leading (L,) axis,
+    as flax's ``nn.scan`` stacks them.  ``forward`` unbinds each leaf once
+    (one stack in the backward) and runs layer i on the i-th slices."""
 
     def __init__(self, c: LlamaConfig, device=None):
         super().__init__()
         self.num_layers = c.num_hidden_layers
         self.block = LlamaBlock(c, torch.device("meta"))
+        L = c.num_hidden_layers
         for name, p in list(self.block.named_parameters()):
             *path, leaf = name.split(".")
             owner = self.block.get_submodule(".".join(path))
-            setattr(owner, leaf, _param((c.num_hidden_layers, *p.shape), device))
+            setattr(owner, leaf, _param((L, *p.shape), device))
+        # the fp8 state stacks on the same (L,) axis (flax's variable_axes)
+        for name, b in list(self.block.named_buffers()):
+            *path, leaf = name.split(".")
+            stacked = b.new_empty((L, *b.shape), device=device)
+            self.block.get_submodule(".".join(path)).register_buffer(
+                leaf, stacked.requires_grad_(b.requires_grad))
 
     def layer_fn(self, params):
         """``(x, positions) -> block(x)`` on one layer's parameter slices."""
@@ -442,7 +480,7 @@ class ScannedBlocks(nn.Module):
                                                                (x, positions))
 
     def layer_params(self):
-        names, leaves = zip(*self.block.named_parameters())
+        names, leaves = zip(*self.block.named_parameters(), *self.block.named_buffers())
         slices = [t.unbind(0) for t in leaves]
         return [dict(zip(names, (s[i] for s in slices))) for i in range(self.num_layers)]
 
@@ -453,14 +491,12 @@ class Llama(nn.Module):
     card), from ``params`` (a flax-layout tree, e.g. ``init_params`` or
     ``params_from_jax``, copied in) or else ``init_params(config, seed)``.
     With ``scan_layers`` the block parameters are ``layers.block.*``,
-    stacked (L, ...)."""
+    stacked (L, ...).  With ``use_fp8`` ``params`` is the two-collection
+    bundle and the fp8 state lives in the projections' buffers."""
 
     def __init__(self, config: LlamaConfig, params=None, *, device=None, seed: int = 0):
         super().__init__()
         c = config
-        if c.use_fp8:
-            raise NotImplementedError(
-                "LlamaConfig.use_fp8 is not ported yet (ROADMAP.md queue A, item A17)")
         if c.remat and c.remat_policy:
             _remat_context(c.remat_policy)  # an unmapped name raises here
         self.config = c

@@ -95,7 +95,11 @@ def _flash_setup(ctx, inputs, output):
 
 
 def _flash_backward(ctx, do3, dlse):
-    """Residuals (q, k, v, o, lse); the logsumexp's cotangent is unused."""
+    """Residuals (q, k, v, o, lse).  The logsumexp's cotangent ``dlse`` is
+    dropped: the op is differentiable in q, k and v through o only, so a
+    caller that merges attention blocks through the returned lse (a ring
+    step's merge) gets wrong gradients from it and must run the backward
+    kernels itself (``parallel.context``'s ring does)."""
     q3, k3, v3, o3, lse = ctx.saved_tensors
     scale, causal, H, KV = ctx.args
     dq3, dk3, dv3 = flash_attention_bwd_op(q3, k3, v3, o3, do3, lse, scale, causal, H, KV)

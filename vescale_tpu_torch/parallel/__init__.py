@@ -1,7 +1,8 @@
-"""Optimizers and data parallelism of the port: ``AdamWLowmem``,
-``BasicOptimizer``, ``DistributedOptimizer`` (ZeRO), DDP and the ragged
-FSDP buffer."""
+"""Optimizers, data and context parallelism of the port: ``AdamWLowmem``,
+``BasicOptimizer``, ``DistributedOptimizer`` (ZeRO), DDP, the ragged
+FSDP buffer, and ring, Ulysses and blockwise attention (``context.py``)."""
 
+from .context import blockwise_attention, ring_self_attention, ulysses_self_attention
 from .ddp import DistributedDataParallel, dp_grad_reduce, resolve_grad_compress
 from .fsdp import FSDPParamBuffer, fsdp_plan, make_fsdp_train_step
 from .optimizer import (
@@ -15,5 +16,7 @@ from .optimizer import (
 )
 
 __all__ = ["AdamWLowmem", "BasicOptimizer", "DistributedDataParallel", "DistributedOptimizer",
-           "FSDPParamBuffer", "clip_grad_norm_fp32", "dp_grad_reduce", "found_inf", "fsdp_plan",
-           "make_fsdp_train_step", "param_dtype_groups", "resolve_grad_compress", "zero_sharded"]
+           "FSDPParamBuffer", "blockwise_attention", "clip_grad_norm_fp32", "dp_grad_reduce",
+           "found_inf", "fsdp_plan", "make_fsdp_train_step", "param_dtype_groups",
+           "resolve_grad_compress", "ring_self_attention", "ulysses_self_attention",
+           "zero_sharded"]

@@ -1,7 +1,6 @@
-"""Block-scaled int8 quantization (``quant/blockscale.py``).
-
-The fp8 matmul of the JAX package's ``quant/fp8.py`` is ROADMAP.md queue
-A, item 17."""
+"""Block-scaled int8 quantization (``quant/blockscale.py``) and the
+delayed-scaling fp8 matmul (``quant/fp8.py``: the functional ``fp8_dot``
+and flax's ``Fp8DirectDotGeneralOp``, the fp8 Llama's op)."""
 
 from .blockscale import (
     DEFAULT_BLOCK,
@@ -17,6 +16,15 @@ from .blockscale import (
     scale_from_amax,
     unpack_int8_payload,
 )
+from .fp8 import (
+    Fp8DirectDotGeneralOp,
+    Fp8DotState,
+    Fp8TensorState,
+    fp8_dot,
+    fp8_state_grads,
+    init_fp8_dot_state,
+    merge_fp8_state,
+)
 
 __all__ = [
     "INT8_MAX",
@@ -31,4 +39,11 @@ __all__ = [
     "packed_nbytes",
     "pack_int8_payload",
     "unpack_int8_payload",
+    "Fp8TensorState",
+    "Fp8DotState",
+    "init_fp8_dot_state",
+    "fp8_dot",
+    "fp8_state_grads",
+    "merge_fp8_state",
+    "Fp8DirectDotGeneralOp",
 ]

@@ -51,8 +51,9 @@ DEFAULT_BLOCK = 64
 
 def scale_from_amax(amax: torch.Tensor, qmax: float) -> torch.Tensor:
     """``qmax / amax``, the quantize scale that puts the largest observed
-    value at the format's edge; a zero amax gives 1.0."""
-    return torch.where(amax > 0.0, qmax / amax, torch.ones_like(amax))
+    value at the format's edge; a zero amax gives 1.0.  An IEEE division
+    (a Python float over a tensor would take the reciprocal first)."""
+    return torch.where(amax > 0.0, torch.full_like(amax, qmax) / amax, torch.ones_like(amax))
 
 
 def quantize_clip(x: torch.Tensor, scale, dtype: torch.dtype, qmax: float) -> torch.Tensor:

@@ -39,8 +39,19 @@ the grads before the update, unscaled), and under a
 functional signature, ``step_fn(params, opt_state, batch[, step_key]) ->
 (params, opt_state, loss)``, for ``resilience.run_resilient``.
 
-Not here yet (ROADMAP.md): the fp8 ``_overwrite_with_gradient`` bundle
-and dropout RNG streams (the Llama has no dropout).
+An fp8 model (``LlamaConfig.use_fp8``) carries the reference's
+``_overwrite_with_gradient`` collection as the fp8 ops' state buffers
+(``quant.fp8.owg_buffers``).  They never meet the optimizer: after the
+backward each buffer's gradient is its next value, and the step copies
+it in under a finite guard, so an overflow step cannot poison the
+histories (reference ``train.py:207-216``).  Under grad accumulation the
+histories combine by elementwise max over the micro-batches and the
+scales come from the latest one (``train.py:163-182``).  With a
+``DistributedOptimizer``'s loss scale the g histories record the scaled
+gradients, as the reference's do.
+
+Not here yet (ROADMAP.md): dropout RNG streams (the Llama has no
+dropout).
 """
 
 from __future__ import annotations
@@ -85,6 +96,32 @@ def _grad_norm(params) -> float:
         return 0.0
     return float(torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])))
+
+
+def _take_owg(owg: Dict[str, torch.Tensor], acc: Dict[str, torch.Tensor]) -> None:
+    """Fold each fp8 state buffer's gradient (its next value) into
+    ``acc`` and clear it: histories by elementwise max (from zeros, as the
+    reference's accumulator starts), scales the latest.  Every fp8 op is
+    reached by the forward, so a buffer without a gradient raises: its
+    state would otherwise stay as it started for the whole run."""
+    for name, b in owg.items():
+        new = b.grad
+        if new is None:
+            raise RuntimeError(f"fp8 state {name!r} got no gradient from the backward: the "
+                               "step's fp8 ops must all run, on the buffers the step was "
+                               "built over (build the step after moving the model)")
+        b.grad = None
+        if "amax_history" in name:
+            acc[name] = torch.maximum(acc.get(name, torch.zeros_like(new)), new)
+        else:
+            acc[name] = new
+
+
+@torch.no_grad()
+def _overwrite_owg(owg: Dict[str, torch.Tensor], acc: Dict[str, torch.Tensor]) -> None:
+    for name, new in acc.items():
+        b = owg[name]
+        b.copy_(torch.where(torch.isfinite(new), new, b))
 
 
 def _split(batch, n: int):
@@ -167,6 +204,10 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
     elif dopt is not None and dopt.mesh is not None and dopt.mesh.size(dopt.dp_dims[0]) > 1:
         dp_group = dopt.mesh.get_group(dopt.dp_dims[0])
 
+    from .quant.fp8 import owg_buffers
+
+    owg = owg_buffers(model)
+
     def forward(x):
         if dm is None:
             return model(x)
@@ -221,9 +262,13 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
 
     def run(batch: Dict[str, Any], metrics=None):
         optimizer.zero_grad(set_to_none=True)
+        owg_next: Dict[str, torch.Tensor] = {}
+        for b in owg.values():
+            b.grad = None
         if grad_accum_steps == 1:
             loss, aux = micro(batch)
             backward(loss)
+            _take_owg(owg, owg_next)
             loss, aux = loss.detach(), _detach(aux)
         else:
             params = [p for p in model.parameters() if p.requires_grad]
@@ -232,6 +277,7 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
             for mb in _split(batch, grad_accum_steps):
                 l, aux_i = micro(mb)
                 backward(l)
+                _take_owg(owg, owg_next)
                 for acc, p in zip(g_sum, params):
                     if p.grad is not None:
                         acc.add_(p.grad.float())
@@ -242,6 +288,7 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
                 p.grad = (acc / grad_accum_steps).to(p.dtype)
             loss = l_sum / grad_accum_steps
             aux = _reduce_aux(auxes) if has_aux else None
+        _overwrite_owg(owg, owg_next)
         if dm is not None:
             dm.finish_grad_sync()
         if ddp is not None:
