@@ -12,6 +12,7 @@ Hopper card.
     python3 chip_smoke.py --moe      # the moe shapes' parity, then the moe phase
     python3 chip_smoke.py --longctx  # the longctx phase alone
     python3 chip_smoke.py --fp8      # the fp8 phase alone
+    python3 chip_smoke.py --plan     # the planning and analysis legs alone
     python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
@@ -213,7 +214,30 @@ Phases, each printing one JSON line with its seconds:
            kernel launch of each step counted (8 or 4 K1, dq and dkv, one
            K8, K9 and K10); per rank step time, peak memory and the
            collectives' calls and bytes by kind.  The kernels' parity and
-           timing at one rank's shapes are in the parity phase
+           timing at one rank's shapes are in the parity phase.  The 1.3B
+           ranks then run the plan phase's legs (a)-(d)
+  plan     planning and analysis (``dmp``, ``debug``, ``analysis``,
+           ``redistribute_plan``) at the 1.3B's widths.  In tp_train's 1.3B
+           ranks: (a) ``auto_parallelize_module(..., policy="MEGATRON")``
+           gives every parameter ``llama_plan``'s placements, and its two
+           steps' losses are bitwise the ``llama_plan`` steps'; (b) a
+           ``CommDebugMode`` around those steps counts exactly the
+           ``collectives.CALLS`` / ``BYTES`` deltas; (c) shardcheck of the
+           tp=2 forward traced on ``meta`` reports no error for
+           ``llama_plan``, and VSC101 or VSC102 with a byte estimate for a
+           plan with ``o_proj`` column-parallel (trace wall time printed);
+           (d) a calibration table measured on the two gloo ranks, then
+           ``score_candidates`` over 2 and 4 devices: the predicted (1, 2,
+           1) step beside the measured tp=2 step (gloo on one card prices a
+           link no NCCL deployment has).  (e) four gloo ranks of the card
+           on a (2, 2) mesh: the reference's former-fallback battery on one
+           1.3B layer's fp32 leaves (q_proj 2048^2, gate 2048x5632, down
+           5632x2048, the 32000x2048 embedding), each transition bitwise the
+           same transition through the full tensor, no fallback, the tier
+           and hops, each rank's peak above what it held beside the peak of
+           going through Replicate; and the int8 overlay
+           (``VESCALE_REDISTRIBUTE_QUANT=1``) on a 40M-element Partial ->
+           Replicate leaf, bitwise ``all_reduce_q``
   tp_serve  Llama-3-8B over two such ranks: the serve weights
            materialized from ``meta`` as ``llama_plan`` pieces, a Shard(3)
            pool (4 of 8 kv heads a rank), the serve phase's 16 requests
@@ -2906,7 +2930,7 @@ TP_SERVE_BF16_STEPS = 16.0  # teacher-forced logits vs the single-card engine (P
 TP_FORCED = 4  # teacher-forced requests of the tp_serve check
 
 
-def tp_spawn(job: str, args: dict, timeout_s: float, names=("tp",)):
+def tp_spawn(job: str, args: dict, timeout_s: float, names=("tp",), shape=None):
     """``TP_WORLD`` ranks of ``chip_smoke.py --tp-child`` on the one card,
     joined over gloo at a free localhost port (NCCL refuses two ranks on
     one GPU) on a mesh of one dim named ``names``; each runs
@@ -2914,25 +2938,30 @@ def tp_spawn(job: str, args: dict, timeout_s: float, names=("tp",)):
     fails, exits without a result or outlives ``timeout_s`` fails the
     phase; every rank is stopped before this returns.  Returns the results
     in rank order."""
-    return tp_spawn_finish(tp_spawn_start(job, args, names), timeout_s)
+    return tp_spawn_finish(tp_spawn_start(job, args, names, shape=shape), timeout_s)
 
 
-def tp_spawn_start(job: str, args: dict, names=("tp",), held: bool = False) -> dict:
+def tp_spawn_start(job: str, args: dict, names=("tp",), held: bool = False, shape=None) -> dict:
     """Start ``tp_spawn``'s ranks and return at once; ``tp_spawn_finish``
     collects them.  ``held``: the ranks start up (torch, the card, the gloo
     world and mesh) and then wait for ``tp_spawn_release``, which may hand
     them more arguments, so that a phase overlaps their start-up with its
-    own work on the card without sharing the card with them."""
+    own work on the card without sharing the card with them.  ``shape``:
+    a mesh of that shape over ``names`` (its product of ranks) instead of
+    ``TP_WORLD`` ranks on one dim."""
+    shape = list(shape) if shape is not None else [TP_WORLD]
+    world = int(np.prod(shape))
     port = free_port()
     tmp = tempfile.mkdtemp(prefix="vtt_tp_")
     env = {k: v for k, v in os.environ.items() if not k.startswith("VESCALE_")}
     procs, logs = [], []
     go = os.path.join(tmp, "go.json") if held else None
-    for r in range(TP_WORLD):
+    for r in range(world):
         spec = os.path.join(tmp, f"spec{r}.json")
         with open(spec, "w") as f:
-            json.dump(dict(job=job, rank=r, world=TP_WORLD, port=port, args=args, go=go,
-                           names=list(names), out=os.path.join(tmp, f"out{r}.json")), f)
+            json.dump(dict(job=job, rank=r, world=world, port=port, args=args, go=go,
+                           names=list(names), shape=shape,
+                           out=os.path.join(tmp, f"out{r}.json")), f)
         logs.append(open(os.path.join(tmp, f"log{r}.txt"), "w+"))
         procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                        "--tp-child", spec], env=env, stdout=logs[-1],
@@ -2973,9 +3002,10 @@ def tp_spawn_finish(spawned: dict, timeout_s: float):
         for lg in logs:
             lg.seek(0)
             tails.append(lg.read()[-3000:])
-        check(codes == [0] * TP_WORLD, f"tp {job}: rank exit codes {codes}:\n" + "\n".join(tails))
+        check(codes == [0] * len(procs),
+              f"tp {job}: rank exit codes {codes}:\n" + "\n".join(tails))
         out = []
-        for r in range(TP_WORLD):
+        for r in range(len(procs)):
             with open(os.path.join(tmp, f"out{r}.json")) as f:
                 out.append(json.load(f))
         return out
@@ -3005,8 +3035,8 @@ def tp_child(spec_path: str) -> int:
     D.initialize(f"127.0.0.1:{spec['port']}", spec["world"], spec["rank"], device_type="cuda",
                  backend="gloo", timeout_s=900)
     try:
-        mesh = init_device_mesh("cuda", (spec["world"],), mesh_dim_names=tuple(spec["names"]),
-                                backend="gloo")
+        mesh = init_device_mesh("cuda", tuple(spec.get("shape") or [spec["world"]]),
+                                mesh_dim_names=tuple(spec["names"]), backend="gloo")
         args = dict(spec["args"])
         if spec.get("go"):  # held: wait for the parent's release
             deadline = time.monotonic() + 900
@@ -3029,13 +3059,15 @@ def tp_collectives() -> dict:
     return dict(calls=dict(C.CALLS), bytes=dict(C.BYTES))
 
 
-def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None, layers=None):
+def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None, layers=None,
+                 plan_legs: bool = False):
     """One rank of ``tp_train``: ``rung`` of the bench (the 1.3B Llama or
     GPT-2 124M) at full width and depth under its plan with sequence
     parallelism, built on ``meta`` and materialized as this rank's pieces
     of the bench's seed-0 weights, trained through the vocab-parallel loss
     with ``AdamWLowmem`` on the bench's batches: ``TP_WARMUP`` untimed and
-    ``TP_TIMED`` timed steps.  ``layers`` cuts the model's depth."""
+    ``TP_TIMED`` timed steps.  ``layers`` cuts the model's depth.
+    ``plan_legs``: then the plan phase's legs (a)-(d) (``tp_plan_legs``)."""
     import functools
 
     from vescale_tpu_torch import bench, kernels
@@ -3116,7 +3148,12 @@ def tp_train_job(mesh, rung: str, ref_losses: list, token_file=None, layers=None
             if n.endswith(("q_proj.kernel", "c_attn.kernel"))),
     }
     timed = step_ms[TP_WARMUP:]
+    legs = None
+    if plan_legs:
+        legs = tp_plan_legs(mesh, cfg, dm, next_batch(), losses[:TP_WARMUP + TP_TIMED],
+                            float(np.median(timed)), state_dtype, B, T)
     return dict(rank=mesh.get_rank(), setup_s=setup_s, losses=losses, ref_losses=ref_losses,
+                plan=legs,
                 loss_rel_diffs=rel, step_ms=step_ms, step_ms_median=float(np.median(timed)),
                 tokens_per_s_per_rank=B * T / (float(np.median(timed)) / 1e3),
                 peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
@@ -3207,7 +3244,222 @@ def tp_serve_job(mesh, golden: dict, forced: list, forced_logits_file: str):
                 collectives=comm, checks=checks, **{k: v for k, v in run.items() if k != "checks"})
 
 
-TP_JOBS = {"train": tp_train_job, "serve": tp_serve_job}
+def tp_plan_legs(mesh, cfg, hand, batch, hand_losses: list, step_ms: float, state_dtype,
+                 B: int, T: int) -> dict:
+    """The plan phase's legs (a)-(d) on a tp_train 1.3B rank, after its
+    ``llama_plan`` steps (``hand``, losses ``hand_losses``, median step
+    ``step_ms``): see the module docstring.  Every leg's checks are in
+    ``checks``; the kernel launches of the auto-plan steps in
+    ``launches``."""
+    import functools
+
+    from vescale_tpu_torch import bench, kernels
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch.analysis import Severity, shardcheck_module
+    from vescale_tpu_torch.debug import CommDebugMode
+    from vescale_tpu_torch.dmp import auto_parallelize_module
+    from vescale_tpu_torch.loss import vocab_parallel_cross_entropy
+    from vescale_tpu_torch.models import Llama, init_params, llama_plan
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.placements import Shard, plan_axes
+    from vescale_tpu_torch.telemetry import costaudit
+    from vescale_tpu_torch.telemetry.calibrate import calibrate
+    from vescale_tpu_torch.train import make_train_step
+
+    out, checks = {}, {}
+    # (a) auto-plan, (b) its collectives counted
+    t = time.perf_counter()
+    auto = auto_parallelize_module(Llama(cfg, device="meta"), mesh, policy="MEGATRON",
+                                   init_fn=functools.partial(init_params, cfg, 0,
+                                                             dtype=torch.float32))
+    placed = {n: [str(p) for p in s.placements] for n, s in auto._specs.items()}
+    checks["a_plan_equals_llama_plan"] = placed == {
+        n: [str(p) for p in s.placements] for n, s in hand._specs.items()}
+    step = make_train_step(auto, AdamWLowmem(auto.parameters(), bench.LR, state_dtype=state_dtype),
+                           lambda lg, b: vocab_parallel_cross_entropy(
+                               lg, b["target"], mesh=mesh, vocab_dim_name="tp"))
+    kernels.reset_launches()
+    calls0, bytes0 = dict(C.CALLS), dict(C.BYTES)
+    with CommDebugMode() as comm:
+        losses = [float(step(batch)) for _ in hand_losses]
+    torch.cuda.synchronize()
+    out["launches"] = dict(kernels.LAUNCHES)
+    calls = {k: v - calls0.get(k, 0) for k, v in C.CALLS.items() if v - calls0.get(k, 0)}
+    nbytes = {k: v - bytes0.get(k, 0) for k, v in C.BYTES.items() if v - bytes0.get(k, 0)}
+    checks["a_losses_bitwise_llama_plan"] = losses == hand_losses
+    checks["b_counts_equal_calls_delta"] = comm.calls == calls and comm.bytes == nbytes
+    checks["b_counted_some"] = comm.get_total_counts() > 0
+    out["a"] = dict(seconds=time.perf_counter() - t, losses=losses, llama_plan_losses=hand_losses,
+                    params=len(placed))
+    out["b"] = dict(counts=comm.get_comm_counts(), bytes=comm.get_comm_bytes(), calls=comm.calls)
+    del auto, step
+    free_memory()
+    # (c) shardcheck of the tp=2 forward, traced on meta (rank 0)
+    if mesh.get_rank() == 0:
+        model = Llama(cfg, device="meta")
+        t = time.perf_counter()
+        good = shardcheck_module(model, llama_plan(mesh, sequence_parallel=True), mesh,
+                                 batch["input"], name="llama_plan")
+        trace_s = time.perf_counter() - t
+        bad_plan = llama_plan(mesh, sequence_parallel=True)
+        key = next(k for k in bad_plan["parameter"] if "o_proj" in k)
+        bad_plan["parameter"][key] = plan_axes(mesh, tp=Shard(1))
+        bad = shardcheck_module(model, bad_plan, mesh, batch["input"], name="o_proj column")
+        found = bad.by_code("VSC101") + bad.by_code("VSC102")
+        checks["c_llama_plan_no_error"] = good.count(Severity.ERROR) == 0
+        checks["c_bad_plan_found_with_bytes"] = bool(found) and all(f.bytes_est for f in found)
+        out["c"] = dict(trace_s=trace_s, llama_plan=good.to_dict()["codes"],
+                        bad=[f.format() for f in found][:4], n_bad=len(found),
+                        tokens=list(batch["input"].shape))
+    # (d) what-if under a table measured on these gloo ranks
+    t = time.perf_counter()
+    table = calibrate(mesh, byte_buckets=(1 << 16, 1 << 20, 1 << 24), reps=2)
+    n_params = sum(s.logical_bytes() // 4 for s in hand._specs.values())
+    E, L = cfg.hidden_size, cfg.num_hidden_layers
+    kw = dict(params_bytes=4.0 * n_params, activation_bytes=4.0 * L * B * T * E * 2,
+              flops_per_step=6.0 * n_params * B * T, table=table, device=mesh.device)
+    ranked = {n: costaudit.score_candidates(costaudit.mesh_candidates(n), **kw) for n in (2, 4)}
+    pred = next(r for r in ranked[2] if r["mesh"] == {"dp": 1, "tp": 2, "pp": 1})
+    out["d"] = dict(seconds=time.perf_counter() - t, measured_tp2_step_ms=step_ms,
+                    predicted_tp2_step_ms=pred["predicted_step_us"] / 1e3,
+                    predicted_compute_ms=pred["compute_us"] / 1e3,
+                    predicted_comm_ms=pred["comm_us"] / 1e3, confidence=pred["confidence"],
+                    sources=sorted({x["source"] for x in pred["terms"]}),
+                    ranked={n: [(r["mesh"]["dp"], r["mesh"]["tp"], r["mesh"]["pp"],
+                                 round(r["predicted_step_us"] / 1e3, 3)) for r in v]
+                            for n, v in ranked.items()},
+                    table_entries=len(table), link="gloo, two ranks of one card")
+    checks["d_scored"] = all(len(ranked[n]) == len(costaudit.mesh_candidates(n)) for n in ranked) \
+        and pred["predicted_step_us"] > 0
+    out["checks"] = checks
+    return out
+
+
+PLAN_LEAVES = (("q_proj", (2048, 2048)), ("gate_proj", (2048, 5632)),
+               ("down_proj", (5632, 2048)), ("embedding", (32000, 2048)))
+PLAN_QUANT_SHAPE = (20000, 2048)  # 40.96M elements
+
+
+def plan_battery_job(mesh, seed: int = 0) -> dict:
+    """(e) on one rank of a (2, 2) ("dp", "tp") gloo mesh: the former-
+    fallback battery on each of ``PLAN_LEAVES`` (fp32 values from a seeded
+    generator, the same on every rank), each result bitwise the same
+    transition through the full tensor, the fallback counter, tier and
+    hops, this rank's peak bytes above what it held for the transition and
+    for going through Replicate; then the int8 overlay."""
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch import redistribute_plan as rp
+    from vescale_tpu_torch.darray import DArray, distribute_tensor
+    from vescale_tpu_torch.placements import InterleavedShard as IS, Partial as P
+    from vescale_tpu_torch.placements import Replicate as R, Shard as S
+    from vescale_tpu_torch.redistribute import classify_transition
+    from vescale_tpu_torch.spec import DArraySpec, TensorMeta
+    from vescale_tpu_torch.telemetry.registry import GLOBAL
+
+    dev = mesh.device
+    coord = mesh.get_coordinate()
+    rank = mesh.get_rank()
+    battery = (([S(0), S(1)], [S(1), S(0)]), ([P(), S(0)], [S(0), P()]),
+               ([S(0), R()], [P(), S(0)]), ([IS(0, 2), IS(1, 2)], [R(), S(1)]))
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, torch.cuda.max_memory_allocated(dev) - base, time.perf_counter() - t
+
+    rows, ok = [], True
+    for li, (name, shape) in enumerate(PLAN_LEAVES):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed * 100 + li)
+        xs = [torch.randn(shape, generator=g, device=dev) for _ in range(2)]
+        meta = TensorMeta(shape, torch.float32)
+        for src, dst in battery:
+            sspec, dspec = DArraySpec(mesh, src, meta), DArraySpec(mesh, dst, meta)
+            if sspec.has_partial():  # dp coordinate c holds contribution c, unseeded
+                full = xs[0] + xs[1]
+                cut = sspec.with_placements([R()] + list(src[1:]))
+                d = DArray(cut.local_from_full(xs[coord[0]], coord).contiguous(), sspec, rank)
+            else:
+                full = xs[0]
+                d = distribute_tensor(full, mesh, src)
+            f0 = GLOBAL.counter("redistribute.fallbacks")
+            out, peak, sec = peak_of(lambda: d.redistribute(placements=dst))
+            fallbacks = GLOBAL.counter("redistribute.fallbacks") - f0
+            via, peak_rep, sec_rep = peak_of(
+                lambda: d.redistribute(placements=[R(), R()]).redistribute(placements=dst))
+            if dspec.has_partial():
+                same = torch.equal(out.full_tensor(), full) and \
+                    torch.equal(via.full_tensor(), full)
+            else:
+                want = dspec.local_from_full(full, coord)
+                same = torch.equal(out.to_local(), want) and torch.equal(via.to_local(), want)
+            plan = rp.plan_redistribute(sspec, dspec)
+            row = dict(leaf=name, src=[str(p) for p in src], dst=[str(p) for p in dst],
+                       tier=classify_transition(sspec, dspec), bitwise=bool(same),
+                       fallbacks=fallbacks, peak_bytes=int(peak), replicate_peak_bytes=int(peak_rep),
+                       shard_bytes=rp.physical_shard_bytes(sspec), seconds=sec,
+                       replicate_seconds=sec_rep,
+                       hops=[h.kind for h in plan.hops] if plan is not None else None)
+            ok = ok and same and fallbacks == 0
+            rows.append(row)
+            del out, via, d
+        del xs, full
+        free_memory()
+    # the int8 overlay on one Partial -> Replicate leaf
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed * 100 + 99)
+    local = torch.randn(PLAN_QUANT_SHAPE, generator=g, device=dev) * (1 + coord[0])
+    sspec = DArraySpec(mesh, [P(), R()], TensorMeta(PLAN_QUANT_SHAPE, torch.float32))
+    os.environ["VESCALE_REDISTRIBUTE_QUANT"] = "1"
+    try:
+        rp.clear_plan_cache()
+        qplan = rp.quant_single_hop_plan(sspec, sspec.with_placements((R(), R())))
+        over, qpeak, qsec = peak_of(lambda: DArray(local, sspec, rank).redistribute(
+            placements=[R(), R()]))
+    finally:
+        os.environ.pop("VESCALE_REDISTRIBUTE_QUANT")
+        rp.clear_plan_cache()
+    want = C.all_reduce_q(local, mesh, "sum", 0, block=64, rounding="nearest")
+    quant = dict(shape=list(PLAN_QUANT_SHAPE), taken=qplan is not None and
+                 qplan.hops[0].kind == "quant", bitwise_all_reduce_q=bool(torch.equal(
+                     over.to_local(), want)), peak_bytes=int(qpeak), seconds=qsec,
+                 max_abs_err_vs_exact=float((over.to_local() - C.all_reduce(
+                     local, mesh.get_group(0))).abs().max()))
+    ok = ok and quant["taken"] and quant["bitwise_all_reduce_q"]
+    return dict(rank=rank, coord=list(coord), rows=rows, quant=quant, ok=bool(ok))
+
+
+def run_plan_phase(dev, card, legs) -> dict:
+    """The plan phase: legs (a)-(d) from tp_train's 1.3B ranks (``legs``,
+    one dict a rank), then (e) in four gloo ranks of the card."""
+    t = time.perf_counter()
+    battery = tp_spawn("plan", {}, timeout_s=300, names=("dp", "tp"), shape=(2, 2))
+    e_s = time.perf_counter() - t
+    checks = {k: all(leg["checks"].get(k, True) for leg in legs)
+              for k in sorted({k for leg in legs for k in leg["checks"]})}
+    checks["e_battery"] = all(r["ok"] for r in battery)
+    rows = battery[0]["rows"]
+    out = dict(card=card, a=legs[0]["a"], b=[leg["b"] for leg in legs],
+               c=next(leg["c"] for leg in legs if "c" in leg), d=legs[0]["d"],
+               e=dict(seconds=e_s, rows=[dict(r, peak_bytes_by_rank=[b["rows"][i]["peak_bytes"]
+                                                                    for b in battery],
+                                              replicate_peak_bytes_by_rank=[
+                                                  b["rows"][i]["replicate_peak_bytes"]
+                                                  for b in battery])
+                                         for i, r in enumerate(rows)],
+                      quant=[b["quant"] for b in battery]),
+               launches={k: sum(leg["launches"].get(k, 0) for leg in legs)
+                         for k in legs[0]["launches"]}, checks=checks)
+    check(all(checks.values()), f"plan checks failed: {[k for k, v in checks.items() if not v]}: "
+                                f"{json.dumps(out)[:6000]}")
+    return out
+
+
+TP_JOBS = {"train": tp_train_job, "serve": tp_serve_job, "plan": plan_battery_job}
 TP_WARMUP, TP_TIMED = 1, 1  # untimed and timed steps of tp_train
 
 
@@ -3225,34 +3477,41 @@ def short_run_losses(dev, rung: str, layers: int, steps: int, token_file=None) -
         free_memory()
 
 
-def run_tp_train(dev, card):
+def run_tp_train(dev, card, rungs=("1.3b", "gpt2")):
     """``tp_train``: the 1.3B Llama (``llama_plan``) at full width and
     ``GLOO_13B_LAYERS`` deep and GPT-2 124M (``nanogpt_plan``) at full width
     and ``GLOO_GPT2_LAYERS`` deep, both with sequence parallelism, on two
     ranks of one card over gloo, each from the weights and batches of a
     single-card run at the same depth: losses within 1% of that run's at
-    each step, every kernel launch of each step."""
+    each step, every kernel launch of each step.  The 1.3B ranks then run
+    the plan phase's legs (a)-(d).  Returns (the phase, those legs a
+    rank)."""
     from vescale_tpu_torch import bench
 
-    out = {}
+    out, legs = {}, []
     steps = TP_WARMUP + TP_TIMED
+    depth = {"1.3b": GLOO_13B_LAYERS, "gpt2": GLOO_GPT2_LAYERS}
     tmpdir = tempfile.mkdtemp(prefix="vtt_tokens_")
     try:
         token_file = bench.write_token_file(os.path.join(tmpdir, "tokens.bin"),
-                                            bench.DATA_TOKENS, 50304)
-        refs = {"1.3b": short_run_losses(dev, "1.3b", GLOO_13B_LAYERS, steps),
-                "gpt2": short_run_losses(dev, "gpt2", GLOO_GPT2_LAYERS, steps, token_file)}
-        for rung, layers in (("1.3b", GLOO_13B_LAYERS), ("gpt2", GLOO_GPT2_LAYERS)):
+                                            bench.DATA_TOKENS, 50304) if "gpt2" in rungs else None
+        refs = {r: short_run_losses(dev, r, depth[r], steps, token_file if r == "gpt2" else None)
+                for r in rungs}
+        for rung in rungs:
             t = time.perf_counter()
             ranks = tp_spawn("train", dict(rung=rung, ref_losses=refs[rung],
                                            token_file=token_file if rung == "gpt2" else None,
-                                           layers=layers), timeout_s=600)
+                                           layers=depth[rung], plan_legs=rung == "1.3b"),
+                             timeout_s=600)
+            legs += [r.pop("plan") for r in ranks if r.get("plan") is not None]
+            for r in ranks:
+                r.pop("plan", None)
             ok = all(all(r["checks"].values()) for r in ranks)
             out[rung] = dict(wall_s=time.perf_counter() - t, card=card, ranks=ranks, ok=ok)
             check(ok, f"tp_train {rung} checks failed: {json.dumps(out[rung])[:4000]}")
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
-    return out
+    return out, legs
 
 
 def forced_reference(eng, streams, n=TP_FORCED):
@@ -6550,11 +6809,24 @@ def tp_only(dev, card, kernels_mod) -> int:
     del eng
     free_memory()
     t = time.perf_counter()
-    tp_train = run_tp_train(dev, card)
+    tp_train, _ = run_tp_train(dev, card)
     log("tp_train", seconds=time.perf_counter() - t, **tp_train)
     t = time.perf_counter()
     tp_serve = run_tp_serve(dev, serve_streams, forced, card)
     log("tp_serve", seconds=time.perf_counter() - t, **tp_serve)
+    print(card, flush=True)
+    return 0
+
+
+def plan_only(dev, card, kernels_mod) -> int:
+    """``--plan``: tp_train's 1.3B rung with the plan legs (a)-(d), then
+    the plan phase's (e)."""
+    t = time.perf_counter()
+    tp_train, legs = run_tp_train(dev, card, rungs=("1.3b",))
+    log("tp_train", seconds=time.perf_counter() - t, **tp_train)
+    t = time.perf_counter()
+    plan = run_plan_phase(dev, card, legs)
+    log("plan", seconds=time.perf_counter() - t, **plan)
     print(card, flush=True)
     return 0
 
@@ -6586,6 +6858,8 @@ def main() -> int:
     ap.add_argument("--longctx", action="store_true",
                     help="device, build and the longctx phase only")
     ap.add_argument("--fp8", action="store_true", help="device, build and the fp8 phase only")
+    ap.add_argument("--plan", action="store_true",
+                    help="device, build, tp_train's 1.3B rung and the plan phase only")
     ap.add_argument("--gloo-probe", action="store_true",
                     help="which collectives gloo carries on CUDA tensors, then exit")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
@@ -6651,6 +6925,8 @@ def main() -> int:
         return longctx_only(dev, card, kernels_mod)
     if opts.fp8:
         return fp8_only(dev, card, kernels_mod)
+    if opts.plan:
+        return plan_only(dev, card, kernels_mod)
 
     t = time.perf_counter()
     flash_rows = run_flash_parity(dev, ulps_at_scale)
@@ -6725,8 +7001,11 @@ def main() -> int:
     resilient_train = run_train_resilient(dev, card, kernels_mod)
     log("train_resilient", seconds=time.perf_counter() - t, **resilient_train)
     t = time.perf_counter()
-    tp_train = run_tp_train(dev, card)
+    tp_train, plan_legs = run_tp_train(dev, card)
     log("tp_train", seconds=time.perf_counter() - t, **tp_train)
+    t = time.perf_counter()
+    plan = run_plan_phase(dev, card, plan_legs)
+    log("plan", seconds=time.perf_counter() - t, **plan)
     t = time.perf_counter()
     tp_serve = run_tp_serve(dev, serve_streams, forced, card)
     log("tp_serve", seconds=time.perf_counter() - t, **tp_serve)
@@ -6766,7 +7045,8 @@ def main() -> int:
                    "spec_prefix": spec_prefix["launches"][name],
                    "serve_resilient": resilient["launches"][name], "spmd": spmd["launches"][name],
                    "checkpoint": ckpt["launches"][name], "gpt2": gpt2["launches"][name],
-                   "tp_train": tp_launches(tp_train, name), "tp_serve": tp_launches(tp_serve, name),
+                   "tp_train": tp_launches(tp_train, name), "plan": plan["launches"].get(name, 0),
+                   "tp_serve": tp_launches(tp_serve, name),
                    "dp_train": sum(r["launches_total"].get(name, 0) for r in dp_train["ranks"]),
                    "train_resilient": resilient_train["launches"][name],
                    "telemetry": tel_serve["launches"][name] + tel_gpt2["launches"][name],

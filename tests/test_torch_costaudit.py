@@ -378,3 +378,109 @@ def test_kernel_wrappers_count_their_cost_and_nothing_inside():
     assert PA.paged_decode_cost(qd, pool, pool, table, lengths) == (
         4 * 8 * 4 * 32, 2 * 8 * 2 * 32 * 2 + qd.numel() * 4 + 6 * 4 + 2 * 4 + 2 * 4 * 32 * 4)
     assert PA.paged_decode.cost is PA.paged_decode_cost
+
+
+# ========================================================= what-if scorer
+def test_mesh_candidates_enumerate_factorizations():
+    cands = ca.mesh_candidates(8)
+    assert (1, 8, 1) in cands and (8, 1, 1) in cands and (2, 2, 2) in cands
+    assert all(dp * tp * pp == 8 for dp, tp, pp in cands)
+    for n in range(1, 17):
+        assert ca.mesh_candidates(n) == ref_ca.mesh_candidates(n)
+
+
+def test_score_candidates_ranks_and_confidence_tiers():
+    ranked = ca.score_candidates(ca.mesh_candidates(8), params_bytes=1e9, activation_bytes=1e8,
+                                 flops_per_step=1e12, device="cpu")
+    costs = [r["predicted_step_us"] for r in ranked]
+    assert len(ranked) >= 3 and costs == sorted(costs)
+    scored = [r for r in ranked if r["terms"]]
+    assert scored and all(t["source"] == "analytic" for r in scored for t in r["terms"])
+    assert all(r["confidence"] == pytest.approx(0.25) for r in scored)
+    t = cal.CalibrationTable()
+    for nb in (1 << 20, 1 << 24, 1 << 27, 1 << 28):
+        t.add_sample("all_reduce", 8, nb, 1e-3)
+    dp8 = next(r for r in ca.score_candidates([(8, 1, 1)], params_bytes=1e9,
+                                              activation_bytes=1e8, flops_per_step=1e12,
+                                              table=t, device="cpu") if r["terms"])
+    assert dp8["terms"][0]["source"] == "measured" and dp8["confidence"] == pytest.approx(0.5)
+
+
+@pytest.mark.parametrize("with_table", [False, True])
+def test_score_candidates_rank_as_the_references(monkeypatch, with_table):
+    """Given the same table, the same link rate and the same compute peak
+    (the table's matmul sample: both price a CPU so), the port's scores
+    are the reference's number for number and rank the same.  The link
+    rate is the one departure: the reference's TPU ICI figure (100 GB/s)
+    against the card's NVLink datasheet default, so it is set equal."""
+    from vescale_tpu_torch import collectives as C
+
+    monkeypatch.setattr(C, "_LINK_GBPS", 100.0)
+    tables = []
+    for mod in (ref_cal, cal):
+        t = mod.CalibrationTable(meta={"platform": "cpu", "matmul_gflops": 50.0})
+        if with_table:
+            for op, n in (("all_reduce", 2), ("all_gather", 4), ("ppermute", 2)):
+                for nb in (1 << 20, 1 << 24, 1 << 27):
+                    t.add_sample(op, n, nb, 1e-3 * n)
+        mod.set_active(t)
+        tables.append(t)
+    kw = dict(params_bytes=2.6e9, activation_bytes=3.4e7, flops_per_step=5e13)
+    for n in (2, 4, 8):
+        ref = ref_ca.score_candidates(ref_ca.mesh_candidates(n), device=jax.devices()[0], **kw)
+        port = ca.score_candidates(ca.mesh_candidates(n), device="cpu", **kw)
+        assert port == ref
+
+
+def test_cost_model_is_the_references_at_the_same_link_rate(monkeypatch):
+    """``collectives``' analytic costs and ``redistribute_cost`` equal the
+    reference's when both price the same link."""
+    from vescale_tpu import collectives as RC
+    from vescale_tpu.placements import Partial as RP, Replicate as RR, Shard as RS
+    from vescale_tpu.spec import DArraySpec as RSpec, TensorMeta as RMeta
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch.mesh import DeviceMesh
+    from vescale_tpu_torch.placements import Partial, Replicate, Shard
+    from vescale_tpu_torch.spec import DArraySpec, TensorMeta
+
+    assert C._LINK_GBPS == 450.0  # H100 NVLink 4 datasheet, each way
+    monkeypatch.setattr(C, "_LINK_GBPS", 100.0)
+    for gb in (1e-6, 0.01, 2.5):
+        for n in (1, 2, 8):
+            for op in ("all_gather", "reduce_scatter", "all_to_all", "all_reduce", "ppermute"):
+                assert C.analytic_cost_us(op, gb, n) == RC.analytic_cost_us(op, gb, n)
+            assert C.allgather_cost(gb, n) == RC.allgather_cost(gb, n)
+            assert C.allreduce_cost(gb, n) == RC.allreduce_cost(gb, n)
+            assert C.reduce_scatter_cost(gb, n) == RC.reduce_scatter_cost(gb, n)
+            assert C.all_to_all_cost(gb, n) == RC.all_to_all_cost(gb, n)
+    rm, pm = RefMesh(("dp", "tp"), (2, 4)), DeviceMesh(("dp", "tp"), (2, 4), device_type="cpu")
+    pairs = [((RP(), RS(0)), (RR(), RS(0)), (Partial(), Shard(0)), (Replicate(), Shard(0))),
+             ((RS(0), RS(1)), (RS(1), RS(0)), (Shard(0), Shard(1)), (Shard(1), Shard(0))),
+             ((RP(), RR()), (RS(1), RR()), (Partial(), Replicate()), (Shard(1), Replicate()))]
+    for rs, rd, ps, pd in pairs:
+        ref = RC.redistribute_cost(RSpec(rm, rs, RMeta((512, 256), jnp.dtype(jnp.float32))),
+                                   RSpec(rm, rd, RMeta((512, 256), jnp.dtype(jnp.float32))))
+        port = C.redistribute_cost(DArraySpec(pm, ps, TensorMeta((512, 256), torch.float32)),
+                                   DArraySpec(pm, pd, TensorMeta((512, 256), torch.float32)))
+        assert port == ref
+
+
+def test_whatif_cli_ranks_meshes(tmp_path):
+    import pathlib
+    import subprocess
+    import sys
+
+    t = cal.CalibrationTable()
+    t.add_sample("all_reduce", 8, 1 << 27, 2e-3)
+    tab = tmp_path / "cal.json"
+    t.save(str(tab))
+    out = subprocess.run(
+        [sys.executable, "-m", "vescale_tpu_torch.analysis", "--json", "whatif", "--devices", "8",
+         "--table", str(tab), "--device", "cpu"],
+        capture_output=True, text=True, timeout=300,
+        cwd=pathlib.Path(__file__).resolve().parent.parent)
+    assert out.returncode == 0, out.stderr[-2000:]
+    rep = json.loads(out.stdout)
+    assert rep["num_devices"] == 8 and len(rep["candidates"]) >= 3
+    costs = [c["predicted_step_us"] for c in rep["candidates"]]
+    assert costs == sorted(costs)

@@ -72,6 +72,13 @@ def test_every_port_module_imports_without_jax():
     assert {"vescale_tpu_torch.moe", *(f"vescale_tpu_torch.moe.{m}" for m in (
         "api", "experts_allocator", "layer", "moe_optimizer", "moe_param_buffer",
         "token_dispatcher")), "vescale_tpu_torch.models.mixtral"} <= set(mods)
+    assert {"vescale_tpu_torch.transfer", "vescale_tpu_torch.redistribute_plan",
+            "vescale_tpu_torch.debug", "vescale_tpu_torch.debug.comm_mode",
+            "vescale_tpu_torch.debug.debug_log", "vescale_tpu_torch.debug.pdb",
+            "vescale_tpu_torch.dmp", "vescale_tpu_torch.dmp.dmp",
+            "vescale_tpu_torch.dmp.policies.registry", "vescale_tpu_torch.dmp.policies.megatron",
+            "vescale_tpu_torch.analysis.shardcheck",
+            "vescale_tpu_torch.analysis.__main__"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {['vescale_tpu_torch'] + mods!r}:\n"
@@ -91,6 +98,8 @@ def test_every_port_module_imports_without_jax():
     assert {"vescale_tpu_torch.ndtimeline.streamer", "vescale_tpu_torch.telemetry.costaudit",
             "vescale_tpu_torch.serve.reqtrace", "vescale_tpu_torch.moe.moe_optimizer",
             "vescale_tpu_torch.models.mixtral"} <= set(loaded)
+    assert {"vescale_tpu_torch.redistribute_plan", "vescale_tpu_torch.analysis.shardcheck",
+            "vescale_tpu_torch.dmp.policies.megatron"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m == "ml_dtypes"] == []
 
 
@@ -244,6 +253,15 @@ def test_default_device_is_the_card_and_raises_without_one(no_cuda):
         ServeEngine(TINY, params, cache)
     eng = ServeEngine(TINY, params, cache, device="cpu")
     assert eng.device.type == "cpu" and cache.k.device.type == "cpu"
+
+
+def test_the_what_if_scorer_prices_the_card_unless_asked(no_cuda):
+    from vescale_tpu_torch.telemetry import costaudit
+
+    kw = dict(params_bytes=1e9, activation_bytes=1e8, flops_per_step=1e12)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        costaudit.score_candidates([(1, 2, 1)], **kw)
+    assert costaudit.score_candidates([(1, 2, 1)], device="cpu", **kw)[0]["mesh"]["tp"] == 2
 
 
 def test_the_drafter_runs_where_its_engine_runs(no_cuda):

@@ -5,7 +5,8 @@ The port measures one run of the step where the reference compiles it
 (a stated departure): ``flops`` and ``bytes_accessed`` are the layer
 attribution's totals, ``peak_bytes`` is the card's allocator peak (None on
 the CPU), ``collectives`` the delta of ``collectives.CALLS`` over the
-step, and the compile-time keys and ``shardcheck`` come back None.
+step, the compile-time keys come back None, and ``shardcheck`` is the
+placement analysis of the step's model forward, traced on ``meta``.
 ``compare_with_aot`` is the reference's on the same report and AOT
 document; ``telemetry.write_step_report`` writes the file, sets the
 gauges, ledgers the AOT budget and raises the drift alert.
@@ -55,7 +56,8 @@ def test_report_keys_and_measured_values():
     model, step, batch = _step()
     rep = build_step_report(step, batch, name="tiny")
     assert rep["name"] == "tiny" and rep["platform"] == "cpu" and rep["num_devices"] == 1
-    assert rep["peak_bytes"] is None and rep["collectives"] == {} and rep["shardcheck"] is None
+    assert rep["peak_bytes"] is None and rep["collectives"] == {}
+    assert rep["shardcheck"]["name"] == "tiny" and rep["shardcheck"]["n_findings"] == 0
     for key in ("argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
                 "generated_code_bytes"):
         assert rep[key] is None

@@ -1893,6 +1893,231 @@ def case_emu_verify(shape, seed, algo="ring"):
     return out
 
 
+# ------------------------------------------------------------- debug
+def case_comm_debug(seed):
+    """``CommDebugMode`` around a Shard(0) -> Replicate redistribute, a mesh
+    all-reduce and an int8 all-reduce on a ("dp", "tp") mesh: its counts,
+    the ``collectives.CALLS`` / ``BYTES`` deltas, ``comm_counts`` of the
+    same work and the results."""
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch.darray import distribute_tensor
+    from vescale_tpu_torch.debug import CommDebugMode, comm_counts
+
+    m = mesh([2, 2], ["dp", "tp"])
+    x = torch.from_numpy(make_input((8, 6), seed))
+
+    def work():
+        d = distribute_tensor(x, m, _pl([["R"], ["S", 0]]))
+        full = d.redistribute(placements=_pl([["R"], ["R"]])).to_local()
+        s = C.mesh_all_reduce(full, m, "sum", mesh_dim=0)
+        q = C.all_reduce_q(full.contiguous(), m, "sum", 1, block=64, rounding="nearest")
+        return full, s, q
+
+    calls0, bytes0 = dict(C.CALLS), dict(C.BYTES)
+    with CommDebugMode() as comm:
+        full, s, q = work()
+    delta = {k: v - calls0.get(k, 0) for k, v in C.CALLS.items() if v - calls0.get(k, 0)}
+    bdelta = {k: v - bytes0.get(k, 0) for k, v in C.BYTES.items() if v - bytes0.get(k, 0)}
+    traced = CommDebugMode()
+    traced.trace(work)
+    return {"counts": comm.get_comm_counts(), "total": comm.get_total_counts(),
+            "calls": comm.calls, "delta": delta, "bytes": comm.bytes, "bdelta": bdelta,
+            "again": comm_counts(work), "traced": traced.get_comm_counts(),
+            "full": full, "sum": s, "q": q}
+
+
+def case_shardcheck_dmodule(kind, tp, seed):
+    """shardcheck of a live ``DModule`` (its own plan and mesh, its module
+    copied to ``meta`` at the global shapes) and of the plain module under
+    the same plan: both reports' codes, and that the DModule still runs."""
+    from vescale_tpu_torch.analysis import shardcheck_module
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.models import llama_plan, nanogpt_plan
+
+    m = mesh([tp], ["tp"])
+    plan_fn = nanogpt_plan if kind == "gpt" else llama_plan
+    dm = parallelize_module(tp_model(kind, tp_tree(kind, seed)), m, plan_fn(m))
+    toks = torch.from_numpy(tp_tokens(kind, seed))[:, :-1]
+    rep = shardcheck_module(dm, None, None, toks, min_bytes=0)
+    plain = shardcheck_module(tp_model(kind, tp_tree(kind, seed)), plan_fn(m), m, toks,
+                              min_bytes=0)
+    with torch.no_grad():
+        logits = dm(toks)
+    return {"codes": rep.codes(), "plain_codes": plain.codes(), "n": len(rep.findings),
+            "logits_finite": bool(torch.isfinite(logits).all())}
+
+
+# --------------------------------------------------------- auto-plan
+def case_dmp_auto(kind, tp, seed, steps=2, names=("tp",)):
+    """``kind`` parallelized twice on a mesh of ``tp`` ranks, by
+    ``auto_parallelize_module`` (MEGATRON) and by its hand plan: the
+    placements each gives every parameter, the logits, ``steps`` train
+    losses of each, and the collectives a ``CommDebugMode`` counted over
+    the auto step beside the ``collectives.CALLS`` / ``BYTES`` deltas."""
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch.debug import CommDebugMode
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.dmp import auto_parallelize_module
+    from vescale_tpu_torch.models import llama_plan, nanogpt_plan
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.train import make_train_step
+
+    shape = [tp] if len(names) == 1 else [1, tp]
+    m = mesh(shape, names)
+    toks = torch.from_numpy(tp_tokens(kind, seed))
+    batch = {"input": toks[:, :-1], "target": toks[:, 1:]}
+    out = {}
+    for label in ("auto", "hand"):
+        model = tp_model(kind, tp_tree(kind, seed))
+        if label == "auto":
+            dm = auto_parallelize_module(model, m)
+        else:
+            dm = parallelize_module(model, m, (nanogpt_plan if kind == "gpt" else llama_plan)(m))
+        out[f"{label}_placements"] = {n: [enc(p) for p in spec.placements]
+                                      for n, spec in dm._specs.items()}
+        with torch.no_grad():
+            out[f"{label}_logits"] = dm(batch["input"])
+        step = make_train_step(dm, AdamWLowmem(dm.parameters(), TP_LR, state_dtype=torch.float32),
+                               tp_loss(m))
+        calls0, bytes0 = dict(C.CALLS), dict(C.BYTES)
+        with CommDebugMode() as comm:
+            losses = [float(step(batch)) for _ in range(steps)]
+        out[f"{label}_losses"] = losses
+        if label == "auto":
+            out["comm_calls"], out["comm_bytes"] = comm.calls, comm.bytes
+            out["calls_delta"] = {k: v - calls0.get(k, 0) for k, v in C.CALLS.items()
+                                  if v - calls0.get(k, 0)}
+            out["bytes_delta"] = {k: v - bytes0.get(k, 0) for k, v in C.BYTES.items()
+                                  if v - bytes0.get(k, 0)}
+            out["comm_total"] = comm.get_total_counts()
+    return out
+
+
+# --------------------------------------------- the multi-hop planner
+_PLAN_COUNTERS = ("redistribute.fallbacks", "redistribute.plan_hits", "redistribute.plan_misses",
+                  "redistribute.hops")
+
+
+def _set_env(env):
+    """Set the planner's knobs for one case (the world strips VESCALE_*)."""
+    for k in [k for k in os.environ if k.startswith("VESCALE_")]:
+        os.environ.pop(k)
+    os.environ.update({k: str(v) for k, v in (env or {}).items()})
+
+
+def _plan_summary(plan):
+    if plan is None:
+        return None
+    return [{"kind": h.kind, "dst": [enc(p) for p in h.dst.placements],
+             "mesh": list(h.dst.mesh.mesh_dim_names), "bytes": h.bytes_moved, "cost": h.cost}
+            for h in plan.hops]
+
+
+def _source(mesh_shape, names, src, shape, seed, kind, partial_locals):
+    from vescale_tpu_torch.darray import distribute_tensor, from_local
+
+    m = mesh(mesh_shape, names)
+    if partial_locals:
+        x = local_operand(mesh_shape, src, shape, seed, kind, m.get_rank())
+        return from_local(x, m, _pl(src), shape=tuple(shape))
+    return distribute_tensor(make_input(shape, seed, kind), m, _pl(src))
+
+
+def case_plan(mesh_shape, names, src, dst, shape, seed, kind="normal", partial_locals=False,
+              dst_mesh=None, env=None, direct=False, repeats=2):
+    """``src -> dst`` through ``redistribute`` (``direct``: through
+    ``plan_redistribute(...).execute`` whatever tier the dispatch picks),
+    ``repeats`` times, the planner's knobs ``env`` set: the result, the
+    counters' deltas, the tier and the plan's hops."""
+    from vescale_tpu_torch import redistribute as rd
+    from vescale_tpu_torch import redistribute_plan as rp
+    from vescale_tpu_torch.spec import DArraySpec
+    from vescale_tpu_torch.telemetry.registry import GLOBAL
+
+    _set_env(env)
+    try:
+        rp.clear_plan_cache()
+        rd._warned_pairs.clear()
+        d = _source(mesh_shape, names, src, shape, seed, kind, partial_locals)
+        target = mesh(*dst_mesh) if dst_mesh else d.mesh
+        dspec = DArraySpec(target, _pl(dst), d.spec.meta)
+        before = {k: GLOBAL.counter(k) for k in _PLAN_COUNTERS}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            outs = []
+            for _ in range(repeats):
+                if direct:
+                    outs.append(rp.plan_redistribute(d.spec, dspec).execute(d))
+                else:
+                    outs.append(d.redistribute(target if dst_mesh else None, _pl(dst)))
+        counts = {k: GLOBAL.counter(k) - before[k] for k in _PLAN_COUNTERS}
+        r = outs[0]
+        same = all(torch.equal(o.to_local(), r.to_local()) for o in outs[1:])
+        tier = rd.classify_transition(d.spec, dspec)
+        plan = rp.plan_redistribute(d.spec, dspec)
+        return {"local": r.to_local(), "full": r.full_tensor(), "repeat_equal": same,
+                "counts": counts, "tier": tier, "hops": _plan_summary(plan),
+                "placements": [enc(p) for p in r.placements],
+                "warned": [str(w.message) for w in caught
+                           if "redistribute fallback" in str(w.message)],
+                "decline": rp.decline_reason(d.spec, dspec)}
+    finally:
+        _set_env(None)
+
+
+def case_plan_quant(mesh_shape, names, src, dst, shape, seed, block=64, rounding="nearest",
+                    key_seed=None):
+    """The int8 transition of ``src -> dst`` (``quant_transition_fn``) on
+    this rank's numpy-seeded Partial operand, and the one quantized
+    all-reduce it makes, ``all_reduce_q`` with the key the transition
+    folds for its op 0; then ``redistribute`` under
+    ``VESCALE_REDISTRIBUTE_QUANT=1`` (the overlay) and the plan it took."""
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch import redistribute_plan as rp
+    from vescale_tpu_torch import transfer
+    from vescale_tpu_torch.random import fold_in, key
+
+    d = _source(mesh_shape, names, src, shape, seed, "normal", True)
+    dspec = d.spec.with_placements(tuple(_pl(dst)))
+    fn = transfer.quant_transition_fn(d.spec, dspec, block, rounding)
+    k = None if key_seed is None else key(key_seed)
+    out = fn(d, k)
+    ref = None
+    if len(mesh_shape) == 1 and dst == [["R"]]:
+        ref = C.all_reduce_q(d.to_local(), d.mesh, d.placements[0].reduce_op, 0, block=block,
+                             rounding=rounding, key=None if k is None else fold_in(k, 0))
+    _set_env({"VESCALE_REDISTRIBUTE_QUANT": 1, "VESCALE_GRAD_COMPRESS_BLOCK": block})
+    try:
+        rp.clear_plan_cache()
+        over = d.redistribute(placements=_pl(dst))
+        plan = rp.quant_single_hop_plan(d.spec, dspec)
+    finally:
+        _set_env(None)
+        rp.clear_plan_cache()
+    return {"local": out.to_local(), "all_reduce_q": ref, "overlay": over.to_local(),
+            "overlay_hops": _plan_summary(plan)}
+
+
+def case_plan_comm(mesh_shape, names, src, dst, shape, seed):
+    """``CommDebugMode.attribute_plan(plan, compiled=True)`` on this rank's
+    piece: every hop's issued collectives, the region's counts against the
+    ``collectives.CALLS`` delta, and the result."""
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch import redistribute_plan as rp
+    from vescale_tpu_torch.debug import CommDebugMode
+
+    rp.clear_plan_cache()
+    d = _source(mesh_shape, names, src, shape, seed, "normal", False)
+    plan = rp.plan_redistribute(d.spec, d.spec.with_placements(tuple(_pl(dst))))
+    calls0 = dict(C.CALLS)
+    with CommDebugMode() as comm:
+        summary = comm.attribute_plan(plan, compiled=True, darray=d)
+    delta = {k: v - calls0.get(k, 0) for k, v in C.CALLS.items() if v - calls0.get(k, 0)}
+    out = summary.pop("output")
+    return {"summary": summary, "calls": comm.calls, "delta": delta, "counts": comm.counts,
+            "full": out.full_tensor(), "bytes_moved": plan.bytes_moved}
+
+
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}
 
 

@@ -38,8 +38,15 @@ bit for bit.  They count under their own names (``"<backend>.q_psum"``
 ...), and ``COMPRESS`` keeps the wire-byte reckoning of each
 (``_compress_wire_bytes``): raw against quantized bytes.
 
-Not here yet: the cost model, with the planner (ROADMAP.md queue A, item
-18).
+The cost model (``analytic_cost_us``, ``allgather_cost``,
+``reduce_scatter_cost``, ``allreduce_cost``, ``all_to_all_cost``,
+``redistribute_cost``) prices a collective in microseconds: each
+``*_cost`` asks the armed calibration table first
+(``telemetry.calibrate.collective_cost_us``, the table that prices a run
+on the card), and falls back to the reference's ring formula over
+``_LINK_GBPS``, the card's NVLink datasheet rate (a stated default, not a
+measurement).  The redistribution planner, shardcheck's byte prices, the
+pipeline's stage-boundary hop and the what-if scorer read it.
 """
 
 from __future__ import annotations
@@ -79,6 +86,12 @@ __all__ = [
     "q_all_to_all",
     "all_reduce_q",
     "reduce_scatter_q",
+    "analytic_cost_us",
+    "allgather_cost",
+    "reduce_scatter_cost",
+    "allreduce_cost",
+    "all_to_all_cost",
+    "redistribute_cost",
 ]
 
 CALLS: Counter = Counter()
@@ -624,3 +637,86 @@ def reduce_scatter_q(tensor: torch.Tensor, mesh: DeviceMesh, reduce_op: str = "s
     _compress_telemetry(tensor.numel(), tensor.element_size(), block, "reduce_scatter",
                         mesh.size(mesh_dim))
     return out
+
+
+# ------------------------------------------------------------- cost model
+# The reference's bandwidth-factor model (legacy veScale
+# _collective_utils.py:406-475): microseconds for ``bytes_gb`` gigabytes
+# over a mesh dim of ``n`` ranks.  The link rate is the H100 SXM
+# datasheet's NVLink 4 figure, 900 GB/s bidirectional, so 450 GB/s each
+# way: a stated default, not a measurement.  A calibration table measured
+# on the run's own mesh (telemetry/calibrate.py) is what prices a run on
+# the card; the formula answers only for buckets the table lacks.
+_LINK_GBPS = 450.0
+_LAUNCH_US = 1.0  # per-op overhead, the reference's constant
+
+
+def _ring_cost(bytes_gb: float, n: int, steps_factor: float) -> float:
+    if n <= 1:
+        return 0.0
+    return _LAUNCH_US + (bytes_gb * steps_factor * (n - 1) / n) / _LINK_GBPS * 1e6
+
+
+def _measured_us(op: str, num_devices: int, bytes_gb: float):
+    from .telemetry import calibrate as _cal
+
+    return _cal.collective_cost_us(op, num_devices, bytes_gb * 1e9)
+
+
+_FACTORS = {"all_gather": 1.0, "reduce_scatter": 1.0, "all_to_all": 1.0, "all_reduce": 2.0,
+            "ppermute": 1.0}
+
+
+def analytic_cost_us(op: str, bytes_gb: float, num_devices: int) -> float:
+    """The ring formula alone (never the calibration table): the planner's
+    price for an op whose bucket the table lacks, so one search never mixes
+    bytes and microseconds."""
+    return _ring_cost(bytes_gb, num_devices, _FACTORS[op])
+
+
+def _cost(op: str, bytes_gb: float, num_devices: int) -> float:
+    us = _measured_us(op, num_devices, bytes_gb)
+    return us if us is not None else analytic_cost_us(op, bytes_gb, num_devices)
+
+
+def allgather_cost(bytes_gb: float, num_devices: int) -> float:
+    return _cost("all_gather", bytes_gb, num_devices)
+
+
+def reduce_scatter_cost(bytes_gb: float, num_devices: int) -> float:
+    return _cost("reduce_scatter", bytes_gb, num_devices)
+
+
+def allreduce_cost(bytes_gb: float, num_devices: int) -> float:
+    return _cost("all_reduce", bytes_gb, num_devices)
+
+
+def all_to_all_cost(bytes_gb: float, num_devices: int) -> float:
+    return _cost("all_to_all", bytes_gb, num_devices)
+
+
+def redistribute_cost(src_spec, dst_spec) -> float:
+    """Estimated microseconds of ``redistribute(src -> dst)`` (the
+    reference's ``redistribute_cost``, _collective_utils.py:453), one term
+    per mesh dim that changes; a cross-mesh pair is infinite."""
+    if src_spec.mesh != dst_spec.mesh:
+        return float("inf")
+    gb = src_spec.logical_bytes() / 1e9
+    cost = 0.0
+    for i, (s, d) in enumerate(zip(src_spec.placements, dst_spec.placements)):
+        n = src_spec.mesh.shape[i]
+        if s == d:
+            continue
+        if s.is_partial() and d.is_replicate():
+            cost += allreduce_cost(gb, n)
+        elif s.is_partial() and d.is_shard():
+            cost += reduce_scatter_cost(gb, n)
+        elif (s.is_shard() or s.is_ragged_shard()) and d.is_replicate():
+            cost += allgather_cost(gb / n, n)
+        elif s.is_shard() and d.is_shard():
+            cost += all_to_all_cost(gb / n, n)
+        elif s.is_replicate() and (d.is_shard() or d.is_ragged_shard()):
+            cost += 0.0  # a local slice
+        else:
+            cost += allreduce_cost(gb, n)
+    return cost

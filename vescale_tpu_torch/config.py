@@ -1,9 +1,9 @@
 """The port's knobs read from the environment, with the JAX package's defaults.
 
 The same names and defaults as the serving, resilience, faultsim,
-redistribute, checkpoint, gradient-compression and telemetry knobs of
-``vescale_tpu/analysis/envreg.py``; read live at each call, without that
-module's registry machinery.  A knob whose default is ``None`` reads as
+redistribute, planner, analysis, debug, checkpoint, gradient-compression
+and telemetry knobs of ``vescale_tpu/analysis/envreg.py``; read live at
+each call, without that module's registry machinery.  A knob whose default is ``None`` reads as
 ``None`` while unset.
 """
 
@@ -39,8 +39,14 @@ DEFAULTS = {
     "VESCALE_FAULTSIM_HANG_S": 3600.0,
     "VESCALE_FAULTSIM_SLOW_DECODE_S": 0.05,
     "VESCALE_FAULTSIM_KILL_EXIT_CODE": 29,
-    # the SPMD core
+    # the SPMD core and the redistribution planner
     "VESCALE_STRICT_REDISTRIBUTE": False,
+    "VESCALE_REDISTRIBUTE_QUANT": False,
+    "VESCALE_REDISTRIBUTE_MEM_FACTOR": 4.0,
+    "VESCALE_REDISTRIBUTE_MAX_HOPS": 3,
+    # analysis and debugging: shardcheck's mode and the debug logger's gate
+    "VESCALE_SHARDCHECK": "warn",
+    "VESCALE_DEBUG_MODE": "",
     # the checkpoint and its storage retries
     "VESCALE_NATIVE_CKPT_IO": True,
     "VESCALE_CKPT_RETRIES": 3,

@@ -160,6 +160,15 @@ class DModule:
         self._tp: Dict[int, TPDim] = {i: TPDim(device_mesh, i) for i in self._move}
         self._specs: Dict[str, DArraySpec] = {}
         self._sync_params: Dict[int, List[nn.Parameter]] = {}
+        # the plan's static audit (analysis/shardcheck.py, VSC107) before
+        # any parameter is cut: one warning under VESCALE_SHARDCHECK=warn,
+        # ShardcheckError under strict
+        if validate_plan and self.param_plan:
+            from .. import analysis as _analysis
+
+            if _analysis.enabled():
+                _analysis.dispatch_report(_analysis.check_param_plan(
+                    self.param_plan, device_mesh, name="dmodule parameter plan"), stacklevel=3)
         self._shard_parameters(init_fn)
         self._bind_forward_plan()
 

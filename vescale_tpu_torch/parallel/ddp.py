@@ -18,10 +18,10 @@ reference's gradient reduce is structural; here it is explicit:
     Shard(0) under ``use_distributed_optimizer`` (``_reduce_partial_leaf``);
     other Partial dims keep each rank's contribution.
   * ``grad_compress="int8"`` (or ``VESCALE_GRAD_COMPRESS=int8``) moves
-    block-scaled int8 instead: ``collectives.all_reduce_q`` for Partial ->
-    Replicate, ``reduce_scatter_q`` for Partial -> Shard(0); any other pair
-    warns and reduces exactly.  The general ``transfer.quant_transition_fn``
-    is ROADMAP.md queue A, item 18.
+    block-scaled int8 instead, through the general int8 transition
+    (``transfer.quant_transition_fn``: the quantized all-reduce or
+    reduce-scatter on the reference's physical shard); a pair with no
+    quantizable plan warns and reduces exactly.
   * ``dp_grad_reduce`` reduces a tree of local gradients over a process
     group, exact or int8.
 
@@ -110,33 +110,27 @@ def dp_grad_reduce(grads, group, *, compress: Optional[str] = None, block: Optio
 def _reduce_partial_leaf(g, dp_index: int, target, compress: Optional[str],
                          block: Optional[int]):
     """One DArray leaf, Partial on mesh dim ``dp_index``, reduced there to
-    ``target`` (Replicate or Shard(0)): int8 where ``compress`` says so and
-    the pair has a quantized route, else the exact ``redistribute``."""
-    from ..darray import DArray
-
+    ``target`` (Replicate or Shard(0)): through the int8 transition
+    (``transfer.quant_transition_fn``, any pair with a quantizable plan)
+    where ``compress`` says so, else the exact ``redistribute``."""
     new = list(g.placements)
     new[dp_index] = target
-    src = g.placements[dp_index]
     if compress == "int8":
-        mesh = g.mesh
-        n = mesh.size(dp_index)
-        local = g.to_local()
-        shard_ok = target.is_replicate() or (
-            isinstance(target, Shard) and target.dim == 0 and local.ndim > 0
-            and local.shape[0] % n == 0
-            and not any(isinstance(p, Shard) and p.dim == 0 for i, p in enumerate(g.placements)
-                        if i != dp_index))
-        if src.reduce_op in ("sum", "avg") and shard_ok:
-            blk, rounding = C._compress_settings(block, None)
-            key = C.next_sr_key() if rounding == "stochastic" else None
-            dst = g.spec.with_placements(tuple(new))
-            if target.is_replicate():
-                out = C.all_reduce_q(local, mesh, src.reduce_op, dp_index, block=blk,
-                                     rounding=rounding, key=key)
-            else:
-                out = C.reduce_scatter_q(local, mesh, src.reduce_op, 0, dp_index, block=blk,
-                                         rounding=rounding, key=key)
-            return DArray(out, dst, g.rank)
+        from ..redistribute_plan import physical_shard_bytes
+        from ..transfer import quant_transition_fn
+
+        blk, rounding = C._compress_settings(block, None)
+        dst = g.spec.with_placements(tuple(new))
+        fn = quant_transition_fn(g.spec, dst, blk, rounding)
+        if fn is not None:
+            # a fresh key each reduction: no mask repeats across steps
+            out = fn(g, C.next_sr_key()) if rounding == "stochastic" else fn(g)
+            itemsize = g.to_local().element_size()
+            # a rank's payload: a grad sharded on another mesh dim moves its piece
+            C._compress_telemetry(physical_shard_bytes(g.spec) // itemsize, itemsize, blk,
+                                  "reduce_scatter" if target.is_shard() else "all_reduce",
+                                  g.mesh.size(dp_index))
+            return out
         warnings.warn(
             f"grad_compress='int8': no quantized route for {[str(p) for p in g.placements]} -> "
             f"{[str(p) for p in new]} (shape {g.shape}); falling back to the exact reduction",

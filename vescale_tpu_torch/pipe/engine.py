@@ -148,15 +148,31 @@ class PipeEngine:
         return out
 
     def _check_stage_boundaries(self, micro) -> None:
-        """The reference audits declared cross-stage layouts through
-        analysis/shardcheck (ROADMAP.md queue A, A18); with none declared,
-        as here, it does nothing."""
+        """Audit the plan's declared cross-stage layouts once, before the
+        first microbatch runs, through ``PipelineParallelPlan.boundary_report``
+        (``analysis/shardcheck``), the report routed by
+        ``VESCALE_SHARDCHECK`` (warn or raise); the p2p shape is the plan's
+        ``p2p_tensor_shapes`` when declared, else the first microbatch
+        leaf's.  With none declared, or no mesh, it does nothing."""
         if getattr(self, "_boundaries_checked", False):
             return
         self._boundaries_checked = True
         if self.mesh is None or getattr(self.plan, "stage_out_placements", None) is None:
             return
-        self.plan.boundary_report(self.mesh, tuple(micro[0]["input"].shape))
+        from .. import analysis
+
+        if not analysis.enabled():
+            return
+        shapes = self.plan.p2p_tensor_shapes
+        if shapes:
+            shape = shapes[0] if isinstance(shapes[0], (tuple, list)) else shapes
+        else:
+            leaves = _leaves(micro[0]) if micro else []
+            if not leaves:
+                return
+            shape = leaves[0].shape
+        analysis.dispatch_report(self.plan.boundary_report(self.mesh, tuple(shape)),
+                                 stacklevel=4)
 
     # ------------------------------------------------------------- main
     def forward_backward(

@@ -554,9 +554,9 @@ def estimate_stage_costs(
     (``VESCALE_COST_CALIBRATION``, telemetry/calibrate.py) carrying a
     ``matmul_gflops`` throughput sample, stage FLOPs convert to
     microseconds and ``comm`` becomes the table's ppermute time for the
-    boundary activation's byte size.  The port has no analytic collective
-    model yet (ROADMAP.md queue A, item A18), so a table without a
-    ppermute bucket prices the hop at 0.  Without a usable table,
+    boundary activation's byte size; a table without a ppermute bucket
+    prices the hop by ``collectives.analytic_cost_us`` (the ring formula
+    over the card's NVLink rate).  Without a usable table,
     ``comm=None`` is ``comm=0.0`` in FLOP units, as in the reference."""
     import torch
 
@@ -583,7 +583,9 @@ def estimate_stage_costs(
             n = max(2, pipe_module.num_groups)
             comm_us = _cal.table_cost_us(table, "ppermute", n, act_bytes or 0)
             if comm_us is None:
-                comm_us = 0.0
+                from .. import collectives as C
+
+                comm_us = C.analytic_cost_us("ppermute", (act_bytes or 0) / 1e9, n)
             sc = StageCosts.from_weights(
                 [w * us_per_flop for w in weights], comm=comm_us
             )

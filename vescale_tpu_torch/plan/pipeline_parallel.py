@@ -58,8 +58,26 @@ class PipelineParallelPlan:
             )
 
     def boundary_report(self, mesh, activation_shape, dtype=None):
-        """The audit of the declared cross-stage layouts runs through
-        ``analysis/shardcheck``, which the port does not have yet."""
-        raise NotImplementedError(
-            "PipelineParallelPlan.boundary_report needs analysis/shardcheck, "
-            "which is not ported yet (ROADMAP.md queue A, item A18)")
+        """The declared cross-stage layouts audited through
+        ``analysis.check_stage_boundaries``: boundary i's output spec
+        against its input spec on ``mesh``, for an activation of
+        ``activation_shape`` (fp32 unless ``dtype``).  VSC106 where the
+        move would take the fallback, VSC108 where the planner carries it;
+        a report with no findings when nothing is declared."""
+        import torch
+
+        from ..analysis import FindingReport, check_stage_boundaries
+        from ..placements import normalize_placements
+        from ..spec import DArraySpec, TensorMeta
+
+        if self.stage_out_placements is None:
+            return FindingReport("pipeline boundaries")
+        meta = TensorMeta(tuple(activation_shape), dtype or torch.float32)
+        n = len(meta.shape)
+
+        def spec(pl):
+            return DArraySpec(mesh, normalize_placements(pl, mesh.ndim, n), meta)
+
+        return check_stage_boundaries(
+            [spec(o) for o in self.stage_out_placements],
+            [spec(i) for i in self.stage_in_placements], name="pipeline boundaries")

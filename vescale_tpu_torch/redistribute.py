@@ -24,20 +24,26 @@ contribution where it is (the reference may instead seed the sum at
 coordinate 0: the same value, split otherwise).  Cross-mesh transitions of plain placements (no ragged; Partial
 reduced on the source mesh first) are one all-to-all-v over every rank.
 
-A transition that needs a gather *and* a slice on the same mesh dim goes
-through ``Replicate`` (the reference's fallback tier): it may hold the
-logical tensor, so it warns once per pair, counts
-``redistribute.fallbacks`` in ``telemetry.registry.GLOBAL`` and raises under
-``VESCALE_STRICT_REDISTRIBUTE=1``.
+``redistribute()`` takes the reference's tiers in order: the int8 overlay
+(``VESCALE_REDISTRIBUTE_QUANT``, a lossy quantized single hop where the
+cost model prefers it), the trivial no-op, the single hop (``plan`` with
+no gather and slice on one mesh dim), the multi-hop planner
+(``redistribute_plan.py``: per-shard hops within a memory budget), the
+plain cross-mesh all-to-all-v, and last the fallback: through Replicate,
+which may hold the logical tensor, so it warns once per pair with the
+planner's ``[VSC12x]`` decline, counts ``redistribute.fallbacks`` in
+``telemetry.registry.GLOBAL`` and raises under
+``VESCALE_STRICT_REDISTRIBUTE=1``.  ``classify_transition`` names the tier
+a pair takes without running it.  The port's single hop serves some pairs
+the reference plans in several hops (a Partial with a Shard move on
+another mesh dim, interleaves changing on several mesh dims): those never
+reach the planner here (ROADMAP.md section C).
 
 ``redistribute_local_tensor`` is the single-process model: every rank's
 source piece in, one rank's destination piece out.  It runs the plan of
 the all-to-all-v that ``_exchange`` sends (the elements each pair of ranks
 shares, over every rank at once) and copies each block from its sender's
 piece, where the live path moves it through a collective.
-
-The multi-hop planner and the int8 overlay of the reference
-(``redistribute_plan.py``, ``transfer.py``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -65,7 +71,7 @@ from .placements import (
 )
 from .spec import DArraySpec, TensorMeta, flat_view, nested_chunk, overlap_blocks
 
-__all__ = ["redistribute", "redistribute_local_tensor"]
+__all__ = ["redistribute", "redistribute_local_tensor", "classify_transition"]
 
 
 def _strict() -> bool:
@@ -400,6 +406,8 @@ _warned_pairs = set()
 
 
 def _warn_fallback(src: DArraySpec, dst: DArraySpec) -> None:
+    from .debug import DebugLogger
+    from .redistribute_plan import decline_reason
     from .telemetry.registry import GLOBAL
 
     GLOBAL.count("redistribute.fallbacks")
@@ -410,7 +418,7 @@ def _warn_fallback(src: DArraySpec, dst: DArraySpec) -> None:
         f"(mesh {src.mesh.mesh_dim_names}{'->' + str(dst.mesh.mesh_dim_names) if dst.mesh != src.mesh else ''}) "
         f"may materialize the LOGICAL tensor: ~{logical / 2**20:.1f} MiB vs "
         f"~{shard / 2**20:.1f} MiB per-shard; no single hop serves it, so it goes "
-        f"through Replicate (the multi-hop planner is not ported)"
+        f"through Replicate; multi-hop planner declined: {decline_reason(src, dst)}"
     )
     if _strict():
         raise RuntimeError(msg + " (VESCALE_STRICT_REDISTRIBUTE=1)")
@@ -418,27 +426,63 @@ def _warn_fallback(src: DArraySpec, dst: DArraySpec) -> None:
     if key not in _warned_pairs:
         _warned_pairs.add(key)
         warnings.warn(msg, stacklevel=3)
+    DebugLogger.log("redistribute", msg)
 
 
 def redistribute(darr: DArray, placements, mesh: Optional[DeviceMesh] = None) -> DArray:
     """``darr`` laid out as ``placements`` (on ``mesh``, default its own).
     Collective: every rank of the mesh calls it with the same arguments."""
+    from .redistribute_plan import plan_redistribute, quant_single_hop_plan
+
     dst_mesh = mesh or darr.mesh
     dst_placements = normalize_placements(placements, dst_mesh.ndim, darr.ndim)
     src = darr.spec
     dst = DArraySpec(dst_mesh, dst_placements, TensorMeta(src.shape, src.dtype))
     dst.layout()
+    if dst_mesh == src.mesh and config.get_bool("VESCALE_REDISTRIBUTE_QUANT"):
+        qplan = quant_single_hop_plan(src, dst)
+        if qplan is not None:
+            return qplan.execute(darr)
     if dst == src:
         return darr
+    if dst_mesh == src.mesh:
+        hops, fallback = plan(src.placements, dst.placements, src.ndim)
+        if not fallback:
+            return _run(darr, src, dst, hops)
+    multi = plan_redistribute(src, dst)
+    if multi is not None:
+        return multi.execute(darr)
     if dst_mesh != src.mesh:
         return _cross_mesh(darr, src, dst)
-    hops, fallback = plan(src.placements, dst.placements, src.ndim)
-    if fallback:
-        _warn_fallback(src, dst)
+    _warn_fallback(src, dst)
+    return _run(darr, src, dst, hops)
+
+
+def _run(darr: DArray, src: DArraySpec, dst: DArraySpec, hops) -> DArray:
     st = _State(src, darr.to_local(), darr.coordinate)
     for kind, i, arg in hops:
         _HOPS[kind](st, i, arg)
     return DArray(st.local, dst, darr.rank)
+
+
+def classify_transition(src: DArraySpec, dst: DArraySpec) -> str:
+    """The tier of ``redistribute()`` that serves src -> dst, without
+    running it: ``trivial`` | ``kernel`` (one per-shard pass) | ``planned``
+    (the multi-hop planner) | ``cross_mesh_plain`` (the all-to-all-v over
+    every rank) | ``fallback`` (through Replicate, may hold the logical
+    tensor).  Kept beside the dispatch so the two cannot drift."""
+    from .redistribute_plan import plan_redistribute
+
+    if dst == src:
+        return "trivial"
+    if src.mesh == dst.mesh and not plan(src.placements, dst.placements, src.ndim)[1]:
+        return "kernel"
+    if plan_redistribute(src, dst) is not None:
+        return "planned"
+    if src.mesh != dst.mesh and _plain_placements(src) is not None \
+            and _plain_placements(dst) is not None:
+        return "cross_mesh_plain"
+    return "fallback"
 
 
 def _plain_placements(spec: DArraySpec):
@@ -452,8 +496,6 @@ def _cross_mesh(darr: DArray, src: DArraySpec, dst: DArraySpec) -> DArray:
     """Between two live meshes over the same ranks: reduce partials on the
     source mesh, then one all-to-all-v over every rank; ragged layouts go
     through Replicate (a fallback)."""
-    if sorted(src.mesh.ranks.reshape(-1).tolist()) != sorted(dst.mesh.ranks.reshape(-1).tolist()):
-        raise ValueError("cross-mesh redistribute needs two meshes over the same ranks")
     sp, dp = _plain_placements(src), _plain_placements(dst)
     if sp is None or dp is None:
         _warn_fallback(src, dst)
@@ -462,14 +504,23 @@ def _cross_mesh(darr: DArray, src: DArraySpec, dst: DArraySpec) -> DArray:
     if sp != src.placements:
         darr = redistribute(darr, sp)
         src = darr.spec
-    mid = DArraySpec(dst.mesh, dp, dst.meta)
+    res = _exchange_world(darr, src, DArraySpec(dst.mesh, dp, dst.meta))
+    return res if res.spec == dst else redistribute(res, dst.placements)
+
+
+def _exchange_world(darr: DArray, src: DArraySpec, dst: DArraySpec) -> DArray:
+    """``darr`` (laid out as ``src``) as ``dst`` by one all-to-all-v over
+    every rank of both meshes (the same ranks): each rank sends each other
+    rank the elements their pieces share.  Both specs are plain (no
+    Partial): the planner's reshard and cross-mesh bridge."""
+    if sorted(src.mesh.ranks.reshape(-1).tolist()) != sorted(dst.mesh.ranks.reshape(-1).tolist()):
+        raise ValueError("cross-mesh redistribute needs two meshes over the same ranks")
     world = sorted(src.mesh.ranks.reshape(-1).tolist())
-    peers = [(src.mesh.flat_rank_of(g), mid.mesh.flat_rank_of(g)) for g in world]
+    peers = [(src.mesh.flat_rank_of(g), dst.mesh.flat_rank_of(g)) for g in world]
     me = world.index(dist.get_rank())
-    group = _world_group(src.mesh.device_type, world)
-    out = _exchange(darr.to_local(), src, mid, peers, me, group)
-    res = DArray(out, mid, peers[me][1])
-    return res if mid == dst else redistribute(res, dst.placements)
+    group = _world_group(src.mesh, world)
+    out = _exchange(darr.to_local(), src, dst, peers, me, group)
+    return DArray(out, dst, peers[me][1])
 
 
 def _distribute_on(full: torch.Tensor, spec: DArraySpec) -> DArray:
@@ -481,13 +532,15 @@ def _distribute_on(full: torch.Tensor, spec: DArraySpec) -> DArray:
 _WORLD_GROUPS = {}  # (id of the default group, backend, ranks) -> (default group, group)
 
 
-def _world_group(device_type: str, ranks: List[int]):
-    """A group of ``ranks`` on the device type's backend, made once per
-    default group: a world made after ``destroy_process_group`` gets its
-    own.  The entry holds the default group, so its id is not reused."""
+def _world_group(mesh, ranks: List[int]):
+    """A group of ``ranks`` on ``mesh``'s backend (the one its own groups
+    use: gloo for a "cuda" mesh made with ``backend="gloo"``; a device
+    type names its default backend), made once per default group: a world
+    made after ``destroy_process_group`` gets its own.  The entry holds
+    the default group, so its id is not reused."""
     from .mesh import backend_of
 
-    backend = backend_of(device_type)
+    backend = backend_of(mesh) if isinstance(mesh, str) else dist.get_backend(mesh.get_group(0))
     world = dist.group.WORLD
     key = (id(world), backend, tuple(ranks))
     if key not in _WORLD_GROUPS:

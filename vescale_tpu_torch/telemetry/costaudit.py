@@ -25,8 +25,12 @@ The port of ``vescale_tpu/telemetry/costaudit.py``:
     each hand-written kernel through its wrapper's ``cost`` (see
     :class:`LayerAttribution`).
 
-The what-if scorer (``mesh_candidates``/``score_candidates``) rides with
-the planner (ROADMAP A18).
+  * **What-if scoring** — :func:`mesh_candidates` enumerates the (dp, tp,
+    pp) factorizations of a world and :func:`score_candidates` re-prices
+    each against the audited calibration table: compute at the card's
+    peak (``calibrate.device_peak_flops``) plus the collectives its layout
+    implies, each from the table (or ``collectives.analytic_cost_us``),
+    with a confidence from the audit history of those buckets.
 
 Gating contract: ``record_prediction`` / ``record_measurement`` /
 ``audit_step`` / ``harvest`` are module-level no-op function references
@@ -61,6 +65,8 @@ __all__ = [
     "roofline_counter_events",
     "attach_roofline_tracks",
     "device_mem_gbps",
+    "mesh_candidates",
+    "score_candidates",
     "PLAN_ID_TAG",
 ]
 
@@ -835,3 +841,82 @@ def attach_roofline_tracks(perfetto_path: str, attribution: Dict,
         json.dump(data, f)
     os.replace(tmp, perfetto_path)
     return len(added)
+
+
+# -------------------------------------------------------- what-if scoring
+def mesh_candidates(num_devices: int) -> List[Tuple[int, int, int]]:
+    """Every (dp, tp, pp) factorization of ``num_devices``."""
+    out = []
+    n = max(1, int(num_devices))
+    for dp in range(1, n + 1):
+        if n % dp:
+            continue
+        rest = n // dp
+        for tp in range(1, rest + 1):
+            if rest % tp:
+                continue
+            out.append((dp, tp, rest // tp))
+    return out
+
+
+def score_candidates(candidates: Sequence[Tuple[int, int, int]], *, params_bytes: float,
+                     activation_bytes: float, flops_per_step: float, table=None, device=None,
+                     auditor: Optional[CostAudit] = None) -> List[Dict]:
+    """Re-price candidate (dp, tp, pp) meshes against the audited table:
+    a predicted step time each (compute at ``device``'s peak, the card
+    unless ``device="cpu"``, plus the collectives the layout implies) and
+    a confidence from the decayed divergence of exactly the buckets it
+    reads: 0.25 for an analytic term, 0.5 for a measured bucket never
+    audited, ``1/ratio`` for an audited one.  Ranked by predicted step."""
+    from .. import collectives as C
+    from ..device import resolve_device
+    from . import calibrate as _cal
+
+    if table is None:
+        table = _cal.active_table()
+    if auditor is None:
+        auditor = _AUDIT
+    peak = _cal.device_peak_flops(resolve_device(device))
+    bdiv = auditor.bucket_divergence() if auditor is not None else {}
+    usable = table is not None and len(table) > 0
+    results = []
+    for dp, tp, pp in candidates:
+        world = max(1, dp * tp * pp)
+        compute_us = float(flops_per_step) / world / peak * 1e6
+        terms: List[Tuple[str, int, float]] = []
+        if dp > 1:  # the data-parallel gradient reduction
+            terms.append(("all_reduce", dp, float(params_bytes) / max(1, tp * pp)))
+        if tp > 1:  # the tensor-parallel activation gather and grad scatter
+            shard = float(activation_bytes) / tp
+            terms.append(("all_gather", tp, shard))
+            terms.append(("reduce_scatter", tp, shard))
+        if pp > 1:  # the stage-boundary p2p per microbatch wave
+            terms.append(("ppermute", pp, float(activation_bytes)))
+        comm_us = 0.0
+        notes, scores = [], []
+        for op, ax, nb in terms:
+            us = table.lookup_us(op, ax, int(nb)) if usable else None
+            if us is None:
+                us = C.analytic_cost_us(op, nb / 1e9, ax)
+                source, score = "analytic", 0.25
+            else:
+                d = bdiv.get((op, ax, _cal._bucket(int(nb))))
+                if d is None:
+                    source, score = "measured", 0.5
+                else:
+                    source = "audited"
+                    score = max(0.0, min(1.0, 1.0 / max(1.0, d["ratio"])))
+            comm_us += us
+            scores.append(score)
+            notes.append({"op": op, "axis_size": ax, "bytes": int(nb), "us": us,
+                          "source": source})
+        results.append({
+            "mesh": {"dp": dp, "tp": tp, "pp": pp},
+            "predicted_step_us": compute_us + comm_us,
+            "compute_us": compute_us,
+            "comm_us": comm_us,
+            "confidence": sum(scores) / len(scores) if scores else 1.0,
+            "terms": notes,
+        })
+    results.sort(key=lambda r: r["predicted_step_us"])
+    return results

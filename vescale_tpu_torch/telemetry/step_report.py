@@ -15,11 +15,16 @@ once and reads each key from a measurement of that run:
   * ``aot_drift``: ``memory_report.compare_with_aot`` when an AOT report
     is given.
 
-Keys the port cannot provide come back None, the reference's own rule:
+``shardcheck`` is the placement analysis of the same step
+(``analysis/shardcheck.py``, traced on ``meta``, so nothing runs twice):
+a step that carries its model (``make_train_step``'s) is checked as that
+model's forward under its plan (a ``DModule``'s own), any other function
+as itself; ``donate_argnums`` goes to the donation check (None, the
+default, skips it); ``VESCALE_SHARDCHECK=off`` leaves the key None.  Keys
+the port cannot provide come back None, the reference's own rule:
 ``argument_bytes``, ``output_bytes``, ``temp_bytes``, ``alias_bytes`` and
-``generated_code_bytes`` (compile-time quantities), and ``shardcheck``
-(ROADMAP A18).  The step runs for real: a train step updates its
-parameters and optimizer state.
+``generated_code_bytes`` (compile-time quantities).  The step runs for
+real: a train step updates its parameters and optimizer state.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ def _device_of(model, args) -> torch.device:
 
 
 def build_step_report(fn: Callable, *args, name: str = "step", aot_report=None, model=None,
-                      **kwargs) -> Dict[str, Any]:
+                      donate_argnums=None, **kwargs) -> Dict[str, Any]:
     """Run ``fn(*args, **kwargs)`` once under a layer attribution and
     distill the run into a JSON-serializable report (see the module
     docstring for its keys).  ``model``: the module whose layers key the
@@ -96,8 +101,28 @@ def build_step_report(fn: Callable, *args, name: str = "step", aot_report=None, 
         from .memory_report import compare_with_aot
 
         report["aot_drift"] = compare_with_aot(report, aot_report)
-    report["shardcheck"] = None
+    report["shardcheck"] = _shardcheck(fn, model, args, kwargs, name, donate_argnums)
     return report
+
+
+def _shardcheck(fn, model, args, kwargs, name, donate_argnums):
+    """The ``shardcheck`` section: None while ``VESCALE_SHARDCHECK=off``;
+    a failure degrades to ``{"error": ...}``, never fails the report."""
+    from .. import analysis
+
+    if not analysis.enabled():
+        return None
+    try:
+        if model is not None:
+            batch = args[0] if args else None
+            x = batch.get("input") if isinstance(batch, dict) else batch
+            rep = analysis.shardcheck_module(model, None, None, x, name=name)
+        else:
+            rep = analysis.shardcheck(fn, *args, name=name, check_source=False,
+                                      donate_argnums=donate_argnums, **kwargs)
+        return rep.to_dict()
+    except Exception as e:  # observability degrades, never fails a run
+        return {"error": repr(e)}
 
 
 def write_step_report(report: Dict[str, Any], path: str) -> str:
