@@ -13,6 +13,7 @@ Hopper card.
     python3 chip_smoke.py --longctx  # the longctx phase alone
     python3 chip_smoke.py --fp8      # the fp8 phase alone
     python3 chip_smoke.py --plan     # the planning and analysis legs alone
+    python3 chip_smoke.py --fleet    # the fleet phase alone
     python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
@@ -134,7 +135,38 @@ Phases, each printing one JSON line with its seconds:
            rows, elastic, VSC130, bytes read; the directory removed
   profile  device time by kernel kind and the device's idle share over a
            second run of the serve requests (``torch.profiler``), for the
-           graphed engine
+           graphed engine only (the eager engine's profile is cut for time)
+  fleet    the fleet tier over replica children (``--replica-child``: the
+           replica leg's engine, the 8B widths at 2 layers, each streaming
+           its spans to a trace directory), spawned and respawned by the
+           port's ``FleetSupervisor`` and routed by its ``FleetRouter``
+           over ``HttpReplicaClient``: (a) three replicas serve the serve
+           requests (the ledger balances, no failover, streams bitwise an
+           in-process ``run_serve`` of the same engine), then a fresh fleet
+           whose r1 carries ``replica_kill:call=2``: a failover, zero
+           requests lost or duplicated, streams bitwise, r1's exit code the
+           kill's, its breaker closed -> open -> half-open -> closed, fresh
+           requests served by the rejoined r1; (b) a leader child
+           (``--router-child``, no CUDA) takes the ``LeaderLease``,
+           journals a wave (rids + 100) over those replicas and dies by
+           ``router_kill`` at its first pump; a ``StandbyRouter`` here
+           takes over at epoch 2, streams bitwise, ``/fleet`` says leader;
+           (c) one replica armed ``canary_diverge``, a spike of five times
+           its slots plus queue: the ``Autoscaler`` clones it
+           (``spawn_like``, readmitted by the half-open probe), shed rids
+           resubmitted to completion bitwise, a ``RolloutController``
+           rollout of a checkpoint of the same weights rolled back fleet
+           wide, then committed on both, later traffic bitwise, the clone
+           drained away when quiet; (d) the router's and the replicas'
+           span streams merged (``assemble_fleet_timeline``), every leg's
+           journeys verified, the scale, rollout, recover and takeover
+           spans present; (e) the router's own costs (dispatch against a
+           direct submit, journaled against plain, traced against not) as
+           fractions of the replicas' decode p50; walls, start-up, the
+           kill's breaker and rejoin times, TTFT and tokens/s, takeover and
+           replay seconds, scale-up and -down latency, rollout stages; the
+           replicas' K1 and K7 launches (clean exits) against their
+           prefills and decode steps
   train_small  a 2-layer fp32 Llama trained 3 steps on the card and on the
            CPU from the same weights: losses within a stated bound
   train    the 1.3B Llama of the bench (``vescale_tpu_torch.bench``) at full
@@ -2154,13 +2186,58 @@ def replica_engine(dev):
 
 def replica_child() -> int:
     """``--replica-child``: one fleet replica on the card, fed over HTTP on
-    ``VESCALE_SERVE_OPS_PORT`` until SIGTERM drains it."""
-    from vescale_tpu_torch.serve import ContinuousBatchingScheduler, serve_replica
+    ``VESCALE_SERVE_OPS_PORT`` until SIGTERM drains it.  Its last line
+    carries the status, the ledger counts and its kernel launches beside
+    the prefills and decode steps the scheduler ran."""
+    from vescale_tpu_torch import kernels as kernels_mod
+    from vescale_tpu_torch.serve import ContinuousBatchingScheduler, Request, run_serve, serve_replica
 
+    entered = time.time()
+    t = time.perf_counter()
     eng = replica_engine(torch.device("cuda", 0))
-    res = serve_replica(engine=eng, scheduler=ContinuousBatchingScheduler(eng.cache), linger_s=1.0,
-                        coordinate=False)
-    print(json.dumps({"replica_status": res.status, "counts": res.counts}), flush=True)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t
+    # warm the engine before the port opens: the first prefill and the
+    # decode graph's capture take seconds, and a router polling a cold
+    # replica counts every poll that times out as a failure.  The warm-up
+    # runs with the replica's fault schedule, ops port and trace stream
+    # unset, so it consumes no fault, opens no port and writes no span.
+    t = time.perf_counter()
+    held = {k: os.environ.pop(k) for k in ("VESCALE_FAULTSIM", "VESCALE_SERVE_OPS_PORT",
+                                           "VESCALE_FLEET_TRACE_DIR") if k in os.environ}
+    calls = []
+
+    def timed(fn, name):  # each engine call of the warm-up, synchronised
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            calls.append((name, time.perf_counter() - t0))
+            return r
+        return run
+
+    eng.prefill, eng.decode = timed(eng.prefill, "prefill"), timed(eng.decode, "decode")
+    try:
+        run_serve(eng, ContinuousBatchingScheduler(eng.cache),
+                  [(0, Request(rid=0, prompt=tuple(range(1, 33)), max_new_tokens=4))])
+        torch.cuda.synchronize()
+    finally:
+        os.environ.update(held)
+        del eng.prefill, eng.decode
+    eng.cache.reset()
+    print(json.dumps({"replica_ready_wall": time.time(), "warmup_s": time.perf_counter() - t,
+                      "entered_wall": entered, "engine_s": engine_s, "warmup_calls": calls}),
+          flush=True)
+    sched = ContinuousBatchingScheduler(eng.cache)
+    kernels_mod.reset_launches()
+    res = serve_replica(engine=eng, scheduler=sched, linger_s=1.0, coordinate=False)
+    torch.cuda.synchronize()
+    print(json.dumps({"replica_status": res.status, "counts": res.counts,
+                      "launches": dict(kernels_mod.LAUNCHES),
+                      "prefills": int(sched.telemetry.counter("serve_prefills_total")),
+                      "decode_steps": int(sched.telemetry.counter("serve_decode_steps_total")),
+                      "layers": eng.config.num_hidden_layers}), flush=True)
     return 0
 
 
@@ -2363,6 +2440,682 @@ def run_serve_resilient_phase(dev, eng, kernels_mod, serve, serve_streams):
                overhead=overhead, overhead_summary=summary, replica=replica, checks=checks,
                launches=launches)
     check(all(all(c.values()) for c in checks.values()), f"serve_resilient checks failed: {out}")
+    return out
+
+
+# ------------------------------------------------------------------- fleet
+# The fleet phase (module docstring): the port's router, supervisor,
+# journal, standby, autoscaler and rollout controller over replica children
+# of the replica leg's engine (the 8B widths at REPLICA_LAYERS layers).
+FLEET_SIZE = 3
+FLEET_KILL = "replica_kill:call=2"  # r1 dies on its third loaded decode step
+FLEET_KILL_EXIT = 29  # VESCALE_FAULTSIM_KILL_EXIT_CODE's default
+FLEET_FRESH_BASE = 50  # rids 50..55: fresh traffic after r1 rejoins
+FLEET_FRESH = 6
+FLEET_HA_BASE = 100  # the HA wave: the serve requests' prompts at rid + 100
+FLEET_TTL_S = 1.0  # the leader lease: the standby takes over this long after the leader's last renewal
+FLEET_ROUTER = dict(poll_interval_s=0.05, breaker_failures=2, breaker_cooldown_s=0.5,
+                    dispatch_retries=4, backoff_s=0.05, backoff_max_s=0.5, hedge_s=0.0)
+AUTOSCALE_QUEUE = 8  # the autoscale replica's VESCALE_SERVE_MAX_QUEUE
+AUTOSCALE_SPIKE = 5 * (8 + AUTOSCALE_QUEUE)  # five times one replica's slots plus queue
+AUTOSCALE_SPIKE_NEW = 128  # new tokens a spike request: the queue outlasts the up-hold
+AUTOSCALE_BURSTS = 8  # the spike arrives in bursts AUTOSCALE_BURST_S apart
+AUTOSCALE_BURST_S = 0.1
+AUTOSCALE_SPIKE_BASE = 300
+AUTOSCALE_WAVE2_BASE = 500
+AUTOSCALE_WAVE2 = 6
+CANARY_DIVERGE = "canary_diverge:call=0,count=1"
+CANARY_PROMPTS = [[1, 2, 3, 4], [5, 6, 7, 8, 9]]
+FLEET_HOP_ITERS = 2000
+FLEET_HOP_REPS = 5
+
+
+def fleet_requests(vocab: int, n: int, seed: int, base: int, max_new: int = 32):
+    """``n`` requests shaped as the serve phase's (32-512 prompt tokens),
+    ``max_new`` new tokens each, rids from ``base``."""
+    from vescale_tpu_torch.serve import Request
+
+    return [Request(rid=base + i, prompt=r.prompt, max_new_tokens=max_new)
+            for i, (_, r) in enumerate(serve_requests(vocab, n=n, seed=seed))]
+
+
+def fleet_specs(fleet: str, n: int, work: str, trace_dir: str, armed=None, extra=None):
+    """``n`` replica children (``--replica-child``), each streaming its spans
+    to ``trace_dir``; ``armed`` maps a replica id to the faultsim schedule
+    of its first spawn only."""
+    from vescale_tpu_torch.serve.fleet import ReplicaSpec, reserve_port
+
+    base = {k: v for k, v in os.environ.items() if not k.startswith("VESCALE_")}
+    base.update(VESCALE_FLEET_TRACE_DIR=trace_dir, **(extra or {}))
+    specs = []
+    for i in range(n):
+        rid = f"r{i}"
+        env = dict(base)
+        if armed and rid in armed:
+            env["VESCALE_FAULTSIM"] = armed[rid]
+        specs.append(ReplicaSpec(rid, [sys.executable, os.path.abspath(__file__), "--replica-child"],
+                                 reserve_port(), env=env,
+                                 log_path=os.path.join(work, f"{fleet}-{rid}.log"),
+                                 restart_env_drop=("VESCALE_FAULTSIM",)))
+    return specs
+
+
+def fleet_logs(sup) -> str:
+    out = []
+    for rid, m in sup.managed.items():
+        if m.spec.log_path and os.path.exists(m.spec.log_path):
+            with open(m.spec.log_path, errors="replace") as f:
+                out.append(f"--- {rid}\n" + f.read()[-3000:])
+    return "\n".join(out)
+
+
+def fleet_wait(what: str, cond, fr, sup, timeout_s: float, autoscaler=None, pump=False) -> float:
+    """Turn the supervisor and the router (polls, or pumps) until ``cond()``;
+    the run fails with the replicas' logs after ``timeout_s``."""
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + timeout_s
+    while True:
+        sup.poll()
+        if pump:
+            fr.pump()
+        else:
+            fr.poll(force=True)
+        if autoscaler is not None:
+            autoscaler.tick()
+        if cond():
+            return time.perf_counter() - t0
+        check(time.monotonic() < deadline, f"fleet: {what} within {timeout_s} s: "
+              + json.dumps({r: (h.breaker.state, h.feed is not None) for r, h in fr.replicas.items()})
+              + "\n" + fleet_logs(sup))
+        time.sleep(0.05)
+
+
+def fleet_up(fr, sup, timeout_s: float = 240.0) -> float:
+    return fleet_wait("every replica up", lambda: all(
+        h.feed is not None and h.breaker.state == "closed" for h in fr.replicas.values()),
+        fr, sup, timeout_s)
+
+
+def fleet_drain(fr, sup, timeout_s: float = 180.0, autoscaler=None) -> float:
+    return fleet_wait("every request terminal", lambda: fr.ledger.pending_count() == 0, fr, sup,
+                      timeout_s, autoscaler=autoscaler, pump=True)
+
+
+def fleet_submit(fr, reqs, sessions=True):
+    """Half the load pinned to a session (affinity), half least-loaded."""
+    for r in reqs:
+        fr.submit(r, session=f"sess{r.rid % 5}" if sessions and r.rid % 2 == 0 else None)
+
+
+def fleet_complete_all(fr, sup, reqs, autoscaler=None, rounds: int = 60) -> int:
+    """Drain, then resubmit every shed rid (the retry_after_s contract), two
+    queues' worth a round, until each one completed.  Returns the rounds."""
+    by_rid = {r.rid: r for r in reqs}
+    for k in range(rounds):
+        fleet_drain(fr, sup, autoscaler=autoscaler)
+        shed = [rid for rid in by_rid if fr.ledger.records[rid].status != "completed"]
+        if not shed:
+            return k
+        time.sleep(0.1)
+        fleet_submit(fr, [by_rid[rid] for rid in shed[:2 * AUTOSCALE_QUEUE]], sessions=False)
+    check(False, f"fleet: rids never completed after {rounds} rounds")
+
+
+def fleet_streams(fr, rids=None):
+    return {rid: list(rec.outcome["tokens"]) for rid, rec in fr.ledger.records.items()
+            if rec.status == "completed" and (rids is None or rid in rids)}
+
+
+def fleet_reports(sup) -> list:
+    """Every clean exit's last line (``replica_child``), with its replica."""
+    rows = []
+    for rid, m in sup.managed.items():
+        if not (m.spec.log_path and os.path.exists(m.spec.log_path)):
+            continue
+        with open(m.spec.log_path, errors="replace") as f:
+            for ln in f:
+                if ln.startswith('{"replica_status"'):
+                    rows.append(dict(json.loads(ln), replica=rid))
+    return rows
+
+
+def fleet_transitions(fr, replica: str) -> list:
+    return [(t["from"], t["to"], t["ts"]) for t in fr.breaker_transitions if t["replica"] == replica]
+
+
+def router_child(spec_path: str) -> int:
+    """``--router-child``: the HA leg's leader, a journaled ``FleetRouter``
+    holding the lease over the kill fleet's replicas.  It starts before the
+    leg and waits for its spec; it submits the wave, writes its spans to
+    disk and pumps until the armed ``router_kill`` ends it.  It makes no
+    CUDA call."""
+    from vescale_tpu_torch.ndtimeline import api as nd_api
+    from vescale_tpu_torch.ndtimeline.handlers import LocalRawHandler
+    from vescale_tpu_torch.resilience import faultsim
+    from vescale_tpu_torch.serve import (FleetJournal, FleetRouter, HttpReplicaClient, LeaderLease,
+                                         Request)
+
+    deadline = time.monotonic() + 600
+    while not os.path.exists(spec_path):
+        if time.monotonic() > deadline:
+            return 3
+        time.sleep(0.05)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    faultsim.arm_from_env()
+    nd_api.init_ndtimers(rank=0, handlers=[LocalRawHandler(spec["trace"])])
+    lease = LeaderLease(spec["lease_path"], holder="leader", ttl_s=spec["ttl_s"])
+    fr = FleetRouter(journal=FleetJournal(spec["journal_dir"]), lease=lease, **spec["router"])
+    for rid, url in spec["replicas"].items():
+        fr.add_replica(rid, HttpReplicaClient(url))
+    deadline = time.monotonic() + 60
+    while not all(h.feed is not None and h.breaker.state == "closed" for h in fr.replicas.values()):
+        if time.monotonic() > deadline:
+            return 4
+        fr.poll(force=True)
+        time.sleep(0.05)
+    for rid, prompt, max_new in spec["wave"]:
+        fr.submit(Request(rid=rid, prompt=tuple(prompt), max_new_tokens=max_new),
+                  session=f"sess{rid % 5}" if rid % 2 == 0 else None)
+    nd_api.flush()  # the submit and dispatch spans reach the disk before the crash
+    print(json.dumps({"leader_epoch": fr.epoch, "submitted": len(spec["wave"])}), flush=True)
+    while fr.pump() > 0:  # router_kill ends the process at a pump boundary
+        time.sleep(0.05)
+    return 0
+
+
+class _InstantClient:
+    """A replica that answers at once: the router's own bookkeeping alone."""
+
+    def poll_router(self):
+        return {"schema_version": 2, "replica_id": "L", "accepting": True, "draining": False,
+                "queue_depth": 0, "inflight": 0, "slots": 64, "free_slots": 64, "pages": 64,
+                "free_pages": 64, "ttft_s": {"p50": None, "p95": None, "p99": None},
+                "itl_s": {"p50": None, "p95": None, "p99": None}, "shed_rate": 0.0,
+                "retry_after_s": 0.01, "goodput_tokens_per_s": 0.0,
+                "throughput_tokens_per_s": 0.0, "mfu": None, "decode_steps": 1, "serve_step": 1,
+                "uptime_s": 1.0, "rank": 0}
+
+    def submit(self, payload):
+        return {"accepted": True}
+
+    def outcomes(self):
+        return {"outcomes": {}}
+
+
+def fleet_costs(work: str, decode_p50_s: float, tokens_per_req: float) -> dict:
+    """(e): the router's own costs, min over reps of ``FLEET_HOP_ITERS``
+    submits on an instant in-memory client: a dispatch against a direct
+    inbox push, the journaled router against the plain one, and ndtimeline
+    live against dormant; each added cost as a fraction of the replicas'
+    decode step p50 and of a request's decode service time (the reference
+    benches' denominator: tokens a request times that p50)."""
+    from vescale_tpu_torch.ndtimeline import api as nd_api
+    from vescale_tpu_torch.serve import FleetJournal, FleetRouter, Request, RequestInbox
+
+    kw = dict(poll_interval_s=3600.0, breaker_failures=3, breaker_cooldown_s=1.0,
+              dispatch_retries=1, backoff_s=0.0, backoff_max_s=0.0, hedge_s=0.0)
+    made = [0]
+
+    def hop(journaled: bool) -> float:
+        best = float("inf")
+        for _ in range(FLEET_HOP_REPS):
+            made[0] += 1
+            j = FleetJournal(os.path.join(work, "hop", str(made[0]))) if journaled else None
+            r = FleetRouter(journal=j, **kw)
+            r.add_replica("L", _InstantClient())
+            r.poll(force=True)
+            for i in range(300):  # warm before every timed window
+                r.submit(Request(rid=1_000_000 + i, prompt=(1, 2), max_new_tokens=1))
+            t0 = time.perf_counter()
+            for i in range(FLEET_HOP_ITERS):
+                r.submit(Request(rid=i, prompt=(1, 2), max_new_tokens=1))
+            best = min(best, (time.perf_counter() - t0) / FLEET_HOP_ITERS)
+            if j is not None:
+                j.close()
+        return best
+
+    direct = float("inf")
+    for _ in range(FLEET_HOP_REPS):
+        box = RequestInbox()
+        t0 = time.perf_counter()
+        for i in range(FLEET_HOP_ITERS):
+            box.push(Request(rid=i, prompt=(1, 2), max_new_tokens=1))
+        direct = min(direct, (time.perf_counter() - t0) / FLEET_HOP_ITERS)
+    plain = hop(False)
+    journaled = hop(True)
+    nd_api.init_ndtimers(rank=0)
+    try:
+        traced = hop(False)
+    finally:
+        nd_api.deinit_ndtimers()
+    service = tokens_per_req * decode_p50_s
+    added = {"router_hop": max(0.0, plain - direct), "journal": max(0.0, journaled - plain),
+             "tracing": max(0.0, traced - plain)}
+    return dict(direct_submit_us=direct * 1e6, router_hop_us=plain * 1e6,
+                router_hop_journal_us=journaled * 1e6, router_hop_traced_us=traced * 1e6,
+                decode_p50_ms=decode_p50_s * 1e3, tokens_per_request=tokens_per_req,
+                service_ms=service * 1e3,
+                frac_of_decode_p50={k: v / decode_p50_s for k, v in added.items()},
+                frac_of_service={k: v / service for k, v in added.items()},
+                added_us={k: v * 1e6 for k, v in added.items()}, bar=0.01)
+
+
+def run_fleet_phase(dev, kernels_mod, card) -> dict:
+    """The fleet tier on the card (module docstring): legs (a)-(e)."""
+    from vescale_tpu_torch import checkpoint, telemetry
+    from vescale_tpu_torch.ndtimeline import api as nd_api
+    from vescale_tpu_torch.ndtimeline.parser_handler import parse_raw_spans
+    from vescale_tpu_torch.serve import (FLEET_FIELDS, Autoscaler, ContinuousBatchingScheduler,
+                                         FleetClockSync, FleetRouter, FleetSupervisor,
+                                         HttpReplicaClient, RolloutController, StandbyRouter,
+                                         assemble_fleet_timeline, estimate_fleet_clock_offsets,
+                                         run_serve, verify_fleet_journeys)
+
+    work = tempfile.mkdtemp(prefix="vtt_fleet_")
+    trace = {f: os.path.join(work, "trace", f) for f in ("golden", "kill", "auto")}
+    out, checks, spans = {}, {}, {}
+    sups, leader, events = [], None, []
+    leader_log = open(os.path.join(work, "leader.log"), "w+")
+    try:
+        # ---- every fleet and the HA leader start first: their start-up
+        # (and each replica's warm-up) overlaps the in-process golden run
+        # and the rollout checkpoint's save
+        t_phase = time.perf_counter()
+
+        def on_event(fleet):
+            def note(kind, rid, fields):
+                events.append((kind, f"{fleet}/{rid}", time.time()))
+            return note
+
+        g_sup = FleetSupervisor(fleet_specs("golden", FLEET_SIZE, work, trace["golden"]),
+                                max_restarts=0, on_event=on_event("golden"))
+        k_sup = FleetSupervisor(fleet_specs("kill", FLEET_SIZE, work, trace["kill"],
+                                            armed={"r1": FLEET_KILL}),
+                                max_restarts=2, restart_backoff_s=0.3, on_event=on_event("kill"))
+        a_sup = FleetSupervisor(fleet_specs("auto", 1, work, trace["auto"], armed={"r0": CANARY_DIVERGE},
+                                            extra={"VESCALE_SERVE_MAX_QUEUE": str(AUTOSCALE_QUEUE)}),
+                                max_restarts=1, restart_backoff_s=0.3, on_event=on_event("auto"))
+        for sup in (g_sup, k_sup, a_sup):
+            sups.append(sup)
+            sup.start()
+        spec_path = os.path.join(work, "leader.json")
+        env = {k: v for k, v in os.environ.items() if not k.startswith("VESCALE_")}
+        env["VESCALE_FAULTSIM"] = "router_kill:call=0"
+        leader = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--router-child",
+                                   spec_path], env=env, stdout=leader_log, stderr=subprocess.STDOUT)
+        eng = replica_engine(dev)
+        vocab, L = eng.config.vocab_size, eng.config.num_hidden_layers
+        serve_reqs = [r for _, r in serve_requests(vocab)]
+        fresh = fleet_requests(vocab, FLEET_FRESH, seed=5, base=FLEET_FRESH_BASE)
+        spike = fleet_requests(vocab, AUTOSCALE_SPIKE, seed=7, base=AUTOSCALE_SPIKE_BASE,
+                               max_new=AUTOSCALE_SPIKE_NEW)
+        wave2 = fleet_requests(vocab, AUTOSCALE_WAVE2, seed=9, base=AUTOSCALE_WAVE2_BASE)
+        every = serve_reqs + fresh + spike + wave2
+        kernels_mod.reset_launches()
+        t = time.perf_counter()
+        res = run_serve(eng, ContinuousBatchingScheduler(eng.cache, max_queue=len(every)),
+                        [(0, r) for r in every])
+        torch.cuda.synchronize()
+        out["in_process"] = dict(seconds=time.perf_counter() - t, requests=len(every),
+                                 launches=dict(kernels_mod.LAUNCHES))
+        golden = {rid: list(o["tokens"]) for rid, o in res.outcomes.items()}
+        checks["in_process_completed"] = all(o["status"] == "completed" for o in res.outcomes.values())
+        ckpt_root = os.path.join(work, "ckpt")
+        t = time.perf_counter()
+        checkpoint.save(ckpt_root, {"model": eng.params})
+        out["rollout_checkpoint_save_s"] = time.perf_counter() - t
+        del eng, res
+        free_memory()
+
+        # ---- (a) golden: three replicas serve the serve phase's requests
+        nd_api.init_ndtimers(rank=0)  # the router's spans, flushed per leg
+        fr_g = FleetRouter(**FLEET_ROUTER)
+        for s in g_sup.managed.values():
+            fr_g.add_replica(s.spec.replica_id, HttpReplicaClient(s.spec.url))
+        fleet_up(fr_g, g_sup)
+        t = time.perf_counter()
+        fleet_submit(fr_g, serve_reqs)
+        fleet_drain(fr_g, g_sup)
+        wall = time.perf_counter() - t
+        fr_g.fleet_ledger_check()
+        g_streams = fleet_streams(fr_g)
+        feeds = {rid: h.feed for rid, h in fr_g.replicas.items()}
+        fleet_view = fr_g.obs.fleet()
+        tokens = sum(len(v) for v in g_streams.values())
+        decode_p50 = statistics.median(f["itl_s"]["p50"] for f in feeds.values()
+                                       if f["itl_s"]["p50"] is not None)
+        out["golden"] = dict(wall_s=wall, counts=dict(fr_g.ledger.counts), tokens=tokens,
+                             tokens_per_s=tokens / wall,
+                             ttft_p50_s={r: f["ttft_s"]["p50"] for r, f in feeds.items()},
+                             ttft_p99_s={r: f["ttft_s"]["p99"] for r, f in feeds.items()},
+                             fleet_ttft_p99_s=fleet_view["ttft_p99_s"],
+                             decode_p50_ms={r: 1e3 * (f["itl_s"]["p50"] or 0) for r, f in feeds.items()},
+                             dispatches={r: h.dispatches for r, h in fr_g.replicas.items()})
+        checks["golden"] = dict(
+            completed=fr_g.ledger.counts["completed"] == len(serve_reqs)
+            and fr_g.ledger.counts["failovers"] == 0,
+            streams_equal_in_process=g_streams == {r.rid: golden[r.rid] for r in serve_reqs},
+            every_replica_served=all(h.dispatches > 0 for h in fr_g.replicas.values()),
+            fleet_feed_v5=set(fleet_view) == FLEET_FIELDS and fleet_view["schema_version"] == 5)
+        spans["golden"] = nd_api.flush()
+
+        for rid in list(g_sup.managed):
+            g_sup.drain(rid)  # SIGTERM now; reaped at the end
+
+        # ---- (a) kill + rejoin: r1 dies abruptly mid-load and comes back
+        fr_k = FleetRouter(**FLEET_ROUTER)
+        for s in k_sup.managed.values():
+            fr_k.add_replica(s.spec.replica_id, HttpReplicaClient(s.spec.url))
+        fleet_up(fr_k, k_sup)
+        t = time.perf_counter()
+        before = len(fleet_transitions(fr_k, "r1"))  # start-up's own probes stay out of the walk
+        fleet_submit(fr_k, serve_reqs)
+        fleet_drain(fr_k, k_sup)
+        kill_wave_s = time.perf_counter() - t
+        rejoin_wait_s = fleet_wait("r1 readmitted", lambda: fr_k.replicas["r1"].breaker.state == "closed",
+                                   fr_k, k_sup, 240.0)
+        t = time.perf_counter()
+        fleet_submit(fr_k, fresh, sessions=False)
+        fleet_drain(fr_k, k_sup)
+        fresh_s = time.perf_counter() - t
+        fr_k.fleet_ledger_check()
+        clock = estimate_fleet_clock_offsets({r: h.client for r, h in fr_k.replicas.items()})
+        k_streams = fleet_streams(fr_k)
+        died = next((w for kind, r, w in events if kind == "died" and r == "kill/r1"), None)
+        tr = fleet_transitions(fr_k, "r1")[before:]
+        walk = [(a, b) for a, b, _ in tr]
+        opened = next((ts for a, b, ts in tr if b == "open"), None)
+        rejoined = next((ts for a, b, ts in reversed(tr) if b == "closed"), None)
+        r1_exits = list(k_sup.managed["r1"].exit_history)
+        on_r1 = sorted(rid for rid, rec in fr_k.ledger.records.items()
+                       if rid >= FLEET_FRESH_BASE and rec.replica == "r1")
+        out["kill"] = dict(wall_s=kill_wave_s, rejoin_wait_s=rejoin_wait_s, fresh_wall_s=fresh_s,
+                           counts=dict(fr_k.ledger.counts), r1_exit_codes=r1_exits,
+                           r1_transitions=walk, fresh_on_r1=on_r1,
+                           # the kill's moment is the supervisor noticing the exit
+                           # (its 50 ms turns); the breaker may open first
+                           kill_to_breaker_open_s=(opened - died) if opened and died else None,
+                           kill_to_rejoin_s=(rejoined - died) if rejoined and died else None,
+                           clock_residual_us=clock.max_residual_us())
+        checks["kill"] = dict(
+            ledger_all_completed=fr_k.ledger.counts["completed"] == len(serve_reqs) + FLEET_FRESH,
+            failover=fr_k.ledger.counts["failovers"] >= 1,
+            streams_bitwise_golden=k_streams == {r.rid: golden[r.rid] for r in serve_reqs + fresh},
+            r1_killed_by_replica_kill=bool(r1_exits) and r1_exits[0] == FLEET_KILL_EXIT,
+            breaker_walk=bool(walk) and walk[0] == ("closed", "open") and ("open", "half_open") in walk
+            and walk[-1] == ("half_open", "closed"),
+            fresh_served_by_rejoined_r1=bool(on_r1))
+        spans["kill"] = nd_api.flush()
+
+        # ---- (b) router HA: the leader child journals a wave over the same
+        # replicas and dies at its first pump; a standby here takes over
+        jdir = os.path.join(work, "journal")
+        ha_wave = [(r.rid + FLEET_HA_BASE, list(r.prompt), r.max_new_tokens) for r in serve_reqs]
+        with open(spec_path + ".tmp", "w") as f:
+            json.dump(dict(replicas={s.spec.replica_id: s.spec.url for s in k_sup.managed.values()},
+                           journal_dir=jdir, lease_path=os.path.join(jdir, "LEASE"),
+                           ttl_s=FLEET_TTL_S, router=FLEET_ROUTER, wave=ha_wave,
+                           trace=os.path.join(trace["kill"], "leader.spans.jsonl")), f)
+        t_b = time.perf_counter()
+        os.replace(spec_path + ".tmp", spec_path)
+        try:
+            rc = leader.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            rc = None
+        t_dead = time.perf_counter()
+        leader_log.seek(0)
+        leader_text = leader_log.read()
+        check(rc == FLEET_KILL_EXIT, f"fleet: the leader exited {rc}: {leader_text[-3000:]}")
+        standby = StandbyRouter(jdir, {s.spec.replica_id: HttpReplicaClient(s.spec.url)
+                                       for s in k_sup.managed.values()},
+                                holder="standby", router_kwargs=FLEET_ROUTER)
+        tail = standby.tail()
+        fr2, deadline = None, time.monotonic() + 60
+        while fr2 is None:
+            check(time.monotonic() < deadline, "fleet: the standby never took over")
+            k_sup.poll()
+            t_try = time.perf_counter()
+            fr2 = standby.poll()
+            if fr2 is None:
+                time.sleep(0.02)
+        replay_s = time.perf_counter() - t_try
+        rec = dict(fr2.recovery)
+        fleet_drain(fr2, k_sup)
+        fr2.fleet_ledger_check()
+        srv = fr2.start_ops(0)
+        try:
+            fleet_feed = http_json(f"{srv.url}/fleet")
+        finally:
+            fr2.stop_ops()
+        ha_streams = fleet_streams(fr2)
+        out["ha"] = dict(wall_s=time.perf_counter() - t_b, leader_exit=rc,
+                         leader_alive_s=t_dead - t_b, ttl_wait_s=t_try - t_dead, replay_s=replay_s,
+                         takeover_s=time.perf_counter() - t_dead, tail=tail, recovery=rec,
+                         counts=dict(fr2.ledger.counts), journal=fr2.journal.stats(),
+                         fleet_ha=fleet_feed.get("ha", {}).get("role"))
+        checks["ha"] = dict(
+            tail_epoch_1=tail["epoch"] == 1 and tail["pending"] == len(ha_wave),
+            takeover_at_epoch_2=rec["takeover"] and rec["epoch"] == 2 and fr2.epoch == 2,
+            nothing_quarantined=rec["quarantined"] == 0 and rec["torn"] == 0,
+            zero_lost_or_duplicated=fr2.ledger.counts["completed"] == len(ha_wave)
+            and fr2.ledger.counts["submitted"] == len(ha_wave) and sorted(fr2.ledger.records)
+            == sorted(r for r, _, _ in ha_wave),
+            streams_bitwise_golden=ha_streams == {r + FLEET_HA_BASE: golden[r]
+                                                  for r in (q.rid for q in serve_reqs)},
+            fleet_leader_at_epoch_2=fleet_feed["ha"]["role"] == "leader"
+            and fleet_feed["ha"]["epoch"] == 2 and fleet_feed["schema_version"] == 5)
+        spans["ha"] = nd_api.flush()
+        for rid in list(k_sup.managed):
+            k_sup.drain(rid)  # SIGTERM now; reaped at the end
+
+        # ---- (c) autoscale + rollout on the replica started at (a)
+        telemetry.init(out_dir=None, jsonl=False, memtrack=False, timeseries=True, alerts=True,
+                       costaudit=False, timeseries_cadence_s=0.0)
+        fr_a = FleetRouter(**FLEET_ROUTER)
+        fr_a.add_replica("r0", HttpReplicaClient(a_sup.managed["r0"].spec.url))
+        fleet_up(fr_a, a_sup)
+        auto = Autoscaler(fr_a, a_sup, "r0", client_factory=lambda sp: HttpReplicaClient(sp.url),
+                          min_replicas=1, max_replicas=2, up_burn=1.0, down_burn=0.5, up_queue=4,
+                          up_hold_s=0.3, down_hold_s=1.5, cooldown_s=2.0, window_s=3.0, tick_s=0.05)
+        t_c = time.perf_counter()
+        end = time.monotonic() + 1.0  # a quiet second: the store's window starts empty
+        while time.monotonic() < end:
+            a_sup.poll()
+            fr_a.pump()
+            auto.tick()
+            time.sleep(0.05)
+        marks = {}
+
+        def tick():
+            d = auto.tick()
+            if d.startswith("scale_up") and "up" not in marks:
+                marks["up"] = (time.perf_counter(), dict(auto.last_signals))
+            return d
+
+        t_spike = time.perf_counter()
+        per = -(-len(spike) // AUTOSCALE_BURSTS)
+        for k in range(0, len(spike), per):  # open-loop bursts, the router turning between them
+            fleet_submit(fr_a, spike[k:k + per])
+            end = time.monotonic() + AUTOSCALE_BURST_S
+            while time.monotonic() < end:
+                a_sup.poll()
+                fr_a.pump()
+                tick()
+                time.sleep(0.02)
+        fleet_wait("a scale-up", lambda: tick() and "up" in marks, fr_a, a_sup, 60.0, pump=True)
+        scale_up_s, sig = marks["up"][0] - t_spike, marks["up"][1]
+        clone = next(r for r in fr_a.replicas if r != "r0")
+        # no ticks while the clone starts: once r0 has drained what it
+        # admitted, the quiet queue would drain the clone before it came up
+        readmit_s = fleet_wait("the clone readmitted", lambda: fr_a.replicas[clone].feed is not None
+                               and fr_a.replicas[clone].breaker.state == "closed",
+                               fr_a, a_sup, 240.0, pump=True)
+        rounds = fleet_complete_all(fr_a, a_sup, spike, autoscaler=auto)
+        spike_s = time.perf_counter() - t_spike
+        fr_a.poll(force=True)
+        ttft_spike = (fr_a.replicas["r0"].feed or {}).get("ttft_s", {}).get("p99")
+        ttft_clone = (fr_a.replicas[clone].feed or {}).get("ttft_s", {}).get("p99")
+        spike_streams = fleet_streams(fr_a, {r.rid for r in spike})
+        clone_closes = fr_a.replicas[clone].breaker.closes
+        t = time.perf_counter()
+        diverge = RolloutController(fr_a, ckpt_root, CANARY_PROMPTS, max_new_tokens=4, canary=True,
+                                    baseline=True, stage_timeout_s=180.0).run()
+        diverge_s = time.perf_counter() - t
+        t = time.perf_counter()
+        clean = RolloutController(fr_a, ckpt_root, CANARY_PROMPTS, max_new_tokens=4, canary=True,
+                                  baseline=True, stage_timeout_s=180.0).run()
+        clean_s = time.perf_counter() - t
+        fleet_submit(fr_a, wave2, sessions=False)
+        fleet_complete_all(fr_a, a_sup, wave2)
+        wave2_streams = fleet_streams(fr_a, {r.rid for r in wave2})
+        t_quiet = time.perf_counter()
+        down = {}
+
+        def scaled_down():
+            d = auto.tick()
+            if d.startswith("scale_down"):
+                down.setdefault("decided", time.perf_counter())
+            return "decided" in down and len(fr_a.replicas) == 1
+
+        fleet_wait("the clone drained away", scaled_down, fr_a, a_sup, 120.0, pump=True)
+        fr_a.fleet_ledger_check()
+        out["autoscale"] = dict(
+            wall_s=time.perf_counter() - t_c, spike=len(spike), signals_at_scale_up=sig,
+            scale_up_after_spike_s=scale_up_s, clone=clone, clone_readmit_s=readmit_s,
+            spike_wall_s=spike_s, resubmit_rounds=rounds, ttft_p99_spike_s=ttft_spike,
+            ttft_p99_clone_s=ttft_clone, counts=dict(fr_a.ledger.counts),
+            rollout_diverge=dict(diverge, seconds=diverge_s),
+            rollout_clean=dict(clean, seconds=clean_s),
+            scale_down_decided_s=down["decided"] - t_quiet,
+            scale_down_removed_s=time.perf_counter() - t_quiet,
+            store_queue_depth=telemetry.timeseries.get_store().reduce(
+                "fleet_timeline_queue_depth", 600.0, "max"))
+        checks["autoscale"] = dict(
+            scaled_up_once=auto.scale_ups == 1 and sig["queue_depth"] is not None
+            and sig["queue_depth"] >= 4,
+            clone_readmitted_by_probe=clone_closes >= 1,
+            spike_bitwise_golden=spike_streams == {r.rid: golden[r.rid] for r in spike},
+            diverge_rolled_back_fleet_wide=diverge["ok"] is False and diverge["diverged"] == "r0"
+            and diverge["committed"] == [] and "deterministic" in (diverge["reason"] or ""),
+            clean_committed_on_both=clean["ok"] is True and sorted(clean["committed"]) == ["r0", clone],
+            wave2_bitwise_golden=wave2_streams == {r.rid: golden[r.rid] for r in wave2},
+            scaled_down_once=auto.scale_downs == 1 and not a_sup.alive(clone)
+            and list(fr_a.replicas) == ["r0"])
+        spans["auto"] = nd_api.flush()
+        nd_api.deinit_ndtimers()
+        telemetry.shutdown()
+        rcs = {f"{f}/{k}": v for f, sup in (("golden", g_sup), ("kill", k_sup), ("auto", a_sup))
+               for k, v in sup.stop_all(grace_s=60.0).items()}
+        checks["exits"] = dict(all_0=all(v == 0 for v in rcs.values()))
+        # each incarnation's start-up: its spawn to the end of its warm-up
+        ready = {}
+        for f, sup in (("golden", g_sup), ("kill", k_sup), ("auto", a_sup)):
+            for rid, m in sup.managed.items():
+                with open(m.spec.log_path, errors="replace") as fh:
+                    ready[f"{f}/{rid}"] = [json.loads(ln) for ln in fh
+                                           if ln.startswith('{"replica_ready_wall"')]
+        spawned = {}
+        for kind, r, w in events:
+            if kind in ("spawn", "restart", "spawn_like"):
+                spawned.setdefault(r, []).append(w)
+        out["startup_s"] = {r: [x["replica_ready_wall"] - w for x, w in zip(ready.get(r, []), ws)]
+                            for r, ws in spawned.items()}
+        out["warmup_s"] = {r: [x["warmup_s"] for x in xs] for r, xs in ready.items()}
+        # where a start-up goes: interpreter and imports (spawn to entry),
+        # the engine's build, then the warm-up's engine calls
+        out["startup_split_s"] = {
+            r: [dict(imports=x["entered_wall"] - w, engine=x["engine_s"],
+                     warmup_calls=[[n, round(d, 4)] for n, d in x["warmup_calls"]])
+                for x, w in zip(ready.get(r, []), ws)] for r, ws in spawned.items()}
+
+        # ---- (d) fleettrace: the router's streams and every replica's
+        def replica_streams(fleet, prefix):
+            got = {}
+            for name in sorted(os.listdir(trace[fleet])):
+                if name.endswith(".spans.jsonl"):
+                    got[f"{prefix}/{name[:-len('.spans.jsonl')]}"] = parse_raw_spans(
+                        os.path.join(trace[fleet], name))
+            return got
+
+        g_rep, k_rep, a_rep = (replica_streams(f, f) for f in ("golden", "kill", "auto"))
+        leader_stream = k_rep.pop("kill/leader", [])
+        sync = FleetClockSync({f"kill/{k}": v for k, v in clock.offsets_us.items()},
+                              {f"kill/{k}": v for k, v in clock.residual_us.items()}, clock.rounds)
+        legs = {"golden": (fr_g, {"router/golden": spans["golden"], **g_rep}),
+                "kill": (fr_k, {"router/kill": spans["kill"], **k_rep}),
+                "ha": (fr2, {"router/ha": spans["ha"], "router/leader": leader_stream, **k_rep}),
+                "auto": (fr_a, {"router/auto": spans["auto"], **a_rep})}
+        problems = {}
+        for leg, (fr, streams) in legs.items():
+            merged = assemble_fleet_timeline(streams, clock=sync if leg in ("kill", "ha") else None)
+            problems[leg] = verify_fleet_journeys(merged, fr.ledger, require_stitch=True)
+        every_stream = {"router/leader": leader_stream, **g_rep, **k_rep, **a_rep,
+                        **{f"router/{k}": v for k, v in spans.items()}}
+        merged = assemble_fleet_timeline(every_stream, clock=sync)
+        metric_counts = {}
+        for sp in merged:
+            if sp.metric.startswith("fleet-"):
+                metric_counts[sp.metric] = metric_counts.get(sp.metric, 0) + 1
+        stage_s = {}
+        for sp in merged:
+            if sp.metric == "fleet-rollout-stage":
+                key = f"{sp.tags['replica']}:{sp.tags['stage']}"
+                stage_s.setdefault(key, []).append(round(sp.duration, 6))
+        out["trace"] = dict(streams={k: len(v) for k, v in every_stream.items()},
+                            fleet_spans=metric_counts, problems=problems,
+                            rollout_stage_s=stage_s)
+        checks["trace"] = dict(
+            journeys_verified={leg: not p for leg, p in problems.items()},
+            has_spans={m: metric_counts.get(m, 0) > 0 for m in (
+                "fleet-scale", "fleet-rollout-stage", "fleet-recover", "fleet-takeover",
+                "fleet-submit", "fleet-dispatch-attempt", "fleet-terminal", "fleet-breaker")})
+
+        # ---- (e) the router's own costs against the replicas' decode step
+        per_req = statistics.mean(len(v) for v in g_streams.values())
+        out["costs"] = fleet_costs(work, decode_p50, per_req)
+
+        # ---- the kernels the replicas launched (clean exits only)
+        reports = [dict(r, fleet=f) for f, sup in (("golden", g_sup), ("kill", k_sup), ("auto", a_sup))
+                   for r in fleet_reports(sup)]
+        launches = {k: 0 for k in kernels_mod.LAUNCHES}
+        for r in reports:
+            for k, v in r["launches"].items():
+                launches[k] += v
+        out["replicas"] = [{k: r[k] for k in ("fleet", "replica", "replica_status", "launches",
+                                              "prefills", "decode_steps")} for r in reports]
+        checks["launches"] = dict(
+            clean_exits_reported=len(reports) == 8,
+            match_scheduler=all(r["launches"]["flash_fwd"] == L * r["prefills"]
+                                and r["launches"]["paged_decode"] == L * r["decode_steps"]
+                                for r in reports if r["fleet"] != "auto"),
+            cover_scheduler=all(r["launches"]["flash_fwd"] >= L * r["prefills"]
+                                and r["launches"]["paged_decode"] >= L * r["decode_steps"]
+                                for r in reports),
+            k1_and_k7_launched=launches["flash_fwd"] > 0 and launches["paged_decode"] > 0)
+        out.update(launches=launches, exit_codes=rcs, card=card,
+                   phase_s=time.perf_counter() - t_phase)
+    finally:
+        for sup in sups:
+            sup.stop_all(grace_s=30.0)
+        if leader is not None and leader.poll() is None:
+            leader.kill()
+            leader.wait()
+        if nd_api.is_active():
+            nd_api.deinit_ndtimers()
+        if telemetry.is_active():
+            telemetry.shutdown()
+        leader_log.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out["checks"] = checks
+
+    def failed(c):
+        if isinstance(c, dict):
+            return {k: v for k, v in ((k, failed(v)) for k, v in c.items()) if v is not None} or None
+        return None if c else False
+
+    bad = failed(checks)
+    check(not bad, f"fleet checks failed: {json.dumps(bad)} {json.dumps(out, default=str)[:6000]}")
     return out
 
 
@@ -6862,11 +7615,15 @@ def main() -> int:
                     help="device, build, tp_train's 1.3B rung and the plan phase only")
     ap.add_argument("--gloo-probe", action="store_true",
                     help="which collectives gloo carries on CUDA tensors, then exit")
+    ap.add_argument("--fleet", action="store_true", help="device, build and the fleet phase only")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--router-child", help=argparse.SUPPRESS)
     ap.add_argument("--tp-child", help=argparse.SUPPRESS)
     ap.add_argument("--gloo-probe-child", nargs=3, help=argparse.SUPPRESS)
     opts = ap.parse_args()
 
+    if opts.router_child:  # the fleet phase's HA leader: host code, no CUDA
+        return router_child(opts.router_child)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -6927,6 +7684,12 @@ def main() -> int:
         return fp8_only(dev, card, kernels_mod)
     if opts.plan:
         return plan_only(dev, card, kernels_mod)
+    if opts.fleet:
+        t = time.perf_counter()
+        fleet = run_fleet_phase(dev, kernels_mod, card)
+        log("fleet", seconds=time.perf_counter() - t, **fleet)
+        print(card, flush=True)
+        return 0
 
     t = time.perf_counter()
     flash_rows = run_flash_parity(dev, ulps_at_scale)
@@ -6972,8 +7735,7 @@ def main() -> int:
     ckpt = run_checkpoint_phase(dev, eng, eager, kernels_mod, serve_streams, card)
     log("checkpoint", seconds=time.perf_counter() - t, card=card, **ckpt)
     t = time.perf_counter()
-    prof = {"graph": run_profile(eng, cfg, serve["graph"]["serve_s"]),
-            "eager": run_profile(eager, cfg, serve["eager"]["serve_s"])}
+    prof = {"graph": run_profile(eng, cfg, serve["graph"]["serve_s"])}
     log("profile", seconds=time.perf_counter() - t, **prof)
     t = time.perf_counter()
     tel_serve = run_telemetry_serve(dev, eng, kernels_mod, serve_streams)
@@ -6981,6 +7743,9 @@ def main() -> int:
     forced = forced_reference(eng, serve_streams)
     del eng, eager
     free_memory()
+    t = time.perf_counter()
+    fleet = run_fleet_phase(dev, kernels_mod, card)
+    log("fleet", seconds=time.perf_counter() - t, **fleet)
     t = time.perf_counter()
     train_small = run_train_small(dev)
     log("train_small", seconds=time.perf_counter() - t, **train_small)
@@ -7051,7 +7816,8 @@ def main() -> int:
                    "train_resilient": resilient_train["launches"][name],
                    "telemetry": tel_serve["launches"][name] + tel_gpt2["launches"][name],
                    "pipeline": pipeline["launches"][name], "moe": moe["launches"][name],
-                   "longctx": longctx["launches"][name], "fp8": fp8["launches"][name]}
+                   "longctx": longctx["launches"][name], "fp8": fp8["launches"][name],
+                   "fleet": fleet["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

@@ -193,7 +193,13 @@ def test_rule_packs_equal_the_reference(monkeypatch):
     monkeypatch.setenv("VESCALE_ALERTS_BURN_WINDOWS", "bad")
     with pytest.raises(ValueError):
         alerts.burn_windows_from_env()
-    assert not hasattr(alerts, "fleet_rule_pack") and not hasattr(alerts, "bench_rule_pack")
+    # the fleet pack is ported with the fleet router; the bench pack's gauge
+    # is one only the JAX package's bench sets
+    monkeypatch.delenv("VESCALE_ALERTS_BURN_WINDOWS")
+    assert rows(alerts.fleet_rule_pack()) == rows(ref_alerts.fleet_rule_pack())
+    assert rows(alerts.fleet_rule_pack(slo_ttft_s=0.5)) == \
+        rows(ref_alerts.fleet_rule_pack(slo_ttft_s=0.5))
+    assert not hasattr(alerts, "bench_rule_pack")
 
 
 def test_leak_watcher_fires_the_mem_leak_alert_on_a_live_engine():

@@ -1,4 +1,5 @@
-"""The port's fleet replica, driven over HTTP by the JAX package's router.
+"""The port's fleet replica, driven over HTTP by the JAX package's router and
+by the port's own.
 
 ``vescale_tpu_torch.serve.serve_replica`` speaks the reference wire
 protocol (``/submit``, ``/outcomes``, the frozen ``/router`` v5 feed), so
@@ -8,11 +9,17 @@ own inbox tests, one replica serves in-process behind the router, and
 three replica processes go through a ``replica_kill`` and rejoin as in
 ``scripts/fleet_smoke.py``: the fleet ledger balances with a failover, the
 breaker walks closed, open, half-open, closed, and every completed stream
-is bitwise the port's own fault-free run.  Every wait has its own timeout.
+is bitwise the port's own fault-free run.  The same battery then runs
+through the port's own ``FleetRouter`` and ``FleetSupervisor``, followed
+by a journaled port router in a child process that ``router_kill`` ends
+mid-load and a ``StandbyRouter`` here that takes over.  Every wait has
+its own timeout.
 """
 
+import functools
 import json
 import os
+import subprocess
 import sys
 import threading
 import time
@@ -189,7 +196,8 @@ def test_serve_replica_over_http_with_the_reference_router():
 
 
 # ----------------------------------------------------- three replicas
-def _specs(workdir, kill_replica):
+def _specs(workdir, kill_replica, make=ReplicaSpec):
+    """Three replica specs (``make``: either package's ``ReplicaSpec``)."""
     specs = []
     for i in range(3):
         rid = f"r{i}"
@@ -197,11 +205,20 @@ def _specs(workdir, kill_replica):
         env.update(PYTHONPATH=REPO, VESCALE_SERVE_MAX_QUEUE="16")
         if rid == kill_replica:
             env["VESCALE_FAULTSIM"] = KILL_SCHEDULE
-        specs.append(ReplicaSpec(rid, [sys.executable, os.path.join(REPO, "tests", "torch_serve_child.py"),
+        specs.append(make(rid, [sys.executable, os.path.join(REPO, "tests", "torch_serve_child.py"),
                                        "replica"], reserve_port(), env=env,
                                  log_path=os.path.join(workdir, f"{rid}.log"),
                                  restart_env_drop=("VESCALE_FAULTSIM",)))
     return specs
+
+
+@functools.lru_cache(maxsize=None)
+def _golden():
+    """The port's fault-free run of both waves of the kill tests."""
+    eng, sched = child.build(max_queue=32)
+    load = _prompts(12) + _prompts(6, base_rid=100)
+    return tserve.run_serve(eng, sched, [(0, tserve.Request(rid=r, prompt=p, max_new_tokens=m))
+                                         for r, p, m in load])
 
 
 def _until(what, cond, sup, fr, timeout_s):
@@ -272,10 +289,111 @@ def test_reference_router_fails_over_a_killed_port_replica(tmp_path):
     assert any(rec.replica == "r1" for rid, rec in records.items() if rid >= 100)
 
     # every completed stream is bitwise the port's own fault-free run
-    eng, sched = child.build(max_queue=32)
-    load = _prompts(12) + _prompts(6, base_rid=100)
-    golden = tserve.run_serve(eng, sched, [(0, tserve.Request(rid=r, prompt=p, max_new_tokens=m))
-                                           for r, p, m in load])
+    golden = _golden()
     for rid, rec in records.items():
         assert rec.status == "completed"
         assert rec.outcome["tokens"] == golden.outcomes[rid]["tokens"], rid
+
+
+# -------------------------------------------- the port's own fleet tier
+PORT_ROUTER = dict(poll_interval_s=0.05, breaker_failures=2, breaker_cooldown_s=0.3,
+                   dispatch_retries=4, backoff_s=0.05, backoff_max_s=0.5, hedge_s=0.0)
+HA_BASE = 200
+
+
+def _treq(rid, prompt, max_new):
+    return tserve.Request(rid=rid, prompt=prompt, max_new_tokens=max_new)
+
+
+def test_port_router_supervisor_failover_and_standby_takeover(tmp_path):
+    """Three port replicas behind the port's router and supervisor: r1 dies
+    on its third loaded decode step, its work fails over, the breaker
+    walks closed, open, half-open, closed and the rejoined r1 serves fresh
+    rids.  Then a journaled port router in a child process takes the
+    lease, places a wave on the same replicas and is ended by
+    ``router_kill`` at its first pump; a ``StandbyRouter`` takes over at
+    epoch 2 and finishes the wave, every stream bitwise golden."""
+    specs = _specs(str(tmp_path), kill_replica="r1", make=tserve.ReplicaSpec)
+    fr = tserve.FleetRouter(**PORT_ROUTER)
+    sup = tserve.FleetSupervisor(specs, max_restarts=2, restart_backoff_s=0.1)
+    # the doomed leader starts now and waits for its spec file
+    spec_path = str(tmp_path / "router.json")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("VESCALE_")}
+    env.update(PYTHONPATH=REPO, VESCALE_FAULTSIM="router_kill:call=0")
+    leader = subprocess.Popen([sys.executable, os.path.join(REPO, "tests", "torch_serve_child.py"),
+                               "router", spec_path], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    sup.start()
+    try:
+        for s in specs:
+            fr.add_replica(s.replica_id, tserve.HttpReplicaClient(s.url))
+        _until("fleet up", lambda: all(h.feed is not None and h.breaker.state == "closed"
+                                       for h in fr.replicas.values()), sup, fr, 60.0)
+        for rid, prompt, max_new in _prompts(12):
+            fr.submit(_treq(rid, prompt, max_new), session=f"sess{rid % 5}" if rid % 2 == 0 else None)
+        _drain(fr, sup, 60.0)
+        _until("r1 readmitted", lambda: fr.replicas["r1"].breaker.state == "closed", sup, fr, 60.0)
+        for rid, prompt, max_new in _prompts(6, base_rid=100):
+            fr.submit(_treq(rid, prompt, max_new))
+        _drain(fr, sup, 60.0)
+        fr.fleet_ledger_check()
+        counts = fr.summary()["counts"]
+        records = dict(fr.ledger.records)
+        transitions = [(t["from"], t["to"]) for t in fr.breaker_transitions if t["replica"] == "r1"]
+
+        # ---- router HA over the same (router-agnostic) replicas
+        jdir = str(tmp_path / "journal")
+        wave = _prompts(6, base_rid=HA_BASE)
+        with open(spec_path + ".tmp", "w") as f:
+            json.dump(dict(replicas={s.replica_id: s.url for s in specs}, journal_dir=jdir,
+                           lease_path=os.path.join(jdir, "LEASE"), ttl_s=0.5, router=PORT_ROUTER,
+                           wave=[[r, list(p), m] for r, p, m in wave]), f)
+        os.replace(spec_path + ".tmp", spec_path)
+        out, _ = leader.communicate(timeout=60)
+        assert leader.returncode == 29, out
+        standby = tserve.StandbyRouter(jdir, {s.replica_id: tserve.HttpReplicaClient(s.url)
+                                              for s in specs}, router_kwargs=PORT_ROUTER)
+        tail = standby.tail()
+        assert tail["epoch"] == 1 and tail["pending"] == len(wave), tail
+        deadline = time.monotonic() + 30.0
+        fr2 = None
+        while fr2 is None:
+            assert time.monotonic() < deadline, "the standby never took over"
+            sup.poll()
+            fr2 = standby.poll()
+            time.sleep(0.05)
+        rec = fr2.recovery
+        assert rec["takeover"] and rec["epoch"] == 2 and rec["pending_at_recovery"] == len(wave)
+        assert rec["quarantined"] == 0 and rec["torn"] == 0
+        _drain(fr2, sup, 60.0)
+        fr2.fleet_ledger_check()
+        ha_counts = fr2.summary()["counts"]
+        ha_records = dict(fr2.ledger.records)
+        srv = fr2.start_ops(0)
+        try:
+            with urllib.request.urlopen(f"{srv.url}/fleet", timeout=10) as resp:
+                fleet = json.loads(resp.read())
+        finally:
+            fr2.stop_ops()
+    finally:
+        if leader.poll() is None:
+            leader.kill()
+            leader.wait()
+        rcs = sup.stop_all(grace_s=30.0)
+    assert counts["completed"] == 18 and counts["failovers"] >= 1, counts
+    assert sup.managed["r1"].exit_history[0] == 29
+    assert rcs == {"r0": 0, "r1": 0, "r2": 0}
+    assert transitions[0] == ("closed", "open") and transitions[-1] == ("half_open", "closed")
+    assert ("open", "half_open") in transitions
+    assert any(r.replica == "r1" for rid, r in records.items() if rid >= 100)
+    assert ha_counts["completed"] == len(wave) and ha_counts["submitted"] == len(wave)
+    assert fleet["schema_version"] == 5 and fleet["ha"]["role"] == "leader"
+    assert fleet["ha"]["epoch"] == 2 and fleet["ha"]["recovery"]["takeover"] is True
+
+    golden = _golden()
+    for rid, r in records.items():
+        assert r.status == "completed" and r.outcome["tokens"] == golden.outcomes[rid]["tokens"], rid
+    for rid, r in ha_records.items():
+        assert r.status == "completed"
+        # the HA wave reuses the first wave's prompts: rid 200 + i is rid i
+        assert r.outcome["tokens"] == golden.outcomes[rid - HA_BASE]["tokens"], rid

@@ -2,6 +2,7 @@
 
     python tests/torch_serve_child.py rank <rank> <world> <port> <schedule>
     python tests/torch_serve_child.py replica
+    python tests/torch_serve_child.py router <spec.json>
 
 ``rank``: one rank of a coordinated ``run_serve_resilient`` over a gloo
 process group, with the faultsim schedule armed (the same text on every
@@ -9,7 +10,12 @@ rank; ``rank=`` selects where each fault fires); prints the ledger as one
 JSON line.  ``replica``: one fleet replica (``serve_replica``) fed over
 HTTP on ``VESCALE_SERVE_OPS_PORT`` until SIGTERM drains it.  Both serve the
 tiny Llama of ``TINY`` from ``init_params(seed=0)`` on the CPU, so every
-process holds the same weights.  Imports nothing of JAX.
+process holds the same weights.  ``router``: the port's journaled
+``FleetRouter`` as the lease-holding leader over the replicas the spec
+names (it waits for the spec file to appear, so its start-up can overlap
+the test's own work); it submits the spec's wave and pumps until the armed
+``router_kill`` (``VESCALE_FAULTSIM``) ends the process at a pump
+boundary.  Imports nothing of JAX.
 """
 
 import json
@@ -94,10 +100,44 @@ def replica_main():
     print(f"replica done status={res.status} counts={json.dumps(res.counts)}", flush=True)
 
 
+def router_main(spec_path):
+    import time
+
+    from vescale_tpu_torch.resilience import faultsim
+    from vescale_tpu_torch.serve import FleetJournal, FleetRouter, HttpReplicaClient, LeaderLease
+
+    # the spec appears when the test is ready: start-up overlaps its work
+    deadline = time.monotonic() + 120.0
+    while not os.path.exists(spec_path):
+        if time.monotonic() > deadline:
+            raise SystemExit(f"no spec at {spec_path}")
+        time.sleep(0.05)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    faultsim.arm_from_env()
+    lease = LeaderLease(spec["lease_path"], holder="leader", ttl_s=spec["ttl_s"])
+    fr = FleetRouter(journal=FleetJournal(spec["journal_dir"]), lease=lease, **spec["router"])
+    for rid, url in spec["replicas"].items():
+        fr.add_replica(rid, HttpReplicaClient(url))
+    deadline = time.monotonic() + 60.0
+    while not all(h.feed is not None and h.breaker.state == "closed" for h in fr.replicas.values()):
+        if time.monotonic() > deadline:
+            raise SystemExit("replicas never answered")
+        fr.poll(force=True)
+        time.sleep(0.05)
+    for rid, prompt, max_new in spec["wave"]:
+        fr.submit(Request(rid=rid, prompt=tuple(prompt), max_new_tokens=max_new))
+    while fr.pump() > 0:  # the armed router_kill ends the process here
+        time.sleep(0.05)
+    print("router finished without being killed", flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "rank":
         rank_main(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
     elif sys.argv[1] == "replica":
         replica_main()
+    elif sys.argv[1] == "router":
+        router_main(sys.argv[2])
     else:
         raise SystemExit(f"unknown role {sys.argv[1]!r}")

@@ -1,8 +1,9 @@
 """The port's knobs read from the environment, with the JAX package's defaults.
 
-The same names and defaults as the serving, resilience, faultsim,
-redistribute, planner, analysis, debug, checkpoint, gradient-compression
-and telemetry knobs of ``vescale_tpu/analysis/envreg.py``; read live at
+The same names and defaults as the serving, fleet, autoscaling,
+resilience, faultsim, redistribute, planner, analysis, debug, checkpoint,
+gradient-compression and telemetry knobs of
+``vescale_tpu/analysis/envreg.py``; read live at
 each call, without that module's registry machinery.  A knob whose default is ``None`` reads as
 ``None`` while unset.
 """
@@ -85,6 +86,36 @@ DEFAULTS = {
     "VESCALE_CLOCK_SYNC_ROUNDS": 8,
     "VESCALE_FLEET_TRACE_DIR": None,
     "VESCALE_FLEET_TRACE_FLUSH_EVERY": 1,
+    # the fleet router: polls, breakers, dispatch retries, hedging, its ops
+    # port, the write-ahead journal and the leader lease (serve/router.py,
+    # serve/journal.py)
+    "VESCALE_FLEET_POLL_S": 0.05,
+    "VESCALE_FLEET_POLL_TIMEOUT_S": 2.0,
+    "VESCALE_FLEET_BREAKER_FAILURES": 3,
+    "VESCALE_FLEET_BREAKER_COOLDOWN_S": 1.0,
+    "VESCALE_FLEET_HEALTH_STALE_S": 10.0,
+    "VESCALE_FLEET_RETRIES": 3,
+    "VESCALE_FLEET_BACKOFF_S": 0.05,
+    "VESCALE_FLEET_BACKOFF_MAX_S": 2.0,
+    "VESCALE_FLEET_HEDGE_S": 0.0,
+    "VESCALE_FLEET_OPS_PORT": None,
+    "VESCALE_FLEET_JOURNAL_DIR": None,
+    "VESCALE_FLEET_JOURNAL_FSYNC": "flush",
+    "VESCALE_FLEET_JOURNAL_ROTATE_BYTES": 1048576,
+    "VESCALE_FLEET_JOURNAL_SNAPSHOT_EVERY": 256,
+    "VESCALE_FLEET_LEASE_PATH": None,
+    "VESCALE_FLEET_LEASE_TTL_S": 2.0,
+    # the fleet autoscaler (serve/autoscale.py)
+    "VESCALE_AUTOSCALE_MIN": 1,
+    "VESCALE_AUTOSCALE_MAX": 4,
+    "VESCALE_AUTOSCALE_UP_BURN": 1.0,
+    "VESCALE_AUTOSCALE_DOWN_BURN": 0.5,
+    "VESCALE_AUTOSCALE_UP_QUEUE": 4,
+    "VESCALE_AUTOSCALE_UP_HOLD_S": 1.0,
+    "VESCALE_AUTOSCALE_DOWN_HOLD_S": 5.0,
+    "VESCALE_AUTOSCALE_COOLDOWN_S": 5.0,
+    "VESCALE_AUTOSCALE_WINDOW_S": 10.0,
+    "VESCALE_AUTOSCALE_TICK_S": 0.25,
 }
 # envreg's booleans: unset takes the default; these (case-insensitive) are
 # false, anything else is true

@@ -1,14 +1,41 @@
 """Serving on the card: paged KV cache, engine, scheduler and the resilient
 loop, with the radix-tree prefix cache, speculative decoding, the
-network-fed fleet replica and the ``/control`` weight rollout."""
+``/control`` weight rollout, and the fleet tier: the network-fed replica
+and its supervisor, the fleet router with failover, its journal and
+standby takeover, the autoscaler and rolling rollout, and fleet tracing."""
 
-from . import reqtrace
+from . import autoscale, fleet, fleettrace, journal, obs, prefix_cache, reqtrace, router, speculative
+from .autoscale import Autoscaler, RolloutController
 from .engine import ServeEngine, stack_params_check
-from .fleet import RequestInbox, request_from_payload, serve_replica
+from .fleet import FleetSupervisor, ReplicaSpec, RequestInbox, serve_replica
+from .fleettrace import (
+    FleetClockSync,
+    assemble_fleet_timeline,
+    estimate_fleet_clock_offsets,
+    superseded_rids,
+    verify_fleet_journeys,
+)
+from .journal import FencedEpochError, FleetJournal, LeaderLease
 from .kv_cache import KVCacheConfig, KVCacheOutOfPages, PagedKVCache
 from .loop import ControlChannel, ServeResult, run_serve, run_serve_resilient
-from .obs import ROUTER_FIELDS, ROUTER_SCHEMA_VERSION, ServeObservability
+from .obs import (
+    FLEET_FIELDS,
+    ROUTER_FIELDS,
+    ROUTER_SCHEMA_VERSION,
+    FleetObservability,
+    ServeObservability,
+)
 from .prefix_cache import PrefixCache, PrefixCacheStats
+from .router import (
+    CircuitBreaker,
+    ConsistentHashRing,
+    FleetLedger,
+    FleetRouter,
+    HttpReplicaClient,
+    StandbyRouter,
+    request_from_payload,
+    request_payload,
+)
 from .scheduler import ContinuousBatchingScheduler, Request, ShedError
 from .speculative import (
     SpeculativeDecoder,
@@ -19,6 +46,35 @@ from .speculative import (
 )
 
 __all__ = [
+    "Autoscaler",
+    "CircuitBreaker",
+    "ConsistentHashRing",
+    "FLEET_FIELDS",
+    "FencedEpochError",
+    "FleetClockSync",
+    "FleetJournal",
+    "FleetLedger",
+    "FleetObservability",
+    "FleetRouter",
+    "FleetSupervisor",
+    "HttpReplicaClient",
+    "LeaderLease",
+    "ReplicaSpec",
+    "RolloutController",
+    "StandbyRouter",
+    "assemble_fleet_timeline",
+    "autoscale",
+    "estimate_fleet_clock_offsets",
+    "fleet",
+    "fleettrace",
+    "journal",
+    "obs",
+    "prefix_cache",
+    "request_payload",
+    "router",
+    "speculative",
+    "superseded_rids",
+    "verify_fleet_journeys",
     "ContinuousBatchingScheduler",
     "ControlChannel",
     "KVCacheConfig",

@@ -60,9 +60,9 @@ the old weights; the checkpoint is restored params-only in this process
 (``serve.load_params`` into ``ServeEngine.swap_params``); pinned prompts
 replay twice through the new weights, and any divergence swaps the old
 tree straight back.  ``commit`` drops the retained old tree, ``revert``
-swaps it back.  Each stage's seconds go into ``scheduler.telemetry`` as a
-``serve_rollout_stage`` event (the reference's ``fleettrace`` span, which
-comes with ROADMAP A19).
+swaps it back.  Each stage is a ``fleet-rollout-stage`` span
+(``fleettrace.rollout_stage``, at the reference's points) and a
+``serve_rollout_stage`` event with its seconds in ``scheduler.telemetry``.
 
 Observability: while ndtimeline is active every request emits its span
 chain (``reqtrace.py``: submit, queue wait, prefill, decode tokens, the
@@ -100,7 +100,7 @@ from ..telemetry import ops_server as _ops
 from .. import config as _config
 from .engine import ServeEngine
 from .obs import ServeObservability
-from . import reqtrace
+from . import fleettrace, reqtrace
 from .scheduler import ContinuousBatchingScheduler, Request
 from .speculative import SpeculativeDecoder
 
@@ -362,6 +362,9 @@ def run_serve_resilient(
                          **{k: v for k, v in detail.items() if not isinstance(v, (list, dict))})
 
     def _stage(stage: str, seconds: float, **tags) -> None:
+        # a fleet-rollout-stage span (while ndtimeline is live) and, for the
+        # readers of the replica's own registry, a serve_rollout_stage event
+        fleettrace.rollout_stage(obs.replica_id, stage, seconds, **tags)
         tel.record_event("serve_rollout_stage", stage=stage, seconds=seconds,
                          replica=obs.replica_id, **tags)
 

@@ -1,8 +1,9 @@
 """Serve-replica observability: goodput and MFU accounting, and the
 ``/healthz`` and ``/router`` providers.
 
-The port of ``ServeObservability`` from ``vescale_tpu/serve/obs.py``.  One
-per ``run_serve_resilient`` call:
+The port of ``ServeObservability`` and ``FleetObservability`` from
+``vescale_tpu/serve/obs.py``.  A ``ServeObservability`` per
+``run_serve_resilient`` call:
 
   * **goodput against raw throughput**: ``serve_goodput_tokens_per_s``
     counts only tokens of COMPLETED requests, ``serve_throughput_tokens_per_s``
@@ -14,14 +15,19 @@ per ``run_serve_resilient`` call:
     ``serve_mfu`` gauge; None on the CPU and while speculation is on (the
     step then is no single-token decode).
   * **the ``/router`` feed**, FROZEN at schema v5 (``ROUTER_FIELDS``, the
-    JAX package's field set, asserted at the source): the reference fleet
-    router polls it.  ``rollout`` is the loop's live weight-rollout state
+    JAX package's field set, asserted at the source): the port's and the
+    reference's fleet routers poll it.  ``rollout`` is the loop's live weight-rollout state
     (``None`` outside a rollout), and ``accepting`` is false while a
     rollout holds admission.  ``alerts`` (on ``/router`` and ``/healthz``)
     is the alert engine's digest (``telemetry.alerts.digest``).
   * **the calibrated step estimate** (``calibrated_step_estimate``): the
     decode step priced from the active calibration table, the scheduler's
     cold-start ``retry_after_s`` seed.
+
+A ``FleetObservability`` per ``FleetRouter`` rolls the cached replica feeds,
+breaker states and ledger into the ``/fleet`` feed (frozen at schema v5,
+``FLEET_FIELDS``), the router's ``/healthz`` and the ``fleet_timeline_*``
+gauges the fleet rule pack and the autoscaler read.
 
 Everything here is host-side arithmetic: the providers run on the ops
 thread and make no CUDA call.
@@ -34,7 +40,20 @@ from typing import Dict, Optional
 
 from .. import config as _config
 
-__all__ = ["ServeObservability", "ROUTER_SCHEMA_VERSION", "ROUTER_FIELDS"]
+__all__ = [
+    "ServeObservability",
+    "FleetObservability",
+    "ROUTER_SCHEMA_VERSION",
+    "ROUTER_FIELDS",
+    "FLEET_SCHEMA_VERSION",
+    "FLEET_FIELDS",
+    "FLEET_FIELDS_V2",
+    "FLEET_FIELDS_V3",
+    "FLEET_FIELDS_V4",
+    "FLEET_REPLICA_FIELDS",
+    "FLEET_REPLICA_FIELDS_V1",
+    "FLEET_REPLICA_FIELDS_V2",
+]
 
 ROUTER_SCHEMA_VERSION = 5
 # v1, then the additive deltas of v2 (replica_id, accepting), v3
@@ -49,6 +68,30 @@ ROUTER_FIELDS = frozenset((
     "alerts",
     "tenants", "rollout",
 ))
+
+# the router-side ``/fleet`` rollup, frozen under the same contract as
+# ROUTER_FIELDS (fields only ever added; the JAX package's sets).  v2 is the
+# first frozen set; v3 adds the router's own alert digest, v4 the aggregate
+# queue depth, the per-tenant rollup and the autoscaler's state, v5 the
+# router HA block (null while journaling is off)
+FLEET_SCHEMA_VERSION = 5
+FLEET_FIELDS_V2 = frozenset((
+    "schema_version", "healthy_replicas", "pending_requests", "counts", "replicas",
+    "breaker_transitions", "goodput_tokens_per_s", "throughput_tokens_per_s", "mfu",
+    "ttft_p99_s", "shed_rate", "slo_ttft_s", "slo_burn_rate", "uptime_s",
+))
+FLEET_FIELDS_V3 = FLEET_FIELDS_V2 | frozenset(("alerts",))
+FLEET_FIELDS_V4 = FLEET_FIELDS_V3 | frozenset(("queue_depth", "tenants", "autoscale"))
+FLEET_FIELDS = FLEET_FIELDS_V4 | frozenset(("ha",))
+# one replica's row of ``/fleet``: v2 passes the /router v3 cache-warmth
+# columns through, v3 the replica's live rollout state (/router v5)
+FLEET_REPLICA_FIELDS_V1 = frozenset((
+    "breaker", "accepting", "queue_depth", "inflight", "shed_rate", "goodput_tokens_per_s",
+    "throughput_tokens_per_s", "mfu", "serve_step", "dispatches", "opens", "reopens", "closes",
+))
+FLEET_REPLICA_FIELDS_V2 = FLEET_REPLICA_FIELDS_V1 | frozenset(("prefix_hit_rate",
+                                                               "spec_accept_rate"))
+FLEET_REPLICA_FIELDS = FLEET_REPLICA_FIELDS_V2 | frozenset(("rollout",))
 
 def _alerts_digest() -> Dict:
     """The inline alert summary every feed carries (dormant-safe)."""
@@ -214,3 +257,206 @@ class ServeObservability:
         }
         assert set(out) == ROUTER_FIELDS  # the freeze, enforced at the source
         return out
+
+
+class FleetObservability:
+    """Fleet-scope health rollups over a :class:`~.router.FleetRouter`'s
+    cached replica feeds, breaker states and ledger — the router-side
+    twin of :class:`ServeObservability`.
+
+    Owns the numbers no single replica can answer: aggregate goodput and
+    throughput (sums over feeds), fleet MFU (throughput-weighted mean),
+    the fleet p99 TTFT (worst replica — the tail a client actually
+    sees), per-replica shed rates, the breaker state-transition history,
+    and the p99-TTFT **SLO burn rate** (fleet p99 / SLO budget: > 1
+    means the fleet is currently burning error budget; sustained > 1 is
+    the page).  Served three ways: the ``/fleet`` ops endpoint (frozen
+    schema ``FLEET_FIELDS``), the ``fleet_timeline_*`` registry gauges
+    (the ``fleet-timeline:`` dashboard block), and the router process's
+    own ``/metrics``.  Everything works with telemetry dormant — gauges
+    are simply skipped (the ServeObservability contract)."""
+
+    def __init__(self, router, slo_ttft_s: Optional[float] = None):
+        self.router = router
+        if slo_ttft_s is None:
+            slo_ttft_s = _config.get_float("VESCALE_SERVE_SLO_TTFT_S") or 0.0
+        self.slo_ttft_s = float(slo_ttft_s)
+        # serve.autoscale.Autoscaler attaches its state callable here so
+        # /fleet v4 carries the control loop's view (null until attached)
+        self.autoscale_provider = None
+        # FleetRouter wires its _ha_state here when a journal/lease is
+        # attached so /fleet v5 carries leadership + journal health
+        self.ha_provider = None
+        self._start = time.perf_counter()
+
+    # ------------------------------------------------------------ rollups
+    def _rollup(self) -> Dict:
+        feeds = {
+            h.id: h.feed for h in self.router.replicas.values() if h.feed is not None
+        }
+        goodput = sum(float(f.get("goodput_tokens_per_s") or 0.0) for f in feeds.values())
+        raw = sum(float(f.get("throughput_tokens_per_s") or 0.0) for f in feeds.values())
+        # fleet MFU: throughput-weighted mean over replicas reporting one
+        # (equal weights when nothing has throughput yet)
+        num = den = 0.0
+        for f in feeds.values():
+            mfu = f.get("mfu")
+            if mfu is None:
+                continue
+            w = float(f.get("throughput_tokens_per_s") or 0.0) or 1.0
+            num += float(mfu) * w
+            den += w
+        fleet_mfu = (num / den) if den else None
+        p99s = [
+            (f.get("ttft_s") or {}).get("p99")
+            for f in feeds.values()
+            if isinstance(f.get("ttft_s"), dict)
+        ]
+        p99s = [p for p in p99s if p is not None]
+        ttft_p99 = max(p99s) if p99s else None
+        burn = (
+            ttft_p99 / self.slo_ttft_s
+            if (self.slo_ttft_s > 0 and ttft_p99 is not None)
+            else None
+        )
+        counts = self.router.ledger.counts
+        shed_rate = counts["shed"] / max(1, counts["submitted"])
+        # the autoscaler's load-trend input: work waiting ANYWHERE in the
+        # fleet — router-pending plus every replica's local queue
+        queue_depth = self.router.ledger.pending_count() + sum(
+            int(f.get("queue_depth") or 0) for f in feeds.values()
+        )
+        # per-tenant stats summed across feeds (absent pre-v5 feeds -> {})
+        tenants: Dict[str, Dict] = {}
+        for f in feeds.values():
+            for t, row in (f.get("tenants") or {}).items():
+                agg = tenants.setdefault(
+                    t, {"submitted": 0, "shed": 0, "completed": 0, "queue_depth": 0}
+                )
+                for k in agg:
+                    agg[k] += int(row.get(k) or 0)
+        return {
+            "feeds": feeds,
+            "goodput": goodput,
+            "raw": raw,
+            "mfu": fleet_mfu,
+            "ttft_p99": ttft_p99,
+            "burn": burn,
+            "shed_rate": shed_rate,
+            "queue_depth": queue_depth,
+            "tenants": tenants,
+        }
+
+    def fleet(self) -> Dict:
+        """`/fleet`: the aggregated fleet feed — FROZEN schema
+        (``FLEET_FIELDS`` outer, ``FLEET_REPLICA_FIELDS`` per replica;
+        fields only ever added, the ROUTER_FIELDS contract)."""
+        r = self._rollup()
+        replicas = {}
+        for h in self.router.replicas.values():
+            f = h.feed or {}
+            row = {
+                "breaker": h.breaker.state,
+                "accepting": bool(f.get("accepting", not f.get("draining", False)))
+                if f
+                else False,
+                "queue_depth": f.get("queue_depth"),
+                "inflight": f.get("inflight"),
+                "shed_rate": f.get("shed_rate"),
+                "goodput_tokens_per_s": f.get("goodput_tokens_per_s"),
+                "throughput_tokens_per_s": f.get("throughput_tokens_per_s"),
+                "mfu": f.get("mfu"),
+                "serve_step": f.get("serve_step"),
+                "dispatches": h.dispatches,
+                "opens": h.breaker.opens,
+                "reopens": h.breaker.reopens,
+                "closes": h.breaker.closes,
+                # v2: the /router v3 cache-warmth columns, passed through
+                # (absent from an old replica's v2 feed -> null)
+                "prefix_hit_rate": f.get("prefix_hit_rate"),
+                "spec_accept_rate": f.get("spec_accept_rate"),
+                # v3: the replica's live rollout stage (/router v5)
+                "rollout": f.get("rollout"),
+            }
+            assert set(row) == FLEET_REPLICA_FIELDS  # frozen at source
+            replicas[h.id] = row
+        out = {
+            "schema_version": FLEET_SCHEMA_VERSION,
+            "healthy_replicas": sum(
+                1 for h in self.router.replicas.values() if h.breaker.dispatchable
+            ),
+            "pending_requests": self.router.ledger.pending_count(),
+            "counts": dict(self.router.ledger.counts),
+            "replicas": replicas,
+            "breaker_transitions": list(self.router.breaker_transitions)[-64:],
+            "goodput_tokens_per_s": r["goodput"],
+            "throughput_tokens_per_s": r["raw"],
+            "mfu": r["mfu"],
+            "ttft_p99_s": r["ttft_p99"],
+            "shed_rate": r["shed_rate"],
+            "slo_ttft_s": self.slo_ttft_s,
+            "slo_burn_rate": r["burn"],
+            "uptime_s": round(time.perf_counter() - self._start, 6),
+            # v3: the router process's own alert digest (fleet-scope rules)
+            "alerts": _alerts_digest(),
+            # v4: aggregate load, per-tenant rollup, autoscaler state
+            "queue_depth": r["queue_depth"],
+            "tenants": r["tenants"],
+            "autoscale": (
+                self.autoscale_provider() if self.autoscale_provider else None
+            ),
+            # v5: the router HA block (null while journaling is off)
+            "ha": self.ha_provider() if self.ha_provider else None,
+        }
+        assert set(out) == FLEET_FIELDS  # the freeze, enforced at source
+        return out
+
+    def health(self) -> Dict:
+        """Router-process `/healthz`: liveness + the wall clock the fleet
+        clock sync samples (not frozen — the /fleet feed is the API)."""
+        return {
+            "ok": True,
+            "role": "router",
+            "replicas": len(self.router.replicas),
+            "healthy_replicas": sum(
+                1 for h in self.router.replicas.values() if h.breaker.dispatchable
+            ),
+            "pending_requests": self.router.ledger.pending_count(),
+            "uptime_s": round(time.perf_counter() - self._start, 6),
+            "wall_time_us": int(time.time() * 1e6),
+            "alerts": _alerts_digest(),
+        }
+
+    def publish(self) -> None:
+        """Push the rollups into the gated registry as ``fleet_timeline_*``
+        gauges — the ``fleet-timeline:`` dashboard block.  No-op while
+        telemetry is dormant."""
+        from .. import telemetry as _tel
+
+        if not _tel.is_active():
+            return
+        r = self._rollup()
+        # the fleet rule pack's no-healthy-replicas input
+        _tel.set_gauge(
+            "fleet_timeline_healthy_replicas",
+            sum(1 for h in self.router.replicas.values() if h.breaker.dispatchable),
+        )
+        _tel.set_gauge("fleet_timeline_goodput_tokens_per_s", r["goodput"])
+        _tel.set_gauge("fleet_timeline_throughput_tokens_per_s", r["raw"])
+        if r["mfu"] is not None:
+            _tel.set_gauge("fleet_timeline_mfu", r["mfu"])
+        if r["ttft_p99"] is not None:
+            _tel.set_gauge("fleet_timeline_ttft_p99_s", r["ttft_p99"])
+        if r["burn"] is not None:
+            _tel.set_gauge("fleet_timeline_slo_burn_rate", r["burn"])
+        _tel.set_gauge("fleet_timeline_shed_rate", r["shed_rate"])
+        # the autoscaler's two control inputs, published every poll so
+        # the time-series store can trend them: total queued work and the
+        # dispatchable replica count it scales against
+        _tel.set_gauge("fleet_timeline_queue_depth", r["queue_depth"])
+        _tel.set_gauge(
+            "fleet_timeline_replica_count", len(self.router.replicas)
+        )
+        for rid, f in r["feeds"].items():
+            if f.get("shed_rate") is not None:
+                _tel.set_gauge(f"fleet_timeline_shed_rate_{rid}", f["shed_rate"])

@@ -2,9 +2,9 @@
 every watcher in the repo.
 
 The port of ``vescale_tpu/telemetry/alerts.py``: the engine, its rules,
-``payload``/``digest`` and the serve and train packs.  The fleet pack
-(it watches a ``FleetRouter``) and the bench pack (its gauge is one only
-the JAX package's bench sets) are not ported.
+``payload``/``digest`` and the serve, train and fleet packs (the fleet
+pack watches a ``FleetRouter``'s ``fleet_timeline_*`` gauges).  The bench
+pack is not ported: its gauge is one only the JAX package's bench sets.
 
 Before this module each watcher invented its own one-shot warn path
 (memtrack's leak ``warnings.warn``, the AOT-drift warning, the calibration
@@ -78,6 +78,7 @@ __all__ = [
     "digest",
     "serve_rule_pack",
     "train_rule_pack",
+    "fleet_rule_pack",
     "burn_windows_from_env",
     "clear_fallback_warned",
 ]
@@ -822,3 +823,36 @@ def train_rule_pack() -> List[Rule]:
             message="untagged live-array bytes trending up — possible leak",
         ),
     ]
+
+
+def fleet_rule_pack(slo_ttft_s: Optional[float] = None,
+                    burn_windows: Optional[Sequence[Tuple[float, float, float]]] = None,
+                    burn_for_s: Optional[float] = None,
+                    ) -> List[Rule]:
+    """The router-side pack: fleet-scope rules over the AGGREGATED
+    ``fleet_timeline_*`` gauges FleetObservability publishes — a
+    fleet-wide SLO burn fires here even when every replica looks healthy
+    alone."""
+    rules: List[Rule] = [
+        ThresholdRule(
+            "fleet-shed-rate", "fleet_timeline_shed_rate", ">", 0.1,
+            window_s=60.0, reducer="avg", severity="warning",
+            message="fleet-wide shed rate above 10%",
+        ),
+        ThresholdRule(
+            "fleet-no-healthy-replicas", "fleet_timeline_healthy_replicas",
+            "<", 1.0, window_s=30.0, reducer="last", severity="critical",
+            message="no dispatchable replica left in the fleet",
+        ),
+    ]
+    if slo_ttft_s:
+        rules.insert(0, BurnRateRule(
+            "fleet-ttft-slo-burn", "fleet_timeline_ttft_p99_s",
+            float(slo_ttft_s),
+            windows=(burn_windows or burn_windows_from_env()
+                     or ((3600.0, 300.0, 14.4), (21600.0, 1800.0, 6.0))),
+            for_s=burn_for_s if burn_for_s is not None else _burn_for_s_from_env(),
+            severity="critical",
+            message="fleet p99 TTFT burning the SLO error budget across both windows",
+        ))
+    return rules

@@ -1,4 +1,5 @@
-"""Live ops endpoints: a small stdlib HTTP thread for one serve replica.
+"""Live ops endpoints: a small stdlib HTTP thread for one serve replica or
+the fleet router.
 
 The port of ``vescale_tpu/telemetry/ops_server.py``.  One
 ``ThreadingHTTPServer`` daemon thread serves:
@@ -11,6 +12,9 @@ The port of ``vescale_tpu/telemetry/ops_server.py``.  One
   ``/outcomes``  the terminal-outcome ledger (serve/fleet.py registers it)
   ``/alerts``    the alert engine's lifecycle snapshot
                  (``telemetry/alerts.py`` ``payload``, frozen schema v1)
+  ``/fleet``     the fleet router's rollup, frozen schema v5
+                 (``serve/obs.py`` ``FleetObservability``; served by
+                 ``FleetRouter.start_ops``)
   ``/submit``    POST: one request into the replica's inbox (serve/fleet.py)
   ``/control``   POST: the weight-rollout channel (``reload``, ``commit``,
                  ``revert``, ``status``; serve/loop.py ``ControlChannel``)
@@ -52,7 +56,7 @@ Provider = Callable[[], Dict]
 _ACTIVE: Optional["OpsServer"] = None
 _LOCK = threading.Lock()
 
-_GET_ENDPOINTS = ("healthz", "router", "outcomes", "alerts")
+_GET_ENDPOINTS = ("healthz", "router", "outcomes", "alerts", "fleet")
 _POST_ENDPOINTS = ("submit", "control")
 
 _STATUS_TEXT = {
@@ -91,7 +95,7 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._send(404, "text/plain; charset=utf-8",
                        "not found (endpoints: /metrics /healthz /router /outcomes /alerts "
-                       "/submit /control)\n")
+                       "/fleet /submit /control)\n")
 
     def do_POST(self):  # noqa: N802 (stdlib naming)
         ops: "OpsServer" = self.server.ops  # type: ignore[attr-defined]
