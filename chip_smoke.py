@@ -14,6 +14,7 @@ Hopper card.
     python3 chip_smoke.py --fp8      # the fp8 phase alone
     python3 chip_smoke.py --plan     # the planning and analysis legs alone
     python3 chip_smoke.py --fleet    # the fleet phase alone
+    python3 chip_smoke.py --leftovers   # the train_leftovers phase alone
     python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
@@ -235,7 +236,7 @@ Phases, each printing one JSON line with its seconds:
            child processes (``--tp-child``) joined over gloo at a free
            localhost port (NCCL refuses two ranks on one GPU), a ("tp",)
            mesh of 2.  The 1.3B Llama under ``llama_plan`` at full width
-           and 8 of its 24 layers (``GLOO_13B_LAYERS``) and GPT-2 124M under
+           and 4 of its 24 layers (``GLOO_13B_LAYERS``) and GPT-2 124M under
            ``nanogpt_plan`` at full width and 4 of its 12 layers
            (``GLOO_GPT2_LAYERS``), both with sequence
            parallelism, built on ``meta`` and materialized as each rank's
@@ -243,7 +244,7 @@ Phases, each printing one JSON line with its seconds:
            through the vocab-parallel loss with ``AdamWLowmem``: 1 warm-up
            and 1 timed step, losses within 1% of a single-card run's at the
            same depth at each step, every
-           kernel launch of each step counted (8 or 4 K1, dq and dkv, one
+           kernel launch of each step counted (4 K1, dq and dkv, one
            K8, K9 and K10); per rank step time, peak memory and the
            collectives' calls and bytes by kind.  The kernels' parity and
            timing at one rank's shapes are in the parity phase.  The 1.3B
@@ -275,12 +276,12 @@ Phases, each printing one JSON line with its seconds:
            pool (4 of 8 kv heads a rank), the serve phase's 16 requests
            through ``run_serve``: every check of the serve phase (512 K1
            launches on 16 heads, a K7 launch a layer a decode step, on 4 kv
-           heads), teacher-forced logits of 4 requests within
+           heads), teacher-forced logits of 1 request within
            ``TP_SERVE_BF16_STEPS`` bf16 steps at scale of the single-card
            engine's, how many streams equal the serve phase's, tokens/s,
            decode p50/p99, and ``engine.graphed`` (false over gloo)
   dp_train  data parallelism on two such ranks, a ("dp",) mesh of 2.  The
-           1.3B Llama at full width and 8 layers (B=1 a rank, T=4096, the
+           1.3B Llama at full width and 4 layers (B=1 a rank, T=4096, the
            bench's seed-0 weights, ``AdamWLowmem(3e-4)``, a global batch of
            2 rows) under ``ddp``, ``zero2`` (a dynamic loss scale) and
            ``fsdp`` (``bench.prepare_dp``), 1 warm-up and 2 timed steps
@@ -379,6 +380,25 @@ Phases, each printing one JSON line with its seconds:
            peak, one profiled step with its fp8 casts named, the quantize
            passes timed alone; then the bf16 rung from the same seed for 20
            steps: the fp8 loss falls and ends within 10% of the bf16 run's
+  train_leftovers  the training leftovers on the card.  (a) Muon on the
+           1.3B rung at full width (``bench.prepare("1.3b", opt="muon")``,
+           the 1B sweep's ``muon(0.02, fallback=adamw_lowmem(3e-4),
+           state_dtype=bf16)``): Newton-Schulz at (1024, 2816) on the card
+           against the CPU (true fp32 products, TF32 off); the first step
+           twice from the seed-0 state, bitwise; three more, the loss
+           falling; 24 K1, dq and dkv, one K8 and 168 Newton-Schulz calls a
+           step; step ms, Newton-Schulz ms (CUDA events), peak.  (b)
+           nanoGPT's ``config/train_shakespeare_char.py`` at its published
+           size with dropout 0.2, through the fused cross entropy and K8:
+           two runs of 6 steps with step keys bitwise equal, the loss
+           falling, no flash launch (dropout takes the dense branch), the
+           first step's masks equal to the port's draws on the CPU, the
+           eval loss from ``make_eval_step``; step ms and the dropout
+           draws' share.  (c) the 8B widths at 2 layers written as HF
+           safetensors shards by the script's own writer, read by
+           ``load_hf_llama`` onto the card bitwise the tree in memory, 4
+           requests served from each with bitwise equal greedy streams;
+           write and load seconds and GB/s
 Then the card line, the kernels line and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero before that line.  Imports
 nothing of JAX or of ``vescale_tpu``.
@@ -3670,17 +3690,18 @@ def _trees_bitwise(tree, params) -> bool:
 # -------------------------------------------------------------------- main
 # --------------------------------------------------------- tensor parallel
 TP_WORLD = 2  # ranks of the TP phases, all on the one card
-# the 1.3B's depth in tp_train and dp_train: 24 -> 8 layers (full width),
+# the 1.3B's depth in tp_train and dp_train: 24 -> 4 layers (full width),
 # held to a single-card run at the same depth, so the script with the moe
-# phase stays inside its time (PERF.md §4)
-GLOO_13B_LAYERS = 8
+# and train_leftovers phases stays inside its time (PERF.md §4; 8 until
+# the train_leftovers phase came)
+GLOO_13B_LAYERS = 4
 # GPT-2's depth where it runs on two gloo ranks (tp_train, dp_train and
 # train_resilient's two-rank leg): 12 -> 4 layers at full width, each held
 # to a single-card run at that depth (PERF.md §4)
 GLOO_GPT2_LAYERS = 4
 TP_LOSS_REL = 0.01  # the reference's bf16 loss bar (nanogpt_4d_finetune/README.md)
 TP_SERVE_BF16_STEPS = 16.0  # teacher-forced logits vs the single-card engine (PERF.md)
-TP_FORCED = 4  # teacher-forced requests of the tp_serve check
+TP_FORCED = 1  # teacher-forced requests of the tp_serve check (4 until cut for time)
 
 
 def tp_spawn(job: str, args: dict, timeout_s: float, names=("tp",), shape=None):
@@ -7473,6 +7494,411 @@ def fp8_summary(f8: dict) -> dict:
                 quantize_step_ms=f8["fp8"]["quantize"]["step_ms"])
 
 
+# ----------------------------------------------------------- train leftovers
+LEFTOVER_MUON_STEPS = 4  # the first step twice (bitwise), then three more
+NS_CARD_SHAPE = (1024, 2816)  # the Newton-Schulz card-against-CPU check
+NS_CARD_ATOL = 2e-5  # true fp32 products; TF32 would be ~1e-3 off
+# nanoGPT's config/train_shakespeare_char.py (bias: train.py's default)
+SHAKESPEARE = dict(block_size=256, vocab_size=65, n_layer=6, n_head=6, n_embd=384, dropout=0.2,
+                   bias=False)
+SHAKESPEARE_BATCH = 64
+# the config's betas and weight decay; its lr (1e-3) comes after 100 warm-up
+# steps, so a few steps from the seed take the bench's constant 3e-4
+SHAKESPEARE_OPT = dict(lr=3e-4, betas=(0.9, 0.99), weight_decay=0.1)
+SHAKESPEARE_STEPS = 6  # 1 warm-up, 5 timed, in each of two runs
+HF_LAYERS = 2  # the 8B widths written as HF shards
+HF_REQUESTS = 4
+
+
+def leftover_muon(dev, kernels_mod) -> dict:
+    """(a) The 1.3B rung at full width stepped by the 1B sweep's Muon
+    (``bench.prepare("1.3b", opt="muon")``): the first step from the seed-0
+    state twice, bitwise (loss and every parameter), then three more; the
+    loss falls; each step's launches (24 K1, dq and dkv, one K8 over the
+    fallback leaves); step ms, the Newton-Schulz ms of each step (CUDA
+    events around every call), peak memory.  Before it, Newton-Schulz at
+    ``NS_CARD_SHAPE`` on the card against the CPU, which holds the fp32
+    products to true fp32."""
+    from vescale_tpu_torch.bench import prepare
+    from vescale_tpu_torch.parallel import muon, newton_schulz
+    from vescale_tpu_torch.parallel import optimizer as opt_mod
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.train import make_train_step
+    from vescale_tpu_torch.models import cross_entropy_loss
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "Muon's fp32 products must not run in TF32")
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(NS_CARD_SHAPE).astype(np.float32))
+    ns_err = float((newton_schulz(g.to(dev)).cpu() - newton_schulz(g)).abs().max())
+    t0 = time.perf_counter()
+    run = prepare("1.3b", device=dev, opt="muon")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model, L = run.model, run.config.num_hidden_layers
+    params = list(model.parameters())
+    batch = run.next_batch()
+    ns_events = []
+    real_ns = opt_mod.newton_schulz
+
+    def timed_ns(G, steps=5, eps=1e-7):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real_ns(G, steps, eps)
+        b.record()
+        ns_events.append((a, b))
+        return out
+
+    def one(step):
+        ns_events.clear()
+        before = dict(kernels_mod.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(step(batch))
+        ms = (time.perf_counter() - t) * 1e3
+        ns_ms = sum(a.elapsed_time(b) for a, b in ns_events)
+        return (loss, ms, ns_ms, {k: kernels_mod.LAUNCHES[k] - before[k] for k in before},
+                len(ns_events))
+
+    snap = [p.detach().clone() for p in params]
+    kernels_mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt_mod.newton_schulz = timed_ns
+    try:
+        first = one(run.step)
+        after_first = [p.detach().clone() for p in params]
+        # the same first step again: the seed-0 parameters and a fresh
+        # optimizer (the state before any step)
+        with torch.no_grad():
+            for p, s in zip(params, snap):
+                p.copy_(s)
+        del snap
+        optimizer = muon(model.named_parameters(), 0.02, state_dtype=torch.bfloat16,
+                         fallback=lambda ps: AdamWLowmem(ps, 3e-4, state_dtype=torch.bfloat16))
+        step = make_train_step(model, optimizer, lambda lg, b: cross_entropy_loss(lg, b["target"]))
+        steps = [one(step)]
+        repeat_bitwise = (np.float32(steps[0][0]).tobytes() == np.float32(first[0]).tobytes()
+                          and all(torch.equal(p, a) for p, a in zip(params, after_first)))
+        del after_first
+        free_memory()
+        # the peak of a step without the snapshots
+        torch.cuda.reset_peak_memory_stats(dev)
+        steps += [one(step) for _ in range(LEFTOVER_MUON_STEPS - 1)]
+    finally:
+        opt_mod.newton_schulz = real_ns
+    launches = dict(kernels_mod.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [s[0] for s in steps]
+    want = {**{k: 0 for k in kernels_mod.LAUNCHES}, "flash_fwd": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "fused_adamw": 1}
+    labels = optimizer.labels
+    checks = {
+        "ns_card_vs_cpu": ns_err <= NS_CARD_ATOL,
+        "first_step_repeats_bitwise": repeat_bitwise,
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "loss_falls": losses[-1] < losses[0],
+        "launches_per_step": all(s[3] == want for s in [first] + steps),
+        "muon_leaves": sum(v == "muon" for v in labels.values()) == 7 * L,
+        "ns_calls_per_step": all(s[4] == 7 * L for s in [first] + steps),
+    }
+    out = dict(model="llama 1.3B (bench rung 1.3b, opt muon)",
+               optimizer="muon(0.02, fallback=adamw_lowmem(3e-4), state_dtype=bf16)",
+               setup_s=setup_s, ns_card_vs_cpu_max_abs=ns_err, ns_card_vs_cpu_bound=NS_CARD_ATOL,
+               ns_check_shape=list(NS_CARD_SHAPE), losses=losses, first_step_loss=first[0],
+               step_ms=[first[1]] + [s[1] for s in steps],
+               step_ms_median=statistics.median([s[1] for s in steps[1:]]),
+               ns_ms=[first[2]] + [s[2] for s in steps],
+               ns_ms_median=statistics.median([s[2] for s in steps[1:]]),
+               ns_flops_per_step=muon_ns_flops(model, labels),
+               muon_leaves=sum(v == "muon" for v in labels.values()),
+               fallback_leaves=sum(v == "fallback" for v in labels.values()),
+               launches=launches, launches_per_step=steps[-1][3],
+               peak_memory_bytes_later_steps=peak, checks=checks)
+    out["ns_tflops"] = out["ns_flops_per_step"] / (out["ns_ms_median"] / 1e3) / 1e12
+    check(all(checks.values()), f"muon leg failed: {json.dumps(out)[:4000]}")
+    del run, model, params, optimizer, step
+    free_memory()
+    return out
+
+
+def muon_ns_flops(model, labels) -> float:
+    """The FLOPs of one step's Newton-Schulz over the Muon leaves: five
+    iterations of X Xᵀ (2m²n), A A (2m³) and B X (2m²n), m <= n."""
+    total = 0.0
+    for name, p in model.named_parameters():
+        if labels[name] == "muon":
+            m, n = sorted(p.shape)
+            total += 5 * (4.0 * m * m * n + 2.0 * m ** 3)
+    return total
+
+
+def shakespeare_run(dev, token_file, capture=False) -> dict:
+    """One run of leg (b): the char-level GPT from seed 0, its
+    ``TokenDataLoader`` from the start, ``SHAKESPEARE_STEPS`` steps with
+    step keys ``fold_in(key(1337), s)``; each step's loss, ms and dropout
+    draws' device ms; with ``capture``, the first step's masks."""
+    from vescale_tpu_torch import random as vr
+    from vescale_tpu_torch.data import TokenDataLoader
+    from vescale_tpu_torch.loss import vocab_parallel_cross_entropy
+    from vescale_tpu_torch.models import GPT, GPTConfig, init_params
+    from vescale_tpu_torch.models import nanogpt as tg
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.train import make_eval_step, make_train_step
+
+    cfg = GPTConfig(**SHAKESPEARE, dtype=torch.bfloat16, use_flash_attention=True)
+    model = GPT(cfg, init_params(cfg, 0, device=dev, dtype=torch.float32), device=dev)
+    opt = AdamWLowmem(model.parameters(), SHAKESPEARE_OPT["lr"], betas=SHAKESPEARE_OPT["betas"],
+                      weight_decay=SHAKESPEARE_OPT["weight_decay"])
+    loss_fn = lambda lg, b: vocab_parallel_cross_entropy(lg, b["target"])  # noqa: E731
+    step = make_train_step(model, opt, loss_fn)
+    loader = TokenDataLoader(token_file, SHAKESPEARE_BATCH, cfg.block_size, seed=0, device=dev)
+    real, events, masks = tg._dropout_mask, [], []
+
+    def spy(*a):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*a)
+        e1.record()
+        events.append((e0, e1))
+        if capture and not masks_done[0]:
+            masks.append(out.clone())
+        return out
+
+    masks_done = [False]
+    tg._dropout_mask = spy
+    losses, step_ms, rng_ms, keys = [], [], [], []
+    try:
+        for s in range(SHAKESPEARE_STEPS):
+            k = vr.fold_in(vr.key(1337), s)
+            keys.append(k)
+            events.clear()
+            b = loader.next()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(step(b, k)))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            rng_ms.append(sum(a.elapsed_time(e) for a, e in events))
+            masks_done[0] = True
+    finally:
+        tg._dropout_mask = real
+    ev = make_eval_step(model, loss_fn)
+    vb = loader.next()
+    eval_loss = [float(ev(vb)), float(ev(vb))]
+    loader.close()
+    params = [p.detach().clone() for p in model.parameters()]
+    return dict(cfg=cfg, losses=losses, step_ms=step_ms, rng_ms=rng_ms, eval_loss=eval_loss,
+                params=params, masks=masks, keys=keys)
+
+
+def leftover_dropout(dev, kernels_mod) -> dict:
+    """(b) nanoGPT's ``config/train_shakespeare_char.py`` at its published
+    size (6 layers, 6 heads, width 384, block 256, batch 64, dropout 0.2,
+    vocab 65, no bias; AdamW betas (0.9, 0.99), weight decay 0.1, lr 3e-4)
+    in bf16 through the GPT rung's loss (K9/K10) and K8, on a
+    numpy-seeded Zipf token file: two runs of ``SHAKESPEARE_STEPS`` steps
+    with step keys, bitwise equal (losses, parameters, eval losses); the
+    loss falls; flash attention never runs (dropout > 0 takes the dense
+    branch); the first step's masks on the card equal the port's draws on
+    the CPU (the embedding's whole; rows of layer 0's attention weights and
+    of the last MLP's output through ``global_offset``); ``make_eval_step``
+    twice, bitwise; step ms and the dropout draws' share of it."""
+    from vescale_tpu_torch import random as vr
+    from vescale_tpu_torch.bench import write_token_file
+
+    tmp = tempfile.mkdtemp(prefix="vtt_shakespeare_")
+    try:
+        tok = write_token_file(os.path.join(tmp, "tokens.bin"), 1 << 20, SHAKESPEARE["vocab_size"])
+        kernels_mod.reset_launches()
+        a = shakespeare_run(dev, tok, capture=True)
+        launches = dict(kernels_mod.LAUNCHES)
+        b = shakespeare_run(dev, tok)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg, L = a["cfg"], a["cfg"].n_layer
+    sites = ["Dropout_0"] + [f"h_{i}.{s}" for i in range(L)
+                             for s in ("attn.Dropout_0", "attn.Dropout_1", "mlp.Dropout_0")]
+    root = vr.fold_in(a["keys"][0], 0)  # the "dropout" stream of step 0
+    B, T, E, H = SHAKESPEARE_BATCH, cfg.block_size, cfg.n_embd, cfg.n_head
+    keep = 1.0 - cfg.dropout
+    cpu = {
+        "Dropout_0": vr.bernoulli(keep, (B, T, E), key=vr.make_rng(root, ("Dropout_0",)),
+                                  device="cpu"),
+        "h_0.attn.Dropout_0": vr.bernoulli(
+            keep, (2, H, T, T), key=vr.make_rng(root, ("h_0", "attn", "Dropout_0")), device="cpu",
+            global_offset=(0, 0, 0, 0), global_shape=(B, H, T, T)),
+        f"h_{L - 1}.mlp.Dropout_0": vr.bernoulli(
+            keep, (2, T, E), key=vr.make_rng(root, (f"h_{L - 1}", "mlp", "Dropout_0")),
+            device="cpu", global_offset=(B - 2, 0, 0), global_shape=(B, T, E)),
+    }
+    card = dict(zip(sites, a["masks"]))
+    masks_equal = {
+        "Dropout_0": torch.equal(card["Dropout_0"].cpu(), cpu["Dropout_0"]),
+        "h_0.attn.Dropout_0": torch.equal(card["h_0.attn.Dropout_0"][:2].cpu(),
+                                          cpu["h_0.attn.Dropout_0"]),
+        f"h_{L - 1}.mlp.Dropout_0": torch.equal(card[f"h_{L - 1}.mlp.Dropout_0"][B - 2:].cpu(),
+                                                cpu[f"h_{L - 1}.mlp.Dropout_0"]),
+    }
+    keep_share = float(np.mean([m.float().mean().item() for m in a["masks"]]))
+    timed = slice(1, None)
+    step_med = statistics.median(a["step_ms"][timed])
+    rng_med = statistics.median(a["rng_ms"][timed])
+    S = SHAKESPEARE_STEPS
+    want = {**{k: 0 for k in kernels_mod.LAUNCHES}, "fused_xent_fwd": S + 2,
+            "fused_xent_bwd": S, "fused_adamw": S}
+    checks = {
+        "masks_card_equal_cpu": all(masks_equal.values()),
+        "mask_count": len(a["masks"]) == len(sites),
+        "keep_share": abs(keep_share - keep) < 0.005,
+        "repeat_bitwise": (np.array(a["losses"], np.float64).tobytes()
+                           == np.array(b["losses"], np.float64).tobytes()
+                           and all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+                           and a["eval_loss"] == b["eval_loss"]),
+        "eval_repeats": a["eval_loss"][0] == a["eval_loss"][1],
+        "eval_finite": bool(np.isfinite(a["eval_loss"]).all()),
+        "losses_finite": bool(np.isfinite(a["losses"]).all()),
+        "loss_falls": a["losses"][-1] < a["losses"][1],  # after the warm-up step
+        "launches": launches == want,
+    }
+    out = dict(config="nanoGPT config/train_shakespeare_char.py", batch=B, dtype="bf16",
+               losses=a["losses"], eval_loss=a["eval_loss"][0], step_ms=a["step_ms"],
+               step_ms_median=step_med, rng_ms=a["rng_ms"], rng_ms_median=rng_med,
+               rng_share=rng_med / step_med, mask_sites=len(sites),
+               mask_elements_per_step=int(sum(m.numel() for m in a["masks"])),
+               keep_share=keep_share, masks_equal=masks_equal, launches=launches,
+               tokens_per_s=B * T / (step_med / 1e3), checks=checks)
+    check(all(checks.values()), f"dropout leg failed: {json.dumps(out)[:4000]}")
+    del a, b
+    free_memory()
+    return out
+
+
+def write_hf_shards(path: str, params, cfg, shards: int = 2) -> int:
+    """The Llama tree ``params`` as an HF ``LlamaForCausalLM`` checkpoint in
+    ``path``: HF names, weights (out, in) (the kernels transposed), in the
+    tree's dtype, as ``shards`` safetensors files (an 8-byte little-endian
+    header length, the JSON header, the raw bytes).  Returns the bytes
+    written."""
+    hf = {"model.embed_tokens.weight": params["embed_tokens"]["embedding"],
+          "model.norm.weight": params["norm"]["weight"],
+          "lm_head.weight": params["lm_head"]["kernel"].T}
+    for i in range(cfg.num_hidden_layers):
+        lp = params[f"layers_{i}"]
+        for blk in ("self_attn", "mlp"):
+            for proj, leaf in lp[blk].items():
+                hf[f"model.layers.{i}.{blk}.{proj}.weight"] = leaf["kernel"].T
+        for ln in ("input_layernorm", "post_attention_layernorm"):
+            hf[f"model.layers.{i}.{ln}.weight"] = lp[ln]["weight"]
+    names = sorted(hf)
+    code = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+    total = 0
+    for s, part in enumerate(np.array_split(np.arange(len(names)), shards)):
+        header, off, blobs = {}, 0, []
+        for j in part:
+            t = hf[names[j]].detach().contiguous().cpu()
+            nbytes = t.numel() * t.element_size()
+            header[names[j]] = {"dtype": code[t.dtype], "shape": list(t.shape),
+                                "data_offsets": [off, off + nbytes]}
+            blobs.append(t)
+            off += nbytes
+        header["__metadata__"] = {"format": "pt"}
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        fname = os.path.join(path, f"model-{s + 1:05d}-of-{shards:05d}.safetensors")
+        with open(fname, "wb") as f:
+            f.write(len(raw).to_bytes(8, "little"))
+            f.write(raw)
+            for t in blobs:
+                t.view(torch.uint8).numpy().tofile(f)
+        total += os.path.getsize(fname)
+    return total
+
+
+def leftover_hf(dev, kernels_mod) -> dict:
+    """(c) Serve from an HF directory: the 8B widths at ``HF_LAYERS``
+    layers (seed 0, bf16) written by :func:`write_hf_shards` into a
+    temporary directory, read back by ``load_hf_llama`` onto the card (fp32,
+    cast to the model's bf16: every leaf bitwise the tree in memory), then
+    ``HF_REQUESTS`` serve requests on an engine over the loaded weights and
+    on one over the tree in memory: every check of the serve phase, greedy
+    streams bitwise equal; the write's and the load's seconds and GB/s (the
+    files just written: a warm read)."""
+    from vescale_tpu_torch.models import LLAMA3_8B, init_params, load_hf_llama, tree_to
+    from vescale_tpu_torch.models.convert import _flatten
+    from vescale_tpu_torch.serve import KVCacheConfig, PagedKVCache, ServeEngine
+
+    cfg = dataclasses.replace(LLAMA3_8B, num_hidden_layers=HF_LAYERS)
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    tmp = tempfile.mkdtemp(prefix="vtt_hf_")
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_hf_shards(tmp, params, cfg)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_hf_llama(tmp, cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        files = sorted(os.listdir(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded = tree_to(loaded, dtype=torch.bfloat16)
+    free_memory()
+    a, b = _flatten(loaded), _flatten(params)
+    tree_bitwise = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    kc = KVCacheConfig(layers=cfg.num_hidden_layers, kv_heads=cfg.num_key_value_heads,
+                       head_dim=cfg.head_dim, num_slots=8, page_size=16, pages_per_slot=64,
+                       dtype=torch.bfloat16)
+    arrivals = serve_requests(cfg.vocab_size, n=HF_REQUESTS)
+    runs, streams, launches = {}, {}, {k: 0 for k in kernels_mod.LAUNCHES}
+    for name, tree in (("hf", loaded), ("memory", params)):
+        eng = ServeEngine(cfg, tree, PagedKVCache(kc, device=dev), device=dev)
+        eng.replay_greedy([1, 2, 3], 2)  # warm up and capture the decode graph
+        runs[name], streams[name] = serve_run(dev, eng, arrivals, kernels_mod)
+        for k, v in runs[name]["launches"].items():
+            launches[k] += v
+        del eng
+        free_memory()
+    checks = {"tree_bitwise": tree_bitwise, "hf_serve": all(runs["hf"]["checks"].values()),
+              "memory_serve": all(runs["memory"]["checks"].values()),
+              "streams_bitwise": streams["hf"] == streams["memory"], "files": len(files) == 2}
+    out = dict(model=f"LLAMA3_8B widths at {HF_LAYERS} layers", files=files, bytes=nbytes,
+               write_s=write_s, write_gb_per_s=nbytes / write_s / 1e9, load_s=load_s,
+               load_gb_per_s=nbytes / load_s / 1e9, read="warm (the files just written)",
+               requests=HF_REQUESTS, launches=launches,
+               serve={k: {kk: v[kk] for kk in ("serve_s", "tokens_per_s", "decode_step_p50_ms",
+                                                "prefills", "decode_steps", "launches")}
+                      for k, v in runs.items()}, checks=checks)
+    check(all(checks.values()), f"hf leg failed: {json.dumps(out)[:4000]}")
+    del loaded, params
+    free_memory()
+    return out
+
+
+def run_train_leftovers(dev, card, kernels_mod) -> dict:
+    """``train_leftovers``: (a) Muon on the 1.3B, (b) dropout on nanoGPT's
+    shakespeare config, (c) serving from an HF directory, each leg printed
+    as its own line (``train_leftovers.<leg>``) when it ends; returns each
+    leg's seconds and the launches of the three legs summed."""
+    out = {"card": card, "seconds_by_leg": {}}
+    launches = {k: 0 for k in kernels_mod.LAUNCHES}
+    for name, fn in (("muon", leftover_muon), ("dropout", leftover_dropout), ("hf", leftover_hf)):
+        t = time.perf_counter()
+        leg = fn(dev, kernels_mod)
+        out["seconds_by_leg"][name] = time.perf_counter() - t
+        log(f"train_leftovers.{name}", seconds=out["seconds_by_leg"][name], card=card, **leg)
+        for k, v in leg["launches"].items():
+            launches[k] += v
+    out["launches"] = launches
+    return out
+
+
+def leftovers_only(dev, card, kernels_mod) -> int:
+    """``--leftovers``: the train_leftovers phase alone."""
+    t = time.perf_counter()
+    log("train_leftovers", seconds=None, **run_train_leftovers(dev, card, kernels_mod))
+    log("done", seconds=time.perf_counter() - t)
+    print(card, flush=True)
+    return 0
+
+
 def longctx_only(dev, card, kernels_mod) -> int:
     """``--longctx``: the longctx phase alone."""
     t = time.perf_counter()
@@ -7616,6 +8042,8 @@ def main() -> int:
     ap.add_argument("--gloo-probe", action="store_true",
                     help="which collectives gloo carries on CUDA tensors, then exit")
     ap.add_argument("--fleet", action="store_true", help="device, build and the fleet phase only")
+    ap.add_argument("--leftovers", action="store_true",
+                    help="device, build and the train_leftovers phase only")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--router-child", help=argparse.SUPPRESS)
     ap.add_argument("--tp-child", help=argparse.SUPPRESS)
@@ -7684,6 +8112,8 @@ def main() -> int:
         return fp8_only(dev, card, kernels_mod)
     if opts.plan:
         return plan_only(dev, card, kernels_mod)
+    if opts.leftovers:
+        return leftovers_only(dev, card, kernels_mod)
     if opts.fleet:
         t = time.perf_counter()
         fleet = run_fleet_phase(dev, kernels_mod, card)
@@ -7789,6 +8219,9 @@ def main() -> int:
     t = time.perf_counter()
     fp8 = run_fp8(dev, card, kernels_mod)
     log("fp8", seconds=time.perf_counter() - t, **fp8_summary(fp8))
+    t = time.perf_counter()
+    leftovers = run_train_leftovers(dev, card, kernels_mod)
+    log("train_leftovers", seconds=time.perf_counter() - t, **leftovers)
     log("done", seconds=time.perf_counter() - t_all)
     check(not bad_parity, "kernel parity failed: " + json.dumps(bad_parity))
 
@@ -7817,7 +8250,8 @@ def main() -> int:
                    "telemetry": tel_serve["launches"][name] + tel_gpt2["launches"][name],
                    "pipeline": pipeline["launches"][name], "moe": moe["launches"][name],
                    "longctx": longctx["launches"][name], "fp8": fp8["launches"][name],
-                   "fleet": fleet["launches"][name]}
+                   "fleet": fleet["launches"][name],
+                   "train_leftovers": leftovers["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

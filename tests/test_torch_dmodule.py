@@ -363,3 +363,61 @@ def test_data_parallel_training_step_matches_the_reference(worlds):
         for name, p in ans["final"].items():
             want = _pieces(flat_p[name], mesh, 4)[r]
             np.testing.assert_allclose(p, want, rtol=0, atol=DP_PARAM_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("sp", [True, False], ids=["sp", "tp_only"])
+def test_dropout_training_at_tp2_matches_the_reference(worlds, sp):
+    """The GPT at dropout 0.15 under ``nanogpt_plan`` on two ranks, three
+    steps of ``make_train_step`` with step keys, against the reference's
+    jitted ``make_train_step`` on one device with the same keys: every
+    rank's masks bitwise its piece of the reference's global masks (the
+    attention weights' by heads, the activations' whole), in draw order;
+    the losses within ``STEP_TOL`` (measured 9.5e-7)."""
+    import flax.linen as nn
+    import jax.numpy as jnp
+    from vescale_tpu.parallel.optimizer import adamw_lowmem
+    from vescale_tpu.train import make_train_step as ref_make_train_step
+
+    rate, tp = 0.15, 2
+    keys = [jax.random.fold_in(jax.random.key(9), s) for s in range(STEPS)]
+    words = [[int(w) for w in np.asarray(jax.random.key_data(k))] for k in keys]
+    got = worlds(tp).run("tp_dropout", tp=tp, sp=sp, seed=SEED, rate=rate, keys=words)
+
+    import dataclasses
+
+    cfg = dataclasses.replace(child.tp_config("gpt", ref_nanogpt), dropout=rate)
+    model = ref_nanogpt.GPT(cfg)
+    params = jax.tree_util.tree_map(jnp.asarray, child.tp_tree("gpt", SEED))
+    toks = child.tp_tokens("gpt", SEED)
+    batch = {"input": jnp.asarray(toks[:, :-1]), "target": jnp.asarray(toks[:, 1:])}
+    loss_fn = lambda logits, b: ref_xent(logits, b["target"])  # noqa: E731
+    tx = adamw_lowmem(child.TP_LR, state_dtype=jnp.float32)
+    step = ref_make_train_step(model, tx, loss_fn, donate=False)
+    opt, losses, masks = tx.init(params), [], []
+
+    def interceptor(next_fun, args, kwargs, ctx):
+        mod = ctx.module
+        if not isinstance(mod, nn.Dropout) or ctx.method_name != "__call__" or mod.deterministic:
+            return next_fun(*args, **kwargs)
+        k = mod.make_rng("dropout")
+        masks[-1].append(np.asarray(jax.random.bernoulli(k, 1.0 - mod.rate, args[0].shape)))
+        return next_fun(*args, rng=k, **kwargs)
+
+    for k in keys:
+        masks.append([])
+        with nn.intercept_methods(interceptor):  # the step's masks, in draw order
+            model.apply({"params": params}, batch["input"], deterministic=False,
+                        rngs={"dropout": jax.random.fold_in(k, 0)})
+        params, opt, loss = step(params, opt, batch, k)
+        losses.append(float(loss))
+    n_sites = 1 + 3 * cfg.n_layer
+    H = cfg.n_head // tp
+    for r, ans in enumerate(got):
+        np.testing.assert_allclose(ans["losses"], losses, rtol=STEP_TOL, atol=STEP_TOL)
+        assert len(ans["masks"]) == n_sites * STEPS
+        for s in range(STEPS):
+            for j, want in enumerate(masks[s]):
+                m = np.asarray(ans["masks"][s * n_sites + j])
+                if want.ndim == 4:  # (B, heads, T, T): this rank's heads
+                    want = want[:, r * H:(r + 1) * H]
+                assert m.dtype == bool and np.array_equal(m, want), (r, s, j)

@@ -20,7 +20,7 @@ from vescale_tpu_torch.serve import KVCacheConfig, PagedKVCache, ServeEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "vescale_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vescale_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "safetensors", "vescale_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -160,6 +160,64 @@ def test_the_resilient_loop_and_telemetry_run_with_jax_blocked(tmp_path):
         "assert 'resilience:' in telemetry.dashboard()\n"
         "assert consistency.fingerprint(step=1, params=res.params)[6] != 0\n"
         "telemetry.shutdown()\n"
+        "print('OK')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip().endswith("OK"), out.stderr[-3000:]
+
+
+def test_muon_hf_shards_dropout_and_eval_run_with_jax_and_safetensors_blocked(tmp_path):
+    """Muon, ``load_hf_llama`` (a safetensors shard written here by hand in
+    the format's layout, and a ``.bin`` shard), the GPT's dropout through
+    ``make_train_step(step_key=...)`` and ``make_eval_step`` import and run
+    with ``jax``, ``flax``, ``optax``, ``ml_dtypes``, ``safetensors`` and the
+    JAX package made unimportable."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'safetensors', 'vescale_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import json, os, torch\n"
+        "from vescale_tpu_torch import random\n"
+        "from vescale_tpu_torch.models import GPT, GPTConfig, LlamaConfig, load_hf_llama\n"
+        "from vescale_tpu_torch.models.nanogpt import cross_entropy_loss\n"
+        "from vescale_tpu_torch.parallel import muon\n"
+        "from vescale_tpu_torch.train import make_eval_step, make_train_step\n"
+        "cfg = LlamaConfig(vocab_size=16, hidden_size=8, intermediate_size=16, num_hidden_layers=1,\n"
+        "                  num_attention_heads=2, num_key_value_heads=1, dtype=torch.float32)\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "sd = {'model.embed_tokens.weight': torch.randn(16, 8, generator=g),\n"
+        "      'model.norm.weight': torch.ones(8), 'lm_head.weight': torch.randn(16, 8, generator=g)}\n"
+        "p = 'model.layers.0.'\n"
+        "for n, s in (('self_attn.q_proj', (8, 8)), ('self_attn.k_proj', (4, 8)),\n"
+        "             ('self_attn.v_proj', (4, 8)), ('self_attn.o_proj', (8, 8)),\n"
+        "             ('mlp.gate_proj', (16, 8)), ('mlp.up_proj', (16, 8)), ('mlp.down_proj', (8, 16))):\n"
+        "    sd[p + n + '.weight'] = torch.randn(*s, generator=g)\n"
+        "for n in ('input_layernorm', 'post_attention_layernorm'):\n"
+        "    sd[p + n + '.weight'] = torch.ones(8)\n"
+        f"d = {str(tmp_path / 'st')!r}; os.makedirs(d)\n"
+        "header, blobs, off = {}, [], 0\n"
+        "for k, t in sd.items():\n"
+        "    b = t.to(torch.bfloat16).contiguous().view(torch.uint8).numpy().tobytes()\n"
+        "    header[k] = {'dtype': 'BF16', 'shape': list(t.shape), 'data_offsets': [off, off + len(b)]}\n"
+        "    blobs.append(b); off += len(b)\n"
+        "raw = json.dumps(header).encode()\n"
+        "open(os.path.join(d, 'model.safetensors'), 'wb').write(len(raw).to_bytes(8, 'little') + raw + b''.join(blobs))\n"
+        f"e = {str(tmp_path / 'pt')!r}; os.makedirs(e)\n"
+        "torch.save({k: v.to(torch.bfloat16) for k, v in sd.items()}, os.path.join(e, 'pytorch_model.bin'))\n"
+        "a, b = load_hf_llama(d, cfg, device='cpu'), load_hf_llama(e, cfg, device='cpu')\n"
+        "assert torch.equal(a['layers_0']['mlp']['down_proj']['kernel'], b['layers_0']['mlp']['down_proj']['kernel'])\n"
+        "gc = GPTConfig(block_size=16, vocab_size=32, n_layer=1, n_head=2, n_embd=16, dropout=0.2)\n"
+        "model = GPT(gc, device='cpu')\n"
+        "lf = lambda lg, bt: cross_entropy_loss(lg, bt['target'])\n"
+        "step = make_train_step(model, muon(model.named_parameters()), lf)\n"
+        "t = torch.randint(0, 32, (2, 9), generator=g)\n"
+        "bt = {'input': t[:, :-1], 'target': t[:, 1:]}\n"
+        "l0 = float(step(bt, random.key(1)))\n"
+        "ev = float(make_eval_step(model, lf)(bt))\n"
+        "assert l0 == l0 and ev == ev\n"
         "print('OK')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -140,3 +140,22 @@ def test_the_library_is_the_ports_own_build():
     assert os.path.basename(so) == "libvdl.abi2.so"
     assert os.path.dirname(so) == os.path.join(os.path.dirname(port_loader.__file__), "build")
     assert port_loader._lib().vdl_abi_version() == 2
+
+
+@pytest.mark.parametrize("env", [None, "1", "0"])
+def test_elastic_default_reads_the_knob_as_the_reference_does(token_files, monkeypatch, env):
+    """``elastic=None`` reads ``VESCALE_ELASTIC_LOADER`` (off while unset) in
+    both loaders, and their batches and states stay equal."""
+    if env is None:
+        monkeypatch.delenv("VESCALE_ELASTIC_LOADER", raising=False)
+    else:
+        monkeypatch.setenv("VESCALE_ELASTIC_LOADER", env)
+    ref, port = _pair(token_files[np.uint16], np.uint16, dp_rank=1, dp_world=2, elastic=None)
+    try:
+        assert port.elastic == ref.elastic == (env == "1")
+        for _ in range(3):
+            _equal(port.next(), ref.next())
+        assert port.state() == ref.state()
+    finally:
+        ref.close()
+        port.close()

@@ -16,8 +16,9 @@ ranks, a replicated bias, a numpy count):
   * a hang on rank 1: both watchdogs dump and abort with exit code 17;
     the restarted run resumes from the committed step and completes;
   * elastic: a 2-rank run ``resize``d at step 5 and resumed on one
-    process, bitwise the uninterrupted 2-rank run, through the elastic
-    loader (``scripts/elastic_smoke.py``'s 2 -> 1).
+    process, and a one-process run resized and resumed on the two ranks,
+    each bitwise the uninterrupted run, through the elastic loader
+    (``scripts/elastic_smoke.py``'s 2 -> 1 and 1 -> 2).
 """
 
 import glob
@@ -83,43 +84,76 @@ def test_preemption_on_one_rank_is_agreed(world, tmp_path):
     np.testing.assert_array_equal(out[0]["bias"], out[1]["bias"])
 
 
-def test_elastic_resize_two_ranks_resume_on_one_bitwise(world, tmp_path):
-    tok = str(tmp_path / "tok.bin")
-    np.random.default_rng(0).integers(0, 50000, 100_000).astype(np.uint16).tofile(tok)
-    golden = world.run("resil_elastic", root=str(tmp_path / "g"), tok_path=tok)
-    assert golden[0]["status"] == "completed" and golden[0]["losses"] == golden[1]["losses"]
-    root = str(tmp_path / "e")
-    resized = world.run("resil_elastic", root=root, tok_path=tok,
-                        schedule="resize:step=5,rank=0")
-    for r in resized:
-        assert (r["status"], r["step"], r["emergency_save_step"]) == ("resized", 4, 4), r
+def _final_state(r):
+    """Every leaf of the last checkpoint under ``r``, assembled whole, as
+    bytes (the loader's coordinates legitimately differ between worlds)."""
+    from vescale_tpu_torch import checkpoint
+    from vescale_tpu_torch.checkpoint.planner import flatten_state
+
+    path = os.path.join(r, "step_0000000009")
+    arrays = json.load(open(os.path.join(path, "meta.json")))["arrays"]
+    state = {"model": {}, "optimizer": {}}
+    for k, e in arrays.items():
+        top, leaf = k.split("/", 1)
+        if top in state:
+            state[top][leaf] = np.zeros(e["shape"], e["dtype"])
+    return {k: np.asarray(v).tobytes() for k, v in flatten_state(checkpoint.load(path, state))}
+
+
+@pytest.mark.parametrize("direction", ["2to1", "1to2"])
+def test_elastic_resize_two_ranks_resume_on_one_bitwise(world, tmp_path, direction):
+    """``scripts/elastic_smoke.py``'s two legs.  2 -> 1: a run on the two
+    ranks resized at step 5 (both emergency-save step 4) and resumed on this
+    one process.  1 -> 2: a run on this process resized at step 5 and
+    resumed on the two ranks.  Either way the restore reshards across
+    worlds (VSC130), and steps 5-9's losses and the final parameters and
+    moments are bitwise the uninterrupted run's (the run's trajectory does
+    not depend on the world size)."""
     from vescale_tpu_torch import checkpoint
     from vescale_tpu_torch.mesh import DeviceMesh
+    from torch_spmd_child import recording_preflight
 
-    res = elastic_run(root, tok, 1, 0, DeviceMesh(("dp",), (1,), device_type="cpu"))
-    assert res.status == "completed" and res.step == 9
-    assert checkpoint.LAST_LOAD_STATS["elastic"] == 1  # the restore resharded 2 -> 1
-    want = {int(k): v for k, v in golden[0]["losses"].items()}
-    assert sorted(res.losses) == [5, 6, 7, 8, 9]
-    assert [np.float64(res.losses[s]).tobytes() for s in range(5, 10)] == \
-        [np.float64(want[s]).tobytes() for s in range(5, 10)]
-    # the final parameters and moments, assembled whole from each run's last
-    # checkpoint (the loader's coordinates legitimately differ)
-    def final(r):
-        from vescale_tpu_torch.checkpoint.planner import flatten_state
-
-        path = os.path.join(r, "step_0000000009")
-        arrays = json.load(open(os.path.join(path, "meta.json")))["arrays"]
-        state = {"model": {}, "optimizer": {}}
-        for k, e in arrays.items():
-            top, leaf = k.split("/", 1)
-            if top in state:
-                state[top][leaf] = np.zeros(e["shape"], e["dtype"])
-        return {k: np.asarray(v).tobytes() for k, v in flatten_state(checkpoint.load(path, state))}
-
-    got = final(root)
+    tok = str(tmp_path / "tok.bin")
+    np.random.default_rng(0).integers(0, 50000, 100_000).astype(np.uint16).tofile(tok)
+    one = DeviceMesh(("dp",), (1,), device_type="cpu")
+    root = str(tmp_path / "e")
+    if direction == "2to1":
+        golden = world.run("resil_elastic", root=str(tmp_path / "g"), tok_path=tok)
+        assert golden[0]["status"] == "completed" and golden[0]["losses"] == golden[1]["losses"]
+        want = {int(k): v for k, v in golden[0]["losses"].items()}
+        resized = world.run("resil_elastic", root=root, tok_path=tok,
+                            schedule="resize:step=5,rank=0")
+        for r in resized:
+            assert (r["status"], r["step"], r["emergency_save_step"]) == ("resized", 4, 4), r
+        codes, undo = recording_preflight()
+        try:
+            res = elastic_run(root, tok, 1, 0, one)
+        finally:
+            undo()
+        assert res.status == "completed" and res.step == 9
+        assert checkpoint.LAST_LOAD_STATS["elastic"] == 1  # the restore resharded 2 -> 1
+        resumed = [{int(k): v for k, v in res.losses.items()}]
+    else:
+        golden = elastic_run(str(tmp_path / "g"), tok, 1, 0, one)
+        assert golden.status == "completed" and golden.step == 9
+        want = dict(golden.losses)
+        resized = elastic_run(root, tok, 1, 0, one, "resize:step=5,rank=0")
+        assert (resized.status, resized.step, resized.emergency_save_step) == ("resized", 4, 4)
+        out = world.run("resil_elastic", root=root, tok_path=tok)
+        for r in out:
+            assert (r["status"], r["step"]) == ("completed", 9), r
+            assert r["elastic"] == 1  # the restore resharded 1 -> 2
+        assert out[0]["preflight_codes"] == out[1]["preflight_codes"]
+        codes = out[0]["preflight_codes"]
+        resumed = [{int(k): v for k, v in r["losses"].items()} for r in out]
+    assert "VSC130" in codes
+    for losses in resumed:
+        assert sorted(losses) == [5, 6, 7, 8, 9]
+        assert [np.float64(losses[s]).tobytes() for s in range(5, 10)] == \
+            [np.float64(want[s]).tobytes() for s in range(5, 10)]
+    got = _final_state(root)
     assert set(got) == {"model/w", "model/b", "optimizer/mu", "optimizer/nu", "optimizer/count"}
-    assert got == final(str(tmp_path / "g"))
+    assert got == _final_state(str(tmp_path / "g"))
 
 
 def test_barrier_timeout_names_its_tag(world):

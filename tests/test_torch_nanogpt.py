@@ -230,8 +230,19 @@ def test_tied_head_gradient_sums_lookup_and_head():
 
 
 def test_dropout_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPT(GPTConfig(dropout=0.1, **CONFIGS["nobias"]), device="cpu")
+    """Dropout is ported now (``tests/test_torch_dropout.py`` holds its
+    masks to flax's): a GPT with ``dropout > 0`` builds, its deterministic
+    forward (the default) is bitwise the dropout-free model's, and a
+    non-deterministic forward without the "dropout" rng refuses, as flax's
+    ``make_rng`` does."""
+    params = init_params(GPTConfig(**CONFIGS["nobias"]), 0, device="cpu", dtype=torch.float32)
+    model = GPT(GPTConfig(dropout=0.1, **CONFIGS["nobias"]), params, device="cpu")
+    plain = GPT(GPTConfig(**CONFIGS["nobias"]), params, device="cpu")
+    x = torch.from_numpy(_tokens(256)[:, :-1]).long()
+    with torch.no_grad():
+        assert torch.equal(model(x), plain(x))
+    with pytest.raises(ValueError, match="rng"):
+        model(x, deterministic=False)
 
 
 def test_bench_gpt_cpu_rung_prints_one_json_line(capsys):

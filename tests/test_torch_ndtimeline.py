@@ -301,14 +301,19 @@ def test_loader_and_checkpoint_spans(tmp_path):
     checkpoint.save(str(tmp_path / "ck_async"), state, async_checkpoint=True).wait()
     back = checkpoint.load(str(tmp_path / "ck_sync"), {"model": {"w": torch.zeros(3, 4)}})
     assert torch.equal(back["model"]["w"], state["model"]["w"])
-    spans = mgr.tail()
-    # a sync save commits inside its save span, so the commit ends (and is
-    # recorded) first; an async save's commit runs at wait()
+    # spans are recorded as they end, and an async save's commit runs on the
+    # I/O pool as soon as its chunks are written, so it may end before or
+    # after the caller leaves the save's span; their starts are ordered
+    # (a sync save commits inside its save span, an async save's commit
+    # starts after its save span has started)
+    spans = sorted(mgr.tail(), key=lambda s: s.start)
     assert [s.metric for s in spans] == [
-        P.DATA_LOAD, P.CHECKPOINT_COMMIT, P.CHECKPOINT_SAVE, P.CHECKPOINT_SAVE,
+        P.DATA_LOAD, P.CHECKPOINT_SAVE, P.CHECKPOINT_COMMIT, P.CHECKPOINT_SAVE,
         P.CHECKPOINT_COMMIT, P.CHECKPOINT_LOAD]
-    assert spans[2].tags == {"path": str(tmp_path / "ck_sync"), "async": False}
+    assert spans[1].tags == {"path": str(tmp_path / "ck_sync"), "async": False}
+    assert spans[2].tags == {"path": str(tmp_path / "ck_sync")}
     assert spans[3].tags["async"] is True and spans[5].tags == {"path": str(tmp_path / "ck_sync")}
+    assert spans[4].tags == {"path": str(tmp_path / "ck_async")}
     loader.close()
 
 

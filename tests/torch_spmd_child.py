@@ -826,6 +826,42 @@ def case_tp_dp_step(kind="llama", seed=0, steps=3, dp=2, tp=2):
             "final": {n: p.detach().clone() for n, p in dm.named_parameters()}}
 
 
+def case_tp_dropout(tp, sp, seed, rate, keys):
+    """The GPT with dropout ``rate`` under ``nanogpt_plan`` on a ("tp",)
+    mesh, trained by ``make_train_step`` with AdamWLowmem (fp32 moments)
+    one step a key of ``keys`` (each two 32-bit words): the losses and, in
+    draw order, the dropout masks this rank drew."""
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.models import GPT, nanogpt_plan
+    from vescale_tpu_torch.models import nanogpt as tg
+    from vescale_tpu_torch.parallel import AdamWLowmem
+    from vescale_tpu_torch.train import make_train_step
+
+    import dataclasses
+
+    m = mesh([tp], ["tp"])
+    cfg = dataclasses.replace(tp_config("gpt"), dropout=rate)
+    dm = parallelize_module(GPT(cfg, _torch_tree(tp_tree("gpt", seed)), device="cpu"), m,
+                            nanogpt_plan(m, sequence_parallel=sp))
+    toks = torch.from_numpy(tp_tokens("gpt", seed))
+    batch = {"input": toks[:, :-1], "target": toks[:, 1:]}
+    opt = AdamWLowmem(dm.parameters(), TP_LR, state_dtype=torch.float32)
+    step = make_train_step(dm, opt, tp_loss(m))
+    masks, real = [], tg._dropout_mask
+
+    def spy(*a):
+        out = real(*a)
+        masks.append(out.clone())
+        return out
+
+    tg._dropout_mask = spy
+    try:
+        losses = [float(step(batch, tuple(k))) for k in keys]
+    finally:
+        tg._dropout_mask = real
+    return {"losses": losses, "masks": masks}
+
+
 def case_host_route(seed, tp):
     """``mesh_ppermute`` (the op gloo refuses on CUDA tensors) run twice on
     this rank's operand: as the backend carries it, and through
@@ -1470,13 +1506,36 @@ def elastic_run(root, tok_path, world, rank, mesh_, schedule=None):
     return res
 
 
+def recording_preflight():
+    """Patch the checkpoint's elastic preflight to record each verdict's
+    codes; returns (the list it fills, a function that undoes the patch)."""
+    from vescale_tpu_torch import checkpoint
+
+    codes, real = [], checkpoint.preflight
+
+    def spy(meta, state, path):
+        report, elastic = real(meta, state, path)
+        codes.extend(report.codes())
+        return report, elastic
+
+    checkpoint.preflight = spy
+    return codes, lambda: setattr(checkpoint, "preflight", real)
+
+
 def case_resil_elastic(root, tok_path, schedule=None):
     import torch.distributed as dist
 
-    res = elastic_run(root, tok_path, 2, dist.get_rank(), mesh([2], ["dp"]), schedule)
+    from vescale_tpu_torch import checkpoint
+
+    codes, undo = recording_preflight()
+    try:
+        res = elastic_run(root, tok_path, 2, dist.get_rank(), mesh([2], ["dp"]), schedule)
+    finally:
+        undo()
     return {"status": res.status, "step": res.step,
             "emergency_save_step": res.emergency_save_step,
-            "losses": {str(k): v for k, v in res.losses.items()}}
+            "losses": {str(k): v for k, v in res.losses.items()},
+            "elastic": checkpoint.LAST_LOAD_STATS["elastic"], "preflight_codes": codes}
 
 
 # ------------------------------------------------------------ pipeline

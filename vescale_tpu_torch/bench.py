@@ -10,6 +10,7 @@
     python -m vescale_tpu_torch.bench --rung longctx  # the 350M at T=32768, on the card
     python -m vescale_tpu_torch.bench --rung longctx_cpu  # its CPU smoke
     python -m vescale_tpu_torch.bench --rung 1.3b --fp8  # a Llama rung with use_fp8
+    python -m vescale_tpu_torch.bench --opt muon      # a Llama rung with Muon
 
 The port of ``bench.py``'s single-device Llama rungs: the same configs
 (1.3B: hidden 2048, FFN 5632, 24 layers, 16 heads, 8 KV heads; 350M:
@@ -69,6 +70,14 @@ reference's CPU smoke (vocab 256, hidden 64, FFN 128, 2 layers, 4 heads,
 op, on the card on Hopper's fp8 tensor cores.  Its metric takes an
 ``_fp8`` suffix; MFU stays over the bf16 peak, as in the reference's
 formula.
+
+``--opt muon`` (``prepare(..., opt="muon")``) steps a Llama rung with
+``muon(0.02, fallback=adamw_lowmem(3e-4), state_dtype=...)``, the
+optimizer of the reference's 1B sweep (``scripts/bench_1b_sweep.py``): the
+hidden 2-D weights by momentum and Newton-Schulz (fp32 products), the
+embedding, head and norms by ``AdamWLowmem(3e-4)``, momentum and moments
+in the rung's state dtype (bf16 at 1.3B).  Its metric takes a ``_muon``
+suffix.
 """
 
 from __future__ import annotations
@@ -94,10 +103,10 @@ from .device import resolve_device
 from .loss import vocab_parallel_cross_entropy
 from .models import (GPT, GPTConfig, Llama, LlamaConfig, Mixtral, MixtralConfig,
                      cross_entropy_loss, init_params)
-from .parallel import AdamWLowmem, param_dtype_groups
+from .parallel import AdamWLowmem, muon, param_dtype_groups
 from .train import make_train_step
 
-__all__ = ["RUNGS", "GPT_RUNGS", "MOE_RUNGS", "DP_MODES", "TrainRun", "prepare", "prepare_dp", "measure",
+__all__ = ["RUNGS", "GPT_RUNGS", "MOE_RUNGS", "DP_MODES", "OPTS", "TrainRun", "prepare", "prepare_dp", "measure",
            "peak_bf16_flops", "write_token_file", "main"]
 
 LR = 3e-4  # the reference bench's adamw_lowmem(3e-4)
@@ -144,6 +153,8 @@ MOE_RUNGS: Dict[str, Any] = {
                 2, 64, "mixtral_moe_cpu_smoke_MFU"),
 }
 DP_MODES = ("ddp", "zero2", "fsdp")
+OPTS = ("adamw", "muon")  # a Llama rung's optimizer
+MUON_LR = 0.02  # scripts/bench_1b_sweep.py's muon(0.02, ...)
 # rungs that run on the CPU unless told otherwise
 CPU_RUNGS = ("cpu", "gpt_cpu", "moe_cpu", "longctx_cpu")
 DATA_SEED = 0
@@ -243,7 +254,7 @@ def _model_and_data(rung: str, dev, *, rows: Optional[int] = None, dp_rank: int 
 
 def prepare(rung: str = "1.3b", *, device=None, rows: Optional[int] = None,
             grad_accum_steps: int = 1, token_file: Optional[str] = None,
-            layers: Optional[int] = None, fp8: bool = False) -> TrainRun:
+            layers: Optional[int] = None, fp8: bool = False, opt: str = "adamw") -> TrainRun:
     """Model (random fp32 master weights from seed 0), optimizer, step and
     batches of ``rung`` on ``device`` (default: the card; the cpu rungs run
     on the CPU).  Llama rungs repeat one numpy-seeded batch (``rows`` rows,
@@ -252,21 +263,31 @@ def prepare(rung: str = "1.3b", *, device=None, rows: Optional[int] = None,
     :func:`write_token_file` makes in a temporary directory, which
     ``TrainRun.close`` deletes).  ``layers`` cuts a Llama or GPT rung's
     depth (the smoke's gloo phases run the 1.3B and GPT-2 so); ``fp8`` runs a Llama rung
-    with ``use_fp8`` (its metric suffixed ``_fp8``)."""
-    if fp8 and (rung in GPT_RUNGS or rung in MOE_RUNGS):
-        raise ValueError(f"--fp8 applies to the Llama rungs, not {rung!r}")
+    with ``use_fp8`` (its metric suffixed ``_fp8``); ``opt="muon"`` steps a
+    Llama rung with Muon (module docstring; metric suffixed ``_muon``)."""
+    if opt not in OPTS:
+        raise ValueError(f"opt {opt!r}: expected one of {OPTS}")
+    for flag, on in (("--fp8", fp8), ("--opt muon", opt == "muon")):
+        if on and (rung in GPT_RUNGS or rung in MOE_RUNGS):
+            raise ValueError(f"{flag} applies to the Llama rungs, not {rung!r}")
     dev = torch.device("cpu") if rung in CPU_RUNGS and device is None else resolve_device(device)
     if rung in MOE_RUNGS:
         return prepare_moe(rung, dev, rows=rows, grad_accum_steps=grad_accum_steps)
     state_dtype, metric = (GPT_RUNGS if rung in GPT_RUNGS else RUNGS)[rung][3:]
     cfg, model, loss_fn, next_batch, loader, tmpdir, B, T, layers, width = _model_and_data(
         rung, dev, rows=rows, token_file=token_file, layers=layers, fp8=fp8)
-    opt = AdamWLowmem(model.parameters(), LR, state_dtype=state_dtype)
-    step = make_train_step(model, opt, loss_fn, grad_accum_steps=grad_accum_steps)
+    if opt == "muon":
+        optimizer = muon(model.named_parameters(), MUON_LR, state_dtype=state_dtype,
+                         fallback=lambda ps: AdamWLowmem(ps, LR, state_dtype=state_dtype))
+    else:
+        optimizer = AdamWLowmem(model.parameters(), LR, state_dtype=state_dtype)
+    step = make_train_step(model, optimizer, loss_fn, grad_accum_steps=grad_accum_steps)
     n_params = sum(p.numel() for p in model.parameters())
+    metric += ("_fp8" if fp8 else "") + ("_muon" if opt == "muon" else "")
     return TrainRun(rung, cfg, model, step, next_batch, n_params, B * T,
-                    6.0 * n_params + 12.0 * layers * T * width, metric + ("_fp8" if fp8 else ""),
-                    loader, tmpdir, opt, extra={"seq_len": T} if rung.startswith("longctx") else {})
+                    6.0 * n_params + 12.0 * layers * T * width, metric,
+                    loader, tmpdir, optimizer,
+                    extra={"seq_len": T} if rung.startswith("longctx") else {})
 
 
 def moe_config(rung: str) -> MixtralConfig:
@@ -398,8 +419,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description="train-step bench of vescale_tpu_torch")
     ap.add_argument("--rung", choices=sorted({**RUNGS, **GPT_RUNGS, **MOE_RUNGS}), default="1.3b")
     ap.add_argument("--fp8", action="store_true", help="a Llama rung with use_fp8")
+    ap.add_argument("--opt", choices=OPTS, default="adamw",
+                    help="a Llama rung's optimizer: adamw_lowmem, or the 1B sweep's muon")
     opts = ap.parse_args(argv)
-    run = prepare(opts.rung, fp8=opts.fp8)
+    run = prepare(opts.rung, fp8=opts.fp8, opt=opts.opt)
     try:
         print(json.dumps(measure(run)), flush=True)
     finally:

@@ -56,6 +56,8 @@ DEFAULTS = {
     "VESCALE_IO_BACKOFF_JITTER": 0.25,
     "VESCALE_IO_ATTEMPT_TIMEOUT": 0.0,
     "VESCALE_ELASTIC_RESTORE": True,
+    # the token loader's elastic mode (data/loader.py)
+    "VESCALE_ELASTIC_LOADER": False,
     # the train loop: the loader's retries and the consistency cadence
     "VESCALE_LOADER_RETRIES": 3,
     "VESCALE_CONSISTENCY_EVERY": None,

@@ -15,9 +15,9 @@ card).
     position is one counter.  Restore fast-forwards via the native
     ``vdl_seek`` (O(1): skipped batches are never filled); rewinding
     reopens the file first (prefetch state cannot run backwards).
-  * ``elastic=True`` keys every sample on its GLOBAL row index instead of
-    the per-rank partition, making the global stream invariant to the
-    (dp_world, per-rank batch) split; the state then carries a
+  * ``elastic=True`` (env ``VESCALE_ELASTIC_LOADER``) keys every sample on
+    its GLOBAL row index instead of the per-rank partition, making the
+    global stream invariant to the (dp_world, per-rank batch) split; the state then carries a
     rank-invariant global cursor so a resume onto a different world size
     re-splits the position sample-exactly.
 
@@ -29,7 +29,8 @@ batch a fault-free run gets; a closed loader fails at once, outside the
 retries.  While telemetry is on, each fetch is observed as
 ``data_load_seconds``; while ndtimeline is active, each ``next()`` (the
 fetch and the copy to the device) is one ``DATA_LOAD`` span.
-``elastic`` is an argument only (no env knob).
+``elastic=None`` (the default) reads ``VESCALE_ELASTIC_LOADER`` (off
+unless set), as the reference loader does.
 
 The shared library builds with ``g++`` at first use into ``data/build/``,
 under a name that carries the ABI version, so it can never load the JAX
@@ -43,7 +44,7 @@ import os
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -115,7 +116,7 @@ class TokenDataLoader:
 
     def __init__(self, path: str, batch: int, seq_len: int, *, seed: int = 0, dp_rank: int = 0,
                  dp_world: int = 1, token_dtype=np.uint16, num_prefetch_threads: int = 2,
-                 elastic: bool = False, device=None):
+                 elastic: Optional[bool] = None, device=None):
         token_bytes = np.dtype(token_dtype).itemsize
         if token_bytes not in (2, 4):
             raise ValueError("token dtype must be 2 or 4 bytes")
@@ -123,6 +124,10 @@ class TokenDataLoader:
         self.batch, self.seq_len = batch, seq_len
         self.path = path
         self.seed, self.dp_rank, self.dp_world = int(seed), int(dp_rank), int(dp_world)
+        if elastic is None:
+            from .. import config
+
+            elastic = config.get_bool("VESCALE_ELASTIC_LOADER")
         self.elastic = bool(elastic)
         self._token_bytes = token_bytes
         self._nprefetch = num_prefetch_threads

@@ -51,13 +51,18 @@ replaced by the stacked experts::
 
 and a ``MoEConfig`` tree is one such ``block_sparse_moe`` subtree (with
 ``w_gate`` only when ``swiglu``).  ``hf_llama_to_params`` and
-``hf_mixtral_to_params`` map a HuggingFace state dict onto these trees.
+``hf_mixtral_to_params`` map a HuggingFace state dict onto these trees;
+``load_hf_llama`` reads one from a checkpoint directory's shard files
+(``read_safetensors`` parses the safetensors format itself: the port needs
+no ``safetensors`` package).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
@@ -71,7 +76,8 @@ from .nanogpt import GPTConfig
 
 __all__ = ["params_from_jax", "init_params", "param_shapes", "tree_to", "module_tree",
            "load_params", "zero_state_from_jax", "fsdp_buffer_from_jax", "scan_tree",
-           "unscan_tree", "leaf_dtype", "hf_llama_to_params", "hf_mixtral_to_params"]
+           "unscan_tree", "leaf_dtype", "hf_llama_to_params", "hf_mixtral_to_params",
+           "load_hf_llama", "read_safetensors"]
 
 Config = Union[LlamaConfig, GPTConfig, MixtralConfig, MoEConfig]
 
@@ -538,6 +544,73 @@ def hf_llama_to_params(state_dict: Mapping[str, Any], config: LlamaConfig,
     if missing:
         raise ValueError(f"HF state dict is missing {len(missing)} tensors, e.g. {missing[:4]}")
     return params
+
+
+# the safetensors format's dtype names
+_ST_DTYPES = {
+    "BOOL": torch.bool, "U8": torch.uint8, "I8": torch.int8, "I16": torch.int16,
+    "U16": torch.uint16, "I32": torch.int32, "U32": torch.uint32, "I64": torch.int64,
+    "U64": torch.uint64, "F16": torch.float16, "BF16": torch.bfloat16, "F32": torch.float32,
+    "F64": torch.float64, "F8_E4M3": torch.float8_e4m3fn, "F8_E5M2": torch.float8_e5m2,
+}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a ``.safetensors`` file, as CPU tensors in the file's
+    dtypes: an 8-byte little-endian header length, the JSON header (each
+    tensor's ``dtype``, ``shape`` and ``data_offsets`` into the data that
+    follows; ``__metadata__`` skipped), then the raw little-endian bytes.
+    The file is read once into one buffer that the tensors view."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        if n <= 0 or 8 + n > size:
+            raise ValueError(f"{path}: not a safetensors file (header length {n})")
+        header = json.loads(f.read(n))
+        buf = bytearray(size - 8 - n)
+        if f.readinto(buf) != len(buf):
+            raise ValueError(f"{path}: truncated")
+    data = torch.frombuffer(buf, dtype=torch.uint8) if buf else torch.empty(0, dtype=torch.uint8)
+    out: Dict[str, torch.Tensor] = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _ST_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']!r}")
+        lo, hi = info["data_offsets"]
+        shape = [int(d) for d in info["shape"]]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if hi - lo != math.prod(shape) * itemsize or hi > len(buf):
+            raise ValueError(f"{path}: {name}'s offsets {lo, hi} do not hold {shape} {info['dtype']}")
+        raw = data[lo:hi]
+        if lo % itemsize:  # a view of another dtype must start on its alignment
+            raw = raw.clone()
+        out[name] = raw.view(dtype).reshape(shape)
+    return out
+
+
+def load_hf_llama(path: str, config: LlamaConfig, device=None) -> Dict[str, Any]:
+    """``hf_llama_to_params`` of a checkpoint directory: every
+    ``*.safetensors`` shard under ``path`` merged in sorted order (read by
+    :func:`read_safetensors`), else every ``pytorch_model*.bin`` shard
+    (``torch.load(..., weights_only=True)``); ``FileNotFoundError`` when
+    there are neither (the reference's ``models/convert.py::
+    load_hf_llama``).  The tree is fp32 on ``device`` (default: the
+    card)."""
+    names = sorted(os.listdir(path))
+    st_files = [f for f in names if f.endswith(".safetensors")]
+    bin_files = [f for f in names if f.startswith("pytorch_model") and f.endswith(".bin")]
+    state: Dict[str, Any] = {}
+    if st_files:
+        for f in st_files:
+            state.update(read_safetensors(os.path.join(path, f)))
+    elif bin_files:
+        for f in bin_files:
+            state.update(torch.load(os.path.join(path, f), map_location="cpu", weights_only=True))
+    else:
+        raise FileNotFoundError(f"no .safetensors or pytorch_model*.bin under {path}")
+    return hf_llama_to_params(state, config, device=device)
 
 
 def hf_mixtral_to_params(state_dict: Mapping[str, Any], config: MixtralConfig,

@@ -516,7 +516,9 @@ class Llama(nn.Module):
             params = init_params(c, seed, device=dev, dtype=torch.float32)
         load_params(self, params)
 
-    def forward(self, idx):
+    def forward(self, idx, deterministic: bool = True, rngs=None):
+        # ``deterministic`` and ``rngs`` are flax's ``__call__`` arguments:
+        # the Llama draws no randomness, so both are unused
         c = self.config
         B, T = idx.shape
         x = self.embed_tokens(idx)

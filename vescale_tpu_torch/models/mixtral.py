@@ -120,7 +120,8 @@ class Mixtral(nn.Module):
         """Each block's router aux loss of the last forward (in the graph)."""
         return [b.router_aux for b in self.blocks()]
 
-    def forward(self, idx):
+    def forward(self, idx, deterministic: bool = True, rngs=None):
+        # flax's ``__call__`` arguments; the Mixtral draws no randomness
         B, T = idx.shape
         x = self.embed_tokens(idx)
         positions = torch.arange(T, device=idx.device)[None, :].expand(B, T)

@@ -17,19 +17,32 @@ default), and the head is tied: ``wte.attend``.  Attention runs
 ``use_flash_attention``, else the reference's dense einsum branch in the
 compute dtype.
 
+Dropout sits where flax's ``nn.Dropout`` sits: on the embedding sum, on
+the attention weights (the dense branch: flash attention runs only when
+``dropout == 0``), on the attention output and on the MLP output, each a
+``Dropout`` module under flax's auto-name (``Dropout_0``, ``Dropout_1``),
+so its module path is flax's scope path.  ``GPT.forward(idx,
+deterministic=True, rngs=None)`` takes the reference's arguments: with
+``deterministic=False`` each site draws ``bernoulli(make_rng("dropout"),
+1 - rate)`` and keeps ``x / (1 - rate)`` where it holds, with the key flax
+derives for that path from ``rngs["dropout"]`` (``random.make_rng``) and
+JAX's partitionable threefry over the element's global index
+(``random.bernoulli``), so the masks are bitwise flax's.  A tensor-parallel
+rank draws its heads' piece of the attention weights' mask, and a
+data-parallel rank its rows' piece (``random.batch_rows``).
+
 ``nanogpt_plan`` is the reference's TP/SP plan for
 ``dmodule.parallelize_module``.  ``gpt_pipeline_units`` is the model as
 pipeline stage units (``TokEmbed``, ``PosEmbed``, the blocks, ``FinalNorm``,
-``TiedHead``) for ``pipe.construct_pipeline_stage``.
-
-Not here yet: dropout (``dropout > 0`` raises; its RNG streams are an open
-item of ROADMAP.md queue A, item 5).
+``TiedHead``) for ``pipe.construct_pipeline_stage``; as in the reference,
+the units run their blocks deterministic (no dropout) at any rate.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Any
 
 import torch
@@ -39,7 +52,7 @@ from torch import nn
 from ..device import resolve_device
 from .llama import Dense, Embed, _param
 
-__all__ = ["GPTConfig", "LayerNorm", "CausalSelfAttention", "MLP", "Block", "GPT",
+__all__ = ["GPTConfig", "LayerNorm", "Dropout", "CausalSelfAttention", "MLP", "Block", "GPT",
            "cross_entropy_loss", "nanogpt_plan", "TokEmbed", "PosEmbed", "FinalNorm",
            "TiedHead", "gpt_pipeline_units", "gpt_unit_params"]
 
@@ -82,6 +95,59 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+def _dropout_mask(k, keep_prob: float, shape, device, global_offset, global_shape) -> torch.Tensor:
+    """flax's mask: ``bernoulli(k, keep_prob)`` at each element's global
+    index (the piece at ``global_offset`` of ``global_shape``)."""
+    from .. import random as _random
+
+    return _random.bernoulli(keep_prob, shape, key=k, device=device, global_offset=global_offset,
+                             global_shape=global_shape)
+
+
+class _DropoutRng(threading.local):
+    key = None  # the "dropout" stream's key of the running GPT forward
+
+
+_RNG = _DropoutRng()
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)`` at its flax path ``path`` (set by
+    ``GPT``): identity when ``deterministic`` or ``rate == 0``, zeros at
+    ``rate == 1``, else ``where(keep, x / keep_prob, 0)`` (the divisor in
+    ``x``'s dtype, as JAX's weak-typed ``x / keep_prob``) with ``keep`` the
+    mask flax draws for this path's first ``make_rng`` in the forward.
+    ``x`` is the piece at ``global_offset`` of a ``global_shape`` tensor
+    (default: the whole), offset on dim 0 by ``random.batch_rows``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.path = ()
+
+    def forward(self, x, deterministic: bool = True, global_offset=None, global_shape=None):
+        if self.rate == 0.0 or deterministic:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if _RNG.key is None:
+            raise ValueError(f"Dropout {'.'.join(self.path)} needs the 'dropout' rng: call the "
+                             "GPT with rngs={'dropout': key} when deterministic=False")
+        from .. import random as _random
+
+        goff = list(global_offset) if global_offset is not None else [0] * x.dim()
+        gshape = list(global_shape) if global_shape is not None else list(x.shape)
+        rows = _random.current_batch_rows()
+        if rows is not None:
+            goff[0] += rows[0]
+            gshape[0] = rows[1]
+        keep_prob = 1.0 - self.rate
+        keep = _dropout_mask(_random.make_rng(_RNG.key, self.path), keep_prob, x.shape, x.device,
+                             goff, gshape)
+        kp = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+        return torch.where(keep, x / kp, torch.zeros_like(x))
+
+
 class CausalSelfAttention(nn.Module):
     """Multi-head attention over the fused ``c_attn`` projection.  Under
     tensor parallelism ``c_attn`` is column-parallel on its fused (q | k |
@@ -97,8 +163,11 @@ class CausalSelfAttention(nn.Module):
         self.config = c
         self.c_attn = Dense(c.n_embd, 3 * c.n_embd, c.dtype, device, use_bias=c.bias)
         self.c_proj = Dense(c.n_embd, c.n_embd, c.dtype, device, use_bias=c.bias)
+        # flax's auto-names on the dense branch: the weights', the output's
+        self.Dropout_0 = Dropout(c.dropout)
+        self.Dropout_1 = Dropout(c.dropout)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True):
         c = self.config
         B, T, _ = x.shape
         E = c.n_embd
@@ -115,21 +184,25 @@ class CausalSelfAttention(nn.Module):
         if El != E:
             q, k, v = (t.narrow(-1, tp.rank * El, El) for t in (q, k, v))
         q, k, v = (t.reshape(B, T, H, hd) for t in (q, k, v))
-        if c.use_flash_attention:
+        if c.dropout == 0.0 and c.use_flash_attention:
             from ..ops.flash_attention import flash_attention, flash_attention_sharded
 
             if tp is not None:
                 y = flash_attention_sharded(q, k, v, tp.mesh, causal=True).reshape(B, T, El)
             else:
                 y = flash_attention(q, k, v, causal=True).reshape(B, T, El)
-        else:
-            # the reference's dense branch, op by op in the compute dtype
-            att = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
-            mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device))
-            att = torch.where(mask, att, torch.full_like(att, torch.finfo(att.dtype).min))
-            att = torch.softmax(att, dim=-1)
-            y = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, T, El)
-        return self.c_proj(y)
+            return self.c_proj(y)  # flax's Dropout at rate 0: the identity
+        # the reference's dense branch, op by op in the compute dtype
+        att = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+        mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device))
+        att = torch.where(mask, att, torch.full_like(att, torch.finfo(att.dtype).min))
+        att = torch.softmax(att, dim=-1)
+        # this rank's heads of the (B, n_head, T, T) weights
+        h0 = tp.rank * H if El != E else 0
+        att = self.Dropout_0(att, deterministic, global_offset=(0, h0, 0, 0),
+                             global_shape=(B, c.n_head, T, T))
+        y = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, T, El)
+        return self.Dropout_1(self.c_proj(y), deterministic)
 
 
 class MLP(nn.Module):
@@ -142,9 +215,10 @@ class MLP(nn.Module):
         super().__init__()
         self.c_fc = Dense(c.n_embd, 4 * c.n_embd, c.dtype, device, use_bias=c.bias)
         self.c_proj = Dense(4 * c.n_embd, c.n_embd, c.dtype, device, use_bias=c.bias)
+        self.Dropout_0 = Dropout(c.dropout)
 
-    def forward(self, x):
-        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+    def forward(self, x, deterministic: bool = True):
+        return self.Dropout_0(self.c_proj(F.gelu(self.c_fc(x), approximate="tanh")), deterministic)
 
 
 class Block(nn.Module):
@@ -155,9 +229,9 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(c.n_embd, c.bias, c.dtype, device)
         self.mlp = MLP(c, device)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x, deterministic: bool = True):
+        x = x + self.attn(self.ln_1(x), deterministic)
+        return x + self.mlp(self.ln_2(x), deterministic)
 
 
 class GPT(nn.Module):
@@ -166,15 +240,14 @@ class GPT(nn.Module):
     card), from ``params`` (a flax-layout tree, e.g. ``init_params`` or
     ``params_from_jax``, copied in) or else ``init_params(config, seed)``.
     The head is tied to ``wte``: one fp32 master, whose gradient sums the
-    lookup's and the head's."""
+    lookup's and the head's.  ``forward(idx, deterministic=True,
+    rngs=None)``: with ``deterministic=False`` the dropout sites draw from
+    ``rngs["dropout"]`` (a ``random`` key), as flax's ``apply(...,
+    rngs=...)`` does."""
 
     def __init__(self, config: GPTConfig, params=None, *, device=None, seed: int = 0):
         super().__init__()
         c = config
-        if c.dropout > 0.0:
-            raise NotImplementedError(
-                "GPTConfig.dropout > 0 is not ported yet: dropout RNG streams "
-                "(ROADMAP.md queue A, item 5)")
         self.config = c
         dev = resolve_device(device)
         self.wte = Embed(c.vocab_size, c.n_embd, c.dtype, dev)
@@ -182,21 +255,34 @@ class GPT(nn.Module):
         for i in range(c.n_layer):
             self.add_module(f"h_{i}", Block(c, dev))
         self.ln_f = LayerNorm(c.n_embd, c.bias, c.dtype, dev)
+        self.Dropout_0 = Dropout(c.dropout)
+        for name, m in self.named_modules():
+            if isinstance(m, Dropout):  # flax's scope path of each site
+                m.path = tuple(name.split("."))
         from .convert import init_params, load_params
 
         if params is None:
             params = init_params(c, seed, device=dev, dtype=torch.float32)
         load_params(self, params)
 
-    def forward(self, idx):
+    def forward(self, idx, deterministic: bool = True, rngs=None):
         c = self.config
         T = idx.shape[1]
         if T > c.block_size:
             raise ValueError(f"sequence of {T} tokens exceeds block_size {c.block_size}")
-        x = self.wte(idx) + self.wpe(torch.arange(T, device=idx.device))[None]
-        for i in range(c.n_layer):
-            x = getattr(self, f"h_{i}")(x)
-        return self.wte.attend(self.ln_f(x))
+        from .. import random as _random
+
+        prev = _RNG.key
+        _RNG.key = (_random.as_key(rngs["dropout"])
+                    if not deterministic and rngs and "dropout" in rngs else None)
+        try:
+            x = self.wte(idx) + self.wpe(torch.arange(T, device=idx.device))[None]
+            x = self.Dropout_0(x, deterministic)
+            for i in range(c.n_layer):
+                x = getattr(self, f"h_{i}")(x, deterministic)
+            return self.wte.attend(self.ln_f(x))
+        finally:
+            _RNG.key = prev
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -302,10 +388,6 @@ def gpt_pipeline_units(config: GPTConfig, device="meta"):
     (on ``meta`` by default): the parameters travel in the per-group trees
     of ``PipeModule.init_all`` or :func:`gpt_unit_params`.  Feed them to
     ``pipe.construct_pipeline_stage``."""
-    if config.dropout > 0.0:
-        raise NotImplementedError(
-            "GPTConfig.dropout > 0 is not ported yet: dropout RNG streams "
-            "(ROADMAP.md queue A, item 5)")
     from ..pipe.pipe_stage import StageUnit
 
     dev = torch.device(device)

@@ -1,5 +1,5 @@
 """Optimizers, data and context parallelism of the port: ``AdamWLowmem``,
-``BasicOptimizer``, ``DistributedOptimizer`` (ZeRO), DDP, the ragged
+``Muon``, ``BasicOptimizer``, ``DistributedOptimizer`` (ZeRO), DDP, the ragged
 FSDP buffer, and ring, Ulysses and blockwise attention (``context.py``)."""
 
 from .context import blockwise_attention, ring_self_attention, ulysses_self_attention
@@ -9,14 +9,19 @@ from .optimizer import (
     AdamWLowmem,
     BasicOptimizer,
     DistributedOptimizer,
+    Muon,
     clip_grad_norm_fp32,
     found_inf,
+    muon,
+    muon_labels,
+    newton_schulz,
     param_dtype_groups,
     zero_sharded,
 )
 
 __all__ = ["AdamWLowmem", "BasicOptimizer", "DistributedDataParallel", "DistributedOptimizer",
-           "FSDPParamBuffer", "blockwise_attention", "clip_grad_norm_fp32", "dp_grad_reduce",
-           "found_inf", "fsdp_plan", "make_fsdp_train_step", "param_dtype_groups",
+           "FSDPParamBuffer", "Muon", "blockwise_attention", "clip_grad_norm_fp32", "dp_grad_reduce",
+           "found_inf", "fsdp_plan", "make_fsdp_train_step", "muon", "muon_labels",
+           "newton_schulz", "param_dtype_groups",
            "resolve_grad_compress", "ring_self_attention", "ulysses_self_attention",
            "zero_sharded"]

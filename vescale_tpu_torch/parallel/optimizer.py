@@ -26,14 +26,17 @@ The port of ``vescale_tpu/parallel/optimizer.py``, written on
     or none, before the inner step, so a skipped step changes no bit) and
     the global-norm clip (over every dp and tp piece) ride along.
   * ``clip_grad_norm_fp32`` and ``found_inf`` over lists of grads.
+  * ``Muon`` (also ``muon``) — the reference's ``muon``: momentum and a quintic
+    Newton-Schulz orthogonalization (``newton_schulz``) for the hidden 2-D
+    weights, a fallback optimizer (``AdamWLowmem(3e-4)`` with fp32 moments,
+    the port's ``optax.adamw(3e-4)``) for every other parameter, split by
+    ``muon_labels`` on the parameters' flax paths.
 
 While ndtimeline is active (``ndtimeline.init_ndtimers``) each optimizer's
 ``step`` records one OPTIMIZER_STEP span (the outermost one when a step
 calls another optimizer's, as ``DistributedOptimizer`` and
 ``BasicOptimizer`` do).  The reference records it only for its eager
 optimizer steps; every optimizer of the port is eager.
-
-Not here yet: Muon (ROADMAP.md queue A, item 4).
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ from ..spec import DArraySpec, TensorMeta
 from .ddp import (DEFAULT_BUCKET, bucketed_all_gather, bucketed_all_reduce, bucketed_reduce_scatter,
                   resolve_grad_compress, tree_map)
 
-__all__ = ["AdamWLowmem", "BasicOptimizer", "DistributedOptimizer", "EmptyState",
+__all__ = ["AdamWLowmem", "BasicOptimizer", "Muon", "muon", "muon_labels", "newton_schulz",
+           "DistributedOptimizer", "EmptyState",
            "ScaleByAdamLowmemState", "param_dtype_groups",
            "clip_grad_norm_fp32", "found_inf", "bias_corrections", "zero_placements",
            "zero_sharded"]
@@ -304,6 +308,134 @@ class BasicOptimizer:
             for p, g in zip(params, clipped):
                 p.grad = g
         self.optimizer.step()
+
+
+# -------------------------------------------------------------------- muon
+_NS_COEFFS = (3.4445, -4.7750, 2.0315)
+# a parameter whose lower-cased flax path holds one of these goes to the
+# fallback optimizer (reference ``parallel/optimizer.py:623``)
+_MUON_EXCLUDE = ("embed", "embedding", "wte", "wpe", "lm_head", "head")
+
+
+def newton_schulz(G: torch.Tensor, steps: int = 5, eps: float = 1e-7) -> torch.Tensor:
+    """The reference's quintic Newton-Schulz orthogonalization of a 2-D
+    ``G`` (``parallel/optimizer.py::_newton_schulz``), with its dtypes: G
+    is rounded to bf16 once, then divided by its fp32 Frobenius norm,
+    which promotes it to fp32, so the ``steps`` iterations run in fp32
+    (as JAX promotes them); the result is cast back to G's dtype.  On the
+    card the products are fp32 matmuls, true fp32 while
+    ``torch.backends.cuda.matmul.allow_tf32`` stays off (PyTorch's
+    default)."""
+    a, b, c = _NS_COEFFS
+    X = G.to(torch.bfloat16).float()
+    X = X / (torch.linalg.vector_norm(X) + eps)
+    transpose = G.shape[0] > G.shape[1]
+    if transpose:
+        X = X.T
+    for _ in range(steps):
+        A = X @ X.T
+        B = b * A + c * (A @ A)
+        X = a * X + B @ X
+    if transpose:
+        X = X.T
+    return X.to(G.dtype)
+
+
+def muon_labels(named_params) -> Dict[str, str]:
+    """``{name: "muon" | "fallback"}`` over ``(name, parameter)`` pairs,
+    the reference's labels: a parameter goes to the fallback when it is not
+    2-D or when its lower-cased name (the flax path, e.g. from
+    ``named_parameters()`` of the port's models) holds ``embed``,
+    ``embedding``, ``wte``, ``wpe``, ``lm_head`` or ``head``."""
+    out = {}
+    for name, p in named_params:
+        path = name.lower()
+        out[name] = ("fallback" if p.dim() != 2 or any(tok in path for tok in _MUON_EXCLUDE)
+                     else "muon")
+    return out
+
+
+def _default_fallback(params):
+    # optax.adamw(3e-4): b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4,
+    # moments in the parameters' (fp32) dtype
+    return AdamWLowmem(params, 3e-4, state_dtype=torch.float32)
+
+
+class Muon(torch.optim.Optimizer):
+    """Muon over named parameters (the reference's ``muon``, an optax
+    ``multi_transform``).  ``named_params``: ``(name, parameter)`` pairs,
+    e.g. ``model.named_parameters()``; :func:`muon_labels` splits them.
+
+    Each "muon" parameter (2-D, in flax's (in, out) layout) keeps a
+    momentum buffer in ``state_dtype`` (its own dtype when None); a step
+    computes, in the gradient's dtype, ``m = momentum * m + g`` (stored
+    back in ``state_dtype``), ``eff = momentum * m + g`` under ``nesterov``
+    (else ``m``), the update ``-lr * sqrt(max(1, shape[1] / shape[0])) *
+    newton_schulz(eff, ns_steps)`` in fp32 cast to the gradient's dtype,
+    and adds it to the parameter in the parameter's dtype.  A parameter
+    without a gradient steps with zeros, as every leaf of the reference's
+    tree does.  ``fallback`` builds the optimizer of the other parameters
+    from their list (default: ``AdamWLowmem(params, 3e-4,
+    state_dtype=torch.float32)``, the port's ``optax.adamw(3e-4)``); it is
+    ``self.fallback`` and steps in the same ``step``, after the Muon
+    updates.  ``self.labels`` holds the split."""
+
+    def __init__(self, named_params, lr: float = 0.02, momentum: float = 0.95,
+                 nesterov: bool = True, ns_steps: int = 5,
+                 fallback: Optional[Callable[[List[torch.Tensor]], Any]] = None,
+                 state_dtype: Optional[torch.dtype] = None):
+        named = list(named_params)
+        if not named:
+            raise ValueError("Muon: no parameters")
+        self.labels = muon_labels(named)
+        hidden = [p for n, p in named if self.labels[n] == "muon"]
+        rest = [p for n, p in named if self.labels[n] == "fallback"]
+        defaults = dict(lr=lr, momentum=momentum, nesterov=nesterov, ns_steps=ns_steps,
+                        state_dtype=state_dtype)
+        # one group, empty when no parameter is a hidden 2-D weight (then
+        # only the fallback steps)
+        super().__init__([{"params": hidden}], defaults)
+        self.fallback = (fallback or _default_fallback)(rest) if rest else None
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        super().zero_grad(set_to_none=set_to_none)
+        if self.fallback is not None:
+            self.fallback.zero_grad(set_to_none=set_to_none)
+
+    @_optimizer_step_span
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            mom = group["momentum"]
+            for p in group["params"]:
+                g = torch.zeros_like(p) if p.grad is None else p.grad
+                st = self.state[p]
+                if not st:
+                    st["momentum_buffer"] = torch.zeros_like(
+                        p, dtype=group["state_dtype"] or p.dtype)
+                m = st["momentum_buffer"]
+                m_new = (mom * m.to(g.dtype) + g).to(m.dtype)
+                m.copy_(m_new)
+                eff = mom * m_new.to(g.dtype) + g if group["nesterov"] else m_new.to(g.dtype)
+                o = newton_schulz(eff, group["ns_steps"]).float()
+                # -lr * sqrt(max(1, fan_out / fan_in)), rounded to fp32 as
+                # JAX rounds it, then a host scalar exact in fp32
+                scale = torch.sqrt(torch.tensor(max(1.0, g.shape[1] / g.shape[0]),
+                                                dtype=torch.float32))
+                coeff = float(torch.tensor(-group["lr"], dtype=torch.float32) * scale)
+                u = (coeff * o).to(g.dtype)
+                p.copy_(p + u.to(torch.promote_types(u.dtype, p.dtype)))
+        if self.fallback is not None:
+            self.fallback.step()
+        return loss
+
+
+# the reference's name: muon(named_params, 0.02, fallback=..., state_dtype=...)
+muon = Muon
 
 
 # -------------------------------------------------------------------- ZeRO

@@ -10,7 +10,10 @@ module is that generator in plain PyTorch integer ops:
     holding 32-bit words, masked after every add and rotate (torch's
     ``uint32`` lacks shifts on some devices);
   * ``key(seed)`` and ``fold_in`` as ``jax.random.key`` / ``fold_in`` build
-    them (a key is a pair of Python ints);
+    them (a key is a pair of Python ints); ``fold_in_static`` and
+    ``make_rng`` as flax derives a module's key from the key passed to
+    ``apply`` (``flax/core/scope.py``: the SHA-1 of the module path and the
+    scope's call counter folded in once);
   * ``random_bits`` over the global iota, split into its high and low
     32-bit words, as ``jax._src.prng._threefry_random_bits_partitionable``;
   * ``uniform``, ``bernoulli`` and ``normal`` as ``jax.random`` builds them.
@@ -33,6 +36,7 @@ and the three tracker aliases.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import threading
 import zlib
 from typing import Optional, Sequence, Tuple
@@ -43,7 +47,12 @@ from .device import resolve_device
 
 __all__ = [
     "key",
+    "as_key",
     "fold_in",
+    "fold_in_static",
+    "make_rng",
+    "batch_rows",
+    "current_batch_rows",
     "threefry2x32",
     "random_bits",
     "linear_index",
@@ -101,6 +110,62 @@ def key(seed: int) -> Key:
 def fold_in(k: Key, data: int) -> Key:
     """``jax.random.fold_in``: the hash of the word pair ``(0, data)``."""
     return _hash_words(k, 0, int(data) & _M32)
+
+
+def as_key(k) -> Key:
+    """A key from its two 32-bit words: a pair, a list, or an array or
+    tensor of two (``jax.random.key_data`` of a JAX key, say)."""
+    words = [int(w) for w in (k.tolist() if hasattr(k, "tolist") else k)]
+    if len(words) != 2:
+        raise ValueError(f"a key is two 32-bit words, got {words}")
+    return words[0] & _M32, words[1] & _M32
+
+
+def fold_in_static(k: Key, data: Sequence) -> Key:
+    """flax's ``_fold_in_static``: the first 4 bytes (big-endian) of the
+    SHA-1 of ``data`` (strings as UTF-8, ints as their big-endian bytes,
+    no separator: ``flax_fix_rng_separator`` off, flax's default) folded
+    into ``k``; ``k`` itself for empty ``data``."""
+    if not data:
+        return k
+    m = hashlib.sha1()
+    for x in data:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        elif isinstance(x, int):
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+        else:
+            raise ValueError(f"expected an int or a string, got {x!r}")
+    return fold_in(k, int.from_bytes(m.digest()[:4], byteorder="big"))
+
+
+def make_rng(k: Key, path: Sequence[str], count: int = 1) -> Key:
+    """The key flax's ``make_rng`` gives the module at ``path`` (its scope
+    names from the root, e.g. ``("h_0", "attn", "Dropout_0")``) on its
+    ``count``-th call in one ``apply`` whose rng for the stream is ``k``."""
+    return fold_in_static(k, (*path, int(count)))
+
+
+_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def batch_rows(offset: int, total: int):
+    """Declare that the batch this process computes on is rows ``[offset,
+    offset + rows)`` of a global batch of ``total`` rows (a data-parallel
+    rank's piece), so a draw keyed by a batch element's global index
+    (dropout) takes this rank's rows of the global draw."""
+    prev = getattr(_ROWS, "rows", None)
+    _ROWS.rows = (int(offset), int(total))
+    try:
+        yield
+    finally:
+        _ROWS.rows = prev
+
+
+def current_batch_rows() -> Optional[Tuple[int, int]]:
+    """``(offset, total)`` of the innermost :func:`batch_rows`, or None."""
+    return getattr(_ROWS, "rows", None)
 
 
 def linear_index(index_set, global_shape: Sequence[int], device) -> torch.Tensor:

@@ -50,8 +50,15 @@ scales come from the latest one (``train.py:163-182``).  With a
 ``DistributedOptimizer``'s loss scale the g histories record the scaled
 gradients, as the reference's do.
 
-Not here yet (ROADMAP.md): dropout RNG streams (the Llama has no
-dropout).
+The step takes the reference's ``step_key`` (a ``random`` key): each
+stream of ``rng_streams`` gets ``fold_in(step_key, i)`` and the model runs
+with ``deterministic=False, rngs=...`` (the GPT's dropout), micro-batch
+``i`` of a grad accumulation under ``fold_in(step_key, 1000 + i)``
+(reference ``train.py:103-114``, ``:155``); with no key the forward is the
+deterministic one.  Over "dp" each rank draws its rows of the global
+batch's masks (``random.batch_rows``).  :func:`make_eval_step` is the
+reference's eval step: the deterministic forward and the loss, no
+gradient.
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-__all__ = ["FunctionalStep", "make_train_step"]
+__all__ = ["FunctionalStep", "make_eval_step", "make_train_step"]
 
 # the double-increment guard of auto_inc_step: the manager it last saw, the
 # step it left the counter at, and whether it has warned (reference
@@ -152,10 +159,28 @@ def _reduce_aux(leaves):
     return stacked.sum(dim=0)
 
 
+def _forward_fn(model):
+    """``forward(x, **kw)``: ``model``'s output for ``x``; over a ``DModule``
+    this rank's vocab slice (Shard(-1) on "tp"), as the loss takes it."""
+    from .dmodule import DModule
+
+    if not isinstance(model, DModule):
+        return model
+
+    def forward(x, **kw):
+        from .placements import Shard, plan_axes
+
+        out = model.forward_local(x, **kw)
+        return model.output_to(out, plan_axes(model.mesh, tp=Shard(out.ndim - 1)))
+
+    return forward
+
+
 def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
                     has_aux: bool = False, grad_accum_steps: int = 1,
-                    auto_inc_step: bool = True):
-    """Build ``step(batch) -> loss`` (``(loss, aux)`` with ``has_aux``).
+                    auto_inc_step: bool = True, rng_streams: tuple = ("dropout",)):
+    """Build ``step(batch, step_key=None) -> loss`` (``(loss, aux)`` with
+    ``has_aux``).
 
     ``loss_fn(output, batch)`` computes the scalar loss from the model's
     output on ``batch["input"]``.  Each call zeroes the grads, runs forward
@@ -184,7 +209,14 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
     call advances its step counter after the TRAIN_STEP span, so a loop
     over this step must not call ``inc_step()`` too (it warns once if it
     does).  The returned step carries ``.model`` and ``.optimizer``, which
-    ``telemetry.costaudit.layer_attribution`` and the step report read."""
+    ``telemetry.costaudit.layer_attribution`` and the step report read.
+
+    ``step_key`` (a ``random`` key, e.g. ``random.key(seed)`` folded with
+    the step): the model is called as ``model(x, deterministic=False,
+    rngs={name: fold_in(key, i) for i, name in enumerate(rng_streams)})``,
+    ``key`` the step key or, for micro-batch ``i`` of a grad
+    accumulation, ``fold_in(step_key, 1000 + i)``: the reference's
+    streams.  Without it the model is called as ``model(x)``."""
     from .dmodule import DModule
     from .parallel.ddp import DistributedDataParallel
     from .parallel.optimizer import DistributedOptimizer
@@ -208,33 +240,42 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
 
     owg = owg_buffers(model)
 
-    def forward(x):
-        if dm is None:
-            return model(x)
-        from .placements import Shard, plan_axes
+    forward = _forward_fn(model)
+    from . import random as _random
 
-        out = dm.forward_local(x)
-        return dm.output_to(out, plan_axes(dm.mesh, tp=Shard(out.ndim - 1)))
+    def micro(mb, key):
+        x = mb["input"]
+        if key is None:
+            out = forward(x)
+        else:
+            rngs = {name: _random.fold_in(key, i) for i, name in enumerate(rng_streams)}
+            if dp_group is None:
+                out = forward(x, deterministic=False, rngs=rngs)
+            else:  # this rank's rows of the global batch
+                import torch.distributed as dist
 
-    def micro(mb):
-        res = loss_fn(forward(mb["input"]), mb)
+                n, r = dist.get_world_size(dp_group), dist.get_rank(dp_group)
+                with _random.batch_rows(r * x.shape[0], n * x.shape[0]):
+                    out = forward(x, deterministic=False, rngs=rngs)
+        res = loss_fn(out, mb)
         return res if has_aux else (res, None)
 
     def backward(loss):
         (dopt.scale_loss(loss) if dopt is not None else loss).backward()
 
-    def step(batch: Dict[str, Any]):
+    def step(batch: Dict[str, Any], step_key=None):
         from . import telemetry as _tel
         from .ndtimeline import api as _nd
         from .ndtimeline.predefined import TRAIN_STEP
 
+        key = None if step_key is None else _random.as_key(step_key)
         tel_on = _tel.is_active()
         if not tel_on and not _nd.is_active():
-            return run(batch)
+            return run(batch, key)
         t0 = time.perf_counter()
         metrics: Optional[Dict[str, Any]] = {} if tel_on else None
         with _nd.ndtimeit(TRAIN_STEP):
-            out = run(batch, metrics)
+            out = run(batch, key, metrics)
         if auto_inc_step and _nd.is_active():
             _auto_inc_step()
         if not tel_on:
@@ -260,13 +301,13 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
         _tel.record_step(rec)
         return out
 
-    def run(batch: Dict[str, Any], metrics=None):
+    def run(batch: Dict[str, Any], key, metrics=None):
         optimizer.zero_grad(set_to_none=True)
         owg_next: Dict[str, torch.Tensor] = {}
         for b in owg.values():
             b.grad = None
         if grad_accum_steps == 1:
-            loss, aux = micro(batch)
+            loss, aux = micro(batch, key)
             backward(loss)
             _take_owg(owg, owg_next)
             loss, aux = loss.detach(), _detach(aux)
@@ -274,8 +315,8 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
             params = [p for p in model.parameters() if p.requires_grad]
             g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
             l_sum, auxes = None, []
-            for mb in _split(batch, grad_accum_steps):
-                l, aux_i = micro(mb)
+            for i, mb in enumerate(_split(batch, grad_accum_steps)):
+                l, aux_i = micro(mb, None if key is None else _random.fold_in(key, 1000 + i))
                 backward(l)
                 _take_owg(owg, owg_next)
                 for acc, p in zip(g_sum, params):
@@ -314,6 +355,27 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
     step.model = model
     step.optimizer = optimizer
     return step
+
+
+def make_eval_step(model: torch.nn.Module, loss_fn: Callable):
+    """Build ``eval_step(batch) -> loss``: the deterministic forward on
+    ``batch["input"]`` and ``loss_fn(output, batch)``, with no gradient
+    (reference ``train.py::make_eval_step``, which takes the params as an
+    argument; here they are the module's).  A ``DModule`` hands ``loss_fn``
+    this rank's vocab slice, as :func:`make_train_step` does; a
+    ``DistributedDataParallel`` is evaluated through its module."""
+    from .parallel.ddp import DistributedDataParallel
+
+    if isinstance(model, DistributedDataParallel):
+        model = model.module
+    forward = _forward_fn(model)
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, Any]):
+        return loss_fn(forward(batch["input"]), batch)
+
+    eval_step.model = model
+    return eval_step
 
 
 def _state_tree(optimizer, module):
@@ -356,7 +418,7 @@ class FunctionalStep:
     corrections of a replayed step are the original's; the handed-in
     trees then alias the live state (:meth:`load`).  The train step
     uses no CUDA graph, so no captured pointer can go stale.  ``step_key``
-    is accepted and unused: the port's models draw no dropout.
+    goes to the step (the GPT's dropout streams).
 
     While memtrack is live the parameters are tagged ``params`` and the
     optimizer's state ``optimizer_state`` after each step."""
@@ -404,7 +466,7 @@ class FunctionalStep:
     def __call__(self, params, opt_state, batch, step_key=None):
         if params is not self.params or opt_state is not self.opt_state:
             self.load(params, opt_state)
-        out = self.step(batch)
+        out = self.step(batch, step_key)
         self._refresh()
         if self.has_aux:
             loss, aux = out
