@@ -15,6 +15,7 @@ Hopper card.
     python3 chip_smoke.py --plan     # the planning and analysis legs alone
     python3 chip_smoke.py --fleet    # the fleet phase alone
     python3 chip_smoke.py --leftovers   # the train_leftovers phase alone
+    python3 chip_smoke.py --nd       # the nd phase (n-D composition) alone
     python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
@@ -187,7 +188,8 @@ Phases, each printing one JSON line with its seconds:
            time by kernel kind
 
   train_resilient  ``resilience.run_resilient`` over ``train.FunctionalStep``
-           at full width.  GPT-2 124M (the gpt2 rung, its token file, 12
+           at full width.  GPT-2 124M (the gpt2 rung at 4 of its 12
+           layers, its token file, 12
            steps, async saves every 3, ``CheckpointManager(keep=2)``): an
            unfaulted golden run, then the schedule of
            ``scripts/resilience_smoke.py`` extended for the card (a
@@ -201,12 +203,12 @@ Phases, each printing one JSON line with its seconds:
            flight record; a timed save and restore, memtrack's gauges
            against the allocator.  The quiet envelope: 12 GPT-2 steps of
            the bare loop, of the loop with nothing armed, and of it with
-           telemetry on (median step ms).  The 1.3B at full width and 8 of
+           telemetry on (median step ms).  The 1.3B at full width and 4 of
            its 24 layers: 4 bare steps against a run preempted at step 2
            (an emergency synchronous save of the whole state) and its
            resume, bitwise, one K8 a step, the
            save's and restore's seconds, peak memory.  Two ranks of the
-           card over gloo (GPT-2 at 4 of 12 layers, B=6 a rank, DDP, coordinated,
+           card over gloo (GPT-2 at 2 of 12 layers, B=6 a rank, DDP, coordinated,
            consistency every 2, 8 steps): a real SIGTERM to rank 1 agreed
            by both, emergency-saved and resumed bitwise; a one-ulp change
            of a replicated parameter on rank 1 raising ``DesyncError`` on
@@ -236,15 +238,15 @@ Phases, each printing one JSON line with its seconds:
            child processes (``--tp-child``) joined over gloo at a free
            localhost port (NCCL refuses two ranks on one GPU), a ("tp",)
            mesh of 2.  The 1.3B Llama under ``llama_plan`` at full width
-           and 4 of its 24 layers (``GLOO_13B_LAYERS``) and GPT-2 124M under
-           ``nanogpt_plan`` at full width and 4 of its 12 layers
+           and 2 of its 24 layers (``GLOO_13B_LAYERS``) and GPT-2 124M under
+           ``nanogpt_plan`` at full width and 2 of its 12 layers
            (``GLOO_GPT2_LAYERS``), both with sequence
            parallelism, built on ``meta`` and materialized as each rank's
            pieces of the bench's seed-0 weights, trained on its batches
            through the vocab-parallel loss with ``AdamWLowmem``: 1 warm-up
            and 1 timed step, losses within 1% of a single-card run's at the
            same depth at each step, every
-           kernel launch of each step counted (4 K1, dq and dkv, one
+           kernel launch of each step counted (2 K1, dq and dkv, one
            K8, K9 and K10); per rank step time, peak memory and the
            collectives' calls and bytes by kind.  The kernels' parity and
            timing at one rank's shapes are in the parity phase.  The 1.3B
@@ -281,7 +283,7 @@ Phases, each printing one JSON line with its seconds:
            engine's, how many streams equal the serve phase's, tokens/s,
            decode p50/p99, and ``engine.graphed`` (false over gloo)
   dp_train  data parallelism on two such ranks, a ("dp",) mesh of 2.  The
-           1.3B Llama at full width and 4 layers (B=1 a rank, T=4096, the
+           1.3B Llama at full width and 2 layers (B=1 a rank, T=4096, the
            bench's seed-0 weights, ``AdamWLowmem(3e-4)``, a global batch of
            2 rows) under ``ddp``, ``zero2`` (a dynamic loss scale) and
            ``fsdp`` (``bench.prepare_dp``), 1 warm-up and 2 timed steps
@@ -293,7 +295,7 @@ Phases, each printing one JSON line with its seconds:
            ranks, parameters, main params, moments and step bitwise
            unchanged, no K8 launch, the scale halved; per mode and rank
            step time, peak memory, collectives by kind, gloo's share of the
-           last step.  GPT-2 124M at 4 of its 12 layers under DDP at B=6 a
+           last step.  GPT-2 124M at 2 of its 12 layers under DDP at B=6 a
            rank from the elastic loader (a single-card run's B=12 stream at
            that depth), exact and with ``grad_compress="int8"``: exact
            within 1% of that run,
@@ -316,7 +318,7 @@ Phases, each printing one JSON line with its seconds:
            1.3B scanned and under each mapped ``remat_policy``: losses and
            masters bitwise the plain step's, each run's forward stash and
            its phases' peaks (the optimizer's sets the step's); (c) the
-           1.3B (scanned) at
+           1.3B (scanned) at 4 of its 24 layers at
            pp=2, two gloo ranks of the card, 4 rows of T=4096 in 4
            microbatches, embedding and head replicated, through
            ``pipeline_blocks`` (V=1, 2) and ``pipeline_blocks_zb`` (V=2):
@@ -346,10 +348,32 @@ Phases, each printing one JSON line with its seconds:
            against their rows) that adds the routing flips' share to the
            bf16 noise, the tokens whose top-2 differs from one card's by
            layer, the collectives by kind and gloo's share; (e) in the same
-           spawn, 6 steps through ``MoEParamBuffer`` and ``MoEOptimizer``
+           spawn, the rung at 4 of its 8 layers, 6 steps through
+           ``MoEParamBuffer`` and ``MoEOptimizer``
            twice, once refreshed after step 3 to ``BasicExpertsAllocator``'s
            units from an EMA of ``expert_tokens``: the units change, and
            losses, parameters and moments are bitwise the unrefreshed run's
+  nd       n-D composition on four gloo ranks of the card, one spawn that
+           starts up while this process runs the one-card references, each
+           leg on its own mesh over the four ranks: (a) the moe rung at 4
+           of its 8 layers on ("dp", "ep") = (2, 2) (each dp rank one row;
+           the capacity, slot
+           keep and aux loss of the global batch) through
+           ``make_train_step``'s default DDP, 3 steps, then 1 step at
+           capacity 1.0, then 3 steps of ``DistributedOptimizer(dp_dims=
+           ("dp", "ep"))``: the first step's loss within 1% of one card's at
+           the same capacity and each leaf's grad within moe.ep's relative
+           L2 bound with the routing flips, the dropped pairs on both sides,
+           the replicated leaves bitwise equal across "ep", ZeRO's losses
+           within 1% of DDP's; (b) Mixtral-8x7B's widths at 1 of its 32
+           layers on ("ep", "tp") = (2, 2) with sequence parallelism, 3
+           steps: the first step's loss and grads against one card's, step
+           ms, peak a rank, gloo's share; (c) GPT-2 124M's widths at 2 of 12
+           layers on ("dp", "tp") = (2, 2) under ``nanogpt_plan`` with the
+           MLP kernels sharded over "dp" too (FSDP by the plan) and a
+           ``DistributedOptimizer``, 3 steps of the gpt2 rung's batches: the
+           losses within 1% of one card's at that depth.  Every rank's
+           launches a step in every leg
   longctx  long context (``parallel/context.py``, the bench's longctx rung).
            (a) K1, dq and dkv at the rung's (1, 32768, 16, 8, 64), a ring
            block's (1, 16384, 16, 16, 64) causal and full, and Ulysses'
@@ -3690,15 +3714,16 @@ def _trees_bitwise(tree, params) -> bool:
 # -------------------------------------------------------------------- main
 # --------------------------------------------------------- tensor parallel
 TP_WORLD = 2  # ranks of the TP phases, all on the one card
-# the 1.3B's depth in tp_train and dp_train: 24 -> 4 layers (full width),
-# held to a single-card run at the same depth, so the script with the moe
-# and train_leftovers phases stays inside its time (PERF.md §4; 8 until
-# the train_leftovers phase came)
-GLOO_13B_LAYERS = 4
-# GPT-2's depth where it runs on two gloo ranks (tp_train, dp_train and
-# train_resilient's two-rank leg): 12 -> 4 layers at full width, each held
-# to a single-card run at that depth (PERF.md §4)
-GLOO_GPT2_LAYERS = 4
+# the 1.3B's depth in tp_train and dp_train: 24 -> 2 layers (full width),
+# held to a single-card run at the same depth, so the script with the moe,
+# train_leftovers and nd phases stays inside its time (PERF.md §4, §7; 8
+# until the train_leftovers phase came, 4 until the nd phase came)
+GLOO_13B_LAYERS = 2
+# GPT-2's depth where it runs on gloo ranks (tp_train, dp_train,
+# train_resilient's two-rank leg and nd's leg (c)): 12 -> 2 layers at full
+# width, each held to a single-card run at that depth (PERF.md §4, §7; 4
+# until the nd phase came)
+GLOO_GPT2_LAYERS = 2
 TP_LOSS_REL = 0.01  # the reference's bf16 loss bar (nanogpt_4d_finetune/README.md)
 TP_SERVE_BF16_STEPS = 16.0  # teacher-forced logits vs the single-card engine (PERF.md)
 TP_FORCED = 1  # teacher-forced requests of the tp_serve check (4 until cut for time)
@@ -3802,7 +3827,7 @@ def tp_child(spec_path: str) -> int:
 
     with open(spec_path) as f:
         spec = json.load(f)
-    if spec["job"] in ("pp", "moe"):
+    if spec["job"] in ("pp", "moe", "nd"):
         # two ranks' activation stashes share the card: grow segments in place
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     torch.cuda.set_device(0)
@@ -4754,11 +4779,16 @@ RESIL_EXPECT = dict(status="preempted", step=9, restarts=1, rollbacks=1, anomaly
                     emergency_save_step=9)
 RESIL_STEPS, RESIL_SAVE_EVERY = 12, 3
 RESIL_GPT_RUNG, RESIL_LLAMA_RUNG = "gpt2", "1.3b"  # bench rungs of the legs
+# the GPT-2 fault leg's depth: 12 -> 4 layers at full width (held to its own
+# golden run), so the script with the nd phase stays inside its time
+# (PERF.md §7; 12 until the nd phase came)
+RESIL_GPT2_LAYERS = 4
 RESIL_13B_STEPS, RESIL_13B_PREEMPT = 4, 2
-# the 1.3B leg's depth: 24 -> 8 layers at full width (its golden run at the
-# same depth), so the script with the longctx and fp8 phases stays inside
-# its time (PERF.md §4); the save and restore move a third of the bytes
-RESIL_13B_LAYERS = 8
+# the 1.3B leg's depth: 24 -> 4 layers at full width (its golden run at the
+# same depth), so the script with the longctx, fp8 and nd phases stays
+# inside its time (PERF.md §4; 8 until the nd phase came); the save and
+# restore move a sixth of the bytes
+RESIL_13B_LAYERS = 4
 RESIL_DP_STEPS, RESIL_DP_SIGTERM_AFTER, RESIL_DP_ULP_AFTER = 8, 3, 3
 
 
@@ -4891,8 +4921,8 @@ def resil_save_restore(fstep, root) -> dict:
 
 
 def resil_gpt2_leg(dev, token_file, tmp, kernels_mod):
-    """Leg 1: GPT-2 124M, the golden run against the faulted run and its
-    resume on fresh objects."""
+    """Leg 1: GPT-2 124M at ``RESIL_GPT2_LAYERS`` of its 12 layers, the
+    golden run against the faulted run and its resume on fresh objects."""
     from vescale_tpu_torch import telemetry
     from vescale_tpu_torch.resilience import AnomalyPolicy, faultsim, parse_schedule
 
@@ -4903,7 +4933,7 @@ def resil_gpt2_leg(dev, token_file, tmp, kernels_mod):
     try:
         reg = telemetry.get_registry()
         kernels_mod.reset_launches()
-        run, fstep = resil_prepare(RESIL_GPT_RUNG, dev, token_file)
+        run, fstep = resil_prepare(RESIL_GPT_RUNG, dev, token_file, RESIL_GPT2_LAYERS)
         golden_ms = []
         golden, _ = resil_drive(fstep, run, os.path.join(tmp, "golden"), times=golden_ms, **kw)
         torch.cuda.synchronize()
@@ -4924,7 +4954,7 @@ def resil_gpt2_leg(dev, token_file, tmp, kernels_mod):
         free_memory()
         before = dict(reg.snapshot()["counters"])
         kernels_mod.reset_launches()
-        run, fstep = resil_prepare(RESIL_GPT_RUNG, dev, token_file)
+        run, fstep = resil_prepare(RESIL_GPT_RUNG, dev, token_file, RESIL_GPT2_LAYERS)
         root = os.path.join(tmp, "faulted")
         step_fn, oom_fired = resil_oom(fstep, dev, RESIL_OOM_STEP)
         faultsim.arm(parse_schedule(RESIL_SCHEDULE))
@@ -4936,7 +4966,7 @@ def resil_gpt2_leg(dev, token_file, tmp, kernels_mod):
         run.close()
         del run, fstep, step_fn
         free_memory()
-        run, fstep = resil_prepare(RESIL_GPT_RUNG, dev, token_file)  # a new process's objects
+        run, fstep = resil_prepare(RESIL_GPT_RUNG, dev, token_file, RESIL_GPT2_LAYERS)  # a new process's objects
         r2, _ = resil_drive(fstep, run, root, **kw)
         torch.cuda.synchronize()
         resumed_bitwise = _matches(fstep.params, fstep.opt_state, golden_bits)
@@ -5875,14 +5905,20 @@ def run_pp_gpt2(dev, kernels_mod):
 
 # the 1.3B rung through the compiled pipeline on a ("pp",) mesh of 2 ranks
 PP_ROWS = 4  # B rows of T=4096, in PP_M microbatches of one row
-L_13B = 24
+# its depth there: 24 -> 4 layers at full width (2 a stage; its golden run
+# at the same depth), so the script with the nd phase stays inside its
+# time (PERF.md §7; 24 until the nd phase came)
+L_13B = 4
 
 
-def pp_13b_config(scan: bool = True):
+def pp_13b_config(scan: bool = True, layers=None):
+    """The 1.3B rung's config (``layers`` deep in place of its 24)."""
     from vescale_tpu_torch.bench import RUNGS
     from vescale_tpu_torch.models import LlamaConfig
 
     fields, _, T, _, _ = RUNGS["1.3b"]
+    if layers is not None:
+        fields = dict(fields, num_hidden_layers=layers)
     return LlamaConfig(max_position_embeddings=T, scan_layers=scan, **fields), T
 
 
@@ -5899,7 +5935,7 @@ def pp_13b_golden(dev, path: str) -> dict:
     every gradient saved to ``path`` (``torch.save``) for the ranks."""
     from vescale_tpu_torch.models import Llama, cross_entropy_loss, init_params
 
-    cfg, T = pp_13b_config()
+    cfg, T = pp_13b_config(layers=L_13B)
     model = Llama(cfg, init_params(cfg, 0, device=dev, dtype=torch.float32), device=dev)
     batch = pp_13b_batch(cfg, T, dev)
     torch.cuda.synchronize()
@@ -5962,7 +5998,7 @@ def pp_13b_leg(mesh, V: int, zb: bool, golden_path: str, golden_loss: float):
     from vescale_tpu_torch.pipe.pipe_stage import flatten_tree, unflatten_tree
 
     dev = mesh.device
-    cfg, T = pp_13b_config()
+    cfg, T = pp_13b_config(layers=L_13B)
     S = mesh.size("pp")
     r = mesh.get_coordinate()[0]
     L = cfg.num_hidden_layers
@@ -6048,7 +6084,8 @@ def ulps_at_scale_t(a, b) -> float:
 
 
 def run_pp_13b(dev, card):
-    """(c): the 1.3B rung (24 layers, width 2048, ``scan_layers``) through
+    """(c): the 1.3B rung (``L_13B`` of its 24 layers, width 2048,
+    ``scan_layers``) through
     ``pipeline_blocks`` with V=1 and V=2 and ``pipeline_blocks_zb`` with
     V=2, as two gloo ranks of the card on a ("pp",) mesh of 2, PP_ROWS
     rows of T=4096 in PP_M microbatches, the embedding and head
@@ -6260,6 +6297,10 @@ MOE_FULL_LAYERS = 2  # Mixtral-8x7B's depth cut: 32 -> 2 layers (3.16B parameter
 MOE_EP_STEPS = 3
 MOE_LOOP_STEPS = 6
 MOE_REFRESH_AFTER = 3  # the load-aware refresh follows this step
+# the refresh runs' depth: the moe rung's 8 -> 4 layers (the two runs are
+# held to each other), so the script with the nd phase stays inside its
+# time (PERF.md §7; 8 until the nd phase came)
+MOE_REFRESH_LAYERS = 4
 # tests/test_moe.py:197's skew (4.0 added to router column 0): a token whose
 # features sum positive picks expert 0, else not; with -4.0 on column 1 and
 # +4.0 on column 2 beside it, experts 0-2 take ~3/4 of the routed slots, so
@@ -6630,7 +6671,7 @@ def moe_refresh_run(mesh, reallocate: bool) -> dict:
     from vescale_tpu_torch.parallel import AdamWLowmem
 
     dev = mesh.device
-    cfg = bench.moe_config("moe")
+    cfg = dataclasses.replace(bench.moe_config("moe"), num_hidden_layers=MOE_REFRESH_LAYERS)
     _, B, T, _ = bench.MOE_RUNGS["moe"]
     model = Mixtral(cfg, init_params(cfg, 0, device=dev), device=dev)
     blocks = model.blocks()
@@ -6705,8 +6746,9 @@ def moe_ep_job(mesh, golden_path: str, ref_losses: list) -> dict:
         bits_equal(a, b) for a, b in zip(base_final, re_final))
     del base_final, re_final
     free_memory()
-    want = {**{k: 0 for k in kernels.LAUNCHES}, "flash_fwd": 8, "flash_bwd_dq": 8,
-            "flash_bwd_dkv": 8, "fused_adamw": 2}
+    L = MOE_REFRESH_LAYERS
+    want = {**{k: 0 for k in kernels.LAUNCHES}, "flash_fwd": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "fused_adamw": 2}
     checks = {"units_changed": len(re["units"]) == 2 and re["units"][1] != re["units"][0],
               "losses_bitwise": base["losses"] == re["losses"],
               "params_and_moments_bitwise": equal,
@@ -6792,6 +6834,474 @@ def moe_summary(moe: dict) -> dict:
                 ep_seconds=moe["ep"]["seconds"],
                 refresh_checks=[r["checks"] for r in moe["refresh"]],
                 replicated_grads_bitwise=moe["ep"]["replicated_grads_bitwise"])
+
+
+# --------------------------------------------------- n-D composition (nd)
+# The nd phase: one spawn of ND_WORLD gloo ranks of the card, each leg on
+# a mesh of its own over them.  (a) the moe rung on ("dp", "ep") = (2, 2)
+# through make_train_step's default DDP, at the rung's capacity and at
+# 1.0, then ZeRO over ("dp", "ep"); (b) Mixtral-8x7B's widths on ("ep",
+# "tp") = (2, 2) with sequence parallelism; (c) GPT-2 on ("dp", "tp") =
+# (2, 2) with two kernels sharded over "dp" by the plan.
+ND_WORLD = 4
+ND_STEPS = 3
+ND_DROP_CF = 1.0  # the dropping capacity of leg (a)
+# leg (a)'s depth: the moe rung's 8 -> 4 layers at full width (its one-card
+# references at the same depth), so the script stays inside its time
+# (PERF.md §7)
+ND_MOE_LAYERS = 4
+# Mixtral-8x7B's depth in leg (b): 32 -> 1 layer.  Two layers would hold
+# ~14 GB of leaves, grads and moments and ~6 GB of activations a rank, ~84
+# GB for four ranks of the card (moe.full's one-card peak at 2 layers:
+# 42.27 GB, PERF.md §7)
+ND_FULL_LAYERS = 1
+ND_GPT2_LAYERS = GLOO_GPT2_LAYERS  # leg (c)'s depth, as tp_train's GPT-2 leg
+# leg (c)'s plan: nanogpt_plan with the MLP kernels over "dp" as well
+ND_FSDP_OVER = {r"h_\d+\.mlp\.c_fc\.kernel": ("S0", "S1"),    # P("dp", "tp")
+                r"h_\d+\.mlp\.c_proj\.kernel": ("S1", "S0")}  # P("tp", "dp")
+
+
+def nd_moe_config():
+    from vescale_tpu_torch import bench
+
+    return dataclasses.replace(bench.moe_config("moe"), num_hidden_layers=ND_MOE_LAYERS)
+
+
+def nd_full_config():
+    from vescale_tpu_torch import bench
+    from vescale_tpu_torch.models import MIXTRAL_8X7B
+
+    return dataclasses.replace(MIXTRAL_8X7B, num_hidden_layers=ND_FULL_LAYERS,
+                               max_position_embeddings=bench.MOE_RUNGS["moe"][2])
+
+
+def nd_loss(model, mesh=None):
+    """Cross entropy (vocab parallel over "tp" with ``mesh``, else the
+    plain fp32 one) plus the blocks' aux losses, as
+    examples/mixtral_4d_benchmark/mixtral_train.py:70-79 has it."""
+    from vescale_tpu_torch.loss import vocab_parallel_cross_entropy
+    from vescale_tpu_torch.models import cross_entropy_loss
+
+    if mesh is None:
+        xent = lambda lg, b: cross_entropy_loss(lg, b["target"])
+    else:
+        xent = lambda lg, b: vocab_parallel_cross_entropy(lg, b["target"], mesh=mesh,
+                                                          vocab_dim_name="tp")
+    return lambda lg, b: xent(lg, b) + sum(model.router_aux_losses())
+
+
+def nd_dropped(tokens, N: int, cfg) -> list:
+    """Each layer's routed pairs over capacity, from its global
+    ``expert_tokens`` (a token routes to an expert at most once)."""
+    from vescale_tpu_torch.moe import TokenDispatcher
+
+    C = TokenDispatcher.capacity_for(N, cfg.num_local_experts, cfg.num_experts_per_tok,
+                                     cfg.capacity_factor)
+    return [int((t.float() - C).clamp(min=0).sum()) for t in tokens]
+
+
+def nd_golden(dev, cfg, path: str, tp_loss: bool) -> dict:
+    """One card's first step of ``cfg`` (``init_params`` seed 0) on the moe
+    rung's batch: the loss, every gradient, each layer's routing and
+    ``expert_tokens`` saved to ``path``; returns the loss and the dropped
+    pairs."""
+    from vescale_tpu_torch import bench
+    from vescale_tpu_torch.loss import vocab_parallel_cross_entropy
+    from vescale_tpu_torch.models import Mixtral, init_params
+
+    _, B, T, _ = bench.MOE_RUNGS["moe"]
+    model = Mixtral(cfg, init_params(cfg, 0, device=dev), device=dev)
+    batch = bench.moe_batch(cfg, B, T, dev)
+    records, handles = moe_routing_hooks(model)
+    logits = model(batch["input"])
+    if tp_loss:  # the kernels' cross entropy, as the vocab-parallel one on a rank
+        loss = vocab_parallel_cross_entropy(logits, batch["target"]) + sum(
+            model.router_aux_losses())
+    else:
+        loss = nd_loss(model)(logits, batch)
+    loss.backward()
+    for h in handles:
+        h.remove()
+    tokens = [b.block_sparse_moe.expert_tokens.cpu() for b in model.blocks()]
+    torch.save({"grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                "routing": [rec[0] for rec in records], "tokens": tokens}, path)
+    out = dict(loss=float(loss), dropped=nd_dropped(tokens, B * T, cfg))
+    del model, logits, loss
+    free_memory()
+    return out
+
+
+def nd_grads_against(mesh, dm, grads: dict, golden_path: str, records, dp_rows: int) -> dict:
+    """This rank's first-step gradients against one card's (``nd_golden``):
+    each leaf's relative L2 error against the piece its placements cut
+    from the card's whole gradient, and the tokens of this rank's rows
+    whose top-2 differs from the card's, by layer; the bound is
+    ``MOE_GRAD_REL_L2`` plus twice sqrt(2 F / N) at the most flipped
+    layer (moe.ep's)."""
+    golden = torch.load(golden_path, mmap=True)
+    coord = mesh.get_coordinate()
+    names = mesh.mesh_dim_names
+    d = coord[names.index("dp")] if "dp" in names else 0
+    rel = {}
+    for name, g in grads.items():
+        want = dm._specs[name].local_from_full(golden["grads"][name], coord).to(g.device)
+        rel[name] = float(torch.linalg.vector_norm((g.float() - want.float()).double())
+                          / torch.linalg.vector_norm(want.double()))
+    flips = []
+    for rec, want in zip(records, golden["routing"]):
+        mine = rec[0]
+        flips.append(int((mine != want[d * dp_rows:(d + 1) * dp_rows]).any(dim=-1).sum()))
+    del golden
+    bound = MOE_GRAD_REL_L2 + 2 * float(np.sqrt(2 * max(flips) / dp_rows))
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:6]
+    return dict(grad_rel_l2_worst=worst, grad_rel_l2_bound=bound, routing_flips=flips,
+                grads_within_bound=max(rel.values()) <= bound)
+
+
+def nd_steps(dm, opt, loss_fn, batch_fn, steps: int, want: dict, timed: bool = True) -> dict:
+    """``steps`` steps of ``make_train_step(dm, opt, loss_fn)`` on
+    ``batch_fn()``: the losses, step ms, each step's kernel launches
+    against ``want``, the first step's gradients as the optimizer sees
+    them (after DDP's reduce; none under a ``DistributedOptimizer``), the
+    routing records of the first step, the peak a rank after the first
+    step, and (``timed``) one more step with the collectives timed: the
+    gloo share."""
+    from vescale_tpu_torch import collectives as C
+    from vescale_tpu_torch import kernels
+    from vescale_tpu_torch.parallel import DistributedOptimizer
+    from vescale_tpu_torch.train import make_train_step
+
+    dev = dm.mesh.device
+    step = make_train_step(dm, opt, loss_fn)
+    grads, real = {}, opt.step
+    if not isinstance(opt, DistributedOptimizer):
+        def spy():
+            if not grads:
+                grads.update({n: p.grad.detach().clone() for n, p in dm.named_parameters()})
+            real()
+
+        opt.step = spy
+    from vescale_tpu_torch.models import Mixtral
+
+    moe = isinstance(dm.module, Mixtral)
+    records, handles = moe_routing_hooks(dm.module) if moe else ([], [])
+    losses, step_ms, launches = [], [], []
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(step(batch_fn())))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        launches.append(dict(kernels.LAUNCHES))
+        for h in handles:
+            h.remove()
+        handles = []
+    opt.step = real
+    tokens = [b.block_sparse_moe.expert_tokens.cpu() for b in dm.module.blocks()] if moe else []
+    out = dict(losses=losses, step_ms=step_ms,
+               step_ms_median=float(np.median(step_ms[1:] or step_ms)),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+               launches_per_step=launches[-1],
+               launches_total={k: sum(s[k] for s in launches) for k in launches[0]},
+               launches_ok=all(s == want for s in launches))
+    if timed:
+        C.reset_calls()
+        C.TIMING = True
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        float(step(batch_fn()))
+        dt = time.perf_counter() - t1
+        C.TIMING = False
+        out["gloo_timed_step"] = dict(step_ms=dt * 1e3, seconds_by_op=dict(C.SECONDS),
+                                      share=sum(C.SECONDS.values()) / dt)
+        out["collectives_timed_step"] = tp_collectives()
+    return out, grads, records, tokens
+
+
+def nd_want(L: int, adamw: int, xent: int = 0) -> dict:
+    from vescale_tpu_torch import kernels
+
+    return {**{k: 0 for k in kernels.LAUNCHES}, "flash_fwd": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "fused_adamw": adamw, "fused_xent_fwd": xent,
+            "fused_xent_bwd": xent}
+
+
+def nd_dp_ep_leg(golden_dir: str, goldens: dict) -> dict:
+    """(a), one rank: the moe rung (``init_params`` seed 0, the rung's
+    B=2, T=2048 batch, each dp rank its row) under ``mixtral_plan`` on
+    ("dp", "ep") = (2, 2): ``ND_STEPS`` steps through the default DDP
+    (``AdamWLowmem`` over ``param_dtype_groups``), one at capacity 1.0,
+    then ``ND_STEPS`` with ``DistributedOptimizer(dp_dims=("dp", "ep"))``
+    (fp32 moments).  The first step's loss and grads against one card's
+    at the same capacity; the dropped pairs on both sides; the ZeRO run's
+    losses against the DDP run's."""
+    import functools
+
+    from vescale_tpu_torch import bench
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.mesh import init_device_mesh
+    from vescale_tpu_torch.models import Mixtral, init_params, mixtral_plan
+    from vescale_tpu_torch.parallel import (AdamWLowmem, DistributedOptimizer,
+                                            param_dtype_groups)
+
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("dp", "ep"), backend="gloo")
+    dev = mesh.device
+    _, B, T, _ = bench.MOE_RUNGS["moe"]
+    d = mesh.get_coordinate()[0]
+    out = {}
+    for run, cf, steps in (("ddp", None, ND_STEPS), ("ddp_cf1", ND_DROP_CF, 1),
+                           ("zero", None, ND_STEPS)):
+        cfg = nd_moe_config()
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        t0 = time.perf_counter()
+        model = Mixtral(cfg, init_params(cfg, 0, device=dev), device=dev)
+        dm = parallelize_module(model, mesh, mixtral_plan(mesh))
+        if run == "zero":
+            opt = DistributedOptimizer(functools.partial(AdamWLowmem, lr=bench.LR,
+                                                         state_dtype=torch.float32),
+                                       models=dm, dp_dims=("dp", "ep"))
+        else:
+            opt = AdamWLowmem(param_dtype_groups(dm.parameters()), bench.LR)
+        batch = bench.moe_batch(cfg, B, T, dev)
+        rows = {k: v[d:d + 1] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        L = cfg.num_hidden_layers
+        res, grads, records, tokens = nd_steps(
+            dm, opt, nd_loss(model), lambda: rows, steps,
+            nd_want(L, 1 if run == "zero" else 2), timed=run == "ddp")
+        res["setup_s"] = setup_s
+        golden = goldens["cf1" if cf is not None else "moe"]
+        res["loss_rel_first"] = abs(res["losses"][0] - golden["loss"]) / abs(golden["loss"])
+        res["dropped"] = nd_dropped(tokens, B * T, cfg) if run == "ddp_cf1" else None
+        if grads:
+            res.update(nd_grads_against(mesh, dm, grads, os.path.join(
+                golden_dir, "cf1.pt" if cf is not None else "moe.pt"), records, T))
+        checks = {"losses_finite": bool(np.isfinite(res["losses"]).all()),
+                  "first_loss_within_1pct": res["loss_rel_first"] <= TP_LOSS_REL,
+                  "launches_per_step": res["launches_ok"]}
+        if grads:
+            checks["grads_within_bound"] = res["grads_within_bound"]
+        if run == "ddp_cf1":
+            checks["drops_on_both_sides"] = min(sum(res["dropped"]), sum(golden["dropped"])) > 0
+        if run == "zero":
+            rel = [abs(a - b) / abs(b) for a, b in zip(res["losses"], out["ddp"]["losses"])]
+            res["loss_rel_to_ddp"] = rel
+            checks["losses_within_1pct_of_ddp"] = max(rel) <= TP_LOSS_REL
+            res["state_placements_router"] = [
+                str(p) for p in opt.state_placements()["inner"][0].mu["layers_0"][
+                    "block_sparse_moe"]["router"]]
+            res["state_placements_w_in"] = [
+                str(p) for p in opt.state_placements()["inner"][0].mu["layers_0"][
+                    "block_sparse_moe"]["w_in"]]
+        res["checks"] = checks
+        res["replicated_fingerprint"] = fingerprint(
+            p for n, p in sorted(dm.named_parameters())
+            if n.rsplit(".", 1)[-1] not in EXPERT_LEAF_NAMES)
+        out[run] = res
+        del model, dm, opt, grads, records
+        free_memory()
+    return out
+
+
+def nd_ep_tp_leg(golden_dir: str, goldens: dict) -> dict:
+    """(b), one rank: Mixtral-8x7B's widths at ``ND_FULL_LAYERS`` under
+    ``mixtral_plan`` with sequence parallelism on ("ep", "tp") = (2, 2),
+    ``ND_STEPS`` steps of ``AdamWLowmem`` over ``param_dtype_groups`` on
+    the moe rung's batch, then one timed; the first step's loss and grads
+    against one card's (``nd_golden``)."""
+    from vescale_tpu_torch import bench
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.mesh import init_device_mesh
+    from vescale_tpu_torch.models import Mixtral, init_params, mixtral_plan
+    from vescale_tpu_torch.parallel import AdamWLowmem, param_dtype_groups
+
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("ep", "tp"), backend="gloo")
+    dev = mesh.device
+    cfg = nd_full_config()
+    _, B, T, _ = bench.MOE_RUNGS["moe"]
+    t0 = time.perf_counter()
+    model = Mixtral(cfg, init_params(cfg, 0, device=dev), device=dev)
+    dm = parallelize_module(model, mesh, mixtral_plan(mesh, sequence_parallel=True))
+    free_memory()
+    opt = AdamWLowmem(param_dtype_groups(dm.parameters()), bench.LR)
+    batch = bench.moe_batch(cfg, B, T, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    res, grads, records, _ = nd_steps(dm, opt, nd_loss(model, mesh), lambda: batch, ND_STEPS,
+                                      nd_want(cfg.num_hidden_layers, 2, 1))
+    res["setup_s"] = setup_s
+    res["params_local"] = sum(p.numel() for p in dm.parameters())
+    res["loss_rel_first"] = abs(res["losses"][0] - goldens["full"]["loss"]) / abs(
+        goldens["full"]["loss"])
+    res.update(nd_grads_against(mesh, dm, grads, os.path.join(golden_dir, "full.pt"), records,
+                                B * T))
+    res["checks"] = {"losses_finite": bool(np.isfinite(res["losses"]).all()),
+                     "first_loss_within_1pct": res["loss_rel_first"] <= TP_LOSS_REL,
+                     "launches_per_step": res["launches_ok"],
+                     "grads_within_bound": res["grads_within_bound"]}
+    del model, dm, opt, grads
+    free_memory()
+    return res
+
+
+def nd_fsdp_leg(ref_losses: list, token_file: str) -> dict:
+    """(c), one rank: GPT-2 124M's widths at ``ND_GPT2_LAYERS`` under
+    ``nanogpt_plan`` (sequence parallel) with ``ND_FSDP_OVER``'s kernels
+    sharded over "dp" too, on ("dp", "tp") = (2, 2): ``ND_STEPS`` steps with
+    a ``DistributedOptimizer`` on the bench's B=12, T=1024 batches (each dp
+    rank its 6 rows), the losses against one card's at that depth."""
+    import functools
+
+    from vescale_tpu_torch import bench
+    from vescale_tpu_torch.data import TokenDataLoader
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.loss import vocab_parallel_cross_entropy
+    from vescale_tpu_torch.mesh import init_device_mesh
+    from vescale_tpu_torch.models import GPT, GPTConfig, init_params, nanogpt_plan
+    from vescale_tpu_torch.parallel import AdamWLowmem, DistributedOptimizer
+    from vescale_tpu_torch.placements import Shard
+
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("dp", "tp"), backend="gloo")
+    dev = mesh.device
+    fields, B, T, state_dtype, _ = bench.GPT_RUNGS["gpt2"]
+    cfg = GPTConfig(**dict(fields, n_layer=ND_GPT2_LAYERS))
+    t0 = time.perf_counter()
+    plan = nanogpt_plan(mesh, sequence_parallel=True)
+    plan["parameter"].update({k: [Shard(int(a[1])) for a in v]
+                              for k, v in ND_FSDP_OVER.items()})
+    dm = parallelize_module(GPT(cfg, device="meta"), mesh, plan,
+                            init_fn=functools.partial(init_params, cfg, 0, dtype=torch.float32))
+    opt = DistributedOptimizer(functools.partial(AdamWLowmem, lr=bench.LR,
+                                                 state_dtype=state_dtype), models=dm)
+    # elastic: this dp rank's rows of the global stream the one-card run reads
+    loader = TokenDataLoader(token_file, B // 2, T, seed=bench.DATA_SEED,
+                             dp_rank=mesh.get_coordinate()[0], dp_world=2, elastic=True,
+                             device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    L = cfg.n_layer
+    res, _, _, _ = nd_steps(dm, opt, lambda lg, b: vocab_parallel_cross_entropy(
+        lg, b["target"], mesh=mesh, vocab_dim_name="tp"), loader.next, ND_STEPS,
+        nd_want(L, 1, 1))
+    loader.close()
+    rel = [abs(a - b) / abs(b) for a, b in zip(res["losses"], ref_losses)]
+    res.update(setup_s=setup_s, ref_losses=ref_losses, loss_rel_diffs=rel,
+               dp_sharded=sorted(dm.dp_sharded),
+               params_local=sum(p.numel() for p in dm.parameters()))
+    res["checks"] = {"losses_finite": bool(np.isfinite(res["losses"]).all()),
+                     "losses_within_1pct": len(rel) == ND_STEPS and max(rel) <= TP_LOSS_REL,
+                     "launches_per_step": res["launches_ok"],
+                     "two_kernels_a_layer_over_dp": len(dm.dp_sharded) == 2 * L}
+    del dm, opt
+    free_memory()
+    return res
+
+
+def nd_job(mesh, golden_dir: str, goldens: dict, gpt2_ref: list, token_file: str) -> dict:
+    """One rank of the nd phase's spawn: legs (a), (b), (c), each on its
+    own mesh over the spawn's four ranks."""
+    out = {"rank": mesh.get_rank()}
+    for leg, fn in (("dp_ep", lambda: nd_dp_ep_leg(golden_dir, goldens)),
+                    ("ep_tp", lambda: nd_ep_tp_leg(golden_dir, goldens)),
+                    ("fsdp", lambda: nd_fsdp_leg(gpt2_ref, token_file))):
+        t = time.perf_counter()
+        out[leg] = fn()
+        out[leg]["seconds"] = time.perf_counter() - t
+        free_memory()
+    runs = [out["dp_ep"][r] for r in ("ddp", "ddp_cf1", "zero")] + [out["ep_tp"], out["fsdp"]]
+    total = {}
+    for run in runs:
+        for k, v in run["launches_total"].items():
+            total[k] = total.get(k, 0) + v
+    out["launches_total"] = total
+    return out
+
+
+TP_JOBS["nd"] = nd_job
+
+
+def run_nd(dev, card, kernels_mod) -> dict:
+    """The nd phase: the four ranks start up held while this process runs
+    the one-card references (the moe rung's first step at its capacity and
+    at 1.0, Mixtral-8x7B's widths at ``ND_FULL_LAYERS``, GPT-2's losses at
+    ``ND_GPT2_LAYERS``), then legs (a)-(c) on them.  Every check of every
+    rank; the replicated leaves bitwise equal across "ep" in (a)."""
+    from vescale_tpu_torch import bench
+
+    out = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="vtt_nd_")
+    spawned = tp_spawn_start("nd", {}, names=("world",), held=True, shape=[ND_WORLD])
+    try:
+        t = time.perf_counter()
+        moe_cfg = nd_moe_config()
+        goldens = {
+            "moe": nd_golden(dev, moe_cfg, os.path.join(tmp, "moe.pt"), False),
+            "cf1": nd_golden(dev, dataclasses.replace(moe_cfg, capacity_factor=ND_DROP_CF),
+                             os.path.join(tmp, "cf1.pt"), False),
+            "full": nd_golden(dev, nd_full_config(), os.path.join(tmp, "full.pt"), True)}
+        token_file = bench.write_token_file(os.path.join(tmp, "tokens.bin"), bench.DATA_TOKENS,
+                                            50304)
+        gpt2_ref = short_run_losses(dev, "gpt2", ND_GPT2_LAYERS, ND_STEPS, token_file)
+        out["references"] = dict(goldens, gpt2_losses=gpt2_ref,
+                                 seconds=time.perf_counter() - t)
+        log("nd.references", **out["references"])
+        t = time.perf_counter()
+        tp_spawn_release(spawned, golden_dir=tmp, goldens=goldens, gpt2_ref=gpt2_ref,
+                         token_file=token_file)
+        ranks = tp_spawn_finish(spawned, timeout_s=900)
+        out["legs_seconds"] = time.perf_counter() - t
+    except BaseException:
+        tp_spawn_abort(spawned)
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fps = {run: [r["dp_ep"][run].pop("replicated_fingerprint") for r in ranks]
+           for run in ("ddp", "ddp_cf1", "zero")}
+    # ep is the inner dim of (a)'s mesh: ranks 2j and 2j + 1 share a dp row
+    out["replicated_bitwise_across_ep"] = {
+        run: all(f[2 * j] == f[2 * j + 1] for j in range(ND_WORLD // 2)) for run, f in fps.items()}
+    out["ranks"] = ranks
+    launches = {k: 0 for k in kernels_mod.LAUNCHES}
+    for r in ranks:
+        for k, v in r["launches_total"].items():
+            launches[k] += v
+    out["launches"] = launches
+    checks = [r["dp_ep"][run]["checks"] for r in ranks for run in ("ddp", "ddp_cf1", "zero")]
+    checks += [r[leg]["checks"] for r in ranks for leg in ("ep_tp", "fsdp")]
+    ok = all(all(c.values()) for c in checks) and all(out["replicated_bitwise_across_ep"].values())
+    for leg in ("dp_ep", "ep_tp", "fsdp"):
+        log(f"nd.{leg}", card=card, ranks=[r[leg] for r in ranks])
+    check(ok, f"nd checks failed: {json.dumps(checks)} "
+              f"{json.dumps(out['replicated_bitwise_across_ep'])}")
+    return out
+
+
+def nd_summary(nd: dict) -> dict:
+    """The nd phase's line (each leg printed its own, ``nd.<leg>``)."""
+    r0 = nd["ranks"][0]
+    return dict(card=nd["card"], launches=nd["launches"], legs_seconds=nd["legs_seconds"],
+                references_seconds=nd["references"]["seconds"],
+                replicated_bitwise_across_ep=nd["replicated_bitwise_across_ep"],
+                step_ms_median={"dp_ep.ddp": r0["dp_ep"]["ddp"]["step_ms_median"],
+                                "dp_ep.zero": r0["dp_ep"]["zero"]["step_ms_median"],
+                                "ep_tp": r0["ep_tp"]["step_ms_median"],
+                                "fsdp": r0["fsdp"]["step_ms_median"]},
+                checks=[{leg: r[leg]["checks"] for leg in ("ep_tp", "fsdp")} |
+                        {f"dp_ep.{run}": r["dp_ep"][run]["checks"]
+                         for run in ("ddp", "ddp_cf1", "zero")} for r in nd["ranks"]])
+
+
+def nd_only(dev, card, kernels_mod) -> int:
+    """``--nd``: the nd phase alone."""
+    t = time.perf_counter()
+    nd = run_nd(dev, card, kernels_mod)
+    log("nd", seconds=time.perf_counter() - t, **nd_summary(nd))
+    print(card, flush=True)
+    return 0
 
 
 # ------------------------------------------------------------ long context
@@ -8042,6 +8552,8 @@ def main() -> int:
     ap.add_argument("--gloo-probe", action="store_true",
                     help="which collectives gloo carries on CUDA tensors, then exit")
     ap.add_argument("--fleet", action="store_true", help="device, build and the fleet phase only")
+    ap.add_argument("--nd", action="store_true",
+                    help="device, build and the nd phase (n-D composition) only")
     ap.add_argument("--leftovers", action="store_true",
                     help="device, build and the train_leftovers phase only")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
@@ -8114,6 +8626,8 @@ def main() -> int:
         return plan_only(dev, card, kernels_mod)
     if opts.leftovers:
         return leftovers_only(dev, card, kernels_mod)
+    if opts.nd:
+        return nd_only(dev, card, kernels_mod)
     if opts.fleet:
         t = time.perf_counter()
         fleet = run_fleet_phase(dev, kernels_mod, card)
@@ -8214,6 +8728,9 @@ def main() -> int:
     moe = run_moe(dev, card, kernels_mod)
     log("moe", seconds=time.perf_counter() - t, **moe_summary(moe))
     t = time.perf_counter()
+    nd = run_nd(dev, card, kernels_mod)
+    log("nd", seconds=time.perf_counter() - t, **nd_summary(nd))
+    t = time.perf_counter()
     longctx = run_longctx(dev, card, kernels_mod)
     log("longctx", seconds=time.perf_counter() - t, **longctx_summary(longctx))
     t = time.perf_counter()
@@ -8249,6 +8766,7 @@ def main() -> int:
                    "train_resilient": resilient_train["launches"][name],
                    "telemetry": tel_serve["launches"][name] + tel_gpt2["launches"][name],
                    "pipeline": pipeline["launches"][name], "moe": moe["launches"][name],
+                   "nd": nd["launches"][name],
                    "longctx": longctx["launches"][name], "fp8": fp8["launches"][name],
                    "fleet": fleet["launches"][name],
                    "train_leftovers": leftovers["launches"][name]}

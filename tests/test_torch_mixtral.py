@@ -19,8 +19,8 @@ Held:
     children of ``tests/torch_spmd_child.py``, against the reference's
     ``DModule`` on a (dp, ep) = (2, 4) mesh: each rank's logits within
     2e-5 (tests/test_moe.py:84's tolerance), the aux losses within 1e-6,
-    the grads of sum(logits * w) (+ the aux losses on the ep world, which
-    would show an aux loss counted twice) within 5e-5, each rank's expert
+    the grads of sum(logits * w) + the aux losses (an aux loss counted
+    twice would show) within 5e-5, each rank's expert
     grads against the matching rows, the replicated grads bitwise equal
     on every ep rank;
   * ``hf_mixtral_to_params`` and ``hf_llama_to_params`` on the synthetic
@@ -210,7 +210,7 @@ def reference_ep(worlds):  # the worlds start while this compiles
 
 
 EP_CASES = [([2], ["ep"], "plan", True), ([2], ["ep"], "experts", True),
-            ([2, 2], ["dp", "ep"], "plan", False)]
+            ([2, 2], ["dp", "ep"], "plan", True)]
 
 
 @pytest.mark.parametrize("mesh_shape,names,api,aux", EP_CASES,
@@ -232,8 +232,7 @@ def test_expert_parallel_matches_the_reference_mesh(worlds, reference_ep, mesh_s
         e = coord[names.index("ep")]
         np.testing.assert_allclose(g["logits"], ref["logits"][d * rows:(d + 1) * rows],
                                    rtol=FWD_TOL, atol=FWD_TOL)
-        if dp == 1:
-            np.testing.assert_allclose(g["aux"], ref["aux"], rtol=AUX_REL)
+        np.testing.assert_allclose(g["aux"], ref["aux"], rtol=AUX_REL)
         lo = e * (E // ep)
         for i, (first, count) in enumerate(g["local_experts"]):
             assert (first, count) == (lo, E // ep), i

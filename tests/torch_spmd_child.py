@@ -1024,6 +1024,30 @@ def _state_locals(tree):
     return locs, pls
 
 
+def _state_walk(node, path, out):
+    """``state_placements()``'s tree as {checkpoint key: encoded placements}."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _state_walk(node[k], f"{path}/{k}" if path else k, out)
+    elif hasattr(node, "_fields"):
+        for f in node._fields:
+            _state_walk(getattr(node, f), f"{path}/.{f}", out)
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            _state_walk(v, f"{path}/{i}", out)
+    elif node is not None:
+        out[path] = [enc(p) for p in node]
+    return out
+
+
+def _zero_out(dopt):
+    """A ``DistributedOptimizer``'s state pieces, their placements and its
+    ``state_placements()``."""
+    locs, pls = _state_locals(dopt.state_tree())
+    return {"state": locs, "placements": pls,
+            "state_placements": _state_walk(dopt.state_placements(), "", {})}
+
+
 def case_dp_qcoll(mesh_shape, names, shape, seed, rounding="nearest", key_seed=None, mesh_dim=0):
     """The quantized collectives on this rank's operand: ``all_reduce_q``
     and ``reduce_scatter_q`` (sum and avg), ``q_all_gather`` along dim 0
@@ -1153,24 +1177,7 @@ def case_dp_zero(mesh_shape, names, seed=0, steps=3, loss_scale=None, grad_compr
     for _ in range(steps):
         C.reset_calls()
         losses.append(float(step(batch)))
-    locs, pls = _state_locals(dopt.state_tree())
-
-    def walk(node, path, out):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], f"{path}/{k}" if path else k, out)
-        elif hasattr(node, "_fields"):
-            for f in node._fields:
-                walk(getattr(node, f), f"{path}/.{f}", out)
-        elif isinstance(node, list):
-            for i, v in enumerate(node):
-                walk(v, f"{path}/{i}", out)
-        elif node is not None:
-            out[path] = [enc(p) for p in node]
-        return out
-
-    return {"losses": losses, "state": locs, "placements": pls,
-            "state_placements": walk(dopt.state_placements(), "", {}),
+    return {"losses": losses, **_zero_out(dopt),
             "final": {n: p.detach().clone() for n, p in dm.named_parameters()},
             "calls": {k: int(v) for k, v in C.CALLS.items()},
             "compress": {k: float(v) for k, v in C.COMPRESS.items()}}
@@ -1715,41 +1722,58 @@ def moe_mesh_dims(m):
     return [i for i, n in enumerate(names) if n == "dp"]
 
 
-def case_moe_ep_model(mesh_shape, names, seed=0, api="plan", aux=True):
-    """The tiny Mixtral (numpy-seeded weights, fp32) parallelized over this
-    mesh by ``mixtral_plan`` (``api="plan"``) or ``parallelize_experts``
-    over a replicate-all plan: this rank's rows' logits and aux losses,
-    then the grads of sum(logits * w) (+ the blocks' aux losses with
-    ``aux``), summed over a "dp" dim by hand (DDP beside "ep" is not
-    ported), as this rank's pieces."""
-    from vescale_tpu_torch import collectives as C
+def moe_mixtral(m, seed, plan="plan", sp=False, capacity_factor=None):
+    """The tiny Mixtral (numpy-seeded weights, fp32; ``capacity_factor``
+    in place of its 4.0) parallelized over mesh ``m`` by ``mixtral_plan``
+    (``plan="plan"``) or ``parallelize_experts`` over a replicate-all plan:
+    (the module, the DModule)."""
     from vescale_tpu_torch.dmodule import parallelize_module
     from vescale_tpu_torch.models import Mixtral, MixtralConfig, mixtral_plan, param_shapes
     from vescale_tpu_torch.moe import parallelize_experts
     from vescale_tpu_torch.placements import Replicate
 
-    cfg = MixtralConfig(**MIXTRAL_TINY, dtype=torch.float32)
-    m = mesh(mesh_shape, names)
+    over = {} if capacity_factor is None else {"capacity_factor": capacity_factor}
+    cfg = MixtralConfig(**dict(MIXTRAL_TINY, **over), dtype=torch.float32)
     model = Mixtral(cfg, _torch_tree(moe_tree(param_shapes(cfg), seed)), device="cpu")
-    if api == "plan":
-        dm = parallelize_module(model, m, mixtral_plan(m))
+    if plan == "plan":
+        dm = parallelize_module(model, m, mixtral_plan(m, sequence_parallel=sp))
     else:
         dm = parallelize_experts(model, device_mesh=m,
                                  sharding_plan={"parameter": {r".*": [Replicate()] * m.ndim}})
+    return model, dm
+
+
+def case_moe_ep_model(mesh_shape, names, seed=0, api="plan", aux=True, sp=False,
+                      capacity_factor=None):
+    """The tiny Mixtral (``moe_mixtral``) over this mesh: this rank's rows'
+    logits and aux losses, then the grads of sum(logits * w) (+ the
+    blocks' aux losses with ``aux``) as this rank's pieces, with their
+    placements.  Over a "dp" dim the grads are averaged, as DDP averages
+    them, and the readout, a sum over rows, is multiplied by dp on each
+    rank, so the average is the gradient of the global readout; each
+    rank's aux loss carries dp times its share of the global aux loss's
+    gradient itself (``moe.layer``)."""
+    from vescale_tpu_torch import collectives as C
+
+    m = mesh(mesh_shape, names)
+    model, dm = moe_mixtral(m, seed, api, sp, capacity_factor)
     rows = torch.from_numpy(dp_rows(m, moe_tokens(seed)))
     logits = dm(rows)
-    loss = (logits * torch.from_numpy(dp_rows(m, moe_readout(seed)))).sum()
+    dp = m.size("dp") if "dp" in names else 1
+    loss = dp * (logits * torch.from_numpy(dp_rows(m, moe_readout(seed)))).sum()
     auxes = model.router_aux_losses()
     if aux:
         loss = loss + sum(auxes)
     loss.backward()
+    dm.finish_grad_sync()
     grads = {}
     for n, p in model.named_parameters():
         g = p.grad
         for i in moe_mesh_dims(m):
-            g = C.mesh_all_reduce(g, m, "sum", i)
+            g = C.mesh_all_reduce(g, m, "avg", i)
         grads[n] = g
     return {"logits": logits.detach(), "aux": [float(a) for a in auxes], "grads": grads,
+            "placements": {n: [enc(q) for q in s.placements] for n, s in dm._specs.items()},
             "local_experts": [b.block_sparse_moe.local_experts() for b in model.blocks()],
             "expert_tokens": [b.block_sparse_moe.expert_tokens for b in model.blocks()]}
 
@@ -1889,6 +1913,349 @@ def case_moe_loop(params, x, seed=0):
                 "step": state["step"]}
 
     return {"base": run(False), "re": run(True)}
+
+
+# ---------------------------------------------- n-D composition (A16, A11)
+ND_LR = 3e-4  # examples/mixtral_4d_benchmark/mixtral_train.py:70's adamw(3e-4)
+
+
+def case_nd_moe_train(mesh_shape, names, seed=0, steps=3, capacity_factor=1.0, sp=False,
+                      zero_dims=None, from_state=None, root=None):
+    """``make_train_step`` over the tiny Mixtral under ``mixtral_plan`` on
+    this mesh (each rank on its "dp" rows), the loss cross entropy (vocab
+    parallel over "tp") plus the blocks' aux losses, as
+    examples/mixtral_4d_benchmark/mixtral_train.py:70-79 has it:
+    ``AdamWLowmem(ND_LR)`` over ``param_dtype_groups`` behind the step's
+    default DDP, or with ``zero_dims`` a ``DistributedOptimizer`` over
+    ``AdamWLowmem`` (fp32 moments) with those dp dims.  The losses, the
+    final pieces and their placements, the first step's routed counts,
+    and (ZeRO) every state piece and its placements; with ``from_state``
+    the ZeRO run starts from a reference state saved there
+    (``zero_state_from_jax``); with ``root`` its state is saved there
+    (``checkpoint.save``) and the saved full values returned."""
+    import functools
+
+    from vescale_tpu_torch.parallel import (AdamWLowmem, DistributedOptimizer,
+                                            param_dtype_groups)
+    from vescale_tpu_torch.train import make_train_step
+
+    m = mesh(mesh_shape, names)
+    model, dm = moe_mixtral(m, seed, "plan", sp, capacity_factor)
+    if zero_dims is None:
+        opt = AdamWLowmem(param_dtype_groups(dm.parameters()), ND_LR)
+    else:
+        opt = DistributedOptimizer(functools.partial(AdamWLowmem, lr=ND_LR,
+                                                     state_dtype=torch.float32),
+                                   models=dm, dp_dims=tuple(zero_dims))
+        if from_state is not None:
+            from vescale_tpu_torch.models.convert import zero_state_from_jax
+
+            opt.load_state_tree(zero_state_from_jax(_ref_state_from_npz(from_state),
+                                                    opt.state_template()))
+    xent = tp_loss(m if "tp" in names else None)
+    step = make_train_step(dm, opt, lambda lg, b: xent(lg, b) + sum(model.router_aux_losses()))
+    toks = torch.from_numpy(dp_rows(m, dp_tokens("gpt", seed, batch=MOE_BATCH)))
+    batch = {"input": toks[:, :-1], "target": toks[:, 1:]}
+    losses, tokens = [], None
+    for _ in range(steps):
+        losses.append(float(step(batch)))
+        if tokens is None:
+            tokens = [b.block_sparse_moe.expert_tokens.clone() for b in model.blocks()]
+    out = {"losses": losses, "expert_tokens": tokens,
+           "final": {n: p.detach().clone() for n, p in dm.named_parameters()},
+           "param_placements": {n: [enc(q) for q in sp_.placements]
+                                for n, sp_ in dm._specs.items()}}
+    if zero_dims is not None:
+        out.update(_zero_out(dopt=opt))
+    if root is not None:
+        from vescale_tpu_torch import checkpoint
+        from vescale_tpu_torch.checkpoint.planner import flatten_state
+        from vescale_tpu_torch.darray import DArray
+
+        state = {"optimizer": opt.state_tree()}
+        checkpoint.save(root, state)
+        out["saved"] = {k: (v.full_tensor() if isinstance(v, DArray) else torch.as_tensor(v))
+                        for k, v in flatten_state(state)}
+    return out
+
+
+# nanogpt_plan with two kernels sharded over "dp" as well: FSDP by the plan
+ND_FSDP_PLAN = {r"h_\d+\.mlp\.c_fc\.kernel": [["S", 0], ["S", 1]],    # P("dp", "tp")
+                r"h_\d+\.mlp\.c_proj\.kernel": [["S", 1], ["S", 0]]}  # P("tp", "dp")
+ND_FSDP_BATCH = (4, 16)
+
+
+def nd_fsdp_plan(m):
+    from vescale_tpu_torch import placements
+    from vescale_tpu_torch.models import nanogpt_plan
+
+    plan = nanogpt_plan(m)
+    plan["parameter"].update({k: [dec(e, placements) for e in v] for k, v in ND_FSDP_PLAN.items()})
+    return plan
+
+
+def case_nd_fsdp(mesh_shape, names, seed=0, steps=3, root=None, two_dims=False):
+    """The tiny GPT on a ("dp", "tp") mesh under ``nd_fsdp_plan``, or (with
+    ``two_dims``) on a ("dpa", "dpb") mesh with no plan and the batch split
+    over both: ``make_train_step`` with a ``DistributedOptimizer`` over
+    ``AdamWLowmem`` (fp32 moments) over the mesh's dp dims, ``steps``
+    steps; the losses, the final pieces, the state pieces and their
+    placements, the names the DModule gathers over "dp".  With ``root``
+    the optimizer's state and the parameters (``DArray`` pieces under the
+    plan's placements) are saved there."""
+    import functools
+
+    from vescale_tpu_torch import checkpoint
+    from vescale_tpu_torch.darray import DArray
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.parallel import AdamWLowmem, DistributedOptimizer
+    from vescale_tpu_torch.train import make_train_step
+
+    m = mesh(mesh_shape, names)
+    model = tp_model("gpt", tp_tree("gpt", seed))
+    dm = parallelize_module(model, m, {} if two_dims else nd_fsdp_plan(m))
+    dopt = DistributedOptimizer(functools.partial(AdamWLowmem, lr=DP_LR,
+                                                  state_dtype=torch.float32),
+                                models=dm, dp_dims=tuple(names) if two_dims else ("dp",))
+    step = make_train_step(dm, dopt, tp_loss(None if two_dims else m))
+    toks = dp_tokens("gpt", seed, batch=ND_FSDP_BATCH)
+    if two_dims:  # this rank's rows: the batch over the flattened (dpa, dpb)
+        b = toks.shape[0] // m.size()
+        toks = toks[m.get_rank() * b:(m.get_rank() + 1) * b]
+    else:
+        toks = dp_rows(m, toks)
+    toks = torch.from_numpy(toks)
+    batch = {"input": toks[:, :-1], "target": toks[:, 1:]}
+    losses = [float(step(batch)) for _ in range(steps)]
+    out = {"losses": losses, "dp_sharded": sorted(dm.dp_sharded),
+           "final": {n: p.detach().clone() for n, p in dm.named_parameters()},
+           "param_placements": {n: [enc(q) for q in s_.placements]
+                                for n, s_ in dm._specs.items()},
+           **_zero_out(dopt)}
+    if root is not None:
+        from vescale_tpu_torch.checkpoint.planner import flatten_state
+
+        rank = m.get_rank()
+        state = {"optimizer": dopt.state_tree(),
+                 "model": {n: DArray(p.detach(), dm._specs[n], rank)
+                           for n, p in dm.named_parameters()}}
+        checkpoint.save(root, state)
+        out["saved"] = {k: (v.full_tensor() if isinstance(v, DArray) else torch.as_tensor(v))
+                        for k, v in flatten_state(state)}
+    return out
+
+
+def case_nd_fsdp_load(root, mesh_shape, names, seed=0):
+    """``case_nd_fsdp``'s checkpoint loaded on this mesh under
+    ``nd_fsdp_plan``: the optimizer through ``state_template`` and
+    ``load_state_tree``, the parameters through ``DArray`` templates of
+    the plan's placements; this rank's pieces and their placements, and
+    the parameters after the load."""
+    import functools
+
+    from vescale_tpu_torch import checkpoint
+    from vescale_tpu_torch.darray import DArray
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.parallel import AdamWLowmem, DistributedOptimizer
+
+    m = mesh(mesh_shape, names)
+    dm = parallelize_module(tp_model("gpt", tp_tree("gpt", seed + 1)), m, nd_fsdp_plan(m))
+    dopt = DistributedOptimizer(functools.partial(AdamWLowmem, lr=DP_LR,
+                                                  state_dtype=torch.float32), models=dm)
+    rank = m.get_rank()
+    got = checkpoint.load(root, {"optimizer": dopt.state_template(),
+                                 "model": {n: DArray(None, dm._specs[n], rank)
+                                           for n, _ in dm.named_parameters()}})
+    dopt.load_state_tree(got["optimizer"])
+    locs, pls = _state_locals(got)
+    return {"locals": locs, "placements": pls,
+            "params": {n: p.detach().clone() for n, p in dm.named_parameters()}}
+
+
+def case_nd_refusals():
+    """What the port refuses on a ("dp", "tp") = (2, 2) mesh, with the
+    messages: a parameter sharded over "dp" on the tensor dim "tp" shards
+    too, and ``dp_dims`` out of mesh order."""
+    import functools
+
+    from vescale_tpu_torch.dmodule import parallelize_module
+    from vescale_tpu_torch.parallel import AdamWLowmem, DistributedOptimizer
+    from vescale_tpu_torch.placements import Shard
+
+    m = mesh([2, 2], ["dp", "tp"])
+    out = {}
+    plan = nd_fsdp_plan(m)
+    plan["parameter"].update({r"h_\d+\.mlp\.c_fc\.kernel": [Shard(1), Shard(1)]})
+    try:
+        parallelize_module(tp_model("gpt", tp_tree("gpt", 0)), m, plan)
+    except NotImplementedError as e:
+        out["same_dim"] = str(e)
+    try:
+        DistributedOptimizer(functools.partial(AdamWLowmem, lr=DP_LR), m,
+                             models={"w": torch.zeros(4, 4)}, dp_dims=("tp", "dp"))
+    except ValueError as e:
+        out["dp_dims_order"] = str(e)
+    return out
+
+
+# tests/test_5d_compose.py:35-105's model: embedding, two attention-free
+# MoE blocks (LayerNorm + routed MLP), head
+ND5_MOE = dict(num_experts=4, d_model=32, d_ff=64, top_k=2, capacity_factor=4.0)
+ND5_BATCH = (4, 8)
+ND5_VOCAB = 64
+ND5_LR = 1e-3
+ND5_EXPERT = r".*moe\.(w_in|w_out|b_in|b_out)"
+
+
+class Nd5Block(torch.nn.Module):
+    """tests/test_5d_compose.py:24's ``MoEBlock``: x + MoE(LayerNorm(x))."""
+
+    def __init__(self):
+        super().__init__()
+        from vescale_tpu_torch.models.nanogpt import LayerNorm
+        from vescale_tpu_torch.moe import MoEConfig, MoEMLP
+
+        self.ln = LayerNorm(ND5_MOE["d_model"], True, torch.float32)
+        self.moe = MoEMLP(MoEConfig(**ND5_MOE))
+
+    def forward(self, x):
+        y, _ = self.moe(self.ln(x))
+        return x + y
+
+
+def nd5_params(seed):
+    """The numpy-seeded weights: {"emb": {"embedding"}, "head": {"kernel"},
+    "blocks": [two block trees]} (``moe_tree``'s rules)."""
+    d, E, f = ND5_MOE["d_model"], ND5_MOE["num_experts"], ND5_MOE["d_ff"]
+    block = {"ln": {"scale": (d,), "bias": (d,)},
+             "moe": {"router": (d, E), "w_in": (E, d, f), "b_in": (E, f),
+                     "w_out": (E, f, d), "b_out": (E, d)}}
+    shapes = {"emb": {"embedding": (ND5_VOCAB, d)}, "head": {"kernel": (d, ND5_VOCAB)},
+              "blocks_0": block, "blocks_1": block}
+    tree = moe_tree(shapes, seed)
+    for i in range(2):  # LayerNorm scales near one
+        tree[f"blocks_{i}"]["ln"]["scale"] = 1.0 + 0.1 * tree[f"blocks_{i}"]["ln"]["scale"]
+    return tree
+
+
+def nd5_tokens(seed):
+    B, T = ND5_BATCH
+    return np.random.default_rng(seed + 500).integers(0, ND5_VOCAB, (B, T + 1)).astype(np.int64)
+
+
+def nd5_run(m, seed=0, steps=3, root=None):
+    """The 5D model trained ``steps`` steps of AdamW (``ND5_LR``, fp32
+    moments): on one rank (``m`` None) the blocks in sequence over the
+    whole batch and ``AdamWLowmem``; on a ("pp", "dp", "ep") mesh the
+    blocks stacked (``stack_stage_params``) and placed by a plan whose
+    experts are Shard(0) over "ep" (``shard_stacked_params``), run by
+    ``pipeline_blocks`` (2 microbatches) on this rank's "dp" rows, each
+    block's ``MoEMLP`` bound to the mesh by ``place``, and stepped by
+    ``zero_sharded(..., dp_dims=("dp",))``.  The dp-mean losses, the
+    final full parameters (gathered) and, with ``root``, the saved full
+    values (``checkpoint.save`` of the ``DArray`` pieces)."""
+    import functools
+
+    from torch.func import functional_call
+
+    from vescale_tpu_torch.darray import DArray
+    from vescale_tpu_torch.parallel import AdamWLowmem, zero_sharded
+    from vescale_tpu_torch.pipe import spmd
+    from vescale_tpu_torch.pipe.pipe_stage import flatten_tree, unflatten_tree
+    from vescale_tpu_torch.placements import Replicate, Shard
+
+    tree = _torch_tree(nd5_params(seed))
+    toks = nd5_tokens(seed)
+    block = Nd5Block()
+    adam = functools.partial(AdamWLowmem, lr=ND5_LR, state_dtype=torch.float32)
+
+    def block_fn(p, x):
+        return functional_call(block, flatten_tree(p), (x,))
+
+    outer = {"emb.embedding": tree["emb"]["embedding"], "head.kernel": tree["head"]["kernel"]}
+    if m is None:
+        params = {k: v.clone().requires_grad_() for k, v in outer.items()}
+        for i in range(2):
+            params.update({f"blocks_{i}.{k}": v.clone().requires_grad_()
+                           for k, v in flatten_tree(tree[f"blocks_{i}"]).items()})
+        opt = adam(list(params.values()))
+        rows = torch.from_numpy(toks)
+    else:
+        block.moe.place(m)
+        stacked = spmd.stack_stage_params([tree["blocks_0"], tree["blocks_1"]])
+        R = [Replicate()] * m.ndim
+        ep = [Shard(0) if n == "ep" else Replicate() for n in m.mesh_dim_names]
+        placed = flatten_tree(spmd.shard_stacked_params(stacked, m, {ND5_EXPERT: ep, r".*": R}))
+        rank = m.get_rank()
+        specs = {f"blocks.{k}": d.spec for k, d in placed.items()}
+        params = {k: v.clone().requires_grad_() for k, v in outer.items()}
+        params.update({f"blocks.{k}": d.to_local().clone().requires_grad_()
+                       for k, d in placed.items()})
+        from vescale_tpu_torch.spec import DArraySpec, TensorMeta
+
+        for k, v in outer.items():
+            specs[k] = DArraySpec(m, R, TensorMeta(tuple(v.shape), v.dtype))
+        opt = zero_sharded(adam, m, specs, dp_dims=("dp",), models=params)
+        rows = torch.from_numpy(dp_rows(m, toks))
+    batch = {"input": rows[:, :-1], "target": rows[:, 1:]}
+
+    def loss_fn():
+        import torch.nn.functional as F
+
+        x = F.embedding(batch["input"], params["emb.embedding"])
+        if m is None:
+            for i in range(2):
+                x = block_fn(unflatten_tree({k[len(f"blocks_{i}."):]: v for k, v in params.items()
+                                             if k.startswith(f"blocks_{i}.")}), x)
+        else:
+            blocks = unflatten_tree({k[len("blocks."):]: v for k, v in params.items()
+                                     if k.startswith("blocks.")})
+            x = spmd.pipeline_blocks(block_fn, blocks, x, m, num_microbatches=2)
+        logits = x @ params["head.kernel"]
+        from vescale_tpu_torch.models import cross_entropy_loss
+
+        return cross_entropy_loss(logits, batch["target"])
+
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = loss_fn()
+        loss.backward()
+        opt.step()
+        if m is not None:
+            from vescale_tpu_torch import collectives as C
+
+            loss = C.mesh_all_reduce(loss.detach().reshape(1), m, "avg", "dp")[0]
+        losses.append(float(loss.detach()))
+    if m is None:
+        return {"losses": losses, "final": {k: v.detach().clone() for k, v in params.items()}}
+    state = {k: DArray(v.detach(), specs[k], rank) for k, v in params.items()}
+    final = {k: d.full_tensor() for k, d in state.items()}
+    out = {"losses": losses, "final": final}
+    if root is not None:
+        from vescale_tpu_torch import checkpoint
+
+        checkpoint.save(root, {"model": state})
+    return out
+
+
+def case_nd_5d(root, seed=0, steps=3):
+    """``nd5_run`` on a ("pp", "dp", "ep") = (2, 2, 2) mesh of the world,
+    saved to ``root``; then the checkpoint loaded onto a ("x",) mesh of
+    the world, every leaf Replicate (tests/test_5d_compose.py:95-105)."""
+    from vescale_tpu_torch import checkpoint
+    from vescale_tpu_torch.darray import DArray
+    from vescale_tpu_torch.placements import Replicate
+    from vescale_tpu_torch.spec import DArraySpec, TensorMeta
+
+    out = nd5_run(mesh([2, 2, 2], ["pp", "dp", "ep"]), seed, steps, root)
+    flat = mesh([torch.distributed.get_world_size()], ["x"])
+    rank = flat.get_rank()
+    tmpl = {k: DArray(None, DArraySpec(flat, [Replicate()], TensorMeta(tuple(v.shape), v.dtype)),
+                      rank) for k, v in out["final"].items()}
+    got = checkpoint.load(root, {"model": tmpl})["model"]
+    out["loaded"] = {k: d.to_local() for k, d in got.items()}
+    return out
 
 
 def case_ctx_attn(kind, causal, seed, shape, kv_heads=None, names=("sp",)):

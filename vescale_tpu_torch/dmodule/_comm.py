@@ -153,7 +153,9 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         tp, d, partial_grad = ctx.args
-        return (_scatter_sum(g, tp, d) if partial_grad else _piece(g, tp, d)), None, None, None
+        # contiguous: a parameter's gathered piece gets this as its .grad
+        return ((_scatter_sum(g, tp, d).contiguous() if partial_grad else _piece(g, tp, d)),
+                None, None, None)
 
 
 class _ReduceScatter(torch.autograd.Function):

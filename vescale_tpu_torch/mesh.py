@@ -165,12 +165,42 @@ class DeviceMesh:
     def get_coordinate(self) -> Tuple[int, ...]:
         return self.coordinate_of_rank(self.get_rank())
 
-    def get_group(self, mesh_dim: Union[int, str] = 0):
-        """The process group along ``mesh_dim`` that holds this process."""
+    def get_group(self, mesh_dim: Union[int, str, Sequence[Union[int, str]]] = 0):
+        """The process group along ``mesh_dim`` that holds this process.
+        A sequence of dims (in mesh order) gives the group over their
+        flattened grid: member j is the rank at row-major position j of
+        those dims.  Every process of the mesh must ask for the same
+        flattened dims in the same order: the first ask makes the groups
+        (``torch.distributed.new_group``) and caches them."""
         if not self.is_live:
             raise RuntimeError("a layout-only mesh has no process groups; make a live mesh "
                                "with init_device_mesh to run collectives")
-        return self._groups[self._dim_index(mesh_dim)]
+        if isinstance(mesh_dim, (int, str)):
+            return self._groups[self._dim_index(mesh_dim)]
+        dims = tuple(self._dim_index(d) for d in mesh_dim)
+        if len(dims) == 1:
+            return self._groups[dims[0]]
+        if list(dims) != sorted(set(dims)):
+            raise ValueError(f"flattened mesh dims {tuple(mesh_dim)} must be distinct and in "
+                             f"mesh order {self._names}")
+        cache = self.__dict__.setdefault("_flat_groups", {})
+        if dims not in cache:
+            rest = [i for i in range(self.ndim) if i not in dims]
+            grid = np.moveaxis(self._ranks, dims, range(len(dims))).reshape(
+                -1, *[self._shape[i] for i in rest])
+            grid = grid.reshape(grid.shape[0], -1)
+            backend = dist.get_backend(self._groups[0])
+            mine = None
+            for col in range(grid.shape[1]):
+                ranks = [int(r) for r in grid[:, col]]
+                if ranks != sorted(ranks):
+                    raise ValueError(f"mesh dims {tuple(mesh_dim)} do not flatten in rank "
+                                     f"order: {ranks}")
+                group = dist.new_group(ranks, backend=backend)
+                if dist.get_rank() in ranks:
+                    mine = group
+            cache[dims] = mine
+        return cache[dims]
 
     # ------------------------------------------------------ submesh slicing
     def __getitem__(self, mesh_dims: Union[str, Sequence[str]]) -> "DeviceMesh":

@@ -26,6 +26,26 @@ experts only, are summed over "ep" in the backward; the router's own path
 (its logits, the softmax and the aux loss) is computed whole on every
 rank and is not summed, so the router's gradient is the same on every ep
 rank and counts the aux loss once.
+
+**Data parallel.**  Under a ``DModule`` whose mesh has a "dp" dim, the
+layer is handed that dim (``bind_batch_dim``; ``place`` binds both dims
+from a mesh, for a layer called functionally, e.g. inside a pipeline
+block), and each rank holds its rows of the global batch.  The layer
+then gives what the reference's GSPMD program gives for the global
+batch: the capacity is ``capacity_for(N * dp, ...)``; a pair is kept
+when its global position is below C, its position among the earlier dp
+ranks' pairs for its expert (one all-gather of each rank's (E,) routed
+counts over "dp") plus its local exclusive cumsum; ``expert_tokens``
+holds the global counts and the aux loss the global value.  Only the
+keep decision is global: a kept pair takes the slot of its local
+position, of ``min(C, N)`` slots (a rank's pairs for one expert are at
+most its N rows), so the dense products are the size one rank's rows
+need, not dp-fold.  The aux loss's gradient follows DDP's average over
+"dp": the dp mean of the router probabilities enters with an identity
+backward, so rank r's aux carries dp times its share of the global aux
+loss's gradient, and the average of the ranks' gradients is the
+reference's.  Without a "dp" dim (or with one of size 1) the layer
+computes as above, bitwise.
 """
 
 from __future__ import annotations
@@ -69,6 +89,29 @@ def route(x2: torch.Tensor, router: torch.Tensor, top_k: int):
     return probs, gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True), gate_idx
 
 
+class _DPStats(torch.autograd.Function):
+    """Each dp rank's (E,) routed counts and (E,) mean router
+    probabilities, all-gathered over the dp dim in one collective: the
+    (dp, E) counts (rank order) and the dp mean of the probabilities.
+    The backward hands the mean's gradient through unscaled: DDP averages
+    it over the ranks."""
+
+    @staticmethod
+    def forward(ctx, counts, me_local, dp):
+        from .. import collectives as C
+
+        E = counts.shape[0]
+        buf = torch.cat([counts.to(me_local.dtype), me_local]).reshape(1, 2 * E)
+        got = C.mesh_all_gather(buf, dp.mesh, dp.index)  # (dp, 2E)
+        all_counts = got[:, :E].round().to(torch.int32)
+        ctx.mark_non_differentiable(all_counts)
+        return all_counts, got[:, E:].mean(dim=0)
+
+    @staticmethod
+    def backward(ctx, g_counts, g_me):
+        return None, g_me, None
+
+
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
@@ -93,6 +136,7 @@ class MoEMLP(nn.Module):
         self.b_out = _param((E, d), c.dtype, device)
         self.w_gate = _param((E, d, f), c.dtype, device) if c.swiglu else None
         self.ep = None  # the expert-parallel mesh dim (dmodule._comm.TPDim)
+        self.dp = None  # the batch's mesh dim: the capacity and aux loss are global
         self.expert_tokens: Optional[torch.Tensor] = None
 
     def shard_param(self, name: str, placement, tp) -> None:
@@ -107,6 +151,27 @@ class MoEMLP(nn.Module):
         if self.ep is not None and self.ep.index != tp.index:
             raise NotImplementedError(f"MoEMLP experts over two mesh dims ({self.ep}, {tp})")
         self.ep = tp
+
+    def bind_batch_dim(self, dp) -> None:
+        """``parallelize_module``'s notice that this rank holds its rows
+        of a batch split over the mesh dim ``dp`` (a ``TPDim``)."""
+        self.dp = dp
+
+    def place(self, mesh) -> None:
+        """Bind the layer to ``mesh``'s "ep" and "dp" dims (each where the
+        mesh has it), as ``parallelize_module`` would: for a layer called
+        functionally (``torch.func.functional_call`` with this rank's
+        expert pieces), e.g. in a pipeline block."""
+        from ..dmodule._comm import TPDim
+
+        names = mesh.mesh_dim_names
+        if "ep" in names:
+            tp = TPDim(mesh, "ep")
+            if self.config.num_experts % tp.size:
+                raise ValueError(f"{self.config.num_experts} experts do not split evenly over {tp}")
+            self.ep = tp
+        if "dp" in names:
+            self.dp = TPDim(mesh, "dp")
 
     def local_experts(self) -> Tuple[int, int]:
         """(first expert, count) of this rank's expert leaves."""
@@ -125,12 +190,22 @@ class MoEMLP(nn.Module):
         N = x2.shape[0]
         E, K = c.num_experts, c.top_k
         probs, gate_vals, gate_idx = route(x2, self.router, K)
-        td = TokenDispatcher(E, TokenDispatcher.capacity_for(N, E, K, c.capacity_factor))
+        dp = self.dp if self.dp is not None and self.dp.size > 1 else None
+        offset = slots = None
+        if dp is None:
+            td = TokenDispatcher(E, TokenDispatcher.capacity_for(N, E, K, c.capacity_factor))
+        else:
+            counts = F.one_hot(gate_idx, E).amax(dim=1).sum(dim=0)  # (E,) routed here
+            all_counts, me = _DPStats.apply(counts, probs.mean(dim=0), dp)
+            td = TokenDispatcher(E, TokenDispatcher.capacity_for(N * dp.size, E, K,
+                                                                 c.capacity_factor))
+            offset = all_counts[:dp.rank].sum(dim=0)
+            slots = min(td.capacity, N)
         lo, n = self.local_experts()
         xd = x2
         if self.ep is not None:
             xd, gate_vals = _comm.copy_to_tp(x2, self.ep), _comm.copy_to_tp(gate_vals, self.ep)
-        disp, comb = td.build_masks(gate_idx, gate_vals)  # (N, E, C) fp32
+        disp, comb = td.build_masks(gate_idx, gate_vals, offset, slots)  # (N, E, C) fp32
         if n != E:
             disp, comb = disp[:, lo:lo + n], comb[:, lo:lo + n]
         xe = td.dispatch(xd.to(c.dtype), disp)  # (E_local, C, d)
@@ -149,7 +224,12 @@ class MoEMLP(nn.Module):
 
         # load-balancing aux loss (Switch): mean router prob x the fraction
         # of tokens whose top-k holds the expert, before capacity drops
-        routed = F.one_hot(gate_idx, E).amax(dim=1).float()  # (N, E)
-        aux = c.aux_loss_coef * E * torch.sum(probs.mean(dim=0) * routed.mean(dim=0))
-        self.expert_tokens = routed.sum(dim=0).detach()
+        if dp is None:
+            routed = F.one_hot(gate_idx, E).amax(dim=1).float()  # (N, E)
+            aux = c.aux_loss_coef * E * torch.sum(probs.mean(dim=0) * routed.mean(dim=0))
+            self.expert_tokens = routed.sum(dim=0).detach()
+        else:
+            total = all_counts.sum(dim=0).float()
+            aux = c.aux_loss_coef * E * torch.sum(me * (total / (N * dp.size)))
+            self.expert_tokens = total
         return y.reshape(shape).to(x.dtype), aux

@@ -36,21 +36,32 @@ class TokenDispatcher:
         self.ep_dim = ep_dim
 
     # ---------------------------------------------------------- routing
-    def build_masks(self, gate_idx: torch.Tensor,
-                    gate_vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def build_masks(self, gate_idx: torch.Tensor, gate_vals: torch.Tensor,
+                    offset: Optional[torch.Tensor] = None,
+                    slots: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, K) expert assignments -> the dispatch (N, E, C) one-hot and
         the combine (N, E, C) gate-weighted masks, fp32.  Capacity
         positions count the (n, k) pairs in their flattened order; a pair
         past its expert's capacity gets a zero row (``jax.nn.one_hot`` of
-        the index C)."""
+        the index C).
+
+        ``offset`` (E,): the pairs routed to each expert ahead of these
+        rows (the earlier dp ranks' rows of a global batch); a pair is
+        then kept when ``offset`` plus its position here is below C, and
+        still takes the slot of its position here.  ``slots`` (default C):
+        the masks' last dim."""
         N, K = gate_idx.shape
         E, C = self.num_experts, self.capacity
         expert_onehot = F.one_hot(gate_idx.long(), E).to(torch.int32)  # (N, K, E)
         flat = expert_onehot.reshape(N * K, E)
         pos = (torch.cumsum(flat, dim=0, dtype=torch.int32) - flat).reshape(N, K, E)
         pos = torch.sum(pos * expert_onehot, dim=-1)  # (N, K)
-        keep = pos < C
-        pos_oh = F.one_hot(torch.where(keep, pos, C).long(), C + 1)[..., :C].float()
+        if offset is not None:  # the global position decides the keep
+            keep = pos + torch.sum(offset.to(torch.int32) * expert_onehot, dim=-1) < C
+        else:
+            keep = pos < C
+        S = C if slots is None else slots
+        pos_oh = F.one_hot(torch.where(keep, pos, S).long(), S + 1)[..., :S].float()
         onehot = expert_onehot.float()
         disp = torch.einsum("nke,nkc->nec", onehot, pos_oh)
         comb = torch.einsum("nke,nkc,nk->nec", onehot, pos_oh, gate_vals.float())

@@ -8,8 +8,10 @@ reference's gradient reduce is structural; here it is explicit:
   * ``DistributedDataParallel.finish_grad_sync()`` averages every
     parameter's gradient over the dp dim (each rank's loss is the mean of
     its own rows, so the mean of the ranks' gradients is the gradient of
-    the global mean).  The gradients go in flat per-dtype buckets of
-    ``bucket_size`` elements, in fp32 with
+    the global mean); a parameter the ``DModule``'s plan shards over the
+    dp dim (``DModule.dp_sharded``) already holds the ranks' sum and is
+    divided by the dp size instead.  The gradients go in flat per-dtype
+    buckets of ``bucket_size`` elements, in fp32 with
     ``accumulate_allreduce_grads_in_fp32``: one all-reduce a bucket, which
     also bounds what a backend that stages through the host (gloo on CUDA
     tensors) holds at once.
@@ -321,7 +323,19 @@ class DistributedDataParallel:
             return tree_map(one, grads, is_leaf=lambda x: isinstance(x, DArray))
         if self.use_distributed_optimizer or self.dp_size == 1:
             return None
-        grads = [p.grad for p in self.module.parameters() if p.grad is not None]
+        # a parameter the plan shards over the dp dim arrives with the dp
+        # ranks' gradients summed (its forward's gather): their average
+        # is that sum over the dim's size, with no reduce of its own
+        gathered = {id(p) for n, p in self.module.named_parameters()
+                    if n in getattr(self.module, "dp_sharded", ())}
+        grads = []
+        for p in self.module.parameters():
+            if p.grad is None:
+                continue
+            if id(p) in gathered:
+                p.grad.div_(self.dp_size)
+            else:
+                grads.append(p.grad)
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for g in grads:
             by_dtype.setdefault(g.dtype, []).append(g)

@@ -46,6 +46,7 @@ from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Se
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import collectives as C
 from ..kernels.fused_adamw import fused_adamw_update
@@ -509,13 +510,17 @@ def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
 class _ZeroLeaf:
     """One parameter under ZeRO: its global spec, the state spec, the
     tensor dim the dp dims cut (None: not cut) and this rank's offset and
-    extent on it."""
+    extent on it; for a leaf not cut, the dp mesh dims its gradient is
+    averaged over (those it is replicated on) and the factor that makes a
+    gradient already summed over the others (a leaf the plan shards over
+    "dp", gathered in the forward) their average."""
 
-    __slots__ = ("name", "param", "spec", "zspec", "dim", "offset", "size")
+    __slots__ = ("name", "param", "spec", "zspec", "dim", "offset", "size", "reduce", "scale")
 
-    def __init__(self, name, param, spec, zspec, dim, offset, size):
+    def __init__(self, name, param, spec, zspec, dim, offset, size, reduce=(), scale=1.0):
         self.name, self.param, self.spec, self.zspec = name, param, spec, zspec
         self.dim, self.offset, self.size = dim, offset, size
+        self.reduce, self.scale = reduce, scale
 
 
 class DistributedOptimizer:
@@ -546,8 +551,17 @@ class DistributedOptimizer:
     flag is read on the host each step.  ``state_tree`` is the
     reference's state layout (``inner/0/.mu``, ``main_params``,
     ``loss_scale``) as ``DArray``s; ``state_template`` the same without
-    data, for ``checkpoint.load``.  The module path reduce-scatters over
-    one dp mesh dim (``dp_dims`` of one name).
+    data, for ``checkpoint.load``.
+
+    Over several dp mesh dims (``dp_dims=("dp", "ep")``, in mesh order) a
+    cut leaf's state is cut over their flattened grid (the reference's
+    ``P(("dp", "ep"))``) and its gradient reduce-scattered over the
+    flattened group; a leaf already sharded on one of them (the experts'
+    ``Shard(0)`` over "ep") keeps its placements and its gradient is
+    averaged over the dp dims it is replicated on.  A leaf a ``DModule``'s
+    plan shards over "dp" (``DModule.dp_sharded``) arrives with the dp
+    ranks' gradients summed by its forward's gather, and is scaled to
+    their average.
     """
 
     def __init__(self, optimizer: Callable[[List[torch.Tensor]], torch.optim.Optimizer],
@@ -593,10 +607,22 @@ class DistributedOptimizer:
         live = mesh is not None and mesh.is_live
         coord = mesh.get_coordinate() if live else (0,) * (mesh.ndim if mesh is not None else 0)
         self._rank = mesh.get_rank() if live else 0
+        # the dp mesh dims that split anything (size > 1), in mesh order
+        self._dp_idx: Tuple[int, ...] = ()
+        if mesh is not None:
+            idx = [mesh._dim_index(d) for d in self.dp_dims]
+            if idx != sorted(set(idx)):
+                raise ValueError(f"dp_dims {self.dp_dims} must be distinct and in mesh order "
+                                 f"{mesh.mesh_dim_names}")
+            self._dp_idx = tuple(i for i in idx if mesh.size(i) > 1)
+            if self.grad_compress is not None and len(self._dp_idx) > 1:
+                raise NotImplementedError("grad_compress over more than one dp mesh dim")
+        gathered = getattr(models, "dp_sharded", set())
         self.leaves: List[_ZeroLeaf] = []
         mains = []
         for name, p in named:
             spec = specs.get(name)
+            reduce, scale = (), 1.0
             if mesh is None:
                 spec = zspec = None
                 dim, off, size = None, 0, 0
@@ -612,7 +638,18 @@ class DistributedOptimizer:
                 if dim is not None:
                     shape, offs = zspec.local_chunk(coord)
                     off, size = offs[dim], shape[dim]
-            leaf = _ZeroLeaf(name, p, spec, zspec, dim, off, size)
+                    if live and self._dp_idx:
+                        j = dist.get_rank(self._group())
+                        if off != j * size:  # the flattened group's chunk order
+                            raise ValueError(f"{name}: ZeRO piece at {off} is not chunk {j} of "
+                                             f"the flattened {self.dp_dims} group")
+                else:
+                    reduce = tuple(i for i in self._dp_idx if spec.placements[i].is_replicate())
+                    if name in gathered:
+                        for i in self._dp_idx:
+                            if not spec.placements[i].is_replicate():
+                                scale /= mesh.size(i)
+            leaf = _ZeroLeaf(name, p, spec, zspec, dim, off, size, reduce, scale)
             src = p.detach()
             if dim is not None:
                 src = src.narrow(dim, off, size)
@@ -645,13 +682,18 @@ class DistributedOptimizer:
             leaf.param.grad = None
         self._pieces = None
 
-    def _dp_index(self) -> Optional[int]:
-        if self.mesh is None:
+    def _group(self, dims: Optional[Sequence[int]] = None):
+        """The process group over the flattened dp mesh dims ``dims``
+        (default: every dp dim of size > 1)."""
+        dims = self._dp_idx if dims is None else dims
+        return self.mesh.get_group(tuple(self.mesh.dim_name(i) for i in dims))
+
+    def dp_group(self):
+        """The group of the ranks whose gradients this optimizer averages
+        (the flattened dp dims), or None when nothing is averaged."""
+        if self.mesh is None or not self.mesh.is_live or not self._dp_idx:
             return None
-        if len(self.dp_dims) != 1:
-            raise NotImplementedError(
-                f"the module path reduces over one dp mesh dim, got dp_dims={self.dp_dims}")
-        return self.mesh._dim_index(self.dp_dims[0])
+        return self._group()
 
     def reduce_grads(self, grads=None, dp_dim: Optional[str] = None):
         """With ``grads`` (a tree of ``DArray``s): each leaf Partial on the
@@ -681,21 +723,26 @@ class DistributedOptimizer:
             return tree_map(one, grads, is_leaf=lambda x: isinstance(x, DArray))
         grads = [leaf.param.grad if leaf.param.grad is not None else torch.zeros_like(leaf.param)
                  for leaf in self.leaves]
-        dp_index = self._dp_index()
-        if dp_index is None or self.mesh.size(dp_index) == 1:
+        if self.dp_group() is None:
             pieces = [g.narrow(leaf.dim, leaf.offset, leaf.size) if leaf.dim is not None else g
                       for g, leaf in zip(grads, self.leaves)]
         else:
-            group = self.mesh.get_group(dp_index)
+            group = self._group()
             kw = dict(compress=self.grad_compress, block=self.compress_block, mesh=self.mesh,
-                      mesh_dim=dp_index)
+                      mesh_dim=self._dp_idx[0])
             pieces = [None] * len(grads)
-            whole = [i for i, leaf in enumerate(self.leaves) if leaf.dim is None]
-            g32 = [grads[i].float() for i in whole]
-            if g32:
-                bucketed_all_reduce(g32, group, "avg", DEFAULT_BUCKET, **kw)
-            for i, g in zip(whole, g32):
-                pieces[i] = g
+            by_dims: Dict[Tuple[int, ...], List[int]] = {}
+            for i, leaf in enumerate(self.leaves):
+                if leaf.dim is None:
+                    by_dims.setdefault(leaf.reduce, []).append(i)
+            for dims, whole in by_dims.items():
+                g32 = [grads[i].float() if self.leaves[i].scale == 1.0 else
+                       grads[i].float() * self.leaves[i].scale for i in whole]
+                if dims:
+                    bucketed_all_reduce(g32, self._group(dims), "avg", DEFAULT_BUCKET,
+                                        **dict(kw, mesh_dim=dims[0]))
+                for i, g in zip(whole, g32):
+                    pieces[i] = g
             cut = [i for i, leaf in enumerate(self.leaves) if leaf.dim is not None]
             flats = [grads[i].float().movedim(self.leaves[i].dim, 0).contiguous().view(-1)
                      for i in cut]
@@ -757,7 +804,7 @@ class DistributedOptimizer:
             self.reduce_grads()
         pieces, self._pieces = self._pieces, None
         inv = float(np.float32(1.0) / np.float32(self.current_scale()))
-        g32 = [g.to(self.main_param_dtype) for g in pieces]
+        g32 = [g.to(self.main_param_dtype).contiguous() for g in pieces]  # K8 takes dense leaves
         if inv != 1.0:
             g32 = [g * torch.tensor(inv, dtype=g.dtype, device=g.device) for g in g32]
         overflow = bool(found_inf(g32, self.mesh)) if self.skip_nonfinite else False
@@ -785,8 +832,7 @@ class DistributedOptimizer:
                 leaf.param.data.copy_(self.main_params[i].to(leaf.param.dtype))
         if not cut:
             return
-        dp_index = self._dp_index()
-        if self.mesh.size(dp_index) == 1:
+        if self.dp_group() is None:
             for i in cut:
                 self.leaves[i].param.data.copy_(self.main_params[i].to(self.leaves[i].param.dtype))
             return
@@ -802,7 +848,7 @@ class DistributedOptimizer:
                 outs.append(torch.empty(moved.numel(), dtype=m.dtype, device=m.device))
                 writes.append(tuple(moved.shape))
         sources = [self.main_params[i].movedim(self.leaves[i].dim, 0).contiguous() for i in cut]
-        bucketed_all_gather(sources, outs, self.mesh.get_group(dp_index), DEFAULT_BUCKET)
+        bucketed_all_gather(sources, outs, self._group(), DEFAULT_BUCKET)
         for i, out, shape in zip(cut, outs, writes):
             if shape is not None:
                 leaf = self.leaves[i]

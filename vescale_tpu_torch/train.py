@@ -233,8 +233,8 @@ def make_train_step(model: torch.nn.Module, optimizer, loss_fn: Callable, *,
     dp_group = None
     if ddp is not None and ddp.dp_size > 1:
         dp_group = ddp.mesh.get_group(ddp.dp_dim)
-    elif dopt is not None and dopt.mesh is not None and dopt.mesh.size(dopt.dp_dims[0]) > 1:
-        dp_group = dopt.mesh.get_group(dopt.dp_dims[0])
+    elif dopt is not None:
+        dp_group = dopt.dp_group()
 
     from .quant.fp8 import owg_buffers
 
