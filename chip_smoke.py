@@ -16,6 +16,7 @@ Hopper card.
     python3 chip_smoke.py --fleet    # the fleet phase alone
     python3 chip_smoke.py --leftovers   # the train_leftovers phase alone
     python3 chip_smoke.py --nd       # the nd phase (n-D composition) alone
+    python3 chip_smoke.py --examples # the head-dim parity and the examples phase alone
     python3 chip_smoke.py --gloo-probe   # which collectives gloo carries on CUDA
 
 Phases, each printing one JSON line with its seconds:
@@ -405,12 +406,13 @@ Phases, each printing one JSON line with its seconds:
            passes timed alone; then the bf16 rung from the same seed for 20
            steps: the fp8 loss falls and ends within 10% of the bf16 run's
   train_leftovers  the training leftovers on the card.  (a) Muon on the
-           1.3B rung at full width (``bench.prepare("1.3b", opt="muon")``,
+           1.3B rung at full width and 8 of its 24 layers (``MUON_LAYERS``;
+           ``bench.prepare("1.3b", opt="muon")``,
            the 1B sweep's ``muon(0.02, fallback=adamw_lowmem(3e-4),
            state_dtype=bf16)``): Newton-Schulz at (1024, 2816) on the card
            against the CPU (true fp32 products, TF32 off); the first step
            twice from the seed-0 state, bitwise; three more, the loss
-           falling; 24 K1, dq and dkv, one K8 and 168 Newton-Schulz calls a
+           falling; 8 K1, dq and dkv, one K8 and 56 Newton-Schulz calls a
            step; step ms, Newton-Schulz ms (CUDA events), peak.  (b)
            nanoGPT's ``config/train_shakespeare_char.py`` at its published
            size with dropout 0.2, through the fused cross entropy and K8:
@@ -423,6 +425,24 @@ Phases, each printing one JSON line with its seconds:
            ``load_hf_llama`` onto the card bitwise the tree in memory, 4
            requests served from each with bitwise equal greedy streams;
            write and load seconds and GB/s
+  examples the port's example programs (``vescale_tpu_torch/examples/``)
+           on one rank: the flash kernels' and the paged decode's times at
+           head dims 100 and 16 (zero-padded to their compiled widths),
+           each with its bound over the function's own work and over the
+           padded work; a head dim outside the contract refused before any
+           launch; (a) OpenLLaMA-3B at full width and depth (bf16, remat,
+           B=2, T=2048, 2 warm-up and 5 timed steps: ms, tokens/s, MFU,
+           peak; K1, K3/K4, K8 launched; the first loss near ln(vocab));
+           (b) Llama-2-7B's widths at 4 of 32 layers (B=4, T=256, 10 steps),
+           saved and restored bitwise; (c) nanoGPT at ``train.py``'s
+           defaults over the char corpus, with and without ZeRO-2; (d)
+           Mixtral at ``mixtral_train.py``'s defaults; (e) a crash at step
+           12 of 20 (a child's exit 137) and a resume bitwise an
+           uninterrupted run; (f) the auto-split tangled model at 3 stages
+           under zero bubble within 1e-5 of the unsplit model; (g) the fp8
+           Llama in bf16 with flash on (head dim 16), its loss scale and
+           amax histories advancing.  ``--examples`` adds the head-dim
+           parity cases (in the parity phase otherwise)
 Then the card line, the kernels line and, last, ``{"ok": true, "device":
 ...}``.  Any failure raises and exits non-zero before that line.  Imports
 nothing of JAX or of ``vescale_tpu``.
@@ -433,6 +453,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import shutil
 import signal
@@ -515,7 +536,7 @@ def sass_wgmma(build) -> dict:
 
 def paged_build_report(build) -> dict:
     """ptxas's registers and spills for each ``paged_decode`` kernel
-    (``build/paged_decode.log``), and the dynamic shared memory and ring
+    (``build/paged_decode.log`` and ``paged_decode_pad.log``), and the dynamic shared memory and ring
     stages of each (pool dtype, head_dim, group bucket); ``spills`` lists
     every kernel with a non-zero spill store or load."""
     import re
@@ -523,14 +544,16 @@ def paged_build_report(build) -> dict:
     from vescale_tpu_torch.kernels.paged_attention import kernel_layout
 
     kernels, spills, name = {}, [], None
-    for ln in (build.BUILD_DIR / "paged_decode.log").read_text().splitlines():
+    lines = [ln for lib in ("paged_decode", "paged_decode_pad")
+             for ln in (build.BUILD_DIR / f"{lib}.log").read_text().splitlines()]
+    for ln in lines:
         m = re.search(r"Function properties for \S*paged_decode_kernelI(f|13__nv_bfloat16)"
-                      r"(f|13__nv_bfloat16|S\d*_)Li(\d+)ELi(\d+)E", ln)
+                      r"(f|13__nv_bfloat16|S\d*_)Li(\d+)ELi(\d+)ELb([01])E", ln)
         if m:
-            tq, tkv, hd, g = m.groups()
+            tq, tkv, hd, g, pad = m.groups()
             tkv = tq if tkv.startswith("S") else tkv  # a repeated type is mangled as S_
             dt = {"f": "fp32", "13__nv_bfloat16": "bf16"}
-            name = f"q {dt[tq]}, pools {dt[tkv]}, hd{hd}, G<={g}"
+            name = f"q {dt[tq]}, pools {dt[tkv]}, hd{hd}{' padded' if pad == '1' else ''}, G<={g}"
             kernels[name] = {}
         elif name is not None and "spill" in ln:
             nums = [int(x) for x in re.findall(r"(\d+) bytes spill", ln)]
@@ -605,8 +628,21 @@ def flash_cases():
         # the moe rung's attention (GQA group 3) and Mixtral-8x7B's widths
         ("moe rung bf16 (GQA 3)", 2, 2048, 12, 4, 64, True, bf16, 2 * BF16_ULP, 16.0),
         ("mixtral 8x7b bf16", 2, 2048, 32, 8, 128, True, bf16, 2 * BF16_ULP, 16.0),
+        # head dims between the compiled 64 and 128, zero-padded to them:
+        # OpenLLaMA-3B's 100, the tiny configs' 32, the fp8 example's 16
+        ("open_llama 3b hd100 bf16", 1, 2048, 32, 32, 100, True, bf16, 2 * BF16_ULP, 16.0),
+        ("hd100 T=333 fp32", 1, 333, 8, 4, 100, True, fp32, 8.0, 8.0),
+        ("hd32 T=256 bf16", 2, 256, 8, 4, 32, True, bf16, 2 * BF16_ULP, 8.0),
+        ("hd32 T=128 fp32", 2, 128, 8, 4, 32, True, fp32, 8.0, 8.0),
+        ("hd16 T=64 bf16", 8, 64, 8, 4, 16, True, bf16, 2 * BF16_ULP, 8.0),
+        ("hd16 T=64 fp32", 8, 64, 8, 4, 16, True, fp32, 8.0, 8.0),
     ]
 
+
+# the parity cases of the head dims between the compiled ones (``--examples``
+# runs only these, with the paged decode's)
+HEAD_DIM_PARITY = ("open_llama 3b hd100 bf16", "hd100 T=333 fp32", "hd32 T=256 bf16",
+                   "hd32 T=128 fp32", "hd16 T=64 bf16", "hd16 T=64 fp32")
 
 # the parity cases at the moe phase's shapes (``--moe`` runs only these)
 MOE_PARITY = ("moe rung bf16 (GQA 3)", "mixtral 8x7b bf16")
@@ -640,13 +676,13 @@ def run_flash_parity(dev, ulps, only=None):
             o_model, lse_model = flash_fwd_reference(q, k, v, pd_dtype=torch.bfloat16, **args)
             o64, lse64 = flash_fwd_reference(q.double(), k.double(), v.double(), **args)
             torch.cuda.synchronize()
-            o_np, o64_np = o.double().cpu().numpy(), o64.cpu().numpy()
+            o_np, o64_np = o.double(), o64
             row.update(
                 o_ulps=ulps(o_np, o64_np),
-                o_model_ulps=ulps(o_np, o_model.double().cpu().numpy()), o_model_bound=BF16_ULP,
-                o_plain_fp32_ulps=ulps(o_ref.double().cpu().numpy(), o64_np),
-                lse_ulps=ulps(lse.cpu().numpy(), lse_model.cpu().numpy()),
-                lse_f64_ulps=ulps(lse.double().cpu().numpy(), lse64.cpu().numpy()),
+                o_model_ulps=ulps(o_np, o_model.double()), o_model_bound=BF16_ULP,
+                o_plain_fp32_ulps=ulps(o_ref.double(), o64_np),
+                lse_ulps=ulps(lse, lse_model),
+                lse_f64_ulps=ulps(lse.double(), lse64),
                 bitwise_repeat=bits_equal(o, again[0]) and bits_equal(lse, again[1]),
                 max_abs_err=float((o.float() - o_model.float()).abs().max()))
             row["ok"] = (row["bitwise_repeat"] and row["o_ulps"] <= o_bound
@@ -654,11 +690,11 @@ def run_flash_parity(dev, ulps, only=None):
             del again, o_model, lse_model, o64, lse64
         else:
             torch.cuda.synchronize()
-            o_np, ref_np = o.cpu().numpy(), o_ref.cpu().numpy()
-            err = float(np.abs(o_np - ref_np).max())
+            o_np, ref_np = o, o_ref
+            err = float((o_np - ref_np).abs().max())
             v_step = float(np.spacing(np.float32(v.abs().max().item())))
             row.update(o_ulps=ulps(o_np, ref_np), o_ulps_at_v=err / v_step,
-                       lse_ulps=ulps(lse.cpu().numpy(), lse_ref.cpu().numpy()), max_abs_err=err)
+                       lse_ulps=ulps(lse, lse_ref), max_abs_err=err)
             row["ok"] = row["o_ulps_at_v"] <= o_bound and row["lse_ulps"] <= lse_bound
         out.append(row)
         del q, k, v, o, lse, o_ref, lse_ref
@@ -681,6 +717,19 @@ def paged_geometries():
         "B": dict(S=8, Pmax=512, lengths=[int(x) for x in rng(0).integers(4096, 8193, 8)], **base),
         "C": dict(S=64, Pmax=64, lengths=[int(x) for x in rng(0).integers(64, 1025, 64)], **base),
     }
+
+
+def paged_head_dim_geometries():
+    """The paged decode at head dims between the compiled ones, the pool
+    unpadded: OpenLLaMA-3B's (KV = H = 32, hd 100) and the tiny Llamas' (KV
+    4, H 8, hd 32), at the lengths where the partition changes shape."""
+    from vescale_tpu_torch.kernels.paged_attention import CHUNK, CLUSTER
+
+    span = CHUNK * CLUSTER
+    lengths = [1, CHUNK - 1, CHUNK + 1, span + 1, 700, 16 * 64]
+    return {"hd100 open_llama": dict(S=6, page=16, Pmax=64, KV=32, H=32, hd=100,
+                                     lengths=lengths),
+            "hd32 G2": dict(S=6, page=16, Pmax=64, KV=4, H=8, hd=32, lengths=lengths)}
 
 
 def paged_cases():
@@ -707,7 +756,8 @@ def paged_cases():
     cases = []
     for label, g in (("A", geo["A"]), ("A_tp2", geo["A_tp2"]), ("B", geo["B"]), ("C", geo["C"]),
                      ("chunk edges", edges), ("page 6 chunk edges hd64", edges6),
-                     ("G16 hd64", g16), ("G16 hd128", g16_128)):
+                     ("G16 hd64", g16), ("G16 hd128", g16_128),
+                     *((k, v) for k, v in paged_head_dim_geometries().items())):
         cases += [(f"{label} bf16", bf16, bf16, g, 64.0), (f"{label} fp32", fp32, fp32, g, 8.0)]
     return cases + [
         ("page 6 hd64 fp32 pools, bf16 q", bf16, fp32, page6, 8.0),
@@ -749,7 +799,7 @@ def nan_heads(out) -> list:
     return sorted({(int(s), int(h)) for s, h, _ in torch.nonzero(torch.isnan(out)).tolist()})
 
 
-def run_paged_parity(dev, ulps):
+def run_paged_parity(dev, ulps, only=None):
     """Each case against the plain version run in float64
     (``paged_decode_float64``) at its bound, two launches bitwise; the
     distances to the fp32 plain version and of that version to float64 are
@@ -761,11 +811,14 @@ def run_paged_parity(dev, ulps):
     chunk of the longest slot, which must poison exactly the heads the
     plain version poisons (that slot's kv group); then slot independence,
     bitwise: each slot's row equals its row of the full call when the other
-    slots' lengths change and when it runs alone (S=1)."""
+    slots' lengths change and when it runs alone (S=1).  ``only``: the
+    cases whose label starts with one of these, and nothing after them."""
     from vescale_tpu_torch.kernels.paged_attention import paged_decode, paged_decode_reference
 
     out = []
     for label, q_dtype, pool_dtype, geometry, bound in paged_cases():
+        if only is not None and not label.startswith(tuple(only)):
+            continue
         q, kp, vp, table, lengths = paged_inputs(dev, q_dtype, pool_dtype, **geometry)
         scale = 1.0 / q.shape[-1] ** 0.5
         o = paged_decode(q, kp, vp, table, lengths, scale=scale)
@@ -773,16 +826,18 @@ def run_paged_parity(dev, ulps):
         o_ref = paged_decode_reference(q, kp, vp, table, lengths, scale=scale)
         o64 = paged_decode_float64(q, kp, vp, table, lengths, scale=scale)
         torch.cuda.synchronize()
-        o_np, o64_np = o.double().cpu().numpy(), o64.cpu().numpy()
+        o_np, o64_np = o.double(), o64
         u = ulps(o_np, o64_np)
         rep = bits_equal(o, again)
         out.append(dict(kernel="paged_decode", case=label, ulps=u, bound=bound,
-                        plain_fp32_ulps=ulps(o_np, o_ref.double().cpu().numpy()),
-                        plain_fp32_vs_f64_ulps=ulps(o_ref.double().cpu().numpy(), o64_np),
+                        plain_fp32_ulps=ulps(o_np, o_ref.double()),
+                        plain_fp32_vs_f64_ulps=ulps(o_ref.double(), o64_np),
                         max_abs_err=float((o - o_ref).abs().max()), bitwise_repeat=rep,
                         ok=u <= bound and rep))
         del q, kp, vp, o, again, o_ref, o64
         free_memory()
+    if only is not None:
+        return out
 
     geo = paged_geometries()["A"]
     q, kp, vp, table, lengths = paged_inputs(dev, torch.bfloat16, torch.bfloat16, **geo)
@@ -798,7 +853,7 @@ def run_paged_parity(dev, ulps):
         torch.cuda.synchronize()
         want = [(s, h) for h in range(kvh * G, (kvh + 1) * G)]
         got, ref = nan_heads(o), nan_heads(o_ref)
-        u = ulps(o.cpu().numpy(), o_ref.cpu().numpy())
+        u = ulps(o, o_ref)
         out.append(dict(kernel="paged_decode", case=f"A bf16, NaN in {pool_name.upper()} at slot {s} "
                         f"position {pos}, kv head {kvh}", nan_heads=got, plain_nan_heads=ref,
                         ulps=u, bound=64.0, ok=got == ref == want and u <= 64.0))
@@ -866,6 +921,13 @@ def flash_bwd_cases():
         # the moe rung's attention (GQA group 3) and Mixtral-8x7B's widths
         ("moe rung bf16 (GQA 3)", 2, 2048, 12, 4, 64, True, bf16, 2 * BF16_ULP),
         ("mixtral 8x7b bf16", 2, 2048, 32, 8, 128, True, bf16, 2 * BF16_ULP),
+        # head dims between the compiled 64 and 128 (HEAD_DIM_PARITY)
+        ("open_llama 3b hd100 bf16", 1, 2048, 32, 32, 100, True, bf16, 2 * BF16_ULP),
+        ("hd100 T=333 fp32", 1, 333, 8, 4, 100, True, fp32, 8.0),
+        ("hd32 T=256 bf16", 2, 256, 8, 4, 32, True, bf16, 2 * BF16_ULP),
+        ("hd32 T=128 fp32", 2, 128, 8, 4, 32, True, fp32, 8.0),
+        ("hd16 T=64 bf16", 8, 64, 8, 4, 16, True, bf16, 2 * BF16_ULP),
+        ("hd16 T=64 fp32", 8, 64, 8, 4, 16, True, fp32, 8.0),
     ]
 
 
@@ -901,19 +963,19 @@ def run_flash_bwd_parity(dev, ulps, only=None):
         exact = flash_bwd_reference(*(t.double() for t in (q, k, v, o, do, lse)), **args)
         row = dict(kernel="flash_bwd", case=label, bound=bound)
         for name, a, b in zip(names, plain, exact):
-            row[f"{name}_plain_fp32_ulps"] = ulps(a.double().cpu().numpy(), b.cpu().numpy())
+            row[f"{name}_plain_fp32_ulps"] = ulps(a.double(), b)
         if dtype == torch.bfloat16:
             again = flash_bwd(q, k, v, o, do, lse, **args)
             model = flash_bwd_reference(q, k, v, o, do, lse, pd_dtype=torch.bfloat16, **args)
             row["model_bound"] = BF16_ULP
             for name, a, m in zip(names, got, model):
-                row[f"{name}_model_ulps"] = ulps(a.double().cpu().numpy(), m.double().cpu().numpy())
+                row[f"{name}_model_ulps"] = ulps(a.double(), m.double())
             row["bitwise_repeat"] = all(bits_equal(a, b) for a, b in zip(got, again))
             repeats[label] = row["bitwise_repeat"]
             del again, model
         torch.cuda.synchronize()
         for name, a, b in zip(names, got, exact):
-            row[f"{name}_ulps"] = ulps(a.double().cpu().numpy(), b.cpu().numpy())
+            row[f"{name}_ulps"] = ulps(a.double(), b)
             row[f"{name}_max_abs_err"] = float((a.double() - b).abs().max())
         if dtype == torch.bfloat16:
             row["ok"] = row["bitwise_repeat"] and all(
@@ -959,7 +1021,7 @@ def run_flash_autograd(dev, ulps):
     bound = 64.0
     row = dict(kernel="flash_bwd", case="autograd op vs dense autograd fp32 T=512", bound=bound)
     for name, a, b in zip(("dq", "dk", "dv"), *grads):
-        row[f"{name}_ulps"] = ulps(a.cpu().numpy(), b.cpu().numpy())
+        row[f"{name}_ulps"] = ulps(a, b)
     row["ok"] = all(row[f"{n}_ulps"] <= bound for n in ("dq", "dk", "dv"))
     return row
 
@@ -1318,6 +1380,25 @@ def xent_cases():
         ("pp gpt2 micro bfloat16", *XENT_PP_PATH, torch.bfloat16)]
 
 
+def ulps_dev(a, b) -> float:
+    """``kernels.ulps_at_scale`` of two tensors (or arrays), computed where
+    they lie, in float64: NaN and signed-Inf patterns must agree (else inf), then max
+    |a - b| over the finite pairs divided by the fp32 spacing at b's largest
+    finite magnitude.  The same number as the numpy metric, without copying
+    a 2 GB logits gradient to the host."""
+    a64 = torch.as_tensor(a).detach().reshape(-1).double()
+    b64 = torch.as_tensor(b).detach().reshape(-1).double().to(a64.device)
+    for pattern in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(pattern(a64), pattern(b64)):
+            return float("inf")
+    fin = torch.isfinite(a64) & torch.isfinite(b64)
+    if not bool(fin.any()):
+        return 0.0
+    a64, b64 = a64[fin], b64[fin]
+    step = float(np.spacing(np.float32(float(b64.abs().max()) or 1.0)))
+    return float((a64 - b64).abs().max()) / step
+
+
 def xent_inputs(dev, N, Vs, dtype, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     lg = (3.0 * torch.randn(N, Vs, generator=g, device=dev)).to(dtype)
@@ -1327,7 +1408,7 @@ def xent_inputs(dev, N, Vs, dtype, seed):
     return lg, idx, gmax, cts
 
 
-def run_xent_parity(dev, ulps):
+def run_xent_parity(dev):
     from vescale_tpu_torch.kernels.cross_entropy import (
         xent_bwd, xent_bwd_reference, xent_fwd, xent_parts_reference,
     )
@@ -1343,15 +1424,15 @@ def run_xent_parity(dev, ulps):
                    fwd_bitwise_repeat=all(bits_equal(a, b) for a, b in zip(got, again)),
                    picked_exact=bits_equal(got[1], plain[1]))
         for i, name in ((0, "sumexp"), (2, "sumlg")):
-            row[f"{name}_ulps"] = ulps(got[i].cpu().numpy(), exact[i].cpu().numpy())
-            row[f"{name}_plain_fp32_ulps"] = ulps(plain[i].cpu().numpy(), exact[i].cpu().numpy())
+            row[f"{name}_ulps"] = ulps_dev(got[i], exact[i])
+            row[f"{name}_plain_fp32_ulps"] = ulps_dev(plain[i], exact[i])
         del plain, exact, again
         dlg, dlg2 = xent_bwd(lg, idx, gmax, *cts), xent_bwd(lg, idx, gmax, *cts)
         row["bwd_bitwise_repeat"] = bits_equal(dlg, dlg2)
         del dlg2
         if dtype == torch.float32:
             ref = xent_bwd_reference(lg, idx, gmax, *cts)
-            row["dlg_ulps"] = ulps(dlg.cpu().numpy(), ref.cpu().numpy())
+            row["dlg_ulps"] = ulps_dev(dlg, ref)
             row["max_abs_err"] = float((dlg - ref).abs().max())
         else:
             ref = xent_bwd(lg.float(), idx, gmax, *cts).to(torch.bfloat16)
@@ -4779,16 +4860,16 @@ RESIL_EXPECT = dict(status="preempted", step=9, restarts=1, rollbacks=1, anomaly
                     emergency_save_step=9)
 RESIL_STEPS, RESIL_SAVE_EVERY = 12, 3
 RESIL_GPT_RUNG, RESIL_LLAMA_RUNG = "gpt2", "1.3b"  # bench rungs of the legs
-# the GPT-2 fault leg's depth: 12 -> 4 layers at full width (held to its own
-# golden run), so the script with the nd phase stays inside its time
-# (PERF.md §7; 12 until the nd phase came)
-RESIL_GPT2_LAYERS = 4
+# the GPT-2 fault leg's depth: 12 -> 2 layers at full width (held to its own
+# golden run), so the script with the examples phase stays inside its time
+# (PERF.md §7; 12 until the nd phase came, 4 until the examples)
+RESIL_GPT2_LAYERS = 2
 RESIL_13B_STEPS, RESIL_13B_PREEMPT = 4, 2
-# the 1.3B leg's depth: 24 -> 4 layers at full width (its golden run at the
-# same depth), so the script with the longctx, fp8 and nd phases stays
-# inside its time (PERF.md §4; 8 until the nd phase came); the save and
-# restore move a sixth of the bytes
-RESIL_13B_LAYERS = 4
+# the 1.3B leg's depth: 24 -> 2 layers at full width (its golden run at the
+# same depth), so the script with the longctx, fp8, nd and examples phases
+# stays inside its time (PERF.md §4; 8 until the nd phase came, 4 until the
+# examples)
+RESIL_13B_LAYERS = 2
 RESIL_DP_STEPS, RESIL_DP_SIGTERM_AFTER, RESIL_DP_ULP_AFTER = 8, 3, 3
 
 
@@ -5644,7 +5725,7 @@ def pp_compare(got: dict, want: dict) -> dict:
         if bits_equal(got[k], w):
             bitwise.append(k)
             continue
-        u = ulps_at_scale_t(got[k], w)
+        u = ulps_dev(got[k], w)
         if u > worst:
             worst, worst_leaf = u, k
     return dict(bitwise=len(bitwise), leaves=len(want), not_bitwise=sorted(set(want) - set(bitwise)),
@@ -5905,9 +5986,10 @@ def run_pp_gpt2(dev, kernels_mod):
 
 # the 1.3B rung through the compiled pipeline on a ("pp",) mesh of 2 ranks
 PP_ROWS = 4  # B rows of T=4096, in PP_M microbatches of one row
-# its depth there: 24 -> 4 layers at full width (2 a stage; its golden run
-# at the same depth), so the script with the nd phase stays inside its
-# time (PERF.md §7; 24 until the nd phase came)
+# its depth there: 24 -> 4 layers at full width (2 a stage, one a chunk of
+# the interleaved leg: no fewer; its golden run at the same depth), so the
+# script with the nd phase stays inside its time (PERF.md §7; 24 until the
+# nd phase came)
 L_13B = 4
 
 
@@ -6048,7 +6130,7 @@ def pp_13b_leg(mesh, V: int, zb: bool, golden_path: str, golden_loss: float):
             want = golden["layers.block." + k][g0:g0 + n].to(dev)
             if bits_equal(t.grad[v], want):
                 bitwise += 1
-            u = ulps_at_scale_t(t.grad[v], want)
+            u = ulps_dev(t.grad[v], want)
             if u > worst:
                 worst, worst_leaf = u, k
             del want
@@ -6056,14 +6138,14 @@ def pp_13b_leg(mesh, V: int, zb: bool, golden_path: str, golden_loss: float):
     for name, t in (("embed_tokens.embedding", emb), ("norm.weight", norm_w),
                     ("lm_head.kernel", head)):
         want = golden[name].to(dev)
-        rep[name] = dict(bitwise=bits_equal(t.grad, want), ulps=ulps_at_scale_t(t.grad, want),
+        rep[name] = dict(bitwise=bits_equal(t.grad, want), ulps=ulps_dev(t.grad, want),
                          fingerprint=fingerprint([t.grad])[0])
     n_leaves = len(local)
     del golden, local, emb, norm_w, head, want
     free_memory()
     lv = float(loss.detach())
     gloo_s = sum(secs.values())
-    return dict(rank=r, loss=lv, loss_hex=lv.hex(), loss_ulps=ulps_at_scale_t(
+    return dict(rank=r, loss=lv, loss_hex=lv.hex(), loss_ulps=ulps_dev(
                     torch.tensor(lv), torch.tensor(golden_loss)),
                 step_ms=times[-1], warmup_ms=times[0], peak_above_held_bytes=peak - held,
                 held_bytes=held, launches=launches, calls=calls, bytes=nbytes,
@@ -6072,15 +6154,6 @@ def pp_13b_leg(mesh, V: int, zb: bool, golden_path: str, golden_loss: float):
                                  max_ulps_leaf=worst_leaf, bitwise_chunks=bitwise,
                                  chunks_total=V * n_leaves),
                 replicated_grads=rep)
-
-
-def ulps_at_scale_t(a, b) -> float:
-    """``kernels.ulps_at_scale`` of two tensors on the card: max |a - b|
-    over the fp32 spacing at b's largest magnitude."""
-    a64, b64 = a.double(), b.double()
-    scale = float(b64.abs().max()) or 1.0
-    step = float(np.spacing(np.float32(scale)))
-    return float((a64 - b64).abs().max()) / step
 
 
 def run_pp_13b(dev, card):
@@ -6297,10 +6370,10 @@ MOE_FULL_LAYERS = 2  # Mixtral-8x7B's depth cut: 32 -> 2 layers (3.16B parameter
 MOE_EP_STEPS = 3
 MOE_LOOP_STEPS = 6
 MOE_REFRESH_AFTER = 3  # the load-aware refresh follows this step
-# the refresh runs' depth: the moe rung's 8 -> 4 layers (the two runs are
-# held to each other), so the script with the nd phase stays inside its
-# time (PERF.md §7; 8 until the nd phase came)
-MOE_REFRESH_LAYERS = 4
+# the refresh runs' depth: the moe rung's 8 -> 2 layers (the two runs are
+# held to each other), so the script with the examples phase stays inside
+# its time (PERF.md §7; 8 until the nd phase came, 4 until the examples)
+MOE_REFRESH_LAYERS = 2
 # tests/test_moe.py:197's skew (4.0 added to router column 0): a token whose
 # features sum positive picks expert 0, else not; with -4.0 on column 1 and
 # +4.0 on column 2 beside it, experts 0-2 take ~3/4 of the routed slots, so
@@ -6607,7 +6680,7 @@ def moe_ep_leg(mesh, golden_path: str, ref_losses: list) -> dict:
             want = want[lo:lo + n]
         else:
             replicated[name] = g
-        grad_ulps[name] = ulps_at_scale_t(g.float(), want.float())
+        grad_ulps[name] = ulps_dev(g.float(), want.float())
         grad_rel[name] = float(torch.linalg.vector_norm((g.float() - want.float()).double())
                                / torch.linalg.vector_norm(want.double()))
     del golden
@@ -6846,10 +6919,10 @@ def moe_summary(moe: dict) -> dict:
 ND_WORLD = 4
 ND_STEPS = 3
 ND_DROP_CF = 1.0  # the dropping capacity of leg (a)
-# leg (a)'s depth: the moe rung's 8 -> 4 layers at full width (its one-card
+# leg (a)'s depth: the moe rung's 8 -> 2 layers at full width (its one-card
 # references at the same depth), so the script stays inside its time
-# (PERF.md §7)
-ND_MOE_LAYERS = 4
+# (PERF.md §7; 4 until the examples phase came)
+ND_MOE_LAYERS = 2
 # Mixtral-8x7B's depth in leg (b): 32 -> 1 layer.  Two layers would hold
 # ~14 GB of leaves, grads and moments and ~6 GB of activations a rank, ~84
 # GB for four ranks of the card (moe.full's one-card peak at 2 layers:
@@ -7370,22 +7443,22 @@ def longctx_kernels(dev, ulps):
                 hr["dkv_bitwise_full"] = (bits_equal(dks, dk[g:g + 1])
                                           and bits_equal(dvs, dv[g:g + 1]))
             o64, _ = flash_fwd_reference(*(t.double() for t in (qs, ks, vs)), **one)
-            hr["o_ulps"] = ulps(os_.double().cpu().numpy(), o64.cpu().numpy())
+            hr["o_ulps"] = ulps(os_.double(), o64)
             del o64
             free_memory()
             om, lsem = flash_fwd_reference(qs, ks, vs, pd_dtype=torch.bfloat16, **one)
-            hr["o_model_ulps"] = ulps(os_.double().cpu().numpy(), om.double().cpu().numpy())
-            hr["lse_ulps"] = ulps(lses.cpu().numpy(), lsem.cpu().numpy())
+            hr["o_model_ulps"] = ulps(os_.double(), om.double())
+            hr["lse_ulps"] = ulps(lses, lsem)
             del om, lsem
             free_memory()
             exact = flash_bwd_reference(*(t.double() for t in (qs, ks, vs, os_, dos, lses)), **one)
             for name, a, b in zip(("dq", "dk", "dv"), (dqs, dks, dvs), exact):
-                hr[f"{name}_ulps"] = ulps(a.double().cpu().numpy(), b.cpu().numpy())
+                hr[f"{name}_ulps"] = ulps(a.double(), b)
             del exact
             free_memory()
             model = flash_bwd_reference(qs, ks, vs, os_, dos, lses, pd_dtype=torch.bfloat16, **one)
             for name, a, b in zip(("dq", "dk", "dv"), (dqs, dks, dvs), model):
-                hr[f"{name}_model_ulps"] = ulps(a.double().cpu().numpy(), b.double().cpu().numpy())
+                hr[f"{name}_model_ulps"] = ulps(a.double(), b.double())
             del model
             free_memory()
             ok = ok and all(x for key, x in hr.items() if key.endswith("_full")) and \
@@ -7497,9 +7570,9 @@ def longctx_blockwise(dev, ulps):
         torch.cuda.synchronize()
         res[name] = (o.detach(), grads, (time.perf_counter() - t0) * 1e3)
     (of, gf, tf), (ob, gb, tb) = res["flash"], res["blockwise"]
-    t4 = dict(o_ulps=ulps(ob.cpu().numpy(), of.cpu().numpy()), flash_ms=tf, blockwise_ms=tb)
+    t4 = dict(o_ulps=ulps(ob, of), flash_ms=tf, blockwise_ms=tb)
     for name, a, b in zip(("dq", "dk", "dv"), gb, gf):
-        t4[f"{name}_ulps"] = ulps(a.cpu().numpy(), b.cpu().numpy())
+        t4[f"{name}_ulps"] = ulps(a, b)
     out["t4096_fwd_bwd"] = t4
     del q, k, v, w, res, of, gf, ob, gb
     free_memory()
@@ -7514,7 +7587,7 @@ def longctx_blockwise(dev, ulps):
             timed[name] = fn()
             torch.cuda.synchronize()
             out[f"t32768_{name}_fwd_ms"] = (time.perf_counter() - t0) * 1e3
-    out["t32768_fwd_o_ulps"] = ulps(timed["blockwise"].cpu().numpy(), timed["flash"].cpu().numpy())
+    out["t32768_fwd_o_ulps"] = ulps(timed["blockwise"], timed["flash"])
     out["ok"] = (t4["o_ulps"] <= BLOCKWISE_FWD_ULPS
                  and out["t32768_fwd_o_ulps"] <= BLOCKWISE_FWD_ULPS
                  and all(t4[f"{n}_ulps"] <= BLOCKWISE_BWD_ULPS for n in ("dq", "dk", "dv")))
@@ -7617,13 +7690,11 @@ def run_longctx(dev, card, kernels_mod) -> dict:
     (d) ``longctx_blockwise``, then (c) and (e) in one spawn of two gloo
     ranks of the card on an ("sp",) mesh (``ctx_job``), started held so
     that its start-up overlaps (a)-(d), and released after them."""
-    from vescale_tpu_torch.kernels import ulps_at_scale
-
     out = {}
     spawned = tp_spawn_start("ctx", dict(seed=7, emu_seed=3), names=("sp",), held=True)
     try:
         t = time.perf_counter()
-        rows, timings = longctx_kernels(dev, ulps_at_scale)
+        rows, timings = longctx_kernels(dev, ulps_dev)
         out["kernels"] = dict(rows=rows, timings=timings, seconds=time.perf_counter() - t,
                               card=card)
         log("longctx.kernels", **out["kernels"])
@@ -7632,7 +7703,7 @@ def run_longctx(dev, card, kernels_mod) -> dict:
         run["seconds"] = time.perf_counter() - t
         log("longctx.rung", card=card, **run)
         t = time.perf_counter()
-        out["blockwise"] = longctx_blockwise(dev, ulps_at_scale)
+        out["blockwise"] = longctx_blockwise(dev, ulps_dev)
         out["blockwise"]["seconds"] = time.perf_counter() - t
         log("longctx.blockwise", **out["blockwise"])
     except BaseException:
@@ -8007,6 +8078,10 @@ def fp8_summary(f8: dict) -> dict:
 # ----------------------------------------------------------- train leftovers
 LEFTOVER_MUON_STEPS = 4  # the first step twice (bitwise), then three more
 NS_CARD_SHAPE = (1024, 2816)  # the Newton-Schulz card-against-CPU check
+# the Muon leg's depth: the 1.3B rung's 24 -> 8 layers at full width (its
+# checks count per layer), so the script with the examples phase stays
+# inside its time (PERF.md §7; 24 until the examples phase came)
+MUON_LAYERS = 8
 NS_CARD_ATOL = 2e-5  # true fp32 products; TF32 would be ~1e-3 off
 # nanoGPT's config/train_shakespeare_char.py (bias: train.py's default)
 SHAKESPEARE = dict(block_size=256, vocab_size=65, n_layer=6, n_head=6, n_embd=384, dropout=0.2,
@@ -8016,15 +8091,16 @@ SHAKESPEARE_BATCH = 64
 # steps, so a few steps from the seed take the bench's constant 3e-4
 SHAKESPEARE_OPT = dict(lr=3e-4, betas=(0.9, 0.99), weight_decay=0.1)
 SHAKESPEARE_STEPS = 6  # 1 warm-up, 5 timed, in each of two runs
-HF_LAYERS = 2  # the 8B widths written as HF shards
+HF_LAYERS = 1  # the 8B widths written as HF shards (2 until the examples phase)
 HF_REQUESTS = 4
 
 
 def leftover_muon(dev, kernels_mod) -> dict:
-    """(a) The 1.3B rung at full width stepped by the 1B sweep's Muon
-    (``bench.prepare("1.3b", opt="muon")``): the first step from the seed-0
-    state twice, bitwise (loss and every parameter), then three more; the
-    loss falls; each step's launches (24 K1, dq and dkv, one K8 over the
+    """(a) The 1.3B rung at full width, ``MUON_LAYERS`` deep, stepped by the
+    1B sweep's Muon (``bench.prepare("1.3b", opt="muon")``): the first step
+    from the seed-0 state twice, bitwise (loss and every parameter), then
+    three more; the loss falls; each step's launches (a K1, dq and dkv a
+    layer, one K8 over the
     fallback leaves); step ms, the Newton-Schulz ms of each step (CUDA
     events around every call), peak memory.  Before it, Newton-Schulz at
     ``NS_CARD_SHAPE`` on the card against the CPU, which holds the fp32
@@ -8040,7 +8116,7 @@ def leftover_muon(dev, kernels_mod) -> dict:
     g = torch.from_numpy(np.random.default_rng(4).standard_normal(NS_CARD_SHAPE).astype(np.float32))
     ns_err = float((newton_schulz(g.to(dev)).cpu() - newton_schulz(g)).abs().max())
     t0 = time.perf_counter()
-    run = prepare("1.3b", device=dev, opt="muon")
+    run = prepare("1.3b", device=dev, opt="muon", layers=MUON_LAYERS)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     model, L = run.model, run.config.num_hidden_layers
@@ -8429,11 +8505,9 @@ def fp8_only(dev, card, kernels_mod) -> int:
 
 def moe_only(dev, card, kernels_mod) -> int:
     """``--moe``: the new parity cases, then the moe phase."""
-    from vescale_tpu_torch.kernels import ulps_at_scale
-
     t = time.perf_counter()
-    rows = run_flash_parity(dev, ulps_at_scale, only=MOE_PARITY)
-    bwd_rows, _ = run_flash_bwd_parity(dev, ulps_at_scale, only=MOE_PARITY)
+    rows = run_flash_parity(dev, ulps_dev, only=MOE_PARITY)
+    bwd_rows, _ = run_flash_bwd_parity(dev, ulps_dev, only=MOE_PARITY)
     adamw_rows, adamw_t = run_adamw_parity(dev, only_moe=True)
     rows += bwd_rows + adamw_rows
     log("parity", seconds=time.perf_counter() - t, checks=rows, timings={"fused_adamw": adamw_t})
@@ -8530,6 +8604,331 @@ def dp_only(dev, card, kernels_mod) -> int:
     return 0
 
 
+# ----------------------------------------------------------------- examples
+# the phase's legs (PERF.md §4): OpenLLaMA-3B whole; Llama-2-7B's widths cut
+# from 32 to EX_LLAMA2_LAYERS layers (fp32 AdamW state for 6.7 B parameters
+# would need ~108 GB); the other examples at their programs' defaults
+EX_LLAMA2_LAYERS = 4
+EX_OPEN_LLAMA = dict(batch=2, seq=2048, warmup=2, steps=5)
+# the timed shapes: (B, T, H, KV, D) of OpenLLaMA-3B's step (its parity case
+# takes one of the two rows) and of the fp8 example's
+EX_TIMED = {"hd100_open_llama": (2, 2048, 32, 32, 100), "hd16_fp8": (8, 64, 8, 4, 16)}
+
+
+def ex_head_dim_timing(dev) -> dict:
+    """K1, K3 and K4 at OpenLLaMA-3B's (2, 2048, 32, 100) and the fp8
+    example's (8, 64, 8, 4, 16) in bf16, K7 at OpenLLaMA-3B's decode heads
+    (hd 100): ms, the plain version's ms, the library call's, and two bounds:
+    ``bound_ms`` over the function's own work at D (``meta`` tensors) and
+    ``bound_ms_at_kernel_width`` over the padded work the kernels do."""
+    import torch.nn.functional as F
+
+    from vescale_tpu_torch.kernels.flash_attention import (
+        _delta, flash_bwd_dkv, flash_bwd_dkv_cost, flash_bwd_dq, flash_bwd_dq_cost,
+        flash_bwd_reference, flash_fwd, flash_fwd_cost, flash_fwd_reference)
+    from vescale_tpu_torch.kernels import kernel_head_dim
+    from vescale_tpu_torch.kernels.paged_attention import (paged_decode, paged_decode_cost,
+                                                           paged_decode_reference)
+
+    out = {}
+    meta = lambda *ts: [t.to("meta") for t in ts]  # noqa: E731
+    causal, dtype = True, torch.bfloat16
+    for key, (B, T, H, KV, D) in EX_TIMED.items():
+        q, k, v, o, do, lse, args = flash_bwd_inputs(dev, B, T, H, KV, D, causal, dtype)
+        lse2, delta = lse.reshape(B * H, T), _delta(o, do)
+        rows = {}
+        fwd_ms = cuda_ms(lambda: flash_fwd(q, k, v, **args))
+        dq_ms = cuda_ms(lambda: flash_bwd_dq(q, k, v, do, lse2, delta, **args), iters=10)
+        dkv_ms = cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse2, delta, **args), iters=10)
+        fwd_plain = cuda_ms(lambda: flash_fwd_reference(q, k, v, pd_dtype=torch.bfloat16, **args),
+                            iters=3, warmup=1)
+        bwd_plain = cuda_ms(lambda: flash_bwd_reference(q, k, v, o, do, lse, **args), iters=3,
+                            warmup=1)
+        rep = H // KV
+        q4 = q.reshape(B, H, T, D).detach().requires_grad_()
+        k4 = k.reshape(B, KV, T, D).repeat_interleave(rep, dim=1).detach().requires_grad_()
+        v4 = v.reshape(B, KV, T, D).repeat_interleave(rep, dim=1).detach().requires_grad_()
+        fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+        bwd_lib = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do.reshape(B, H, T, D),
+                                                      retain_graph=True))
+        for name, ms, plain, lib, cost, targs in (
+                ("flash_fwd", fwd_ms, fwd_plain, fwd_lib, flash_fwd_cost, (q, k, v)),
+                ("flash_bwd_dq", dq_ms, bwd_plain, bwd_lib, flash_bwd_dq_cost,
+                 (q, k, v, do, lse2, delta)),
+                ("flash_bwd_dkv", dkv_ms, bwd_plain, bwd_lib, flash_bwd_dkv_cost,
+                 (q, k, v, do, lse2, delta))):
+            flops, nbytes = cost(*meta(*targs), **args)
+            kflops, kbytes = cost(*targs, **args)
+            row = dict(ms=ms, plain_ms=plain, library_ms=lib, **bound(nbytes, flops, dtype))
+            row["bound_ms_at_kernel_width"] = bound(kbytes, kflops, dtype)["bound_ms"]
+            row["share_of_bound"] = row["bound_ms"] / ms
+            rows[name] = row
+        rows["shape"] = dict(B=B, T=T, H=H, KV=KV, D=D, dtype=str(dtype),
+                             kernel_width=kernel_head_dim("chip_smoke", D))
+        rows["library_note"] = ("SDPA forward / backward (dq, dk, dv together), GQA expanded; "
+                                "the plain ms of dq and dkv is the plain backward's, all three")
+        out[key] = rows
+        del q, k, v, o, do, lse, q4, k4, v4, out4
+        free_memory()
+    geo = paged_head_dim_geometries()["hd100 open_llama"]
+    q, kp, vp, table, lengths = paged_inputs(dev, torch.bfloat16, torch.bfloat16, **geo)
+    scale = 1.0 / geo["hd"] ** 0.5
+    ms = cuda_ms(lambda: paged_decode(q, kp, vp, table, lengths, scale=scale), iters=48)
+    plain = cuda_ms(lambda: paged_decode_reference(q, kp, vp, table, lengths, scale=scale),
+                    iters=5, warmup=1)
+    flops, nbytes = paged_decode_cost(*meta(q, kp, vp, table), lengths)
+    kflops, kbytes = paged_decode_cost(q, kp, vp, table, lengths)
+    out["paged_hd100"] = dict(ms=ms, plain_ms=plain, library_ms=None, **bound(nbytes, flops,
+                                                                              kp.dtype),
+                              bound_ms_at_kernel_width=bound(kbytes, kflops, kp.dtype)["bound_ms"],
+                              shape=dict(geo, tokens=int(lengths.sum()), dtype="bf16"))
+    del q, kp, vp, table, lengths
+    free_memory()
+    return out
+
+
+def ex_refusals(dev, kernels_mod) -> dict:
+    """A head dim outside the contract raises on the card before any
+    launch: the flash forward at D = 98 and 132, the paged decode at 98."""
+    from vescale_tpu_torch.kernels.flash_attention import flash_fwd
+    from vescale_tpu_torch.kernels.paged_attention import paged_decode
+
+    kernels_mod.reset_launches()
+    raised = {}
+    for D in (98, 132):
+        q = torch.zeros(4, 16, D, device=dev, dtype=torch.bfloat16)
+        try:
+            flash_fwd(q, q, q, scale=0.1, causal=True, H=4, KV=4)
+            raised[f"flash_fwd D={D}"] = False
+        except ValueError:
+            raised[f"flash_fwd D={D}"] = True
+    pool = torch.zeros(3, 4, 2, 98, device=dev, dtype=torch.bfloat16)
+    try:
+        paged_decode(torch.zeros(2, 4, 98, device=dev, dtype=torch.bfloat16), pool, pool,
+                     torch.ones(2, 1, dtype=torch.int32, device=dev),
+                     torch.ones(2, dtype=torch.int32, device=dev), scale=0.1)
+        raised["paged_decode hd=98"] = False
+    except ValueError:
+        raised["paged_decode hd=98"] = True
+    torch.cuda.synchronize()
+    launched = sum(kernels_mod.LAUNCHES.values())
+    return dict(raised=raised, launched=launched, ok=all(raised.values()) and launched == 0)
+
+
+def ex_leg(kernels_mod, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; (its result, the counts, seconds)."""
+    free_memory()
+    kernels_mod.reset_launches()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, dict(kernels_mod.LAUNCHES), time.perf_counter() - t
+
+
+def ex_open_llama(dev, kernels_mod) -> dict:
+    """(a) OpenLLaMA-3B at full width and depth through the example's
+    ``run``: bf16, remat, one rank, B=2, T=2048, 2 warm-up and 5 timed
+    steps; K1, K3/K4 and K8 launched; the first loss within 1.0 of
+    ln(vocab) (random weights predict near uniformly)."""
+    from vescale_tpu_torch.examples import open_llama_4d_benchmark as ol
+
+    res, launches, secs = ex_leg(kernels_mod, lambda: ol.run(
+        bf16=True, remat=True, device=dev, **EX_OPEN_LLAMA))
+    first_ok = abs(res["losses"][0] - math.log(32000)) <= 1.0
+    need = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw")
+    ok = (first_ok and all(np.isfinite(res["losses"])) and all(launches[k] > 0 for k in need))
+    return dict(res, launches=launches, run_s=secs, first_loss_near_ln_vocab=first_ok, ok=ok)
+
+
+def ex_llama2(dev, kernels_mod) -> dict:
+    """(b) Llama-2-7B's widths at ``EX_LLAMA2_LAYERS`` of 32 layers: B=4,
+    T=256, 10 steps through ``DistributedOptimizer`` with the clip, then
+    ``--save`` (to ``mem://``, this process's memory, for the phase's time)
+    and a restore bitwise the live state."""
+    from vescale_tpu_torch import checkpoint
+    from vescale_tpu_torch.examples import llama2_4d_finetune as l2
+
+    path = "mem://examples_llama2"
+    try:
+        res, launches, secs = ex_leg(kernels_mod, lambda: l2.run(
+            dp=1, tp=1, steps=10, batch=4, seq=256, layers=EX_LLAMA2_LAYERS, save=path,
+            check_restore=True, device=dev))
+    finally:
+        checkpoint._MEM_STORES.pop(path, None)
+    ok = bool(res.get("restore_bitwise")) and all(np.isfinite(res["losses"]))
+    return dict(res, launches=launches, run_s=secs, layers=EX_LLAMA2_LAYERS, ok=ok)
+
+
+def ex_nanogpt(dev, kernels_mod, tmp: str) -> dict:
+    """(c) nanoGPT at ``train.py``'s defaults on one rank over the
+    char-level corpus, with and without ``--zero2``: 20 steps each, one
+    ``train-step`` span a step; the two optimizers' losses side by side."""
+    from vescale_tpu_torch.examples import _common
+    from vescale_tpu_torch.examples import nanogpt_4d_finetune as ng
+
+    data = os.path.join(tmp, "corpus_char.bin")
+    _common.build_corpus_bin(data)
+    out, ok = {}, True
+    for name, zero2 in (("chain", False), ("zero2", True)):
+        res, launches, secs = ex_leg(kernels_mod, lambda: ng.run(
+            dp=1, tp=1, data=data, zero2=zero2, device=dev))
+        out[name] = dict(res, launches=launches, run_s=secs)
+        ok &= (res["train_step_spans"] == len(res["losses"]) == 20
+               and all(np.isfinite(res["losses"])) and res["losses"][-1] < res["losses"][0])
+    a, b = out["chain"]["losses"], out["zero2"]["losses"]
+    out["max_rel_chain_vs_zero2"] = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    out["launches"] = {k: out["chain"]["launches"][k] + out["zero2"]["launches"][k]
+                       for k in kernels_mod.LAUNCHES}
+    return dict(out, ok=ok)
+
+
+def ex_mixtral(dev, kernels_mod) -> dict:
+    """(d) Mixtral at ``mixtral_train.py``'s defaults on one rank: one step,
+    then 10 timed; the loss includes the router aux losses."""
+    from vescale_tpu_torch.examples import mixtral_4d_benchmark as mx
+
+    res, launches, secs = ex_leg(kernels_mod, lambda: mx.run(dp=1, ep=1, device=dev))
+    ok = all(np.isfinite(res["losses"])) and res["losses"][-1] < res["losses"][0]
+    return dict(res, launches=launches, run_s=secs, ok=ok)
+
+
+def ex_crash_child(tmp: str) -> dict:
+    """Start leg (e)'s child: ``resilient_train`` on the card, 20 steps,
+    saves every 5, exit 137 after step 12.  It starts with the phase, so
+    its start-up (imports, CUDA) overlaps the legs before (e); its steps, a
+    4-layer GPT, are small beside theirs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("VESCALE_")}
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    crashed = os.path.join(tmp, "resil_crash")
+    log_path = os.path.join(tmp, "resil_child.log")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "vescale_tpu_torch.examples.resilient_train", "--dp", "1",
+             "--tp", "1", "--steps", "20", "--save-every", "5", "--crash-at", "12",
+             "--ckpt-dir", crashed], cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return dict(proc=proc, t0=time.perf_counter(), dir=crashed, log=log_path)
+
+
+def ex_resilient(dev, kernels_mod, tmp: str, child: dict) -> dict:
+    """(e) ``resilient_train``: the child (``ex_crash_child``) exits 137
+    after step 12 of 20; the resumed run in this process and an
+    uninterrupted one: losses of the resumed steps and the final
+    parameters' digest bitwise."""
+    from vescale_tpu_torch.examples import resilient_train as rt
+
+    try:
+        rc = child["proc"].wait(timeout=300)
+    finally:
+        if child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
+    child_s = time.perf_counter() - child["t0"]
+    with open(child["log"]) as f:
+        tail = f.read()[-400:]
+    quiet = lambda *_: None  # noqa: E731
+    resumed, launches, secs = ex_leg(kernels_mod, lambda: rt.run(
+        dp=1, tp=1, steps=20, save_every=5, ckpt_dir=child["dir"], device=dev, log=quiet))
+    whole, _, whole_s = ex_leg(kernels_mod, lambda: rt.run(
+        dp=1, tp=1, steps=20, save_every=5, ckpt_dir=os.path.join(tmp, "resil_whole"),
+        device=dev, log=quiet))
+    same = all(loss == whole["losses"].get(i) for i, loss in resumed["losses"].items())
+    # the newest committed step when the child died: fire-and-forget saves
+    # still in flight are lost, as a kill loses them
+    ok = (rc == rt.CRASH_EXIT_CODE and 1 <= resumed["start"] <= 11 and same
+          and resumed["digest"] == whole["digest"])
+    return dict(child_rc=rc, child_s=child_s, child_tail=tail,
+                resumed_start=resumed["start"], resumed_losses=resumed["losses"],
+                whole_losses=whole["losses"], scales=whole["scales"], losses_bitwise=same,
+                digest_equal=resumed["digest"] == whole["digest"], launches=launches,
+                run_s=secs + whole_s, ok=ok)
+
+
+def ex_autosplit(dev, kernels_mod) -> dict:
+    """(f) the tangled model cut at 3 stages under zero bubble: 20 steps,
+    losses within 1e-5 of the unsplit model's."""
+    from vescale_tpu_torch.examples import autosplit_pipeline as ap
+
+    res, launches, secs = ex_leg(kernels_mod, lambda: ap.run(
+        stages=3, zero_bubble=True, steps=20, device=dev, unsplit=True))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], res["unsplit_losses"]))
+    return dict(res, groups=[len(g) for g in res["groups"]], max_rel_vs_unsplit=rel,
+                bound=1e-5, launches=launches, run_s=secs, ok=rel <= 1e-5)
+
+
+def ex_fp8(dev, kernels_mod) -> dict:
+    """(g) ``fp8_train`` on the card: bf16 compute, flash attention on (head
+    dim 16), the products on the fp8 tensor cores; 10 steps; the loss scale
+    and the amax histories advance."""
+    from vescale_tpu_torch.examples import fp8_train as f8
+
+    res, launches, secs = ex_leg(kernels_mod, lambda: f8.run(steps=10, device=dev))
+    heads = [h[0] for h in res["amax_heads"]]
+    ok = (all(np.isfinite(res["losses"])) and all(s > 0 for s in res["scales"])
+          and all(h > 0 for h in heads) and len(set(heads)) > 1 and launches["flash_fwd"] > 0)
+    return dict(res, launches=launches, run_s=secs, ok=ok)
+
+
+def run_examples(dev, card, kernels_mod, parity: bool = False) -> dict:
+    """``examples``: the port's example programs on the card (legs (a)-(g),
+    each printed as ``examples.<leg>`` when it ends), the head-dim times and
+    bounds, the refusal of a head dim outside the contract and, with
+    ``parity`` (``--examples``), the head-dim parity cases."""
+    ulps = ulps_dev
+    out = {"card": card, "seconds_by_leg": {}}
+    t = time.perf_counter()
+    rows = []
+    if parity:
+        rows += run_flash_parity(dev, ulps, only=HEAD_DIM_PARITY)
+        rows += run_flash_bwd_parity(dev, ulps, only=HEAD_DIM_PARITY)[0]
+        rows += run_paged_parity(dev, ulps, only=tuple(paged_head_dim_geometries()))
+    refusals = ex_refusals(dev, kernels_mod)
+    timing = ex_head_dim_timing(dev)
+    out["seconds_by_leg"]["head_dims"] = time.perf_counter() - t
+    log("examples.head_dims", seconds=out["seconds_by_leg"]["head_dims"], card=card,
+        checks=rows, refusals=refusals, timings=timing)
+    out["head_dims_ok"] = all(r["ok"] for r in rows) and refusals["ok"]
+    launches = {k: 0 for k in kernels_mod.LAUNCHES}
+    tmp = tempfile.mkdtemp(prefix="vtt_examples_")
+    child = ex_crash_child(tmp)
+    try:
+        for name, fn in (("open_llama", ex_open_llama), ("llama2", ex_llama2),
+                         ("nanogpt", lambda d, k: ex_nanogpt(d, k, tmp)), ("mixtral", ex_mixtral),
+                         ("autosplit", ex_autosplit), ("fp8", ex_fp8),
+                         ("resilient", lambda d, k: ex_resilient(d, k, tmp, child))):
+            t = time.perf_counter()
+            leg = fn(dev, kernels_mod)
+            out["seconds_by_leg"][name] = time.perf_counter() - t
+            log(f"examples.{name}", seconds=out["seconds_by_leg"][name], card=card, **leg)
+            out[f"{name}_ok"] = leg["ok"]
+            for k, v in leg["launches"].items():
+                launches[k] += v
+    finally:
+        if child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
+def examples_check(ex: dict) -> None:
+    bad = [k for k, v in ex.items() if k.endswith("_ok") and not v]
+    check(not bad, f"examples phase failed: {bad}")
+
+
+def examples_only(dev, card, kernels_mod) -> int:
+    """``--examples``: the head-dim parity cases and the examples phase."""
+    t = time.perf_counter()
+    ex = run_examples(dev, card, kernels_mod, parity=True)
+    log("examples", seconds=time.perf_counter() - t, **ex)
+    examples_check(ex)
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true", help="device, build and kernel parity only")
@@ -8556,6 +8955,8 @@ def main() -> int:
                     help="device, build and the nd phase (n-D composition) only")
     ap.add_argument("--leftovers", action="store_true",
                     help="device, build and the train_leftovers phase only")
+    ap.add_argument("--examples", action="store_true",
+                    help="device, build, the head-dim parity and the examples phase only")
     ap.add_argument("--replica-child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--router-child", help=argparse.SUPPRESS)
     ap.add_argument("--tp-child", help=argparse.SUPPRESS)
@@ -8628,6 +9029,8 @@ def main() -> int:
         return leftovers_only(dev, card, kernels_mod)
     if opts.nd:
         return nd_only(dev, card, kernels_mod)
+    if opts.examples:
+        return examples_only(dev, card, kernels_mod)
     if opts.fleet:
         t = time.perf_counter()
         fleet = run_fleet_phase(dev, kernels_mod, card)
@@ -8636,17 +9039,26 @@ def main() -> int:
         return 0
 
     t = time.perf_counter()
-    flash_rows = run_flash_parity(dev, ulps_at_scale)
-    paged_rows = run_paged_parity(dev, ulps_at_scale)
-    timings = {"flash_fwd": flash_timing(dev, flash_rows),
-               "paged_decode": paged_timing(dev, paged_rows)}
-    bwd_rows, bwd_timings = run_flash_bwd_parity(dev, ulps_at_scale)
-    adamw_rows, timings["fused_adamw"] = run_adamw_parity(dev)
-    xent_rows, xent_timings = run_xent_parity(dev, ulps_at_scale)
+    parts = {}  # the seconds of each part of the phase
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    flash_rows = timed("flash_fwd", run_flash_parity, dev, ulps_dev)
+    paged_rows = timed("paged_decode", run_paged_parity, dev, ulps_dev)
+    timings = {"flash_fwd": timed("flash_fwd_timing", flash_timing, dev, flash_rows),
+               "paged_decode": timed("paged_decode_timing", paged_timing, dev, paged_rows)}
+    bwd_rows, bwd_timings = timed("flash_bwd", run_flash_bwd_parity, dev, ulps_dev)
+    adamw_rows, timings["fused_adamw"] = timed("fused_adamw", run_adamw_parity, dev)
+    xent_rows, xent_timings = timed("fused_xent", run_xent_parity, dev)
     timings.update(bwd_timings)
     timings.update(xent_timings)
     rows = flash_rows + paged_rows + bwd_rows + adamw_rows + xent_rows
-    log("parity", seconds=time.perf_counter() - t, checks=rows, timings=timings)
+    log("parity", seconds=time.perf_counter() - t, seconds_by_part=parts, checks=rows,
+        timings=timings)
     # a parity failure fails the run at its end, after the later phases
     # have reported too
     bad_parity = [r for r in rows if not r["ok"]]
@@ -8739,12 +9151,16 @@ def main() -> int:
     t = time.perf_counter()
     leftovers = run_train_leftovers(dev, card, kernels_mod)
     log("train_leftovers", seconds=time.perf_counter() - t, **leftovers)
+    t = time.perf_counter()
+    examples = run_examples(dev, card, kernels_mod)
+    log("examples", seconds=time.perf_counter() - t, **examples)
     log("done", seconds=time.perf_counter() - t_all)
     check(not bad_parity, "kernel parity failed: " + json.dumps(bad_parity))
+    examples_check(examples)
 
     csrc = "vescale_tpu_torch/kernels/csrc/"
     sources = {"flash_fwd": (csrc + "flash_fwd.cu", "vescale_tpu/kernels/flash_attention.py:43"),
-               "paged_decode": (csrc + "paged_decode.cu", "vescale_tpu/kernels/paged_attention.py:53"),
+               "paged_decode": (csrc + "paged_decode.cuh", "vescale_tpu/kernels/paged_attention.py:53"),
                "flash_bwd_dq": (csrc + "flash_bwd.cu", "vescale_tpu/kernels/flash_attention.py:202"),
                "flash_bwd_dkv": (csrc + "flash_bwd.cu", "vescale_tpu/kernels/flash_attention.py:233"),
                "fused_adamw": (csrc + "fused_adamw.cu", "vescale_tpu/kernels/fused_adamw.py:54"),
@@ -8769,7 +9185,8 @@ def main() -> int:
                    "nd": nd["launches"][name],
                    "longctx": longctx["launches"][name], "fp8": fp8["launches"][name],
                    "fleet": fleet["launches"][name],
-                   "train_leftovers": leftovers["launches"][name]}
+                   "train_leftovers": leftovers["launches"][name],
+                   "examples": examples["launches"][name]}
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=sum(by_path.values()), launches_by_path=by_path,
                          max_abs_err=tm["max_abs_err"], ms=tm["ms"], plain_ms=tm["plain_ms"],

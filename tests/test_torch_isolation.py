@@ -20,7 +20,8 @@ from vescale_tpu_torch.serve import KVCacheConfig, PagedKVCache, ServeEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "vescale_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "safetensors", "vescale_tpu")
+# the JAX package's example programs (``examples/``) too: the port keeps its own
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "safetensors", "vescale_tpu", "examples")
 
 
 def _forbidden(name: str) -> bool:
@@ -79,6 +80,10 @@ def test_every_port_module_imports_without_jax():
             "vescale_tpu_torch.dmp.policies.registry", "vescale_tpu_torch.dmp.policies.megatron",
             "vescale_tpu_torch.analysis.shardcheck",
             "vescale_tpu_torch.analysis.__main__"} <= set(mods)
+    assert {f"vescale_tpu_torch.examples.{m}" for m in (
+        "_common", "open_llama_4d_benchmark", "llama_mfu_calculator", "llama2_4d_finetune",
+        "nanogpt_4d_finetune", "mixtral_4d_benchmark", "resilient_train", "fp8_train",
+        "autosplit_pipeline")} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {['vescale_tpu_torch'] + mods!r}:\n"

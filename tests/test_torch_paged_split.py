@@ -88,7 +88,7 @@ def test_split_model_matches_jax_kernel_and_reference(page, Pmax, G, hd, dtype):
 def test_split_partition_is_the_kernels():
     """The constants are the kernel's, and a chunk is whole warps."""
     src = (__import__("pathlib").Path(__file__).resolve().parents[1]
-           / "vescale_tpu_torch/kernels/csrc/paged_decode.cu").read_text()
+           / "vescale_tpu_torch/kernels/csrc/paged_decode.cuh").read_text()
     assert f"constexpr int kCluster = {CLUSTER};" in src
     assert f"constexpr int kRows = {WARP_ROWS};" in src
     assert "kChunk == 64" in src and CHUNK == 64 and CHUNK % WARP_ROWS == 0

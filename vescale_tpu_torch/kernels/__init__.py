@@ -45,7 +45,7 @@ from typing import Dict
 import numpy as np
 
 __all__ = ["LAUNCHES", "reset_launches", "on_hopper", "require_hopper", "ulps_at_scale",
-           "costed"]
+           "costed", "kernel_head_dim", "work_head_dim", "KERNEL_HEAD_DIMS"]
 
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0,
@@ -84,6 +84,34 @@ def costed(name: str, cost):
         return wrapped
 
     return deco
+
+
+# the head dims the attention kernels are compiled for
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def kernel_head_dim(what: str, D: int) -> int:
+    """The compiled width the attention kernels (flash forward and backward,
+    paged decode) run a head dim ``D`` at: the least of
+    ``KERNEL_HEAD_DIMS`` that holds it.  They take every ``D`` <= 128 with
+    ``D % 4 == 0`` (OpenLLaMA-3B's 100, the tiny configs' 16 and 32); the
+    flash wrappers zero-pad q, k, v and dO to that width, the paged decode
+    predicates its lanes on ``d < D``.  Raises for any other ``D``."""
+    D = int(D)
+    if not 0 < D <= KERNEL_HEAD_DIMS[-1] or D % 4:
+        raise ValueError(f"{what}: head_dim {D}; the kernels take a multiple of 4 "
+                         f"up to {KERNEL_HEAD_DIMS[-1]}")
+    return next(w for w in KERNEL_HEAD_DIMS if D <= w)
+
+
+def work_head_dim(t, D: int) -> int:
+    """The head dim a call on ``t`` computes at: the kernel's width on a
+    CUDA tensor, ``D`` itself elsewhere (the plain versions, and ``meta``
+    tensors for a bound that counts the function's own work).  A ``D`` no
+    kernel takes counts as itself."""
+    if t.device.type != "cuda" or not 0 < D <= KERNEL_HEAD_DIMS[-1] or D % 4:
+        return D
+    return kernel_head_dim("work_head_dim", D)
 
 
 def on_hopper() -> bool:

@@ -30,6 +30,7 @@ BUILD_DIR = _HERE / "build"
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "paged_decode": "paged_decode.cu",
+    "paged_decode_pad": "paged_decode_pad.cu",
     "flash_bwd": "flash_bwd.cu",
     "fused_adamw": "fused_adamw.cu",
     "cross_entropy": "cross_entropy.cu",

@@ -25,6 +25,15 @@ fp32.  On a CPU tensor it runs :func:`flash_bwd_reference`, the math of
 ``ops/flash_attention.py::_xla_bwd_4d``; its ``pd_dtype`` argument models
 the bf16 kernels' rounding.  delta = rowsum(do * o) is a plain fp32 op on
 both, as the reference computes it outside its kernels.
+
+Head dims: the CUDA kernels are compiled at D = 64 and 128.  A head dim
+between (every D <= 128 with D % 4 == 0, :func:`kernels.kernel_head_dim`)
+runs at the next compiled width: the wrappers copy q, k, v (and dO) into
+zero-padded tensors, launch with the caller's ``scale`` (1/sqrt(D), never
+the padded width's) and keep the first D columns of o, dq, dk and dv.
+Zero columns change neither QK^T nor delta = rowsum(dO * O), so the
+padded launch computes the same function; it reads and computes the
+padded width, which the ``*_cost`` functions count on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, costed, require_hopper
+from . import LAUNCHES, _build, costed, kernel_head_dim, require_hopper, work_head_dim
 
 __all__ = [
     "flash_fwd",
@@ -42,10 +51,10 @@ __all__ = [
     "flash_bwd_dq",
     "flash_bwd_dkv",
     "flash_bwd_reference",
+    "check_shapes",
 ]
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -93,18 +102,17 @@ def flash_fwd_reference(q3, k3, v3, *, scale, causal, H, KV, pd_dtype=None):
     return o.reshape(BH, T, D).to(q3.dtype), lse
 
 
-def _check(what, q3, k3, v3, H, KV, **others):
-    """The kernels' contract on shapes, dtypes and memory; raises otherwise.
-    ``others`` are further (B*H, T, D) tensors in q's dtype."""
-    require_hopper(q3)
+def check_shapes(what, q3, k3, v3, H, KV, **others):
+    """The kernels' contract on shapes, head dims (``kernel_head_dim``),
+    dtypes and memory, on any device; raises otherwise.  ``others`` are
+    further (B*H, T, D) tensors in q's dtype.  Returns (B, T, D)."""
     BH, T, D = q3.shape
     if H <= 0 or KV <= 0 or H % KV or BH % H or T < 1:
         raise ValueError(f"{what}: q {tuple(q3.shape)} with H={H}, KV={KV}")
     B = BH // H
     if k3.shape != (B * KV, T, D) or v3.shape != k3.shape:
         raise ValueError(f"{what}: q {tuple(q3.shape)} vs k {tuple(k3.shape)}, v {tuple(v3.shape)}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {D} not in {_HEAD_DIMS}")
+    kernel_head_dim(what, D)
     if q3.dtype not in _DTYPES or k3.dtype != q3.dtype or v3.dtype != q3.dtype:
         raise ValueError(f"{what}: dtypes {q3.dtype}/{k3.dtype}/{v3.dtype}")
     for name, t in others.items():
@@ -116,25 +124,34 @@ def _check(what, q3, k3, v3, H, KV, **others):
     return B, T, D
 
 
+def _check(what, q3, k3, v3, H, KV, **others):
+    """:func:`check_shapes` on a Hopper card's tensors."""
+    require_hopper(q3)
+    return check_shapes(what, q3, k3, v3, H, KV, **others)
+
+
 def flash_fwd_cost(q3, k3, v3, *, causal, H, KV, **_):
     """(flops, bytes) of one forward: QK^T and PV, halved when causal; q,
-    k, v read and o written in their dtype, lse written in fp32."""
+    k, v read and o written in their dtype, lse written in fp32.  On a CUDA
+    tensor at the kernel's (padded) head dim, elsewhere at D."""
     BH, T, D = q3.shape
+    W = work_head_dim(q3, D)
     B = BH // H
     elt = q3.element_size()
-    nbytes = (q3.numel() + k3.numel() + v3.numel() + q3.numel()) * elt + B * H * T * 4
-    return (2 if causal else 4) * T * T * H * D * B, nbytes
+    nbytes = (2 * BH + 2 * k3.shape[0]) * T * W * elt + B * H * T * 4
+    return (2 if causal else 4) * T * T * H * W * B, nbytes
 
 
 def _bwd_cost(q3, k3, causal, H, products, outs_kv):
     BH, T, D = q3.shape
+    W = work_head_dim(q3, D)
     B = BH // H
     elt = q3.element_size()
-    n_q, n_kv = q3.numel(), k3.numel()
+    n_q, n_kv = BH * T * W, k3.shape[0] * T * W
     frac = 0.5 if causal else 1.0
     # q k v do read, lse and delta read in fp32, then dq or (dk, dv) written
     nbytes = (n_q + 2 * n_kv + n_q + (2 * n_kv if outs_kv else n_q)) * elt + 2 * BH * T * 4
-    return 2 * products * frac * T * T * H * D * B, nbytes
+    return 2 * products * frac * T * T * H * W * B, nbytes
 
 
 def flash_bwd_dq_cost(q3, k3, v3, do3, lse, delta, *, causal, H, KV, **_):
@@ -154,6 +171,19 @@ def flash_bwd_cost(q3, k3, v3, o3, do3, lse, *, causal, H, KV, **_):
     return a[0] + b[0], a[1] + b[1]
 
 
+def _padded(D, *ts):
+    """``ts`` zero-padded on their last dim from head dim ``D`` to the
+    kernels' width (the tensors themselves when ``D`` is compiled)."""
+    W = kernel_head_dim("flash", D)
+    if W == D:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, W - D)) for t in ts)
+
+
+def _unpadded(D, t):
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
 @costed("flash_fwd", flash_fwd_cost)
 def flash_fwd(q3, k3, v3, *, scale, causal, H, KV):
     """(o, lse) of softmax attention; see the module docstring for layouts.
@@ -161,7 +191,9 @@ def flash_fwd(q3, k3, v3, *, scale, causal, H, KV):
     if q3.device.type == "cpu":
         return flash_fwd_reference(q3, k3, v3, scale=scale, causal=causal, H=H, KV=KV)
     BH = q3.shape[0]
-    B, T, D = _check("flash_fwd", q3, k3, v3, H, KV)
+    B, T, D0 = _check("flash_fwd", q3, k3, v3, H, KV)
+    q3, k3, v3 = _padded(D0, q3, k3, v3)
+    D = q3.shape[2]
     o = torch.empty_like(q3)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q3.device)
     fn = _build.load("flash_fwd", "vtt_flash_fwd", _ARGTYPES)
@@ -173,7 +205,7 @@ def flash_fwd(q3, k3, v3, *, scale, causal, H, KV):
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError {rc}")
     LAUNCHES["flash_fwd"] += 1
-    return o, lse
+    return _unpadded(D0, o), lse
 
 
 # ----------------------------------------------------------------- backward
@@ -242,18 +274,20 @@ def _bwd_launch(symbol, q3, k3, v3, do3, lse, delta, outs, scale, causal, H, KV)
 def flash_bwd_dq(q3, k3, v3, do3, lse, delta, *, scale, causal, H, KV):
     """dq (B*H, T, D) in q's dtype from the dq kernel; CUDA tensors only.
     ``delta`` is :func:`_delta` of (o, do)."""
-    _check("flash_bwd_dq", q3, k3, v3, H, KV, do=do3)
+    D0 = _check("flash_bwd_dq", q3, k3, v3, H, KV, do=do3)[2]
+    q3, k3, v3, do3 = _padded(D0, q3, k3, v3, do3)
     dq = torch.empty_like(q3)
     _bwd_launch("vtt_flash_bwd_dq", q3, k3, v3, do3, lse, delta, (dq,), scale, causal, H, KV)
     LAUNCHES["flash_bwd_dq"] += 1
-    return dq
+    return _unpadded(D0, dq)
 
 
 @costed("flash_bwd_dkv", flash_bwd_dkv_cost)
 def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, *, scale, causal, H, KV):
     """(dk, dv) (B*KV, T, D) in k's dtype from the dkv kernel; CUDA
     tensors only."""
-    _check("flash_bwd_dkv", q3, k3, v3, H, KV, do=do3)
+    D0 = _check("flash_bwd_dkv", q3, k3, v3, H, KV, do=do3)[2]
+    q3, k3, v3, do3 = _padded(D0, q3, k3, v3, do3)
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
     # the fp32 kernel's running sums of dk and dv over the group's queries;
     # the bf16 kernel keeps its sums in registers and takes none
@@ -263,7 +297,7 @@ def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, *, scale, causal, H, KV):
     _bwd_launch("vtt_flash_bwd_dkv", q3, k3, v3, do3, lse, delta, (dk, dv, total), scale, causal,
                 H, KV)
     LAUNCHES["flash_bwd_dkv"] += 1
-    return dk, dv
+    return _unpadded(D0, dk), _unpadded(D0, dv)
 
 
 @costed("flash_bwd", flash_bwd_cost)
@@ -281,6 +315,9 @@ def flash_bwd(q3, k3, v3, o3, do3, lse, *, scale, causal, H, KV, delta=None):
     if delta is None:
         delta = _delta(o3, do3)
     args = dict(scale=scale, causal=causal, H=H, KV=KV)
-    dq = flash_bwd_dq(q3, k3, v3, do3, lse, delta, **args)
-    dk, dv = flash_bwd_dkv(q3, k3, v3, do3, lse, delta, **args)
-    return dq, dk, dv
+    # pad once for both kernels, which then see a compiled width
+    D = q3.shape[2]
+    q3p, k3p, v3p, do3p = _padded(D, q3, k3, v3, do3)
+    dq = flash_bwd_dq(q3p, k3p, v3p, do3p, lse, delta, **args)
+    dk, dv = flash_bwd_dkv(q3p, k3p, v3p, do3p, lse, delta, **args)
+    return _unpadded(D, dq), _unpadded(D, dk), _unpadded(D, dv)

@@ -3,7 +3,7 @@
 ``paged_decode`` is one decode step's attention for every slot: one query
 row per head against the K/V the slot holds in the paged pool, reached
 through its page table, masked at its length, with an online fp32 softmax.
-On a CUDA tensor it launches ``csrc/paged_decode.cu`` (the port of
+On a CUDA tensor it launches ``csrc/paged_decode.cuh``'s kernel (the port of
 ``vescale_tpu/kernels/paged_attention.py::_decode_kernel``); on a CPU
 tensor it runs :func:`paged_decode_reference`, the gather chain the JAX
 serve engine runs with its kernels off (``serve/engine.py::paged_attention``).
@@ -14,6 +14,13 @@ cuts the work: chunks of ``CHUNK`` positions dealt round-robin to the
 each warp, each warp an online softmax over its steps, the partials combined
 in warp order and then in rank order.  The tests hold it to the JAX
 package; nothing on the card's path runs it.
+
+Head dims: the kernel is compiled at hd = 64 and 128 and takes every hd
+<= 128 with hd % 4 == 0 (:func:`kernels.kernel_head_dim`).  A pool of
+another hd keeps its own layout (the KV cache's, never padded); the
+kernel runs at the next compiled width with its lanes predicated on
+d < hd, computing zeros past hd (``csrc/paged_decode_pad.cu``, a library of
+its own beside ``paged_decode.cu``'s compiled widths).
 """
 
 from __future__ import annotations
@@ -22,18 +29,18 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, costed, require_hopper
+from . import (KERNEL_HEAD_DIMS, LAUNCHES, _build, costed, kernel_head_dim, require_hopper,
+               work_head_dim)
 
-__all__ = ["paged_decode", "paged_decode_reference", "paged_decode_split_reference",
+__all__ = ["paged_decode", "paged_decode_reference", "paged_decode_split_reference", "check_shapes",
            "kernel_layout", "CHUNK", "CLUSTER", "WARP_ROWS"]
 
 _NEG_INF = -1e30
-# the kernel's partition (csrc/paged_decode.cu: kChunk, kCluster, kRows)
+# the kernel's partition (csrc/paged_decode.cuh: kChunk, kCluster, kRows)
 CHUNK = 64  # positions a chunk
 CLUSTER = 4  # CTAs a (slot, kv head); rank r takes chunks r, r + CLUSTER, ...
 WARP_ROWS = 16  # positions of a chunk each warp takes
 _MAX_GROUP = 16  # q heads per kv head the kernel holds on chip
-_HEAD_DIMS = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -148,13 +155,35 @@ def kernel_layout(kv_dtype, hd: int, group: int) -> dict:
 def paged_decode_cost(q, k_pool, v_pool, table, lengths, **_):
     """(flops, bytes) of one decode step over this call's lengths (read
     on the host): the K/V rows the slots hold, read once; q, the table and
-    the lengths; the fp32 output.  QK^T and PV over those rows."""
+    the lengths; the fp32 output.  QK^T and PV over those rows, on a CUDA
+    tensor at the kernel's compiled head dim (the bytes stay hd's: the
+    kernel reads no padding)."""
     S, H, hd = q.shape
     KV = k_pool.shape[2]
     tokens = int(lengths.sum())
     nbytes = (2 * tokens * KV * hd * k_pool.element_size() + q.numel() * q.element_size()
               + table.numel() * 4 + lengths.numel() * 4 + S * H * hd * 4)
-    return 4 * tokens * H * hd, nbytes
+    return 4 * tokens * H * work_head_dim(q, hd), nbytes
+
+
+def check_shapes(q, k_pool, v_pool, table, lengths) -> None:
+    """The kernel's contract on shapes, head dims (``kernel_head_dim``),
+    dtypes and memory, on any device; raises otherwise."""
+    S, H, hd = q.shape
+    N, page, KV, hd2 = k_pool.shape
+    Pmax = table.shape[1] if table.dim() == 2 else -1
+    if hd2 != hd or v_pool.shape != k_pool.shape or H % KV or H // KV > _MAX_GROUP:
+        raise ValueError(f"paged_decode: q {tuple(q.shape)} vs pools {tuple(k_pool.shape)}")
+    kernel_head_dim("paged_decode", hd)
+    if table.shape != (S, Pmax) or lengths.shape != (S,):
+        raise ValueError(f"paged_decode: table {tuple(table.shape)}, lengths {tuple(lengths.shape)}")
+    if q.dtype not in _DTYPES or k_pool.dtype not in _DTYPES or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"paged_decode: dtypes q {q.dtype}, pools {k_pool.dtype}/{v_pool.dtype}")
+    if table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("paged_decode: table and lengths must be int32")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("table", table), ("lengths", lengths)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"paged_decode: {name} must be contiguous on {q.device}")
 
 
 @costed("paged_decode", paged_decode_cost)
@@ -168,24 +197,14 @@ def paged_decode(q, k_pool, v_pool, table, lengths, *, scale):
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pool, v_pool, table, lengths, scale=scale)
     require_hopper(q)
+    check_shapes(q, k_pool, v_pool, table, lengths)
     S, H, hd = q.shape
-    N, page, KV, hd2 = k_pool.shape
-    Pmax = table.shape[1] if table.dim() == 2 else -1
-    if hd2 != hd or v_pool.shape != k_pool.shape or H % KV or H // KV > _MAX_GROUP:
-        raise ValueError(f"paged_decode: q {tuple(q.shape)} vs pools {tuple(k_pool.shape)}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"paged_decode: head_dim {hd} not in {_HEAD_DIMS}")
-    if table.shape != (S, Pmax) or lengths.shape != (S,):
-        raise ValueError(f"paged_decode: table {tuple(table.shape)}, lengths {tuple(lengths.shape)}")
-    if q.dtype not in _DTYPES or k_pool.dtype not in _DTYPES or v_pool.dtype != k_pool.dtype:
-        raise ValueError(f"paged_decode: dtypes q {q.dtype}, pools {k_pool.dtype}/{v_pool.dtype}")
-    if table.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise ValueError("paged_decode: table and lengths must be int32")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("table", table), ("lengths", lengths)):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"paged_decode: {name} must be contiguous on {q.device}")
+    N, page, KV, _ = k_pool.shape
+    Pmax = table.shape[1]
     out = torch.empty((S, H, hd), dtype=torch.float32, device=q.device)
-    fn = _build.load("paged_decode", "vtt_paged_decode", _ARGTYPES)
+    # the compiled head dims and the padded ones are two libraries
+    lib = "paged_decode" if hd in KERNEL_HEAD_DIMS else "paged_decode_pad"
+    fn = _build.load(lib, "vtt_" + lib, _ARGTYPES)
     rc = fn(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pool.data_ptr(), v_pool.data_ptr(),
         int(k_pool.dtype == torch.bfloat16), table.data_ptr(), lengths.data_ptr(), out.data_ptr(),

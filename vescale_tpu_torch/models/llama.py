@@ -340,18 +340,23 @@ class LlamaAttention(nn.Module):
         c = self.config
         B, T, _ = x.shape
         hd = c.head_dim
-        H, KV = self.q_proj.kernel.shape[1] // hd, self.k_proj.kernel.shape[1] // hd
-        if KV < 1 or KV * hd != self.k_proj.kernel.shape[1] or H % KV:
-            raise ValueError(f"attention pieces of {H} query and {self.k_proj.kernel.shape[1]} "
-                             f"key columns do not hold whole GQA groups of head_dim {hd}")
+        H, cols = self.q_proj.kernel.shape[1] // hd, self.k_proj.kernel.shape[1]
         tp = self.q_proj.tp
+        whole = cols >= hd and cols % hd == 0 and H % (cols // hd) == 0
+        if not whole and tp is None:
+            raise ValueError(f"attention pieces of {H} query and {cols} key columns do not "
+                             f"hold whole GQA groups of head_dim {hd}")
         if tp is not None:
             from ..dmodule._comm import enter_tp
 
             x = enter_tp(x, tp)  # once for q, k and v
         q = self.q_proj(x).reshape(B, T, H, hd)
-        k = self.k_proj(x).reshape(B, T, KV, hd)
-        v = self.v_proj(x).reshape(B, T, KV, hd)
+        k, v = self.k_proj(x), self.v_proj(x)
+        if not whole:  # fewer kv heads than ranks, or a group across ranks
+            k, v = (self._kv_of_my_heads(t, tp, H, hd) for t in (k, v))
+        KV = k.shape[-1] // hd
+        k = k.reshape(B, T, KV, hd)
+        v = v.reshape(B, T, KV, hd)
         q, k = rotary(q, k, positions, c.rope_theta)
         if c.use_flash_attention:
             from ..ops.flash_attention import flash_attention, flash_attention_sharded
@@ -372,6 +377,25 @@ class LlamaAttention(nn.Module):
             att = torch.softmax(att, dim=-1).to(c.dtype)
             y = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, T, H * hd)
         return self.o_proj(y)
+
+    @staticmethod
+    def _kv_of_my_heads(t, tp, H: int, hd: int):
+        """This rank's k or v columns (B, T, cols) when its pieces of the
+        column-parallel k/v projection do not hold whole kv heads with
+        their query groups, as GSPMD lets the reference cut them (KV = 2
+        heads over tp = 4): all-gathered over "tp" (the backward sums the
+        ranks' partial gradients and keeps this rank's columns), then the
+        kv heads that this rank's H query heads read, in GQA order."""
+        from ..dmodule._comm import all_gather
+
+        full = all_gather(t, tp, -1, True)
+        KV = full.shape[-1] // hd
+        rep = H * tp.size // KV  # query heads a kv head serves
+        if H % rep and rep % H:
+            raise ValueError(f"{H} query heads a rank do not fall into whole GQA groups "
+                             f"of {rep} query heads")
+        first, last = tp.rank * H // rep, ((tp.rank + 1) * H - 1) // rep
+        return full[..., first * hd:(last + 1) * hd]
 
 
 class LlamaMLP(nn.Module):

@@ -141,6 +141,24 @@ def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
     return float(c1), float(c2)
 
 
+# bytes of parameters whose AdamW tail runs together (``AdamWLowmem.step``)
+_TAIL_RUN_BYTES = 1 << 30
+
+
+def _runs(params: Sequence[torch.Tensor], budget: int):
+    """[lo, hi) index ranges of consecutive ``params``, each holding at most
+    ``budget`` bytes (a larger leaf alone)."""
+    lo, size = 0, 0
+    for i, p in enumerate(params):
+        n = p.numel() * p.element_size()
+        if i > lo and size + n > budget:
+            yield lo, i
+            lo, size = i, 0
+        size += n
+    if lo < len(params):
+        yield lo, len(params)
+
+
 class AdamWLowmem(torch.optim.Optimizer):
     """AdamW with ``state_dtype`` moments; see the module docstring.  One
     step counter per parameter group, as optax keeps one per tree."""
@@ -186,15 +204,22 @@ class AdamWLowmem(torch.optim.Optimizer):
                 b1=b1, b2=b2, eps=group["eps"], inplace=True,
             )
             # add_decayed_weights, scale_by_learning_rate, apply_updates;
-            # u + wd * p promotes a low-precision u to p's dtype, as in jnp
+            # u + wd * p promotes a low-precision u to p's dtype, as in jnp.
+            # A run of leaves at a time, each leaf's u dropped once applied:
+            # wd * p is a temporary of the run's size, not the model's (the
+            # same elementwise ops, so the same bits)
             us = [u.to(torch.promote_types(u.dtype, p.dtype)) for u, p in zip(us, params)]
-            torch._foreach_add_(us, torch._foreach_mul(params, group["weight_decay"]))
-            torch._foreach_mul_(us, -group["lr"])
-            if all(u.dtype == p.dtype for u, p in zip(us, params)):
-                torch._foreach_add_(params, us)
-            else:
-                for p, u in zip(params, us):
-                    p.copy_(p + u)
+            for lo, hi in _runs(params, _TAIL_RUN_BYTES):
+                ps, run = params[lo:hi], us[lo:hi]
+                us[lo:hi] = [None] * (hi - lo)
+                torch._foreach_add_(run, torch._foreach_mul(ps, group["weight_decay"]))
+                torch._foreach_mul_(run, -group["lr"])
+                if all(u.dtype == p.dtype for u, p in zip(run, ps)):
+                    torch._foreach_add_(ps, run)
+                else:
+                    for p, u in zip(ps, run):
+                        p.copy_(p + u)
+                del run
         return loss
 
     # --------------------------------------------------------------- state

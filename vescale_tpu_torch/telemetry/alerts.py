@@ -78,6 +78,7 @@ __all__ = [
     "digest",
     "serve_rule_pack",
     "train_rule_pack",
+    "bench_rule_pack",
     "fleet_rule_pack",
     "burn_windows_from_env",
     "clear_fallback_warned",
@@ -821,6 +822,21 @@ def train_rule_pack() -> List[Rule]:
             "train-mem-growth", "mem_tag_untagged_bytes", slope_per_s=1024.0,
             window_s=600.0, direction="up", severity="warning",
             message="untagged live-array bytes trending up — possible leak",
+        ),
+    ]
+
+
+def bench_rule_pack() -> List[Rule]:
+    """The bench orchestrator's pack (reference ``telemetry/alerts.py:825``):
+    ``bench_tpu_record_age_days`` is set only when a run emits a stale
+    last-known record of the accelerator, so any sample fires the rule.
+    The reference arms it from its bench's CPU-fallback child; the port's
+    bench has no CPU fallback, so nothing in the port arms it."""
+    return [
+        ThresholdRule(
+            "bench-tpu-stale", "bench_tpu_record_age_days", ">=", 0.0,
+            window_s=3600.0, reducer="last", severity="warning",
+            message="bench ran on the CPU fallback rung; TPU perf record is stale",
         ),
     ]
 
