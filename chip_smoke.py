@@ -2496,7 +2496,7 @@ def run_serve_resilient_phase(dev, eng, kernels_mod, serve, serve_streams):
                            rejected_on_drain=bat.rejected_on_drain, oom_victim=replayed)
 
     with tempfile.TemporaryDirectory() as dump_dir:
-        old = os.environ.get("VESCALE_FAULTSIM_HANG_S")
+        old = os.environ.get("VESCALE_FAULTSIM_HANG_S")  # vescale-lint: disable=VSC201 (save/restore around the hang leg)
         os.environ["VESCALE_FAULTSIM_HANG_S"] = "3"
         wd = None
         try:

@@ -12,6 +12,7 @@ active ndtimeline records for them.  The serve and train rule packs are the
 reference's.
 """
 
+import importlib
 import warnings
 
 import pytest
@@ -26,7 +27,7 @@ from vescale_tpu_torch import telemetry as tel
 from vescale_tpu_torch.telemetry import alerts, memtrack, timeseries
 from vescale_tpu_torch.telemetry.registry import MetricsRegistry
 
-from test_torch_ndtimeline import all_dormant, reset_all
+from torch_reset import all_dormant, reset_all
 
 T0 = 1_000_000.0
 PKGS = ((ref_alerts, ref_ts, RefRegistry, ref_nd), (alerts, timeseries, MetricsRegistry, nd))
@@ -237,3 +238,84 @@ def test_train_step_arms_the_train_pack():
     names = set(alerts.get_engine().rules)
     assert {r.name for r in alerts.train_rule_pack()} <= names
     assert tel.get_registry().gauge("train_grad_norm").value > 0
+
+
+# ------------------------------------ redistribute's fallback alert (C8)
+def _fallback_specs(port: bool):
+    """Two spec pairs the multi-hop planner declines (skewed ragged ->
+    even Shard over a mesh of 8, the CLI's ``demo bad``), in one package."""
+    if port:
+        import torch
+
+        redist = importlib.import_module("vescale_tpu_torch.redistribute")
+        from vescale_tpu_torch.debug import DebugLogger
+        from vescale_tpu_torch.mesh import DeviceMesh
+        from vescale_tpu_torch.placements import RaggedShard, Shard
+        from vescale_tpu_torch.spec import DArraySpec, TensorMeta
+
+        mesh, meta = DeviceMesh(("x",), (8,), device_type="cpu"), TensorMeta((1 << 20,),
+                                                                              torch.float32)
+    else:
+        import jax.numpy as jnp
+
+        redist = importlib.import_module("vescale_tpu.redistribute")
+        from vescale_tpu.debug import DebugLogger
+        from vescale_tpu.mesh import DeviceMesh
+        from vescale_tpu.placements import RaggedShard, Shard
+        from vescale_tpu.spec import DArraySpec, TensorMeta
+
+        mesh, meta = DeviceMesh(("x",), (8,)), TensorMeta((1 << 20,), jnp.float32)
+    pairs = [(DArraySpec(mesh, (RaggedShard((0,), units),), meta),
+              DArraySpec(mesh, (Shard(0),), meta))
+             for units in ((1, 2, 1, 2, 1, 3, 3, 3), (3, 3, 3, 1, 2, 1, 2, 1))]
+    return redist, DebugLogger, pairs
+
+
+def _drive_fallbacks(monkeypatch, port: bool):
+    """Pair one, pair one again, pair two through ``_warn_fallback``: the
+    warnings it gave, the debug records, and the engine's view after each."""
+    redist, logger, pairs = _fallback_specs(port)
+    monkeypatch.setattr(redist, "_warned_pairs", set())
+    logged = []
+    monkeypatch.setattr(logger, "log", classmethod(lambda cls, cat, *p: logged.append(cat)))
+    engine = (alerts if port else ref_alerts).get_engine()
+    seen = []
+    for src, dst in (pairs[0], pairs[0], pairs[1]):
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            redist._warn_fallback(src, dst)
+        st = engine.state_of("redistribute-fallback") if engine is not None else None
+        seen.append({"warned": [str(w.message).startswith("redistribute fallback for ")
+                                for w in got],
+                     "state": None if st is None else (
+                         st["state"], engine.rules["redistribute-fallback"].severity),
+                     "names_pair": None if st is None else str(src.placements) in st["message"]})
+    return seen, logged
+
+
+def test_redistribute_fallback_raises_the_alert_under_a_live_engine(monkeypatch):
+    """A live engine gets ``redistribute-fallback`` at severity warning,
+    refreshed with each new pair's message, and no warning; the debug log
+    has every call.  The reference and the port alike."""
+    ref_alerts.activate()
+    alerts.activate()
+    got = [_drive_fallbacks(monkeypatch, port) for port in (False, True)]
+    assert got[0] == got[1]
+    seen, logged = got[1]
+    assert [s["warned"] for s in seen] == [[], [], []]
+    assert [s["state"] for s in seen] == [("firing", "warning")] * 3
+    assert [s["names_pair"] for s in seen] == [True, True, True]
+    assert logged == ["redistribute"] * 3
+    assert "redistribute-fallback" in alerts.digest()["firing"]
+
+
+def test_redistribute_fallback_warns_once_a_pair_under_a_dormant_engine(monkeypatch):
+    """With the engine dormant: one warning a pair, no alert, every call
+    logged.  The reference and the port alike."""
+    got = [_drive_fallbacks(monkeypatch, port) for port in (False, True)]
+    assert got[0] == got[1]
+    seen, logged = got[1]
+    assert [s["warned"] for s in seen] == [[True], [], [True]]
+    assert [s["state"] for s in seen] == [None] * 3
+    assert logged == ["redistribute"] * 3
+    assert not alerts.is_active() and alerts.digest()["firing"] == []

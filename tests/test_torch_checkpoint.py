@@ -923,8 +923,14 @@ def test_vsc13x_codes_equal_the_references():
     assert tf.CODES["VSC130"].severity == tf.Severity.INFO
     for c in ("VSC131", "VSC132", "VSC133"):
         assert tf.CODES[c].severity == tf.Severity.ERROR
-    assert {k: (int(v.severity), v.title) for k, v in tf.CODES.items()} == \
-        {k: (int(v.severity), v.title) for k, v in jf.CODES.items()}
+    # every code and severity is the reference's, every title but VSC206's,
+    # whose rule is the port's own (kernels reached only through
+    # vescale_tpu_torch/kernels/, where the reference polices pallas_call)
+    assert {k: int(v.severity) for k, v in tf.CODES.items()} == \
+        {k: int(v.severity) for k, v in jf.CODES.items()}
+    assert {k: v.title for k, v in tf.CODES.items() if k != "VSC206"} == \
+        {k: v.title for k, v in jf.CODES.items() if k != "VSC206"}
+    assert "vescale_tpu_torch/kernels" in tf.CODES["VSC206"].title
 
 
 def test_ragged_rebucket_coprime_worlds(tmp_path):

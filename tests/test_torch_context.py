@@ -39,7 +39,7 @@ from vescale_tpu.parallel import context as RC
 from vescale_tpu_torch.parallel import blockwise_attention, ring_self_attention
 
 import torch_spmd_child as child
-from test_torch_ndtimeline import reset_all
+from torch_reset import reset_all
 
 TOL = 2e-5  # tests/test_context_parallel.py's rtol and atol
 

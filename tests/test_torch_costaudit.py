@@ -42,7 +42,8 @@ from vescale_tpu_torch.telemetry import calibrate as cal
 from vescale_tpu_torch.telemetry import costaudit as ca
 from vescale_tpu_torch.telemetry.registry import MetricsRegistry
 
-from test_torch_ndtimeline import all_dormant, gloo_world, reset_all
+from test_torch_ndtimeline import gloo_world
+from torch_reset import all_dormant, reset_all
 
 
 @pytest.fixture(autouse=True)

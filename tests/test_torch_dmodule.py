@@ -41,6 +41,8 @@ from vescale_tpu_torch.train import make_train_step
 import torch_spmd_child as child
 from torch_spmd_child import enc
 
+from torch_reset import dormant_module, dormant_test  # noqa: F401 (autouse: both packages dormant)
+
 SEED = 0
 STEPS = 3
 FWD_TOL = 2e-5    # tests/test_dmodule.py::test_forward_matches_single_device

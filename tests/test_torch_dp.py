@@ -71,6 +71,8 @@ from vescale_tpu_torch.quant import blockscale as PB
 import torch_spmd_child as child
 from torch_spmd_child import enc
 
+from torch_reset import dormant_module, dormant_test  # noqa: F401 (autouse: both packages dormant)
+
 SEED = 0
 STEPS = 3
 ZERO_TOL = 5e-5       # tests/test_optim.py:84

@@ -31,6 +31,8 @@ from vescale_tpu_torch.models import nanogpt as tg
 from vescale_tpu_torch.parallel import AdamWLowmem
 from vescale_tpu_torch.train import FunctionalStep, make_eval_step, make_train_step
 
+from torch_reset import dormant_module, dormant_test  # noqa: F401 (autouse: both packages dormant)
+
 B, T = 4, 32
 CFG = dict(block_size=64, vocab_size=256, n_layer=2, n_head=2, n_embd=128)
 LOSS_RTOL = 1e-5

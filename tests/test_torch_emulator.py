@@ -33,7 +33,7 @@ from vescale_tpu_torch.emulator import mesh_collectives as PM
 from vescale_tpu_torch.mesh import DeviceMesh
 
 import torch_spmd_child as child
-from test_torch_ndtimeline import reset_all
+from torch_reset import reset_all
 
 
 @pytest.fixture(autouse=True)

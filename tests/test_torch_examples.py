@@ -32,7 +32,6 @@ import importlib.util
 import json
 import math
 import os
-import socket
 import subprocess
 import sys
 
@@ -54,6 +53,9 @@ from vescale_tpu_torch.examples import (_common, autosplit_pipeline, fp8_train,
                                         resilient_train)
 from vescale_tpu_torch.kernels import kernel_head_dim, ulps_at_scale
 from vescale_tpu_torch.models import params_from_jax
+from vescale_tpu_torch.testing import make_child_env, run_gloo_world
+
+from torch_reset import dormant_module, dormant_test  # noqa: F401 (autouse: both packages dormant)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -78,35 +80,20 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _torchrun(n: int, module: str, args, out: str, timeout: float = 150.0) -> dict:
     """``module`` on ``n`` gloo ranks of the CPU joined as ``torchrun``
     joins them (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
-    ``LOCAL_RANK``); returns the JSON rank 0 wrote to ``out``."""
-    port = _free_port()
-    env = {k: v for k, v in os.environ.items() if not k.startswith("VESCALE_")}
-    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
-               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(n))
-    procs = [subprocess.Popen([sys.executable, "-m", module, *args, "--cpu", "--out", out],
-                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=REPO,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(n)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
-    assert not bad, f"ranks {bad} failed:\n" + "\n".join(x[-3000:] for x in logs)
+    ``LOCAL_RANK``, from the gloo rig); returns the JSON rank 0 wrote to
+    ``out``."""
+    def spawn(port):
+        return [subprocess.Popen([sys.executable, "-m", module, *args, "--cpu", "--out", out],
+                                 env=make_child_env(port, r, n), cwd=REPO,
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(n)]
+
+    results = run_gloo_world(spawn, timeout=timeout)
+    bad = [(r, rc) for r, (rc, _) in enumerate(results) if rc != 0]
+    assert not bad, f"ranks {bad} failed:\n" + "\n".join(log[-3000:] for _, log in results)
     with open(out) as f:
         return json.load(f)
 

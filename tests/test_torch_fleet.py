@@ -32,12 +32,12 @@ from vescale_tpu.serve import Request as JaxRequest
 from vescale_tpu.serve.obs import ROUTER_FIELDS, ROUTER_SCHEMA_VERSION
 from vescale_tpu.serve.router import request_from_payload as jax_request_from_payload
 from vescale_tpu.serve.router import request_payload
-from vescale_tpu.testing import reserve_port
 
 from vescale_tpu_torch import serve as tserve
 from vescale_tpu_torch.resilience import faultsim as tfs
 from vescale_tpu_torch.serve.fleet import RequestInbox, _outcomes_snapshot, request_from_payload
 from vescale_tpu_torch.telemetry import ops_server as tops
+from vescale_tpu_torch.testing import reserve_port
 
 import torch_serve_child as child
 

@@ -21,7 +21,7 @@ from vescale_tpu_torch.resilience import faultsim as port_fs
 from vescale_tpu_torch.serve import journal as port_journal
 
 import torch_fleet_fakes as F
-from test_torch_ndtimeline import reset_all
+from torch_reset import reset_all
 
 JOURNALS = {"ref": ref_journal, "port": port_journal}
 FAULTSIMS = {"ref": ref_fs, "port": port_fs}

@@ -34,7 +34,7 @@ from vescale_tpu_torch.serve import obs as port_obs
 from vescale_tpu_torch.telemetry import alerts
 
 import torch_fleet_fakes as F
-from test_torch_ndtimeline import reset_all
+from torch_reset import reset_all
 
 PKG = {
     "ref": dict(autoscale=ref_autoscale, ft=ref_ft, obs=ref_obs, tel=ref_tel, nd=ref_nd,

@@ -25,7 +25,7 @@ from vescale_tpu_torch.serve import router as port_router
 from vescale_tpu_torch.telemetry import ops_server as tops
 
 import torch_fleet_fakes as F
-from test_torch_ndtimeline import reset_all
+from torch_reset import reset_all
 
 ROUTERS = {"ref": ref_router, "port": port_router}
 

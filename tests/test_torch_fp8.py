@@ -54,7 +54,7 @@ from vescale_tpu_torch.parallel import AdamWLowmem
 from vescale_tpu_torch.quant import fp8 as PF
 from vescale_tpu_torch.train import make_train_step
 
-from test_torch_ndtimeline import reset_all
+from torch_reset import reset_all
 
 OWG = "_overwrite_with_gradient"
 Y_ULPS, DXW_ULPS = 4.0, 8.0

@@ -80,6 +80,8 @@ def test_every_port_module_imports_without_jax():
             "vescale_tpu_torch.dmp.policies.registry", "vescale_tpu_torch.dmp.policies.megatron",
             "vescale_tpu_torch.analysis.shardcheck",
             "vescale_tpu_torch.analysis.__main__"} <= set(mods)
+    assert {"vescale_tpu_torch.analysis.lint", "vescale_tpu_torch.analysis.envreg",
+            "vescale_tpu_torch.testing"} <= set(mods)
     assert {f"vescale_tpu_torch.examples.{m}" for m in (
         "_common", "open_llama_4d_benchmark", "llama_mfu_calculator", "llama2_4d_finetune",
         "nanogpt_4d_finetune", "mixtral_4d_benchmark", "resilient_train", "fp8_train",
@@ -105,6 +107,8 @@ def test_every_port_module_imports_without_jax():
             "vescale_tpu_torch.models.mixtral"} <= set(loaded)
     assert {"vescale_tpu_torch.redistribute_plan", "vescale_tpu_torch.analysis.shardcheck",
             "vescale_tpu_torch.dmp.policies.megatron"} <= set(loaded)
+    assert {"vescale_tpu_torch.analysis.lint", "vescale_tpu_torch.analysis.envreg",
+            "vescale_tpu_torch.testing"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m == "ml_dtypes"] == []
 
 

@@ -57,6 +57,8 @@ from vescale_tpu_torch.train import make_train_step
 import torch_spmd_child as child
 from test_hf_convert import CFG as HF_LLAMA_CFG, _fake_hf_state
 
+from torch_reset import dormant_module, dormant_test  # noqa: F401 (autouse: both packages dormant)
+
 LOGIT_ULPS = 8.0
 AUX_ULPS = 4.0
 LR = 1e-3

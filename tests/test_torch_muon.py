@@ -38,6 +38,8 @@ from vescale_tpu_torch.train import make_train_step
 
 import torch_spmd_child as child
 
+from torch_reset import dormant_module, dormant_test  # noqa: F401 (autouse: both packages dormant)
+
 NS_ATOL = 2e-6
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 2e-5

@@ -45,6 +45,8 @@ from vescale_tpu_torch.models import (
 from vescale_tpu_torch.parallel import AdamWLowmem
 from vescale_tpu_torch.train import make_train_step
 
+from torch_reset import dormant_module, dormant_test  # noqa: F401 (autouse: both packages dormant)
+
 B, T = 2, 32
 CONFIGS = {
     "small": dict(block_size=64, vocab_size=256, n_layer=2, n_head=2, n_embd=128),

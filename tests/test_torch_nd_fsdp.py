@@ -45,6 +45,8 @@ import torch_spmd_child as child
 from test_5d_compose import MoEBlock
 from test_torch_nd_moe import _flat, _piece, _ref_mesh, check_zero_state
 
+from torch_reset import dormant_module, dormant_test  # noqa: F401 (autouse: both packages dormant)
+
 SEED = 0
 STEPS = 3
 LOSS_TOL = 5e-5   # tests/test_optim.py:84 (tests/test_torch_dp.py's ZERO_TOL)

@@ -54,6 +54,8 @@ from vescale_tpu_torch.spec import DArraySpec, TensorMeta
 
 import torch_spmd_child as child
 
+from torch_reset import dormant_module, dormant_test  # noqa: F401 (autouse: both packages dormant)
+
 FWD_TOL = 2e-5   # tests/test_moe.py:84 (tests/test_torch_mixtral.py's FWD_TOL)
 GRAD_TOL = 5e-5  # tests/test_dmodule.py's step tolerance (GRAD_TOL there)
 AUX_REL = 1e-6   # tests/test_torch_mixtral.py's AUX_REL

@@ -32,43 +32,11 @@ from vescale_tpu_torch.ndtimeline import predefined as P
 from vescale_tpu_torch.ndtimeline.parser_handler import aggregate, merge_ranks, parse_raw_spans
 from vescale_tpu_torch.ndtimeline.timer import Span
 
-from vescale_tpu import telemetry as ref_tel
-from vescale_tpu.telemetry import alerts as ref_alerts
-from vescale_tpu.telemetry import calibrate as ref_cal
-from vescale_tpu.telemetry import costaudit as ref_ca
-from vescale_tpu.telemetry import timeseries as ref_ts
+from vescale_tpu_torch.testing import make_child_env, run_gloo_world
 
-from vescale_tpu_torch.telemetry import alerts, calibrate, costaudit, timeseries
+from torch_reset import all_dormant, reset_all
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-# ------------------------------------------- shared by the observability tests
-# ndtimeline's manager, telemetry, the alert engine, the time-series store,
-# the cost auditor and the active calibration table are module globals in
-# both packages.  A test file that leaves any of them live can change a
-# later file on the same xdist worker (ndtimeline left active makes every
-# reference ``BasicOptimizer.step`` reach a missing ``jax.core`` call), so
-# each observability test file resets them around every test.
-def reset_all() -> None:
-    """Both packages back to their dormant state."""
-    for pkg_tel, pkg_nd, pkg_ca, pkg_al, pkg_ts, pkg_cal in (
-            (ref_tel, ref_nd, ref_ca, ref_alerts, ref_ts, ref_cal),
-            (tel, nd, costaudit, alerts, timeseries, calibrate)):
-        pkg_tel.shutdown()
-        pkg_ca.deactivate()
-        pkg_al.deactivate()
-        pkg_ts.deactivate()
-        pkg_al.clear_fallback_warned()
-        pkg_cal.reset_active()
-        pkg_nd.api.deinit_ndtimers()
-
-
-def all_dormant() -> bool:
-    return not any((ref_tel.is_active(), tel.is_active(), ref_nd.api.is_active(),
-                    nd.api.is_active(), ref_alerts.is_active(), alerts.is_active(),
-                    ref_ts.is_active(), timeseries.is_active(), ref_ca.is_active(),
-                    costaudit.is_active()))
 
 
 _CHILD = """
@@ -86,25 +54,24 @@ finally:
 
 def gloo_world(code: str, n: int = 2, timeout_s: float = 120.0) -> list:
     """Run ``code`` on each rank of a fresh gloo world of ``n`` CPU
-    processes joined through ``distributed.initialize``; ``code`` sets
-    ``result`` (JSON-able).  Returns every rank's result, in rank order."""
-    import socket
+    processes joined through ``distributed.initialize`` (the gloo rig's
+    port and transport retry); ``code`` sets ``result`` (JSON-able).
+    Returns every rank's result, in rank order."""
     import subprocess
     import sys
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    env = {k: v for k, v in os.environ.items() if not k.startswith("VESCALE_")}
-    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", _CHILD, f"127.0.0.1:{port}", str(n), str(r),
-                               code], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=env, cwd=REPO) for r in range(n)]
+    def spawn(port):
+        return [subprocess.Popen([sys.executable, "-c", _CHILD, f"127.0.0.1:{port}", str(n),
+                                  str(r), code], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True, cwd=REPO,
+                                 env=make_child_env(port, r, n, rendezvous=False))
+                for r in range(n)]
+
     outs = []
-    for p in procs:
-        out, err = p.communicate(timeout=timeout_s)
-        assert p.returncode == 0, err[-3000:]
-        outs.append(json.loads(out.strip().splitlines()[-1][len("RESULT "):]))
+    for rc, out in run_gloo_world(spawn, timeout=timeout_s):
+        assert rc == 0, out[-3000:]
+        last = [ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1]
+        outs.append(json.loads(last[len("RESULT "):]))
     return outs
 
 

@@ -57,7 +57,7 @@ from vescale_tpu_torch.pipe.graph_split import OpRecorder
 from vescale_tpu_torch.pipe.pipe_stage import flatten_tree
 from vescale_tpu_torch.telemetry import calibrate as cal
 
-from test_torch_ndtimeline import reset_all
+from torch_reset import reset_all
 
 CFG = dict(block_size=16, vocab_size=64, n_layer=4, n_head=2, n_embd=32, dropout=0.0)
 ROWS, T, M = 8, 12, 4  # microbatch rows 2*12 = 24: no activation has a kernel's shape

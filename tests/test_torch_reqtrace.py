@@ -42,7 +42,7 @@ from vescale_tpu_torch.serve import reqtrace as rt
 from vescale_tpu_torch.serve.speculative import slice_drafter_params
 from vescale_tpu_torch.telemetry import alerts, calibrate, ops_server
 
-from test_torch_ndtimeline import all_dormant, reset_all
+from torch_reset import all_dormant, reset_all
 
 SHAPE = dict(vocab_size=64, hidden_size=16, intermediate_size=32, num_hidden_layers=2,
              num_attention_heads=2, num_key_value_heads=2, max_position_embeddings=64)

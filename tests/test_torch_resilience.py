@@ -43,6 +43,8 @@ from vescale_tpu_torch import telemetry as port_tel
 from vescale_tpu_torch.checkpoint import CheckpointManager as PortManager
 from vescale_tpu_torch.data import TokenDataLoader as PortLoader
 
+from torch_reset import dormant_module, dormant_test  # noqa: F401 (autouse: both packages dormant)
+
 REF = types.SimpleNamespace(res=ref_res, tel=ref_tel, Manager=RefManager, name="ref",
                             Loader=RefLoader, loader_kw={})
 PORT = types.SimpleNamespace(res=port_res, tel=port_tel, Manager=PortManager, name="port",

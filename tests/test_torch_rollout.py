@@ -36,7 +36,6 @@ from vescale_tpu.resilience import faultsim as jfs
 from vescale_tpu.serve import FleetRouter, FleetSupervisor, HttpReplicaClient, ReplicaSpec
 from vescale_tpu.serve import Request as JaxRequest
 from vescale_tpu.serve import RolloutController
-from vescale_tpu.testing import reserve_port
 
 from vescale_tpu_torch import checkpoint as tck
 from vescale_tpu_torch import placements as pl
@@ -47,6 +46,7 @@ from vescale_tpu_torch.mesh import DeviceMesh
 from vescale_tpu_torch.models import LlamaConfig, init_params, params_from_jax
 from vescale_tpu_torch.resilience import faultsim as tfs
 from vescale_tpu_torch.telemetry import ops_server as tops
+from vescale_tpu_torch.testing import reserve_port
 
 import torch_serve_child as child
 

@@ -34,7 +34,6 @@ from vescale_tpu.models.llama import Llama
 from vescale_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from vescale_tpu.resilience import faultsim as jfs
 from vescale_tpu.serve import obs as jobs
-from vescale_tpu.testing import reserve_port
 
 import vescale_tpu_torch.distributed as tdist
 from vescale_tpu_torch import serve as tserve
@@ -44,6 +43,7 @@ from vescale_tpu_torch.resilience import faultsim as tfs
 from vescale_tpu_torch.serve import loop as tloop
 from vescale_tpu_torch.serve import obs as tobs
 from vescale_tpu_torch.telemetry import ops_server as tops
+from vescale_tpu_torch.testing import reserve_port
 
 import torch_serve_child as child
 

@@ -29,7 +29,7 @@ from vescale_tpu_torch.telemetry.step_report import (build_step_report, read_ste
                                                       write_step_report)
 from vescale_tpu_torch.train import make_train_step
 
-from test_torch_ndtimeline import all_dormant, reset_all
+from torch_reset import all_dormant, reset_all
 
 CFG = dict(vocab_size=128, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
            num_attention_heads=2, num_key_value_heads=1, max_position_embeddings=32)

@@ -35,7 +35,7 @@ from vescale_tpu_torch.telemetry import memtrack
 from vescale_tpu_torch.telemetry.exporters import sanitize_metric_name
 from vescale_tpu_torch.telemetry.registry import MetricsRegistry
 
-from test_torch_ndtimeline import reset_all
+from torch_reset import reset_all
 
 
 @pytest.fixture(autouse=True)

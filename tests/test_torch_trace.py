@@ -36,7 +36,8 @@ from vescale_tpu_torch.ndtimeline import predefined as P
 from vescale_tpu_torch.ndtimeline.timer import Span
 from vescale_tpu_torch.telemetry import straggler, trace
 
-from test_torch_ndtimeline import all_dormant, gloo_world, reset_all
+from test_torch_ndtimeline import gloo_world
+from torch_reset import all_dormant, reset_all
 
 
 @pytest.fixture(autouse=True)

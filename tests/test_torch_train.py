@@ -37,6 +37,8 @@ from vescale_tpu_torch.parallel import AdamWLowmem
 from vescale_tpu_torch.serve import KVCacheConfig, PagedKVCache, ServeEngine
 from vescale_tpu_torch.train import make_train_step
 
+from torch_reset import dormant_module, dormant_test  # noqa: F401 (autouse: both packages dormant)
+
 B, T = 2, 32
 CONFIGS = {
     # bench.py's CPU rung config, and a GQA variant of it

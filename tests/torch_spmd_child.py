@@ -22,7 +22,6 @@ import base64
 import json
 import os
 import select
-import socket
 import subprocess
 import sys
 import tempfile
@@ -36,6 +35,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
+
+from vescale_tpu_torch.testing import is_transport_error, make_child_env, reserve_port  # noqa: E402
 
 
 # -------------------------------------------------------------- encoding
@@ -2576,39 +2577,36 @@ def main(rank: int, world: int, port: int, join: str) -> None:
 
 
 # ---------------------------------------------------------- parent side
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-_RENDEZVOUS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
+class _RankExited(RuntimeError):
+    """A rank's process ended before it answered."""
 
 
 class World:
     """``size`` child ranks of one gloo world, driven request by request.
     ``join="env"`` hands each rank torch's ``env://`` variables, as
     ``torchrun`` does; ``join="args"`` passes the address, size and rank to
-    ``initialize`` itself."""
+    ``initialize`` itself.  The port comes from the gloo rig
+    (``vescale_tpu_torch.testing``); a world whose ranks die in their
+    transport setup before the first answer is started again once on a
+    fresh port."""
 
     def __init__(self, size: int, timeout_s: float = 120.0, join: str = "env"):
         self.size = size
         self.timeout_s = timeout_s
-        env = {k: v for k, v in os.environ.items()
-               if not k.startswith("VESCALE_") and k not in _RENDEZVOUS}
-        env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
-        port = _free_port()
-        self._errs = [tempfile.TemporaryFile() for _ in range(size)]
-        self.procs = []
-        for r in range(size):
-            env_r = dict(env)
-            if join == "env":
-                env_r.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
-                             WORLD_SIZE=str(size))
-            self.procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), str(r), str(size), str(port), join],
-                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._errs[r], env=env_r))
-        self._bufs = [b""] * size
+        self.join = join
+        self._transport_retries = 1
+        self._answered = False
+        self._spawn(reserve_port())
+
+    def _spawn(self, port: int) -> None:
+        self._errs = [tempfile.TemporaryFile() for _ in range(self.size)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), str(r), str(self.size), str(port),
+             self.join],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._errs[r],
+            env=make_child_env(port, r, self.size, rendezvous=self.join == "env"))
+            for r in range(self.size)]
+        self._bufs = [b""] * self.size
 
     def _stderr(self, r: int) -> str:
         self._errs[r].seek(0)
@@ -2624,23 +2622,42 @@ class World:
             if ready:
                 chunk = os.read(fd, 1 << 20)
                 if not chunk:
-                    raise RuntimeError(f"rank {r} exited:\n{self._stderr(r)}")
+                    raise _RankExited(f"rank {r} exited:\n{self._stderr(r)}")
                 self._bufs[r] += chunk
         line, self._bufs[r] = self._bufs[r].split(b"\n", 1)
         return line.decode()
 
     def run(self, case: str, **args):
         """Every rank's answer to one request, in rank order."""
-        msg = (json.dumps({"case": case, "args": args}) + "\n").encode()
-        for p in self.procs:
-            p.stdin.write(msg)
-            p.stdin.flush()
-        deadline = time.monotonic() + self.timeout_s
-        outs = [self._readline(r, deadline) for r in range(self.size)]
+        try:
+            outs = self._request(case, args)
+        except _RankExited as e:
+            if self._answered or self._transport_retries <= 0 or not is_transport_error(str(e)):
+                raise
+            self._transport_retries -= 1
+            port = reserve_port()
+            print(f"[gloo-rig] world of {self.size}: transport setup failed; again on port "
+                  f"{port}", file=sys.stderr)
+            self.close()
+            self._spawn(port)
+            outs = self._request(case, args)
+        self._answered = True
         errs = [(r, json.loads(o[len("ERROR "):])) for r, o in enumerate(outs) if o.startswith("ERROR ")]
         if errs:
             raise RuntimeError(f"{case} failed on rank {errs[0][0]}:\n{errs[0][1]}")
         return [from_wire(json.loads(o[len("RESULT "):])) for o in outs]
+
+    def _request(self, case: str, args) -> list:
+        msg = (json.dumps({"case": case, "args": args}) + "\n").encode()
+        for r, p in enumerate(self.procs):
+            try:
+                p.stdin.write(msg)
+                p.stdin.flush()
+            except BrokenPipeError:
+                p.wait(timeout=30)
+                raise _RankExited(f"rank {r} exited:\n{self._stderr(r)}") from None
+        deadline = time.monotonic() + self.timeout_s
+        return [self._readline(r, deadline) for r in range(self.size)]
 
     def close(self) -> None:
         for p in self.procs:

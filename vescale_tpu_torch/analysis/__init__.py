@@ -1,5 +1,6 @@
-"""Analysis of the port: the coded findings model (``findings.py``) and
-shardcheck (``shardcheck.py``).
+"""Analysis of the port: the coded findings model (``findings.py``),
+shardcheck (``shardcheck.py``), vescale-lint (``lint.py``) and the knob
+registry (``envreg.py``).
 
 The port of ``vescale_tpu/analysis``.  **shardcheck** propagates a
 symbolic sharding through a program traced by ``torch.fx`` (``make_fx``
@@ -7,9 +8,12 @@ on ``meta`` tensors) and the planner's transitions: implicit
 materialization, sharding conflicts, Partial misuse, donation misses,
 rank-divergent collectives in the source, stage-boundary misfits.  The
 ``VSC12x`` decline codes are shared with the multi-hop redistribution
-planner (``redistribute_plan``).  The reference's vescale-lint and its env
-registry police the JAX package's own source and knobs; the port keeps its
-knobs in ``config.py`` and has neither.
+planner (``redistribute_plan``).  **vescale-lint** holds the port's source
+to its invariants (``VSC104``, ``VSC20x``): knobs read through the
+registry, dormant hooks, signal-safe handlers, kernels reached only through
+their wrappers, alerts with a lifecycle, priced decisions on the audit
+ledger.  **envreg** declares every ``VESCALE_*`` knob the port reads
+(``config.py`` is a view over it).
 
 Mode: ``VESCALE_SHARDCHECK`` = ``off`` | ``warn`` (default) | ``strict``.
 ``warn`` surfaces error- and warning-severity findings as one Python
@@ -23,6 +27,7 @@ from __future__ import annotations
 import warnings as _warnings
 
 from .findings import CODES, Finding, FindingCode, FindingReport, Severity, code
+from .lint import lint_paths, lint_source
 from .shardcheck import (
     SymSharding,
     check_param_plan,
@@ -51,6 +56,8 @@ __all__ = [
     "check_stage_boundaries",
     "check_param_plan",
     "rank_divergence_findings",
+    "lint_source",
+    "lint_paths",
     "mode",
     "enabled",
     "is_strict",

@@ -1,8 +1,10 @@
 """``python -m vescale_tpu_torch.analysis``: the analysis CLI.
 
 The port of ``vescale_tpu/analysis/__main__.py``.  Commands (default with
-no command: ``examples``):
+no command: ``lint`` and ``examples``):
 
+  lint [paths...]      vescale-lint over the given paths (default: the
+                       ``vescale_tpu_torch`` package and ``chip_smoke.py``)
   examples             audit the models' sharding plans (VSC107) and
                        shardcheck the nanoGPT forward under its plan
                        (traced on ``meta``)
@@ -10,11 +12,11 @@ no command: ``examples``):
                        tp-sharded activation (VSC101) and (b) asks for a
                        redistribution the planner declines (VSC106 with its
                        VSC12x code); ``good`` is the clean twin
+  envdoc [--write P]   print the configuration table generated from the
+                       knob registry (``analysis/envreg.py``); write it to
+                       ``P`` only with ``--write``
   whatif [...]         re-score candidate (dp, tp, pp) meshes against the
                        audited calibration table (telemetry/costaudit.py)
-
-``lint`` and ``envdoc`` stay with the JAX package: they police its source
-and its env registry (the port's knobs live in ``config.py``).
 
 Flags: ``--strict`` fails (exit 1) on warning-severity findings too;
 ``--json`` prints machine-readable reports.  Everything here runs on the
@@ -30,6 +32,24 @@ import sys
 from typing import List
 
 from .findings import FindingReport
+
+
+def cmd_lint(args) -> List[FindingReport]:
+    from .lint import default_lint_paths, lint_paths
+
+    return [lint_paths(args.paths or default_lint_paths())]
+
+
+def cmd_envdoc(args) -> None:
+    from .envreg import configuration_markdown
+
+    doc = configuration_markdown()
+    if args.write:
+        with open(args.write, "w", encoding="utf-8") as f:
+            f.write(doc)
+        print(f"wrote {args.write}")
+    else:
+        print(doc)
 
 
 def cmd_demo(args) -> List[FindingReport]:
@@ -126,9 +146,13 @@ def main(argv=None) -> int:
     ap.add_argument("--strict", action="store_true", help="fail on warning-severity findings too")
     ap.add_argument("--json", action="store_true", help="JSON reports")
     sub = ap.add_subparsers(dest="cmd")
+    p_lint = sub.add_parser("lint", help="vescale-lint over paths")
+    p_lint.add_argument("paths", nargs="*", default=None)
     sub.add_parser("examples", help="audit the models' plans, shardcheck nanoGPT")
     p_demo = sub.add_parser("demo", help="built-in shardcheck demo programs")
     p_demo.add_argument("which", choices=("good", "bad"))
+    p_env = sub.add_parser("envdoc", help="the configuration table from the knob registry")
+    p_env.add_argument("--write", default=None, metavar="PATH")
     p_wi = sub.add_parser("whatif", help="re-score candidate (dp, tp, pp) meshes against the "
                           "audited calibration table")
     p_wi.add_argument("--devices", type=int, default=0,
@@ -144,7 +168,18 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.cmd == "whatif":
         return cmd_whatif(args)
-    reports = cmd_demo(args) if args.cmd == "demo" else cmd_examples(args)
+    if args.cmd == "envdoc":
+        cmd_envdoc(args)
+        return 0
+    if args.cmd == "lint":
+        reports = cmd_lint(args)
+    elif args.cmd == "demo":
+        reports = cmd_demo(args)
+    elif args.cmd == "examples":
+        reports = cmd_examples(args)
+    else:
+        args.paths = None
+        reports = cmd_lint(args) + cmd_examples(args)
     ok = True
     for r in reports:
         print(json.dumps(r.to_dict(), indent=2) if args.json else r.format())

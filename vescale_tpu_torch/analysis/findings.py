@@ -126,7 +126,8 @@ _CODE_DEFS: Tuple[Tuple[str, Severity, str], ...] = (
     ("VSC205", Severity.ERROR,
      "bare except in a retry loop swallows KeyboardInterrupt"),
     ("VSC206", Severity.ERROR,
-     "direct pallas_call outside vescale_tpu/kernels (kernel dispatch contract)"),
+     "kernel library load or kernel op definition outside vescale_tpu_torch/kernels "
+     "(device dispatch and launch counts)"),
     ("VSC207", Severity.WARNING,
      "ad-hoc warn-once latch outside the alert engine (telemetry/alerts.py)"),
     ("VSC208", Severity.WARNING,

@@ -50,6 +50,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .findings import CODES, Finding, FindingReport, Severity
+from .lint import rank_divergence_findings
 
 __all__ = [
     "SymSharding",
@@ -946,63 +947,6 @@ def _check_fn_source(report, fn) -> None:
         report.extend(rank_divergence_findings(textwrap.dedent(src), filename))
     except SyntaxError:
         pass
-
-
-# rank-like identifiers that make a condition rank-divergent, and the
-# collectives a divergent branch deadlocks (the reference's lint tables)
-_RANK_TOKENS = {"rank", "process_id", "process_index", "coordinate_of_rank", "local_rank",
-                "host_id", "is_coordinator", "get_rank"}
-_COLLECTIVE_CALLS = {
-    "barrier", "all_processes_ok", "allgather_ints", "mesh_all_reduce", "mesh_all_gather",
-    "mesh_reduce_scatter", "mesh_all_to_all", "mesh_broadcast", "mesh_scatter",
-    "mesh_ppermute", "psum", "pmean", "pmax", "pmin", "psum_scatter", "all_gather",
-    "all_to_all", "ppermute", "all_gather_object", "all_reduce", "reduce_scatter",
-    "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single",
-    "q_psum", "all_reduce_q", "reduce_scatter_q",
-}
-
-
-def rank_divergence_findings(source: str, filename: str = "<source>") -> List[Finding]:
-    """VSC104: a collective call under an ``if`` / ``while`` whose condition
-    reads a rank-like value: the ranks that skip it deadlock the others.
-    ``# vescale-lint: disable=VSC104`` on the call's line silences it."""
-    import ast
-    import re
-
-    disable = re.compile(r"#\s*vescale-lint:\s*disable=([A-Za-z0-9,_ ]+|all)")
-    tree = ast.parse(source)
-    lines = source.splitlines()
-    findings: List[Finding] = []
-
-    def rankish(test) -> bool:
-        for sub in ast.walk(test):
-            nm = sub.id if isinstance(sub, ast.Name) else (
-                sub.attr if isinstance(sub, ast.Attribute) else None)
-            if nm and nm.lower() in _RANK_TOKENS:
-                return True
-        return False
-
-    for node in ast.walk(tree):
-        if not isinstance(node, (ast.If, ast.While)) or not rankish(node.test):
-            continue
-        for sub in ast.walk(node):
-            if not isinstance(sub, ast.Call):
-                continue
-            f = sub.func
-            nm = f.attr if isinstance(f, ast.Attribute) else (f.id if isinstance(f, ast.Name)
-                                                              else None)
-            if nm not in _COLLECTIVE_CALLS:
-                continue
-            lineno = getattr(sub, "lineno", getattr(node, "lineno", 0))
-            m = disable.search(lines[lineno - 1]) if 1 <= lineno <= len(lines) else None
-            if m and (m.group(1).strip() == "all" or "VSC104" in m.group(1).upper()):
-                continue
-            findings.append(Finding(
-                CODES["VSC104"],
-                f"collective `{nm}` is executed only under a rank-dependent condition (line "
-                f"{getattr(node, 'lineno', '?')}); ranks that skip it deadlock the ones that "
-                "reach it", where=f"{filename}:{lineno}"))
-    return findings
 
 
 # --------------------------------------------------- modules under a plan

@@ -603,7 +603,9 @@ def _compress_telemetry(n_elements: int, itemsize: int, block: int, op: str, n: 
     GLOBAL.count("grad_compress_bytes_saved_total", max(0.0, raw_wire - q_wire))
     if q_wire >= raw_wire and (op, n) not in _WARNED_COUNTERPRODUCTIVE:
         _WARNED_COUNTERPRODUCTIVE.add((op, n))
-        warnings.warn(
+        # a config-review notice latched per (op, n): the fix is editing
+        # VESCALE_GRAD_COMPRESS, not paging anyone; it stays a warning
+        warnings.warn(  # vescale-lint: disable=VSC207
             f"grad_compress='int8' {op} over a mesh dim of {n} moves ~{int(q_wire)} bytes on "
             f"the wire vs ~{int(raw_wire)} uncompressed (the gather-based quantized all-reduce "
             "is O(n) in wire bytes): prefer the ZeRO reduce-scatter path or disable "

@@ -15,7 +15,7 @@ import numpy as np
 
 from .mesh import DeviceMesh, init_device_mesh as _init
 
-__all__ = ["VeDeviceMesh", "VESCALE_DEVICE_MESH"]
+__all__ = ["VeDeviceMesh", "VESCALE_DEVICE_MESH"]  # vescale-lint: disable=VSC202 (API singleton name, not an env var)
 
 
 class VeDeviceMesh:

@@ -37,7 +37,9 @@ def loss_parallel():
     global _warned
     if not _warned:
         _warned = True
-        warnings.warn(
+        # an API-semantics notice to the calling developer, not a runtime
+        # health signal: a process-wide warn-once, not an alert
+        warnings.warn(  # vescale-lint: disable=VSC207
             "loss_parallel() performs no dispatch interception: call "
             "vocab_parallel_cross_entropy(...) for the fused loss",
             stacklevel=3,

@@ -46,8 +46,8 @@ __all__ = [
 def build_pipe_module(plan, *, units=None, fn=None, params_example=None, x_example=None):
     """A pipeline module per ``plan.tracer_type`` (the legacy
     PipeParser.parse dispatch, pipe_parser.py:60): MODULE_PATH splits an
-    explicit ``units`` list; every tracer type (VESCALE_FX, HF_FX,
-    TORCH_DYNAMO, JAXPR) splits the traced ``fn(params, x)`` graph."""
+    explicit ``units`` list; every other tracer type (vescale's FX, HF's
+    FX, dynamo, jaxpr) splits the traced ``fn(params, x)`` graph."""
     from ..plan import TracerType
 
     if plan.tracer_type == TracerType.MODULE_PATH:

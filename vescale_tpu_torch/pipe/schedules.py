@@ -484,7 +484,8 @@ def _zb_cost_schedule_cached(
             cands.append(zero_bubble_schedule(num_stages, num_microbatches))
     # prediction recording lives in the public wrapper (this fn is
     # lru-cached: recording here would skip cache hits)
-    return min(cands, key=lambda sch: simulate_schedule(sch, costs))  # the schedule with the least makespan
+    # the schedule with the least makespan
+    return min(cands, key=lambda sch: simulate_schedule(sch, costs))  # vescale-lint: disable=VSC208
 
 
 def zero_bubble_cost_schedule(

@@ -425,7 +425,15 @@ def _warn_fallback(src: DArraySpec, dst: DArraySpec) -> None:
     key = (src, dst)
     if key not in _warned_pairs:
         _warned_pairs.add(key)
-        warnings.warn(msg, stacklevel=3)
+        from .telemetry import alerts as _alerts
+
+        if _alerts.is_active():
+            # a live engine: one alert with a lifecycle, refreshed for each
+            # new pair (the message names the pair), visible on /alerts
+            _alerts.raise_alert("redistribute-fallback", message=msg, severity="warning")
+        else:
+            # a dormant engine: the legacy warning, once a pair
+            warnings.warn(msg, stacklevel=3)  # vescale-lint: disable=VSC207
     DebugLogger.log("redistribute", msg)
 
 

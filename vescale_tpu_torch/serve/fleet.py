@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import os
 import signal
-import socket
 import subprocess
 import threading
 import time
@@ -47,6 +46,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
 
 from ..telemetry import ops_server as _ops
 from .. import config as _config
+from ..testing import reserve_port
 from .router import request_from_payload
 from .scheduler import TERMINAL, ContinuousBatchingScheduler, Request
 
@@ -175,25 +175,6 @@ def serve_replica(
 
 
 # ------------------------------------------------------------- supervisor
-_RESERVED: List[int] = []
-
-
-def reserve_port() -> int:
-    """A free localhost port this process has never handed out before (the
-    OS assigns one; the registry refuses same-process reuse, so two
-    replicas spawned in a row cannot collide)."""
-    for _ in range(128):
-        with socket.socket() as s:
-            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
-        if port not in _RESERVED:
-            _RESERVED.append(port)
-            return port
-    raise RuntimeError(f"could not reserve an unused port after 128 probes "
-                       f"({len(_RESERVED)} already handed out)")
-
-
 class ReplicaSpec:
     """How to (re)spawn one replica: the command line, its environment,
     the ops port the router polls, and a stable replica id."""

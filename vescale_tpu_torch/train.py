@@ -87,7 +87,9 @@ def _auto_inc_step() -> None:
         import warnings
 
         g["warned"] = True
-        warnings.warn(
+        # a caller-contract misuse notice (fix the call site), not a
+        # runtime health signal: it stays a warn-once
+        warnings.warn(  # vescale-lint: disable=VSC207
             "make_train_step(auto_inc_step=True) advances the ndtimeline step counter itself, "
             "but it was also advanced elsewhere (inc_step() or flush(next_iteration=True)) "
             "within one training step, so steps are counted twice.  Pass auto_inc_step=False "
