@@ -1,0 +1,10 @@
+"""prefill_ms_p50.serve: the median wall time of ``ServeEngine.prefill``,
+from the harness's span around each call, which ends in a synchronise
+(the untraced rest of a traced run's window)."""
+
+import statistics
+
+
+def read(ctx):
+    s = ctx["spans"]["prefill"]
+    return statistics.median(s) * 1e3 if s else None
